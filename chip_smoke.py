@@ -26,8 +26,21 @@ no result):
      batch of 8 x 256 residues, with the launch counts set to 0 just before
      it and read just after, and its tokens against a run with the unfused
      chain from the same generator seed.
-  6. output: a {"kernels": [...]} line, the nvidia-smi line, and last the
+  6. protein training: the default ProteinTrainConfig at full width with the
+     denoising loss on from step 0 and a synthetic batch of 8 x 256 with AF3-
+     style embeddings. One step (dropout 0, the same corrupted tokens) with
+     the message chains through K2a/K2b against the unfused layer math:
+     metrics and every parameter's gradient. Then the main path,
+     `ProteinTrainer.train_step` (dropout 0.1), with the launch counts set to
+     0 just before its timed steps and read just after (9 K2a + 9 K2b per
+     step), ms per step and residues/s, a torch.profiler breakdown of one
+     step; a learning check on the convergence gate's rule data (its CE
+     must fall as the JAX run's did); and `train-protein --steps 3
+     --synthetic` through the CLI.
+  7. output: a {"kernels": [...]} line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
+
+K2b (the backward kernel) is held against its plain backward in phase 3.
 """
 
 from __future__ import annotations
@@ -42,13 +55,18 @@ import time
 import torch
 import torch.nn.functional as F
 
-from reed_tpu_torch import _build
+from reed_tpu_torch import _build, cli
+from reed_tpu_torch.core.config import CurriculumConfig
+from reed_tpu_torch.core.trainer import combine_losses
+from reed_tpu_torch.diffusion.discrete import corrupt_batch
 from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.train.protein import (ProteinTrainConfig, build_model,
-                                          sample, synthetic_protein_batch)
+from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
+from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
+                                          build_model, make_loss_fn, sample,
+                                          synthetic_protein_batch)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -104,6 +122,22 @@ PROTEIN = dict(batch=8, length=256, num_steps=50)
 # least this share of tokens equal (f32). A near-tie flip changes later
 # draws; a broken kernel lands near chance (1/20).
 TOKEN_AGREEMENT = 0.9
+# one full-width train step (dropout 0, the same corrupted tokens), message
+# chains through K2a/K2b vs the unfused layer math: each metric to 1e-4
+# (relative above 1, absolute below: the alignment losses are near 0 at
+# init), each parameter's gradient to 1e-3 of that gradient's max. Both
+# are f32; the sums run in another order (K2b's per-block partials and
+# atomic adds against cuBLAS and PyTorch's reductions) through 3 + 3 layers.
+TRAIN_METRIC_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN = dict(batch=8, length=256, timed_steps=20)
+# learning check on the convergence gate's data (16 x 48, rule batches of
+# tools/convergence_protein.py): the JAX run on a TPU went from CE 1.50 at
+# step 0 to 1.16 at step 100 and 1.17 at step 200 (CONVERGENCE_PROTEIN.json).
+# The mean CE of steps 180-199 must be below LEARN_CE_MAX, which a model that
+# does not learn (CE stays ~1.5) cannot reach.
+LEARN_STEPS = 200
+LEARN_CE_MAX = 1.30
 
 
 def log(*args):
@@ -248,22 +282,110 @@ def message_kernel_phase(smi):
             if not err <= MSG_ATOL[dtype]:
                 raise AssertionError(f"fused_message {case} {dtype}: max abs err "
                                      f"{err} > {MSG_ATOL[dtype]}")
-    # the CUDA forward has no backward kernel yet: a gradient must raise
-    kw = message_inputs(MSG_CASES[-1], torch.float32, gen)
-    kw["e_feat"].requires_grad_()
-    dh, msg = fm.fused_message_mlp(**kw)
-    try:
-        dh.sum().backward()
-    except NotImplementedError as e:
-        log(f"[kernel] fused_message backward raises as it should: {e}")
-    else:
-        raise AssertionError("fused_message backward on CUDA did not raise")
     return rows
+
+
+# backward kernel vs its plain backward, max abs error of each of the eight
+# gradients relative to that gradient's max. f32: both accumulate in f32;
+# the summation order differs (the weight gradients sum 61,440 edge rows in
+# per-block partials; d nbr_src takes atomic adds in no fixed order). bf16:
+# both round g3, g2 and ge to bf16 at the same points, so a summation-order
+# difference that flips one rounding moves that element by one bf16 ulp
+# (2^-8 relative), which reaches the products it feeds.
+MSG_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+GRAD_NAMES = ("d_pre_self", "d_e_feat", "d_nbr_src", "d_w_e", "d_w2", "d_b2",
+              "d_w3", "d_b3")
+
+
+def message_backward_bound(case, dtype):
+    """Least time for one backward launch: inputs, cotangents and the eight
+    gradients moved once over the memory rate, or 2*E*(3*Ce*D + 5*D*D) flops
+    (two recomputed products and five backward ones) over the peak."""
+    (b, l, k, d, ce), mode, outputs = case
+    es = torch.finfo(dtype).bits // 8
+    e = b * l * k
+    n_w = ce * d + 2 * d * d + 2 * d
+    inputs = es * (2 * b * l * d + e * ce + n_w) + 4 * e + (4 * e if mode != "none" else 0)
+    cots = es * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum"))
+    grads = es * (2 * b * l * d + e * ce + n_w)
+    flops = 2 * e * (3 * ce * d + 5 * d * d)
+    t_bytes = (inputs + cots + grads) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def message_backward_phase(smi):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for case in MSG_CASES:
+        (b, l, k, d, ce), _, _ = case
+        for dtype in (torch.float32, torch.bfloat16):
+            kw = message_inputs(case, dtype, gen)
+            want_sum, want_msg = kw.pop("want_sum"), kw.pop("want_msg")
+            kw["gdh"] = (torch.randn((b, l, d), generator=gen, device="cuda").to(dtype)
+                         if want_sum else None)
+            kw["gmsg"] = (torch.randn((b, l, k, d), generator=gen, device="cuda").to(dtype)
+                          if want_msg else None)
+            out = fm.fused_message_backward_kernel(**kw)
+            torch.cuda.synchronize()
+            ref = fm.fused_message_backward_reference(**kw)
+            rel = {n: ((a.float() - r.float()).abs().max()
+                       / r.float().abs().max().clamp_min(1e-30)).item()
+                   for n, a, r in zip(GRAD_NAMES, out, ref)}
+            finite = all(bool(torch.isfinite(a).all()) for a in out)
+            bound, bound_by = message_backward_bound(case, dtype)
+            row = dict(max_rel_err=max(rel.values()), rtol=MSG_BWD_RTOL[dtype],
+                       max_abs_err=max((a.float() - r.float()).abs().max().item()
+                                       for a, r in zip(out, ref)),
+                       rel_err=rel,
+                       ms=cuda_ms(lambda: fm.fused_message_backward_kernel(**kw)),
+                       plain_ms=cuda_ms(lambda: fm.fused_message_backward_reference(**kw)),
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+            rows[(case, dtype)] = row
+            log(f"[kernel] fused_message_bwd {case[0]} {case[1]}/{case[2]} "
+                f"{str(dtype)[6:]} ({smi}): " + json.dumps(row))
+            if not (finite and row["max_rel_err"] <= MSG_BWD_RTOL[dtype]):
+                raise AssertionError(f"fused_message_bwd {case} {dtype}: relative "
+                                     f"errors {rel} (rtol {MSG_BWD_RTOL[dtype]}), "
+                                     f"finite {finite}")
+    # autograd: kernel forward + kernel backward against plain autograd
+    case = MSG_CASES[2]
+    kw = message_inputs(case, torch.float32, gen)
+    names = ("pre_self", "e_feat", "nbr_src", "w_e", "w2", "b2", "w3", "b3")
+    leaves = {n: kw[n].clone().requires_grad_() for n in names}
+    cot = [torch.randn(t.shape, generator=gen, device="cuda")
+           for t in fm.fused_message_reference(**kw)]
+    before = (fm.launches, fm.backward_launches)
+    got = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(fm.fused_message_mlp(**{**kw, **leaves}), cot)),
+        [leaves[n] for n in names])
+    counted = (fm.launches - before[0], fm.backward_launches - before[1])
+    want = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(fm.fused_message_reference(**{**kw, **leaves}), cot)),
+        [leaves[n] for n in names])
+    rel = max(((a - r).abs().max() / r.abs().max()).item() for a, r in zip(got, want))
+    log(f"[kernel] fused_message_mlp autograd (K2a + K2b) vs plain autograd at "
+        f"{case[0]}: max rel err {rel:.3g} (rtol {MSG_BWD_RTOL[torch.float32]}), "
+        f"launches fwd/bwd {counted}")
+    if not (rel <= MSG_BWD_RTOL[torch.float32] and counted == (1, 1)):
+        raise AssertionError(f"fused_message_mlp autograd: rel err {rel}, launches {counted}")
+    return rows
+
+
+# kernel families of the profile summary, matched in order on kernel names
+PROFILE_GROUPS = (("K2b fused_message_bwd", ("fused_message_bwd", "sum_partials")),
+                  ("K2a fused_message_fwd", ("fused_message_fwd",)),
+                  ("K1 flash_attention", ("attention_fwd_kernel",)),
+                  ("GEMM (cuBLAS/CUTLASS)", ("gemm", "Kernel2", "nvjet")),
+                  ("LayerNorm fwd/bwd", ("layer_norm", "GammaBeta")),
+                  ("reductions", ("reduce_kernel",)),
+                  ("elementwise, copies, other", ("",)))
 
 
 def profile(label, fn, smi, top=8):
     """Device time of one call by kernel (torch.profiler, CUPTI): the busy
-    share of the call's wall time and the kernels that take the most."""
+    share of the call's wall time, the time of each kernel family and the
+    kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -281,7 +403,14 @@ def profile(label, fn, smi, top=8):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), {len(kernels)} kernel "
-        f"names ({smi})")
+        f"names, {sum(e.count for e in kernels)} launches ({smi})")
+    groups = dict.fromkeys(name for name, _ in PROFILE_GROUPS)
+    for e in kernels:
+        name = next(n for n, keys in PROFILE_GROUPS if any(k in e.key for k in keys))
+        ms, count = groups[name] or (0.0, 0)
+        groups[name] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    log(f"[profile]   by family: " + "; ".join(
+        f"{n} {v[0]:.3f} ms x{v[1]}" for n, v in groups.items() if v))
     for e in kernels[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:110]}")
@@ -370,6 +499,146 @@ def protein_phase(smi):
     return launches
 
 
+def train_config(dropout=0.1):
+    """The default ProteinTrainConfig with the denoising loss weighted 1 from
+    step 0 (its default warm-up gives it weight 0 at step 0)."""
+    cfg = ProteinTrainConfig(dropout=dropout)
+    return dataclasses.replace(cfg, curriculum=dataclasses.replace(
+        cfg.curriculum, diffusion_warmup_steps=0))
+
+
+def train_phase(smi):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    # one step, message chains through the kernels vs the unfused chain
+    cfg = train_config(dropout=0.0)
+    trainer = ProteinTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    perturb_pmpnn(state.model, gen)
+    batch = trainer.synthetic_batch(gen, TRAIN["batch"], TRAIN["length"])
+    corrupted = corrupt_batch(batch, cfg.interpolant, gen)
+    noisy = (corrupted["S_t"], corrupted["t"])
+    loss_fn = make_loss_fn(cfg)
+    names, params = zip(*state.model.named_parameters())
+    results = {}
+    for fused in (True, False):
+        state.model.fused = fused
+        before = (fm.launches, fm.backward_launches)
+        metrics = loss_fn(state.model, batch, 0, noisy=noisy)
+        total, _ = combine_losses(metrics, 0, trainer.curriculum)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        torch.cuda.synchronize()
+        counted = (fm.launches - before[0], fm.backward_launches - before[1])
+        results[fused] = ({k: v.item() for k, v in dict(metrics, loss=total).items()},
+                          [torch.zeros_like(p) if g is None else g
+                           for g, p in zip(grads, params)], counted)
+    state.model.fused = True
+    (m_f, g_f, n_f), (m_u, g_u, _) = results[True], results[False]
+    metric_err = max(abs(m_f[k] - m_u[k]) / max(abs(m_u[k]), 1.0) for k in m_u)
+    grad_err = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                for n, a, b in zip(names, g_f, g_u)}
+    worst = max(grad_err, key=grad_err.get)
+    per_step = 2 * trainer.cfg.num_encoder_layers + trainer.cfg.num_decoder_layers
+    log(f"[train] one step at {TRAIN['batch']} x {TRAIN['length']}, kernels vs unfused "
+        f"chain: metrics max rel err {metric_err:.3g} (rtol {TRAIN_METRIC_RTOL}), "
+        f"gradients max err / max |g| {grad_err[worst]:.3g} at {worst} (rtol "
+        f"{TRAIN_GRAD_RTOL}) over {len(names)} parameters; launches fwd/bwd {n_f}; "
+        f"loss {m_f['loss']:.6g}, denoising {m_f['denoising_loss']:.6g}, proj "
+        f"{m_f['proj_loss']:.6g}")
+    if not (metric_err <= TRAIN_METRIC_RTOL and grad_err[worst] <= TRAIN_GRAD_RTOL
+            and all(torch.isfinite(g).all() for g in g_f)):
+        raise AssertionError(f"fused vs unfused train step: metrics {m_f} vs {m_u}, "
+                             f"gradient errors {grad_err}")
+    if n_f != (per_step, per_step):
+        raise AssertionError(f"expected {per_step} K2a and K2b launches, got {n_f}")
+    del trainer, state, results, g_f, g_u, grads
+
+    # the main path: ProteinTrainer.train_step at the default dropout
+    cfg = train_config()
+    trainer = ProteinTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(gen, TRAIN["batch"], TRAIN["length"])
+    for _ in range(3):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    steps = TRAIN["timed_steps"]
+    fm.launches = fm.backward_launches = fa.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (fm.launches, fm.backward_launches)
+    residues = TRAIN["batch"] * TRAIN["length"]
+    log(f"[train] ProteinTrainer.train_step, default config (dropout "
+        f"{cfg.dropout}): {steps} steps in {seconds:.4f} s = "
+        f"{1e3 * seconds / steps:.3f} ms per step, {residues * steps / seconds:.1f} "
+        f"residues/s, {TRAIN['batch'] * steps / seconds:.2f} sequences/s; launches "
+        f"K2a {launches[0]}, K2b {launches[1]} (expected {per_step * steps} each), "
+        f"flash_attention {fa.launches}; last loss {metrics['loss'].item():.6g}, "
+        f"grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if launches != (per_step * steps, per_step * steps):
+        raise AssertionError(f"expected {per_step * steps} K2a and K2b launches, "
+                             f"got {launches}")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite train metrics {metrics}")
+    profile("train step", lambda: trainer.train_step(state, batch), smi, top=12)
+    del trainer, state, batch
+
+    # learning: the convergence gate's configuration and data
+    trainer = ProteinTrainer(gate_config(), device="cuda")
+    state = trainer.init_state()
+    ces = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(LEARN_STEPS):
+        batch = rule_batch(step, 16, 48, "cuda")
+        state, metrics = trainer.train_step(state, batch)
+        ces.append(metrics["denoising_loss"])
+    ces = [c.item() for c in ces]
+    seconds = time.perf_counter() - t0
+    late = sum(ces[-20:]) / 20
+    # the kernels against the unfused chain again, at these trained weights
+    cfg = trainer.cfg
+    batch = rule_batch(LEARN_STEPS, 16, 48, "cuda")
+    corrupted = corrupt_batch(batch, cfg.interpolant, gen)
+    names, params = zip(*state.model.named_parameters())
+    grads = {}
+    for fused in (True, False):
+        state.model.fused = fused
+        metrics = make_loss_fn(cfg)(state.model, batch, 0,
+                                    noisy=(corrupted["S_t"], corrupted["t"]))
+        metrics.setdefault("proj_loss", torch.zeros((), device=batch["S"].device))
+        total, _ = combine_losses(metrics, 0, trainer.curriculum)
+        grads[fused] = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(total, params, allow_unused=True), params)]
+    state.model.fused = True
+    trained_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                      for a, b in zip(grads[True], grads[False]))
+    log(f"[train] after {LEARN_STEPS} steps, kernels vs unfused chain: gradients "
+        f"max err / max |g| {trained_err:.3g} (rtol {TRAIN_GRAD_RTOL})")
+    if not trained_err <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"trained-state gradients differ: {trained_err}")
+    log(f"[train] learning check, gate config (16 x 48, rule data): CE step 0 "
+        f"{ces[0]:.4f}, step 100 {ces[100]:.4f}, mean of steps "
+        f"{LEARN_STEPS - 20}-{LEARN_STEPS - 1} {late:.4f} (must be < {LEARN_CE_MAX}; "
+        f"JAX on a TPU: 1.50, 1.16, 1.17); {1e3 * seconds / LEARN_STEPS:.3f} ms per "
+        f"step incl. batch upload ({smi})")
+    if not late < LEARN_CE_MAX:
+        raise AssertionError(f"the CE did not fall: {ces[0]} -> {late}")
+    del trainer, state
+
+    # the user's entry point
+    t0 = time.perf_counter()
+    state = cli.main(["train-protein", "--steps", "3", "--synthetic", "--log-every", "1"])
+    torch.cuda.synchronize()
+    log(f"[train] cli train-protein --steps 3 --synthetic: {state.step} steps in "
+        f"{time.perf_counter() - t0:.2f} s incl. set-up")
+    if state.step != 3:
+        raise AssertionError(f"train-protein ran {state.step} steps, not 3")
+    return launches[1]
+
+
 def sit_inputs(batch, gen):
     x = torch.randn((batch, 32, 32, 4), generator=gen, device="cuda")
     t = torch.rand((batch,), generator=gen, device="cuda")
@@ -441,8 +710,9 @@ def slice_phase(smi):
     return launches
 
 
-def kernel_entry(name, replaces, row, launches):
-    return dict(name=name, route="cuda", source=f"reed_tpu_torch/csrc/{name}.cu",
+def kernel_entry(name, replaces, row, launches, source=None):
+    return dict(name=name, route="cuda",
+                source=f"reed_tpu_torch/csrc/{source or name}.cu",
                 replaces=replaces, launches=launches, max_abs_err=row["max_abs_err"],
                 ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"])
@@ -453,13 +723,18 @@ def main():
     build_phase()
     attn_rows = kernel_phase()
     msg_rows = message_kernel_phase(smi)
+    bwd_rows = message_backward_phase(smi)
     attn_launches = slice_phase(smi)
     msg_launches = protein_phase(smi)
+    bwd_launches = train_phase(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
         kernel_entry("fused_message", "reed_tpu/ops/fused_message.py:132",
                      msg_rows[(MSG_MAIN, torch.float32)], msg_launches),
+        kernel_entry("fused_message_bwd", "reed_tpu/ops/fused_message.py:152",
+                     bwd_rows[(MSG_MAIN, torch.float32)], bwd_launches,
+                     source="fused_message"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,12 +5,15 @@
       --guidance-high 0.7 --ref-ckpt sit_xl.pt --out out/samples.npz
   python -m reed_tpu_torch.cli eval-protein --batch-size 8 --length 256 \\
       --num-steps 50 [--data-dir pdb_2021aug02] [--ref-ckpt epoch_last.pt]
+  python -m reed_tpu_torch.cli train-protein --steps 100 --synthetic \\
+      [--data-dir pdb_2021aug02 --token-budget 20000] [--set optim.lr=3e-4]
 
 Runs on CUDA unless `--device cpu` is given. generate-image uses reed_tpu's
 image default (ImageTrainConfig / build_model in reed_tpu/train/image.py):
-32x32x4 latents, 1000 classes, bf16 compute. eval-protein uses its protein
-default (ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128, 3 + 3 layers,
-30 neighbours, f32 compute.
+32x32x4 latents, 1000 classes, bf16 compute. eval-protein and train-protein
+use its protein default (ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128,
+3 + 3 layers, 30 neighbours, f32 compute; training adds dropout 0.1, the AF3
+alignment loss and Adam with a global-norm clip.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -180,6 +184,83 @@ def eval_protein(args):
     }, indent=2))
 
 
+def train_protein(args):
+    """Train ProteinMPNN-FMIF on synthetic batches (batch_size x max_len,
+    with AF3-style embeddings) or on the train split under --data-dir,
+    logging `[step N] {...}` every --log-every steps."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.logging import MetricLogger
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
+
+    device = resolve_device(args.device)
+    cfg = ProteinTrainConfig()
+    if args.batch_size is not None:
+        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+    if args.lr is not None:
+        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, lr=args.lr))
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    cfg = _apply_overrides(cfg, args.overrides)
+    trainer = ProteinTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if args.ref_ckpt:
+        from reed_tpu_torch.encoders.fmif_convert import load_reference_checkpoint
+
+        # warm start from a reference fmif checkpoint (train_fmif.py:225-237)
+        state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        print(f"warm-started from reference checkpoint {args.ref_ckpt}")
+
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield trainer.synthetic_batch(
+                    torch.Generator(device=device).manual_seed(cfg.seed + 1000 + i))
+                i += 1
+    else:
+        from reed_tpu_torch.data.protein import (BufferPool, PDBParams,
+                                                 build_training_clusters,
+                                                 sample_cluster_chains,
+                                                 token_bucket_batches)
+
+        repr_dir = os.path.join(args.data_dir, "repr")
+        params = PDBParams(args.data_dir,
+                           repr_dir=repr_dir if os.path.isdir(repr_dir) else None)
+        train_clusters, _, _ = build_training_clusters(params)
+        repr_dims = {"single": cfg.single_dim, "pair": cfg.pair_dim,
+                     "structure": cfg.structure_dim}
+        if params.repr_dir is None and cfg.load_repr:
+            print("WARNING: no repr/ dir under --data-dir; AF3 alignment targets "
+                  "are zero-filled")
+        # featurize writes into recycled buffers; the loop holds one batch at
+        # a time (copied to the device), so a depth of 2 is enough
+        pool = BufferPool(depth=2)
+
+        def batches():
+            epoch = 0
+            while True:
+                rng = np.random.default_rng(cfg.seed + epoch)
+                entries = sample_cluster_chains(rng, train_clusters, params,
+                                                max_length=cfg.max_len)
+                if not entries:
+                    raise SystemExit(f"no train-split chains under {args.data_dir}")
+                for arrays in token_bucket_batches(entries, token_budget=args.token_budget,
+                                                   repr_dims=repr_dims, shuffle_rng=rng,
+                                                   pool=pool):
+                    yield {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+                epoch += 1
+
+    logger = MetricLogger()
+    it = batches()
+    for i in range(args.steps):
+        batch = next(it)
+        state, metrics = trainer.train_step(state, batch)
+        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+            logger.log(metrics, state.step, samples_per_step=int(batch["S"].shape[0]))
+    return state
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("reed_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -227,8 +308,32 @@ def main(argv=None):
                    help="ProteinTrainConfig override, e.g. hidden_dim=64")
     p.set_defaults(fn=eval_protein)
 
+    p = sub.add_parser("train-protein")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="synthetic batch size (default: the config's 8)")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic batches (the default without --data-dir)")
+    p.add_argument("--data-dir", default=None,
+                   help="PDB dataset (list.csv, split files, pdb/, optional "
+                        "repr/); trains on the train split")
+    p.add_argument("--token-budget", type=int, default=20_000,
+                   help="tokens per real-data batch (reference batch_size=20000)")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="warm start from a reference torch fmif checkpoint")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; no silent fallback")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="KEY=VALUE",
+                   help="ProteinTrainConfig override, e.g. optim.lr=3e-4 or "
+                        "curriculum.diffusion_warmup_steps=0")
+    p.set_defaults(fn=train_protein)
+
     args = parser.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

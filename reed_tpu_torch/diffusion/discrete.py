@@ -1,8 +1,11 @@
-"""Discrete (masking) flow matching: the Euler unmasking sampler.
+"""Discrete (masking) flow matching: corruption and the Euler unmasking
+sampler.
 
 Counterpart of reed_tpu/diffusion/discrete.py (MaskingInterpolantConfig,
-_step_probs, categorical_exp_race, euler_unmask_sampler). t = 1 is clean
-data; the sampler runs ts = linspace(min_t, 1, num_timesteps) in f32 (as
+sample_t, corrupt_tokens, corrupt_batch, _step_probs, categorical_exp_race,
+euler_unmask_sampler). t = 1 is clean data: training masks each token with
+probability 1 - t, t and the uniforms drawn from a torch.Generator or passed
+in, so that a test can hand over reed_tpu's. The sampler runs ts = linspace(min_t, 1, num_timesteps) in f32 (as
 jnp.linspace computes it) and unmasks through the MDLM transition
 
     q_xs = softmax(logits / temp) * (t_2 - t_1),  q_xs[MASK] = 1 - t_2
@@ -34,6 +37,49 @@ class MaskingInterpolantConfig:
     min_t: float = 1e-2
     num_timesteps: int = 500
     temp: float = 0.1
+
+
+def sample_t(num_batch: int, min_t: float, generator: Optional[torch.Generator] = None,
+             device=None, uniforms: Optional[torch.Tensor] = None):
+    """t ~ U[min_t, 1 - min_t], [num_batch] f32 (reference: fm_utils.py:40-42);
+    `uniforms` [num_batch] replaces the generator's U[0, 1) draws."""
+    if uniforms is None:
+        uniforms = torch.rand((num_batch,), generator=generator, device=device)
+    return uniforms.float() * (1 - 2 * min_t) + min_t
+
+
+def corrupt_tokens(tokens, t, res_mask, mask_index: int = MASK_TOKEN_INDEX,
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[torch.Tensor] = None):
+    """Mask each valid token with probability 1 - t; invalid positions are
+    forced to the mask token (reference: fm_utils.py:44-61). tokens [B,L],
+    t [B] or [B,1], `uniforms` [B,L] replaces the generator's draws. Returns
+    int32 [B,L]."""
+    if t.dim() == 1:
+        t = t[:, None]
+    if uniforms is None:
+        uniforms = torch.rand(tokens.shape, generator=generator, device=tokens.device)
+    corrupted = torch.where(uniforms < (1.0 - t), mask_index, tokens)
+    corrupted = torch.where(res_mask.bool(), corrupted, mask_index)
+    return corrupted.to(torch.int32)
+
+
+def corrupt_batch(batch, cfg: MaskingInterpolantConfig,
+                  generator: Optional[torch.Generator] = None, t=None,
+                  uniforms: Optional[torch.Tensor] = None):
+    """The batch dict with S_t, t [B,1] and is_masked added (reference:
+    fm_utils.py:63-87). t defaults to a draw of sample_t; `uniforms` go to
+    corrupt_tokens."""
+    s = batch["S"]
+    b = s.shape[0]
+    if t is None:
+        t = sample_t(b, cfg.min_t, generator, device=s.device)[:, None]
+    else:
+        t = torch.as_tensor(t, dtype=torch.float32, device=s.device).reshape(-1, 1).expand(b, 1)
+    res_mask = batch["mask"] * batch["chain_M"]
+    s_t = corrupt_tokens(s, t, res_mask, cfg.mask_index, generator, uniforms)
+    is_masked = (s_t == cfg.mask_index).to(res_mask.dtype) * res_mask
+    return dict(batch, S_t=s_t, t=t, is_masked=is_masked)
 
 
 def categorical_exp_race(probs, generator: Optional[torch.Generator] = None,

@@ -18,8 +18,14 @@ neighbour part is gathered after its product. With `fused` the rest of
 each chain (edge product, gather, two GELUs, W2, W3, mask, K-sum) is one
 call of ops.fused_message.fused_message_mlp: the CUDA kernel on the card,
 its plain version on the CPU. Neighbour gathers are indexed gathers, not
-reed_tpu's one-hot einsums. Dropout and coordinate noise are training-only
-and not applied here: the model runs inference.
+reed_tpu's one-hot einsums. With `train=True` the model applies dropout
+at reed_tpu's six sites (EncLayer: the node update after the message sum
+and after the feed-forward, and the edge message; DecLayer: the edge update,
+and the node update twice), inverted as flax's Dropout (keep with
+probability 1 - rate, scale by 1 / (1 - rate)), and Gaussian coordinate
+noise of std augment_eps; both draw from an explicit torch.Generator.
+`detach_repr` stops the projectors' gradients into the trunk, and
+`learnable_node=False` stops node_embeds' gradient, as stop_gradient does.
 """
 
 from __future__ import annotations
@@ -49,6 +55,27 @@ _ATOMS = ("N", "Ca", "C", "O", "Cb")
 
 def gelu(x):
     return F.gelu(x, approximate="none")
+
+
+class Dropout:
+    """flax.linen.Dropout's inverted dropout with its keep mask drawn from a
+    torch.Generator: x * (u < 1 - rate) / (1 - rate), u ~ U[0, 1). Identity
+    when `active` is False or the rate is 0."""
+
+    def __init__(self, rate: float, active: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        self.rate, self.active, self.generator = rate, active, generator
+
+    def __call__(self, x):
+        if not self.active or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+NO_DROPOUT = Dropout(0.0)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -106,10 +133,14 @@ class ProteinFeatures(nn.Module):
             bias=False)
         self.norm_edges = LayerNorm(edge_features)
 
-    def forward(self, x, mask, residue_idx, chain_labels):
-        """x [B,L,4,3] backbone atoms (N, Ca, C, O). Returns edge features
+    def forward(self, x, mask, residue_idx, chain_labels, augment_eps: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        """x [B,L,4,3] backbone atoms (N, Ca, C, O), plus augment_eps * N(0, 1)
+        noise from `generator` when augment_eps > 0. Returns edge features
         [B,L,K,E] and neighbour indices [B,L,K] int32."""
         x = x.float()
+        if augment_eps > 0:
+            x = x + augment_eps * torch.randn(x.shape, generator=generator, device=x.device)
         b_vec = x[:, :, 1] - x[:, :, 0]
         c_vec = x[:, :, 2] - x[:, :, 1]
         a_vec = torch.linalg.cross(b_vec, c_vec, dim=-1)
@@ -177,7 +208,8 @@ class EncLayer(nn.Module):
         pre = pre_self[:, :, None, :] + h_e @ w_e + gather_nodes(nbr_src, e_idx)
         return w3(gelu(w2(gelu(pre))))
 
-    def forward(self, h_v, h_e, e_idx, mask_v, mask_attend, fused: bool):
+    def forward(self, h_v, h_e, e_idx, mask_v, mask_attend, fused: bool,
+                drop: Dropout = NO_DROPOUT):
         d = h_v.shape[-1]
         e_slice = slice(d, 2 * d)
         if fused:
@@ -188,8 +220,8 @@ class EncLayer(nn.Module):
             h_message = self._message(self.W1, self.W2, self.W3, h_v, h_e, e_idx)
             h_message = mask_attend[..., None] * h_message
             dh = torch.sum(h_message, dim=-2) / self.scale
-        h_v = self.norm1(h_v + dh)
-        h_v = self.norm2(h_v + self.dense(h_v))
+        h_v = self.norm1(h_v + drop(dh))
+        h_v = self.norm2(h_v + drop(self.dense(h_v)))
         h_v = mask_v[..., None] * h_v
 
         if fused:
@@ -198,7 +230,7 @@ class EncLayer(nn.Module):
                                         self.scale, False, True)
         else:
             h_message = self._message(self.W11, self.W12, self.W13, h_v, h_e, e_idx)
-        return h_v, self.norm3(h_e + h_message)
+        return h_v, self.norm3(h_e + drop(h_message))
 
 
 class DecLayer(nn.Module):
@@ -218,7 +250,7 @@ class DecLayer(nn.Module):
                                     nn.Linear(3 * dim, 2 * dim))
         self.norm_edge = LayerNorm(2 * dim)
 
-    def forward(self, h_v, h_es, e_idx, mask_v, fused: bool):
+    def forward(self, h_v, h_es, e_idx, mask_v, fused: bool, drop: Dropout = NO_DROPOUT):
         """mask_v [B,L]: each edge of node i is masked by i's own mask (not
         its neighbour's), before the self term is added."""
         d = h_v.shape[-1]
@@ -237,10 +269,10 @@ class DecLayer(nn.Module):
 
         # edge update: h_ES <- LN(h_ES + MLP([h_message, h_ES]))
         de = self.W_edge(torch.cat([h_message, h_es], dim=-1))
-        h_es_new = self.norm_edge(h_es + de)
+        h_es_new = self.norm_edge(h_es + drop(de))
 
-        h_v = self.norm1(h_v + dh)
-        h_v = self.norm2(h_v + self.dense(h_v))
+        h_v = self.norm1(h_v + drop(dh))
+        h_v = self.norm2(h_v + drop(self.dense(h_v)))
         return mask_v[..., None] * h_v, h_es_new
 
 
@@ -257,7 +289,8 @@ class ProteinMPNNFMIF(nn.Module):
                  use_cfg: bool = False, num_cls: int = 2, update_edge: bool = True,
                  align_depth: int = 1, single_dim: int = 384, pair_dim: int = 128,
                  structure_dim: int = 768, mdlm_parameterization: bool = False,
-                 fused: bool = False):
+                 fused: bool = False, dropout: float = 0.1, augment_eps: float = 0.1,
+                 learnable_node: bool = True):
         super().__init__()
         self.vocab = vocab
         self.use_cfg = use_cfg
@@ -265,6 +298,10 @@ class ProteinMPNNFMIF(nn.Module):
         self.update_edge = update_edge
         self.align_depth = align_depth
         self.mdlm_parameterization = mdlm_parameterization
+        # training only (forward's `train`): dropout rate, coordinate noise std
+        self.dropout = dropout
+        self.augment_eps = augment_eps
+        self.learnable_node = learnable_node
         # route the message chains through ops.fused_message (kernel on CUDA)
         self.fused = fused
 
@@ -330,34 +367,45 @@ class ProteinMPNNFMIF(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.W_e.weight.dtype
 
-    def encode(self, x, mask, residue_idx, chain_encoding_all, cls_emb=None):
+    def encode(self, x, mask, residue_idx, chain_encoding_all, cls_emb=None,
+               train: bool = False, generator: Optional[torch.Generator] = None,
+               drop: Dropout = NO_DROPOUT):
         """Features and encoder stack: (h_v, h_e, e_idx). Depends only on the
         backbone (and the class), so a sampler computes it once."""
-        e, e_idx = self.features(x, mask, residue_idx, chain_encoding_all)
+        e, e_idx = self.features(x, mask, residue_idx, chain_encoding_all,
+                                 augment_eps=self.augment_eps if train else 0.0,
+                                 generator=generator)
         mask = mask.to(e.dtype)
-        h_v = self.node_embeds.expand(*e.shape[:2], -1)
+        node = self.node_embeds if self.learnable_node else self.node_embeds.detach()
+        h_v = node.expand(*e.shape[:2], -1)
         h_e = self.W_e(e)
         mask_attend = mask[..., None] * gather_nodes(mask[..., None], e_idx)[..., 0]
         for i, layer in enumerate(self.encoder_layers):
             if cls_emb is not None:
                 h_v = h_v + self.cls_layers_enc[i](cls_emb)[:, None, :]
-            h_v, h_e = layer(h_v, h_e, e_idx, mask, mask_attend, fused=self.fused)
+            h_v, h_e = layer(h_v, h_e, e_idx, mask, mask_attend, fused=self.fused,
+                             drop=drop)
         return h_v, h_e, e_idx
 
     def forward(self, x, s, mask, chain_m, residue_idx, chain_encoding_all,
                 cls=None, return_rep: bool = False, enc_state=None,
-                return_enc: bool = False):
+                return_enc: bool = False, train: bool = False,
+                detach_repr: bool = False, generator: Optional[torch.Generator] = None):
         """x [B,L,4,3], s [B,L] tokens (or [B,L,22] soft one-hot), masks
         [B,L]. Returns log_probs [B,L,22] f32 (+ zs_single, zs_pair,
         zs_structure, e_idx when return_rep). return_enc returns the encoder
         state (h_v, h_e, e_idx) instead; pass it back as enc_state so only
-        the decoder runs."""
+        the decoder runs. `train` turns on dropout and coordinate noise,
+        drawn from `generator`; `detach_repr` keeps the projectors' gradient
+        out of the trunk (projector-only training)."""
         del chain_m  # part of the batch schema; the model does not read it
+        drop = Dropout(self.dropout, train, generator)
         cls_emb = None
         if self.use_cfg and cls is not None:
             cls_emb = self.cls_embedder(cls)
         if enc_state is None:
-            enc_state = self.encode(x, mask, residue_idx, chain_encoding_all, cls_emb)
+            enc_state = self.encode(x, mask, residue_idx, chain_encoding_all, cls_emb,
+                                    train=train, generator=generator, drop=drop)
             if return_enc:
                 return enc_state
         h_v, h_e, e_idx = enc_state
@@ -374,7 +422,7 @@ class ProteinMPNNFMIF(nn.Module):
         for i, layer in enumerate(self.decoder_layers):
             if cls_emb is not None:
                 h_v = h_v + self.cls_layers_dec[i](cls_emb)[:, None, :]
-            h_v, h_es_new = layer(h_v, h_es, e_idx, mask, fused=self.fused)
+            h_v, h_es_new = layer(h_v, h_es, e_idx, mask, fused=self.fused, drop=drop)
             if self.update_edge:
                 h_es = h_es_new
             if i == self.align_depth:
@@ -394,6 +442,9 @@ class ProteinMPNNFMIF(nn.Module):
             log_probs = torch.log_softmax(logits, dim=-1)
         if not return_rep:
             return log_probs
+        if detach_repr:
+            zs_single_raw, zs_pair_raw, zs_structure_raw = (
+                zs_single_raw.detach(), zs_pair_raw.detach(), zs_structure_raw.detach())
         zs_single = self.projectors_single(zs_single_raw.float())
         zs_pair = self.projectors_pair(zs_pair_raw.float())
         zs_structure = self.projectors_structure(zs_structure_raw.float())

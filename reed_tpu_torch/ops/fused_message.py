@@ -1,28 +1,32 @@
-"""Fused k-NN message MLP: the hand-written CUDA kernel K2a and its plain
-version.
+"""Fused k-NN message MLP: the hand-written CUDA kernels K2a (forward) and
+K2b (backward) and their plain versions.
 
-Replaces the TPU kernel `_fwd_kernel` (reed_tpu/ops/fused_message.py:132,
+K2a replaces the TPU kernel `_fwd_kernel` (reed_tpu/ops/fused_message.py:132,
 launched by `_fused_fwd_call`). For every edge (i, k) of a ProteinMPNN
 k-NN graph:
 
     et  = e_feat[i,k] @ w_e + nbr_src[e_idx[i,k]]     (* mask in mode 'pre')
     msg = gelu(gelu(et + pre_self[i]) @ w2 + b2) @ w3 + b3   (* mask in 'post')
 
-and returns dh = sum_k msg / scale and/or msg. The kernel is
-`csrc/fused_message.cu`: one block per two nodes (all K = 30 edges of each,
-so the K-sum stays in the block), the neighbour gather an indexed row load,
-the three products on the CUDA cores in f32 with each weight streamed
-through shared memory in chunks. On the H100 at ProteinMPNN's shapes
-(D = 128, Ce = 128 in EncLayer and 256 in DecLayer) the f32 chain is bound by
-operations and the bf16 one by bytes or operations, depending on the
-outputs asked for; the measured times beside those bounds are in PERF.md
+and returns dh = sum_k msg / scale and/or msg. K2b replaces `_bwd_kernel`
+(reed_tpu/ops/fused_message.py:152, launched by `_fused_bwd`): it recomputes
+the chain per tile and returns the gradients of pre_self, e_feat, nbr_src
+and the five weights, as reed_tpu's custom VJP does from the saved inputs.
+Both are `csrc/fused_message.cu`: one block per two nodes (all K = 30 edges
+of each, so the K-sum stays in the block), the neighbour gather an indexed
+row load, the products on the CUDA cores in f32 with each weight streamed
+through shared memory in chunks. The backward's scatter into nbr_src is an
+atomic add, and its weight gradients are per-block partials summed by a
+second kernel in a fixed order. On the H100 at ProteinMPNN's shapes (D =
+128, Ce = 128 in EncLayer and 256 in DecLayer) the f32 chain is bound by
+operations; the measured times beside the bounds are in PERF.md
 (chip_smoke.py).
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
-`fused_message_reference`, the plain version, with ordinary autograd. On
-CUDA the forward is a `torch.autograd.Function` whose backward raises: the
-backward kernel K2b (`_bwd_kernel`, reed_tpu/ops/fused_message.py:152) is
-not ported yet, and recomputing through the plain version would hide that.
+A CUDA tensor launches the kernels or raises: `fused_message_mlp` is a
+`torch.autograd.Function` whose forward is K2a and whose backward is K2b. A
+CPU tensor runs `fused_message_reference`, the plain forward, with ordinary
+autograd; `fused_message_backward_reference` is the plain backward, step by
+step as K2b computes it, which the tests and chip_smoke.py hold K2b against.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ import torch.nn.functional as F
 from reed_tpu_torch import _build
 from reed_tpu_torch.ops.graph import gather_nodes
 
-# Kernel launches since the count was last set to 0; a run reads it to show
-# that it went through the kernel.
+# Kernel launches (K2a, K2b) since the count was last set to 0; a run reads
+# them to show that it went through the kernels.
 launches = 0
+backward_launches = 0
 
 MASK_MODES = {"none": 0, "pre": 1, "post": 2}
 _MAX_D = 128   # one output column quad per lane (csrc/fused_message.cu)
@@ -70,12 +75,82 @@ def fused_message_reference(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3,
     return dh, (msg.to(cdt) if want_msg else None)
 
 
+def _dgelu(x):
+    """d/dx of the erf GELU: Phi(x) + x * phi(x)."""
+    return (0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+            + x * 0.3989422804014327 * torch.exp(-0.5 * x * x))
+
+
+def fused_message_backward_reference(pre_self, e_feat, nbr_src, e_idx, w_e, w2,
+                                     b2, w3, b3, gdh, gmsg, mask=None,
+                                     mask_mode: str = "post", scale: float = 30.0):
+    """Plain version of the backward kernel, step by step as K2b (and the TPU
+    `_bwd_kernel`) computes it: recompute pre, m1, z2, m2; then g3, g2, g1;
+    then the input gradients and the five weight gradients. gdh [B,L,D]
+    and/or gmsg [B,L,K,D] are the cotangents of dh and msg (None: zero).
+    Products run in f32 on operands of the input dtype: g3, g2, ge, m1 and m2
+    are rounded to it where they enter a product, while d pre_self, db2 and
+    db3 sum the f32 values. An index outside [0, L) gathers and receives
+    nothing. Returns (d pre_self, d e_feat, d nbr_src, d w_e, d w2, d b2,
+    d w3, d b3), each in its input's dtype."""
+    cdt = e_feat.dtype
+
+    def rnd(x):
+        return x.to(cdt).float()
+
+    b, l, k, ce = e_feat.shape
+    d = pre_self.shape[-1]
+    valid = (e_idx >= 0) & (e_idx < l)
+    idx = torch.where(valid, e_idx, 0).long()
+    ef = e_feat.float()
+    et = ef @ w_e.float() + gather_nodes(nbr_src, idx).float() * valid[..., None]
+    m = mask.float()[..., None] if mask_mode != "none" else None
+    if mask_mode == "pre":
+        et = et * m
+    pre = et + pre_self.float()[:, :, None, :]
+    m1 = rnd(F.gelu(pre))
+    z2 = m1 @ w2.float() + b2.float()
+    m2 = rnd(F.gelu(z2))
+
+    g3 = torch.zeros((b, l, k, d), dtype=torch.float32, device=e_feat.device)
+    if gdh is not None:
+        g3 = g3 + (gdh.float() / scale)[:, :, None, :]
+    if gmsg is not None:
+        g3 = g3 + gmsg.float()
+    if mask_mode == "post":
+        g3 = g3 * m
+    g2 = (rnd(g3) @ w3.float().t()) * _dgelu(z2)
+    g1 = (rnd(g2) @ w2.float().t()) * _dgelu(pre)
+    d_pre_self = g1.sum(dim=2)
+    ge = rnd(g1 * m if mask_mode == "pre" else g1)
+    d_e_feat = ge @ w_e.float().t()
+    rows = (torch.arange(b, device=e_feat.device)[:, None, None] * l + idx)[valid]
+    d_nbr_src = torch.zeros((b * l, d), dtype=torch.float32, device=e_feat.device)
+    d_nbr_src.index_add_(0, rows, ge[valid])
+
+    def tn(x, y):  # x^T y over every edge row
+        return x.reshape(-1, x.shape[-1]).t() @ y.reshape(-1, y.shape[-1])
+
+    g2r, g3r = rnd(g2), rnd(g3)
+    grads = (d_pre_self, d_e_feat, d_nbr_src.reshape(b, l, d), tn(ef, ge),
+             tn(m1, g2r), g2.sum(dim=(0, 1, 2)), tn(m2, g3r), g3.sum(dim=(0, 1, 2)))
+    like = (pre_self, e_feat, nbr_src, w_e, w2, b2, w3, b3)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, like))
+
+
 @functools.cache
 def _kernel():
     lib = _build.load("fused_message")
     fn = lib.reed_fused_message_fwd
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.reed_fused_message_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.reed_fused_message_bwd_blocks
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     lib.reed_cuda_error_string.argtypes = [ctypes.c_int]
     lib.reed_cuda_error_string.restype = ctypes.c_char_p
@@ -151,7 +226,65 @@ def fused_message_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
     return dh, msg
 
 
+def fused_message_backward_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2,
+                                  w3, b3, gdh, gmsg, mask=None,
+                                  mask_mode: str = "post", scale: float = 30.0):
+    """Launch the backward kernel K2b (and its fixed-order sum of the weight
+    gradients) on the current stream; the arguments and results of
+    `fused_message_backward_reference`. d nbr_src is summed with atomic adds
+    in f32, so its last bits vary from run to run."""
+    global backward_launches
+    weights = (w_e, w2, b2, w3, b3)
+    _check(pre_self, e_feat, nbr_src, e_idx, mask, weights)
+    b, l, k, ce = e_feat.shape
+    d = pre_self.shape[-1]
+    cots = {"gdh": (gdh, (b, l, d)), "gmsg": (gmsg, (b, l, k, d))}
+    for name, (g, shape) in cots.items():
+        if g is not None and (not g.is_cuda or g.device != e_feat.device
+                              or tuple(g.shape) != shape):
+            raise ValueError(f"fused message backward: {name} must be a CUDA "
+                             f"tensor of shape {shape} on {e_feat.device}")
+    lib = _kernel()
+    dt, dev = e_feat.dtype, e_feat.device
+    args = [t.contiguous() for t in (pre_self, e_feat, nbr_src)]
+    idx = e_idx.to(torch.int32).contiguous()
+    m = mask.float().contiguous() if mask is not None else None
+    ws = [t.contiguous() for t in (w_e, w2, b2, w3)]
+    gs = [g.to(dt).contiguous() if g is not None else None for g in (gdh, gmsg)]
+    n_w = ce * d + 2 * d * d + 2 * d
+    d_pre_self = torch.empty((b, l, d), dtype=dt, device=dev)
+    d_e_feat = torch.empty((b, l, k, ce), dtype=dt, device=dev)
+    d_nbr_src = torch.zeros((b, l, d), dtype=torch.float32, device=dev)
+    d_weights = torch.empty((n_w,), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    is_bf16 = int(dt == torch.bfloat16)
+    with torch.cuda.device(dev):
+        blocks = ctypes.c_int(0)
+        err = lib.reed_fused_message_bwd_blocks(is_bf16, b, l, k, ctypes.byref(blocks))
+        if not err:
+            workspace = torch.empty((blocks.value, n_w), dtype=torch.float32, device=dev)
+            err = lib.reed_fused_message_bwd(
+                *(ptr(t) for t in args), ptr(idx), ptr(m), *(ptr(t) for t in ws),
+                *(ptr(g) for g in gs), ptr(d_pre_self), ptr(d_e_feat), ptr(d_nbr_src),
+                ptr(d_weights), ptr(workspace), blocks.value, is_bf16, b, l, k, d, ce,
+                MASK_MODES[mask_mode], float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("fused message backward kernel launch failed: "
+                           + lib.reed_cuda_error_string(err).decode())
+    backward_launches += 1
+    d_we, d_w2, d_b2, d_w3, d_b3 = torch.split(d_weights, [ce * d, d * d, d, d * d, d])
+    return (d_pre_self, d_e_feat, d_nbr_src.to(nbr_src.dtype),
+            d_we.view(ce, d).to(w_e.dtype), d_w2.view(d, d).to(w2.dtype),
+            d_b2.to(b2.dtype), d_w3.view(d, d).to(w3.dtype), d_b3.to(b3.dtype))
+
+
 class _FusedMessage(torch.autograd.Function):
+    """K2a forward, K2b backward. Like reed_tpu's custom VJP it saves the
+    inputs, not the intermediates: the backward recomputes the chain."""
+
     @staticmethod
     def forward(ctx, pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
                 mask, mask_mode, scale, want_sum, want_msg):
@@ -159,14 +292,27 @@ class _FusedMessage(torch.autograd.Function):
                                        b2, w3, b3, mask=mask, mask_mode=mask_mode,
                                        scale=scale, want_sum=want_sum,
                                        want_msg=want_msg)
+        ctx.save_for_backward(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
+                              mask)
+        ctx.flags = (mask_mode, scale, want_sum, want_msg)
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return tuple(t for t in (dh, msg) if t is not None)
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError(
-            "fused_message_mlp has no backward on CUDA: the backward kernel K2b "
-            "(_bwd_kernel, reed_tpu/ops/fused_message.py:152) is not ported "
-            "yet; run with fused=False to train")
+        mask_mode, scale, want_sum, want_msg = ctx.flags
+        grads = iter(grads)
+        gdh = next(grads) if want_sum else None
+        gmsg = next(grads) if want_msg else None
+        nones = (None,) * 5  # mask and the four flags
+        if gdh is None and gmsg is None:
+            return (None,) * 9 + nones
+        (pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
+         mask) = ctx.saved_tensors
+        (d_ps, d_ef, d_ns, d_we, d_w2, d_b2, d_w3, d_b3) = fused_message_backward_kernel(
+            pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3, gdh, gmsg,
+            mask=mask, mask_mode=mask_mode, scale=scale)
+        return (d_ps, d_ef, d_ns, None, d_we, d_w2, d_b2, d_w3, d_b3) + nones
 
 
 def fused_message_mlp(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,

@@ -189,7 +189,9 @@ def test_no_mask_means_mode_none():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_and_backward_raises():
+def test_cuda_kernel_matches_plain_and_backward():
+    """On the card: K2a against the plain forward, and the autograd backward
+    (K2b) against the plain backward, with one launch of each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     inp = _inputs(seed=7, Ce=256)
@@ -204,7 +206,13 @@ def test_cuda_kernel_matches_plain_and_backward_raises():
                                                  want_sum=True, want_msg=True)
     torch.testing.assert_close(dh, ref_dh, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(msg, ref_msg, rtol=1e-4, atol=1e-4)
-    args[1] = args[1].clone().requires_grad_()
-    dh, _ = fm.fused_message_mlp(*args, mask=t["mask"], mask_mode="post")
-    with pytest.raises(NotImplementedError, match="K2b"):
-        dh.sum().backward()
+    leaves = [a.clone().requires_grad_() if a.is_floating_point() else a for a in args]
+    gdh = torch.randn_like(dh)
+    before = fm.backward_launches
+    dh, _ = fm.fused_message_mlp(*leaves, mask=t["mask"], mask_mode="post")
+    grads = torch.autograd.grad((dh * gdh).sum(), [a for a in leaves if a.requires_grad])
+    assert fm.backward_launches == before + 1
+    ref = fm.fused_message_backward_reference(*args, gdh=gdh, gmsg=None, mask=t["mask"],
+                                              mask_mode="post")
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)

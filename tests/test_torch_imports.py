@@ -45,7 +45,9 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.ops.fused_message, reed_tpu_torch.ops.graph, "
             "reed_tpu_torch.encoders.fmif_convert, reed_tpu_torch.diffusion.discrete, "
             "reed_tpu_torch.eval.protein_metrics, reed_tpu_torch.data.protein, "
-            "reed_tpu_torch.train.protein; "
+            "reed_tpu_torch.train.protein, reed_tpu_torch.core.trainer, "
+            "reed_tpu_torch.core.logging, reed_tpu_torch.diffusion.protein_losses, "
+            "reed_tpu_torch.data.synthetic, reed_tpu_torch.tools.convergence_protein; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")
