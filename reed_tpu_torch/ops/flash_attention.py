@@ -4,14 +4,19 @@ Replaces the TPU kernel `_attn_kernel` (reed_tpu/ops/flash_attention.py,
 launched by `_flash_forward`). The kernel is `csrc/flash_attention.cu`:
 one block per (query tile, batch*head), K and V streamed through shared
 memory with an online softmax in f32, output written once in the input
-dtype. On the H100, at SiT-XL/2's S = 256 in bf16, it is bound by bytes
-(q, k, v read once, o written once): S/2 = 128 flops per byte, below the
-card's ~295 flops/byte ridge. Its measured time beside that bound is in
-PERF.md (chip_smoke.py).
+dtype. In bf16 both products run on the tensor cores and p is rounded to
+bf16 where it enters the PV product, as in the TPU kernel; f32 runs on the
+CUDA cores (no TF32). On the H100, at SiT-XL/2's S = 256 in bf16, it is
+bound by bytes (q, k, v read once, o written once): S/2 = 128 flops per
+byte, below the card's ~295 flops/byte ridge. Its measured time beside
+that bound is in PERF.md (chip_smoke.py).
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
-`sdpa_reference`, the plain version. The backward, as in the JAX
-`_flash_bwd_rule`, is not a kernel: it recomputes through `sdpa_reference`.
+`flash_attention_reference` is the plain version at the kernel's rounding
+points; `sdpa_reference` is the counterpart of reed_tpu's `sdpa_xla`.
+A CUDA tensor launches the kernel or raises (`check_layout` says which
+layouts it takes); a CPU tensor runs `sdpa_reference`, as reed_tpu's SiT
+runs `sdpa_xla` on the CPU. The backward, as in the JAX `_flash_bwd_rule`,
+is not a kernel: it recomputes through `sdpa_reference`.
 """
 
 from __future__ import annotations
@@ -42,16 +47,62 @@ def sdpa_reference(q, k, v, mask=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-@functools.cache
-def _kernel():
-    lib = _build.load("flash_attention")
+def flash_attention_reference(q, k, v):
+    """Plain attention on [B, S, H, D] at the kernel's (and the TPU
+    kernel's) rounding points: f32 logits scaled by D^-1/2, p = exp(l -
+    rowmax) rounded to the input dtype, p v accumulated in f32, divided by
+    the f32 row sum of the unrounded p, cast to the input dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+    denom = p.sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # [B, S, H, 1]
+    return (o / denom).to(q.dtype)
+
+
+def bind(lib):
+    """Declare the C interface of a library built from csrc/flash_attention.cu."""
     fn = lib.reed_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.reed_flash_attention_info.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.reed_flash_attention_info.restype = ctypes.c_int
     lib.reed_cuda_error_string.argtypes = [ctypes.c_int]
     lib.reed_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _kernel():
+    return bind(_build.load("flash_attention"))
+
+
+def check_layout(shape, dtype, strides, data_ptrs):
+    """Raise ValueError naming the cause unless the kernel takes q, k, v of
+    this [B, S, H, D] shape and dtype with these strides (one tuple per
+    tensor, in elements) and base addresses (bytes). Both kernels need the
+    head dim contiguous and D <= 128; the bf16 (tensor-core) kernel reads
+    rows in 16-byte copies, so it also needs D % 8 == 0, 16-byte aligned
+    base addresses and B, S, H strides that are multiples of 8 elements."""
+    d = shape[-1]
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel: head dim {d} > {_MAX_HEAD_DIM}")
+    if any(st[-1] != 1 for st in strides):
+        raise ValueError("flash attention kernel needs the head dim contiguous "
+                         "(stride 1)")
+    if dtype != torch.bfloat16:
+        return
+    if d % 8:
+        raise ValueError(f"flash attention kernel (bf16): head dim {d} is not a "
+                         "multiple of 8 (rows are read in 16-byte copies)")
+    if any(p % 16 for p in data_ptrs):
+        raise ValueError("flash attention kernel (bf16): a base address is not "
+                         "16-byte aligned")
+    if any(s % 8 for st in strides for s in st[:3]):
+        raise ValueError("flash attention kernel (bf16): a batch, sequence or head "
+                         f"stride is not a multiple of 8 elements (16 bytes): {strides}")
 
 
 def _check(q, k, v):
@@ -66,19 +117,15 @@ def _check(q, k, v):
         raise ValueError("flash attention kernel takes q, k, v of one shape "
                          f"[B, S, H, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] > _MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernel: head dim {q.shape[-1]} > "
-                         f"{_MAX_HEAD_DIM}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash attention kernel needs the head dim contiguous "
-                         "(stride 1)")
+    check_layout(q.shape, q.dtype, [t.stride() for t in (q, k, v)],
+                 [t.data_ptr() for t in (q, k, v)])
 
 
-def flash_attention_kernel(q, k, v):
-    """Launch the CUDA kernel on the current stream: [B, S, H, D] -> same."""
-    global launches
+def launch(q, k, v, lib=None):
+    """Launch the kernel on the current stream and return o; counts
+    nothing. `lib`: a library bound by `bind` (default: the built one)."""
     _check(q, k, v)
-    lib = _kernel()
+    lib = lib or _kernel()
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
@@ -90,6 +137,13 @@ def flash_attention_kernel(q, k, v):
     if err:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.reed_cuda_error_string(err).decode())
+    return o
+
+
+def flash_attention_kernel(q, k, v):
+    """Launch the CUDA kernel on the current stream: [B, S, H, D] -> same."""
+    global launches
+    o = launch(q, k, v)
     launches += 1
     return o
 
@@ -116,4 +170,7 @@ def flash_attention(q, k, v, mask=None):
     runs the plain version (SiT attention is unmasked)."""
     if mask is not None:
         return sdpa_reference(q, k, v, mask=mask)
+    if q.is_cuda and not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention_kernel(q, k, v)  # no graph to record: skip autograd
     return _FlashAttention.apply(q, k, v)
