@@ -11,8 +11,10 @@ no result):
      the shapes the main paths give it (and a few more), with stated
      tolerances; kernel, plain and library (yardstick only) times, taken in
      turns, and the least time the card could take for the same work
-     (bound_ms). K1 in bf16 also on SiT's strided q/k/v views of one
-     [B, S, 3, H, D] tensor, with its shared memory and blocks per SM.
+     (bound_ms; f32 at the 3xTF32 tensor-core rate, with bound_ms_67 at the
+     CUDA-core rate beside it). K1 in bf16 also on SiT's strided q/k/v
+     views of one [B, S, 3, H, D] tensor; each kernel's shared memory and
+     blocks per SM; K2b's weight gradients bitwise equal over two launches.
   4. image slice: SiT-XL/2 at full width with seeded N(0, 0.02) weights
      (nonzero adaLN and final layer, so attention reaches the output): one
      model call through the kernel against the same call with plain
@@ -73,9 +75,17 @@ from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
                                           build_model, make_loss_fn, sample,
                                           synthetic_protein_batch)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
+# type. f32: the least time the card can take for f32-accurate products is
+# on the tensor cores as 3xTF32, three TF32 products a piece (hi.hi + hi.lo
+# + lo.hi, which keeps f32 accuracy) at 495 TFLOP/s, so 495 / 3; the f32
+# fused message kernels run so. The same work has the same bound whatever
+# implements it, so K1's f32 bound is taken at that rate too. The bound at
+# the f32 rate outside the tensor cores (67 TFLOP/s) is reported beside it
+# as bound_ms_67.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+F32_CUDA_CORES_FLOPS = 67e12
 # K1's plain version by dtype: in bf16 the one at the kernel's rounding
 # points (p rounded to bf16 before the PV product, as the TPU kernel does);
 # in f32 plain attention (the same function: nothing is rounded)
@@ -107,10 +117,12 @@ GEN = dict(num_samples=16, batch_size=8, mode="sde", num_steps=8,
            cfg_scale=4.0, guidance_low=0.0, guidance_high=0.5, seed=0)
 
 # fused message kernel vs its plain version, max abs error on inputs whose
-# activations are O(1). f32: both accumulate in f32, only the summation
-# order differs. bf16: both round m1, m2 and the output to bf16 at the same
-# points, so they differ where an f32 summation-order difference flips a
-# rounding: one bf16 ulp of an output (2^-7 on [1, 2), 2^-6 on [2, 4)).
+# activations are O(1). f32: both accumulate in f32; the kernel's products
+# are 3xTF32 (~6e-7 relative, tests/test_torch_fused_message_tf32.py) and
+# the summation order differs. bf16: both round m1, m2 and the output to
+# bf16 at the same points, so they differ where an f32 summation-order
+# difference flips a rounding: one bf16 ulp of an output (2^-7 on [1, 2),
+# 2^-6 on [2, 4)).
 MSG_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # (B, L, K, D, Ce), mask mode, outputs
 MSG_CASES = [
@@ -137,7 +149,7 @@ TOKEN_AGREEMENT = 0.9
 # chains through K2a/K2b vs the unfused layer math: each metric to 1e-4
 # (relative above 1, absolute below: the alignment losses are near 0 at
 # init), each parameter's gradient to 1e-3 of that gradient's max. Both
-# are f32; the sums run in another order (K2b's per-block partials and
+# are f32; the sums run in another order (K2b's fixed row ranges and
 # atomic adds against cuBLAS and PyTorch's reductions) through 3 + 3 layers.
 TRAIN_METRIC_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
@@ -193,12 +205,20 @@ def build_phase():
                 log(f"[build] {name}: {entry}: {line.split(':', 1)[-1].strip()}; {stack}")
 
 
+def roofline(nbytes, flops, dtype):
+    """(bound_ms, bound_by, bound_ms_67): the least time for moving nbytes
+    and doing flops of dtype, what bounds it, and in f32 the same bound at
+    the CUDA-core rate (None in bf16)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    ms_67 = (max(t_bytes, flops / F32_CUDA_CORES_FLOPS) * 1e3
+             if dtype == torch.float32 else None)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", ms_67
+
+
 def attention_bound(shape, dtype):
     b, s, h, d = shape
     nbytes = 4 * b * s * h * d * torch.finfo(dtype).bits // 8  # q, k, v, o
-    flops = 4 * b * h * s * s * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return roofline(nbytes, 4 * b * h * s * s * d, dtype)
 
 
 def attention_info():
@@ -228,10 +248,10 @@ def attention_case(label, q, k, v, smi):
         "ms": lambda: fa.flash_attention_kernel(q, k, v),
         "plain_ms": lambda: plain(q, k, v),
         "library_ms": lambda: F.scaled_dot_product_attention(qt, kt, vt)})
-    bound, bound_by = attention_bound(tuple(q.shape), dtype)
+    bound, bound_by, bound_67 = attention_bound(tuple(q.shape), dtype)
     row = dict(max_abs_err=err, atol=ATTN_ATOL[dtype],
                max_abs_ref=ref.float().abs().max().item(), **times,
-               bound_ms=bound, bound_by=bound_by)
+               bound_ms=bound, bound_by=bound_by, bound_ms_67=bound_67)
     log(f"[kernel] flash_attention {label} {str(dtype)[6:]} vs {plain.__name__} "
         f"({smi}): " + json.dumps(row))
     if not (torch.isfinite(out).all() and err <= ATTN_ATOL[dtype]):
@@ -281,9 +301,7 @@ def message_bound(case, dtype):
     nbytes = (es * (2 * b * l * d + e * ce + ce * d + 2 * d * d + 2 * d) + 4 * e
               + (4 * e if mode != "none" else 0)
               + es * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum")))
-    flops = 2 * e * (ce * d + 2 * d * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return roofline(nbytes, 2 * e * (ce * d + 2 * d * d), dtype)
 
 
 def message_inputs(case, dtype, gen):
@@ -305,7 +323,18 @@ def message_inputs(case, dtype, gen):
         want_sum=outputs != "msg", want_msg=outputs != "sum")
 
 
+def message_info():
+    """Shared memory per block, blocks per SM and tile rows of the fused
+    message kernels (K2a; K2b's tile kernel and weight-gradient kernel)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for which, name in enumerate(fm.KERNEL_NAMES):
+            smem, blocks, rows = fm.kernel_info(dtype, which)
+            log(f"[kernel] {name} {str(dtype)[6:]}: {smem} bytes of shared memory per "
+                f"block, {blocks} blocks per SM, {rows}-row tiles")
+
+
 def message_kernel_phase(smi):
+    message_info()
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for case in MSG_CASES:
@@ -317,11 +346,13 @@ def message_kernel_phase(smi):
             err = max((a.float() - r.float()).abs().max().item()
                       for a, r in zip(out, ref) if r is not None)
             ref_max = max(r.float().abs().max().item() for r in ref if r is not None)
-            bound, bound_by = message_bound(case, dtype)
-            row = dict(max_abs_err=err, atol=MSG_ATOL[dtype], max_abs_ref=ref_max,
-                       ms=cuda_ms(lambda: fm.fused_message_kernel(**kw)),
-                       plain_ms=cuda_ms(lambda: fm.fused_message_reference(**kw)),
-                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+            bound, bound_by, bound_67 = message_bound(case, dtype)
+            times = timed_in_turns({
+                "ms": lambda: fm.fused_message_kernel(**kw),
+                "plain_ms": lambda: fm.fused_message_reference(**kw)})
+            row = dict(max_abs_err=err, atol=MSG_ATOL[dtype], max_abs_ref=ref_max, **times,
+                       bound_ms=bound, bound_by=bound_by, bound_ms_67=bound_67,
+                       library_ms=None)
             rows[(case, dtype)] = row
             log(f"[kernel] fused_message {case[0]} {case[1]}/{case[2]} "
                 f"{str(dtype)[6:]} ({smi}): " + json.dumps(row))
@@ -332,9 +363,10 @@ def message_kernel_phase(smi):
 
 
 # backward kernel vs its plain backward, max abs error of each of the eight
-# gradients relative to that gradient's max. f32: both accumulate in f32;
-# the summation order differs (the weight gradients sum 61,440 edge rows in
-# per-block partials; d nbr_src takes atomic adds in no fixed order). bf16:
+# gradients relative to that gradient's max. f32: the kernel's products are
+# 3xTF32 (~6e-7 relative a product, tests/test_torch_fused_message_tf32.py)
+# and the summation order differs (the weight gradients sum 61,440 edge rows
+# in fixed row ranges; d nbr_src takes atomic adds in no fixed order). bf16:
 # both round g3, g2 and ge to bf16 at the same points, so a summation-order
 # difference that flips one rounding moves that element by one bf16 ulp
 # (2^-8 relative), which reaches the products it feeds.
@@ -354,10 +386,7 @@ def message_backward_bound(case, dtype):
     inputs = es * (2 * b * l * d + e * ce + n_w) + 4 * e + (4 * e if mode != "none" else 0)
     cots = es * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum"))
     grads = es * (2 * b * l * d + e * ce + n_w)
-    flops = 2 * e * (3 * ce * d + 5 * d * d)
-    t_bytes = (inputs + cots + grads) / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return roofline(inputs + cots + grads, 2 * e * (3 * ce * d + 5 * d * d), dtype)
 
 
 def message_backward_phase(smi):
@@ -373,27 +402,33 @@ def message_backward_phase(smi):
             kw["gmsg"] = (torch.randn((b, l, k, d), generator=gen, device="cuda").to(dtype)
                           if want_msg else None)
             out = fm.fused_message_backward_kernel(**kw)
+            again = fm.fused_message_backward_kernel(**kw)
             torch.cuda.synchronize()
             ref = fm.fused_message_backward_reference(**kw)
             rel = {n: ((a.float() - r.float()).abs().max()
                        / r.float().abs().max().clamp_min(1e-30)).item()
                    for n, a, r in zip(GRAD_NAMES, out, ref)}
             finite = all(bool(torch.isfinite(a).all()) for a in out)
-            bound, bound_by = message_backward_bound(case, dtype)
+            # the weight gradients are summed in a fixed order: equal bits on every run
+            same = all(torch.equal(a, b) for a, b in zip(out[3:], again[3:]))
+            bound, bound_by, bound_67 = message_backward_bound(case, dtype)
+            times = timed_in_turns({
+                "ms": lambda: fm.fused_message_backward_kernel(**kw),
+                "plain_ms": lambda: fm.fused_message_backward_reference(**kw)})
             row = dict(max_rel_err=max(rel.values()), rtol=MSG_BWD_RTOL[dtype],
                        max_abs_err=max((a.float() - r.float()).abs().max().item()
                                        for a, r in zip(out, ref)),
-                       rel_err=rel,
-                       ms=cuda_ms(lambda: fm.fused_message_backward_kernel(**kw)),
-                       plain_ms=cuda_ms(lambda: fm.fused_message_backward_reference(**kw)),
-                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+                       rel_err=rel, weight_grads_bitwise_equal_over_two_launches=same,
+                       **times, bound_ms=bound, bound_by=bound_by, bound_ms_67=bound_67,
+                       library_ms=None)
             rows[(case, dtype)] = row
             log(f"[kernel] fused_message_bwd {case[0]} {case[1]}/{case[2]} "
                 f"{str(dtype)[6:]} ({smi}): " + json.dumps(row))
-            if not (finite and row["max_rel_err"] <= MSG_BWD_RTOL[dtype]):
+            if not (finite and same and row["max_rel_err"] <= MSG_BWD_RTOL[dtype]):
                 raise AssertionError(f"fused_message_bwd {case} {dtype}: relative "
                                      f"errors {rel} (rtol {MSG_BWD_RTOL[dtype]}), "
-                                     f"finite {finite}")
+                                     f"finite {finite}, weight gradients equal over "
+                                     f"two launches {same}")
     # autograd: kernel forward + kernel backward against plain autograd
     case = MSG_CASES[2]
     kw = message_inputs(case, torch.float32, gen)
@@ -419,7 +454,8 @@ def message_backward_phase(smi):
 
 
 # kernel families of the profile summary, matched in order on kernel names
-PROFILE_GROUPS = (("K2b fused_message_bwd", ("fused_message_bwd", "sum_partials")),
+PROFILE_GROUPS = (("K2b fused_message_bwd", ("fused_message_bwd", "fused_message_wgrad",
+                                             "sum_grads", "sum_bias")),
                   ("K2a fused_message_fwd", ("fused_message_fwd",)),
                   ("K1 flash_attention", ("attention_fwd",)),
                   ("GEMM (cuBLAS/CUTLASS)", ("gemm", "Kernel2", "nvjet")),

@@ -12,14 +12,14 @@ and returns dh = sum_k msg / scale and/or msg. K2b replaces `_bwd_kernel`
 (reed_tpu/ops/fused_message.py:152, launched by `_fused_bwd`): it recomputes
 the chain per tile and returns the gradients of pre_self, e_feat, nbr_src
 and the five weights, as reed_tpu's custom VJP does from the saved inputs.
-Both are `csrc/fused_message.cu`: one block per two nodes (all K = 30 edges
-of each, so the K-sum stays in the block), the neighbour gather an indexed
-row load, the products on the CUDA cores in f32 with each weight streamed
-through shared memory in chunks. The backward's scatter into nbr_src is an
-atomic add, and its weight gradients are per-block partials summed by a
-second kernel in a fixed order. On the H100 at ProteinMPNN's shapes (D =
-128, Ce = 128 in EncLayer and 256 in DecLayer) the f32 chain is bound by
-operations; the measured times beside the bounds are in PERF.md
+Both are `csrc/fused_message.cu`, one tensor-core tile engine for Hopper:
+tiles of 64 edge rows (whole nodes, so the K-sum stays in the block), every
+product on the tensor cores with mma.sync (f32 as three TF32 products a
+piece, hi.hi + hi.lo + lo.hi, which keeps f32 accuracy; bf16 as one bf16
+product), weights streamed through a cp.async ring. The backward's scatter
+into nbr_src is an atomic add; its weight gradients are long TN products
+of the operands the tile kernel writes, over fixed row ranges summed in a
+fixed order. The measured times beside the bounds are in PERF.md
 (chip_smoke.py).
 
 A CUDA tensor launches the kernels or raises: `fused_message_mlp` is a
@@ -46,8 +46,8 @@ launches = 0
 backward_launches = 0
 
 MASK_MODES = {"none": 0, "pre": 1, "post": 2}
-_MAX_D = 128   # one output column quad per lane (csrc/fused_message.cu)
-_MAX_K = 64    # edge rows of one block
+_MAX_D = 128   # one 128-column pass of a product's output (csrc/fused_message.cu)
+_TILE_ROWS = 64  # edge rows of a tile: K may not exceed it
 
 
 def fused_message_reference(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3,
@@ -138,23 +138,85 @@ def fused_message_backward_reference(pre_self, e_feat, nbr_src, e_idx, w_e, w2,
     return tuple(g.to(t.dtype) for g, t in zip(grads, like))
 
 
-@functools.cache
-def _kernel():
-    lib = _build.load("fused_message")
+def round_to_tf32(x):
+    """x (f32) rounded to TF32 as the kernels' `cvt.rna.tf32.f32` does: to
+    the nearest value with 10 mantissa bits, ties away from zero, returned
+    as f32. The kernels split each f32 operand into hi = round_to_tf32(x)
+    and lo = round_to_tf32(x - hi) and sum three tensor-core products (lo.hi
+    + hi.lo + hi.hi); the tests emulate that with this helper to state the
+    tolerance the f32 kernels are held to."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def bind(lib):
+    """Declare the C interface of a library built from csrc/fused_message.cu."""
     fn = lib.reed_fused_message_fwd
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.reed_fused_message_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.reed_fused_message_bwd_blocks
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn = lib.reed_fused_message_bwd_workspace
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    fn = lib.reed_fused_message_info
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     lib.reed_cuda_error_string.argtypes = [ctypes.c_int]
     lib.reed_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _kernel():
+    return bind(_build.load("fused_message"))
+
+
+KERNEL_NAMES = ("fused_message_fwd_kernel", "fused_message_bwd_kernel",
+                "fused_message_wgrad_kernel")
+
+
+def kernel_info(dtype, which, lib=None):
+    """(shared memory bytes of one block, blocks per SM, tile rows) of kernel
+    KERNEL_NAMES[which] for dtype (f32 or bf16) on the current card."""
+    lib = lib or _kernel()
+    smem, blocks, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.reed_fused_message_info(int(dtype == torch.bfloat16), int(which),
+                                      ctypes.byref(smem), ctypes.byref(blocks),
+                                      ctypes.byref(rows))
+    if err:
+        raise RuntimeError(lib.reed_cuda_error_string(err).decode())
+    return smem.value, blocks.value, rows.value
+
+
+def check_engine_shape(k, d, ce):
+    """Raise ValueError naming the cause unless the tile engine takes K
+    neighbours, width D and edge width Ce: D a multiple of 16 (bf16 products
+    reduce 16 at a time) and at most 128 (one 128-column pass of output), Ce
+    a multiple of 8 (rows are copied in 16-byte pieces) and K at most a
+    tile's _TILE_ROWS = 64 edge rows (a node's K-sum stays in one block)."""
+    if d > _MAX_D or d < 16 or d % 16:
+        raise ValueError(f"fused message kernel: D = {d} must be a multiple of 16 "
+                         f"in [16, {_MAX_D}]")
+    if ce < 8 or ce % 8:
+        raise ValueError(f"fused message kernel: Ce = {ce} must be a positive "
+                         "multiple of 8 (16-byte copies)")
+    if k < 1 or k > _TILE_ROWS:
+        raise ValueError(f"fused message kernel: K = {k} must be in [1, "
+                         f"{_TILE_ROWS}], the edge rows of a tile")
+
+
+def _check_aligned(named):
+    """The kernels copy rows in 16-byte pieces from each float tensor's base."""
+    bad = [n for n, t in named.items() if t is not None and t.data_ptr() % 16]
+    if bad:
+        raise ValueError("fused message kernel: base address not 16-byte aligned: "
+                         + ", ".join(bad))
 
 
 def _check(pre_self, e_feat, nbr_src, e_idx, mask, weights):
@@ -184,27 +246,28 @@ def _check(pre_self, e_feat, nbr_src, e_idx, mask, weights):
     if bad:
         raise ValueError(f"fused message kernel: shapes {bad}, want "
                          f"{ {n: want[n] for n in bad} }")
-    if d > _MAX_D or k > _MAX_K:
-        raise ValueError(f"fused message kernel takes D <= {_MAX_D} and "
-                         f"K <= {_MAX_K}, got D = {d}, K = {k}")
+    check_engine_shape(k, d, ce)
 
 
-def fused_message_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
-                         mask=None, mask_mode: str = "post", scale: float = 30.0,
-                         want_sum: bool = True, want_msg: bool = False):
-    """Launch the CUDA kernel on the current stream. Inputs are made
-    contiguous (a copy only for strided views, such as the weight slices of
-    the first dense); e_idx is taken as int32 and mask as f32."""
-    global launches
+def launch(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3, mask=None,
+           mask_mode: str = "post", scale: float = 30.0, want_sum: bool = True,
+           want_msg: bool = False, lib=None):
+    """Launch K2a on the current stream and return (dh or None, msg or
+    None); counts nothing. `lib`: a library bound by `bind` (default: the
+    built one). Inputs are made contiguous (a copy only for strided views,
+    such as the weight slices of the first dense); e_idx is taken as int32
+    and mask as f32."""
     weights = (w_e, w2, b2, w3, b3)
     _check(pre_self, e_feat, nbr_src, e_idx, mask, weights)
-    lib = _kernel()
+    lib = lib or _kernel()
     b, l, k, ce = e_feat.shape
     d = pre_self.shape[-1]
     args = [t.contiguous() for t in (pre_self, e_feat, nbr_src)]
     idx = e_idx.to(torch.int32).contiguous()
     m = mask.float().contiguous() if mask is not None else None
     ws = [t.contiguous() for t in weights]
+    _check_aligned(dict(zip(("pre_self", "e_feat", "nbr_src", "w_e", "w2", "b2", "w3",
+                             "b3"), args + ws)))
     dh = (torch.empty((b, l, d), dtype=e_feat.dtype, device=e_feat.device)
           if want_sum else None)
     msg = (torch.empty((b, l, k, d), dtype=e_feat.dtype, device=e_feat.device)
@@ -222,18 +285,28 @@ def fused_message_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
     if err:
         raise RuntimeError("fused message kernel launch failed: "
                            + lib.reed_cuda_error_string(err).decode())
-    launches += 1
     return dh, msg
 
 
-def fused_message_backward_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2,
-                                  w3, b3, gdh, gmsg, mask=None,
-                                  mask_mode: str = "post", scale: float = 30.0):
-    """Launch the backward kernel K2b (and its fixed-order sum of the weight
-    gradients) on the current stream; the arguments and results of
-    `fused_message_backward_reference`. d nbr_src is summed with atomic adds
-    in f32, so its last bits vary from run to run."""
-    global backward_launches
+def fused_message_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3,
+                         mask=None, mask_mode: str = "post", scale: float = 30.0,
+                         want_sum: bool = True, want_msg: bool = False):
+    """Launch K2a on the current stream (see `launch`) and count it."""
+    global launches
+    out = launch(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3, mask=mask,
+                 mask_mode=mask_mode, scale=scale, want_sum=want_sum, want_msg=want_msg)
+    launches += 1
+    return out
+
+
+def launch_backward(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3, gdh, gmsg,
+                    mask=None, mask_mode: str = "post", scale: float = 30.0, lib=None):
+    """Launch K2b (and its fixed-order sum of the weight gradients) on the
+    current stream; the arguments and results of
+    `fused_message_backward_reference`; counts nothing. `lib`: a library
+    bound by `bind` (default: the built one). d nbr_src is summed with atomic
+    adds in f32, so its last bits vary from run to run; the weight gradients
+    are the same on every run."""
     weights = (w_e, w2, b2, w3, b3)
     _check(pre_self, e_feat, nbr_src, e_idx, mask, weights)
     b, l, k, ce = e_feat.shape
@@ -244,13 +317,15 @@ def fused_message_backward_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2,
                               or tuple(g.shape) != shape):
             raise ValueError(f"fused message backward: {name} must be a CUDA "
                              f"tensor of shape {shape} on {e_feat.device}")
-    lib = _kernel()
+    lib = lib or _kernel()
     dt, dev = e_feat.dtype, e_feat.device
     args = [t.contiguous() for t in (pre_self, e_feat, nbr_src)]
     idx = e_idx.to(torch.int32).contiguous()
     m = mask.float().contiguous() if mask is not None else None
     ws = [t.contiguous() for t in (w_e, w2, b2, w3)]
     gs = [g.to(dt).contiguous() if g is not None else None for g in (gdh, gmsg)]
+    _check_aligned(dict(zip(("pre_self", "e_feat", "nbr_src", "w_e", "w2", "b2", "w3",
+                             "gdh", "gmsg"), args + ws + gs)))
     n_w = ce * d + 2 * d * d + 2 * d
     d_pre_self = torch.empty((b, l, d), dtype=dt, device=dev)
     d_e_feat = torch.empty((b, l, k, ce), dtype=dt, device=dev)
@@ -262,23 +337,37 @@ def fused_message_backward_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2,
 
     is_bf16 = int(dt == torch.bfloat16)
     with torch.cuda.device(dev):
-        blocks = ctypes.c_int(0)
-        err = lib.reed_fused_message_bwd_blocks(is_bf16, b, l, k, ctypes.byref(blocks))
+        nbytes = ctypes.c_longlong(0)
+        err = lib.reed_fused_message_bwd_workspace(is_bf16, b, l, k, d, ce,
+                                                   ctypes.byref(nbytes))
         if not err:
-            workspace = torch.empty((blocks.value, n_w), dtype=torch.float32, device=dev)
+            # the rounded product operands of the weight gradients and the
+            # per-range and per-tile partial sums (the caching allocator
+            # hands out 512-byte aligned blocks)
+            workspace = torch.empty((max(nbytes.value, 1),), dtype=torch.uint8, device=dev)
             err = lib.reed_fused_message_bwd(
                 *(ptr(t) for t in args), ptr(idx), ptr(m), *(ptr(t) for t in ws),
                 *(ptr(g) for g in gs), ptr(d_pre_self), ptr(d_e_feat), ptr(d_nbr_src),
-                ptr(d_weights), ptr(workspace), blocks.value, is_bf16, b, l, k, d, ce,
+                ptr(d_weights), ptr(workspace), nbytes.value, is_bf16, b, l, k, d, ce,
                 MASK_MODES[mask_mode], float(scale), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("fused message backward kernel launch failed: "
                            + lib.reed_cuda_error_string(err).decode())
-    backward_launches += 1
     d_we, d_w2, d_b2, d_w3, d_b3 = torch.split(d_weights, [ce * d, d * d, d, d * d, d])
     return (d_pre_self, d_e_feat, d_nbr_src.to(nbr_src.dtype),
             d_we.view(ce, d).to(w_e.dtype), d_w2.view(d, d).to(w2.dtype),
             d_b2.to(b2.dtype), d_w3.view(d, d).to(w3.dtype), d_b3.to(b3.dtype))
+
+
+def fused_message_backward_kernel(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2,
+                                  w3, b3, gdh, gmsg, mask=None,
+                                  mask_mode: str = "post", scale: float = 30.0):
+    """Launch K2b on the current stream (see `launch_backward`) and count it."""
+    global backward_launches
+    out = launch_backward(pre_self, e_feat, nbr_src, e_idx, w_e, w2, b2, w3, b3, gdh,
+                          gmsg, mask=mask, mask_mode=mask_mode, scale=scale)
+    backward_launches += 1
+    return out
 
 
 class _FusedMessage(torch.autograd.Function):
