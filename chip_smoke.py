@@ -8,9 +8,10 @@ no result):
   2. build: every kernel under reed_tpu_torch/csrc/, one nvcc each, together;
      ptxas registers, stack and spills of each kernel.
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the shapes the main paths give it (and a few more), with stated
-     tolerances; kernel, plain and library (yardstick only) times, taken in
-     turns, and the least time the card could take for the same work
+     the shapes the main paths give it (and a few more; K1 f32 also at an
+     odd head dim, an unaligned base and D = 128), with stated tolerances;
+     kernel, plain and library (yardstick only) times, taken in turns, and
+     the least time the card could take for the same work
      (bound_ms; f32 at the 3xTF32 tensor-core rate, with bound_ms_67 at the
      CUDA-core rate beside it). K1 in bf16 also on SiT's strided q/k/v
      views of one [B, S, 3, H, D] tensor; each kernel's shared memory and
@@ -19,10 +20,11 @@ no result):
      (nonzero adaLN and final layer, so attention reaches the output): one
      model call through the kernel against the same call with plain
      attention, in f32 and bf16; times and a torch.profiler breakdown of a
-     bf16 model call; then its main path, `generate_samples`
-     (SDE with CFG inside a guidance window), with every kernel's launch
-     count set to 0 just before it and read just after, and its samples
-     against a run with plain attention.
+     model call in bf16 and in f32 (K1 f32 on 3xTF32); then its main path,
+     `generate_samples` (SDE with CFG inside a guidance window), in bf16 and
+     again in f32 (`generate-image --dtype float32`), each with every
+     kernel's launch count set to 0 just before it and read just after, and
+     its samples against a run with plain attention.
   5. protein slice: ProteinMPNN-FMIF at full width (the default
      ProteinTrainConfig) with seeded weights (nonzero node_embeds and
      LayerNorms): one forward with the message chains through the kernel
@@ -41,8 +43,11 @@ no result):
      step), ms per step and residues/s, a torch.profiler breakdown of one
      step; a learning check on the convergence gate's rule data (its CE
      must fall as the JAX run's did); and `train-protein --steps 3
-     --synthetic` through the CLI.
-  7. output: a {"kernels": [...]} line, the nvidia-smi line, and last the
+     --synthetic` through the CLI. Then `eval-protein` and `train-protein`
+     at hidden 100 and 256, widths the kernels refuse: `--fused-messages
+     auto` runs them unfused, `on` raises.
+  7. output: a {"kernels": [...]} line (K1 twice: bf16 on the bf16 path,
+     f32 on the f32 one), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
@@ -50,9 +55,11 @@ K2b (the backward kernel) is held against its plain backward in phase 3.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -78,11 +85,9 @@ from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
 # type. f32: the least time the card can take for f32-accurate products is
 # on the tensor cores as 3xTF32, three TF32 products a piece (hi.hi + hi.lo
-# + lo.hi, which keeps f32 accuracy) at 495 TFLOP/s, so 495 / 3; the f32
-# fused message kernels run so. The same work has the same bound whatever
-# implements it, so K1's f32 bound is taken at that rate too. The bound at
-# the f32 rate outside the tensor cores (67 TFLOP/s) is reported beside it
-# as bound_ms_67.
+# + lo.hi, which keeps f32 accuracy) at 495 TFLOP/s, so 495 / 3; every f32
+# kernel here (K1, K2a, K2b) runs so. The bound at the f32 rate outside the
+# tensor cores (67 TFLOP/s) is reported beside it as bound_ms_67.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 F32_CUDA_CORES_FLOPS = 67e12
@@ -101,8 +106,10 @@ ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 # the output's max: f32 differs by summation order only; in bf16 the
 # attention outputs differ by ~1 ulp and that propagates through 28 blocks
 SIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# generated latents after 8 SDE steps, kernel vs plain attention (bf16)
-GEN_RTOL = 5e-2
+# generated latents after 8 SDE steps, kernel vs plain attention, relative
+# to their max: f32 differs by summation order and 3xTF32 rounding (~1e-6
+# a call); bf16 by ~1 ulp a call, carried through 8 steps
+GEN_RTOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
 MAIN_SHAPE = (16, 256, 16, 72)  # SiT-XL/2, batch 8 doubled by CFG
 ATTN_SHAPES = [
@@ -251,6 +258,8 @@ def attention_case(label, q, k, v, smi):
     bound, bound_by, bound_67 = attention_bound(tuple(q.shape), dtype)
     row = dict(max_abs_err=err, atol=ATTN_ATOL[dtype],
                max_abs_ref=ref.float().abs().max().item(), **times,
+               faster_than_plain_and_library=times["ms"] < min(times["plain_ms"],
+                                                               times["library_ms"]),
                bound_ms=bound, bound_by=bound_by, bound_ms_67=bound_67)
     log(f"[kernel] flash_attention {label} {str(dtype)[6:]} vs {plain.__name__} "
         f"({smi}): " + json.dumps(row))
@@ -258,6 +267,25 @@ def attention_case(label, q, k, v, smi):
         raise AssertionError(f"flash_attention {label} {dtype}: max abs err "
                              f"{err} > {ATTN_ATOL[dtype]}")
     return row
+
+
+def f32_layout_phase(gen):
+    """K1 f32 on layouts the checked shapes do not reach: an odd head dim and
+    a base 4 bytes past 16-byte alignment (4-byte copies, scalar stores),
+    and D = 128 (Q's fragments re-read from shared memory)."""
+    def qkv(d, offset=0):
+        return [torch.randn(2 * 100 * 3 * d + offset, generator=gen, device="cuda")[offset:]
+                .view(2, 100, 3, d) for _ in range(3)]
+
+    for label, (q, k, v) in (("D 70", qkv(70)), ("D 72, base + 4 bytes", qkv(72, 1)),
+                             ("D 128", qkv(128))):
+        out = fa.flash_attention_kernel(q, k, v)
+        torch.cuda.synchronize()
+        err = (out - fa.sdpa_reference(q, k, v)).abs().max().item()
+        log(f"[kernel] flash_attention f32 (2, 100, 3, {q.shape[-1]}) {label}: max abs err "
+            f"{err:.3g} (atol {ATTN_ATOL[torch.float32]})")
+        if not err <= ATTN_ATOL[torch.float32]:
+            raise AssertionError(f"flash_attention f32 {label}: max abs err {err}")
 
 
 def kernel_phase(smi):
@@ -274,6 +302,7 @@ def kernel_phase(smi):
     qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
     q, k, v = qkv.unbind(2)
     attention_case(f"{MAIN_SHAPE} qkv[:, :, i] views", q, k, v, smi)
+    f32_layout_phase(gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     log("[kernel] flash_attention host time per call (launch cost, us): " + json.dumps({
         "flash_attention_kernel": host_us(lambda: fa.flash_attention_kernel(q, k, v)),
@@ -752,13 +781,30 @@ def slice_phase(smi):
 
     for batch in (GEN["batch_size"], 2 * GEN["batch_size"]):
         xb, tb, yb = sit_inputs(batch, gen)
-        ms = cuda_ms(lambda: model(xb, tb, yb), iters=10, warmup=2, queued=False)
-        # few calls: ~450 launches each must fit in the device's launch queue
-        device_ms = cuda_ms(lambda: model(xb, tb, yb), iters=2, warmup=2)
-        log(f"[slice] SiT-XL/2 bf16 model call at batch {batch}: {ms:.3f} ms back to "
-            f"back, {device_ms:.3f} ms of device time (calls queued ahead) ({smi})")
+        sit_call_times(model, xb, tb, yb, "bf16", smi)
     profile(f"SiT-XL/2 bf16 model call at batch {xb.shape[0]}", lambda: model(xb, tb, yb), smi)
+    launches = generate_phase(model, torch.bfloat16, smi)
 
+    # the same path in f32 (generate-image --dtype float32): K1 on 3xTF32
+    model.float()
+    xb, tb, yb = sit_inputs(2 * GEN["batch_size"], gen)
+    sit_call_times(model, xb, tb, yb, "f32", smi)
+    profile(f"SiT-XL/2 f32 model call at batch {xb.shape[0]}", lambda: model(xb, tb, yb), smi)
+    return launches, generate_phase(model, torch.float32, smi)
+
+
+def sit_call_times(model, x, t, y, label, smi):
+    ms = cuda_ms(lambda: model(x, t, y), iters=10, warmup=2, queued=False)
+    # few calls: ~450 launches each must fit in the device's launch queue
+    device_ms = cuda_ms(lambda: model(x, t, y), iters=2, warmup=2)
+    log(f"[slice] SiT-XL/2 {label} model call at batch {x.shape[0]}: {ms:.3f} ms back to "
+        f"back, {device_ms:.3f} ms of device time (calls queued ahead) ({smi})")
+
+
+def generate_phase(model, dtype, smi):
+    """The image main path in `dtype`: generate_samples with the launch
+    counts set to 0 just before it and read just after, its samples against
+    a run with plain attention. Returns K1's launches."""
     calls = 0
 
     def model_fn(xx, tt, yy):
@@ -767,6 +813,7 @@ def slice_phase(smi):
         return model(xx, tt, yy)[0]
 
     cfg = FIDGenConfig(**GEN)
+    label = str(dtype)[6:]
     torch.cuda.synchronize()
     fa.launches = fm.launches = 0
     t0 = time.perf_counter()
@@ -774,7 +821,7 @@ def slice_phase(smi):
     seconds = time.perf_counter() - t0
     launches = fa.launches
     expect_calls = cfg.num_steps * (cfg.num_samples // cfg.batch_size)
-    log(f"[slice] generate_samples: {samples.shape[0]} samples, {calls} model "
+    log(f"[slice] generate_samples {label}: {samples.shape[0]} samples, {calls} model "
         f"calls, {launches} flash_attention launches, {seconds:.3f} s incl. "
         f"first batch ({samples.shape[0] / seconds:.2f} imgs/s, "
         f"{1e3 * seconds / calls:.2f} ms per model call; {smi})")
@@ -789,11 +836,45 @@ def slice_phase(smi):
     ref = generate_samples(model_fn, cfg, device="cuda")
     model.attn_impl = "auto"
     rel = float(abs(samples - ref).max() / abs(ref).max())
-    log(f"[slice] generated latents, kernel vs plain attention: max abs err / "
-        f"max |ref| = {rel:.3g} (rtol {GEN_RTOL})")
-    if not rel <= GEN_RTOL:
-        raise AssertionError(f"generated latents rel err {rel}")
+    log(f"[slice] generated latents {label}, kernel vs plain attention: max abs err / "
+        f"max |ref| = {rel:.3g} (rtol {GEN_RTOL[dtype]})")
+    if not rel <= GEN_RTOL[dtype]:
+        raise AssertionError(f"generated latents {label} rel err {rel}")
     return launches
+
+
+def widths_phase():
+    """eval-protein and train-protein at hidden widths the fused message
+    kernels refuse (100: not a multiple of 16; 256: above 128): with
+    --fused-messages auto (the default) they run the unfused chain, as
+    reed_tpu's auto does; with on they raise, naming the cause."""
+    for hidden in (100, 256):
+        width = ["--set", f"hidden_dim={hidden}"]
+        evals = ["eval-protein", "--batch-size", "2", "--length", "64", "--num-steps", "5",
+                 *width]
+        train = ["train-protein", "--steps", "2", "--synthetic", "--batch-size", "2",
+                 "--log-every", "1", "--set", "max_len=64", *width]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(evals)
+            state = cli.main(train)
+        text = out.getvalue()
+        refused = []
+        for argv in (evals + ["--fused-messages", "on"], train + ["--set", "fused_messages=on"]):
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(argv)
+            except ValueError as e:
+                refused.append(str(e))
+        ok = ("fused=False" in text and '"sequence_recovery"' in text and state.step == 2
+              and not state.model.fused and len(refused) == 2)
+        log(f"[widths] hidden {hidden}, fused_messages auto: eval-protein "
+            f"{'ran unfused' if 'fused=False' in text else 'did not run unfused'}, "
+            f"train-protein {state.step} steps (fused={state.model.fused}, last loss "
+            f"{text.split('[step 2]')[-1].strip()[:60]}); on refused {len(refused)} of 2: "
+            f"{refused[:1]}")
+        if not ok:
+            raise AssertionError(f"hidden {hidden}: auto/on did not resolve by width:\n{text}")
 
 
 def kernel_entry(name, replaces, row, launches, source=None):
@@ -810,12 +891,16 @@ def main():
     attn_rows = kernel_phase(smi)
     msg_rows = message_kernel_phase(smi)
     bwd_rows = message_backward_phase(smi)
-    attn_launches = slice_phase(smi)
+    attn_launches, attn_f32_launches = slice_phase(smi)
     msg_launches = protein_phase(smi)
     bwd_launches = train_phase(smi)
+    widths_phase()
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
+        kernel_entry("flash_attention_f32", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(MAIN_SHAPE, torch.float32)], attn_f32_launches,
+                     source="flash_attention"),
         kernel_entry("fused_message", "reed_tpu/ops/fused_message.py:132",
                      msg_rows[(MSG_MAIN, torch.float32)], msg_launches),
         kernel_entry("fused_message_bwd", "reed_tpu/ops/fused_message.py:152",

@@ -302,7 +302,8 @@ def main(argv=None):
                    help="cuda (default) or cpu; no silent fallback")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fused-messages", default="auto", choices=["auto", "on", "off"],
-                   help="message chains through the fused kernel (auto: on)")
+                   help="message chains through the fused kernels (auto: where "
+                        "they take the widths, else unfused)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="KEY=VALUE",
                    help="ProteinTrainConfig override, e.g. hidden_dim=64")

@@ -45,9 +45,39 @@
 // Each block re-reads K and V of its (b, h) from L2, S/128 blocks per
 // (b, h).
 //
-// f32: the first version's kernel on the CUDA cores (f32 FMA, no TF32), one
-// block of 4 warps per (b*h, 32 queries), K and V through shared memory in
-// 64-key tiles.
+// f32: both products on the tensor cores as 3xTF32 (mma.sync.m16n8k8, TF32
+// in, f32 accumulate). Each operand word x is split into hi = x rounded to
+// TF32 (cvt.rna's rounding in two integer operations) and lo = x - hi, which
+// the tensor core reads as TF32, and every product is lo.hi + hi.lo + hi.hi:
+// f32 accuracy (one TF32 product keeps ~3 digits, too few for the f32
+// tolerance), at a third of the TF32 rate. Q, K, P and V are all split.
+// One block of 4 warps per (b*h, 64 queries); each warp owns one m16 tile
+// whose Q hi/lo fragments stay in registers up to D = 96 and are re-read
+// from shared memory above (ldmatrix on 32-bit words gives the TF32 A
+// fragment). K and V stream through the same two-stage 64-key
+// cp.async ring as bf16 (16-byte copies where D % 4 == 0 and every base
+// and stride allows, 4-byte copies otherwise, so any D <= 128 is taken).
+// S = Q K^T reduces over D rounded up to 8 (zeros in shared memory); the
+// online softmax is bf16's, with p kept in f32. The S accumulator gives a
+// thread keys 2t and 2t + 1 of each 8-key slice where the TF32 A fragment
+// wants keys t and t + 4, so P V reads its keys in the permuted order
+// (logical t -> key 2t, t + 4 -> key 2t + 1): P goes from the accumulators
+// into the A operand with no shuffle, and V's B fragment is read from rows
+// 2t and 2t + 1. Rows of shared memory are D rounded to 4 words, plus 4 if
+// that is a multiple of 8: an odd number of 16-byte chunks, so K's ldmatrix
+// rows and V's (2t, g) words are conflict-free.
+// What bounds it: 3xTF32 runs at 495 / 3 = 165 TF/s, so attention at S =
+// 256 (S/4 = 64 flops per f32 byte, above the 49 where 165 TF/s meets 3.35
+// TB/s) is bound by operations, and more so at S = 1024. Measured on the
+// H100 (tools/attention_variants.py, PERF.md): 28 % of that bound at
+// SiT-XL/2's shape, 1.9x faster than SDPA; Q in registers ties Q re-read
+// from shared memory, and a third block an SM gains nothing, so occupancy
+// is not the limit; two m16 tiles a warp, which share each K and V
+// fragment and its split, are 11 % faster at S >= 256 and slower on small
+// grids: the instructions beside each mma (fragment loads, splits) are.
+// 32-key tiles, 8 warps and a third ring stage are slower. The old
+// CUDA-core kernel (f32 FMA, 32 queries a block, 4.8x slower) stays below
+// as the compile-time variant kF32TensorCores = false.
 //
 // The bf16 kernel takes D % 8 == 0, D <= 128, 16-byte aligned base
 // pointers and strides that are multiples of 8 elements; the f32 kernel any
@@ -444,7 +474,363 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr bool kF32TensorCores = true;  // false: the CUDA-core kernel further down
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = kF32Warps * 32;
+constexpr int kF32RowTiles = 1;    // m16 tiles a warp
+constexpr bool kF32QInRegs = true; // Q's hi/lo fragments held, not re-read each k-step
+constexpr int kF32BlockN = 64;     // keys per shared-memory tile
+constexpr int kF32Stages = 2;      // K/V ring depth
+constexpr int kF32MinBlocks = 2;   // blocks per SM the register budget is cut for
+
+// 4-byte global -> shared copy; src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// d += a b: a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32, in two full-rate integer operations where cvt is a
+// quarter-rate conversion), lo = x - hi is exact in f32 and the tensor core
+// reads it as TF32 by dropping its low 13 bits. The same split as
+// csrc/fused_message.cu's Tf32x3::split.
+__device__ __forceinline__ void split_tf32(uint32_t w, uint32_t& hi, uint32_t& lo) {
+  hi = (w + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(w) - __uint_as_float(hi));
+}
+
+// pass 0: lo.hi, 1: hi.lo, 2: hi.hi (the small terms first); callers run
+// one pass over all their tiles before the next, so no mma waits on the last
+__device__ __forceinline__ void mma_3xtf32(int pass, float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  if (pass == 0) mma_tf32(d, al, bh[0], bh[1]);
+  if (pass == 1) mma_tf32(d, ah, bl[0], bl[1]);
+  if (pass == 2) mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// Copies rows [row0, row0 + kRows) of a [S, D] f32 view (row stride `ld`)
+// into shared memory rows of pitch kPitch, columns [0, kDP); rows at or past
+// S and columns at or past D are zero-filled. vec: 16-byte copies (D % 4 ==
+// 0, 16-byte aligned base and row stride), else 4-byte copies.
+template <int kRows, int kDP, int kPitch>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long ld,
+                                              int row0, int S, int D, bool vec, int tid) {
+  if (vec) {
+    constexpr int kChunks = kDP / 4;
+#pragma unroll 4
+    for (int i = tid; i < kRows * kChunks; i += kF32Threads) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      const bool in = row0 + r < S && 4 * c < D;
+      cp_async_16(dst + r * kPitch + 4 * c, in ? src + (long long)(row0 + r) * ld + 4 * c : src,
+                  in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < kRows * kDP; i += kF32Threads) {
+      const int r = i / kDP;
+      const int c = i - r * kDP;
+      const bool in = row0 + r < S && c < D;
+      cp_async_4(dst + r * kPitch + c, in ? src + (long long)(row0 + r) * ld + c : src,
+                 in ? 4 : 0);
+    }
+  }
+}
+
+template <int kDP>
+struct F32Shape {
+  static constexpr int kBlockM = kF32Warps * 16 * kF32RowTiles;  // queries per block
+  // Q's fragments take 2 * kDP registers: above D = 96 they would spill
+  static constexpr bool kQInRegs = kF32QInRegs && kDP <= 96;
+  // row pitch (words): D rounded to 4, an odd number of 16-byte chunks
+  static constexpr int kPitch = ((kDP / 4) | 1) * 4;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (size_t)(kBlockM + 2 * kF32Stages * kF32BlockN) * kPitch;
+};
+
+// kDP: D rounded up to 8, the reduction depth of Q K^T and the width of P V
+template <int kDP>
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
+    attention_fwd_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                          int D, bool vec, Strides qs, Strides ks, Strides vs, Strides os,
+                          float scale_log2) {
+  using Shape = F32Shape<kDP>;
+  constexpr int kMT = kF32RowTiles;
+  constexpr int kBlockM = Shape::kBlockM;
+  constexpr int kP = Shape::kPitch;
+  constexpr int kDSteps = kDP / 8;       // k8 steps of Q K^T, n8 tiles of P V
+  constexpr int kKeySteps = kF32BlockN / 8;  // n8 tiles of Q K^T, k8 steps of P V
+
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [kBlockM][kP]
+  float* Ks = Qs + kBlockM * kP;                  // [kF32Stages][kF32BlockN][kP]
+  float* Vs = Ks + kF32Stages * kF32BlockN * kP;  // [kF32Stages][kF32BlockN][kP]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int q0 = blockIdx.y * kBlockM;
+  const int n_tiles = (S + kF32BlockN - 1) / kF32BlockN;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* ob = o + b * os.b + h * os.h;
+
+  // one commit group for Q, then one per ring stage but the last
+  load_rows_f32<kBlockM, kDP, kP>(Qs, qb, qs.s, q0, S, D, vec, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kF32Stages - 1; ++st) {
+    if (st < n_tiles) {
+      load_rows_f32<kF32BlockN, kDP, kP>(Ks + st * kF32BlockN * kP, kb, ks.s, st * kF32BlockN,
+                                         S, D, vec, tid);
+      load_rows_f32<kF32BlockN, kDP, kP>(Vs + st * kF32BlockN * kP, vb, vs.s, st * kF32BlockN,
+                                         S, D, vec, tid);
+    }
+    cp_async_commit();
+  }
+
+  // the warp's rows: kMT m-tiles of 16 from row warp * 16 * kMT of the block
+  const float* Qw = Qs + warp * 16 * kMT * kP;
+  // ldmatrix row addresses of an A fragment (rows g, g + 8; words t, t + 4)
+  const float* qrow = Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * kP + (lane >> 4) * 4;
+  constexpr bool kQInRegs = Shape::kQInRegs;
+  uint32_t qh_all[kQInRegs ? kMT : 1][kQInRegs ? kDSteps : 1][4];
+  uint32_t ql_all[kQInRegs ? kMT : 1][kQInRegs ? kDSteps : 1][4];
+  if constexpr (kQInRegs) {
+    cp_async_wait<kF32Stages - 1>();  // the Q tile
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        uint32_t w[4];
+        ldmatrix_x4(w, qrow + 16 * mt * kP + 8 * kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(w[i], qh_all[mt][kk][i], ql_all[mt][kk][i]);
+      }
+  }
+
+  // This thread holds rows g and g + 8 of each m-tile: index 0 of each pair
+  // below is row g, index 1 row g + 8.
+  float acc[kMT][kDSteps][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int n = 0; n < kDSteps; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  float m_run[kMT][2], l_run[kMT][2];  // running max (log2 domain); this thread's row sums
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    m_run[mt][0] = m_run[mt][1] = -CUDART_INF_F;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % kF32Stages;
+    const int ahead = j + kF32Stages - 1;  // the tile whose copies start now
+    if (ahead < n_tiles) {
+      const int st = ahead % kF32Stages;  // the stage tile j - 1 used
+      load_rows_f32<kF32BlockN, kDP, kP>(Ks + st * kF32BlockN * kP, kb, ks.s,
+                                         ahead * kF32BlockN, S, D, vec, tid);
+      load_rows_f32<kF32BlockN, kDP, kP>(Vs + st * kF32BlockN * kP, vb, vs.s,
+                                         ahead * kF32BlockN, S, D, vec, tid);
+    }
+    cp_async_commit();                // possibly empty: the group count stays fixed
+    cp_async_wait<kF32Stages - 1>();  // tile j (and Q) have landed
+    __syncthreads();
+    const float* Kt = Ks + stage * kF32BlockN * kP;
+    const float* Vt = Vs + stage * kF32BlockN * kP;
+
+    // s = Q K^T for the warp's rows and the tile's keys (n8 tiles)
+    float s[kMT][kKeySteps][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < kKeySteps; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+    {
+      // ldmatrix row addresses of B fragments of two key tiles: keys g
+      // (+ 8), words t, t + 4
+      const float* krow = Kt + ((lane & 7) + (lane >> 4) * 8) * kP + ((lane >> 3) & 1) * 4;
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        uint32_t qh[kMT][4], ql[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if constexpr (kQInRegs) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              qh[mt][i] = qh_all[mt][kk][i];
+              ql[mt][i] = ql_all[mt][kk][i];
+            }
+          } else {
+            uint32_t w[4];
+            ldmatrix_x4(w, qrow + 16 * mt * kP + 8 * kk);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split_tf32(w[i], qh[mt][i], ql[mt][i]);
+          }
+        }
+        uint32_t kh[kKeySteps][2], kl[kKeySteps][2];
+#pragma unroll
+        for (int np = 0; np < kKeySteps / 2; ++np) {
+          uint32_t w[4];  // b0, b1 of key tiles 2 np and 2 np + 1
+          ldmatrix_x4(w, krow + 16 * np * kP + 8 * kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(w[i], kh[2 * np + i / 2][i % 2], kl[2 * np + i / 2][i % 2]);
+        }
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int n = 0; n < kKeySteps; ++n)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) mma_3xtf32(pass, s[mt][n], qh[mt], ql[mt], kh[n], kl[n]);
+      }
+    }
+
+    const int k0 = j * kF32BlockN;
+    if (k0 + kF32BlockN > S) {  // the ragged last tile
+#pragma unroll
+      for (int n = 0; n < kKeySteps; ++n) {
+        const int key = k0 + 8 * n + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if (key >= S) s[mt][n][0] = s[mt][n][2] = -CUDART_INF_F;
+          if (key + 1 >= S) s[mt][n][1] = s[mt][n][3] = -CUDART_INF_F;
+        }
+      }
+    }
+
+    // online softmax; p (f32) replaces s
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int n = 0; n < kKeySteps; ++n) mx = fmaxf(mx, fmaxf(s[mt][n][2 * r], s[mt][n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[mt][r], mx * scale_log2);  // finite: a tile holds a key
+        const float alpha = fast_exp2(m_run[mt][r] - m_new);
+        m_run[mt][r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kKeySteps; ++n) {
+          const float p0 = fast_exp2(fmaf(s[mt][n][2 * r], scale_log2, -m_new));
+          const float p1 = fast_exp2(fmaf(s[mt][n][2 * r + 1], scale_log2, -m_new));
+          s[mt][n][2 * r] = p0;
+          s[mt][n][2 * r + 1] = p1;
+          sum += p0 + p1;
+        }
+        l_run[mt][r] = l_run[mt][r] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < kDSteps; ++n) {
+          acc[mt][n][2 * r] *= alpha;
+          acc[mt][n][2 * r + 1] *= alpha;
+        }
+      }
+    }
+
+    // acc += P V over the tile's 8-key slices, keys in the permuted order:
+    // A fragment word (row, t) is key 2t and (row, t + 4) key 2t + 1, which
+    // is where the S accumulator left them; V's B fragment reads the same
+    // keys, rows 2t and 2t + 1, column g of each n8 tile of dims
+    {
+      const float* vrow = Vt + 2 * t * kP + g;
+#pragma unroll
+      for (int kk = 0; kk < kKeySteps; ++kk) {
+        uint32_t ph[kMT][4], pl[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          split_tf32(__float_as_uint(s[mt][kk][0]), ph[mt][0], pl[mt][0]);  // (g, 2t)
+          split_tf32(__float_as_uint(s[mt][kk][2]), ph[mt][1], pl[mt][1]);  // (g + 8, 2t)
+          split_tf32(__float_as_uint(s[mt][kk][1]), ph[mt][2], pl[mt][2]);  // (g, 2t + 1)
+          split_tf32(__float_as_uint(s[mt][kk][3]), ph[mt][3], pl[mt][3]);  // (g + 8, 2t + 1)
+        }
+        uint32_t vh[kDSteps][2], vl[kDSteps][2];
+#pragma unroll
+        for (int n = 0; n < kDSteps; ++n) {
+          const float* p = vrow + 8 * kk * kP + 8 * n;
+          split_tf32(__float_as_uint(p[0]), vh[n][0], vl[n][0]);
+          split_tf32(__float_as_uint(p[kP]), vh[n][1], vl[n][1]);
+        }
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int n = 0; n < kDSteps; ++n)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) mma_3xtf32(pass, acc[mt][n], ph[mt], pl[mt], vh[n], vl[n]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by a later iteration's copies
+  }
+
+  // epilogue: divide by the row sums and store rows g and g + 8 of each
+  // m-tile; columns 2t, 2t + 1 of each n8 tile below D
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[mt][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / l;
+      const int row = q0 + warp * 16 * kMT + 16 * mt + g + 8 * r;
+      if (row >= S) continue;
+      float* orow = ob + (long long)row * os.s;
+#pragma unroll
+      for (int n = 0; n < kDSteps; ++n) {
+        const int col = 8 * n + 2 * t;
+        const float x0 = acc[mt][n][2 * r] * inv, x1 = acc[mt][n][2 * r + 1] * inv;
+        if (vec) {  // D % 4 == 0: both columns or neither
+          if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+        } else {
+          if (col < D) orow[col] = x0;
+          if (col + 1 < D) orow[col + 1] = x1;
+        }
+      }
+    }
+  }
+}
+
+template <int kDP>
+cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                           int H, int D, bool vec, Strides qs, Strides ks, Strides vs,
+                           Strides os, float scale, cudaStream_t stream) {
+  using Shape = F32Shape<kDP>;
+  constexpr size_t smem = Shape::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_f32_mma<kDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + Shape::kBlockM - 1) / Shape::kBlockM));
+  attention_fwd_f32_mma<kDP><<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, D, vec, qs, ks, vs, os, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+bool strides4(Strides st) { return st.b % 4 == 0 && st.s % 4 == 0 && st.h % 4 == 0; }
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores (the first kernel; the variant kF32TensorCores = false)
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -652,6 +1038,24 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+// 16-byte copies need D % 4 == 0 and every base and stride 16-byte aligned
+bool f32_vec(const void* q, const void* k, const void* v, const void* o, int D, Strides qs,
+             Strides ks, Strides vs, Strides os) {
+  return D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
+         strides4(qs) && strides4(ks) && strides4(vs) && strides4(os);
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                         int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale, cudaStream_t st) {
+  if (!kF32TensorCores) return launch_f32(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st);
+  const bool vec = f32_vec(q, k, v, o, D, qs, ks, vs, os);
+  return with_head_dim((D + 7) / 8 * 8, [&](auto d) {
+    return launch_f32_mma<decltype(d)::value>(q, k, v, o, B, S, H, D, vec, qs, ks, vs, os,
+                                              scale, st);
+  });
+}
+
 }  // namespace
 
 // Launches on `stream`, allocates nothing and does not synchronise. Returns
@@ -669,7 +1073,7 @@ extern "C" int reed_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? dispatch_bf16(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st)
-              : launch_f32(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st);
+              : dispatch_f32(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st);
   return (int)err;
 }
 
@@ -678,6 +1082,17 @@ extern "C" int reed_flash_attention_fwd(
 extern "C" int reed_flash_attention_info(int is_bf16, int D, int* smem_bytes,
                                          int* blocks_per_sm) {
   if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 && kF32TensorCores) {
+    return (int)with_head_dim((D + 7) / 8 * 8, [&](auto d) {
+      constexpr int kDP = decltype(d)::value;
+      *smem_bytes = (int)F32Shape<kDP>::kSmemBytes;
+      cudaError_t err = cudaFuncSetAttribute(
+          attention_fwd_f32_mma<kDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
+      if (err != cudaSuccess) return err;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, attention_fwd_f32_mma<kDP>, kF32Threads, *smem_bytes);
+    });
+  }
   if (!is_bf16) {
     *smem_bytes = (int)f32_smem_bytes(D);
     cudaError_t err = cudaFuncSetAttribute(

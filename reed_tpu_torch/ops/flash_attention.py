@@ -4,12 +4,14 @@ Replaces the TPU kernel `_attn_kernel` (reed_tpu/ops/flash_attention.py,
 launched by `_flash_forward`). The kernel is `csrc/flash_attention.cu`:
 one block per (query tile, batch*head), K and V streamed through shared
 memory with an online softmax in f32, output written once in the input
-dtype. In bf16 both products run on the tensor cores and p is rounded to
-bf16 where it enters the PV product, as in the TPU kernel; f32 runs on the
-CUDA cores (no TF32). On the H100, at SiT-XL/2's S = 256 in bf16, it is
-bound by bytes (q, k, v read once, o written once): S/2 = 128 flops per
-byte, below the card's ~295 flops/byte ridge. Its measured time beside
-that bound is in PERF.md (chip_smoke.py).
+dtype. Both products run on the tensor cores: in bf16, with p rounded to
+bf16 where it enters the PV product, as in the TPU kernel; in f32 as
+3xTF32 (each operand split into a TF32 hi and lo, three TF32 products a
+piece), which keeps f32 accuracy. On the H100, at SiT-XL/2's S = 256 in
+bf16, it is bound by bytes (q, k, v read once, o written once): S/2 = 128
+flops per byte, below the card's ~295 flops/byte ridge; in f32 by
+operations (3xTF32 at 165 TF/s). Its measured times beside those bounds
+are in PERF.md (chip_smoke.py).
 
 `flash_attention_reference` is the plain version at the kernel's rounding
 points; `sdpa_reference` is the counterpart of reed_tpu's `sdpa_xla`.
@@ -83,9 +85,11 @@ def check_layout(shape, dtype, strides, data_ptrs):
     """Raise ValueError naming the cause unless the kernel takes q, k, v of
     this [B, S, H, D] shape and dtype with these strides (one tuple per
     tensor, in elements) and base addresses (bytes). Both kernels need the
-    head dim contiguous and D <= 128; the bf16 (tensor-core) kernel reads
-    rows in 16-byte copies, so it also needs D % 8 == 0, 16-byte aligned
-    base addresses and B, S, H strides that are multiples of 8 elements."""
+    head dim contiguous and D <= 128. The bf16 kernel reads rows in 16-byte
+    copies, so it also needs D % 8 == 0, 16-byte aligned base addresses and
+    B, S, H strides that are multiples of 8 elements. The f32 kernel takes
+    any such layout: it copies 16 bytes at a time where D % 4 == 0 and every
+    base and stride allows, and 4 bytes at a time otherwise."""
     d = shape[-1]
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel: head dim {d} > {_MAX_HEAD_DIM}")

@@ -7,22 +7,27 @@ denoising on from step 0) on `protein_rule_batch` (each residue's identity
 is encoded in its O-atom offset), then generate sequences for held-out
 backbones with the Euler unmasking sampler and score sequence recovery with
 the parameters and with the EMA. An untrained model scores ~1/20; the JAX
-run on a TPU reached 1.00 (CONVERGENCE_PROTEIN.json). Batches are drawn
-from the same numpy seeds as the JAX tool's.
+run on a TPU reached 1.00 at 2000 steps (CONVERGENCE_PROTEIN.json).
+Batches are drawn from the same numpy seeds as the JAX tool's.
+
+The rule: 2000 steps at each of the seeds 0-4 (weights and training
+draws), and the median of the final recovery with the parameters must reach
+0.95 (at least three of five seeds). One seed is no verdict: the outcome of
+a run turns on ~1e-6 perturbations in either path.
 
   python -m reed_tpu_torch.tools.convergence_protein            # the card
   python -m reed_tpu_torch.tools.convergence_protein --tiny --device cpu
 
-Writes CONVERGENCE_PROTEIN_TORCH.json (or --out). `--seed` (weights and
-training draws) and `--fused-messages off` (the unfused chain instead of
-the CUDA kernels) repeat the run for the seed-to-seed and path-to-path
-comparison in PERF.md; the defaults are the JAX tool's run.
+Writes CONVERGENCE_PROTEIN_TORCH.json (or --out): each seed's run, the
+median and the verdict. `--seeds` and `--fused-messages off` (the unfused
+chain instead of the CUDA kernels) repeat it for other comparisons.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +42,12 @@ from reed_tpu_torch.diffusion.discrete import MaskingInterpolantConfig
 from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
 
 DIMS = dict(single_dim=8, pair_dim=4, structure_dim=8)
+# the gate's rule: the f32 TPU record ran 2000 steps; one seed is no verdict
+# (the outcome turns on ~1e-6 perturbations), so the bar is held by the
+# median over five seeds
+STEPS = 2000
+SEEDS = (0, 1, 2, 3, 4)
+BAR = 0.95
 
 
 def gate_config(hidden: int = 128, length: int = 48, batch_size: int = 16,
@@ -74,32 +85,11 @@ def device_name(device: torch.device) -> str:
         return torch.cuda.get_device_name(device)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=1500)
-    ap.add_argument("--batch-size", type=int, default=16)
-    ap.add_argument("--length", type=int, default=48)
-    ap.add_argument("--hidden", type=int, default=128)
-    ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--sampler-steps", type=int, default=200)
-    ap.add_argument("--eval-batches", type=int, default=4)
-    ap.add_argument("--dropout", type=float, default=0.0)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fused-messages", default="auto", choices=["auto", "on", "off"])
-    ap.add_argument("--out", default="CONVERGENCE_PROTEIN_TORCH.json")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu; no silent fallback")
-    ap.add_argument("--tiny", action="store_true", help="smoke-test scale")
-    args = ap.parse_args(argv)
-    if args.tiny:
-        args.steps = min(args.steps, 400)
-        args.batch_size, args.length, args.hidden = 8, 16, 64
-        args.sampler_steps, args.eval_batches = 50, 2
-
-    device = resolve_device(args.device)
+def run_seed(args, seed: int, device: torch.device) -> dict:
+    """Train one seed and score its recovery at step 0 and at the end."""
     trainer = ProteinTrainer(gate_config(args.hidden, args.length, args.batch_size,
                                          args.lr, args.dropout, args.sampler_steps,
-                                         args.seed, args.fused_messages),
+                                         seed, args.fused_messages),
                              device=device)
     state = trainer.init_state()
 
@@ -116,7 +106,8 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     rec0 = recovery(False, 0)
-    print(f"step-0 recovery: {rec0:.4f} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    print(f"[seed {seed}] step-0 recovery: {rec0:.4f} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
 
     losses = []
     if device.type == "cuda":
@@ -128,43 +119,80 @@ def main(argv=None):
         if step % 100 == 0 or step == args.steps - 1:
             ce, acc = float(metrics["denoising_loss"]), float(metrics["accuracy"])
             losses.append({"step": step, "ce": ce, "train_acc": acc})
-            print(f"step {step}: ce={ce:.4f} acc={acc:.4f}", flush=True)
+            print(f"[seed {seed}] step {step}: ce={ce:.4f} acc={acc:.4f}", flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_secs = time.perf_counter() - t0
 
     rec_ema = recovery(True, 1)
     rec_final = recovery(False, 1)
-    print(f"final recovery: params={rec_final:.4f} ema={rec_ema:.4f}", flush=True)
+    print(f"[seed {seed}] final recovery: params={rec_final:.4f} ema={rec_ema:.4f}",
+          flush=True)
+    return {"seed": seed, "step0": rec0, "final": rec_final, "final_ema": rec_ema,
+            "train_seconds": round(train_secs, 1),
+            "ms_per_step": round(1e3 * train_secs / max(args.steps, 1), 3),
+            "loss_curve": losses}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--length", type=int, default=48)
+    ap.add_argument("--hidden", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--sampler-steps", type=int, default=200)
+    ap.add_argument("--eval-batches", type=int, default=4)
+    ap.add_argument("--dropout", type=float, default=0.0)
+    ap.add_argument("--fused-messages", default="auto", choices=["auto", "on", "off"])
+    ap.add_argument("--out", default="CONVERGENCE_PROTEIN_TORCH.json")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; no silent fallback")
+    ap.add_argument("--tiny", action="store_true", help="smoke-test scale, first seed only")
+    args = ap.parse_args(argv)
+    if args.tiny:
+        args.steps = min(args.steps, 400)
+        args.batch_size, args.length, args.hidden = 8, 16, 64
+        args.sampler_steps, args.eval_batches = 50, 2
+        args.seeds = args.seeds[:1]
+
+    device = resolve_device(args.device)
+    runs = [run_seed(args, seed, device) for seed in args.seeds]
+    median = statistics.median(r["final"] for r in runs)
     result = {
         "domain": "protein_fmif",
         "metric": "sequence_recovery",
-        "step0": rec0,
-        "final": rec_final,
-        "final_ema": rec_ema,
+        "rule": f"median over seeds of the final recovery (params) >= {BAR}",
+        "bar": BAR,
+        "median_final": median,
+        "median_final_ema": statistics.median(r["final_ema"] for r in runs),
+        "passed": sum(r["final"] >= BAR for r in runs),
+        "pass": median >= BAR,
         "chance": 1.0 / 20.0,
         "steps": args.steps,
-        "train_seconds": round(train_secs, 1),
-        "ms_per_step": round(1e3 * train_secs / max(args.steps, 1), 3),
+        "seeds": args.seeds,
         "platform": device.type,
         "device": device_name(device),
         "config": {"batch_size": args.batch_size, "length": args.length,
                    "hidden": args.hidden, "lr": args.lr, "dtype": "float32",
                    "dropout": args.dropout, "sampler_steps": args.sampler_steps,
-                   "seed": args.seed, "fused_messages": args.fused_messages},
-        "loss_curve": losses,
+                   "fused_messages": args.fused_messages},
+        "runs": runs,
         "command": "python -m reed_tpu_torch.tools.convergence_protein"
                    + (" --tiny" if args.tiny else "")
                    + (f" --device {args.device}" if args.device != "cuda" else "")
+                   + (f" --steps {args.steps}" if args.steps != STEPS else "")
                    + (f" --dropout {args.dropout}" if args.dropout else "")
                    + (f" --lr {args.lr}" if args.lr != 1e-3 else "")
-                   + (f" --seed {args.seed}" if args.seed else "")
+                   + (" --seeds " + " ".join(map(str, args.seeds))
+                      if tuple(args.seeds) != SEEDS else "")
                    + (f" --fused-messages {args.fused_messages}"
                       if args.fused_messages != "auto" else ""),
     }
     with open(args.out, "w") as f:
         json.dump(result, f, indent=2)
-    print(json.dumps({k: v for k, v in result.items() if k != "loss_curve"}))
+    print(json.dumps({k: v for k, v in result.items() if k != "runs"}))
     return result
 
 

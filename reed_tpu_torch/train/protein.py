@@ -30,6 +30,7 @@ from reed_tpu_torch.diffusion.discrete import (MaskingInterpolantConfig,
                                                corrupt_batch, euler_unmask_sampler)
 from reed_tpu_torch.diffusion.protein_losses import loss_nll, loss_repr, loss_smoothed
 from reed_tpu_torch.models.pmpnn import ProteinMPNNFMIF, create_pmpnn
+from reed_tpu_torch.ops.fused_message import check_engine_shape
 
 
 @dataclass(frozen=True)
@@ -66,19 +67,35 @@ class ProteinTrainConfig:
     compute_dtype: str = "float32"
     # reed_tpu's JAX PRNG choice on the TPU; the port always uses torch.Generator
     rng_impl: str = "threefry"
-    # message chains through the CUDA kernel K2a (ops/fused_message.py):
-    # "auto" and "on" route through it, "off" runs the unfused layer math
+    # message chains through the CUDA kernels K2a/K2b (ops/fused_message.py):
+    # "on" routes through them, "off" runs the unfused layer math, "auto"
+    # routes through them where they take the widths (resolve_fused)
     fused_messages: str = "auto"
     seed: int = 0
 
 
-def resolve_fused(mode: str) -> bool:
-    """'auto' resolves to the fused chain: on the card it runs the
-    hand-written kernel. (reed_tpu's 'auto' resolves to off from a TPU
-    measurement that says nothing about this card.)"""
+def resolve_fused(cfg: ProteinTrainConfig) -> bool:
+    """Whether the message chains run fused (through K2a/K2b on the card).
+    'on' takes the fused chain and raises ValueError, naming the cause, at
+    widths the kernels refuse; 'off' runs the unfused layer math; 'auto'
+    takes the fused chain where the kernels take both the encoder's chain
+    (edge width Ce = hidden) and the decoder's (Ce = 2 x hidden), with K =
+    k_neighbors, and the unfused math otherwise, so it runs any width, as
+    reed_tpu's 'auto' (always unfused) does. (reed_tpu resolves 'auto' to
+    off from a TPU measurement that says nothing about this card.)"""
+    mode = cfg.fused_messages
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused_messages must be auto, on or off, got {mode!r}")
-    return mode != "off"
+    if mode == "off":
+        return False
+    try:
+        for ce in (cfg.hidden_dim, 2 * cfg.hidden_dim):
+            check_engine_shape(cfg.k_neighbors, cfg.hidden_dim, ce)
+    except ValueError:
+        if mode == "on":
+            raise
+        return False
+    return True
 
 
 def build_model(cfg: ProteinTrainConfig, device=None,
@@ -88,7 +105,7 @@ def build_model(cfg: ProteinTrainConfig, device=None,
     cfg.augment_eps) apply only in a call with train=True."""
     model = create_pmpnn(
         device=device, generator=generator,
-        fused=resolve_fused(cfg.fused_messages),
+        fused=resolve_fused(cfg),
         dropout=cfg.dropout, augment_eps=cfg.augment_eps,
         learnable_node=cfg.learnable_node,
         hidden_dim=cfg.hidden_dim, edge_features=cfg.hidden_dim,

@@ -136,3 +136,15 @@ def test_protein_metrics_match_reed_tpu():
     assert tmetrics.backbone_rmsd(x, y, mask[0]) == pytest.approx(
         jmetrics.backbone_rmsd(x, y, mask[0]), rel=1e-12)
     assert tmetrics.kabsch_rmsd(x[:, 1], x[:, 1] @ rot.T) < 1e-9
+
+
+@pytest.mark.parametrize("hidden", [100, 256])
+def test_eval_protein_auto_runs_widths_the_kernels_refuse(capsys, hidden):
+    """'auto' resolves to the unfused chain at widths the kernels refuse
+    (hidden 100: D % 16; 256: D > 128), so eval-protein runs them; 'on'
+    refuses them."""
+    argv = ARGS + ["--device", "cpu", "--set", f"hidden_dim={hidden}"]
+    out, speed = _run(capsys, argv)
+    assert "fused=False" in speed[0] and len(out["sample_0"]) == 32
+    with pytest.raises(ValueError, match="fused message kernel"):
+        cli.main(argv + ["--fused-messages", "on"])

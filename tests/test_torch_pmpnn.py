@@ -2,6 +2,8 @@
 reed_tpu's, same weights and inputs, f32 on the CPU. Every weight,
 node_embeds and LayerNorms included, is a seeded random draw."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,3 +210,41 @@ def test_load_reference_checkpoint(tmp_path):
     model.load_state_dict(loaded)
     # and reed_tpu's converter reads the same names
     assert set(convert_torch_fmif(loaded)) >= {"features", "W_e", "W_s_embedding"}
+
+
+# fused_messages by width: the kernels take D % 16 == 0, D <= 128, and the
+# decoder's edge width is 2 x hidden
+@pytest.mark.parametrize("hidden,k,fused", [(128, 30, True), (32, 4, True), (100, 30, False),
+                                            (256, 30, False), (128, 65, False)])
+def test_auto_resolves_by_the_widths_the_kernels_take(hidden, k, fused):
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, resolve_fused
+
+    cfg = ProteinTrainConfig(hidden_dim=hidden, k_neighbors=k)
+    assert resolve_fused(cfg) is fused
+    assert resolve_fused(dataclasses.replace(cfg, fused_messages="off")) is False
+    if fused:
+        assert resolve_fused(dataclasses.replace(cfg, fused_messages="on")) is True
+    else:
+        with pytest.raises(ValueError, match="fused message kernel"):
+            resolve_fused(dataclasses.replace(cfg, fused_messages="on"))
+
+
+def test_auto_at_hidden_100_builds_unfused_and_matches_jax():
+    """hidden 100 is no multiple of 16: 'auto' builds the unfused chain (as
+    reed_tpu's 'auto' does), whose CPU forward matches reed_tpu's; 'on'
+    refuses the width at build time."""
+    from reed_tpu_torch.encoders.fmif_convert import state_dict_from_flax as to_torch
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, build_model
+
+    widths = dict(FMIF_TINY, hidden_dim=100, edge_features=100)
+    batch = fmif_batch()
+    jax_model, variables, _ = tiny_fmif_pair(batch, **widths)
+    cfg = ProteinTrainConfig(**{k: v for k, v in widths.items() if k != "edge_features"})
+    model = build_model(cfg, device="cpu")
+    assert model.fused is False
+    model.load_state_dict(to_torch(variables))
+    np.testing.assert_allclose(_port(model, batch).numpy(),
+                               np.asarray(_jax(jax_model, variables, batch)),
+                               rtol=ATOL, atol=ATOL)
+    with pytest.raises(ValueError, match="D = 100"):
+        build_model(dataclasses.replace(cfg, fused_messages="on"), device="cpu")

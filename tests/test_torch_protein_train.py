@@ -252,6 +252,23 @@ def test_cli_train_protein_on_cpu(capsys):
     assert "[step 1]" in out and "[step 2]" in out and "samples_per_sec" in out
 
 
+@pytest.mark.parametrize("hidden", [100, 256])
+def test_cli_train_protein_auto_runs_widths_the_kernels_refuse(capsys, hidden):
+    """'auto' trains through the unfused chain where the kernels refuse the
+    width; 'on' refuses it."""
+    from reed_tpu_torch import cli
+
+    argv = ["train-protein", "--steps", "1", "--synthetic", "--device", "cpu",
+            "--batch-size", "2", "--set", "max_len=16", "--set", f"hidden_dim={hidden}",
+            "--set", "k_neighbors=6", "--set", "num_encoder_layers=1",
+            "--set", "num_decoder_layers=1", "--set", "curriculum.diffusion_warmup_steps=0"]
+    state = cli.main(argv)
+    assert state.step == 1 and state.model.fused is False
+    assert "[step 1]" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="fused message kernel"):
+        cli.main(argv + ["--set", "fused_messages=on"])
+
+
 def test_convergence_tool_runs_tiny(tmp_path):
     from reed_tpu_torch.tools import convergence_protein
 
@@ -260,7 +277,10 @@ def test_convergence_tool_runs_tiny(tmp_path):
                                        "--sampler-steps", "5", "--eval-batches", "1",
                                        "--out", str(out)])
     assert out.exists() and result["steps"] == 20 and result["platform"] == "cpu"
-    assert 0.0 <= result["final"] <= 1.0 and len(result["loss_curve"]) == 2
+    (run,) = result["runs"]  # --tiny: the first seed only
+    assert run["seed"] == 0 and 0.0 <= run["final"] <= 1.0 and len(run["loss_curve"]) == 2
+    assert result["median_final"] == run["final"]
+    assert result["bar"] == 0.95 and result["pass"] == (run["final"] >= 0.95)
 
 
 def test_cli_train_protein_from_data_dir(tmp_path, capsys):
