@@ -46,9 +46,23 @@ no result):
      --synthetic` through the CLI. Then `eval-protein` and `train-protein`
      at hidden 100 and 256, widths the kernels refuse: `--fused-messages
      auto` runs them unfused, `on` raises.
-  7. output: a {"kernels": [...]} line (K1 twice: bf16 on the bf16 path,
-     f32 on the f32 one), the nvidia-smi line, and last the
-     {"ok": true, "device": {...}} line.
+  7. image training: SiT-XL/2 at bench.py's REED configuration (bf16
+     compute with f32 master weights, batch 48, projectors at depths 8
+     and 16 for z_dims (768, 3584), Adam with a bf16 first moment, EMA
+     every 8 steps). One full-width step through K1 against the same step
+     with plain attention (same state and draws): metrics and every
+     gradient, in f32 at batch 8 and in bf16 at batch 48 (the bf16 bound
+     taken from the plain bf16 step's distance to the f32 step). Then the
+     main path, `ImageTrainer.train_step`, with the launch counts set to 0
+     just before its 20 timed steps and read just after (28 K1 a step, none
+     in the backward), ms per step (wall and device), imgs/s, MFU, peak
+     memory and a torch.profiler breakdown; a learning check on the
+     convergence gate's data (SiT-S/4, f32: K1 at (128, 4, 6, 64)); and
+     `train-image --steps 3 --synthetic` through the CLI.
+  8. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+     generation path and on the image train step, f32 on the f32
+     generation path and on the image gate's training), the nvidia-smi
+     line, and last the {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
 """
@@ -69,18 +83,21 @@ import torch
 import torch.nn.functional as F
 
 from reed_tpu_torch import _build, cli
-from reed_tpu_torch.core.config import CurriculumConfig
+from reed_tpu_torch.core.config import CurriculumConfig, OptimConfig
 from reed_tpu_torch.core.trainer import combine_losses
+from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig
 from reed_tpu_torch.diffusion.discrete import corrupt_batch
 from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
+from reed_tpu_torch.tools import convergence_image
 from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
 from reed_tpu_torch.tools.cuda_timing import cuda_ms, host_us, timed_in_turns
 from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
                                           build_model, make_loss_fn, sample,
                                           synthetic_protein_batch)
+from reed_tpu_torch.train import image as image_train
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
 # type. f32: the least time the card can take for f32-accurate products is
@@ -168,6 +185,35 @@ TRAIN = dict(batch=8, length=256, timed_steps=20)
 # does not learn (CE stays ~1.5) cannot reach.
 LEARN_STEPS = 200
 LEARN_CE_MAX = 1.30
+
+# SiT-XL/2 REED image training at bench.py's configuration (bench.py:60-83)
+IMAGE_TRAIN = dict(batch=48, warmup_steps=3, timed_steps=20, profiled_steps=8)
+IMAGE_ATTN_SHAPE = (48, 256, 16, 72)  # K1 on the train step, bf16
+GATE_ATTN_SHAPE = (128, 4, 6, 64)     # K1 on the image gate (SiT-S/4, 8x8 latents), f32
+# one full-width step through K1 vs plain attention (same state, t, eps and
+# label drops). f32 at batch 8: metrics to 1e-4 and each gradient to 1e-3
+# of its max, as the protein step is held. bf16 at batch 48: the plain path
+# rounds the logits to bf16 where K1 keeps them in f32, and both round the
+# stream, weights and probabilities to bf16, so each is only as close to the
+# other as bf16 allows. The bound is measured in the same run: the same
+# plain step in f32 (same state; attention through K1 in f32, 1e-6 from
+# plain) is the truth, and the K1 step may differ from the plain bf16 step
+# by at most twice the plain bf16 step's own distance from it, for the
+# worst gradient (max error / max |g|) and for the worst metric (relative
+# above 1). A kernel that is wrong moves the step by O(1), not by bf16 noise.
+IMAGE_GRAD_RTOL = 1e-3
+IMAGE_METRIC_RTOL = 1e-4
+IMAGE_BF16_NOISE_FACTOR = 2.0
+# bench.py's flop count per trained image (bench.py:36-44): 6 N S for the
+# dense products (N = 675e6, S = 256) plus 12 S^2 D per layer for attention
+SIT_XL_TRAIN_FLOPS_PER_IMG = 6.0 * 675e6 * 256 + 12.0 * 256 * 256 * 1152 * 28
+# learning check on the image gate's data (tools/convergence_image.py): the
+# JAX run on a TPU went from a denoising loss of 2.05 at step 0 (E|v|^2 of
+# the untrained, zero-output model) to 0.565 at step 200
+# (CONVERGENCE_IMAGE.json). The mean of steps 180-199 must be below 1.0,
+# about the geometric mean of the two: a model that does not learn stays ~2.
+IMAGE_LEARN_STEPS = 200
+IMAGE_LEARN_LOSS_MAX = 1.0
 
 
 def log(*args):
@@ -302,6 +348,13 @@ def kernel_phase(smi):
     qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
     q, k, v = qkv.unbind(2)
     attention_case(f"{MAIN_SHAPE} qkv[:, :, i] views", q, k, v, smi)
+    # the image train step's and the image gate's shapes, on qkv views as SiT
+    # gives them (S stride 3 H D, H stride D, bases 0, H D and 2 H D elements)
+    for shape, dtype in ((IMAGE_ATTN_SHAPE, torch.bfloat16), (GATE_ATTN_SHAPE, torch.float32)):
+        b, s, h, d = shape
+        views = torch.randn((b, s, 3, h, d), generator=gen, device="cuda",
+                            dtype=dtype).unbind(2)
+        rows[(shape, dtype)] = attention_case(f"{shape} qkv[:, :, i] views", *views, smi)
     f32_layout_phase(gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     log("[kernel] flash_attention host time per call (launch cost, us): " + json.dumps({
@@ -489,14 +542,20 @@ PROFILE_GROUPS = (("K2b fused_message_bwd", ("fused_message_bwd", "fused_message
                   ("K1 flash_attention", ("attention_fwd",)),
                   ("GEMM (cuBLAS/CUTLASS)", ("gemm", "Kernel2", "nvjet")),
                   ("LayerNorm fwd/bwd", ("layer_norm", "GammaBeta")),
+                  ("softmax fwd/bwd", ("softmax",)),
+                  ("multi-tensor (foreach)", ("multi_tensor_apply",)),
                   ("reductions", ("reduce_kernel",)),
                   ("elementwise, copies, other", ("",)))
+# profiler ranges of the port (record_function): the device time of the
+# kernels launched inside each
+PROFILE_RANGES = ("reed::optimizer", "reed::ema", "reed::flash_attention_bwd_recompute")
 
 
 def profile(label, fn, smi, top=8):
     """Device time of one call by kernel (torch.profiler, CUPTI): the busy
-    share of the call's wall time, the time of each kernel family and the
-    kernels that take the most."""
+    share of the call's wall time, the time of each kernel family, of the
+    kernels launched inside the port's profiler ranges, and the kernels
+    that take the most. Returns the call's wall ms, busy ms and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -508,13 +567,18 @@ def profile(label, fn, smi, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+    events = prof.key_averages()
+    # a profiler range also appears on the device as an annotation spanning
+    # its kernels: not a kernel, so not counted
+    kernels = sorted((e for e in events
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), {len(kernels)} kernel "
-        f"names, {sum(e.count for e in kernels)} launches ({smi})")
+        f"names, {launches} launches ({smi})")
     groups = dict.fromkeys(name for name, _ in PROFILE_GROUPS)
     for e in kernels:
         name = next(n for n, keys in PROFILE_GROUPS if any(k in e.key for k in keys))
@@ -522,9 +586,15 @@ def profile(label, fn, smi, top=8):
         groups[name] = (ms + e.self_device_time_total / 1e3, count + e.count)
     log(f"[profile]   by family: " + "; ".join(
         f"{n} {v[0]:.3f} ms x{v[1]}" for n, v in groups.items() if v))
+    ranges = {e.key: e for e in events
+              if e.device_type == DeviceType.CPU and e.key in PROFILE_RANGES}
+    if ranges:
+        log(f"[profile]   by range (device time of the kernels inside): " + "; ".join(
+            f"{n} {e.device_time_total / 1e3:.3f} ms x{e.count}" for n, e in ranges.items()))
     for e in kernels[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches)
 
 
 def perturb_pmpnn(model, gen):
@@ -877,6 +947,204 @@ def widths_phase():
             raise AssertionError(f"hidden {hidden}: auto/on did not resolve by width:\n{text}")
 
 
+def bench_image_config(batch=IMAGE_TRAIN["batch"], dtype="bfloat16", warmup=50_000):
+    """bench.py's SiT-XL/2 REED configuration on one card (bench.py:60-83):
+    z_dims (768, 3584) at depths 8 (per token) and 16 (pooled), loss
+    weights (1.0, 0.5), Adam lr 1e-4 with clip 1.0 and a bf16 first
+    moment, proj_coeff 0.5, the denoising weight warmed up over `warmup`
+    steps, EMA every 8 steps."""
+    return image_train.ImageTrainConfig(
+        model="SiT-XL/2", input_size=32, in_channels=4, num_classes=1000,
+        encoder_depth=8, encoder_depth_text=16, z_dims=(768, 3584), z_types=("i", "t"),
+        projector_dim=2048, compute_dtype=dtype, remat=False,
+        batch_size=batch,
+        loss=FlowMatchingLossConfig(enc_names=("dinov2", "qwen"), loss_weights=(1.0, 0.5)),
+        optim=OptimConfig(lr=1e-4, grad_clip=1.0, mu_dtype="bfloat16"),
+        curriculum=CurriculumConfig(proj_coeff=0.5, diffusion_warmup_steps=warmup,
+                                    max_steps=1_000_000, ema_every=8))
+
+
+def image_step_grads(model, cfg, batch, draws, attn_impl, dtype):
+    """Metrics (floats), every parameter's gradient and the K1 launches of
+    one loss and backward of `model` in `dtype` with `attn_impl`."""
+    model.attn_impl, model.compute_dtype = attn_impl, dtype
+    before = fa.launches
+    metrics = image_train.make_loss_fn(cfg.loss)(model, batch, 0, **draws)
+    total, _ = combine_losses(metrics, 0, cfg.curriculum)
+    params = list(model.parameters())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    torch.cuda.synchronize()
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    metrics = {k: v.item() for k, v in dict(metrics, loss=total).items()}
+    return metrics, grads, fa.launches - before
+
+
+def step_errors(a, b, names):
+    """(worst metric error, relative above 1; worst gradient error as max
+    |a - b| / max |b|, and its parameter) of step a against step b."""
+    (ma, ga), (mb, gb) = a, b
+    metric = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1.0) for k in mb)
+    grad = {n: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+            for n, x, y in zip(names, ga, gb)}
+    worst = max(grad, key=grad.get)
+    return metric, grad[worst], worst
+
+
+def image_parity_phase(smi):
+    """One full-width SiT-XL/2 train step through K1 against the same step
+    with plain attention: f32 at batch 8, bf16 at batch 48 (with the plain
+    step in f32 as the yardstick of bf16 noise)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for batch_size, dtype in ((8, torch.float32), (IMAGE_TRAIN["batch"], torch.bfloat16)):
+        cfg = bench_image_config(batch_size, str(dtype)[6:], warmup=0)
+        trainer = image_train.ImageTrainer(cfg, device="cuda")
+        model = image_train.build_model(cfg, device="cuda")
+        with torch.no_grad():  # nonzero adaLN and final layer: attention reaches the output
+            for p in model.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+        batch = trainer.synthetic_batch(gen)
+        draws = dict(t=torch.rand((batch_size,), generator=gen, device="cuda"),
+                     eps=torch.randn(batch["x"].shape, generator=gen, device="cuda"),
+                     drop=torch.rand((batch_size,), generator=gen, device="cuda")
+                     < cfg.class_dropout_prob)
+        names = [n for n, _ in model.named_parameters()]
+        m_k, g_k, launches = image_step_grads(model, cfg, batch, draws, "auto", dtype)
+        m_r, g_r, _ = image_step_grads(model, cfg, batch, draws, "reference", dtype)
+        metric_err, grad_err, worst = step_errors((m_k, g_k), (m_r, g_r), names)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        label = (f"[image] one SiT-XL/2 train step, {str(dtype)[6:]}, batch {batch_size}, "
+                 f"K1 vs plain attention: metrics max rel err {metric_err:.3g}, gradients "
+                 f"max err / max |g| {grad_err:.3g} at {worst} over {len(names)} "
+                 f"parameters; K1 launches {launches}; loss {m_k['loss']:.6g}, denoising "
+                 f"{m_k['denoising_loss']:.6g}, proj {m_k['proj_loss']:.6g}")
+        if dtype == torch.float32:
+            metric_tol, grad_tol = IMAGE_METRIC_RTOL, IMAGE_GRAD_RTOL
+            log(f"{label} (rtol {metric_tol}, {grad_tol})")
+        else:
+            m_32, g_32, _ = image_step_grads(model, cfg, batch, draws, "auto", torch.float32)
+            noise_metric, noise_grad, noise_worst = step_errors((m_r, g_r), (m_32, g_32), names)
+            k_metric, k_grad, _ = step_errors((m_k, g_k), (m_32, g_32), names)
+            metric_tol = IMAGE_BF16_NOISE_FACTOR * noise_metric + 1e-6
+            grad_tol = IMAGE_BF16_NOISE_FACTOR * noise_grad
+            log(f"{label} (bound {IMAGE_BF16_NOISE_FACTOR} x the plain bf16 step's "
+                f"distance from the f32 step: metrics {noise_metric:.3g}, gradients "
+                f"{noise_grad:.3g} at {noise_worst}; the K1 bf16 step's distance from "
+                f"it: metrics {k_metric:.3g}, gradients {k_grad:.3g})")
+            del g_32
+        if not (finite and metric_err <= metric_tol and grad_err <= grad_tol):
+            raise AssertionError(f"image train step {dtype}: K1 vs plain attention metrics "
+                                 f"{m_k} vs {m_r}, worst gradient {worst} {grad_err}")
+        if launches != DEPTH:
+            raise AssertionError(f"expected {DEPTH} K1 launches in a step, got {launches}")
+        del trainer, model, g_k, g_r, batch
+        torch.cuda.empty_cache()
+
+
+def image_train_phase(smi):
+    image_parity_phase(smi)
+
+    # the main path: ImageTrainer.train_step at bench.py's configuration
+    cfg = bench_image_config()
+    trainer = image_train.ImageTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(42))
+    n = cfg.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(IMAGE_TRAIN["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    steps = IMAGE_TRAIN["timed_steps"]
+    fa.launches = fm.launches = fm.backward_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    imgs_per_s = n * steps / seconds
+    mfu = imgs_per_s * SIT_XL_TRAIN_FLOPS_PER_IMG / PEAK_FLOPS[torch.bfloat16]
+    log(f"[image] ImageTrainer.train_step, bench.py's SiT-XL/2 config (bf16, f32 master "
+        f"weights, batch {n}, mu bf16, EMA every 8): {steps} steps in {seconds:.4f} s = "
+        f"{1e3 * seconds / steps:.3f} ms per step (wall, after a sync), {imgs_per_s:.2f} "
+        f"imgs/s, MFU {mfu:.4f} (bench.py's {SIT_XL_TRAIN_FLOPS_PER_IMG:.4g} flop per "
+        f"image over 989 TF/s); K1 launches {launches} (expected {DEPTH * steps}), "
+        f"K2a/K2b {fm.launches}/{fm.backward_launches}; peak memory {peak_gb:.2f} GB; last "
+        f"loss {metrics['loss'].item():.6g}, denoising {metrics['denoising_loss'].item():.6g}"
+        f", grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if launches != DEPTH * steps:
+        raise AssertionError(f"expected {DEPTH * steps} K1 launches, got {launches}")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite image train metrics {metrics}")
+    if not (state.opt.mu[0].dtype == torch.bfloat16
+            and all(p.dtype == torch.float32 for p in state.model.parameters())
+            and all(e.dtype == torch.float32 for e in state.ema.values())):
+        raise AssertionError("expected f32 parameters and EMA and a bf16 first moment")
+    k = IMAGE_TRAIN["profiled_steps"]  # a whole EMA period
+
+    def k_steps():
+        nonlocal state
+        for _ in range(k):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile(f"{k} image train steps (one EMA)", k_steps, smi, top=14)
+    busy = prof["busy_ms"] / k
+    log(f"[image] per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / (1e3 * seconds / steps)):.1f} % of the unprofiled wall "
+        f"({1e3 * seconds / steps:.3f} ms), "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled one "
+        f"({prof['wall_ms'] / k:.3f} ms)")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    image_learn_launches = image_learning_phase(smi)
+
+    # the user's entry point (reed_tpu's default image config, SiT-B/2)
+    t0 = time.perf_counter()
+    state = cli.main(["train-image", "--steps", "3", "--synthetic", "--log-every", "1",
+                      "--batch-size", "64"])
+    torch.cuda.synchronize()
+    log(f"[image] cli train-image --steps 3 --synthetic --batch-size 64: {state.step} "
+        f"steps in {time.perf_counter() - t0:.2f} s incl. set-up")
+    if state.step != 3:
+        raise AssertionError(f"train-image ran {state.step} steps, not 3")
+    return launches, image_learn_launches
+
+
+def image_learning_phase(smi):
+    """200 steps of the image gate (tools/convergence_image.py, seed 0):
+    the denoising loss must fall. Returns K1's launches (f32)."""
+    gcfg = convergence_image.gate_config(seed=0)
+    trainer = image_train.ImageTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    mu = convergence_image.class_means()
+    losses = []
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    for step in range(IMAGE_LEARN_STEPS):
+        state, metrics = trainer.train_step(
+            state, convergence_image.gate_batch(step, gcfg.batch_size, mu))
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    seconds = time.perf_counter() - t0
+    launches = fa.launches
+    depth = len(state.model.blocks)
+    late = sum(losses[-20:]) / 20
+    log(f"[image] learning check, image gate config (SiT-S/4 f32, batch "
+        f"{gcfg.batch_size}, 8 classes): denoising loss step 0 {losses[0]:.4f}, step 100 "
+        f"{losses[100]:.4f}, mean of steps {IMAGE_LEARN_STEPS - 20}-{IMAGE_LEARN_STEPS - 1} "
+        f"{late:.4f} (must be < {IMAGE_LEARN_LOSS_MAX}; JAX on a TPU: 2.05 at step 0, 0.565 "
+        f"at step 200); K1 launches {launches} (expected {depth * IMAGE_LEARN_STEPS}); "
+        f"{1e3 * seconds / IMAGE_LEARN_STEPS:.3f} ms per step incl. batch upload ({smi})")
+    if not late < IMAGE_LEARN_LOSS_MAX:
+        raise AssertionError(f"the image denoising loss did not fall: {losses[0]} -> {late}")
+    if launches != depth * IMAGE_LEARN_STEPS:
+        raise AssertionError(f"expected {depth * IMAGE_LEARN_STEPS} K1 launches, got "
+                             f"{launches}")
+    return launches
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -895,6 +1163,7 @@ def main():
     msg_launches = protein_phase(smi)
     bwd_launches = train_phase(smi)
     widths_phase()
+    image_launches, gate_launches = image_train_phase(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -906,6 +1175,12 @@ def main():
         kernel_entry("fused_message_bwd", "reed_tpu/ops/fused_message.py:152",
                      bwd_rows[(MSG_MAIN, torch.float32)], bwd_launches,
                      source="fused_message"),
+        kernel_entry("flash_attention_train", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(IMAGE_ATTN_SHAPE, torch.bfloat16)], image_launches,
+                     source="flash_attention"),
+        kernel_entry("flash_attention_f32_gate", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(GATE_ATTN_SHAPE, torch.float32)], gate_launches,
+                     source="flash_attention"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,13 +7,17 @@
       --num-steps 50 [--data-dir pdb_2021aug02] [--ref-ckpt epoch_last.pt]
   python -m reed_tpu_torch.cli train-protein --steps 100 --synthetic \\
       [--data-dir pdb_2021aug02 --token-budget 20000] [--set optim.lr=3e-4]
+  python -m reed_tpu_torch.cli train-image --model SiT-XL/2 --batch-size 48 \\
+      --steps 100 --synthetic [--data-dir latents/] [--set optim.mu_dtype=bfloat16]
 
 Runs on CUDA unless `--device cpu` is given. generate-image uses reed_tpu's
 image default (ImageTrainConfig / build_model in reed_tpu/train/image.py):
 32x32x4 latents, 1000 classes, bf16 compute. eval-protein and train-protein
 use its protein default (ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128,
 3 + 3 layers, 30 neighbours, f32 compute; training adds dropout 0.1, the AF3
-alignment loss and Adam with a global-norm clip.
+alignment loss and Adam with a global-norm clip. train-image uses its
+image default (ImageTrainConfig): SiT-B/2, batch 256, bf16 compute with f32
+master weights, one DINOv2-width projector at depth 8, Adam lr 1e-4.
 """
 
 from __future__ import annotations
@@ -261,6 +265,89 @@ def train_protein(args):
     return state
 
 
+def train_image(args):
+    """Train SiT with REED alignment on synthetic batches (N(0, 1) latents
+    and encoder targets) or on the cached latents under --data-dir, logging
+    `[step N] {...}` every --log-every steps, then the rate of the steps
+    after the first (steps/s and imgs/s)."""
+    from reed_tpu_torch.core.logging import MetricLogger
+    from reed_tpu_torch.train.image import ImageTrainConfig, ImageTrainer
+
+    unported = {"--sample-every": args.sample_every, "--vae": args.vae,
+                "--enc-type": args.enc_type, "--ref-ckpt": args.ref_ckpt,
+                "--ckpt-dir": args.ckpt_dir}
+    given = [flag for flag, value in unported.items() if value]
+    if given:
+        raise NotImplementedError(
+            f"train-image {', '.join(given)}: not ported (the port has no "
+            "preview sampling, SD-VAE, frozen encoders, reference warm start or "
+            "checkpoints yet)")
+    device = resolve_device(args.device)
+    cfg = ImageTrainConfig()
+    # the mesh flags as reed_tpu reads them; the trainer refuses more than one device
+    mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp),
+                              ("tensor", args.tp), ("seq", args.sp)) if v is not None}
+    for name, value in (("model", args.model), ("batch_size", args.batch_size),
+                        ("seed", args.seed),
+                        ("mesh", dataclasses.replace(cfg.mesh, **mesh) if mesh else None)):
+        if value is not None:
+            cfg = dataclasses.replace(cfg, **{name: value})
+    if args.lr is not None:
+        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, lr=args.lr))
+    cfg = _apply_overrides(cfg, args.overrides)
+    trainer = ImageTrainer(cfg, device=device)
+    state = trainer.init_state()
+
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield trainer.synthetic_batch(
+                    torch.Generator(device=device).manual_seed(cfg.seed + 1000 + i))
+                i += 1
+    else:
+        from reed_tpu_torch.data.image import (CachedLatentDataset,
+                                               ImageDatasetConfig, epoch_batches)
+
+        # as reed_tpu's train-image: no feature subdirectories, so zs is
+        # empty and proj_loss is 0
+        ds = CachedLatentDataset(ImageDatasetConfig(args.data_dir))
+        if len(ds) < cfg.batch_size:
+            raise SystemExit(f"{len(ds)} samples under {args.data_dir}, fewer "
+                             f"than one batch of {cfg.batch_size}")
+
+        def batches():
+            epoch = 0
+            while True:
+                yield from epoch_batches(ds, cfg.batch_size, cfg.seed + epoch)
+                epoch += 1
+
+    logger = MetricLogger()
+    it = batches()
+    t0 = None
+    for i in range(args.steps):
+        batch = next(it)
+        state, metrics = trainer.train_step(state, batch)
+        if i == 0:
+            _sync(device)
+            t0 = time.perf_counter()
+        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+            logger.log(metrics, state.step, samples_per_step=cfg.batch_size)
+    _sync(device)
+    if args.steps > 1:
+        seconds = time.perf_counter() - t0
+        n = args.steps - 1
+        print(f"train-image: {n} steps after the first in {seconds:.3f} s: "
+              f"{n / seconds:.3f} steps/s, {n * cfg.batch_size / seconds:.2f} imgs/s "
+              f"({cfg.model}, batch {cfg.batch_size}, {cfg.compute_dtype}, {device})")
+    return state
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("reed_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -332,6 +419,33 @@ def main(argv=None):
                    help="ProteinTrainConfig override, e.g. optim.lr=3e-4 or "
                         "curriculum.diffusion_warmup_steps=0")
     p.set_defaults(fn=train_protein)
+
+    p = sub.add_parser("train-image")
+    p.add_argument("--model", default=None, help="e.g. SiT-XL/2 (default SiT-B/2)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: the config's 256")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic batches (the default without --data-dir)")
+    p.add_argument("--data-dir", default=None,
+                   help="cached latents: dataset.json and vae-sd/*.npy moments")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; no silent fallback")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="KEY=VALUE",
+                   help="ImageTrainConfig override, e.g. optim.mu_dtype=bfloat16 or "
+                        "curriculum.diffusion_warmup_steps=0")
+    for flag in ("--dp", "--fsdp", "--tp", "--sp"):
+        p.add_argument(flag, type=int, default=None,
+                       help="mesh axis size; the port trains on one device, so only 1")
+    # reed_tpu's flags that the port does not have yet: each raises
+    p.add_argument("--sample-every", type=int, default=None, help="not ported")
+    for flag in ("--vae", "--enc-type", "--ref-ckpt", "--ckpt-dir"):
+        p.add_argument(flag, default=None, help="not ported")
+    p.set_defaults(fn=train_image)
 
     args = parser.parse_args(argv)
     return args.fn(args)

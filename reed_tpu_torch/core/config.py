@@ -19,7 +19,7 @@ class OptimConfig:
     warmup_steps: int = 0
     total_steps: int = 1_000_000
     accum_steps: int = 1                # gradient accumulation (as optax.MultiSteps)
-    mu_dtype: Optional[str] = None      # Adam first-moment dtype: not ported
+    mu_dtype: Optional[str] = None      # Adam first-moment dtype (None: f32)
 
 
 @dataclass(frozen=True)

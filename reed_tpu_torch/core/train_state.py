@@ -76,6 +76,22 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def mu_step(mu: List[torch.Tensor], grads: List[torch.Tensor], b1: float
+            ) -> List[torch.Tensor]:
+    """Adam's first-moment update with mu stored in a narrower dtype than the
+    gradients, as reed_tpu's jitted optax 0.2.6 step computes `(1 - b1) * g
+    + b1 * mu`: b1 is weakly typed, so it is rounded to mu's dtype (0.9 ->
+    0.8984375 in bf16), while XLA fuses mu's upcast into the product, so
+    the product and the sum are in the gradients' dtype. Returns that
+    unrounded sum (the bias correction reads it) and stores it in `mu`,
+    rounded to mu's dtype."""
+    b1_mu = float(torch.tensor(b1, dtype=mu[0].dtype))
+    new = torch._foreach_mul(grads, 1.0 - b1)
+    torch._foreach_add_(new, mu, alpha=b1_mu)
+    torch._foreach_copy_(mu, new)
+    return new
+
+
 class Optimizer:
     """Global-norm clip (optax.clip_by_global_norm: scale by max_norm / norm
     only when norm >= max_norm, no eps), then Adam or AdamW (optax's update,
@@ -83,13 +99,11 @@ class Optimizer:
     update), then -lr(count before the update); with accum_steps = k the
     gradients of k calls are averaged (Welford, as optax.MultiSteps) and the
     update is applied on every k-th call only. Parameters are updated in
-    place; the state is f32 like the parameters."""
+    place; the state is f32 like the parameters, except Adam's first moment
+    when cfg.mu_dtype names another dtype: it is stored in that dtype and
+    updated as optax 0.2.6's scale_by_adam does (`mu_step`)."""
 
     def __init__(self, cfg: OptimConfig, params: List[torch.Tensor]):
-        if cfg.mu_dtype is not None:
-            raise NotImplementedError(
-                f"OptimConfig.mu_dtype={cfg.mu_dtype!r} is not ported: the "
-                "port keeps Adam's moments in the parameters' dtype (f32)")
         if cfg.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
         self.cfg = cfg
@@ -97,7 +111,8 @@ class Optimizer:
         self.lr = lr_schedule(cfg)
         self.count = 0       # committed updates
         self.mini_step = 0   # micro-steps into the current accumulation
-        self.mu = [torch.zeros_like(p) for p in self.params]
+        mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if cfg.accum_steps > 1 else None)
@@ -126,11 +141,15 @@ class Optimizer:
             torch._foreach_mul_(grads, torch.where(keep, one, one * cfg.grad_clip))
         lr = self.lr(self.count)
         self.count += 1
-        torch._foreach_mul_(self.mu, cfg.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - cfg.b1)
+        if self.mu[0].dtype == self.params[0].dtype:
+            torch._foreach_mul_(self.mu, cfg.b1)
+            torch._foreach_add_(self.mu, grads, alpha=1.0 - cfg.b1)
+            mu = self.mu
+        else:
+            mu = mu_step(self.mu, grads, cfg.b1)
         torch._foreach_mul_(self.nu, cfg.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - cfg.b2)
-        mu_hat = torch._foreach_div(self.mu, _bias_correction(cfg.b1, self.count))
+        mu_hat = torch._foreach_div(mu, _bias_correction(cfg.b1, self.count))
         denom = torch._foreach_div(self.nu, _bias_correction(cfg.b2, self.count))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, cfg.eps)

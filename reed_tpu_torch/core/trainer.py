@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+from torch.profiler import record_function
 
 from reed_tpu_torch.core.config import CurriculumConfig
 from reed_tpu_torch.core.ema import ema_update
@@ -38,7 +39,9 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
     moves only on the micro-step that commits an update, and then only every
     `ema_every` optimizer steps with decay^ema_every (reed_tpu's semantics).
     Metrics add 'loss' (the combined total) and 'grad_norm' (of the
-    micro-step's raw gradients)."""
+    micro-step's raw gradients). The optimizer and the EMA run inside
+    profiler ranges ('reed::optimizer', 'reed::ema') that a torch.profiler
+    trace attributes their kernels to."""
 
     def train_step(state: TrainState, batch, **inject):
         opt_step = state.step // accum_steps
@@ -51,11 +54,13 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         grad_norm = global_norm(grads)
-        state.opt.step(grads)
+        with record_function("reed::optimizer"):
+            state.opt.step(grads)
         period = accum_steps * max(1, curriculum.ema_every)
         if period == 1 or state.step % period == period - 1:
-            ema_update(state.ema, state.model,
-                       curriculum.ema_decay ** max(1, curriculum.ema_every))
+            with record_function("reed::ema"):
+                ema_update(state.ema, state.model,
+                           curriculum.ema_decay ** max(1, curriculum.ema_every))
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(sched, loss=total.detach(), grad_norm=grad_norm)

@@ -45,3 +45,26 @@ def velocity_from_score(score, x_t, t, path_type: str = "linear"):
 def diffusion_coefficient(t):
     """SDE diffusion schedule g(t) = 2t."""
     return 2.0 * t
+
+
+def sample_time(generator, batch: int, weighting: str = "uniform",
+                path_type: str = "linear", draw=None):
+    """Training times [batch], f32, on the generator's device. 'uniform'
+    draws U(0, 1); 'lognormal' maps sigma = exp(N(0, 1)) to sigma / (1 +
+    sigma) on the linear path and to 2/pi * atan(sigma) on the cosine path
+    (the EDM sigma-lognormal mapping). `draw` replaces the U(0, 1) or
+    N(0, 1) draw, so that a test can hand over reed_tpu's."""
+    device = None if generator is None else generator.device
+    if weighting == "uniform":
+        if draw is None:
+            draw = torch.rand((batch,), generator=generator, device=device)
+        return torch.as_tensor(draw, dtype=torch.float32)
+    if weighting == "lognormal":
+        if draw is None:
+            draw = torch.randn((batch,), generator=generator, device=device)
+        sigma = torch.exp(torch.as_tensor(draw, dtype=torch.float32))
+        if path_type == "linear":
+            return sigma / (1.0 + sigma)
+        if path_type == "cosine":
+            return 2.0 / math.pi * torch.atan(sigma)
+    raise NotImplementedError(f"weighting={weighting!r}")

@@ -5,9 +5,12 @@ Counterpart of reed_tpu/models/sit.py with the reference's parameter names
 blocks.{i}.{adaLN_modulation.1,attn.{qkv,proj},mlp.{fc1,fc2}},
 projectors.{j}.{0,2,4}, final_layer.{adaLN_modulation.1,linear}), so a
 reference state_dict loads with `load_state_dict`. Inputs and outputs are
-NHWC like reed_tpu's. The model computes in the dtype of its parameters:
-build it in f32 and `.to(torch.bfloat16)` for bf16 compute; LayerNorm
-statistics and the output are f32 either way.
+NHWC like reed_tpu's. The model computes in `compute_dtype`, as flax's
+modules with `dtype=` do: its parameters (f32 master weights in training)
+are cast where they are used, the residual stream stays in the compute
+dtype, LayerNorm statistics are f32 and the velocity is returned in f32.
+`compute_dtype=None` computes in the parameters' dtype, so a model built in
+f32 and `.to(torch.bfloat16)` runs in bf16 as before.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from reed_tpu_torch.nn.layers import (
     ProjectorMLP,
     TimestepEmbedder,
     get_2d_sincos_pos_embed,
+    linear,
     modulate,
     patchify,
     unpatchify,
@@ -50,9 +54,9 @@ class PatchEmbed(nn.Module):
                               stride=patch_size)
 
     def forward(self, x):
-        w = self.proj.weight
+        w = self.proj.weight.to(x.dtype)
         w = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)  # [D, p*p*C]
-        return F.linear(patchify(x, self.patch_size), w, self.proj.bias)
+        return F.linear(patchify(x, self.patch_size), w, self.proj.bias.to(x.dtype))
 
 
 class SiTBlock(nn.Module):
@@ -69,7 +73,8 @@ class SiTBlock(nn.Module):
 
     def forward(self, x, c, attn_impl: str = "auto"):
         (shift_msa, scale_msa, gate_msa,
-         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+         shift_mlp, scale_mlp, gate_mlp) = linear(
+             F.silu(c), self.adaLN_modulation[1]).chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
         x = x + gate_msa[:, None, :] * self.attn(h, attn_impl=attn_impl)
         h = modulate(layer_norm(x), shift_mlp, scale_mlp)
@@ -84,8 +89,8 @@ class FinalLayer(nn.Module):
         self.linear = nn.Linear(hidden_size, patch_size ** 2 * out_channels)
 
     def forward(self, x, c):
-        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
-        return self.linear(modulate(layer_norm(x), shift, scale))
+        shift, scale = linear(F.silu(c), self.adaLN_modulation[1]).chunk(2, dim=-1)
+        return linear(modulate(layer_norm(x), shift, scale), self.linear)
 
 
 class SiT(nn.Module):
@@ -96,7 +101,8 @@ class SiT(nn.Module):
                  encoder_depth: int = 8, encoder_depth_text: Optional[int] = None,
                  z_dims: Sequence[int] = (768,), z_types: Sequence[str] = ("i",),
                  projector_dim: int = 2048, attn_impl: str = "auto",
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.input_size = input_size
         self.patch_size = patch_size
@@ -106,6 +112,8 @@ class SiT(nn.Module):
         self.z_types = tuple(z_types)
         # 'auto' (kernel on CUDA) or 'reference' (plain attention)
         self.attn_impl = attn_impl
+        # None: the parameters' dtype
+        self.compute_dtype = compute_dtype
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
@@ -148,13 +156,22 @@ class SiT(nn.Module):
             nn.init.zeros_(lin.weight)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, x, t, y, return_zs: bool = False):
+    def forward(self, x, t, y, train: bool = False,
+                return_zs: Optional[bool] = None, drop=None,
+                generator: Optional[torch.Generator] = None):
         """x: [B, H, W, C] NHWC latents; t: [B] in [0, 1] (0 = clean); y: [B]
         int labels (num_classes = null/CFG class). Returns (velocity f32
-        NHWC, zs or None); zs are the projector outputs when return_zs."""
-        x = self.x_embedder(x.to(self.x_embedder.proj.weight.dtype))
-        x = x + self.pos_embed.to(x.dtype)
-        c = self.t_embedder(t) + self.y_embedder(y)
+        NHWC, zs or None); zs are the projector outputs when return_zs,
+        which defaults to `train`. In training the labels take CFG dropout:
+        `drop` (bool [B]) marks the ones replaced by the null class, else
+        they are drawn from `generator` (LabelEmbedder)."""
+        if return_zs is None:
+            return_zs = train
+        dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
+        x = self.x_embedder(x.to(dtype))
+        x = x + self.pos_embed.to(dtype)
+        c = self.t_embedder(t, dtype) + self.y_embedder(
+            y, dtype, train=train, drop=drop, generator=generator)
 
         zs_image, zs_text = None, None
         depth_text = self.encoder_depth_text
@@ -163,13 +180,13 @@ class SiT(nn.Module):
             x = block(x, c, attn_impl=self.attn_impl)
             if return_zs and (i + 1) == self.encoder_depth:
                 if not split_text:
-                    zs_image = [self.projectors[j](x if zt == "i" else x.mean(dim=1))
+                    zs_image = [self._project(j, x if zt == "i" else x.mean(dim=1), dtype)
                                 for j, zt in enumerate(self.z_types)]
                 else:
-                    zs_image = [self.projectors[j](x)
+                    zs_image = [self._project(j, x, dtype)
                                 for j, zt in enumerate(self.z_types) if zt == "i"]
             if return_zs and split_text and (i + 1) == depth_text:
-                zs_text = [self.projectors[j](x.mean(dim=1))
+                zs_text = [self._project(j, x.mean(dim=1), dtype)
                            for j, zt in enumerate(self.z_types) if zt == "t"]
 
         zs = None
@@ -178,6 +195,11 @@ class SiT(nn.Module):
                   else zs_image)
         x = self.final_layer(x, c)
         return unpatchify(x.float(), self.patch_size, self.in_channels), zs
+
+    def _project(self, idx: int, h, dtype):
+        """Projector `idx` on h taken to f32 and computed in `dtype`, as
+        reed_tpu's _project feeds h.astype(f32) to a Dense of that dtype."""
+        return self.projectors[idx](h.float().to(dtype))
 
 
 # Size registry mirroring the reference's 12 configs.

@@ -3,12 +3,17 @@ reed_tpu/nn/layers.py with the reference's parameter names.
 
 Projector MLPs, timestep / label embedders, adaLN modulation, the SiT MLP and
 fused-qkv attention, NHWC row-major patchify and the fixed 2D sin-cos
-position embedding. Layers compute in the dtype of their parameters.
+position embedding. Layers compute in the dtype of their input: `linear`
+casts a weight and bias to it where they are used, as flax's
+`Dense(dtype=...)` casts its f32 params, so a model with f32 parameters
+(master weights) runs in bf16 from a bf16 input and its gradients land in
+f32 on the parameters.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,6 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.ops.attention import multi_head_attention
+
+
+def linear(x, layer: nn.Linear):
+    """`layer(x)` computed in x's dtype: the weight and bias are cast to it
+    where they are used (a no-op when they have it already)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 class ProjectorMLP(nn.Sequential):
@@ -27,6 +39,11 @@ class ProjectorMLP(nn.Sequential):
             nn.Linear(hidden_size, projector_dim), nn.SiLU(),
             nn.Linear(projector_dim, projector_dim), nn.SiLU(),
             nn.Linear(projector_dim, z_dim))
+
+    def forward(self, x):
+        x = F.silu(linear(x, self[0]))
+        x = F.silu(linear(x, self[2]))
+        return linear(x, self[4])
 
 
 def modulate(x, shift, scale):
@@ -56,24 +73,39 @@ class TimestepEmbedder(nn.Module):
             nn.Linear(frequency_embedding_size, hidden_size), nn.SiLU(),
             nn.Linear(hidden_size, hidden_size))
 
-    def forward(self, t):
-        x = timestep_embedding(t, self.frequency_embedding_size)
-        return self.mlp(x.to(self.mlp[0].weight.dtype))
+    def forward(self, t, dtype: torch.dtype):
+        """t: [B] -> [B, hidden] in `dtype` (the f32 sinusoids cast to it)."""
+        x = timestep_embedding(t, self.frequency_embedding_size).to(dtype)
+        return linear(F.silu(linear(x, self.mlp[0])), self.mlp[2])
 
 
 class LabelEmbedder(nn.Module):
     """Class-label embedding; with dropout_prob > 0 the table has a trailing
-    null (CFG) class at index num_classes."""
+    null (CFG) class at index num_classes, and in training each label is
+    replaced by it with probability dropout_prob (classifier-free guidance
+    dropout, flax's rule in reed_tpu)."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float = 0.1):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(
             num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, y):
-        return self.embedding_table(y)
+    def forward(self, y, dtype: torch.dtype, train: bool = False, drop=None,
+                generator: Optional[torch.Generator] = None):
+        """y: [B] int labels -> [B, hidden] in `dtype`. With train and
+        dropout_prob > 0, the labels where `drop` (bool [B]) is True become
+        the null class; without `drop` it is drawn Bernoulli(dropout_prob)
+        from `generator`. Outside training nothing is dropped."""
+        if train and self.dropout_prob > 0:
+            if drop is None:
+                drop = torch.rand(y.shape, generator=generator,
+                                  device=y.device) < self.dropout_prob
+            y = torch.where(torch.as_tensor(drop, device=y.device),
+                            self.num_classes, y)
+        return F.embedding(y, self.embedding_table.weight.to(dtype))
 
 
 class Mlp(nn.Module):
@@ -88,7 +120,8 @@ class Mlp(nn.Module):
         self.approximate = "none" if exact_gelu else "tanh"
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return linear(F.gelu(linear(x, self.fc1), approximate=self.approximate),
+                      self.fc2)
 
 
 class Attention(nn.Module):
@@ -102,11 +135,11 @@ class Attention(nn.Module):
 
     def forward(self, x, attn_impl: str = "auto"):
         b, t, d = x.shape
-        qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, d // self.num_heads)
+        qkv = linear(x, self.qkv).reshape(b, t, 3, self.num_heads, d // self.num_heads)
         # strided views into qkv: the kernel takes them without a copy
         out = multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                                    impl=attn_impl)
-        return self.proj(out.reshape(b, t, d))
+        return linear(out.reshape(b, t, d), self.proj)
 
 
 def patchify(x, patch_size: int):

@@ -27,6 +27,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from reed_tpu_torch import _build
 
@@ -163,10 +164,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
+        # a profiler range: a trace attributes the recompute's kernels to it
+        with record_function("reed::flash_attention_bwd_recompute"), torch.enable_grad():
             q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
             out = sdpa_reference(q, k, v)
-        return torch.autograd.grad(out, (q, k, v), g)
+            return torch.autograd.grad(out, (q, k, v), g)
 
 
 def flash_attention(q, k, v, mask=None):

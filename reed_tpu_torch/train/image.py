@@ -1,0 +1,174 @@
+"""Image-domain trainer: SiT flow matching with REED alignment, counterpart
+of reed_tpu/train/image.py on one device.
+
+One train step draws t, eps and the CFG label drops, runs SiT in its
+compute dtype (bf16 by default) with f32 master weights cast where they
+are used, takes the f32 flow-matching loss plus the projector alignment
+weighted by the curriculum, and applies Adam (optionally with a bf16 first
+moment, `OptimConfig.mu_dtype`) and the f32 EMA (core/trainer.py). On the
+card each block's attention runs forward through the CUDA kernel K1 and
+backward through the plain recompute (ops/flash_attention.py). Random
+draws come from torch.Generators; reed_tpu's come from JAX keys.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from reed_tpu_torch import resolve_device
+from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
+from reed_tpu_torch.core.ema import ema_init
+from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.trainer import make_train_step
+from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig, flow_matching_loss
+from reed_tpu_torch.models.sit import SiT, create_sit
+
+# reed_tpu's attn_impl names -> the port's SiT choice: the kernel K1 on
+# CUDA tensors, or plain attention
+ATTN_IMPLS = {"auto": "auto", "pallas": "auto", "xla": "reference"}
+
+
+@dataclass(frozen=True)
+class ImageTrainConfig:
+    model: str = "SiT-B/2"
+    input_size: int = 32
+    in_channels: int = 4
+    num_classes: int = 1000
+    encoder_depth: int = 8
+    encoder_depth_text: Optional[int] = None
+    z_dims: Sequence[int] = (768,)
+    z_types: Sequence[str] = ("i",)
+    projector_dim: int = 2048
+    class_dropout_prob: float = 0.1
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "auto"
+    remat: Any = False  # only False is ported
+    exact_gelu: bool = False  # erf GELU, required for torch-checkpoint parity
+    batch_size: int = 256
+    loss: FlowMatchingLossConfig = FlowMatchingLossConfig()
+    optim: OptimConfig = OptimConfig(lr=1e-4)
+    curriculum: CurriculumConfig = CurriculumConfig()
+    mesh: MeshConfig = MeshConfig()
+    seed: int = 0
+
+
+def build_model(cfg: ImageTrainConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> SiT:
+    """The configured SiT on `device` with f32 parameters initialised from
+    `generator` (reed_tpu's initialisation), computing in cfg.compute_dtype.
+    Raises NotImplementedError on a remat setting (not ported: batch 48 of
+    SiT-XL/2 fits in the H100's memory without it) and ValueError on an
+    unknown attn_impl."""
+    if cfg.remat is not False:
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported: the port trains without "
+            "activation checkpointing")
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {sorted(ATTN_IMPLS)}, "
+                         f"got {cfg.attn_impl!r}")
+    model = create_sit(
+        cfg.model, device=device,
+        input_size=cfg.input_size, in_channels=cfg.in_channels,
+        num_classes=cfg.num_classes, encoder_depth=cfg.encoder_depth,
+        encoder_depth_text=cfg.encoder_depth_text, z_dims=tuple(cfg.z_dims),
+        z_types=tuple(cfg.z_types), projector_dim=cfg.projector_dim,
+        class_dropout_prob=cfg.class_dropout_prob,
+        attn_impl=ATTN_IMPLS[cfg.attn_impl], exact_gelu=cfg.exact_gelu,
+        compute_dtype=getattr(torch, cfg.compute_dtype))
+    model.initialize_weights(generator)
+    return model.eval()
+
+
+def make_loss_fn(loss_cfg: FlowMatchingLossConfig):
+    """loss_fn(model, batch, step, generator=None, t=None, eps=None,
+    drop=None) -> metrics, reed_tpu's image loss. t, eps and the CFG label
+    drops are drawn from `generator` unless given (a test hands over
+    reed_tpu's)."""
+
+    def loss_fn(model, batch, step, generator=None, t=None, eps=None, drop=None):
+        del step
+
+        def model_fn(x_t, tt, y):
+            return model(x_t, tt, y, train=True, drop=drop, generator=generator)
+
+        return flow_matching_loss(loss_cfg, model_fn, batch["x"], batch["zs"],
+                                  generator=generator, model_kwargs={"y": batch["y"]},
+                                  t=t, eps=eps)
+
+    return loss_fn
+
+
+def batch_to_device(batch, device: torch.device):
+    """A batch of numpy arrays or tensors ({'x', 'y', 'zs': [...]}) as
+    tensors on `device`: x and zs f32, y int64."""
+    def put(a, dtype):
+        t = torch.from_numpy(a) if isinstance(a, np.ndarray) else torch.as_tensor(a)
+        return t.to(device=device, dtype=dtype)
+
+    return {"x": put(batch["x"], torch.float32), "y": put(batch["y"], torch.int64),
+            "zs": [put(z, torch.float32) for z in batch["zs"]]}
+
+
+class ImageTrainer:
+    """reed_tpu's ImageTrainer on one device: `init_state()`, then
+    `train_step(state, batch, **inject) -> (state, metrics)` (in place),
+    `synthetic_batch` and `run`. Weights are initialised from a generator
+    seeded cfg.seed; the training draws come from `self.generator`, seeded
+    cfg.seed + 1."""
+
+    def __init__(self, cfg: ImageTrainConfig, device=None):
+        cfg.mesh.check_single_device()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self._train_step = make_train_step(make_loss_fn(cfg.loss), cfg.curriculum,
+                                           accum_steps=cfg.optim.accum_steps)
+
+    def init_state(self) -> TrainState:
+        model = build_model(self.cfg, device=self.device, generator=torch.Generator(
+            device=self.device).manual_seed(self.cfg.seed))
+        return TrainState(step=0, model=model,
+                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
+                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+
+    def train_step(self, state: TrainState, batch, t=None, eps=None, drop=None):
+        """One step on a batch (numpy or tensors, moved to the trainer's
+        device); t, eps and drop as in make_loss_fn."""
+        return self._train_step(state, batch_to_device(batch, self.device),
+                                generator=self.generator, t=t, eps=eps, drop=drop)
+
+    def synthetic_batch(self, generator: Optional[torch.Generator] = None):
+        """A random batch of cfg.batch_size with the training schema on the
+        trainer's device: N(0, 1) latents, uniform labels and N(0, 1)
+        encoder targets (per token for 'i', pooled for 't'), a stand-in for
+        cached VAE latents and encoder features."""
+        cfg = self.cfg
+        bs = cfg.batch_size
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(1)
+        num_tokens = (cfg.input_size // _patch(cfg.model)) ** 2
+        x = torch.randn((bs, cfg.input_size, cfg.input_size, cfg.in_channels),
+                        generator=generator, device=self.device)
+        y = torch.randint(0, cfg.num_classes, (bs,), generator=generator,
+                          device=self.device)
+        zs = [torch.randn((bs, num_tokens, z_dim) if z_type == "i" else (bs, z_dim),
+                          generator=generator, device=self.device)
+              for z_dim, z_type in zip(cfg.z_dims, cfg.z_types)]
+        return {"x": x, "y": y, "zs": zs}
+
+    def run(self, state: TrainState, batches, log_every: int = 100, log_fn=print):
+        """A host loop over an iterable of batches, logging the metrics as
+        floats every `log_every` steps."""
+        for i, batch in enumerate(batches):
+            state, metrics = self.train_step(state, batch)
+            if log_fn is not None and (i + 1) % log_every == 0:
+                log_fn({k: float(v) for k, v in metrics.items()})
+        return state
+
+
+def _patch(model_name: str) -> int:
+    return int(model_name.rsplit("/", 1)[1])

@@ -47,7 +47,9 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.eval.protein_metrics, reed_tpu_torch.data.protein, "
             "reed_tpu_torch.train.protein, reed_tpu_torch.core.trainer, "
             "reed_tpu_torch.core.logging, reed_tpu_torch.diffusion.protein_losses, "
-            "reed_tpu_torch.data.synthetic, reed_tpu_torch.tools.convergence_protein; "
+            "reed_tpu_torch.data.synthetic, reed_tpu_torch.tools.convergence_protein, "
+            "reed_tpu_torch.train.image, reed_tpu_torch.data.image, "
+            "reed_tpu_torch.diffusion.continuous, reed_tpu_torch.tools.convergence_image; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")

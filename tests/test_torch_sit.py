@@ -45,6 +45,10 @@ def test_sit_forward_matches_jax(exact_gelu, std):
          encoder_depth_text=2),
     dict(z_dims=(8, 6), z_types=("i", "t"), encoder_depth=2,
          encoder_depth_text=2),
+    # bench.py's projectors: DINOv2 width per token, the 3584-wide pooled
+    # text target at another depth
+    dict(z_dims=(768, 3584), z_types=("i", "t"), encoder_depth=1,
+         encoder_depth_text=2),
 ])
 def test_sit_return_zs_matches_jax(overrides):
     jax_model, variables, model = tiny_pair(std=0.1, **overrides)

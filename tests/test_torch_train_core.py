@@ -156,10 +156,49 @@ def test_lr_schedules_match_optax():
 
 
 def test_global_norm_and_unported_mu_dtype():
+    """The global norm is optax's; mu_dtype, once unported, now keeps Adam's
+    first moment in that dtype and the second in f32 (parity with optax in
+    test_mu_dtype_matches_optax)."""
     import optax
 
     g = [torch.randn(3, 4), torch.randn(7)]
     np.testing.assert_allclose(float(global_norm(g)),
                                float(optax.global_norm([x.numpy() for x in g])), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_optimizer(tc.OptimConfig(mu_dtype="bfloat16"), [torch.zeros(2)])
+    opt = make_optimizer(tc.OptimConfig(mu_dtype="bfloat16"), [torch.zeros(2)])
+    assert opt.mu[0].dtype == torch.bfloat16 and opt.nu[0].dtype == torch.float32
+    opt.step([torch.ones(2)])
+    assert opt.mu[0].dtype == torch.bfloat16 and opt.params[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["adam", "adam_clipped", "adamw", "cosine", "accum2"])
+def test_mu_dtype_matches_optax(name):
+    """mu_dtype='bfloat16' over six steps against optax's Adam with
+    mu_dtype=bf16, jitted as reed_tpu's train step runs it (eagerly, JAX
+    would also round b1 * mu to bf16; under jit XLA keeps it in f32): the
+    stored first moment to one bf16 ulp (the f32 sum it is rounded from may
+    differ in its last bit), the parameters to 1e-6."""
+    kw = dict(OPTIM_CASES[name], mu_dtype="bfloat16")
+    rng = np.random.default_rng(2)
+    shapes = [(4, 3), (3,), (2, 2, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 10.0 ** rng.integers(-3, 2)
+              for s in shapes] for _ in range(6)]
+    tx = jax_make_optimizer(jc.OptimConfig(**kw))
+    update = jax.jit(tx.update)
+    jparams = [jnp.asarray(p) for p in params]
+    state = tx.init(jparams)
+    tparams = [torch.tensor(p) for p in params]
+    opt = make_optimizer(tc.OptimConfig(**kw), tparams)
+    for g in grads:
+        updates, state = update([jnp.asarray(x) for x in g], state, jparams)
+        jparams = [p + u for p, u in zip(jparams, updates)]
+        opt.step([torch.tensor(x) for x in g])
+        for tp, jp in zip(tparams, jparams):
+            np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6, atol=1e-6)
+        jmu = [leaf for leaf in jax.tree.leaves(state) if leaf.dtype == jnp.bfloat16]
+        assert len(jmu) == len(shapes)
+        for m, jm in zip(opt.mu, jmu):
+            assert m.dtype == torch.bfloat16
+            want = torch.tensor(np.asarray(jm.astype(jnp.float32)))
+            ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+            assert torch.all((m.float() - want).abs() <= ulp), (m, want)
