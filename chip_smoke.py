@@ -59,7 +59,24 @@ no result):
      memory and a torch.profiler breakdown; a learning check on the
      convergence gate's data (SiT-S/4, f32: K1 at (128, 4, 6, 64)); and
      `train-image --steps 3 --synthetic` through the CLI.
-  8. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  8. image eval and inputs (`eval_phases`, in a temporary directory under
+     _scratch/), with seeded full-width weights written in reed_tpu's npz
+     layouts: the SD-VAE decoder and encoder on the card against the CPU
+     (f32, under torch's default TF32 flags, which the modules turn off
+     themselves); `generate-image --vae` with SiT-XL/2 as a subprocess
+     (uint8 pixels, 28 K1 launches a model call, the pixels against the CPU
+     decode of the latents that the same run without --vae writes);
+     `compute-fid` as a subprocess (FID(a, b) finite; FID(a, a) ~0 from
+     the saved stats); Inception and DINOv2-B features card vs CPU;
+     `train-image --enc-type dinov2-vit-b` at SiT-XL/2 batch 48 on a
+     fabricated data directory (ms a step with and without the encoder, a
+     profile of the CLI's loop split into batch reading, encoder and step,
+     28 K1 launches a step); checkpoints through the CLI and resumes held
+     against uninterrupted runs (SiT-B/2 bitwise; the protein default, whose
+     step is not bitwise repeatable, within 10x the run-to-run difference,
+     with a restore that skips the trainer's generator as the control that
+     must fail), and `generate-image --ckpt-dir`.
+  9. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training), the nvidia-smi
      line, and last the {"ok": true, "device": {...}} line.
@@ -75,23 +92,33 @@ import ctypes
 import dataclasses
 import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from reed_tpu_torch import _build, cli
+from reed_tpu_torch.core import configlib
+from reed_tpu_torch.core.checkpoint import CheckpointManager
 from reed_tpu_torch.core.config import CurriculumConfig, OptimConfig
 from reed_tpu_torch.core.trainer import combine_losses
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig
 from reed_tpu_torch.diffusion.discrete import corrupt_batch
+from reed_tpu_torch.encoders import registry
+from reed_tpu_torch.encoders.inception import make_feature_fn, preprocess_uint8
+from reed_tpu_torch.encoders.vae import to_uint8
 from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples
+from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distance
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.tools import convergence_image
+from reed_tpu_torch.tools import convergence_image, seeded_weights
 from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
 from reed_tpu_torch.tools.cuda_timing import cuda_ms, host_us, timed_in_turns
 from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
@@ -1145,6 +1172,515 @@ def image_learning_phase(smi):
     return launches
 
 
+# -- slice 8: the image domain's eval and inputs, checkpoints ----------------
+
+# frozen f32 networks (SD-VAE, Inception, DINOv2) on the card against the
+# port's CPU run of the same weights and inputs: max abs error over max |out|.
+# Both are f32 (cuDNN and cuBLAS with TF32 off); they differ by summation
+# order and algorithm (~1e-6). One TF32 product is ~5e-4 off, so a network
+# on TF32 lands near 1e-3 and fails this.
+F32_NET_RTOL = 1e-4
+VAE_BATCH = 8
+GEN_SUBPROCESS = ["--model", "SiT-XL/2", "--num-samples", "16", "--batch-size", "8",
+                  "--num-steps", "8", "--cfg-scale", "4.0", "--guidance-high", "0.5"]
+ENC_DATA = dict(samples=96, batch=48, steps=6, profiled_steps=3, model="SiT-XL/2",
+                encoder="dinov2-vit-b")
+CKPT_IMAGE = dict(model="SiT-B/2", batch=32)  # the XL state is ~9.5 GB a checkpoint
+FID_SELF_MAX = 1e-3  # FID(a, a) / tr(Sigma_a): sqrtm of a singular product
+# f32 decodes of one latent on two devices round to other uint8 counts only
+# where a value sits on a .5 boundary (~0.015 % of values); a 1xTF32 decode
+# is ~1e-3 off and moves several % of them
+UINT8_SHARE_MAX = 1e-3
+# a resumed run whose step is not bitwise repeatable (K2b's atomic adds)
+# may differ from the uninterrupted run by at most this many times what a
+# second uninterrupted run differs by (~1e-8). A restore that drops the
+# moments, the EMA or a random stream moves the weights by ~lr (1e-4).
+RESUME_NOISE_FACTOR = 10
+# the profiler ranges of the CLI's training loop (cli._run_loop, train_image)
+LOOP_RANGES = ("reed::next_batch", "reed::frozen_encoder", "reed::train_step")
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """torch's own TF32 defaults (cuDNN on, cuBLAS off) instead of this
+    script's (both off), so a check proves that the module turns TF32 off
+    itself, as it must in a process a user starts."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def uint8_share(a, b):
+    """The share of values of two uint8 images that differ."""
+    return (torch.as_tensor(a).cpu() != torch.as_tensor(b).cpu()).double().mean().item()
+
+
+def rel_err(out, ref):
+    out, ref = out.float().cpu(), ref.float().cpu()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def run_cli(args, label):
+    """`python -m reed_tpu_torch.cli ARGS` as its own process (torch's
+    default TF32 settings); returns its stdout; raises on failure."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "reed_tpu_torch.cli", *args],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{label} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    log(f"[eval] {label}: {time.perf_counter() - t0:.1f} s as a subprocess")
+    return proc.stdout
+
+
+def cli_quiet(args):
+    """cli.main(ARGS) in this process, its output kept; returns (result,
+    stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = cli.main(args)
+    return result, out.getvalue()
+
+
+def net_check(label, model, x, rtol=F32_NET_RTOL, cpu_rows=1, **kw):
+    """`model` on the card against a CPU copy on the first `cpu_rows` rows."""
+    with torch.no_grad():
+        out = model(x, **kw)
+        ref = copy.deepcopy(model).cpu()(x[:cpu_rows].cpu(), **kw)
+    err = rel_err(out[:cpu_rows], ref)
+    log(f"[eval] {label}, card vs CPU (f32): max abs err / max |out| = {err:.3g} "
+        f"(rtol {rtol}), max |out| {ref.abs().max().item():.4g}")
+    if not (torch.isfinite(out).all() and err <= rtol):
+        raise AssertionError(f"{label}: card vs CPU rel err {err}")
+    return out
+
+
+def net_times(label, fn, n, smi):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(fn, iters=5, warmup=1, queued=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[eval] {label}: {ms:.3f} ms a batch of {n}, {ms / n:.3f} ms an image, "
+        f"{1e3 * n / ms:.1f} imgs/s; peak memory {peak:.2f} GB ({smi})")
+    return ms
+
+
+def vae_phase(tmp, smi):
+    """SD-VAE at full width (base 128, ch_mult (1, 2, 4, 4)), seeded, f32:
+    decoder [8,32,32,4] -> [8,256,256,3] and encoder [8,256,256,3] ->
+    [8,32,32,8] on the card against the CPU; the decoder also with TF32
+    forced on, to show what the tolerance catches. Writes the decoder in
+    tools/convert_vae.py's npz layout for generate-image."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    decoder = seeded_weights.vae_decoder(0).cuda()
+    encoder = seeded_weights.vae_encoder(0).cuda()
+    z = torch.randn((VAE_BATCH, 32, 32, 4), generator=gen, device="cuda")
+    pixels = torch.rand((VAE_BATCH, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    with torch_default_tf32():
+        out = net_check("VAEDecoder [8,32,32,4] -> [8,256,256,3]", decoder, z)
+        with torch.no_grad():
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = decoder.decoder(decoder.post_quant_conv(z.permute(0, 3, 1, 2)))
+        tf32 = tf32.permute(0, 2, 3, 1)
+        log(f"[eval] VAEDecoder with TF32 forced on (bypassing the module's full-f32 "
+            f"guard): {rel_err(tf32[:1], out[:1]):.3g} off the f32 decode; as uint8, "
+            f"{100 * uint8_share(to_uint8(tf32), to_uint8(out)):.3f} % of values differ "
+            f"(bound {100 * UINT8_SHARE_MAX} %)")
+    with torch_default_tf32():
+        net_check("VAEEncoder [8,256,256,3] -> [8,32,32,8]", encoder, pixels)
+    with torch.no_grad():
+        net_times("SD-VAE decode, f32", lambda: decoder(z), VAE_BATCH, smi)
+        net_times("SD-VAE encode, f32", lambda: encoder(pixels), VAE_BATCH, smi)
+    path = seeded_weights.save(decoder.cpu(), f"{tmp}/vae_decoder.npz")
+    del decoder, encoder
+    torch.cuda.empty_cache()
+    return path
+
+
+def generate_subprocess_phase(tmp, vae_npz, smi):
+    """generate-image --vae as a user runs it (a subprocess): uint8
+    [16,256,256,3], K1 28 times a model call. The same run without --vae,
+    in this process, warns and writes its latents; their CPU decode gives
+    the subprocess's pixels to one count, and that only on .5 boundaries
+    (the subprocess decoded in full f32). A second sample set (seed 1) for
+    compute-fid, in this process."""
+    pixels_path, latents_path, other = (f"{tmp}/gen_{n}.npz"
+                                        for n in ("pixels", "latents", "seed1"))
+    text = run_cli(["generate-image", *GEN_SUBPROCESS, "--vae", vae_npz, "--out", pixels_path],
+                   f"generate-image {' '.join(GEN_SUBPROCESS)} --vae")
+    _, latents_text = cli_quiet(["generate-image", *GEN_SUBPROCESS, "--out", latents_path])
+    cli_quiet(["generate-image", *GEN_SUBPROCESS, "--vae", vae_npz, "--seed", "1",
+               "--out", other])
+    pixels = np.load(pixels_path)["arr_0"]
+    latents = np.load(latents_path)["arr_0"]
+    launches, calls = map(int, re.search(r"flash_attention launches: (\d+) in (\d+) model",
+                                         text).groups())
+    without = float(re.search(r"\(([\d.]+) imgs/sec without", text).group(1))
+    decode_ms = float(re.search(r"decode: ([\d.]+) ms per image", text).group(1))
+    with_decode = float(re.search(r"([\d.]+) imgs/sec with the decode", text).group(1))
+    decoder = vae_load_cpu(vae_npz)
+    with torch.no_grad():
+        cpu_pixels = to_uint8(decoder(torch.from_numpy(latents[:1]))).numpy()
+    diff = np.abs(pixels[:1].astype(int) - cpu_pixels.astype(int))
+    share = uint8_share(pixels[:1], cpu_pixels)
+    log(f"[eval] generate-image --vae (subprocess): {pixels.shape} {pixels.dtype}; "
+        f"flash_attention launches {launches} in {calls} model calls; {without:.2f} "
+        f"imgs/s without the decode, decode {decode_ms:.3f} ms an image, {with_decode:.2f} "
+        f"imgs/s with it (batches after the first; {smi}); image 0 against the CPU "
+        f"decode of the latents run's image 0: max |diff| {diff.max()} counts, "
+        f"{100 * share:.4f} % of values differ (bound {100 * UINT8_SHARE_MAX} %)")
+    if pixels.shape != (16, 256, 256, 3) or pixels.dtype != np.uint8:
+        raise AssertionError(f"generate-image --vae wrote {pixels.shape} {pixels.dtype}")
+    if latents.shape != (16, 32, 32, 4) or "WARNING: no --vae" not in latents_text:
+        raise AssertionError(f"generate-image without --vae wrote {latents.shape} "
+                             "or did not warn")
+    if calls != 16 or launches != DEPTH * calls:
+        raise AssertionError(f"expected {DEPTH} K1 launches in each of 16 model calls, "
+                             f"got {launches} in {calls}")
+    if diff.max() > 1 or share > UINT8_SHARE_MAX:
+        raise AssertionError(f"generate-image --vae pixels differ from the CPU decode "
+                             f"by up to {diff.max()} counts in {100 * share:.4f} % of values")
+    return pixels_path, other, launches
+
+
+def vae_load_cpu(path):
+    from reed_tpu_torch.encoders.vae import load_npz
+
+    return load_npz(path).eval()
+
+
+def fid_phase(tmp, gen_a, gen_b, smi):
+    """compute-fid as a user runs it (a subprocess), on seeded Inception
+    weights in save_variables_npz's layout: FID(a, b) finite, and the
+    stats it saves for a equal to this process's at the f32 tolerance (the
+    subprocess ran Inception in full f32). FID(a, a) of this process's
+    stats, ~0 relative to tr(Sigma_a). (That the printed FID is
+    frechet_distance of the saved stats is a CPU test.) In-process:
+    features of two images on the card against the CPU, and ms an image."""
+    model = seeded_weights.inception_v3(0)
+    inc_npz = seeded_weights.save(model, f"{tmp}/inception.npz")
+    model = model.cuda()
+    images_a = np.load(gen_a)["arr_0"]
+    images = torch.from_numpy(images_a).cuda()
+    with torch_default_tf32():
+        net_check("InceptionV3Pool3 features of 2 generated images", model,
+                  preprocess_uint8(images[:2]), cpu_rows=2)
+    x = preprocess_uint8(images)
+    with torch.no_grad():
+        net_times("InceptionV3 pool3 at 299, f32", lambda: model(x), len(images), smi)
+    stats = compute_activation_stats(images_a, make_feature_fn(model), batch_size=16)
+    del model, images, x
+    torch.cuda.empty_cache()
+    text = run_cli(["compute-fid", gen_a, gen_b, "--inception-npz", inc_npz,
+                    "--batch-size", "16", "--save-stats"], "compute-fid a b --save-stats")
+    t0 = time.perf_counter()
+    self_fid = frechet_distance(stats["mu"], stats["sigma"], stats["mu"], stats["sigma"])
+    sqrtm_s = time.perf_counter() - t0
+    fid = json.loads(text.strip().splitlines()[-1])["fid"]
+    saved = np.load(gen_a.replace(".npz", "_stats.npz"))
+    mu_err = rel_err(torch.from_numpy(saved["mu"]), torch.from_numpy(stats["mu"]))
+    self_rel = abs(self_fid) / float(np.trace(stats["sigma"]))
+    log(f"[eval] compute-fid (subprocess, seeded Inception): FID(a, b) = {fid!r}; its saved "
+        f"mu of a against this process's: {mu_err:.3g} of the max (rtol {F32_NET_RTOL}); "
+        f"FID(a, a) = {self_fid!r}, / tr(Sigma_a) = {self_rel:.3g} (< {FID_SELF_MAX}), "
+        f"{sqrtm_s:.2f} s on the host (the sqrtm of 2048 x 2048)")
+    if not (np.isfinite(fid) and fid > 0 and mu_err <= F32_NET_RTOL
+            and self_rel < FID_SELF_MAX):
+        raise AssertionError(f"compute-fid: FID(a, b) {fid}, mu {mu_err}; FID(a, a) {self_fid}")
+
+
+def write_image_data(root, n, seed=0):
+    """A cached-latent dataset as data/image.py reads it: dataset.json,
+    vae-sd/ moments [8, 32, 32] and pixels/ uint8 crops [256, 256, 3]."""
+    rng = np.random.default_rng(seed)
+    for sub in ("vae-sd", "pixels"):
+        os.makedirs(f"{root}/{sub}", exist_ok=True)
+    labels = []
+    for i in range(n):
+        np.save(f"{root}/vae-sd/img{i:05d}.npy",
+                rng.standard_normal((8, 32, 32)).astype(np.float32))
+        np.save(f"{root}/pixels/img{i:05d}.npy",
+                rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+        labels.append([f"img{i:05d}.png", int(i % 1000)])
+    with open(f"{root}/dataset.json", "w") as f:
+        json.dump({"labels": labels}, f)
+
+
+def loop_split(args, smi):
+    """The CLI's training loop under torch.profiler, over the steps after
+    the first: a step's host ms in each of the loop's ranges (LOOP_RANGES;
+    the batch reading is next_batch outside the encoder), the device ms of
+    the encoder's kernels and of all kernels, and the device's idle ms
+    (the trace's wall from the second fetch to the last kernel's end)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli_quiet(args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    seconds = time.perf_counter() - t0
+    ranges = {k: sorted((e for e in events if e.name == k and e.device_type == DeviceType.CPU),
+                        key=lambda e: e.time_range.start)[1:] for k in LOOP_RANGES}
+    n = len(ranges["reed::train_step"])
+    start = ranges["reed::next_batch"][0].time_range.start
+    # the backward's kernels are launched from autograd's own thread, outside
+    # the loop's ranges: count every kernel that starts after `start`
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.time_range.start >= start]
+    wall = (max(e.time_range.end for e in kernels) - start) / 1e3 / n
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    host = {k: sum(e.time_range.elapsed_us() for e in v) / 1e3 / n for k, v in ranges.items()}
+    enc = sum(e.device_time_total for e in ranges["reed::frozen_encoder"]) / 1e3 / n
+    log(f"[image] the same CLI run profiled, per step over its steps 2-{n + 1}: wall "
+        f"{wall:.3f} ms; host: batch reading (next_batch outside the encoder) "
+        f"{host['reed::next_batch'] - host['reed::frozen_encoder']:.3f} ms, encoder "
+        f"{host['reed::frozen_encoder']:.3f} ms, step {host['reed::train_step']:.3f} ms "
+        f"(each upload of a pageable batch waits for the device); device: encoder "
+        f"{enc:.3f} ms, all kernels {busy:.3f} ms, idle {wall - busy:.3f} ms "
+        f"({100 * (1 - busy / wall):.1f} %); the run and its trace took {seconds:.1f} s ({smi})")
+
+
+def encoder_train_phase(tmp, smi):
+    """train-image --enc-type dinov2-vit-b on a fabricated data directory:
+    the frozen DINOv2-B/14 targets computed in the loop from the pixel
+    crops. DINOv2 on the card against the CPU; ms a step with the encoder
+    (the CLI's rate) and without it (the same step on synthetic targets),
+    the encoder alone, the CLI's loop profiled (reading, encoder, step), K1
+    launches (28 a step)."""
+    data, enc_dir = f"{tmp}/image_data", f"{tmp}/encoders"
+    os.makedirs(enc_dir, exist_ok=True)
+    write_image_data(data, ENC_DATA["samples"])
+    name = ENC_DATA["encoder"]
+    z_dim = registry.vit_config(name).hidden_size
+    seeded_weights.save(seeded_weights.vit_encoder(registry.vit_config(name), 0),
+                        f"{enc_dir}/{name}.npz")
+    (enc,), _, _ = registry.load_encoders(name, encoder_dir=enc_dir, device="cuda")
+    raw = torch.from_numpy(np.stack([np.load(f"{data}/pixels/img{i:05d}.npy")
+                                     for i in range(ENC_DATA["batch"])])).cuda()
+    with torch_default_tf32():
+        feats = net_check(f"{name} patch features of 2 crops", enc.model,
+                          enc.preprocess(raw[:2]), cpu_rows=2)
+    if feats.shape[:2] != (2, 256):
+        raise AssertionError(f"{name} features {tuple(feats.shape)}")
+    enc_ms = net_times(f"{name} encode (preprocess + f32 forward) at batch "
+                       f"{ENC_DATA['batch']}", lambda: enc.encode(raw), ENC_DATA["batch"], smi)
+    del enc
+    torch.cuda.empty_cache()
+
+    args = ["train-image", "--model", ENC_DATA["model"], "--batch-size", str(ENC_DATA["batch"]),
+            "--enc-type", name, "--encoder-dir", enc_dir, "--data-dir", data,
+            "--log-every", "3", "--set", f"z_dims=[{z_dim}]"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    state, text = cli_quiet(args + ["--steps", str(ENC_DATA["steps"])])
+    torch.cuda.synchronize()
+    launches, peak = fa.launches, torch.cuda.max_memory_allocated() / 1e9
+    steps_s = float(re.search(r"([\d.]+) steps/s", text).group(1))
+    imgs_s = float(re.search(r"([\d.]+) imgs/s", text).group(1))
+    proj = float(re.search(r"'proj_loss': (-?[\d.e-]+)",
+                           text.split(f"[step {ENC_DATA['steps']}]")[-1]).group(1))
+    cfg = state.opt.cfg
+    del state
+    torch.cuda.empty_cache()
+    loop_split(args + ["--steps", str(ENC_DATA["profiled_steps"])], smi)
+    torch.cuda.empty_cache()
+
+    # the same step without the encoder: synthetic targets of the same shape
+    icfg = configlib.apply_overrides(image_train.ImageTrainConfig(
+        model=ENC_DATA["model"], batch_size=ENC_DATA["batch"]), [f"z_dims=[{z_dim}]"])
+    trainer = image_train.ImageTrainer(icfg, device="cuda")
+    st = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(3))
+    for _ in range(2):
+        st, _ = trainer.train_step(st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        st, _ = trainer.train_step(st, batch)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 5
+    del trainer, st, batch
+    torch.cuda.empty_cache()
+    mfu = imgs_s * SIT_XL_TRAIN_FLOPS_PER_IMG / PEAK_FLOPS[torch.bfloat16]
+    log(f"[image] cli {' '.join(args)} --steps {ENC_DATA['steps']} (default config: one "
+        f"DINOv2 target, Adam lr {cfg.lr}, EMA every step): {1e3 / steps_s:.3f} ms a step "
+        f"with the in-loop encoder (the CLI's rate over steps 2-{ENC_DATA['steps']}, data "
+        f"loading included), {imgs_s:.2f} imgs/s, MFU {mfu:.4f} (bench.py's flops; the "
+        f"encoder's not counted); the same step on synthetic targets {plain_ms:.3f} ms "
+        f"({1e3 * ENC_DATA['batch'] / plain_ms:.2f} imgs/s); the encoder alone "
+        f"{enc_ms:.3f} ms a batch; K1 launches {launches} (expected "
+        f"{DEPTH * ENC_DATA['steps']}); peak memory {peak:.2f} GB; last proj_loss "
+        f"{proj:.5g} ({smi})")
+    if launches != DEPTH * ENC_DATA["steps"]:
+        raise AssertionError(f"expected {DEPTH * ENC_DATA['steps']} K1 launches, got "
+                             f"{launches}")
+    if not (np.isfinite(proj) and proj != 0.0):
+        raise AssertionError(f"the DINOv2 targets did not reach the loss: proj {proj}")
+    return launches
+
+
+def state_tensors(state):
+    """Every tensor of a TrainState by name: parameters, EMA, moments."""
+    out = {f"param {n}": p for n, p in state.model.named_parameters()}
+    out.update({f"ema {n}": t for n, t in state.ema.items()})
+    names = [n for n, _ in state.model.named_parameters()]
+    out.update({f"mu {n}": t for n, t in zip(names, state.opt.mu)})
+    out.update({f"nu {n}": t for n, t in zip(names, state.opt.nu)})
+    return out
+
+
+def state_difference(a, b):
+    """(the first tensor of two states that is not bitwise equal, the max
+    |a - b| over all tensors), or None where every tensor is equal."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    first, worst = None, 0.0
+    for name in ta:
+        if not torch.equal(ta[name], tb[name]):
+            first = first or name
+            worst = max(worst, (ta[name].float() - tb[name].float()).abs().max().item())
+    return None if first is None else (first, worst)
+
+
+def describe(diff):
+    return ("bitwise equal" if diff is None
+            else f"first difference {diff[0]}, max over all {diff[1]:.3g}")
+
+
+def within_noise(diff, det):
+    """A resumed run is right if it is bitwise equal to the uninterrupted
+    one where a repeated run is, else within RESUME_NOISE_FACTOR times the
+    repeated run's difference."""
+    if det is None:
+        return diff is None
+    return diff is None or diff[1] <= RESUME_NOISE_FACTOR * det[1]
+
+
+def resume_check(label, make_trainer, batches, tmp, control=False):
+    """An uninterrupted 4-step run against 2 steps, a checkpoint, a restore
+    into a fresh trainer and the same last 2 batches; and against a second
+    uninterrupted run (is the step itself deterministic?). With `control`,
+    also a restore that leaves the fresh trainer's generator as it was,
+    which the check must catch."""
+    def run(trainer, state, bs):
+        for b in bs:
+            state, _ = trainer.train_step(state, b)
+        return state
+
+    ta = make_trainer()
+    full = run(ta, ta.init_state(), batches)
+    tb = make_trainer()
+    half = run(tb, tb.init_state(), batches[:2])
+    mgr = CheckpointManager(f"{tmp}/{label}_resume")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(half, tb.generator)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(mgr.path(2))
+    del tb, half
+    tc = make_trainer()
+    resumed = tc.init_state()
+    t0 = time.perf_counter()
+    mgr.restore(resumed, tc.generator)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed = run(tc, resumed, batches[2:])
+    diff = state_difference(resumed, full)
+    td = make_trainer()
+    det = state_difference(run(td, td.init_state(), batches), full)
+    log(f"[ckpt] {label}: checkpoint at step 2 {nbytes / 1e9:.3f} GB, save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s; resumed run after 4 steps vs "
+        f"uninterrupted: {describe(diff)} over {len(state_tensors(full))} tensors "
+        f"(params, EMA, mu, nu); a second uninterrupted run: {describe(det)}")
+    if not within_noise(diff, det):
+        raise AssertionError(f"{label}: the resumed run differs ({describe(diff)}) by more "
+                             f"than {RESUME_NOISE_FACTOR}x a repeated run ({describe(det)})")
+    if control:
+        te = make_trainer()
+        skipped = mgr.restore(te.init_state())
+        skipped = state_difference(run(te, skipped, batches[2:]), full)
+        log(f"[ckpt] {label}, control: a restore without the trainer's generator state: "
+            f"{describe(skipped)}, {'caught' if not within_noise(skipped, det) else 'MISSED'}"
+            f" (bound {RESUME_NOISE_FACTOR}x the repeated run's difference)")
+        if within_noise(skipped, det):
+            raise AssertionError(f"{label}: the resume check misses a dropped generator")
+    return diff, det
+
+
+def checkpoint_phase(tmp, smi):
+    """--ckpt-every/--ckpt-dir through train-image and train-protein; then
+    in-process resumes held against uninterrupted runs (SiT-B/2: the XL
+    state is ~9.5 GB a checkpoint; the protein default, with its control);
+    and generate-image --ckpt-dir from the image run's EMA."""
+    img_dir, prot_dir = f"{tmp}/ckpt_image", f"{tmp}/ckpt_protein"
+    cli_quiet(["train-image", "--model", CKPT_IMAGE["model"], "--steps", "4",
+               "--ckpt-every", "2", "--ckpt-dir", img_dir, "--synthetic",
+               "--batch-size", str(CKPT_IMAGE["batch"]), "--log-every", "2"])
+    cli_quiet(["train-protein", "--steps", "4", "--ckpt-every", "2", "--ckpt-dir",
+               prot_dir, "--synthetic", "--log-every", "2"])
+    for d in (img_dir, prot_dir):
+        files = sorted(os.listdir(d))
+        log(f"[ckpt] cli --ckpt-dir {os.path.basename(d)} --ckpt-every 2 --steps 4: {files}")
+        if not {"2.pt", "4.pt", "config.json", "metrics.jsonl"} <= set(files):
+            raise AssertionError(f"{d}: {files}")
+
+    icfg = image_train.ImageTrainConfig(model=CKPT_IMAGE["model"],
+                                        batch_size=CKPT_IMAGE["batch"])
+    make = lambda: image_train.ImageTrainer(icfg, device="cuda")  # noqa: E731
+    probe = make()
+    batches = [probe.synthetic_batch(torch.Generator(device="cuda").manual_seed(50 + i))
+               for i in range(4)]
+    del probe
+    image = resume_check(f"{CKPT_IMAGE['model']} image", make, batches, tmp)
+    torch.cuda.empty_cache()
+    pcfg = ProteinTrainConfig()
+    make = lambda: ProteinTrainer(pcfg, device="cuda")  # noqa: E731
+    probe = make()
+    batches = [probe.synthetic_batch(torch.Generator(device="cuda").manual_seed(60 + i))
+               for i in range(4)]
+    del probe
+    protein = resume_check("ProteinMPNN-FMIF protein", make, batches, tmp, control=True)
+    torch.cuda.empty_cache()
+
+    gen = ["generate-image", "--model", CKPT_IMAGE["model"], "--num-samples", "4",
+           "--batch-size", "4", "--num-steps", "4", "--mode", "ode"]
+    _, text = cli_quiet(gen + ["--ckpt-dir", img_dir, "--out", f"{tmp}/ckpt_gen.npz"])
+    cli_quiet(gen + ["--out", f"{tmp}/init_gen.npz"])
+    a, b = (np.load(f"{tmp}/{n}.npz")["arr_0"] for n in ("ckpt_gen", "init_gen"))
+    loaded = "loaded EMA weights of step 4" in text
+    log(f"[ckpt] generate-image --ckpt-dir ({CKPT_IMAGE['model']}, EMA of step 4): {a.shape}, "
+        f"{'loaded the EMA' if loaded else 'did not load the EMA'}; max |diff| to the "
+        f"same run from the initial weights {np.abs(a - b).max():.3g}")
+    if not (loaded and np.isfinite(a).all() and a.shape == (4, 32, 32, 4)):
+        raise AssertionError("generate-image --ckpt-dir")
+    return image, protein
+
+
+def eval_phases(smi):
+    """Slice 8's phases, in a temporary directory removed after them."""
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(tmp, *args, smi)
+        log(f"[eval] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        vae_npz = timed(vae_phase)
+        gen_a, gen_b, gen_launches = timed(generate_subprocess_phase, vae_npz)
+        timed(fid_phase, gen_a, gen_b)
+        enc_launches = timed(encoder_train_phase)
+        timed(checkpoint_phase)
+    return gen_launches, enc_launches
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -1164,6 +1700,11 @@ def main():
     bwd_launches = train_phase(smi)
     widths_phase()
     image_launches, gate_launches = image_train_phase(smi)
+    t0 = time.perf_counter()
+    gen_vae_launches, enc_launches = eval_phases(smi)
+    log(f"[eval] slice 8 phases in {time.perf_counter() - t0:.1f} s; K1 launches on its "
+        f"paths: {gen_vae_launches} in generate-image --vae (16 calls), {enc_launches} in "
+        f"train-image --enc-type ({ENC_DATA['steps']} steps)")
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),

@@ -23,3 +23,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     return device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for `device`'s queued work where it is a CUDA device."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

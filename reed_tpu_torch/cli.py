@@ -2,100 +2,162 @@
 
   python -m reed_tpu_torch.cli generate-image --model SiT-XL/2 \\
       --num-samples 64 --batch-size 32 --num-steps 250 --cfg-scale 1.8 \\
-      --guidance-high 0.7 --ref-ckpt sit_xl.pt --out out/samples.npz
+      --guidance-high 0.7 --ref-ckpt sit_xl.pt --vae vae_decoder.npz \\
+      --out out/samples.npz
+  python -m reed_tpu_torch.cli compute-fid ref.npz out/samples.npz \\
+      --inception-npz inception.npz [--save-stats]
   python -m reed_tpu_torch.cli eval-protein --batch-size 8 --length 256 \\
       --num-steps 50 [--data-dir pdb_2021aug02] [--ref-ckpt epoch_last.pt]
   python -m reed_tpu_torch.cli train-protein --steps 100 --synthetic \\
       [--data-dir pdb_2021aug02 --token-budget 20000] [--set optim.lr=3e-4]
   python -m reed_tpu_torch.cli train-image --model SiT-XL/2 --batch-size 48 \\
-      --steps 100 --synthetic [--data-dir latents/] [--set optim.mu_dtype=bfloat16]
+      --steps 100 --synthetic [--data-dir latents/ --enc-type dinov2-vit-b \\
+      --encoder-dir encoders/] [--ckpt-dir out/img --ckpt-every 1000]
 
-Runs on CUDA unless `--device cpu` is given. generate-image uses reed_tpu's
-image default (ImageTrainConfig / build_model in reed_tpu/train/image.py):
-32x32x4 latents, 1000 classes, bf16 compute. eval-protein and train-protein
-use its protein default (ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128,
-3 + 3 layers, 30 neighbours, f32 compute; training adds dropout 0.1, the AF3
-alignment loss and Adam with a global-norm clip. train-image uses its
-image default (ImageTrainConfig): SiT-B/2, batch 256, bf16 compute with f32
-master weights, one DINOv2-width projector at depth 8, Adam lr 1e-4.
+Runs on CUDA unless `--device cpu` is given. Configurations resolve as
+reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
+recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
+generate-image and train-image use reed_tpu's image default
+(ImageTrainConfig): SiT-B/2 on 32x32x4 latents, 1000 classes, bf16 compute
+with f32 master weights, one DINOv2-width projector at depth 8, Adam lr
+1e-4, batch 256. eval-protein and train-protein use its protein default
+(ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128, 3 + 3 layers, 30
+neighbours, f32 compute; training adds dropout 0.1, the AF3 alignment loss
+and Adam with a global-norm clip. `--ckpt-dir` with `--ckpt-every` saves
+and resumes training (core/checkpoint.py); on generate-image and
+eval-protein it samples from the latest checkpoint's EMA weights.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import copy
 import json
 import os
 import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from reed_tpu_torch import resolve_device
+from reed_tpu_torch import resolve_device, synchronize
+from reed_tpu_torch.core import configlib
+
+
+def _resolve_cfg(cls, args, flags, defaults=None):
+    """defaults <- --config file <- the explicit flags given <- --set."""
+    cfg = configlib.build(cls, defaults or {})
+    if args.config:
+        cfg = configlib.merge(cfg, configlib.load_file(args.config))
+    cfg = configlib.merge(cfg, {k: v for k, v in flags.items() if v is not None})
+    return configlib.apply_overrides(cfg, args.overrides)
+
+
+def _load_ema(model, ckpt_dir: str):
+    """Copy the latest checkpoint's EMA weights into `model`'s parameters."""
+    from reed_tpu_torch.core.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    ema = mgr.load_ema()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(ema[name])
+    print(f"loaded EMA weights of step {mgr.latest_step()} from {ckpt_dir}")
 
 
 def generate_image(args):
-    """Sample latents into an ADM-suite npz (arr_0)."""
+    """FID sample generation: sample latents, decode them to 256x256 uint8
+    pixels with the SD-VAE decoder on the device (--vae), and write an
+    ADM-suite npz (arr_0)."""
     from reed_tpu_torch.encoders.sit_convert import load_reference_checkpoint
     from reed_tpu_torch.eval.fid import (FIDGenConfig, generate_samples,
-                                         strip_projector_params)
-    from reed_tpu_torch.models.sit import create_sit
+                                         make_vae_decode_fn, strip_projector_params)
+    from reed_tpu_torch.ops import flash_attention
+    from reed_tpu_torch.train.image import ImageTrainConfig, build_model
 
     device = resolve_device(args.device)
     # torch-parity inference from a reference checkpoint needs erf GELU
-    model = create_sit(args.model, device=device,
-                       exact_gelu=bool(args.ref_ckpt))
+    cfg = _resolve_cfg(ImageTrainConfig, args,
+                       {"model": args.model, "seed": args.seed, "compute_dtype": args.dtype},
+                       defaults={"exact_gelu": True} if args.ref_ckpt else None)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
     if args.ref_ckpt:
         sd = strip_projector_params(load_reference_checkpoint(args.ref_ckpt))
         missing, unexpected = model.load_state_dict(sd, strict=False)
         missing = [k for k in missing if not k.startswith("projectors.")]
         if missing or unexpected:
             raise ValueError(f"checkpoint {args.ref_ckpt} does not fit "
-                             f"{args.model}: missing {missing}, "
+                             f"{cfg.model}: missing {missing}, "
                              f"unexpected {unexpected}")
-        print(f"loaded reference checkpoint {args.ref_ckpt} (exact_gelu=True)")
-    else:
-        model.initialize_weights(torch.Generator(device=device).manual_seed(args.seed))
-    model = model.to(getattr(torch, args.dtype)).eval()
+        print(f"loaded reference checkpoint {args.ref_ckpt} (exact_gelu={cfg.exact_gelu})")
+    elif args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
+    model = model.to(getattr(torch, cfg.compute_dtype))
+    calls = 0
 
     def model_fn(x, t, y):
+        nonlocal calls
+        calls += 1
         return model(x, t, y)[0]
 
-    print("no VAE decoder in the port yet: the npz holds raw latents, not "
-          "the 256x256 uint8 pixels the ADM FID suite expects")
-    cfg = FIDGenConfig(num_samples=args.num_samples,
-                       batch_size=args.batch_size or 64,
-                       num_classes=model.y_embedder.num_classes,
-                       latent_size=model.input_size,
-                       latent_channels=model.in_channels,
-                       mode=args.mode, num_steps=args.num_steps,
-                       cfg_scale=args.cfg_scale,
-                       guidance_low=args.guidance_low,
-                       guidance_high=args.guidance_high, seed=args.seed)
-    generate_samples(model_fn, cfg, device=device, out_npz=args.out)
+    decode_fn = make_vae_decode_fn(args.vae, device=device)
+    if decode_fn is None:
+        print("WARNING: no --vae decoder npz given; npz will hold raw latents, not "
+              "the 256x256 uint8 pixels the ADM FID suite expects (convert with "
+              "tools/convert_vae.py)")
+    gen_cfg = FIDGenConfig(num_samples=args.num_samples,
+                           batch_size=args.batch_size or 64,
+                           num_classes=cfg.num_classes,
+                           latent_size=cfg.input_size,
+                           latent_channels=cfg.in_channels,
+                           mode=args.mode, num_steps=args.num_steps,
+                           cfg_scale=args.cfg_scale,
+                           guidance_low=args.guidance_low,
+                           guidance_high=args.guidance_high, seed=cfg.seed)
+    before = flash_attention.launches
+    generate_samples(model_fn, gen_cfg, device=device, out_npz=args.out,
+                     decode_fn=decode_fn)
+    print(f"flash_attention launches: {flash_attention.launches - before} in {calls} "
+          f"model calls ({cfg.model}, {cfg.compute_dtype}, {device})")
 
 
-def _apply_overrides(cfg, overrides):
-    """KEY=VALUE overrides of a frozen dataclass config; KEY may be dotted
-    into a nested dataclass (interpolant.temp=0.2); VALUE is read as JSON,
-    else kept as a string."""
-    for item in overrides:
-        key, _, text = item.partition("=")
-        try:
-            value = json.loads(text)
-        except json.JSONDecodeError:
-            value = text
-        *path, name = key.split(".")
-        nodes = [cfg]
-        for part in path:
-            nodes.append(getattr(nodes[-1], part))
-        if not hasattr(nodes[-1], name):
-            raise ValueError(f"--set {item}: no field {key!r}")
-        value = dataclasses.replace(nodes[-1], **{name: value})
-        for node, part in zip(reversed(nodes[:-1]), reversed(path)):
-            value = dataclasses.replace(node, **{part: value})
-        cfg = value
-    return cfg
+def compute_fid(args):
+    """FID between two inputs, each a stats npz ({mu, sigma}) or an
+    ADM-style image npz (uint8 [N, H, W, 3] under arr_0, samples or
+    images: the file generate-image writes). Image inputs are featurized
+    by the InceptionV3 pool3 network of --inception-npz on the device."""
+    from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distance
+
+    device = resolve_device(args.device)
+    feature_fn = None
+
+    def stats_for(path):
+        nonlocal feature_fn
+        data = np.load(path)
+        if "mu" in data.files and "sigma" in data.files:
+            return {"mu": data["mu"], "sigma": data["sigma"]}
+        key = next(k for k in ("arr_0", "samples", "images") if k in data.files)
+        if feature_fn is None:
+            if not args.inception_npz:
+                raise SystemExit(
+                    "--inception-npz required to featurize image npz (convert once: "
+                    "reed_tpu/encoders/inception.py load_torch_inception_checkpoint "
+                    "+ save_variables_npz)")
+            from reed_tpu_torch.encoders.inception import load_npz, make_feature_fn
+
+            feature_fn = make_feature_fn(load_npz(args.inception_npz, device=device))
+        stats = compute_activation_stats(data[key], feature_fn, batch_size=args.batch_size)
+        if args.save_stats:
+            out = os.path.splitext(path)[0] + "_stats.npz"
+            np.savez(out, **stats)
+            print(f"saved stats to {out}")
+        return stats
+
+    s1, s2 = stats_for(args.ref), stats_for(args.gen)
+    fid = frechet_distance(s1["mu"], s1["sigma"], s2["mu"], s2["sigma"])
+    print(json.dumps({"fid": fid}))
+    return fid
 
 
 def eval_protein(args):
@@ -108,12 +170,11 @@ def eval_protein(args):
                                               sample, synthetic_protein_batch)
 
     device = resolve_device(args.device)
-    cfg = ProteinTrainConfig(batch_size=args.batch_size, seed=args.seed,
-                             compute_dtype=args.dtype,
-                             fused_messages=args.fused_messages)
-    cfg = _apply_overrides(cfg, args.overrides)
-    cfg = dataclasses.replace(cfg, interpolant=dataclasses.replace(
-        cfg.interpolant, num_timesteps=args.num_steps))
+    cfg = _resolve_cfg(ProteinTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "compute_dtype": args.dtype, "fused_messages": args.fused_messages},
+                       defaults={"batch_size": 4})
+    cfg = configlib.merge(cfg, {"interpolant": {"num_timesteps": args.num_steps}})
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(cfg.seed))
     if args.ref_ckpt:
@@ -122,17 +183,17 @@ def eval_protein(args):
         # model flags must match the checkpoint (--set)
         model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
         print(f"loaded reference checkpoint {args.ref_ckpt}")
+    elif args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
 
     def run(batch):
         """(pred, tokens) of one batch, with its seconds to the last token."""
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        synchronize(device)
         t0 = time.perf_counter()
         pred, tokens = sample(
             model, batch, torch.Generator(device=device).manual_seed(cfg.seed + 1),
             cfg.interpolant)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        synchronize(device)
         return pred.cpu().numpy(), tokens.cpu().numpy(), time.perf_counter() - t0
 
     def report_speed(n_seqs, n_batches, seconds):
@@ -188,23 +249,70 @@ def eval_protein(args):
     }, indent=2))
 
 
+def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
+              sample_hook=None):
+    """reed_tpu's training loop on one device: `args.steps` steps over
+    `batches` (each fetch and step inside the profiler ranges
+    `reed::next_batch` and `reed::train_step`), logging `[step N] {...}`
+    every --log-every steps (and to {ckpt_dir}/metrics.jsonl), saving every
+    --ckpt-every steps under --ckpt-dir after resuming from its latest
+    checkpoint (with a config snapshot beside it), calling
+    `sample_hook(state, step)` every --sample-every steps; then the rate of
+    the steps after the first. `samples_of(batch)` counts a batch's
+    samples, in `unit`s."""
+    from reed_tpu_torch.core.checkpoint import CheckpointManager
+    from reed_tpu_torch.core.logging import MetricLogger
+
+    device = trainer.device
+    logger = MetricLogger(log_dir=args.ckpt_dir)
+    if args.ckpt_dir:
+        print(f"config snapshot -> {configlib.snapshot(cfg, args.ckpt_dir)}")
+    ckpt = None
+    if args.ckpt_dir and args.ckpt_every:
+        ckpt = CheckpointManager(args.ckpt_dir, save_interval_steps=args.ckpt_every)
+        if ckpt.latest_step() is not None:
+            ckpt.restore(state, trainer.generator)
+            print(f"resumed from step {state.step}")
+    t0 = samples = None
+    for i in range(args.steps):
+        with record_function("reed::next_batch"):
+            batch = next(batches)
+        with record_function("reed::train_step"):
+            state, metrics = trainer.train_step(state, batch)
+        if i == 0:
+            synchronize(device)
+            t0, samples = time.perf_counter(), 0
+        else:
+            samples += samples_of(batch)
+        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+            logger.log(metrics, state.step, samples_per_step=samples_of(batch))
+        if ckpt and (i + 1) % args.ckpt_every == 0:
+            ckpt.save(state, trainer.generator)
+        if sample_hook is not None and (i + 1) % args.sample_every == 0:
+            sample_hook(state, state.step)
+    if ckpt:
+        ckpt.save(state, trainer.generator)
+    logger.close()
+    synchronize(device)
+    if args.steps > 1:
+        seconds = time.perf_counter() - t0
+        n = args.steps - 1
+        print(f"{label}: {n} steps after the first in {seconds:.3f} s: "
+              f"{n / seconds:.3f} steps/s, {samples / seconds:.2f} {unit}/s")
+    return state
+
+
 def train_protein(args):
     """Train ProteinMPNN-FMIF on synthetic batches (batch_size x max_len,
     with AF3-style embeddings) or on the train split under --data-dir,
     logging `[step N] {...}` every --log-every steps."""
     from reed_tpu_torch.core.ema import ema_init
-    from reed_tpu_torch.core.logging import MetricLogger
     from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
 
     device = resolve_device(args.device)
-    cfg = ProteinTrainConfig()
-    if args.batch_size is not None:
-        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
-    if args.lr is not None:
-        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, lr=args.lr))
-    if args.seed is not None:
-        cfg = dataclasses.replace(cfg, seed=args.seed)
-    cfg = _apply_overrides(cfg, args.overrides)
+    cfg = _resolve_cfg(ProteinTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "optim": {"lr": args.lr} if args.lr is not None else None})
     trainer = ProteinTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
@@ -255,48 +363,38 @@ def train_protein(args):
                     yield {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
                 epoch += 1
 
-    logger = MetricLogger()
-    it = batches()
-    for i in range(args.steps):
-        batch = next(it)
-        state, metrics = trainer.train_step(state, batch)
-        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
-            logger.log(metrics, state.step, samples_per_step=int(batch["S"].shape[0]))
-    return state
+    return _run_loop(trainer, state, batches(), args, lambda b: int(b["S"].shape[0]),
+                     cfg, f"train-protein ({device})", "sequences")
 
 
 def train_image(args):
     """Train SiT with REED alignment on synthetic batches (N(0, 1) latents
-    and encoder targets) or on the cached latents under --data-dir, logging
-    `[step N] {...}` every --log-every steps, then the rate of the steps
+    and encoder targets) or on the cached latents under --data-dir, with
+    the frozen encoders of --enc-type computing their targets from the raw
+    pixel crops in the loop (profiler range `reed::frozen_encoder`); logging `[step N] {...}` every --log-every
+    steps, previews every --sample-every steps, then the rate of the steps
     after the first (steps/s and imgs/s)."""
-    from reed_tpu_torch.core.logging import MetricLogger
+    from reed_tpu_torch.core.ema import ema_init
     from reed_tpu_torch.train.image import ImageTrainConfig, ImageTrainer
 
-    unported = {"--sample-every": args.sample_every, "--vae": args.vae,
-                "--enc-type": args.enc_type, "--ref-ckpt": args.ref_ckpt,
-                "--ckpt-dir": args.ckpt_dir}
-    given = [flag for flag, value in unported.items() if value]
-    if given:
-        raise NotImplementedError(
-            f"train-image {', '.join(given)}: not ported (the port has no "
-            "preview sampling, SD-VAE, frozen encoders, reference warm start or "
-            "checkpoints yet)")
     device = resolve_device(args.device)
-    cfg = ImageTrainConfig()
     # the mesh flags as reed_tpu reads them; the trainer refuses more than one device
     mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp),
                               ("tensor", args.tp), ("seq", args.sp)) if v is not None}
-    for name, value in (("model", args.model), ("batch_size", args.batch_size),
-                        ("seed", args.seed),
-                        ("mesh", dataclasses.replace(cfg.mesh, **mesh) if mesh else None)):
-        if value is not None:
-            cfg = dataclasses.replace(cfg, **{name: value})
-    if args.lr is not None:
-        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, lr=args.lr))
-    cfg = _apply_overrides(cfg, args.overrides)
+    cfg = _resolve_cfg(ImageTrainConfig, args,
+                       {"model": args.model, "batch_size": args.batch_size,
+                        "seed": args.seed, "mesh": mesh or None,
+                        "optim": {"lr": args.lr} if args.lr is not None else None},
+                       defaults={"exact_gelu": True} if args.ref_ckpt else None)
     trainer = ImageTrainer(cfg, device=device)
     state = trainer.init_state()
+    if args.ref_ckpt:
+        from reed_tpu_torch.encoders.sit_convert import load_reference_checkpoint
+
+        # warm start from a reference torch checkpoint (forces exact_gelu)
+        state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
         def batches():
@@ -309,9 +407,18 @@ def train_image(args):
         from reed_tpu_torch.data.image import (CachedLatentDataset,
                                                ImageDatasetConfig, epoch_batches)
 
-        # as reed_tpu's train-image: no feature subdirectories, so zs is
-        # empty and proj_loss is 0
-        ds = CachedLatentDataset(ImageDatasetConfig(args.data_dir))
+        encoders = None
+        ds_cfg = ImageDatasetConfig(args.data_dir)
+        if args.enc_type:
+            # in-loop frozen-encoder targets from the raw pixel crops
+            from reed_tpu_torch.encoders.registry import encode_features, load_encoders
+
+            encoders, _, _ = load_encoders(args.enc_type, encoder_dir=args.encoder_dir,
+                                           device=device)
+            ds_cfg = ImageDatasetConfig(args.data_dir, pixels_subdir=args.pixels_subdir)
+        # without feature subdirectories or encoders zs is empty and
+        # proj_loss is 0, as in reed_tpu's train-image
+        ds = CachedLatentDataset(ds_cfg)
         if len(ds) < cfg.batch_size:
             raise SystemExit(f"{len(ds)} samples under {args.data_dir}, fewer "
                              f"than one batch of {cfg.batch_size}")
@@ -319,33 +426,80 @@ def train_image(args):
         def batches():
             epoch = 0
             while True:
-                yield from epoch_batches(ds, cfg.batch_size, cfg.seed + epoch)
+                for batch in epoch_batches(ds, cfg.batch_size, cfg.seed + epoch):
+                    if encoders is not None:
+                        with record_function("reed::frozen_encoder"):
+                            feats = encode_features(encoders, batch.pop("pixels"))
+                        batch["zs"] = feats + list(batch["zs"])
+                    yield batch
                 epoch += 1
 
-    logger = MetricLogger()
-    it = batches()
-    t0 = None
-    for i in range(args.steps):
-        batch = next(it)
-        state, metrics = trainer.train_step(state, batch)
-        if i == 0:
-            _sync(device)
-            t0 = time.perf_counter()
-        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
-            logger.log(metrics, state.step, samples_per_step=cfg.batch_size)
-    _sync(device)
-    if args.steps > 1:
-        seconds = time.perf_counter() - t0
-        n = args.steps - 1
-        print(f"train-image: {n} steps after the first in {seconds:.3f} s: "
-              f"{n / seconds:.3f} steps/s, {n * cfg.batch_size / seconds:.2f} imgs/s "
-              f"({cfg.model}, batch {cfg.batch_size}, {cfg.compute_dtype}, {device})")
-    return state
+    sample_hook = None
+    if args.sample_every:
+        sample_hook = _preview_hook(cfg, args, device)
+    return _run_loop(trainer, state, batches(), args, lambda b: cfg.batch_size, cfg,
+                     f"train-image ({cfg.model}, batch {cfg.batch_size}, "
+                     f"{cfg.compute_dtype}, {device})", "imgs", sample_hook=sample_hook)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _preview_hook(cfg, args, device):
+    """sample_hook(state, step): 16 samples from the EMA weights (ODE, 50
+    steps, CFG 4.0, seeded by the step), VAE-decoded where --vae is given,
+    else the first three latent channels scaled to [0, 255], saved as a
+    grid {ckpt_dir or .}/preview_{step:07d}.png."""
+    from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples, make_vae_decode_fn
+    from reed_tpu_torch.eval.visualize import save_image_grid
+
+    decode_fn = make_vae_decode_fn(args.vae, device=device)
+    ema_model = None
+
+    def hook(state, step):
+        nonlocal ema_model
+        if ema_model is None:
+            ema_model = copy.deepcopy(state.model).eval()
+        with torch.no_grad():
+            for name, p in ema_model.named_parameters():
+                p.copy_(state.ema[name])
+        gen_cfg = FIDGenConfig(num_samples=16, batch_size=16, mode="ode", num_steps=50,
+                               cfg_scale=4.0, num_classes=cfg.num_classes,
+                               latent_size=cfg.input_size,
+                               latent_channels=cfg.in_channels, seed=step)
+        out = generate_samples(lambda x, t, y: ema_model(x, t, y)[0], gen_cfg,
+                               device=device, decode_fn=decode_fn)
+        if decode_fn is None:
+            vis = out[..., :3]
+            vis = (vis - vis.min()) / (vis.max() - vis.min() + 1e-8)
+            out = (vis * 255).astype(np.uint8)
+        path = f"{args.ckpt_dir or '.'}/preview_{step:07d}.png"
+        save_image_grid(path, out)
+        print(f"saved sample preview -> {path}")
+
+    return hook
+
+
+def _add_config(p, what):
+    p.add_argument("--config", default=None,
+                   help=f"JSON {what} tree (full or partial), e.g. a file of recipes/")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="KEY=VALUE",
+                   help=f"dotted-path {what} override, e.g. optim.lr=3e-4 or "
+                        "curriculum.diffusion_warmup_steps=0")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; no silent fallback")
+
+
+def _add_training(p):
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic batches (the default without --data-dir)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoints, config.json and metrics.jsonl; with --ckpt-every "
+                        "the run resumes from its latest checkpoint")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="save a checkpoint every N steps (0: none)")
 
 
 def main(argv=None):
@@ -353,7 +507,7 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("generate-image")
-    p.add_argument("--model", default="SiT-B/2", help="e.g. SiT-XL/2")
+    p.add_argument("--model", default=None, help="e.g. SiT-XL/2 (default SiT-B/2)")
     p.add_argument("--num-samples", type=int, default=64)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--mode", default="sde", choices=["sde", "ode"])
@@ -361,50 +515,60 @@ def main(argv=None):
     p.add_argument("--cfg-scale", type=float, default=1.0)
     p.add_argument("--guidance-low", type=float, default=0.0)
     p.add_argument("--guidance-high", type=float, default=1.0)
+    p.add_argument("--vae", default=None,
+                   help="SD-VAE decoder npz (tools/convert_vae.py); required for the "
+                        "ADM suite's uint8 pixel npz")
     p.add_argument("--ref-ckpt", default=None,
                    help="reference torch .pt checkpoint (forces exact_gelu "
                         "for parity)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this run's latest checkpoint")
     p.add_argument("--out", default=None)
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                   help="compute dtype (default: the config's bfloat16)")
+    _add_config(p, "ImageTrainConfig")
+    p.set_defaults(fn=generate_image)
+
+    p = sub.add_parser("compute-fid")
+    p.add_argument("ref", help="reference stats npz ({mu,sigma}) or image npz")
+    p.add_argument("gen", help="generated stats npz or image npz")
+    p.add_argument("--inception-npz", default=None,
+                   help="InceptionV3 pool3 weights npz (reed_tpu's save_variables_npz "
+                        "layout); needed for image npz inputs")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--save-stats", action="store_true",
+                   help="save computed stats next to each image npz")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; no silent fallback")
-    p.add_argument("--dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
-    p.set_defaults(fn=generate_image)
+    p.set_defaults(fn=compute_fid)
 
     p = sub.add_parser("eval-protein")
     p.add_argument("--num-steps", type=int, default=100)
     p.add_argument("--length", type=int, default=64)
     p.add_argument("--max-chains", type=int, default=None,
                    help="cap on valid-split chains to score")
-    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--batch-size", type=int, default=None, help="default 4")
     p.add_argument("--ref-ckpt", default=None,
                    help="reference torch fmif checkpoint (epoch_last.pt); "
                         "model flags must match via --set")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this run's latest checkpoint")
     p.add_argument("--data-dir", default=None,
                    help="PDB dataset (list.csv, split files, pdb/); scores "
                         "the valid split")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; no silent fallback")
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--fused-messages", default="auto", choices=["auto", "on", "off"],
-                   help="message chains through the fused kernels (auto: where "
-                        "they take the widths, else unfused)")
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="KEY=VALUE",
-                   help="ProteinTrainConfig override, e.g. hidden_dim=64")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (default: the config's float32)")
+    p.add_argument("--fused-messages", default=None, choices=["auto", "on", "off"],
+                   help="message chains through the fused kernels (auto, the "
+                        "config's default: where they take the widths, else unfused)")
+    _add_config(p, "ProteinTrainConfig")
     p.set_defaults(fn=eval_protein)
 
     p = sub.add_parser("train-protein")
-    p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
                    help="synthetic batch size (default: the config's 8)")
-    p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--log-every", type=int, default=10)
-    p.add_argument("--synthetic", action="store_true",
-                   help="train on synthetic batches (the default without --data-dir)")
     p.add_argument("--data-dir", default=None,
                    help="PDB dataset (list.csv, split files, pdb/, optional "
                         "repr/); trains on the train split")
@@ -412,39 +576,37 @@ def main(argv=None):
                    help="tokens per real-data batch (reference batch_size=20000)")
     p.add_argument("--ref-ckpt", default=None,
                    help="warm start from a reference torch fmif checkpoint")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; no silent fallback")
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="KEY=VALUE",
-                   help="ProteinTrainConfig override, e.g. optim.lr=3e-4 or "
-                        "curriculum.diffusion_warmup_steps=0")
+    _add_training(p)
+    _add_config(p, "ProteinTrainConfig")
     p.set_defaults(fn=train_protein)
 
     p = sub.add_parser("train-image")
     p.add_argument("--model", default=None, help="e.g. SiT-XL/2 (default SiT-B/2)")
-    p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
                    help="default: the config's 256")
-    p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--log-every", type=int, default=10)
-    p.add_argument("--synthetic", action="store_true",
-                   help="train on synthetic batches (the default without --data-dir)")
     p.add_argument("--data-dir", default=None,
-                   help="cached latents: dataset.json and vae-sd/*.npy moments")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; no silent fallback")
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="KEY=VALUE",
-                   help="ImageTrainConfig override, e.g. optim.mu_dtype=bfloat16 or "
-                        "curriculum.diffusion_warmup_steps=0")
+                   help="cached latents: dataset.json and vae-sd/*.npy moments "
+                        "(and pixels/ crops for --enc-type)")
+    p.add_argument("--enc-type", default=None,
+                   help="in-loop frozen encoders, e.g. dinov2-vit-b (needs "
+                        "--encoder-dir weights and --data-dir pixel crops)")
+    p.add_argument("--encoder-dir", default=None,
+                   help="dir of encoder npz weights ({name}.npz; default "
+                        "$REED_TPU_ENCODER_DIR)")
+    p.add_argument("--pixels-subdir", default="pixels",
+                   help="dataset subdir of raw uint8 crops")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="warm start from a reference torch SiT checkpoint "
+                        "(forces exact_gelu)")
+    p.add_argument("--sample-every", type=int, default=0,
+                   help="preview grid of 16 EMA samples every N steps")
+    p.add_argument("--vae", default=None,
+                   help="SD-VAE decoder npz for the previews (else latent channels)")
     for flag in ("--dp", "--fsdp", "--tp", "--sp"):
         p.add_argument(flag, type=int, default=None,
                        help="mesh axis size; the port trains on one device, so only 1")
-    # reed_tpu's flags that the port does not have yet: each raises
-    p.add_argument("--sample-every", type=int, default=None, help="not ported")
-    for flag in ("--vae", "--enc-type", "--ref-ckpt", "--ckpt-dir"):
-        p.add_argument(flag, default=None, help="not ported")
+    _add_training(p)
+    _add_config(p, "ImageTrainConfig")
     p.set_defaults(fn=train_image)
 
     args = parser.parse_args(argv)

@@ -3,10 +3,10 @@ port's own copy of reed_tpu/data/image.py (numpy only).
 
 The on-disk layout is directories of per-sample `.npy` files (`vae-sd/`
 moments [8, 32, 32], `features/<enc>/` encoder targets,
-`text_embeds_<name>/` pooled text embeddings) indexed by a `dataset.json`
-labels file. (reed_tpu's raw-pixel crops for in-loop frozen encoders are
-not read: the port has no frozen encoders yet.) The loader yields fixed-shape
-numpy batches on the host; the trainer moves them to the device.
+`text_embeds_<name>/` pooled text embeddings, and `pixels/` raw uint8
+crops [256, 256, 3] for the in-loop frozen encoders) indexed by a
+`dataset.json` labels file. The loader yields fixed-shape numpy batches on
+the host; the trainer moves them to the device.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ class ImageDatasetConfig:
     latents_subdir: str = "vae-sd"
     features_subdirs: Sequence[str] = ()      # e.g. ("features/dinov2",)
     text_embeds_subdir: Optional[str] = None  # e.g. "text_embeds_qwen7b_l15"
+    pixels_subdir: Optional[str] = None       # raw uint8 crops for in-loop encoders
     latents_scale: float = 0.18215
     latents_bias: float = 0.0
 
@@ -55,6 +56,8 @@ class CachedLatentDataset:
         if self.cfg.text_embeds_subdir:
             out["z_text"] = self._npy(self.cfg.text_embeds_subdir,
                                       fname).astype(np.float32)
+        if self.cfg.pixels_subdir:
+            out["pixels"] = self._npy(self.cfg.pixels_subdir, fname)
         return out
 
 
@@ -84,4 +87,7 @@ def epoch_batches(dataset: CachedLatentDataset, batch_size: int, seed: int
               and k != "z_text"]
         if "z_text" in stacked:
             zs.append(stacked["z_text"])
-        yield {"x": x, "y": stacked["y"], "zs": zs}
+        batch = {"x": x, "y": stacked["y"], "zs": zs}
+        if "pixels" in stacked:
+            batch["pixels"] = stacked["pixels"]
+        yield batch

@@ -1,10 +1,12 @@
-"""FID generation harness on one device: sample class-conditional latents
-and write the `.npz` (key `arr_0`) consumed by the ADM evaluation suite.
+"""FID generation harness on one device: sample class-conditional latents,
+decode them to pixels with the SD-VAE decoder, and write the `.npz` (key
+`arr_0`) consumed by the ADM evaluation suite.
 
 Counterpart of reed_tpu/eval/fid.py. Each batch draws its latents, labels
 and SDE noise from a torch.Generator seeded by (seed, batch index), so a
-batch's samples do not depend on the batches before it. There is no VAE
-decoder yet: the npz holds latents, as reed_tpu writes without `--vae`.
+batch's samples do not depend on the batches before it. Each batch is
+decoded on the device before it is copied to the host; without a decoder
+the npz holds latents, as reed_tpu writes without `--vae`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from reed_tpu_torch import resolve_device
+from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.diffusion.samplers import euler_maruyama_sampler, euler_sampler
 
 
@@ -51,9 +53,13 @@ def batch_generator(seed: int, index: int, device) -> torch.Generator:
 
 @torch.no_grad()
 def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
-                     out_npz: Optional[str] = None) -> np.ndarray:
-    """model_fn(x, t, y) -> velocity. Returns [N, H, W, C] latents
-    (x / latents_scale + latents_bias) and writes `out_npz` when given."""
+                     out_npz: Optional[str] = None,
+                     decode_fn: Optional[Callable] = None) -> np.ndarray:
+    """model_fn(x, t, y) -> velocity. Returns [N, 8H, 8W, 3] uint8 pixels,
+    decode_fn(x / latents_scale + latents_bias) of each batch on the
+    device, or without decode_fn the [N, H, W, C] latents themselves; writes
+    `out_npz` when given. Prints the rate of the batches after the first,
+    with the sampling and the decode timed apart."""
     device = resolve_device(device)
     n_iters = math.ceil(cfg.num_samples / cfg.batch_size)
     shape = (cfg.batch_size, cfg.latent_size, cfg.latent_size,
@@ -62,8 +68,11 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
                   guidance_low=cfg.guidance_low,
                   guidance_high=cfg.guidance_high,
                   num_classes=cfg.num_classes, path_type=cfg.path_type)
-    outs, t0 = [], None
+    outs = []
+    # time the batches after the first, which carries the kernel build
+    sample_s = decode_s = 0.0
     for i in range(n_iters):
+        t0 = time.perf_counter()
         gen = batch_generator(cfg.seed, i, device)
         z = torch.randn(shape, generator=gen, device=device)
         y = torch.randint(0, cfg.num_classes, (cfg.batch_size,),
@@ -72,14 +81,24 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
             x = euler_maruyama_sampler(model_fn, z, y, gen, **kwargs)
         else:
             x = euler_sampler(model_fn, z, y, heun=cfg.heun, **kwargs)
-        outs.append((x / cfg.latents_scale + cfg.latents_bias).cpu().numpy())
-        if i == 0:
-            t0 = time.perf_counter()  # the first batch carries the kernel build
+        x = x / cfg.latents_scale + cfg.latents_bias
+        synchronize(device)
+        t1 = time.perf_counter()
+        if decode_fn is not None:
+            x = decode_fn(x)
+        outs.append(x.cpu().numpy())
+        if i:
+            sample_s += t1 - t0
+            decode_s += time.perf_counter() - t1
     if n_iters > 1:
-        per_batch = (time.perf_counter() - t0) / (n_iters - 1)
+        n = (n_iters - 1) * cfg.batch_size
+        per_batch = sample_s / (n_iters - 1)
         print(f"sampler throughput: {cfg.num_steps / per_batch:.1f} "
               f"steps/sec at batch {cfg.batch_size} "
-              f"({cfg.batch_size / per_batch:.1f} imgs/sec)")
+              f"({n / sample_s:.2f} imgs/sec without the decode)")
+        if decode_fn is not None:
+            print(f"decode: {1e3 * decode_s / n:.3f} ms per image; "
+                  f"{n / (sample_s + decode_s):.2f} imgs/sec with the decode")
     samples = np.concatenate(outs, axis=0)[:cfg.num_samples]
     if out_npz is not None:
         os.makedirs(os.path.dirname(out_npz) or ".", exist_ok=True)
@@ -103,3 +122,24 @@ def save_params_npz(path: str, state_dict: Mapping):
 def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
     with np.load(path) as z:
         return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def make_vae_decode_fn(vae_npz: Optional[str] = None, device=None
+                       ) -> Optional[Callable]:
+    """decode_fn(latents [B, h, w, C] on `device`) -> uint8 pixels
+    [B, 8h, 8w, 3] on `device`, through the SD-VAE decoder read from the
+    flat npz of tools/convert_vae.py (`params/...` keys). generate_samples
+    un-scales the latents already, so the decoder applies directly. Returns
+    None without an npz."""
+    from reed_tpu_torch.encoders.vae import load_npz, to_uint8
+
+    if vae_npz is None:
+        return None
+    device = resolve_device(device)
+    decoder = load_npz(vae_npz).to(device).eval()
+
+    @torch.no_grad()
+    def decode_fn(latents):
+        return to_uint8(decoder(latents.to(device)))
+
+    return decode_fn

@@ -80,13 +80,16 @@ def test_eval_protein_without_device_needs_cuda(capsys):
 
 
 def test_set_overrides_reach_nested_fields():
+    """--set goes through core/configlib.py (reed_tpu's), which raises a
+    KeyError on a field the config does not have."""
+    from reed_tpu_torch.core import configlib
     from reed_tpu_torch.train.protein import ProteinTrainConfig
 
-    cfg = cli._apply_overrides(ProteinTrainConfig(), [
+    cfg = configlib.apply_overrides(ProteinTrainConfig(), [
         "hidden_dim=64", "interpolant.temp=0.5", "compute_dtype=bfloat16"])
     assert (cfg.hidden_dim, cfg.interpolant.temp, cfg.compute_dtype) == (64, 0.5, "bfloat16")
-    with pytest.raises(ValueError, match="no field"):
-        cli._apply_overrides(cfg, ["hidden=3"])
+    with pytest.raises(KeyError, match="unknown config key"):
+        configlib.apply_overrides(cfg, ["hidden=3"])
 
 
 def test_data_pipeline_matches_reed_tpu(tmp_path):

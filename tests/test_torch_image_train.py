@@ -327,7 +327,10 @@ def test_convergence_tool_runs_tiny(tmp_path):
     assert result["pass"] == (run["final"]["class_accuracy"] >= 1.0)
 
 
-def test_unported_settings_raise():
+def test_unported_settings_raise(tmp_path):
+    """remat and more than one device are not ported and raise; the flags
+    ported since (--ckpt-dir, --sample-every, --enc-type, --vae, --ref-ckpt;
+    tests/test_torch_image_eval_cli.py) no longer do."""
     from reed_tpu_torch import cli
 
     with pytest.raises(NotImplementedError, match="remat"):
@@ -336,11 +339,13 @@ def test_unported_settings_raise():
         ImageTrainer(ImageTrainConfig(**KW, mesh=MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ImageTrainer(ImageTrainConfig(**KW, attn_impl="flash"), device="cpu").init_state()
-    for flags in (["--sample-every", "5"], ["--vae", "v.npz"], ["--enc-type", "dinov2-vit-b"],
-                  ["--ref-ckpt", "x.pt"], ["--ckpt-dir", "ck"], ["--dp", "2"], ["--sp", "2"]):
+    for flags in (["--dp", "2"], ["--sp", "2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["train-image", "--steps", "1", *TINY_CLI, *flags])
     assert cli.main(["train-image", "--steps", "1", "--dp", "1", *TINY_CLI]).step == 1
+    state = cli.main(["train-image", "--steps", "1", "--ckpt-dir", str(tmp_path),
+                      "--ckpt-every", "1", *TINY_CLI])
+    assert state.step == 1 and (tmp_path / "1.pt").exists()
 
 
 def test_attn_impl_names_and_compute_dtype():

@@ -49,7 +49,13 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.core.logging, reed_tpu_torch.diffusion.protein_losses, "
             "reed_tpu_torch.data.synthetic, reed_tpu_torch.tools.convergence_protein, "
             "reed_tpu_torch.train.image, reed_tpu_torch.data.image, "
-            "reed_tpu_torch.diffusion.continuous, reed_tpu_torch.tools.convergence_image; "
+            "reed_tpu_torch.diffusion.continuous, reed_tpu_torch.tools.convergence_image, "
+            "reed_tpu_torch.core.configlib, reed_tpu_torch.core.checkpoint, "
+            "reed_tpu_torch.core.stats, reed_tpu_torch.encoders.flax_tree, "
+            "reed_tpu_torch.encoders.vae, reed_tpu_torch.encoders.inception, "
+            "reed_tpu_torch.encoders.vit, reed_tpu_torch.encoders.registry, "
+            "reed_tpu_torch.eval.frechet, reed_tpu_torch.eval.visualize, "
+            "reed_tpu_torch.data.preprocessing, reed_tpu_torch.tools.seeded_weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")
