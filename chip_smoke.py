@@ -76,7 +76,23 @@ no result):
      step is not bitwise repeatable, within 10x the run-to-run difference,
      with a restore that skips the trainer's generator as the control that
      must fail), and `generate-image --ckpt-dir`.
-  9. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  9. molecules (slice 9, `molecule_phases`): recipes/molecule_semla_reed.json's
+     SemlaGenerator (d_model 384, 12 layers, 64 coordinate sets, REPA at
+     depth 4) with seeded weights at tools/bench_domains.py's GEOM scale
+     (batch 56, 36-72 atoms padded to 72), f32 with TF32 off: one forward
+     on the card against the CPU on 8 rows (1e-4 of the max); the host's
+     batch building timed on its own; the main path,
+     `SemlaTrainer.train_step`, 20 timed steps (ms a step by wall and by
+     CUDA events, molecules/s, peak memory) and a profile by kernel family
+     and by range (reed::self_cond, reed::model, reed::loss,
+     reed::optimizer, reed::ema); a 200-step learning check on the Semla
+     gate's data and configuration (mean denoising loss of steps 180-199
+     below 1.0); `train-molecule-semla --steps 3` and `eval-semla` (16
+     molecules, 10 integrator steps, max_atoms 256, .xyz and .sdf files) as
+     subprocesses. No TPU kernel is on these paths: K1, K2a and K2b must
+     launch 0 times. The SemlaFlow resume at the gate's width (with its
+     control) runs in phase 8's checkpoints.
+  10. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training), the nvidia-smi
      line, and last the {"ok": true, "device": {...}} line.
@@ -118,13 +134,14 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.tools import convergence_image, seeded_weights
+from reed_tpu_torch.tools import convergence_image, convergence_semla, seeded_weights
 from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
 from reed_tpu_torch.tools.cuda_timing import cuda_ms, host_us, timed_in_turns
 from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
                                           build_model, make_loss_fn, sample,
                                           synthetic_protein_batch)
 from reed_tpu_torch.train import image as image_train
+from reed_tpu_torch.train import molecule_semla as semla_train
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
 # type. f32: the least time the card can take for f32-accurate products is
@@ -575,7 +592,8 @@ PROFILE_GROUPS = (("K2b fused_message_bwd", ("fused_message_bwd", "fused_message
                   ("elementwise, copies, other", ("",)))
 # profiler ranges of the port (record_function): the device time of the
 # kernels launched inside each
-PROFILE_RANGES = ("reed::optimizer", "reed::ema", "reed::flash_attention_bwd_recompute")
+PROFILE_RANGES = ("reed::optimizer", "reed::ema", "reed::flash_attention_bwd_recompute",
+                  "reed::self_cond", "reed::model", "reed::loss")
 
 
 def profile(label, fn, smi, top=8):
@@ -1616,8 +1634,9 @@ def resume_check(label, make_trainer, batches, tmp, control=False):
 def checkpoint_phase(tmp, smi):
     """--ckpt-every/--ckpt-dir through train-image and train-protein; then
     in-process resumes held against uninterrupted runs (SiT-B/2: the XL
-    state is ~9.5 GB a checkpoint; the protein default, with its control);
-    and generate-image --ckpt-dir from the image run's EMA."""
+    state is ~9.5 GB a checkpoint; the protein default and the SemlaFlow
+    gate's width, each with its control); and generate-image --ckpt-dir
+    from the image run's EMA."""
     img_dir, prot_dir = f"{tmp}/ckpt_image", f"{tmp}/ckpt_protein"
     cli_quiet(["train-image", "--model", CKPT_IMAGE["model"], "--steps", "4",
                "--ckpt-every", "2", "--ckpt-dir", img_dir, "--synthetic",
@@ -1647,6 +1666,14 @@ def checkpoint_phase(tmp, smi):
     del probe
     protein = resume_check("ProteinMPNN-FMIF protein", make, batches, tmp, control=True)
     torch.cuda.empty_cache()
+    # SemlaFlow at the gate's width; the control's restore leaves the
+    # self-conditioning coins at their start (the seed's coins are T F F T)
+    gcfg = convergence_semla.gate_config()
+    data = convergence_semla.GateData()
+    make = lambda: semla_train.SemlaTrainer(gcfg, device="cuda")  # noqa: E731
+    batches = [semla_train.batch_to_device(data.batch(70 + i), "cuda") for i in range(4)]
+    semla = resume_check("SemlaFlow gate", make, batches, tmp, control=True)
+    torch.cuda.empty_cache()
 
     gen = ["generate-image", "--model", CKPT_IMAGE["model"], "--num-samples", "4",
            "--batch-size", "4", "--num-steps", "4", "--mode", "ode"]
@@ -1659,7 +1686,7 @@ def checkpoint_phase(tmp, smi):
         f"same run from the initial weights {np.abs(a - b).max():.3g}")
     if not (loaded and np.isfinite(a).all() and a.shape == (4, 32, 32, 4)):
         raise AssertionError("generate-image --ckpt-dir")
-    return image, protein
+    return image, protein, semla
 
 
 def eval_phases(smi):
@@ -1681,6 +1708,277 @@ def eval_phases(smi):
     return gen_launches, enc_launches
 
 
+# -- slice 9: SemlaFlow molecules (train-molecule-semla, eval-semla) -------
+
+RECIPE_SEMLA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes",
+                            "molecule_semla_reed.json")
+# tools/bench_domains.py's GEOM-Drugs scale: batch 56 (batch_cost 4096 / 72),
+# molecules of 36-72 atoms padded to 72
+SEMLA = dict(batch=56, atoms=72, warmup_steps=2, timed_steps=20, profiled_steps=4,
+             cpu_rows=8)
+SEMLA_FWD_RTOL = 1e-4    # card vs CPU, f32 with TF32 off
+SEMLA_LEARN_STEPS = 200
+SEMLA_LEARN_LOSS_MAX = 1.0
+SEMLA_EVAL = dict(n_samples=16, num_steps=10)  # eval-semla, cut from 100 steps
+
+
+def semla_full_config(**kw):
+    """recipes/molecule_semla_reed.json at the GEOM scale (max_atoms 72, batch
+    56), the denoising loss on from step 0."""
+    cfg = configlib.merge(configlib.build(semla_train.SemlaTrainConfig),
+                          configlib.load_file(RECIPE_SEMLA))
+    return configlib.merge(cfg, dict(dict(max_atoms=SEMLA["atoms"], batch_size=SEMLA["batch"],
+                                          diffusion_loss_max_step=0), **kw))
+
+
+# the scale of the coordinate-update projections (node_ff's and coord_attn's
+# attn_proj) in the checked weights: at the init's scale the coordinate sets
+# grow to ~400 over 12 layers, the unnormalised gram features saturate the
+# attention softmax and f32 itself lands 2-7 % from f64 (on the CPU); at 0.1
+# the f32 forward is within ~1e-5 of f64, so 1e-4 between card and CPU is a
+# bound on the port and not on the conditioning. Both are reported.
+SEMLA_COORD_UPDATE_SCALE = 0.1
+
+
+def seeded_semla(cfg, seed=5, coord_update_scale=SEMLA_COORD_UPDATE_SCALE):
+    """The model of `cfg` with its initialisation moved by N(0, 0.02), so that
+    no bias or norm sits at its init value, and the coordinate-update
+    projections scaled by `coord_update_scale`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = semla_train.build_model(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+            if name.endswith("attn_proj.weight"):
+                p.mul_(coord_update_scale)
+    return model
+
+
+def semla_card_vs_cpu(model, cfg, batch, rows):
+    """(card outputs, {output: card vs CPU f32 rel err}, {output: CPU f32 vs
+    f64 rel err}, card ms, CPU ms) of one forward with the
+    self-conditioning inputs of a first pass; the CPU runs the first rows."""
+    state, rep, times = batch["interpolated"], batch["rep"], batch["times"]
+    with torch.no_grad():
+        zero = semla_train._zero_cond(state)
+        c, tl, bl, _, _ = semla_train._apply(model, cfg, state, times, zero, rep)
+        cond = {"coords": c, "atomics": torch.softmax(tl, -1), "bonds": torch.softmax(bl, -1)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = semla_train._apply(model, cfg, state, times, cond, rep)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = copy.deepcopy(model).cpu()
+        sub = lambda d, dt: {k: v[:rows].cpu().to(dt) for k, v in d.items()}  # noqa: E731
+        t0 = time.perf_counter()
+        ref = semla_train._apply(cpu, cfg, sub(state, torch.float32), times[:rows].cpu(),
+                                 sub(cond, torch.float32), rep[:rows].cpu())
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        ref64 = semla_train._apply(cpu.double(), cfg, sub(state, torch.float64),
+                                   times[:rows].cpu().double(), sub(cond, torch.float64),
+                                   rep[:rows].cpu().double())
+    names = ["coords", "type_logits", "bond_logits", "charge_logits"]
+    pairs = list(zip(out[:4], ref[:4], ref64[:4])) + list(zip(out[4], ref[4], ref64[4]))
+    names += [f"zs[{i}]" for i in range(len(out[4]))]
+    errs = {n: rel_err(a[:rows], b) for n, (a, b, _) in zip(names, pairs)}
+    errs64 = {n: rel_err(b, c) for n, (_, b, c) in zip(names, pairs)}
+    return out, errs, errs64, card_ms, cpu_ms
+
+
+def semla_forward_phase(smi):
+    """The recipe's full-width SemlaGenerator on the card against its CPU
+    copy, on the first rows of a GEOM-scale batch; f32 on the CPU against
+    f64 beside it, at the checked weights and at the init's scale."""
+    cfg = semla_full_config()
+    batch = semla_train.batch_to_device(
+        semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=7), "cuda")
+    rows = SEMLA["cpu_rows"]
+    fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())  # noqa: E731
+    _, errs, errs64, _, _ = semla_card_vs_cpu(seeded_semla(cfg, coord_update_scale=1.0),
+                                              cfg, batch, rows)
+    log(f"[semla] at the init's scale (coordinate-update projections x1; reported, not "
+        f"bounded): card vs CPU {fmt(errs)}; CPU f32 vs f64 {fmt(errs64)}")
+    model = seeded_semla(cfg).eval()
+    out, errs, errs64, card_ms, cpu_ms = semla_card_vs_cpu(model, cfg, batch, rows)
+    pad = batch["interpolated"]["mask"] == 0
+    log(f"[semla] full-width forward (recipe: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.n_coord_sets} sets, {cfg.n_attn_heads} heads, d_message {cfg.d_message}, d_edge "
+        f"{cfg.d_edge}, d_rep {cfg.d_rep}, REPA at {tuple(cfg.align_depth)}; batch "
+        f"{SEMLA['batch']} x {SEMLA['atoms']} atoms, {int(pad.sum())} padded; coordinate-"
+        f"update projections x{SEMLA_COORD_UPDATE_SCALE}) card vs CPU on {rows} rows: max abs "
+        f"err / max |out| {fmt(errs)} (rtol {SEMLA_FWD_RTOL}); CPU f32 vs f64 {fmt(errs64)}; "
+        f"padded coords max |x| {out[0][pad].abs().max().item():.3g}; card {card_ms:.1f} ms, "
+        f"CPU {cpu_ms:.0f} ms for {rows} rows ({smi})")
+    if not (len(out[4]) == 1 and all(v <= SEMLA_FWD_RTOL for v in errs.values())
+            and all(torch.isfinite(t).all() for t in out[:4]) and (out[0][pad] == 0).all()):
+        raise AssertionError(f"SemlaGenerator card vs CPU: {errs}")
+
+
+def semla_host_batch_phase(cfg):
+    """The host's batch building on its own: the GEOM-scale example batch and
+    the gate's batch (prior, Kabsch / Hungarian OT match per molecule,
+    interpolation)."""
+    data = convergence_semla.GateData()
+    data.batch(0)
+    semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=0)
+    times = {}
+    for label, fn in ((f"example_batch {SEMLA['batch']} x {SEMLA['atoms']}",
+                       lambda i: semla_train.example_batch(cfg, SEMLA["batch"],
+                                                           SEMLA["atoms"], seed=i)),
+                      ("gate batch 128 chains", data.batch)):
+        t0 = time.perf_counter()
+        for i in range(10):
+            fn(i)
+        times[label] = 1e3 * (time.perf_counter() - t0) / 10
+    log("[semla] host batch (numpy: prior, one OT match a molecule, interpolation), ms "
+        "a batch: " + "; ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    return times
+
+
+def semla_train_phase(smi):
+    """The main path: SemlaTrainer.train_step at the recipe's width on the
+    GEOM-scale batch; ms a step (wall and device), molecules/s, launches,
+    idle share, peak memory, a profile by kernel family and range."""
+    cfg = semla_full_config()
+    host = semla_host_batch_phase(cfg)
+    trainer = semla_train.SemlaTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = semla_train.batch_to_device(
+        semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=1), "cuda")
+    n, steps = SEMLA["batch"], SEMLA["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SEMLA["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernel_launches = (fa.launches, fm.launches, fm.backward_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms = 1e3 * seconds / steps
+    log(f"[semla] SemlaTrainer.train_step, recipe width, f32, batch {n} x {SEMLA['atoms']}: "
+        f"{steps} steps {wall_ms:.3f} ms per step (wall, after a sync), "
+        f"{start.elapsed_time(end) / steps:.3f} ms (CUDA events), {n * steps / seconds:.2f} "
+        f"molecules/s; peak memory {peak_gb:.2f} GB; K1/K2a/K2b launches {kernel_launches}; "
+        f"last loss {metrics['loss'].item():.6g}, proj {metrics['proj_loss'].item():.4g}, "
+        f"grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite Semla train metrics {metrics}")
+    if any(kernel_launches):
+        raise AssertionError(f"a TPU-kernel port ran on the Semla path: {kernel_launches}")
+    k = SEMLA["profiled_steps"]
+
+    def k_steps():
+        nonlocal state
+        for i in range(k):  # both self-conditioning branches, in turn
+            state, _ = trainer.train_step(state, batch, use_sc=bool(i % 2))
+
+    prof = profile(f"{k} Semla train steps (self-conditioning on 2 of them)", k_steps, smi,
+                   top=14)
+    busy = prof["busy_ms"] / k
+    log(f"[semla] per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall ({wall_ms:.3f} ms), "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled one")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, mol_s=n * steps / seconds, peak_gb=peak_gb,
+                busy_ms=busy, launches=prof["launches"] / k, host=host)
+
+
+def semla_learning_phase(smi):
+    """200 steps of the Semla gate (seed 0, its data and configuration): the
+    mean denoising loss of steps 180-199 must fall below 1.0."""
+    gcfg = convergence_semla.gate_config(seed=0)
+    data = convergence_semla.GateData()
+    trainer = semla_train.SemlaTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in convergence_semla.gate_batches(data, SEMLA_LEARN_STEPS,
+                                                torch.device("cuda")):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    seconds = time.perf_counter() - t0
+    late = sum(losses[-20:]) / 20
+    batch = semla_train.batch_to_device(data.batch(0), "cuda")
+
+    def steps4():
+        nonlocal state
+        for i in range(4):
+            state, _ = trainer.train_step(state, batch, use_sc=bool(i % 2))
+
+    prof = profile("4 Semla gate steps (one batch, self-conditioning on 2)", steps4, smi,
+                   top=6)
+    log(f"[semla] gate step: device {prof['busy_ms'] / 4:.3f} ms, {prof['launches'] / 4:.0f} "
+        f"launches, wall {prof['wall_ms'] / 4:.3f} ms (profiled, batch resident)")
+    log(f"[semla] learning check, Semla gate config (d_model {gcfg.d_model}, "
+        f"{gcfg.n_layers} layers, batch {gcfg.batch_size} chains, adaLN reps): denoising "
+        f"loss step 0 {losses[0]:.4f}, step 100 {losses[100]:.4f}, mean of steps "
+        f"{SEMLA_LEARN_STEPS - 20}-{SEMLA_LEARN_STEPS - 1} {late:.4f} (must be < "
+        f"{SEMLA_LEARN_LOSS_MAX}; JAX on a TPU: 5.74 at step 0, 0.709 at step 200); "
+        f"{1e3 * seconds / SEMLA_LEARN_STEPS:.3f} ms per step, the host batches built by a "
+        f"DataLoader worker, as the gate builds them ({smi})")
+    if not late < SEMLA_LEARN_LOSS_MAX:
+        raise AssertionError(f"the Semla denoising loss did not fall: {losses[0]} -> {late}")
+    return late
+
+
+def semla_cli_phase(tmp, smi):
+    """train-molecule-semla and eval-semla with the recipe as subprocesses:
+    3 synthetic steps with a checkpoint, then 16 molecules from its EMA at
+    max_atoms 256 in 10 integrator steps, written as .xyz and .sdf."""
+    run, out = f"{tmp}/semla_run", f"{tmp}/semla_mols"
+    text = run_cli(["train-molecule-semla", "--config", RECIPE_SEMLA, "--synthetic",
+                    "--steps", "3", "--log-every", "1", "--ckpt-dir", run,
+                    "--ckpt-every", "3"], "train-molecule-semla --steps 3")
+    rate = [line for line in text.splitlines() if "steps after the first" in line]
+    log(f"[semla] {rate[-1] if rate else text.splitlines()[-1]}")
+    if "3.pt" not in os.listdir(run):
+        raise AssertionError(f"train-molecule-semla wrote {os.listdir(run)}")
+    text = run_cli(["eval-semla", "--config", RECIPE_SEMLA, "--ckpt-dir", run,
+                    "--n-samples", str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1",
+                    "--num-steps", str(SEMLA_EVAL["num_steps"]), "--out", out],
+                   "eval-semla --n-samples 16 --num-steps 10")
+    lines = text.strip().splitlines()
+    summary = json.loads(lines[-1])
+    speed = next(line for line in lines if "molecules/s" in line)
+    xyz = sorted(f for f in os.listdir(out) if f.endswith(".xyz"))
+    log(f"[semla] eval-semla (recipe, EMA of step 3, max_atoms 256): {speed}; "
+        f"{len(xyz)} .xyz files; validity {summary['validity']}, atom_stable "
+        f"{summary['atom_stable']:.4f} (3 training steps: ~0 expected) ({smi})")
+    if len(xyz) != SEMLA_EVAL["n_samples"] or "loaded EMA weights of step 3" not in text:
+        raise AssertionError(f"eval-semla: {len(xyz)} .xyz files\n{text[-2000:]}")
+    return speed
+
+
+def molecule_phases(smi):
+    """Slice 9's phases; returns the launches of K1, K2a and K2b on them."""
+    t0 = time.perf_counter()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    semla_forward_phase(smi)
+    train = semla_train_phase(smi)
+    semla_learning_phase(smi)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        semla_cli_phase(tmp, smi)
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    log(f"[semla] slice 9 phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b launches "
+        f"on them {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the Semla paths: {counts}")
+    return train
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -1690,6 +1988,7 @@ def kernel_entry(name, replaces, row, launches, source=None):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     attn_rows = kernel_phase(smi)
@@ -1705,6 +2004,7 @@ def main():
     log(f"[eval] slice 8 phases in {time.perf_counter() - t0:.1f} s; K1 launches on its "
         f"paths: {gen_vae_launches} in generate-image --vae (16 calls), {enc_launches} in "
         f"train-image --enc-type ({ENC_DATA['steps']} steps)")
+    molecule_phases(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -1723,6 +2023,7 @@ def main():
                      attn_rows[(GATE_ATTN_SHAPE, torch.float32)], gate_launches,
                      source="flash_attention"),
     ]
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@
   python -m reed_tpu_torch.cli train-image --model SiT-XL/2 --batch-size 48 \\
       --steps 100 --synthetic [--data-dir latents/ --enc-type dinov2-vit-b \\
       --encoder-dir encoders/] [--ckpt-dir out/img --ckpt-every 1000]
+  python -m reed_tpu_torch.cli train-molecule-semla \\
+      --config recipes/molecule_semla_reed.json --steps 100 --synthetic \\
+      [--data-dir qm9/ --batch-cost 4096] [--ckpt-dir out/semla --ckpt-every 1000]
+  python -m reed_tpu_torch.cli eval-semla --n-samples 64 --n-replicates 3 \\
+      --num-steps 100 [--ckpt-dir out/semla | --ref-ckpt last.ckpt] [--out mols/]
 
 Runs on CUDA unless `--device cpu` is given. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
@@ -24,8 +29,11 @@ with f32 master weights, one DINOv2-width projector at depth 8, Adam lr
 (ProteinTrainConfig): ProteinMPNN-FMIF, hidden 128, 3 + 3 layers, 30
 neighbours, f32 compute; training adds dropout 0.1, the AF3 alignment loss
 and Adam with a global-norm clip. `--ckpt-dir` with `--ckpt-every` saves
-and resumes training (core/checkpoint.py); on generate-image and
-eval-protein it samples from the latest checkpoint's EMA weights.
+and resumes training (core/checkpoint.py); on generate-image,
+eval-protein and eval-semla it samples from the latest checkpoint's EMA
+weights. train-molecule-semla and eval-semla use reed_tpu's SemlaFlow
+default (SemlaTrainConfig): d_model 384, 12 layers, 64 coordinate sets, 32
+heads, self-conditioning, REPA at depth 4 against 512-d reps, f32.
 """
 
 from __future__ import annotations
@@ -477,6 +485,207 @@ def _preview_hook(cfg, args, device):
     return hook
 
 
+def _find_split(data_dir: str, split: str) -> str:
+    """A split file: <dir>/<split>.rsmol[.npz] or <dir>/<split>.npz, or
+    `data_dir` itself when it is a file."""
+    if os.path.isfile(data_dir):
+        return data_dir
+    for ext in (".rsmol", ".rsmol.npz", ".npz"):
+        path = os.path.join(data_dir, split + ext)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no {split}.rsmol[.npz] or {split}.npz under {data_dir}")
+
+
+def _load_reps(data_dir: str, d_rep, n: int):
+    """Precomputed frozen-encoder reps aligned with the dataset (reps.npy or
+    train_reps.npy beside the split), or zeros with a warning where there
+    are none; None where the model takes no rep."""
+    if d_rep is None:
+        return None
+    if os.path.isfile(data_dir):
+        data_dir = os.path.dirname(data_dir)
+    for name in ("reps.npy", "train_reps.npy"):
+        path = os.path.join(data_dir, name)
+        if os.path.exists(path):
+            reps = np.load(path)
+            if reps.shape != (n, d_rep):
+                raise ValueError(f"{path}: reps of shape {reps.shape}, the dataset "
+                                 f"needs ({n}, {d_rep})")
+            return reps.astype(np.float32)
+    print(f"WARNING: no reps.npy in {data_dir}; rep conditioning/alignment will see "
+          "zeros (train with --set d_rep=null to silence)")
+    return np.zeros((n, d_rep), np.float32)
+
+
+def _semla_ref_ckpt(model, path):
+    """Load a reference SemlaFlow checkpoint (EMA weights where present)."""
+    from reed_tpu_torch.encoders.semla_convert import load_into, load_torch_semla_checkpoint
+
+    load_into(model, load_torch_semla_checkpoint(path))
+
+
+def train_molecule_semla(args):
+    """Train SemlaFlow on synthetic batches (reed_tpu's example_batch, 32
+    atoms) or on the .rsmol train split under --data-dir (size-bucketed
+    batches of --batch-cost padded atoms, OT-coupled and interpolated on the
+    host, with reps.npy beside it), logging `[step N] {...}` every
+    --log-every steps, then the rate of the steps after the first."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.train.molecule_semla import (SemlaTrainConfig, SemlaTrainer,
+                                                     batch_to_device)
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(SemlaTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "optim": {"lr": args.lr} if args.lr is not None else None})
+    trainer = SemlaTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if args.ref_ckpt:
+        _semla_ref_ckpt(state.model, args.ref_ckpt)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        print(f"warm-started from reference checkpoint {args.ref_ckpt}")
+
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield batch_to_device(trainer.example_batch(cfg.batch_size, 32, seed=i),
+                                      device)
+                i += 1
+    else:
+        from reed_tpu_torch.data.molecule import (GEOM_COORDS_STD_DEV, QM9_COORDS_STD_DEV,
+                                                  load_dataset, mol_transform,
+                                                  semla_epoch_batches)
+
+        coord_std = (args.coord_std if args.coord_std is not None
+                     else GEOM_COORDS_STD_DEV if args.dataset == "geom"
+                     else QM9_COORDS_STD_DEV)
+        mols = [mol_transform(m, coord_std)
+                for m in load_dataset(_find_split(args.data_dir, "train"))]
+        reps = _load_reps(args.data_dir, cfg.d_rep, len(mols))
+        print(f"loaded {len(mols)} molecules from {args.data_dir}")
+
+        def batches():
+            epoch = 0
+            while True:
+                rng = np.random.default_rng(cfg.seed + epoch)
+                for batch in semla_epoch_batches(
+                        mols, cfg.interpolant, rng, reps=reps, batch_cost=args.batch_cost,
+                        vocab_size=cfg.vocab_size, n_bond_types=cfg.n_bond_types,
+                        n_charge_types=cfg.n_charge_types):
+                    yield batch_to_device(batch, device)
+                epoch += 1
+
+    return _run_loop(trainer, state, batches(), args,
+                     lambda b: int(b["times"].shape[0]), cfg,
+                     f"train-molecule-semla ({device})", "molecules")
+
+
+def eval_semla(args):
+    """SemlaFlow generation eval: --n-replicates x --n-samples molecules of
+    --n-atoms-min..max atoms (each batch padded to cfg.max_atoms, as
+    reed_tpu's), integrated from the prior in --num-steps steps and scored
+    over the predicted graphs (GraphMoleculeMetrics), mean and std over the
+    replicates (reference protocol: molecule/semlaflow/evaluate.py:22-120).
+    Prints molecules/s and ms per integrator step, then the JSON summary;
+    --out writes replicate 0 as .xyz and predicted-bond .sdf files."""
+    from reed_tpu_torch.data.molecule import CORE_ATOMS, OTHER_ATOMS
+    from reed_tpu_torch.eval.molecule_metrics import (SEMLA_IDX_CHARGES,
+                                                      GraphMoleculeMetrics)
+    from reed_tpu_torch.eval.visualize import save_sdf_file, save_xyz_file
+    from reed_tpu_torch.train.molecule_semla import (SemlaTrainConfig, SemlaTrainer,
+                                                     build_model)
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(SemlaTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed},
+                       defaults={"batch_size": 16})
+    cfg = configlib.merge(cfg, {"integrator": {"steps": args.num_steps}})
+    trainer = SemlaTrainer(cfg, device=device)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
+    if args.ref_ckpt:
+        _semla_ref_ckpt(model, args.ref_ckpt)
+        print(f"loaded reference checkpoint {args.ref_ckpt}")
+    elif args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
+    model.eval()
+
+    # the default decoder is the semla vocab (PAD/MASK + 16 elements); a
+    # molecule with a PAD/MASK type scores as invalid
+    if args.atom_decoder:
+        decoder, first_real = tuple(args.atom_decoder.split(",")), 0
+    else:
+        decoder, first_real = tuple(["H", "H"] + CORE_ATOMS + OTHER_ATOMS), 2
+    metrics_eval = GraphMoleculeMetrics(atom_decoder=decoder, dataset=args.dataset)
+    charge_map = np.asarray(SEMLA_IDX_CHARGES, np.int64)
+    # scored in place of a molecule with PAD/MASK predictions: two distant
+    # unbonded H atoms (unstable, disconnected, invalid)
+    invalid_mol = (np.array([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]], np.float32),
+                   np.array([decoder.index("H")] * 2), np.zeros((2, 2), np.int64),
+                   np.zeros(2, np.int64))
+    coord_std = args.coord_std if args.coord_std is not None else 1.0
+
+    replicates, n_mols, n_batches, seconds = [], 0, 0, 0.0
+    for rep_i in range(args.n_replicates):
+        rng_np = np.random.default_rng(1000 + rep_i)
+        mols, done = [], 0
+        while done < args.n_samples:
+            bs = min(cfg.batch_size, args.n_samples - done)
+            sizes = rng_np.integers(args.n_atoms_min, args.n_atoms_max + 1, size=bs)
+            mask = (np.arange(cfg.max_atoms)[None, :] < sizes[:, None]).astype(np.float32)
+            prior = trainer.sample_prior(rng_np, mask)
+            rep = (torch.from_numpy(rng_np.standard_normal((bs, cfg.d_rep)).astype(
+                np.float32)).to(device) if cfg.d_rep and cfg.cond_type != "none" else None)
+            synchronize(device)
+            t0 = time.perf_counter()
+            final = trainer.generate(
+                model, prior, rep=rep, sampling_strategy=args.sampling_strategy,
+                generator=torch.Generator(device=device).manual_seed(rep_i * 1000 + done))
+            out = {k: v.cpu().numpy() for k, v in final.items()}
+            seconds += time.perf_counter() - t0
+            n_mols, n_batches = n_mols + bs, n_batches + 1
+            coords = out["coords"] * coord_std
+            types = np.argmax(out["atomics"], axis=-1)
+            bonds = np.argmax(out["bonds"], axis=-1)
+            charges = charge_map[np.argmax(out["charges"], axis=-1)]
+            for b in range(bs):
+                n_b = sizes[b]
+                t_b = types[b, :n_b]
+                if (t_b < first_real).any() or (t_b >= len(decoder)).any():
+                    mols.append(invalid_mol)
+                else:
+                    mols.append((coords[b, :n_b], t_b, bonds[b, :n_b, :n_b],
+                                 charges[b, :n_b]))
+                if args.out and rep_i == 0:
+                    idx = done + b
+                    save_xyz_file(os.path.join(args.out, f"mol_{idx:04d}.xyz"),
+                                  coords[b, :n_b], types[b, :n_b], decoder)
+                    save_sdf_file(os.path.join(args.out, f"mol_{idx:04d}.sdf"),
+                                  coords[b, :n_b], types[b, :n_b], bonds[b, :n_b, :n_b],
+                                  decoder, name=f"mol_{idx}")
+            done += bs
+        replicates.append(metrics_eval.evaluate(mols))
+
+    print(f"{n_mols / seconds:.3f} molecules/s, "
+          f"{1e3 * seconds / (n_batches * cfg.integrator.steps):.3f} ms per integrator "
+          f"step ({n_batches} batches of up to {cfg.batch_size}, padded to max_atoms "
+          f"{cfg.max_atoms}, {device})")
+    summary = {}
+    for k in replicates[0]:
+        vals = [r[k] for r in replicates]
+        if isinstance(vals[0], bool):  # the 'rdkit' semantics marker
+            summary[k] = vals[0]
+            continue
+        summary[k] = float(np.mean(vals))
+        summary[f"{k}_std"] = float(np.std(vals))
+    summary.update(n_replicates=args.n_replicates, n_samples=args.n_samples,
+                   num_steps=args.num_steps)
+    print(json.dumps(summary))
+    return summary
+
+
 def _add_config(p, what):
     p.add_argument("--config", default=None,
                    help=f"JSON {what} tree (full or partial), e.g. a file of recipes/")
@@ -608,6 +817,51 @@ def main(argv=None):
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
     p.set_defaults(fn=train_image)
+
+    p = sub.add_parser("train-molecule-semla")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="synthetic batch size (default: the config's 64)")
+    p.add_argument("--data-dir", default=None,
+                   help="train.rsmol[.npz] split (and reps.npy beside it); "
+                        "trains on it")
+    p.add_argument("--batch-cost", type=int, default=4096,
+                   help="padded atoms a real-data batch (reference batch_cost)")
+    p.add_argument("--dataset", default="qm9", choices=["qm9", "geom"],
+                   help="selects the coordinate normalisation std")
+    p.add_argument("--coord-std", type=float, default=None,
+                   help="explicit coordinate std (overrides --dataset)")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="warm start from a reference torch SemlaFlow/Lightning "
+                        "checkpoint (dims via --set)")
+    _add_training(p)
+    _add_config(p, "SemlaTrainConfig")
+    p.set_defaults(fn=train_molecule_semla)
+
+    p = sub.add_parser("eval-semla")
+    p.add_argument("--n-samples", type=int, default=64)
+    p.add_argument("--n-replicates", type=int, default=3)
+    p.add_argument("--num-steps", type=int, default=100)
+    p.add_argument("--n-atoms-min", type=int, default=8)
+    p.add_argument("--n-atoms-max", type=int, default=24)
+    p.add_argument("--batch-size", type=int, default=None, help="default 16")
+    p.add_argument("--sampling-strategy", default="linear", choices=["linear", "log"])
+    # the semla vocab is GEOM-scale (P/S/Br/...); the qm9 bond tables only
+    # cover H/C/N/O/F pairs, so the geom predictor is the default
+    p.add_argument("--dataset", default="geom", choices=["qm9", "geom"])
+    p.add_argument("--coord-std", type=float, default=None,
+                   help="unscale generated coords by the dataset coord std")
+    p.add_argument("--atom-decoder", default=None,
+                   help="comma-separated element symbols per vocab index "
+                        "(default: the semla vocab)")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="reference torch SemlaFlow/Lightning checkpoint (dims via --set)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this run's latest checkpoint")
+    p.add_argument("--out", default=None,
+                   help="write replicate 0 as .xyz and predicted-bond .sdf files here")
+    p.add_argument("--seed", type=int, default=None)
+    _add_config(p, "SemlaTrainConfig")
+    p.set_defaults(fn=eval_semla)
 
     args = parser.parse_args(argv)
     return args.fn(args)

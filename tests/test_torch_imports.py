@@ -55,7 +55,11 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.encoders.vae, reed_tpu_torch.encoders.inception, "
             "reed_tpu_torch.encoders.vit, reed_tpu_torch.encoders.registry, "
             "reed_tpu_torch.eval.frechet, reed_tpu_torch.eval.visualize, "
-            "reed_tpu_torch.data.preprocessing, reed_tpu_torch.tools.seeded_weights; "
+            "reed_tpu_torch.data.preprocessing, reed_tpu_torch.tools.seeded_weights, "
+            "reed_tpu_torch.models.semla, reed_tpu_torch.train.molecule_semla, "
+            "reed_tpu_torch.diffusion.molecule_fm, reed_tpu_torch.data.molecule, "
+            "reed_tpu_torch.eval.molecule_metrics, reed_tpu_torch.encoders.semla_convert, "
+            "reed_tpu_torch.tools.convergence_semla; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")

@@ -114,3 +114,84 @@ def tiny_fmif_pair(batch, std=0.1, seed=0, cls=None, **overrides):
     model = ProteinMPNNFMIF(**kw).eval()
     model.load_state_dict(fmif_convert.state_dict_from_flax(variables))
     return jax_model, variables, model
+
+
+SEMLA_TINY = dict(d_model=32, vocab_size=6, n_atom_feats=6, d_edge=8, n_edge_types=5,
+                  self_cond=True, size_emb=8, max_atoms=12, n_charge_types=7,
+                  rep_alignment=True, d_message=16, n_coord_sets=4, n_layers=3,
+                  n_attn_heads=4, d_message_hidden=16, d_rep=16, cond_type="none",
+                  align_depth=(1,))
+
+
+def semla_inputs(kw, batch=3, n=10, seed=1, pad=True):
+    """Numpy keyword inputs of a SemlaGenerator of config `kw`: ragged
+    masks (the last rows padded where `pad`), zero-CoM coordinates, one-hot
+    types and symmetric one-hot bonds, soft self-conditioning inputs (where
+    kw['self_cond']), a rep and times (where kw['d_rep'])."""
+    rng = np.random.default_rng(seed)
+    sizes = (rng.integers(n // 2, n + 1, size=batch) if pad
+             else np.full(batch, n))
+    if pad:
+        sizes[0] = n
+    mask = (np.arange(n)[None, :] < sizes[:, None]).astype(np.float32)
+    coords = rng.standard_normal((batch, n, 3)).astype(np.float32) * mask[..., None]
+    coords -= coords.sum(1, keepdims=True) / mask.sum(1)[:, None, None]
+    coords *= mask[..., None]
+
+    def onehot(shape, k):
+        return np.eye(k, dtype=np.float32)[rng.integers(0, k, size=shape)]
+
+    def soft(shape, k):
+        x = np.exp(rng.standard_normal(shape + (k,)))
+        return (x / x.sum(-1, keepdims=True)).astype(np.float32)
+
+    pair = (mask[:, :, None] * mask[:, None, :])[..., None]
+    out = {"coords": coords,
+           "inv_feats": onehot((batch, n), kw["vocab_size"]) * mask[..., None],
+           "atom_mask": mask}
+    if kw.get("d_edge") is not None:
+        idx = np.triu(rng.integers(0, kw["n_edge_types"], size=(batch, n, n)), 1)
+        out["edge_feats"] = np.eye(kw["n_edge_types"], dtype=np.float32)[
+            idx + idx.transpose(0, 2, 1)] * pair
+    if kw.get("self_cond"):
+        out["cond_coords"] = (rng.standard_normal((batch, n, 3)).astype(np.float32)
+                              * mask[..., None])
+        out["cond_atomics"] = soft((batch, n), kw["vocab_size"]) * mask[..., None]
+        if kw.get("d_edge") is not None:
+            out["cond_bonds"] = soft((batch, n, n), kw["n_edge_types"]) * pair
+    if kw.get("d_rep") is not None:
+        out["rep"] = rng.standard_normal((batch, kw["d_rep"])).astype(np.float32)
+        out["times"] = rng.uniform(0, 1, batch).astype(np.float32)
+    return out
+
+
+def semla_random_params(jax_model, inputs, std=0.1, seed=0):
+    """A numpy param tree of `jax_model`, every leaf ~ N(0, std), every
+    LayerNorm scale, coordinate-set weight and size-table entry ~ 1 +
+    N(0, std) (no leaf at its zero or unit init)."""
+    shapes = jax.eval_shape(lambda: jax_model.init(
+        jax.random.PRNGKey(0), **{k: jnp.asarray(v) for k, v in inputs.items()}))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        x = (rng.standard_normal(s.shape) * std).astype(np.float32)
+        key = jax.tree_util.keystr(path)
+        return x + 1.0 if key.endswith("['scale']") or "set_weights" in key else x
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)["params"]
+
+
+def semla_pair(inputs=None, std=0.1, seed=0, **overrides):
+    """(jax SemlaGenerator, its numpy params, port SemlaGenerator with the
+    same weights, the numpy inputs)."""
+    from reed_tpu.models.semla import SemlaGenerator as JaxSemla
+    from reed_tpu_torch.encoders.semla_convert import state_dict_from_flax
+    from reed_tpu_torch.models.semla import SemlaGenerator
+
+    kw = dict(SEMLA_TINY, **overrides)
+    inputs = semla_inputs(kw) if inputs is None else inputs
+    jax_model = JaxSemla(**kw)
+    params = semla_random_params(jax_model, inputs, std=std, seed=seed)
+    model = SemlaGenerator(**kw).eval()
+    model.load_state_dict(state_dict_from_flax(params))
+    return jax_model, params, model, inputs
