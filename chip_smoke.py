@@ -92,7 +92,23 @@ no result):
      subprocesses. No TPU kernel is on these paths: K1, K2a and K2b must
      launch 0 times. The SemlaFlow resume at the gate's width (with its
      control) runs in phase 8's checkpoints.
-  10. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  10. EDM molecules (slice 10, `edm_phases`): MoleculeEDMConfig's default,
+     the reference QM9 recipe (EGNN hidden 256 x 9 blocks, attention, tanh,
+     rep 256 with dropout 0.1, 29 atoms, batch 64), with seeded weights
+     (every bias, norm, fake_latent and coordinate head moved by N(0, 0.02)),
+     f32 with TF32 off: one EGNNDynamics forward with the rep and one
+     forward_with_cfg on the card against the CPU on 4 rows (velocity and
+     features each to 1e-4 of their max, f64 beside them); the main path,
+     `MoleculeEDMTrainer.train_step`, 20 timed steps (ms a step by wall and
+     by CUDA events, molecules/s, peak memory) and a profile by kernel
+     family (launches, idle share); a 200-step learning check on the EDM
+     gate's data and configuration (mean nll of steps 180-199 below 0.5);
+     `train-molecule-edm --steps 3` for EDM and for fm and `eval-molecule`
+     from each checkpoint (16 molecules, 50 EDM steps or 10 rk4 steps,
+     .xyz files) as subprocesses. No TPU kernel is on these paths: K1, K2a
+     and K2b must launch 0 times. The EDM resume at full width (with its
+     control) runs in phase 8's checkpoints.
+  11. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training), the nvidia-smi
      line, and last the {"ok": true, "device": {...}} line.
@@ -134,13 +150,15 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.tools import convergence_image, convergence_semla, seeded_weights
+from reed_tpu_torch.tools import (convergence_edm, convergence_image, convergence_semla,
+                                  seeded_weights)
 from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
 from reed_tpu_torch.tools.cuda_timing import cuda_ms, host_us, timed_in_turns
 from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
                                           build_model, make_loss_fn, sample,
                                           synthetic_protein_batch)
 from reed_tpu_torch.train import image as image_train
+from reed_tpu_torch.train import molecule_edm as edm_train
 from reed_tpu_torch.train import molecule_semla as semla_train
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
@@ -1634,9 +1652,9 @@ def resume_check(label, make_trainer, batches, tmp, control=False):
 def checkpoint_phase(tmp, smi):
     """--ckpt-every/--ckpt-dir through train-image and train-protein; then
     in-process resumes held against uninterrupted runs (SiT-B/2: the XL
-    state is ~9.5 GB a checkpoint; the protein default and the SemlaFlow
-    gate's width, each with its control); and generate-image --ckpt-dir
-    from the image run's EMA."""
+    state is ~9.5 GB a checkpoint; the protein default, the SemlaFlow
+    gate's width and the EDM molecule default, each with its control); and
+    generate-image --ckpt-dir from the image run's EMA."""
     img_dir, prot_dir = f"{tmp}/ckpt_image", f"{tmp}/ckpt_protein"
     cli_quiet(["train-image", "--model", CKPT_IMAGE["model"], "--steps", "4",
                "--ckpt-every", "2", "--ckpt-dir", img_dir, "--synthetic",
@@ -1674,6 +1692,16 @@ def checkpoint_phase(tmp, smi):
     batches = [semla_train.batch_to_device(data.batch(70 + i), "cuda") for i in range(4)]
     semla = resume_check("SemlaFlow gate", make, batches, tmp, control=True)
     torch.cuda.empty_cache()
+    # the EDM molecule model at full width; the control's restore leaves the
+    # training draws (t, eps, rep dropout) at their start
+    ecfg = edm_train.MoleculeEDMConfig()
+    make = lambda: edm_train.MoleculeEDMTrainer(ecfg, device="cuda")  # noqa: E731
+    probe = make()
+    batches = [probe.synthetic_batch(torch.Generator(device="cuda").manual_seed(80 + i))
+               for i in range(4)]
+    del probe
+    edm = resume_check("EDM molecule", make, batches, tmp, control=True)
+    torch.cuda.empty_cache()
 
     gen = ["generate-image", "--model", CKPT_IMAGE["model"], "--num-samples", "4",
            "--batch-size", "4", "--num-steps", "4", "--mode", "ode"]
@@ -1686,7 +1714,7 @@ def checkpoint_phase(tmp, smi):
         f"same run from the initial weights {np.abs(a - b).max():.3g}")
     if not (loaded and np.isfinite(a).all() and a.shape == (4, 32, 32, 4)):
         raise AssertionError("generate-image --ckpt-dir")
-    return image, protein, semla
+    return image, protein, semla, edm
 
 
 def eval_phases(smi):
@@ -1979,6 +2007,231 @@ def molecule_phases(smi):
     return train
 
 
+# -- slice 10: EDM / EFM molecules (train-molecule-edm, eval-molecule) ------
+
+# MoleculeEDMConfig's default: the reference QM9 recipe (hidden 256 x 9
+# blocks, 29 atoms, rep 256 with dropout 0.1), batch 64
+EDM = dict(warmup_steps=2, timed_steps=20, profiled_steps=4, cpu_rows=4, cfg_scale=2.0)
+EDM_FWD_RTOL = 1e-4      # card vs CPU, f32 with TF32 off, velocity and features apart
+EDM_LEARN_STEPS = 200
+EDM_LEARN_NLL_MAX = 0.5
+EDM_EVAL = dict(batch=16, num_steps=50)  # eval-molecule, cut from T = 1000
+
+
+def seeded_edm(cfg, seed=5):
+    """The model of `cfg` with every bias, LayerNorm, fake_latent and the
+    coordinate heads (coord_mlp.4, gain 1e-3 at init) moved by N(0, 0.02),
+    so that none sits at its init value and the coordinate branch and CFG
+    reach the output; the lecun-normal weights stay as initialised, so that
+    the bound holds the port and not f32's own conditioning at this depth
+    (the CPU's f32 against f64 is logged beside it)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = edm_train.build_dynamics(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if (name.endswith(("bias", "coord_mlp.4.weight")) or "norm" in name
+                    or name == "fake_latent"):
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return model
+
+
+def edm_forward_phase(smi):
+    """One full-width EGNNDynamics forward with the rep, and forward_with_cfg,
+    on the card against a CPU copy (and f64 beside it) on the first rows of
+    a batch of 64 x 29 atoms; the velocity and the features each to 1e-4 of
+    their max."""
+    cfg = edm_train.MoleculeEDMConfig()
+    trainer = edm_train.MoleculeEDMTrainer(cfg, device="cuda")
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(7))
+    model = seeded_edm(cfg).eval()
+    xh = torch.cat([batch["positions"], batch["one_hot"], batch["charges"]], -1)
+    t = torch.rand((cfg.batch_size,), generator=torch.Generator(device="cuda").manual_seed(8),
+                   device="cuda")
+    rows, w = EDM["cpu_rows"], EDM["cfg_scale"]
+    args = (t, xh, batch["node_mask"], batch["edge_mask"])
+    errs, errs64 = {}, {}
+    with torch.no_grad():
+        cpu = copy.deepcopy(model).cpu()
+        cpu64 = copy.deepcopy(cpu).double()
+        sub = lambda a, dt: a[:rows].cpu().to(dt)  # noqa: E731
+        calls = {
+            "forward": (lambda m, a, r: m(*a, rep=r)),
+            f"forward_with_cfg (w {w})": (lambda m, a, r: m.forward_with_cfg(*a, None, r, w)),
+        }
+        for label, call in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(model, args, batch["rep"])
+            torch.cuda.synchronize()
+            card_ms = 1e3 * (time.perf_counter() - t0)
+            ref = call(cpu, [sub(a, torch.float32) for a in args],
+                       sub(batch["rep"], torch.float32))
+            ref64 = call(cpu64, [sub(a, torch.float64) for a in args],
+                         sub(batch["rep"], torch.float64))
+            for part, sl in (("velocity", slice(0, 3)), ("features", slice(3, None))):
+                errs[f"{label} {part}"] = rel_err(out[:rows, :, sl], ref[..., sl])
+                errs64[f"{label} {part}"] = rel_err(ref[..., sl], ref64[..., sl])
+            log(f"[edm] {label}: card {card_ms:.1f} ms for {cfg.batch_size} x "
+                f"{cfg.max_nodes} atoms (one call, after the first forward's warm-up), "
+                f"max |velocity| {ref64[..., :3].abs().max().item():.4g}, max |features| "
+                f"{ref64[..., 3:].abs().max().item():.4g}")
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"EGNNDynamics {label}: non-finite output")
+    fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())  # noqa: E731
+    log(f"[edm] full-width EGNNDynamics (hidden {cfg.hidden_nf} x {cfg.n_layers} blocks, "
+        f"rep {cfg.rep_nf}, attention, tanh, normalization_factor "
+        f"{cfg.normalization_factor}) card vs CPU on {rows} rows, f32: max abs err / max "
+        f"|out| {fmt(errs)} (rtol {EDM_FWD_RTOL}); CPU f32 vs f64 {fmt(errs64)} ({smi})")
+    if not all(v <= EDM_FWD_RTOL for v in errs.values()):
+        raise AssertionError(f"EGNNDynamics card vs CPU: {errs}")
+
+
+def edm_train_phase(smi):
+    """The main path: MoleculeEDMTrainer.train_step at full width, batch 64 x
+    29 atoms; ms a step (wall and device), molecules/s, launches, idle share,
+    peak memory and a profile by kernel family."""
+    cfg = edm_train.MoleculeEDMConfig()
+    trainer = edm_train.MoleculeEDMTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+    n, steps = cfg.batch_size, EDM["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(EDM["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernel_launches = (fa.launches, fm.launches, fm.backward_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, event_ms = 1e3 * seconds / steps, start.elapsed_time(end) / steps
+    log(f"[edm] MoleculeEDMTrainer.train_step, full width (hidden {cfg.hidden_nf} x "
+        f"{cfg.n_layers}, rep {cfg.rep_nf}, EDM T {cfg.edm.timesteps}), f32, batch {n} x "
+        f"{cfg.max_nodes} atoms: {steps} steps {wall_ms:.3f} ms per step (wall, after a "
+        f"sync), {event_ms:.3f} ms (CUDA events), {n * steps / seconds:.2f} molecules/s; "
+        f"peak memory {peak_gb:.2f} GB; K1/K2a/K2b launches {kernel_launches}; last loss "
+        f"{metrics['loss'].item():.6g}, grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite EDM train metrics {metrics}")
+    if any(kernel_launches):
+        raise AssertionError(f"a TPU-kernel port ran on the EDM path: {kernel_launches}")
+    k = EDM["profiled_steps"]
+
+    def k_steps():
+        nonlocal state
+        for _ in range(k):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile(f"{k} EDM train steps", k_steps, smi, top=12)
+    busy = prof["busy_ms"] / k
+    log(f"[edm] per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall ({wall_ms:.3f} ms), "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled one")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, event_ms=event_ms, mol_s=n * steps / seconds,
+                peak_gb=peak_gb, busy_ms=busy, launches=prof["launches"] / k)
+
+
+def edm_learning_phase(smi):
+    """200 steps of the EDM gate (seed 0, its data and configuration): the
+    mean nll of steps 180-199 must fall below 0.5."""
+    gcfg = convergence_edm.gate_config(seed=0)
+    data = convergence_edm.GateData()
+    trainer = edm_train.MoleculeEDMTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in convergence_edm.gate_batches(data, EDM_LEARN_STEPS, torch.device("cuda")):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    seconds = time.perf_counter() - t0
+    late = sum(losses[-20:]) / 20
+    batch = edm_train.batch_to_device(data.batch(0), "cuda")
+
+    def steps4():
+        nonlocal state
+        for _ in range(4):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile("4 EDM gate steps (one batch)", steps4, smi, top=6)
+    log(f"[edm] gate step: device {prof['busy_ms'] / 4:.3f} ms, {prof['launches'] / 4:.0f} "
+        f"launches, wall {prof['wall_ms'] / 4:.3f} ms (profiled, batch resident)")
+    log(f"[edm] learning check, EDM gate config (hidden {gcfg.hidden_nf}, {gcfg.n_layers} "
+        f"blocks, batch {gcfg.batch_size} chains, rep {gcfg.rep_nf}): nll step 0 "
+        f"{losses[0]:.4f}, step 100 {losses[100]:.4f}, mean of steps "
+        f"{EDM_LEARN_STEPS - 20}-{EDM_LEARN_STEPS - 1} {late:.4f} (must be < "
+        f"{EDM_LEARN_NLL_MAX}; JAX on a TPU: 327.3 at step 0, 0.113 at step 200); "
+        f"{1e3 * seconds / EDM_LEARN_STEPS:.3f} ms per step, host batches inline ({smi})")
+    if not late < EDM_LEARN_NLL_MAX:
+        raise AssertionError(f"the EDM nll did not fall: {losses[0]} -> {late}")
+    return late
+
+
+def edm_cli_phase(tmp, smi):
+    """train-molecule-edm (EDM and fm) and eval-molecule from each run's
+    checkpoint, all as subprocesses at MoleculeEDMConfig's full width: 3
+    synthetic steps with a checkpoint, then 16 molecules in 50 EDM steps
+    (10 rk4 steps for fm), the EDM ones written as .xyz."""
+    speeds = {}
+    for model, extra in (("diffusion", []),
+                         ("fm", ["--set", "probabilistic_model=fm", "--set", "efm.ode_steps=10"])):
+        run = f"{tmp}/edm_{model}"
+        text = run_cli(["train-molecule-edm", "--synthetic", "--steps", "3", "--log-every",
+                        "1", "--ckpt-dir", run, "--ckpt-every", "3", *extra],
+                       f"train-molecule-edm {model} --steps 3")
+        rate = [line for line in text.splitlines() if "steps after the first" in line]
+        log(f"[edm] {rate[-1] if rate else text.splitlines()[-1]}")
+        if "3.pt" not in os.listdir(run):
+            raise AssertionError(f"train-molecule-edm {model} wrote {os.listdir(run)}")
+        out = f"{tmp}/edm_{model}_mols"
+        text = run_cli(["eval-molecule", "--ckpt-dir", run, "--batch-size",
+                        str(EDM_EVAL["batch"]), "--num-steps", str(EDM_EVAL["num_steps"]),
+                        "--n-replicates", "1", "--out", out, *extra],
+                       f"eval-molecule {model}")
+        summary = json.loads(text[text.rindex("\n{\n") + 1:])
+        speed = next(line for line in text.splitlines() if "molecules/s" in line)
+        xyz = sorted(f for f in os.listdir(out) if f.endswith(".xyz"))
+        log(f"[edm] eval-molecule {model} (EMA of step 3, {EDM_EVAL['batch']} molecules): "
+            f"{speed}; {len(xyz)} .xyz files; validity {summary['mean']['validity']}, "
+            f"atom_stable {summary['mean']['atom_stable']:.4f} (3 training steps: ~0 "
+            f"expected) ({smi})")
+        if len(xyz) != EDM_EVAL["batch"] or "loaded EMA weights of step 3" not in text:
+            raise AssertionError(f"eval-molecule {model}: {len(xyz)} .xyz files\n"
+                                 f"{text[-2000:]}")
+        speeds[model] = speed
+    return speeds
+
+
+def edm_phases(smi):
+    """Slice 10's phases; returns the train phase's numbers. K1, K2a and K2b
+    must launch 0 times on them."""
+    t0 = time.perf_counter()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    edm_forward_phase(smi)
+    train = edm_train_phase(smi)
+    edm_learning_phase(smi)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        edm_cli_phase(tmp, smi)
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    log(f"[edm] slice 10 phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b launches "
+        f"on them {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the EDM paths: {counts}")
+    return train
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -2005,6 +2258,7 @@ def main():
         f"paths: {gen_vae_launches} in generate-image --vae (16 calls), {enc_launches} in "
         f"train-image --enc-type ({ENC_DATA['steps']} steps)")
     molecule_phases(smi)
+    edm_phases(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),

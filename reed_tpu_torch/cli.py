@@ -18,6 +18,10 @@
       [--data-dir qm9/ --batch-cost 4096] [--ckpt-dir out/semla --ckpt-every 1000]
   python -m reed_tpu_torch.cli eval-semla --n-samples 64 --n-replicates 3 \\
       --num-steps 100 [--ckpt-dir out/semla | --ref-ckpt last.ckpt] [--out mols/]
+  python -m reed_tpu_torch.cli train-molecule-edm --steps 100 --synthetic \\
+      [--data-dir qm9/] [--set probabilistic_model=fm] [--ckpt-dir out/edm --ckpt-every 1000]
+  python -m reed_tpu_torch.cli eval-molecule --num-steps 1000 --n-replicates 3 \\
+      [--ckpt-dir out/edm | --ref-ckpt generative_model_ema.npy] [--data-dir qm9/] [--out mols/]
 
 Runs on CUDA unless `--device cpu` is given. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
@@ -34,6 +38,11 @@ eval-protein and eval-semla it samples from the latest checkpoint's EMA
 weights. train-molecule-semla and eval-semla use reed_tpu's SemlaFlow
 default (SemlaTrainConfig): d_model 384, 12 layers, 64 coordinate sets, 32
 heads, self-conditioning, REPA at depth 4 against 512-d reps, f32.
+train-molecule-edm and eval-molecule use its EDM default
+(MoleculeEDMConfig): the reference QM9 recipe, EGNN hidden 256 x 9 blocks,
+attention, tanh, 5 atom types plus charges, max_nodes 29, 256-d rep
+conditioning with rep dropout 0.1, EDM (or `--set probabilistic_model=fm`),
+batch 64, Adam lr 1e-4, f32.
 """
 
 from __future__ import annotations
@@ -497,10 +506,10 @@ def _find_split(data_dir: str, split: str) -> str:
     raise FileNotFoundError(f"no {split}.rsmol[.npz] or {split}.npz under {data_dir}")
 
 
-def _load_reps(data_dir: str, d_rep, n: int):
+def _load_reps(data_dir: str, d_rep, n: int, key: str = "d_rep"):
     """Precomputed frozen-encoder reps aligned with the dataset (reps.npy or
     train_reps.npy beside the split), or zeros with a warning where there
-    are none; None where the model takes no rep."""
+    are none; None where the model takes no rep (config field `key`)."""
     if d_rep is None:
         return None
     if os.path.isfile(data_dir):
@@ -514,7 +523,7 @@ def _load_reps(data_dir: str, d_rep, n: int):
                                  f"needs ({n}, {d_rep})")
             return reps.astype(np.float32)
     print(f"WARNING: no reps.npy in {data_dir}; rep conditioning/alignment will see "
-          "zeros (train with --set d_rep=null to silence)")
+          f"zeros (train with --set {key}=null to silence)")
     return np.zeros((n, d_rep), np.float32)
 
 
@@ -684,6 +693,181 @@ def eval_semla(args):
                    num_steps=args.num_steps)
     print(json.dumps(summary))
     return summary
+
+
+def _edm_ref_ckpt(model, path, device):
+    """Load a reference EDM checkpoint (generative_model[_ema].npy) into
+    `model`; returns its learned noise schedule (a GammaNetwork on
+    `device`) or None."""
+    from reed_tpu_torch.diffusion.edm import GammaNetwork
+    from reed_tpu_torch.encoders.edm_convert import load_into, load_torch_edm_checkpoint
+
+    dyn, gamma_sd = load_torch_edm_checkpoint(path)
+    load_into(model, dyn)
+    if gamma_sd is None:
+        return None
+    gamma = GammaNetwork(hidden=gamma_sd["l2.weight"].shape[0]).to(device)
+    load_into(gamma, gamma_sd)
+    return gamma
+
+
+def train_molecule_edm(args):
+    """Train the EDM (or, with --set probabilistic_model=fm, the EFM)
+    molecule model on synthetic batches (reed_tpu's synthetic_batch
+    schema) or on the QM9 EDM npz train split under --data-dir (with
+    reps.npy beside it), logging `[step N] {...}` every --log-every steps,
+    then the rate of the steps after the first."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
+                                                   batch_to_device)
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(MoleculeEDMConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "optim": {"lr": args.lr} if args.lr is not None else None})
+    trainer = MoleculeEDMTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if args.ref_ckpt:
+        _edm_ref_ckpt(state.model, args.ref_ckpt, device)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        print(f"warm-started from reference checkpoint {args.ref_ckpt}")
+
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield trainer.synthetic_batch(torch.Generator(device=device).manual_seed(i))
+                i += 1
+    else:
+        from reed_tpu_torch.data.molecule import edm_epoch_batches, load_qm9_edm_npz
+
+        data = load_qm9_edm_npz(_find_split(args.data_dir, "train"))
+        reps = _load_reps(args.data_dir, cfg.rep_nf, len(data["positions"]), "rep_nf")
+        print(f"loaded {len(data['positions'])} molecules from {args.data_dir}")
+
+        def batches():
+            epoch = 0
+            while True:
+                rng = np.random.default_rng(cfg.seed + epoch)
+                for batch in edm_epoch_batches(
+                        data, cfg.batch_size, rng, reps=reps, max_nodes=cfg.max_nodes,
+                        num_atom_types=cfg.num_atom_types,
+                        include_charges=cfg.include_charges):
+                    yield batch_to_device(batch, device)
+                epoch += 1
+
+    return _run_loop(trainer, state, batches(), args,
+                     lambda b: int(b["node_mask"].shape[0]), cfg,
+                     f"train-molecule-edm {cfg.probabilistic_model} ({device})", "molecules")
+
+
+def eval_molecule(args):
+    """Two-stage molecule eval (reference: molecule/eval_src/eval_analyze.py):
+    a GtSampler over the reps.npy and sizes.npy under --data-dir (random
+    stand-in reps and sizes without them) gives each molecule a rep; the EDM
+    ancestral sampler (T = --num-steps; CFG where edm.cfg_scale is set) or
+    the EFM decode generates --batch-size molecules a replicate from the
+    EMA of --ckpt-dir's latest checkpoint or a reference checkpoint, scored
+    by MoleculeMetrics with the mean and std over --n-replicates. Prints
+    molecules/s and ms per sampler step, then reed_tpu's JSON; --out writes
+    one more replicate as .xyz files."""
+    from reed_tpu_torch.data.molecule import QM9_ATOM_DECODER
+    from reed_tpu_torch.eval.molecule_metrics import (GEOM_ATOM_DECODER, DistributionNodes,
+                                                      MoleculeMetrics)
+    from reed_tpu_torch.eval.rep_samplers import GtSampler
+    from reed_tpu_torch.eval.two_stage import (TwoStageSampler, evaluate_replicates,
+                                               molecules_from_samples)
+    from reed_tpu_torch.eval.visualize import save_xyz_file
+    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
+                                                   build_dynamics)
+
+    if args.rdm_ref_ckpt:
+        raise NotImplementedError(
+            "--rdm-ref-ckpt needs the RDM rep samplers (DDIM, PC), which are not ported "
+            "yet (ROADMAP.md Queue 1 item 12); the port samples reps with the GtSampler")
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(MoleculeEDMConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed},
+                       defaults={"batch_size": 16, "edm": {"timesteps": args.num_steps}})
+    trainer = MoleculeEDMTrainer(cfg, device=device)
+    model = build_dynamics(cfg, device=device,
+                           generator=torch.Generator(device=device).manual_seed(cfg.seed))
+    gamma = None
+    if args.ref_ckpt:
+        gamma = _edm_ref_ckpt(model, args.ref_ckpt, device)
+        print(f"loaded reference torch checkpoint {args.ref_ckpt}"
+              + (" (learned gamma)" if gamma is not None else ""))
+    elif args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
+    model.eval()
+
+    np_rng = np.random.default_rng(cfg.seed)
+    reps_path = os.path.join(args.data_dir, "reps.npy") if args.data_dir else None
+    if reps_path and os.path.exists(reps_path):
+        reps = np.load(reps_path).astype(np.float32)
+        sizes = np.load(os.path.join(args.data_dir, "sizes.npy"))
+        if reps.shape[1] != cfg.rep_nf:
+            raise ValueError(f"{reps_path}: reps of width {reps.shape[1]}, the model "
+                             f"takes rep_nf {cfg.rep_nf}")
+        print(f"GtSampler over {len(reps)} dataset reps from {args.data_dir}")
+    else:
+        if args.data_dir:
+            print(f"WARNING: no reps.npy under {args.data_dir}; using random stand-in reps")
+        reps = (np_rng.standard_normal((256, cfg.rep_nf)).astype(np.float32)
+                if cfg.rep_nf is not None else None)
+        sizes = np_rng.integers(cfg.max_nodes // 2, cfg.max_nodes + 1, 256)
+    sizes = np.minimum(sizes.astype(np.int64), cfg.max_nodes)
+    rep_sampler = GtSampler(reps, sizes) if cfg.rep_nf is not None else None
+    node_dist = DistributionNodes({int(s): float((sizes == s).sum()) for s in np.unique(sizes)})
+
+    clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
+
+    def mol_sampler(node_mask, edge_mask, rep, r):
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = trainer.sample(model, node_mask, edge_mask, rep=rep, cfg_scale=cfg.edm.cfg_scale,
+                             gamma=gamma, generator=torch.Generator(device=device).manual_seed(
+                                 cfg.seed + r))
+        synchronize(device)
+        clock["seconds"] += time.perf_counter() - t0
+        clock["molecules"] += node_mask.shape[0]
+        clock["batches"] += 1
+        return out
+
+    def sample_replicate(r):
+        nodes = node_dist.sample(np_rng, cfg.batch_size)
+        sampler = TwoStageSampler(rep_sampler, lambda nm, em, rep: mol_sampler(nm, em, rep, r))
+        # reed_tpu's GtSampler draws from default_rng(seed + replicate)
+        x, h_cat, _, node_mask = sampler.sample(np.random.default_rng(cfg.seed + r), nodes,
+                                                cfg.max_nodes, device=device)
+        return molecules_from_samples(x, h_cat, node_mask)
+
+    out = evaluate_replicates(sample_replicate, MoleculeMetrics(),
+                              n_replicates=args.n_replicates)
+    steps = (cfg.efm.ode_steps * (4 if cfg.efm.ode_method == "rk4" else 1)
+             if cfg.probabilistic_model == "fm" else cfg.edm.timesteps + 1)
+    print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
+          f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
+          f"evaluation ({clock['batches']} batches of {cfg.batch_size}, {steps} evaluations "
+          f"a batch, {cfg.probabilistic_model}, {device})")
+
+    if args.out:
+        decoder = QM9_ATOM_DECODER if cfg.num_atom_types <= 5 else GEOM_ATOM_DECODER
+        os.makedirs(args.out, exist_ok=True)
+        for i, (pos, types) in enumerate(sample_replicate(0)[:100]):
+            save_xyz_file(os.path.join(args.out, f"mol_{i:03d}.xyz"), pos, types,
+                          atom_decoder=decoder)
+        print(f"sample dumps (.xyz) -> {args.out}; the 3D PNG renders are not ported "
+              "(ROADMAP.md Queue 1 item 14)")
+    if args.data_dir:
+        try:
+            _find_split(args.data_dir, "test")
+            print("a test split is present: the MOSES / MiDi distribution metrics are not "
+                  "ported yet (ROADMAP.md Queue 1 item 14); not computed")
+        except FileNotFoundError:
+            pass
+    print(json.dumps(out, indent=2))
+    return out
 
 
 def _add_config(p, what):
@@ -862,6 +1046,43 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "SemlaTrainConfig")
     p.set_defaults(fn=eval_semla)
+
+    p = sub.add_parser("train-molecule-edm")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: the config's 64")
+    p.add_argument("--data-dir", default=None,
+                   help="QM9 EDM npz train split (train.npz, and reps.npy beside it); "
+                        "trains on it")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="warm start from a reference torch EDM checkpoint "
+                        "(generative_model[_ema].npy; widths via --set)")
+    _add_training(p)
+    _add_config(p, "MoleculeEDMConfig")
+    p.set_defaults(fn=train_molecule_edm)
+
+    p = sub.add_parser("eval-molecule")
+    p.add_argument("--n-replicates", type=int, default=3)
+    p.add_argument("--num-steps", type=int, default=100,
+                   help="the EDM sampler's T (sets edm.timesteps)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="molecules a replicate (default 16)")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="reference torch EDM checkpoint (generative_model[_ema].npy; "
+                        "widths via --set)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this run's latest checkpoint")
+    p.add_argument("--rdm-ref-ckpt", default=None,
+                   help="reference torch RDM checkpoint for the DDIM rep sampler: not "
+                        "ported yet (ROADMAP.md item 12), raises")
+    p.add_argument("--data-dir", default=None,
+                   help="reps.npy and sizes.npy for the GtSampler (random stand-in "
+                        "reps without them)")
+    p.add_argument("--out", default=None,
+                   help="write one replicate as .xyz files here (the 3D PNG renders "
+                        "need matplotlib and are not ported: ROADMAP.md item 14)")
+    p.add_argument("--seed", type=int, default=None)
+    _add_config(p, "MoleculeEDMConfig")
+    p.set_defaults(fn=eval_molecule)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -4,9 +4,10 @@ GeometricMol record, the `.rsmol` dataset container (one npz of ragged
 arrays; reed_tpu reads the files this writes and the other way round),
 coordinate normalisation, size-bucketed dense collation and the
 SemlaTrainer epoch iterator (prior, OT coupling and interpolation per
-batch, as the reference's collate does). EDM's batches,
-`build_geom_dataset` (GEOM msgpack) and the QM9 EDM npz loader are not
-ported yet.
+batch, as the reference's collate does); and the EDM half: the QM9 EDM
+npz loader and the MoleculeEDMTrainer epoch iterator (dense collation of
+positions, one-hot types and charges with the node and edge masks).
+`build_geom_dataset` (GEOM msgpack) is not ported yet.
 """
 
 from __future__ import annotations
@@ -252,3 +253,66 @@ def semla_epoch_batches(mols: List[GeometricMol], interpolant_cfg,
         if reps is not None:
             batch["rep"] = reps[chunk]
         yield batch
+
+
+# -- the EDM path (QM9 EDM npz) -----------------------------------------------
+
+QM9_CHARGE_TO_TYPE = {1: 0, 6: 1, 7: 2, 8: 3, 9: 4}  # H, C, N, O, F
+QM9_ATOM_DECODER = ["H", "C", "N", "O", "F"]
+
+
+def edm_epoch_batches(data: Dict[str, np.ndarray], batch_size: int,
+                      rng: np.random.Generator, reps: Optional[np.ndarray] = None,
+                      max_nodes: int = 29, num_atom_types: int = 5,
+                      include_charges: bool = True,
+                      shuffle: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """One shuffled epoch of MoleculeEDMTrainer-schema batches (host numpy)
+    from the EDM QM9 npz layout (positions / charges / num_atoms[, one_hot]),
+    the dense collation of the reference's qm9/data/collate.py; types come
+    from the atomic numbers where there is no one_hot. The last partial
+    batch is dropped."""
+    pos = np.asarray(data["positions"], np.float32)
+    charges = np.asarray(data["charges"]) if "charges" in data else None
+    one_hot_src = np.asarray(data["one_hot"]) if "one_hot" in data else None
+    num_atoms = np.asarray(data["num_atoms"]).astype(np.int64)
+    m, src_n = pos.shape[:2]
+    n = max_nodes
+    k = min(n, src_n)
+    diag = np.eye(n, dtype=np.float32)[None, :, :, None]
+    to_type = np.vectorize(lambda z: QM9_CHARGE_TO_TYPE.get(int(z), 0))
+
+    order = rng.permutation(m) if shuffle else np.arange(m)
+    for i in range(0, m - batch_size + 1, batch_size):
+        idx = order[i:i + batch_size]
+        node_mask = (np.arange(n)[None, :] < np.minimum(num_atoms[idx], n)[:, None]
+                     ).astype(np.float32)[..., None]
+        positions = np.zeros((batch_size, n, 3), np.float32)
+        positions[:, :k] = pos[idx, :k]
+        positions *= node_mask
+        one_hot = np.zeros((batch_size, n, num_atom_types), np.float32)
+        if one_hot_src is not None:
+            one_hot[:, :k] = one_hot_src[idx, :k, :num_atom_types]
+        else:
+            one_hot[:, :k] = np.eye(num_atom_types, dtype=np.float32)[to_type(charges[idx, :k])]
+        one_hot *= node_mask
+        ch = np.zeros((batch_size, n, 1), np.float32)
+        if charges is not None and include_charges:
+            ch[:, :k, 0] = charges[idx, :k]
+        ch *= node_mask
+        edge_mask = node_mask[:, :, None, :] * node_mask[:, None, :, :] * (1.0 - diag)
+        batch = {"positions": positions, "one_hot": one_hot, "charges": ch,
+                 "node_mask": node_mask, "edge_mask": edge_mask}
+        if reps is not None:
+            batch["rep"] = reps[idx]
+        yield batch
+
+
+def load_qm9_edm_npz(path: str) -> Dict[str, np.ndarray]:
+    """An EDM-format QM9 split npz (positions, charges, one_hot or atom
+    types, num_atoms) as a dict of arrays; num_atoms is counted from the
+    nonzero positions where the file has none."""
+    with np.load(path) as z:
+        out = {k: z[k] for k in z.files}
+    if "num_atoms" not in out and "positions" in out:
+        out["num_atoms"] = (np.abs(out["positions"]).sum(-1) > 0).sum(-1)
+    return out

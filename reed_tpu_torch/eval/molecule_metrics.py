@@ -1,12 +1,15 @@
-"""SemlaFlow's molecule metrics over PREDICTED graphs, the port's copy of
-that half of reed_tpu/eval/molecule_metrics.py (host-side numpy): the bond
-length and valence tables, distance-inferred bond orders (for the geometry
-audit), GraphMoleculeMetrics (stability with charge-aware valences,
-validity, fc-validity, uniqueness, PoseBusters-style geometry checks) and
-the relaxed validity. RDKit-dependent paths run where rdkit imports;
-without it the table-driven fallbacks run, as in reed_tpu (`HAVE_RDKIT`).
-EDM's distance-based MoleculeMetrics, the MMFF energies and the size and
-property distributions are not ported yet.
+"""Molecule metrics, the port's copy of reed_tpu/eval/molecule_metrics.py
+(host-side numpy): the bond length and valence tables, distance-inferred
+bond orders, EDM's MoleculeMetrics (atom / molecule stability, validity,
+uniqueness and novelty over bonds inferred from distances, reference
+qm9/analyze.py) with check_stability and the size histogram sampler
+DistributionNodes, SemlaFlow's GraphMoleculeMetrics (the same over
+PREDICTED graphs, with charge-aware valences and fc-validity),
+PoseBusters-style geometry checks and the relaxed validity.
+RDKit-dependent paths run where rdkit imports; without it the
+table-driven fallbacks run, as in reed_tpu (`HAVE_RDKIT`). The MMFF
+energies and the property distribution (DistributionProperty) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -167,6 +170,91 @@ def _mol_from_graph(positions, atom_types, orders, atom_decoder):
             if orders[i, j] > 0:
                 mol.AddBond(i, j, btype[int(orders[i, j])])
     return mol
+
+
+def _n_stable_atoms(orders: np.ndarray, atom_types: Sequence[int],
+                    atom_decoder: Sequence[str]) -> int:
+    """Atoms whose bond count is an allowed valence (qm9/analyze.py:20-56)."""
+    n_stable = 0
+    for t, nb in zip(atom_types, orders.sum(axis=1)):
+        allowed = ALLOWED_BONDS[atom_decoder[t]]
+        n_stable += int((nb == allowed) if isinstance(allowed, int) else (nb in allowed))
+    return n_stable
+
+
+def check_stability(positions: np.ndarray, atom_types: Sequence[int],
+                    atom_decoder: Sequence[str] = QM9_ATOM_DECODER,
+                    dataset: str = "qm9") -> Tuple[bool, int, int]:
+    """(molecule_stable, n_stable_atoms, n_atoms) over the bonds inferred
+    from distances (reference: qm9/analyze.py:20-56)."""
+    orders = build_bond_graph(positions, atom_types, atom_decoder, dataset)
+    n_stable = _n_stable_atoms(orders, atom_types, atom_decoder)
+    return n_stable == len(atom_types), n_stable, len(atom_types)
+
+
+def _graph_key(orders: np.ndarray, atom_types: Sequence[int]) -> str:
+    """A canonical-ish hash of the bond graph, for rdkit-free uniqueness."""
+    n = len(atom_types)
+    deg = orders.sum(1)
+    rows = sorted(
+        (int(atom_types[i]), int(deg[i]),
+         tuple(sorted((int(atom_types[j]), int(orders[i, j]))
+                      for j in range(n) if orders[i, j] > 0)))
+        for i in range(n))
+    return str(rows)
+
+
+@dataclass
+class MoleculeMetrics:
+    """Stability, validity, uniqueness (and novelty against train_smiles)
+    over a list of (positions [N,3], atom_types [N]) molecules, the bonds
+    inferred from distances (EDM's metric). Without rdkit a molecule is
+    valid when it is connected and every atom is stable, and uniqueness
+    hashes the bond graph."""
+
+    atom_decoder: Sequence[str] = tuple(QM9_ATOM_DECODER)
+    dataset: str = "qm9"
+    train_smiles: Optional[set] = None
+
+    def evaluate(self, molecules: List[Tuple[np.ndarray, np.ndarray]]) -> Dict[str, float]:
+        n_mols = len(molecules)
+        mol_stable = atoms_stable = atoms_total = 0
+        valid_keys = []
+        for positions, atom_types in molecules:
+            orders = build_bond_graph(positions, atom_types, self.atom_decoder, self.dataset)
+            stable_atoms = _n_stable_atoms(orders, atom_types, self.atom_decoder)
+            mol_stable += int(stable_atoms == len(atom_types))
+            atoms_stable += stable_atoms
+            atoms_total += len(atom_types)
+            if HAVE_RDKIT:
+                try:
+                    mol = _mol_from_graph(positions, atom_types, orders, self.atom_decoder)
+                    Chem.SanitizeMol(mol)
+                    if len(Chem.GetMolFrags(mol)) == 1:
+                        valid_keys.append(Chem.MolToSmiles(mol))
+                except Exception:  # any rdkit failure makes the molecule invalid
+                    pass
+            elif _connected(orders) and stable_atoms == len(atom_types):
+                valid_keys.append(_graph_key(orders, atom_types))
+
+        n_valid = len(valid_keys)
+        unique = set(valid_keys)
+        metrics = {
+            "mol_stable": mol_stable / max(1, n_mols),
+            "atom_stable": atoms_stable / max(1, atoms_total),
+            "validity": n_valid / max(1, n_mols),
+            "uniqueness": len(unique) / max(1, n_valid),
+            "relaxed_validity": compute_relaxed_validity(molecules, self.atom_decoder,
+                                                         self.dataset),
+            # which validity semantics produced the numbers
+            "rdkit": HAVE_RDKIT,
+        }
+        metrics["pb_valid"] = posebusters_checks(molecules, self.atom_decoder,
+                                                 self.dataset)["pb_valid"]
+        if self.train_smiles is not None:
+            novel = [k for k in unique if k not in self.train_smiles]
+            metrics["novelty"] = len(novel) / max(1, len(unique))
+        return metrics
 
 
 # ---------------------------------------------------------------------------
@@ -498,3 +586,20 @@ def posebusters_checks(molecules, atom_decoder=QM9_ATOM_DECODER,
                                    and clash_ok)
     m = max(1, len(molecules))
     return {k: v / m for k, v in results.items()}
+
+
+class DistributionNodes:
+    """Histogram sampler over molecule sizes (reference: qm9/models.py
+    DistributionNodes)."""
+
+    def __init__(self, histogram: Dict[int, float]):
+        self.sizes = np.array(sorted(histogram), np.int64)
+        probs = np.array([histogram[s] for s in self.sizes], np.float64)
+        self.probs = probs / probs.sum()
+
+    def sample(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        return rng.choice(self.sizes, size=n, p=self.probs)
+
+    def log_prob(self, sizes: np.ndarray) -> np.ndarray:
+        idx = np.clip(np.searchsorted(self.sizes, sizes), 0, len(self.sizes) - 1)
+        return np.log(np.where(self.sizes[idx] == sizes, self.probs[idx], 1e-30))

@@ -195,3 +195,50 @@ def semla_pair(inputs=None, std=0.1, seed=0, **overrides):
     model = SemlaGenerator(**kw).eval()
     model.load_state_dict(state_dict_from_flax(params))
     return jax_model, params, model, inputs
+
+
+EDM_TINY = dict(in_node_nf=6, hidden_nf=32, n_layers=2, inv_sublayers=2, attention=True,
+                tanh=True, coords_range=15.0, normalization_factor=1.0, aggregation="sum",
+                rep_nf=16, rep_dropout_prob=0.1)
+
+
+def edm_inputs(batch=3, n=9, nf=6, rep_nf=16, context_nf=0, seed=1):
+    """Numpy inputs of a tiny EGNNDynamics: t [B], xh [B,N,3+nf] (zero-CoM
+    coordinates, features), node_mask [B,N,1] with padded rows after the
+    first, edge_mask [B,N,N,1], a rep and a per-node context where asked."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(n // 2, n + 1, size=batch)
+    sizes[0] = n
+    mask = (np.arange(n)[None, :] < sizes[:, None]).astype(np.float32)[..., None]
+    x = rng.standard_normal((batch, n, 3)).astype(np.float32) * mask
+    x = (x - x.sum(1, keepdims=True) / mask.sum(1, keepdims=True)) * mask
+    h = rng.standard_normal((batch, n, nf)).astype(np.float32) * mask
+    edge = mask[:, :, None, :] * mask[:, None, :, :] * (1 - np.eye(n, dtype=np.float32)
+                                                        [None, :, :, None])
+    out = {"t": rng.uniform(0, 1, batch).astype(np.float32),
+           "xh": np.concatenate([x, h], -1), "node_mask": mask, "edge_mask": edge}
+    if rep_nf:
+        out["rep"] = rng.standard_normal((batch, rep_nf)).astype(np.float32)
+    if context_nf:
+        out["context"] = rng.standard_normal((batch, n, context_nf)).astype(np.float32) * mask
+    return out
+
+
+def edm_pair(std=0.1, seed=0, **overrides):
+    """(jax EGNNDynamics, its params, port EGNNDynamics): the port's every
+    parameter ~ N(0, std), LayerNorm scales 1 + N(0, std), carried to
+    reed_tpu by reed_tpu's own torch converter (convert_torch_egnn_dynamics)."""
+    from reed_tpu.encoders.edm_convert import convert_torch_egnn_dynamics
+    from reed_tpu.models.egnn import EGNNDynamics as JaxDynamics
+    from reed_tpu_torch.models.egnn import EGNNDynamics
+
+    kw = dict(EDM_TINY, **overrides)
+    model = EGNNDynamics(**kw).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * std
+                    + (1.0 if name.endswith(("norm2.weight", "norm3.weight")) else 0.0))
+    params = convert_torch_egnn_dynamics(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    return JaxDynamics(**kw), params, model
