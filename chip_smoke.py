@@ -98,7 +98,9 @@ no result):
      (every bias, norm, fake_latent and coordinate head moved by N(0, 0.02)),
      f32 with TF32 off: one EGNNDynamics forward with the rep and one
      forward_with_cfg on the card against the CPU on 4 rows (velocity and
-     features each to 1e-4 of their max, f64 beside them); the main path,
+     features each to 1e-4 of their max, f64 beside them; message weights
+     x0.25 and coordinate heads x0.01, so that f32 itself sits ~1e-6 from
+     f64); the main path,
      `MoleculeEDMTrainer.train_step`, 20 timed steps (ms a step by wall and
      by CUDA events, molecules/s, peak memory) and a profile by kernel
      family (launches, idle share); a 200-step learning check on the EDM
@@ -108,10 +110,29 @@ no result):
      .xyz files) as subprocesses. No TPU kernel is on these paths: K1, K2a
      and K2b must launch 0 times. The EDM resume at full width (with its
      control) runs in phase 8's checkpoints.
-  11. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  11. precision and RDM (slice 11, `precision_rdm_phases`): protein
+     training in bf16 over f32 master weights at the default width (8 x
+     256, AF3 alignment): one step through K2a/K2b bf16 against the
+     unfused bf16 chain (each gradient within 2x its own distance in the
+     unfused bf16 step from the f32 step, the metrics within 2x the largest
+     metric's), the main path's 20 timed
+     steps with the launch counts zeroed before and read after (9 K2a + 9
+     K2b a step), a profile, a 200-step learning check on the bf16 gate's
+     rule data and `train-protein --set compute_dtype=bfloat16`; SemlaFlow
+     mixed precision at the recipe's width (coordinates f32 and features
+     bf16 in a forward, 20 timed steps beside the f32 ones, a 200-step
+     learning check on the bf16 gate's templates); EDM in bf16 at the QM9
+     width (finite, timed); the RDM at RDMTrainConfig's full width (~100 M
+     parameters): card vs CPU (1e-4, TF32 off), 20 timed steps and a
+     profile, `train-rdm --steps 3` and `eval-molecule --rdm-ref-ckpt`
+     from a checkpoint written in the reference LatentDiffusion layout, as
+     subprocesses. K1 launches 0 times on these paths, K2a and K2b only on
+     the protein one.
+  12. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
-     generation path and on the image gate's training), the nvidia-smi
-     line, and last the {"ok": true, "device": {...}} line.
+     generation path and on the image gate's training; K2a and K2b in f32
+     on the protein paths and in bf16 on the bf16 protein training), the
+     nvidia-smi line, and last the {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
 """
@@ -160,6 +181,8 @@ from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
 from reed_tpu_torch.train import image as image_train
 from reed_tpu_torch.train import molecule_edm as edm_train
 from reed_tpu_torch.train import molecule_semla as semla_train
+from reed_tpu_torch.train import rdm as rdm_train
+from reed_tpu_torch.models import semla as semla_model
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
 # type. f32: the least time the card can take for f32-accurate products is
@@ -1045,12 +1068,18 @@ def image_step_grads(model, cfg, batch, draws, attn_impl, dtype):
 def step_errors(a, b, names):
     """(worst metric error, relative above 1; worst gradient error as max
     |a - b| / max |b|, and its parameter) of step a against step b."""
-    (ma, ga), (mb, gb) = a, b
-    metric = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1.0) for k in mb)
-    grad = {n: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
-            for n, x, y in zip(names, ga, gb)}
+    metric, grad = step_error_maps(a, b, names)
     worst = max(grad, key=grad.get)
-    return metric, grad[worst], worst
+    return max(metric.values()), grad[worst], worst
+
+
+def step_error_maps(a, b, names):
+    """({metric: error, relative above 1}, {parameter: max |a - b| / max |b|})
+    of step a against step b."""
+    (ma, ga), (mb, gb) = a, b
+    return ({k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1.0) for k in mb},
+            {n: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+             for n, x, y in zip(names, ga, gb)})
 
 
 def image_parity_phase(smi):
@@ -2013,6 +2042,16 @@ def molecule_phases(smi):
 # blocks, 29 atoms, rep 256 with dropout 0.1), batch 64
 EDM = dict(warmup_steps=2, timed_steps=20, profiled_steps=4, cpu_rows=4, cfg_scale=2.0)
 EDM_FWD_RTOL = 1e-4      # card vs CPU, f32 with TF32 off, velocity and features apart
+# the scales of the message MLPs' weights (edge_mlp, node_mlp) and of the
+# coordinate heads (coord_mlp.4, after their N(0, 0.02) move) in the checked
+# weights: at the init's scale the coordinates move by ~100 over the nine
+# blocks, most tanh coordinate gates saturate, and a gate near 0 turns f32
+# rounding into 1e-5 to 3e-3 of the velocity (the CPU's f32 against f64,
+# depending on the seed); at 0.25 and 0.01 the CPU's f32 is ~1e-6 from f64
+# at seeds 5-7, so 1e-4 between card and CPU is a bound on the port and not
+# on the conditioning. The f64 distance is logged beside it.
+EDM_MESSAGE_SCALE = 0.25
+EDM_COORD_HEAD_SCALE = 0.01
 EDM_LEARN_STEPS = 200
 EDM_LEARN_NLL_MAX = 0.5
 EDM_EVAL = dict(batch=16, num_steps=50)  # eval-molecule, cut from T = 1000
@@ -2020,11 +2059,12 @@ EDM_EVAL = dict(batch=16, num_steps=50)  # eval-molecule, cut from T = 1000
 
 def seeded_edm(cfg, seed=5):
     """The model of `cfg` with every bias, LayerNorm, fake_latent and the
-    coordinate heads (coord_mlp.4, gain 1e-3 at init) moved by N(0, 0.02),
-    so that none sits at its init value and the coordinate branch and CFG
-    reach the output; the lecun-normal weights stay as initialised, so that
-    the bound holds the port and not f32's own conditioning at this depth
-    (the CPU's f32 against f64 is logged beside it)."""
+    coordinate heads (coord_mlp.4) moved by N(0, 0.02), so that none sits at
+    its init value and the coordinate branch and CFG reach the output; then
+    the message MLPs' weights scaled by EDM_MESSAGE_SCALE and the coordinate
+    heads by EDM_COORD_HEAD_SCALE, so that the bound holds the port and not
+    f32's own conditioning at this depth (the CPU's f32 against f64 is
+    logged beside it)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = edm_train.build_dynamics(cfg, device="cuda", generator=gen)
     with torch.no_grad():
@@ -2032,6 +2072,10 @@ def seeded_edm(cfg, seed=5):
             if (name.endswith(("bias", "coord_mlp.4.weight")) or "norm" in name
                     or name == "fake_latent"):
                 p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+            if name.endswith("coord_mlp.4.weight"):
+                p.mul_(EDM_COORD_HEAD_SCALE)
+            elif name.endswith("weight") and ("edge_mlp" in name or "node_mlp" in name):
+                p.mul_(EDM_MESSAGE_SCALE)
     return model
 
 
@@ -2080,7 +2124,8 @@ def edm_forward_phase(smi):
     fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())  # noqa: E731
     log(f"[edm] full-width EGNNDynamics (hidden {cfg.hidden_nf} x {cfg.n_layers} blocks, "
         f"rep {cfg.rep_nf}, attention, tanh, normalization_factor "
-        f"{cfg.normalization_factor}) card vs CPU on {rows} rows, f32: max abs err / max "
+        f"{cfg.normalization_factor}; message weights x{EDM_MESSAGE_SCALE}, coordinate heads "
+        f"x{EDM_COORD_HEAD_SCALE}) card vs CPU on {rows} rows, f32: max abs err / max "
         f"|out| {fmt(errs)} (rtol {EDM_FWD_RTOL}); CPU f32 vs f64 {fmt(errs64)} ({smi})")
     if not all(v <= EDM_FWD_RTOL for v in errs.values()):
         raise AssertionError(f"EGNNDynamics card vs CPU: {errs}")
@@ -2232,6 +2277,421 @@ def edm_phases(smi):
     return train
 
 
+# -- slice 11: the precision options and the RDM (train-rdm, eval-molecule
+# --rdm-ref-ckpt) ------------------------------------------------------------
+
+# the protein bf16 step through K2a/K2b bf16 against the unfused bf16 chain,
+# held as phase 7 holds the image bf16 step, but parameter by parameter:
+# each gradient may differ from the unfused bf16 step's by at most twice
+# its own distance in the unfused bf16 step from the f32 step (unfused, same
+# state and draws); the metrics, by twice the largest metric's distance
+PROTEIN_BF16_NOISE_FACTOR = 2.0
+# the RDM at RDMTrainConfig's full width (256-d reps, 1536 x 18 blocks,
+# ~100 M parameters), batch 128; card vs CPU f32 with TF32 off on 16 rows
+RDM = dict(warmup_steps=3, timed_steps=20, profiled_steps=4, cpu_rows=16)
+RDM_FWD_RTOL = 1e-4
+EDM_BF16 = dict(warmup_steps=2, timed_steps=10)
+
+
+def protein_bf16_phase(smi):
+    """bf16 protein training (compute_dtype bfloat16, f32 master weights):
+    one full-width step through K2a/K2b bf16 against the unfused bf16 chain
+    (each gradient within 2x its own distance in the unfused bf16 step from
+    the f32 step, the metrics within 2x the largest metric's); the main path, 20 timed `train_step`s with the
+    launch counts zeroed before and read after (9 K2a + 9 K2b a step); a
+    200-step learning check on the gate's rule data in bf16;
+    `train-protein --set compute_dtype=bfloat16` through the CLI. Returns
+    the (K2a, K2b) launches of the timed steps."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg = dataclasses.replace(train_config(dropout=0.0), compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    trainer = ProteinTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    perturb_pmpnn(state.model, gen)
+    batch = trainer.synthetic_batch(gen, TRAIN["batch"], TRAIN["length"])
+    corrupted = corrupt_batch(batch, cfg.interpolant, gen)
+    noisy = (corrupted["S_t"], corrupted["t"])
+    names, params = zip(*state.model.named_parameters())
+    steps = {}
+    for label, c, fused in (("kernels", cfg, True), ("unfused", cfg, False),
+                            ("f32", cfg32, False)):
+        state.model.fused = fused
+        before = (fm.launches, fm.backward_launches)
+        metrics = make_loss_fn(c)(state.model, batch, 0, noisy=noisy)
+        total, _ = combine_losses(metrics, 0, trainer.curriculum)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        torch.cuda.synchronize()
+        steps[label] = ({k: v.item() for k, v in dict(metrics, loss=total).items()},
+                        [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)],
+                        (fm.launches - before[0], fm.backward_launches - before[1]))
+    state.model.fused = True
+    per_step = 2 * cfg.num_encoder_layers + cfg.num_decoder_layers
+    err = step_error_maps(steps["kernels"][:2], steps["unfused"][:2], names)
+    noise = step_error_maps(steps["unfused"][:2], steps["f32"][:2], names)
+    k_err = step_error_maps(steps["kernels"][:2], steps["f32"][:2], names)
+    # each gradient to its own noise; the metrics, scalars whose one rounding
+    # sample is no yardstick, to the noisiest metric's, as phase 7 holds them
+    metric_tol = PROTEIN_BF16_NOISE_FACTOR * max(noise[0].values()) + 1e-6
+    tol = [{k: metric_tol for k in noise[0]},
+           {k: PROTEIN_BF16_NOISE_FACTOR * v + 1e-6 for k, v in noise[1].items()}]
+    # the worst entry by its share of its bound, for metrics and gradients
+    worst = [max(e, key=lambda k, e=e, t=t: e[k] / t[k]) for e, t in zip(err, tol)]
+    launches = steps["kernels"][2]
+    fmt = lambda i: (f"{worst[i]} {err[i][worst[i]]:.3g} against {tol[i][worst[i]]:.3g} "  # noqa: E731
+                     f"(its own noise {noise[i][worst[i]]:.3g})")
+    log(f"[bf16] protein train step, bf16 over f32 masters, {TRAIN['batch']} x "
+        f"{TRAIN['length']}, K2a/K2b bf16 vs the unfused bf16 chain, each of {len(names)} "
+        f"gradients (max err / max |g|) within {PROTEIN_BF16_NOISE_FACTOR} x its own distance "
+        f"in the unfused bf16 step from the f32 step, the metrics (rel err above 1) within "
+        f"{PROTEIN_BF16_NOISE_FACTOR} x the largest metric's: nearest its bound, metric "
+        f"{fmt(0)}, gradient {fmt(1)}; largest: "
+        f"kernels vs unfused {max(err[1].values()):.3g}, unfused vs f32 "
+        f"{max(noise[1].values()):.3g}, kernels vs f32 {max(k_err[1].values()):.3g}; launches "
+        f"fwd/bwd {launches}; loss {steps['kernels'][0]['loss']:.6g}")
+    if not (all(e[k] <= t[k] for e, t in zip(err, tol) for k in e)
+            and all(torch.isfinite(g).all() for g in steps["kernels"][1])):
+        raise AssertionError(f"bf16 protein step, kernels vs unfused: metrics "
+                             f"{steps['kernels'][0]} vs {steps['unfused'][0]}, nearest their "
+                             f"bounds: {fmt(0)}; {fmt(1)}")
+    if launches != (per_step, per_step):
+        raise AssertionError(f"expected {per_step} K2a and K2b bf16 launches, got {launches}")
+    if any(g.dtype != torch.float32 for g in steps["kernels"][1]):
+        raise AssertionError("bf16 training must leave f32 gradients on the masters")
+    del trainer, state, steps
+
+    # the main path at the default dropout
+    cfg = dataclasses.replace(train_config(), compute_dtype="bfloat16")
+    trainer = ProteinTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(gen, TRAIN["batch"], TRAIN["length"])
+    for _ in range(3):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    n = TRAIN["timed_steps"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fm.launches = fm.backward_launches = fa.launches = 0
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (fm.launches, fm.backward_launches)
+    wall_ms = 1e3 * seconds / n
+    residues = TRAIN["batch"] * TRAIN["length"]
+    log(f"[bf16] ProteinTrainer.train_step, compute_dtype bfloat16, default config "
+        f"(dropout {cfg.dropout}): {n} steps {wall_ms:.3f} ms per step (wall), "
+        f"{start.elapsed_time(end) / n:.3f} ms (CUDA events), "
+        f"{residues * n / seconds:.1f} residues/s; launches K2a {launches[0]}, K2b "
+        f"{launches[1]} (expected {per_step * n} each), flash_attention {fa.launches}; last "
+        f"loss {metrics['loss'].item():.6g} ({smi})")
+    if launches != (per_step * n, per_step * n) or fa.launches:
+        raise AssertionError(f"expected {per_step * n} K2a and K2b bf16 launches, got "
+                             f"{launches}, K1 {fa.launches}")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite bf16 protein metrics {metrics}")
+    if state.model.W_out.weight.dtype != torch.float32 or state.opt.nu[0].dtype != torch.float32:
+        raise AssertionError("bf16 protein training must keep f32 weights and optimizer")
+    prof = profile("bf16 protein train step", lambda: trainer.train_step(state, batch), smi,
+                   top=10)
+    log(f"[bf16] protein step: device {prof['busy_ms']:.3f} ms, {prof['launches']} launches, "
+        f"device idle {100 * (1 - prof['busy_ms'] / wall_ms):.1f} % of the unprofiled wall")
+    del trainer, state, batch
+
+    # learning: the bf16 gate's configuration and data
+    trainer = ProteinTrainer(gate_config(compute_dtype="bfloat16"), device="cuda")
+    state = trainer.init_state()
+    ces = []
+    t0 = time.perf_counter()
+    for step in range(LEARN_STEPS):
+        state, metrics = trainer.train_step(state, rule_batch(step, 16, 48, "cuda"))
+        ces.append(metrics["denoising_loss"])
+    ces = [c.item() for c in ces]
+    late = sum(ces[-20:]) / 20
+    log(f"[bf16] protein learning check, bf16 gate config (16 x 48, rule data): CE step 0 "
+        f"{ces[0]:.4f}, step 100 {ces[100]:.4f}, mean of steps {LEARN_STEPS - 20}-"
+        f"{LEARN_STEPS - 1} {late:.4f} (must be < {LEARN_CE_MAX}); "
+        f"{1e3 * (time.perf_counter() - t0) / LEARN_STEPS:.3f} ms per step ({smi})")
+    if not late < LEARN_CE_MAX:
+        raise AssertionError(f"the bf16 CE did not fall: {ces[0]} -> {late}")
+    del trainer, state
+
+    state, text = cli_quiet(["train-protein", "--steps", "3", "--synthetic", "--log-every",
+                             "1", "--set", "compute_dtype=bfloat16"])
+    log(f"[bf16] cli train-protein --steps 3 --synthetic --set compute_dtype=bfloat16: "
+        f"{text.strip().splitlines()[-1]}")
+    if state.step != 3:
+        raise AssertionError(f"train-protein bf16 ran {state.step} steps, not 3")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def semla_mixed_phase(smi, f32_train):
+    """SemlaFlow mixed precision at the recipe's width (batch 56 x 72):
+    coordinates f32 and features bf16 in one forward; 20 timed steps beside
+    the f32 figures; a 200-step learning check on the bf16 gate's data (the
+    templates record's configuration: mean loss of steps 180-199 below 1.0;
+    the TPU's bf16 run read 5.85 at step 0 and 0.390 at step 200)."""
+    cfg = semla_full_config(compute_dtype="bfloat16")
+    trainer = semla_train.SemlaTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = semla_train.batch_to_device(
+        semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=1), "cuda")
+    seen = {}
+
+    def record(name):
+        def hook(module, args, out):
+            seen.setdefault(name, set()).update(
+                t.dtype for t in (out if isinstance(out, tuple) else (out,))
+                if isinstance(t, torch.Tensor))
+        return hook
+
+    handles = [m.register_forward_hook(record(type(m).__name__)) for m in state.model.modules()
+               if isinstance(m, (semla_model.CoordAttention, semla_model.EdgeMessages,
+                                 semla_model.NodeAttention))]
+    handles.append(state.model.dynamics.coord_head.register_forward_hook(record("coord_head")))
+    def ff_hook(module, args, out):
+        seen.setdefault("ff", set()).add((out[0].dtype, out[1].dtype))
+
+    handles += [m.register_forward_hook(ff_hook) for m in state.model.modules()
+                if isinstance(m, semla_model.NodeFeedForward)]
+    interp = batch["interpolated"]
+    with torch.no_grad():
+        coords, types, _, _, _ = semla_train._apply(state.model, cfg, interp, batch["times"],
+                                                    semla_train._zero_cond(interp),
+                                                    batch["rep"])
+    for h in handles:
+        h.remove()
+    want = {"CoordAttention": {torch.float32}, "coord_head": {torch.float32},
+            "EdgeMessages": {torch.bfloat16}, "NodeAttention": {torch.bfloat16},
+            "ff": {(torch.float32, torch.bfloat16)}}
+    log(f"[bf16] SemlaFlow mixed precision, dtypes seen: " + "; ".join(
+        f"{k} {sorted(str(t) for t in v)}" for k, v in sorted(seen.items())))
+    if seen != want or coords.dtype != torch.float32 or types.dtype != torch.float32:
+        raise AssertionError(f"mixed precision dtypes {seen}, outputs {coords.dtype}, "
+                             f"{types.dtype}")
+    n, steps = SEMLA["batch"], SEMLA["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SEMLA["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    wall_ms, event_ms = 1e3 * seconds / steps, start.elapsed_time(end) / steps
+    log(f"[bf16] SemlaTrainer.train_step, recipe width, mixed precision, batch {n} x "
+        f"{SEMLA['atoms']}: {wall_ms:.3f} ms per step (wall), {event_ms:.3f} ms (CUDA "
+        f"events), {n * steps / seconds:.2f} molecules/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; f32 in this run: "
+        f"{f32_train['wall_ms']:.3f} ms per step, {f32_train['busy_ms']:.3f} device ms, "
+        f"{f32_train['mol_s']:.2f} molecules/s; last loss {metrics['loss'].item():.6g} "
+        f"({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite mixed-precision Semla metrics {metrics}")
+
+    def k_steps():
+        nonlocal state
+        for i in range(SEMLA["profiled_steps"]):
+            state, _ = trainer.train_step(state, batch, use_sc=bool(i % 2))
+
+    prof = profile("Semla mixed-precision train steps", k_steps, smi, top=8)
+    busy = prof["busy_ms"] / SEMLA["profiled_steps"]
+    log(f"[bf16] Semla mixed step: device {busy:.3f} ms, "
+        f"{prof['launches'] / SEMLA['profiled_steps']:.0f} launches, device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+    gcfg = convergence_semla.gate_config(seed=0, templates=True, dtype="bfloat16")
+    data = convergence_semla.GateData(templates=True)
+    trainer = semla_train.SemlaTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    losses = []
+    t0 = time.perf_counter()
+    for batch in convergence_semla.gate_batches(data, SEMLA_LEARN_STEPS, torch.device("cuda")):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    late = sum(losses[-20:]) / 20
+    log(f"[bf16] Semla learning check, bf16 gate config (templates, d_model "
+        f"{gcfg.d_model}, batch {gcfg.batch_size}): loss step 0 {losses[0]:.4f}, step 100 "
+        f"{losses[100]:.4f}, mean of steps {SEMLA_LEARN_STEPS - 20}-{SEMLA_LEARN_STEPS - 1} "
+        f"{late:.4f} (must be < {SEMLA_LEARN_LOSS_MAX}); "
+        f"{1e3 * (time.perf_counter() - t0) / SEMLA_LEARN_STEPS:.3f} ms per step ({smi})")
+    if not late < SEMLA_LEARN_LOSS_MAX:
+        raise AssertionError(f"the bf16 Semla loss did not fall: {losses[0]} -> {late}")
+    torch.cuda.empty_cache()
+
+
+def edm_bf16_phase(smi, f32_train):
+    """EDM in bf16 (compute_dtype bfloat16) at the QM9 recipe's width: a
+    finite step, timed beside the f32 one."""
+    cfg = edm_train.MoleculeEDMConfig(compute_dtype="bfloat16")
+    trainer = edm_train.MoleculeEDMTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+    for _ in range(EDM_BF16["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    n = EDM_BF16["timed_steps"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"[bf16] MoleculeEDMTrainer.train_step, bf16, QM9 width (hidden {cfg.hidden_nf} x "
+        f"{cfg.n_layers}), batch {cfg.batch_size} x {cfg.max_nodes}: {wall_ms:.3f} ms per "
+        f"step (wall), {start.elapsed_time(end) / n:.3f} ms (CUDA events), "
+        f"{cfg.batch_size * 1e3 / wall_ms:.2f} molecules/s; f32 in this run "
+        f"{f32_train['wall_ms']:.3f} ms (wall), {f32_train['event_ms']:.3f} ms (events); loss "
+        f"{metrics['loss'].item():.6g}, grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite bf16 EDM metrics {metrics}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+
+def seeded_rdm(cfg, device, seed=3):
+    """The full-width SimpleMLP of `cfg` as initialised, its zero-initialised
+    output layers drawn N(0, 0.02) so that every block reaches the output."""
+    model = rdm_train.build_model(cfg, device=device,
+                                  generator=torch.Generator(device=device).manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("out_layers.3.weight", "out.2.weight")):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def rdm_phase(tmp, smi):
+    """The RDM at RDMTrainConfig's full width: one forward on the card
+    against the CPU (f32, TF32 off, 1e-4 of the max); the main path,
+    `RDMTrainer.train_step`, 20 timed steps (ms, reps/s, peak memory) and a
+    profile; `train-rdm --steps 3` and `eval-molecule --rdm-ref-ckpt` (from
+    a checkpoint written here in the reference LatentDiffusion layout) as
+    subprocesses."""
+    cfg = rdm_train.RDMTrainConfig()
+    model = seeded_rdm(cfg, "cpu").eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(2)
+    rows = RDM["cpu_rows"]
+    x = torch.randn((rows, cfg.channels), generator=gen)
+    t = torch.randint(0, cfg.rdm.timesteps, (rows,), generator=gen)
+    n_nodes = torch.randint(5, cfg.max_nodes, (rows,), generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = model(x, t, n_nodes)
+            card = copy.deepcopy(model).to("cuda")
+            got = card(x.cuda(), t.cuda(), n_nodes.cuda()).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = rel_err(got, want)
+    log(f"[rdm] SimpleMLP full width ({n_params / 1e6:.2f} M parameters), f32 TF32 off, "
+        f"{rows} rows: card vs CPU max err / max {err:.3g} (rtol {RDM_FWD_RTOL})")
+    if not err <= RDM_FWD_RTOL:
+        raise AssertionError(f"RDM card vs CPU {err}")
+    ref_sd = {f"model.diffusion_model.{k}": v for k, v in model.state_dict().items()
+              if k != "cond_stage_model.embedding.weight"}
+    # the reference's ClassEmbedder has max_nodes rows, one fewer than the port's
+    ref_sd["cond_stage_model.embedding.weight"] = model.state_dict()[
+        "cond_stage_model.embedding.weight"][:cfg.max_nodes]
+    rdm_ckpt = os.path.join(tmp, "rdm.ckpt")
+    torch.save({"state_dict": ref_sd}, rdm_ckpt)
+    del model, card, ref_sd
+
+    trainer = rdm_train.RDMTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RDM["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    n = RDM["timed_steps"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    wall_ms, event_ms = 1e3 * seconds / n, start.elapsed_time(end) / n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[rdm] RDMTrainer.train_step, full width, f32, batch {cfg.batch_size}: {wall_ms:.3f} "
+        f"ms per step (wall), {event_ms:.3f} ms (CUDA events), "
+        f"{cfg.batch_size * n / seconds:.1f} reps/s, peak {peak_gb:.2f} GB; loss "
+        f"{metrics['loss'].item():.6g}, grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite RDM metrics {metrics}")
+
+    def k_steps():
+        nonlocal state
+        for _ in range(RDM["profiled_steps"]):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile("RDM train steps", k_steps, smi, top=8)
+    busy = prof["busy_ms"] / RDM["profiled_steps"]
+    log(f"[rdm] per step: device {busy:.3f} ms, {prof['launches'] / RDM['profiled_steps']:.0f} "
+        f"launches, device idle {100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+    text = run_cli(["train-rdm", "--synthetic", "--steps", "3", "--log-every", "1"],
+                   "train-rdm --steps 3")
+    rate = [line for line in text.splitlines() if "steps after the first" in line]
+    log(f"[rdm] {rate[-1] if rate else text.splitlines()[-1]}")
+    if f"sampled reps: (3, {cfg.channels}) finite: True" not in text:
+        raise AssertionError(f"train-rdm's DDIM smoke sample:\n{text[-2000:]}")
+    run = os.path.join(tmp, "edm_for_rdm")
+    run_cli(["train-molecule-edm", "--synthetic", "--steps", "1", "--ckpt-dir", run,
+             "--ckpt-every", "1"], "train-molecule-edm --steps 1 (for the two-stage eval)")
+    text = run_cli(["eval-molecule", "--ckpt-dir", run, "--rdm-ref-ckpt", rdm_ckpt,
+                    "--batch-size", str(EDM_EVAL["batch"]), "--num-steps",
+                    str(EDM_EVAL["num_steps"]), "--n-replicates", "1"],
+                   "eval-molecule --rdm-ref-ckpt")
+    summary = json.loads(text[text.rindex("\n{\n") + 1:])
+    speed = next(line for line in text.splitlines() if "molecules/s" in line)
+    rep_time = next(line for line in text.splitlines() if "rep sampling of" in line)
+    log(f"[rdm] eval-molecule --rdm-ref-ckpt (a full-width RDM in the reference layout, DDIM "
+        f"250 steps, then {EDM_EVAL['num_steps']} EDM steps): {rep_time}; {speed}; validity "
+        f"{summary['mean']['validity']} (1 training step: ~0 expected) ({smi})")
+    if "DDIM rep sampler from the reference RDM" not in text:
+        raise AssertionError(f"eval-molecule did not take the RDM:\n{text[-2000:]}")
+
+
+def precision_rdm_phases(smi, semla_f32, edm_f32):
+    """Slice 11's phases; returns the (K2a, K2b) bf16 launches of the
+    protein bf16 main path. K1 launches 0 times on them, and K2a and K2b 0
+    times outside the protein path."""
+    t0 = time.perf_counter()
+    launches = protein_bf16_phase(smi)
+    fa.launches = fm.launches = fm.backward_launches = 0
+    semla_mixed_phase(smi, semla_f32)
+    edm_bf16_phase(smi, edm_f32)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        rdm_phase(tmp, smi)
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    log(f"[bf16] slice 11 phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b launches on "
+        f"the Semla, EDM and RDM paths {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the Semla, EDM or RDM paths: {counts}")
+    return launches
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -2257,8 +2717,9 @@ def main():
     log(f"[eval] slice 8 phases in {time.perf_counter() - t0:.1f} s; K1 launches on its "
         f"paths: {gen_vae_launches} in generate-image --vae (16 calls), {enc_launches} in "
         f"train-image --enc-type ({ENC_DATA['steps']} steps)")
-    molecule_phases(smi)
-    edm_phases(smi)
+    semla_f32 = molecule_phases(smi)
+    edm_f32 = edm_phases(smi)
+    bf16_launches = precision_rdm_phases(smi, semla_f32, edm_f32)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -2276,6 +2737,12 @@ def main():
         kernel_entry("flash_attention_f32_gate", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(GATE_ATTN_SHAPE, torch.float32)], gate_launches,
                      source="flash_attention"),
+        kernel_entry("fused_message_bf16_train", "reed_tpu/ops/fused_message.py:132",
+                     msg_rows[(MSG_MAIN, torch.bfloat16)], bf16_launches[0],
+                     source="fused_message"),
+        kernel_entry("fused_message_bwd_bf16_train", "reed_tpu/ops/fused_message.py:152",
+                     bwd_rows[(MSG_MAIN, torch.bfloat16)], bf16_launches[1],
+                     source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

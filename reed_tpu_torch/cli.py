@@ -21,7 +21,10 @@
   python -m reed_tpu_torch.cli train-molecule-edm --steps 100 --synthetic \\
       [--data-dir qm9/] [--set probabilistic_model=fm] [--ckpt-dir out/edm --ckpt-every 1000]
   python -m reed_tpu_torch.cli eval-molecule --num-steps 1000 --n-replicates 3 \\
-      [--ckpt-dir out/edm | --ref-ckpt generative_model_ema.npy] [--data-dir qm9/] [--out mols/]
+      [--ckpt-dir out/edm | --ref-ckpt generative_model_ema.npy] [--data-dir qm9/] \\
+      [--rdm-ref-ckpt rdm.ckpt] [--out mols/]
+  python -m reed_tpu_torch.cli train-rdm --steps 100 --synthetic [--data-dir reps/] \\
+      [--ckpt-dir out/rdm --ckpt-every 1000]
 
 Runs on CUDA unless `--device cpu` is given. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
@@ -42,7 +45,12 @@ train-molecule-edm and eval-molecule use its EDM default
 (MoleculeEDMConfig): the reference QM9 recipe, EGNN hidden 256 x 9 blocks,
 attention, tanh, 5 atom types plus charges, max_nodes 29, 256-d rep
 conditioning with rep dropout 0.1, EDM (or `--set probabilistic_model=fm`),
-batch 64, Adam lr 1e-4, f32.
+batch 64, Adam lr 1e-4, f32. train-rdm uses its RDM default
+(RDMTrainConfig): SimpleMLP over 256-d reps, width 1536 x 18 blocks,
+atom-count classes up to 256, x0-parameterised DDPM over T = 1000, AdamW
+lr 1e-4 with weight decay 0.005 and a cosine decay, batch 128, f32.
+`--set compute_dtype=bfloat16` trains the protein, SemlaFlow and EDM
+models in bf16 with f32 master weights.
 """
 
 from __future__ import annotations
@@ -761,6 +769,30 @@ def train_molecule_edm(args):
                      f"train-molecule-edm {cfg.probabilistic_model} ({device})", "molecules")
 
 
+def _rdm_rep_sampler(path: str, cfg, device):
+    """A DDIM rep sampler (eta 1, 250 steps) over the reference RDM
+    checkpoint at `path`, its widths read off the checkpoint as reed_tpu's
+    eval-molecule reads them, its class table padded to max_nodes + 1 rows."""
+    from reed_tpu_torch.diffusion.rdm import RDMConfig, RDMDiffusion
+    from reed_tpu_torch.encoders.rdm_convert import read_checkpoint, strip_state_dict, widths
+    from reed_tpu_torch.eval.rep_samplers import DDIMRepSampler
+    from reed_tpu_torch.models.rdm_mlp import SimpleMLP
+
+    if cfg.rep_nf is None:
+        raise ValueError("--rdm-ref-ckpt samples reps, but the model takes none (rep_nf null)")
+    sd = strip_state_dict(read_checkpoint(path), num_rows=cfg.max_nodes + 1)
+    w = widths(sd)
+    if (w["in_channels"], w["out_channels"]) != (cfg.rep_nf, cfg.rep_nf):
+        raise ValueError(f"{path}: an RDM over reps of width {w['in_channels']}, the model "
+                         f"takes rep_nf {cfg.rep_nf}")
+    with torch.device(device):
+        model = SimpleMLP(**w, num_classes=cfg.max_nodes)
+    model.load_state_dict(sd)
+    model.eval()
+    return DDIMRepSampler(RDMDiffusion(RDMConfig(channels=cfg.rep_nf),
+                                       lambda x, t, n: model(x, t, n), device=device))
+
+
 def eval_molecule(args):
     """Two-stage molecule eval (reference: molecule/eval_src/eval_analyze.py):
     a GtSampler over the reps.npy and sizes.npy under --data-dir (random
@@ -781,10 +813,6 @@ def eval_molecule(args):
     from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
                                                    build_dynamics)
 
-    if args.rdm_ref_ckpt:
-        raise NotImplementedError(
-            "--rdm-ref-ckpt needs the RDM rep samplers (DDIM, PC), which are not ported "
-            "yet (ROADMAP.md Queue 1 item 12); the port samples reps with the GtSampler")
     device = resolve_device(args.device)
     cfg = _resolve_cfg(MoleculeEDMConfig, args,
                        {"batch_size": args.batch_size, "seed": args.seed},
@@ -818,6 +846,11 @@ def eval_molecule(args):
         sizes = np_rng.integers(cfg.max_nodes // 2, cfg.max_nodes + 1, 256)
     sizes = np.minimum(sizes.astype(np.int64), cfg.max_nodes)
     rep_sampler = GtSampler(reps, sizes) if cfg.rep_nf is not None else None
+    if args.rdm_ref_ckpt:
+        # two-stage eval with a reference RDM as the rep sampler (reference:
+        # eval_src/eval_analyze.py DDIMSampler path)
+        rep_sampler = _rdm_rep_sampler(args.rdm_ref_ckpt, cfg, device)
+        print(f"DDIM rep sampler from the reference RDM {args.rdm_ref_ckpt}")
     node_dist = DistributionNodes({int(s): float((sizes == s).sum()) for s in np.unique(sizes)})
 
     clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
@@ -858,16 +891,64 @@ def eval_molecule(args):
             save_xyz_file(os.path.join(args.out, f"mol_{i:03d}.xyz"), pos, types,
                           atom_decoder=decoder)
         print(f"sample dumps (.xyz) -> {args.out}; the 3D PNG renders are not ported "
-              "(ROADMAP.md Queue 1 item 14)")
+              "(ROADMAP.md Queue 1 item 4)")
     if args.data_dir:
         try:
             _find_split(args.data_dir, "test")
             print("a test split is present: the MOSES / MiDi distribution metrics are not "
-                  "ported yet (ROADMAP.md Queue 1 item 14); not computed")
+                  "ported yet (ROADMAP.md Queue 1 item 4); not computed")
         except FileNotFoundError:
             pass
     print(json.dumps(out, indent=2))
     return out
+
+
+def train_rdm(args):
+    """Train the RDM, the GeoRCG rep sampler, on synthetic batches
+    (reed_tpu's: N(0, 1) reps, atom counts in [5, max_nodes)) or on the
+    reps.npy and sizes.npy under --data-dir (shuffled each epoch), logging
+    `[step N] {...}` every --log-every steps; then 3 reps sampled from the
+    EMA by 10 DDIM steps, as reed_tpu's train-rdm ends."""
+    from reed_tpu_torch.eval.rep_samplers import DDIMRepSampler
+    from reed_tpu_torch.train.rdm import RDMTrainConfig, RDMTrainer, batch_to_device
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(RDMTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "optim": {"lr": args.lr} if args.lr is not None else None})
+    trainer = RDMTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield trainer.synthetic_batch(torch.Generator(device=device).manual_seed(i))
+                i += 1
+    else:
+        # precomputed encoder reps and molecule sizes (reference:
+        # molecule/src/rdm/main_rdm_sampling.py)
+        reps = np.load(os.path.join(args.data_dir, "reps.npy"))
+        sizes = np.load(os.path.join(args.data_dir, "sizes.npy"))
+        if reps.shape[1] != cfg.channels:
+            raise ValueError(f"reps.npy holds reps of width {reps.shape[1]}, the RDM takes "
+                             f"channels {cfg.channels}")
+        print(f"loaded {len(reps)} reps from {args.data_dir}")
+
+        def batches():
+            epoch = 0
+            while True:
+                order = np.random.default_rng(cfg.seed + epoch).permutation(len(reps))
+                for i in range(0, len(order) - cfg.batch_size + 1, cfg.batch_size):
+                    idx = order[i:i + cfg.batch_size]
+                    yield batch_to_device({"rep": reps[idx], "num_atoms": sizes[idx]}, device)
+                epoch += 1
+
+    state = _run_loop(trainer, state, batches(), args, lambda b: int(b["rep"].shape[0]), cfg,
+                      f"train-rdm ({device})", "reps")
+    sampler = DDIMRepSampler(trainer.diffusion(trainer.ema_model(state)), eta=1.0, step_num=10)
+    reps = sampler.sample(torch.Generator(device=device).manual_seed(0), np.array([9, 12, 15]))
+    print("sampled reps:", tuple(reps.shape), "finite:", bool(torch.isfinite(reps).all()))
+    return state
 
 
 def _add_config(p, what):
@@ -1060,6 +1141,15 @@ def main(argv=None):
     _add_config(p, "MoleculeEDMConfig")
     p.set_defaults(fn=train_molecule_edm)
 
+    p = sub.add_parser("train-rdm")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: the config's 128")
+    p.add_argument("--data-dir", default=None,
+                   help="reps.npy [N, channels] and sizes.npy [N]; trains on them")
+    _add_training(p)
+    _add_config(p, "RDMTrainConfig")
+    p.set_defaults(fn=train_rdm)
+
     p = sub.add_parser("eval-molecule")
     p.add_argument("--n-replicates", type=int, default=3)
     p.add_argument("--num-steps", type=int, default=100,
@@ -1072,14 +1162,14 @@ def main(argv=None):
     p.add_argument("--ckpt-dir", default=None,
                    help="sample from the EMA weights of this run's latest checkpoint")
     p.add_argument("--rdm-ref-ckpt", default=None,
-                   help="reference torch RDM checkpoint for the DDIM rep sampler: not "
-                        "ported yet (ROADMAP.md item 12), raises")
+                   help="reference RDM checkpoint (LatentDiffusion .ckpt/.pt); its DDIM "
+                        "sampler draws the reps instead of the GtSampler")
     p.add_argument("--data-dir", default=None,
                    help="reps.npy and sizes.npy for the GtSampler (random stand-in "
                         "reps without them)")
     p.add_argument("--out", default=None,
                    help="write one replicate as .xyz files here (the 3D PNG renders "
-                        "need matplotlib and are not ported: ROADMAP.md item 14)")
+                        "need matplotlib and are not ported: ROADMAP.md Queue 1 item 4)")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
     p.set_defaults(fn=eval_molecule)

@@ -1,7 +1,8 @@
 """Synthetic data with a learnable rule, for convergence runs. The port's
 copy of reed_tpu/data/synthetic.py (numpy): the molecule families (rigid
 QM9 templates and the 1,089 decorated heavy-atom chains, each a rigid body
-under a random rotation) and the protein rule batch. For one numpy seed
+under a random rotation), the protein rule batch and the RDM's
+class-conditional Gaussian reps. For one numpy seed
 every function returns the same arrays as reed_tpu's."""
 
 from __future__ import annotations
@@ -296,3 +297,36 @@ def protein_rule_batch(rng: np.random.Generator, batch_size: int,
         "repr_pair": np.zeros((batch_size, length, length, pair_dim), np.float32),
         "repr_structure": np.zeros((batch_size, length, structure_dim), np.float32),
     }
+
+
+# --------------------------------------------------------------------------
+# Class-conditional Gaussian reps (RDM latent DDPM)
+# --------------------------------------------------------------------------
+
+RDM_CLASS_SIZES = (10, 14, 18, 22)   # num_atoms values keying the classes
+RDM_CLASS_SEP = 2.0                  # |mu_k|; pairwise distance 2*sqrt(2)
+RDM_CLASS_SIGMA = 0.25               # >> 11-sigma class separation
+
+
+def rdm_class_means(channels: int) -> np.ndarray:
+    """Deterministic well-separated class means [K,C]: orthonormal
+    directions (QR of a fixed-seed Gaussian) scaled to RDM_CLASS_SEP."""
+    k = len(RDM_CLASS_SIZES)
+    g = np.random.default_rng(1234).standard_normal((channels, k))
+    q, _ = np.linalg.qr(g)
+    return (RDM_CLASS_SEP * q.T[:k]).astype(np.float32)
+
+
+def rdm_gaussian_batch(rng: np.random.Generator, batch_size: int,
+                       channels: int) -> Dict[str, np.ndarray]:
+    """Class-conditional Gaussian reps keyed on num_atoms: class k draws
+    rep ~ N(mu_k, RDM_CLASS_SIGMA^2 I) with orthogonal means, the learnable
+    target of the RDM convergence run (nearest-mean accuracy -> 1 when
+    learned, ~1/K untrained)."""
+    mus = rdm_class_means(channels)
+    k = rng.integers(0, len(RDM_CLASS_SIZES), size=batch_size)
+    rep = mus[k] + RDM_CLASS_SIGMA * rng.standard_normal(
+        (batch_size, channels)).astype(np.float32)
+    return {"rep": rep.astype(np.float32),
+            "num_atoms": np.asarray(RDM_CLASS_SIZES, np.int64)[k],
+            "class_idx": k}

@@ -1,7 +1,8 @@
 """E(n)-equivariant graph network (EGNN) for molecular diffusion, with
 representation conditioning (GeoRCG/REED) by cross-attention onto a global
 rep. Counterpart of reed_tpu/models/egnn.py (reference:
-molecule/egnn/egnn_new.py:6-260, molecule/egnn/models.py:10-160), in f32.
+molecule/egnn/egnn_new.py:6-260, molecule/egnn/models.py:10-160), in f32
+or, with compute_dtype bfloat16, as reed_tpu's `dtype` computes.
 
 Parameters carry the reference torch EGNN_dynamics_QM9's names
 (`egnn.embedding`, `egnn.e_block_{i}.gcl_{j}.edge_mlp.0`,
@@ -18,6 +19,12 @@ up to summation order). The rep cross-attention attends to a context of
 length 1, where the softmax is exactly 1: its output is the value
 projection (to_q, to_k and norm2 take no part and get zero gradients, as
 they do in reed_tpu's einsum form).
+
+With compute_dtype bfloat16 every Linear computes as flax's
+Dense(dtype=bf16) does, its f32 weights cast where they are used, and the
+LayerNorms return bf16 from f32 statistics; the masks are f32, so (as in
+JAX) the masked node features, the messages' first layer and its sums,
+the coordinates and the outputs stay f32.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from reed_tpu_torch.nn.layers import dense, layer_norm
 
 
 def coord2diff(x, norm_constant: float = 1.0):
@@ -46,17 +55,28 @@ def remove_mean_with_mask(x, node_mask):
     return (x - mean) * node_mask
 
 
-def factored_pair_linear(layer: nn.Linear, h, edge_attr):
+class _Mixed(nn.Module):
+    """An EGNN module computing in `compute_dtype`, set on every submodule
+    by EGNNDynamics."""
+
+    compute_dtype = torch.float32
+
+
+def factored_pair_linear(layer: nn.Linear, h, edge_attr, dtype: torch.dtype = torch.float32):
     """layer(concat([h_i, h_j, edge_attr])) [B,N,N,out] from h [B,N,d] and
-    edge_attr [B,N,N,e], through the weight's column blocks."""
+    edge_attr [B,N,N,e], through the weight's column blocks, with the
+    weight and bias in `dtype`. As in JAX, an f32 h meets the rounded
+    weight in f32 (type promotion), and the result takes the wider dtype."""
     d = h.shape[-1]
-    w = layer.weight
-    hi = F.linear(h, w[:, :d])
-    hj = F.linear(h, w[:, d:2 * d])
-    return hi[:, :, None, :] + hj[:, None, :, :] + F.linear(edge_attr, w[:, 2 * d:], layer.bias)
+    w = layer.weight.to(dtype)
+    wh = w.to(h.dtype)
+    hi = F.linear(h, wh[:, :d])
+    hj = F.linear(h, wh[:, d:2 * d])
+    return (hi[:, :, None, :] + hj[:, None, :, :]
+            + F.linear(edge_attr.to(dtype), w[:, 2 * d:], layer.bias.to(dtype)))
 
 
-class GCL(nn.Module):
+class GCL(_Mixed):
     """Graph convolution (feature) layer (reference: egnn_new.py:6-68)."""
 
     def __init__(self, hidden_nf: int, edges_in_d: int, attention: bool = False,
@@ -73,20 +93,22 @@ class GCL(nn.Module):
             self.att_mlp = nn.Sequential(nn.Linear(hidden_nf, 1), nn.Sigmoid())
 
     def forward(self, h, edge_attr, node_mask, edge_mask):
-        m = F.silu(factored_pair_linear(self.edge_mlp[0], h, edge_attr))
-        m = F.silu(self.edge_mlp[2](m))
+        dt = self.compute_dtype
+        m = F.silu(factored_pair_linear(self.edge_mlp[0], h, edge_attr, dt))
+        m = F.silu(dense(m, self.edge_mlp[2], dt))
         if self.attention:
-            m = m * torch.sigmoid(self.att_mlp[0](m))
+            m = m * torch.sigmoid(dense(m, self.att_mlp[0], dt))
         agg = torch.sum(m * edge_mask, dim=2)
         if self.aggregation == "sum":
             agg = agg / self.normalization_factor
         elif self.aggregation == "mean":
             agg = agg / torch.clamp(torch.sum(edge_mask, dim=2), min=1.0)
-        out = self.node_mlp(torch.cat([h, agg], dim=-1))
+        out = dense(torch.cat([h, agg], dim=-1), self.node_mlp[0], dt)
+        out = dense(F.silu(out), self.node_mlp[2], dt)
         return (h + out) * node_mask
 
 
-class EquivariantUpdate(nn.Module):
+class EquivariantUpdate(_Mixed):
     """Coordinate update layer (reference: egnn_new.py:71-108)."""
 
     def __init__(self, hidden_nf: int, edges_in_d: int, tanh: bool = False,
@@ -103,9 +125,10 @@ class EquivariantUpdate(nn.Module):
             nn.Linear(hidden_nf, 1, bias=False))
 
     def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask):
-        m = F.silu(factored_pair_linear(self.coord_mlp[0], h, edge_attr))
-        m = F.silu(self.coord_mlp[2](m))
-        scalar = self.coord_mlp[4](m)
+        dt = self.compute_dtype
+        m = F.silu(factored_pair_linear(self.coord_mlp[0], h, edge_attr, dt))
+        m = F.silu(dense(m, self.coord_mlp[2], dt))
+        scalar = dense(m, self.coord_mlp[4], dt)
         if self.tanh:
             trans = coord_diff * torch.tanh(scalar) * self.coords_range
         else:
@@ -128,27 +151,27 @@ class _CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Identity()])
 
 
-class _GEGLU(nn.Module):
+class _GEGLU(_Mixed):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = nn.Linear(dim_in, 2 * dim_out)
 
     def forward(self, x):
-        a, gate = self.proj(x).chunk(2, dim=-1)
+        a, gate = dense(x, self.proj, self.compute_dtype).chunk(2, dim=-1)
         return a * F.gelu(gate)   # exact (erf) GELU, as the reference's GEGLU
 
 
-class _FeedForward(nn.Module):
+class _FeedForward(_Mixed):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([_GEGLU(dim, mult * dim), nn.Identity(),
                                   nn.Linear(mult * dim, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return dense(self.net[0](x), self.net[2], self.compute_dtype)
 
 
-class RepCrossAttention(nn.Module):
+class RepCrossAttention(_Mixed):
     """Cross-attention of node features onto a global rep, then a GEGLU
     feed-forward, each residual (reference: models/attention.py:151-216
     BasicTransformerBlock without self-attention; LayerNorm eps 1e-5)."""
@@ -161,14 +184,15 @@ class RepCrossAttention(nn.Module):
         self.ff = _FeedForward(dim)
 
     def forward(self, h, rep, node_mask):
+        dt = self.compute_dtype
         # one key: softmax(q k^T) = 1, so each head's output is its value
-        v = self.attn2.to_v(rep)[:, None, :]
-        h = h + self.attn2.to_out[0](v)
-        h = h + self.ff(self.norm3(h))
+        v = dense(rep, self.attn2.to_v, dt)[:, None, :]
+        h = h + dense(v, self.attn2.to_out[0], dt)
+        h = h + self.ff(layer_norm(h, self.norm3, dt))
         return h * node_mask
 
 
-class EquivariantBlock(nn.Module):
+class EquivariantBlock(_Mixed):
     def __init__(self, hidden_nf: int, edge_feat_nf: int = 2, n_layers: int = 2,
                  attention: bool = True, tanh: bool = False, coords_range: float = 15.0,
                  norm_constant: float = 1.0, normalization_factor: float = 100.0,
@@ -184,14 +208,14 @@ class EquivariantBlock(nn.Module):
 
     def forward(self, h, x, node_mask, edge_mask, edge_attr):
         distances, coord_diff = coord2diff(x, self.norm_constant)
-        edge_attr = torch.cat([distances, edge_attr], dim=-1)
+        edge_attr = torch.cat([distances.to(self.compute_dtype), edge_attr], dim=-1)
         for i in range(self.n_layers):
             h = getattr(self, f"gcl_{i}")(h, edge_attr, node_mask, edge_mask)
         x = self.gcl_equiv(h, x, coord_diff, edge_attr, node_mask, edge_mask)
         return h * node_mask, x
 
 
-class EGNN(nn.Module):
+class EGNN(_Mixed):
     def __init__(self, in_node_nf: int, hidden_nf: int = 256, out_node_nf: Optional[int] = None,
                  n_layers: int = 9, inv_sublayers: int = 2, attention: bool = True,
                  tanh: bool = True, coords_range: float = 15.0, norm_constant: float = 1.0,
@@ -217,14 +241,16 @@ class EGNN(nn.Module):
     def forward(self, h, x, node_mask, edge_mask, rep=None):
         """h [B,N,F_in], x [B,N,3], node_mask [B,N,1], edge_mask [B,N,N,1],
         rep [B,R] or None -> (h_out [B,N,F_out], x_out [B,N,3])."""
+        dt = self.compute_dtype
         distances, _ = coord2diff(x)
-        h = self.embedding(h) * node_mask
+        h = dense(h, self.embedding, dt) * node_mask
         for i in range(self.n_layers):
             if self.attns is not None and rep is not None:
                 for block in self.attns[i]:
                     h = block(h, rep, node_mask)
-            h, x = getattr(self, f"e_block_{i}")(h, x, node_mask, edge_mask, distances)
-        return self.embedding_out(h) * node_mask, x
+            h, x = getattr(self, f"e_block_{i}")(h, x, node_mask, edge_mask,
+                                                  distances.to(dt))
+        return dense(h, self.embedding_out, dt) * node_mask, x
 
 
 class EGNNDynamics(nn.Module):
@@ -241,7 +267,7 @@ class EGNNDynamics(nn.Module):
                  norm_constant: float = 1.0, normalization_factor: float = 100.0,
                  aggregation: str = "sum", condition_time: bool = True,
                  rep_nf: Optional[int] = None, rep_dropout_prob: float = 0.1,
-                 attn_block_num: int = 1):
+                 attn_block_num: int = 1, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_node_nf = in_node_nf
         self.context_node_nf = context_node_nf
@@ -255,20 +281,24 @@ class EGNNDynamics(nn.Module):
                          rep_nf, attn_block_num)
         if rep_nf is not None and rep_dropout_prob > 0:
             self.fake_latent = nn.Parameter(torch.zeros(1, rep_nf))
+        for m in self.modules():
+            if isinstance(m, _Mixed):
+                m.compute_dtype = compute_dtype
 
     @torch.no_grad()
     def initialize_weights(self, generator: Optional[torch.Generator] = None):
         """reed_tpu's (flax's default) initialisation: lecun-normal linears (a
         normal truncated at 2 sigma, scaled to variance 1/fan_in) with zero
         biases, unit LayerNorms and fake_latent N(0, 0.02); the coordinate
-        heads xavier-uniform at gain 1e-3, the reference torch EDM's
-        (reed_tpu's variance_scaling(2e-6, fan_avg, uniform) bounds them at
-        sqrt(2) times that, though its comment says gain 1e-3)."""
+        heads as reed_tpu's variance_scaling(1e-3 ** 2 * 2, "fan_avg",
+        "uniform"): uniform on +-sqrt(3 * 2e-6 / ((fan_in + fan_out) / 2)),
+        which is xavier-uniform at gain sqrt(2) * 1e-3 (the reference torch
+        EDM's gain 1e-3 bounds them sqrt(2) times tighter)."""
         for name, m in self.named_modules():
             if isinstance(m, nn.Linear):
                 if name.endswith("coord_mlp.4"):
                     fan_in, fan_out = m.weight.shape[1], m.weight.shape[0]
-                    a = 1e-3 * math.sqrt(6.0 / (fan_in + fan_out))
+                    a = math.sqrt(3.0 * 2e-6 / ((fan_in + fan_out) / 2.0))
                     nn.init.uniform_(m.weight, -a, a, generator=generator)
                     continue
                 std = m.weight.shape[1] ** -0.5 / 0.87962566103423978

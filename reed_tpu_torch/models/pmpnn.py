@@ -31,7 +31,7 @@ noise of std augment_eps; both draw from an explicit torch.Generator.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -362,6 +362,23 @@ class ProteinMPNNFMIF(nn.Module):
                   self.projectors_structure):
             p.float()
         return self
+
+    def compute_params(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The parameters as to_compute_dtype(dtype) holds them, each cast
+        from this model's (f32 master) parameter where it is used, so the
+        cast's backward carries its gradient to the master; LayerNorms and
+        the projectors keep theirs."""
+        keep = tuple(f"{n}." for n, m in self.named_modules()
+                     if isinstance(m, nn.LayerNorm) or n.startswith("projectors_"))
+        return {n: p if n.startswith(keep) else p.to(dtype)
+                for n, p in self.named_parameters()}
+
+    def cast_forward(self, dtype: torch.dtype, *args, **kwargs):
+        """forward computed in `dtype` over the f32 master parameters, as
+        flax's Dense(dtype=...) computes over f32 params (reed_tpu's bf16
+        training): the same math as to_compute_dtype(dtype)'s model, with
+        gradients in f32 on the masters."""
+        return torch.func.functional_call(self, self.compute_params(dtype), args, kwargs)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -2,7 +2,8 @@
 coordinate sets, for molecular flow matching (SemlaFlow), with REED
 representation conditioning (cross-attn / adaLN) and alignment projectors.
 Counterpart of reed_tpu/models/semla.py (reference:
-molecule/semlaflow/flowmodels/semla.py), in f32.
+molecule/semlaflow/flowmodels/semla.py), in f32 or in reed_tpu's mixed
+precision.
 
 Parameters carry the reference torch SemlaFlow's names
 (`dynamics.layers.{i}.message_ff.message_mlp.0`, `feat_proj.0`,
@@ -19,6 +20,14 @@ sqrt(sum + 1e-12) and coordinates feeding pair features are clamped at
 Layouts: node features [B, N, d], pair features [B, N, N, c], and the
 multi-set coordinates [B, N, 3, S] with the set dim trailing, so every
 set-dim projection is a Linear over the last axis.
+
+Mixed precision (SemlaGenerator's compute_dtype bfloat16, reed_tpu's
+`dtype`): the feature and message path computes in bf16, each f32 weight
+cast where it is used as flax's Dense(dtype=...) casts it, LayerNorms take
+f32 statistics and return bf16; every coordinate-valued tensor stays f32
+(CoordAttention, NodeFeedForward's coordinate half, the coordinate head),
+and so do the attention softmaxes, the rep conditioning, the alignment
+projectors and the returned logits.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reed_tpu_torch.nn.layers import ProjectorMLP, TimestepEmbedder
+from reed_tpu_torch.nn.layers import ProjectorMLP, TimestepEmbedder, dense, layer_norm
 
 NEG_INF = -1e9
 # coordinate-magnitude ceiling where raw (norm "none") coordinates feed
@@ -47,6 +56,17 @@ def _layer_norm(d: int) -> nn.LayerNorm:
 def _mlp(d_in: int, d_hidden: int, d_out: int) -> nn.Sequential:
     """Linear -> SiLU -> Linear (keys 0 and 2, as the reference's)."""
     return nn.Sequential(nn.Linear(d_in, d_hidden), nn.SiLU(), nn.Linear(d_hidden, d_out))
+
+
+def _run_mlp(mlp: nn.Sequential, x, dtype: torch.dtype):
+    return dense(F.silu(dense(x, mlp[0], dtype)), mlp[2], dtype)
+
+
+class _Mixed(nn.Module):
+    """A Semla module whose feature path computes in `compute_dtype`, set
+    on every submodule by SemlaGenerator."""
+
+    compute_dtype = torch.float32
 
 
 def safe_norm(x, dim=-1, keepdim=False, eps: float = 1e-12):
@@ -89,14 +109,14 @@ def _attn_mask_from_adj(adj):
     return torch.where(n_connections == 0, 0.0, mask)
 
 
-def _factored_pair_mlp(mlp: nn.Sequential, nf, pair, dm: int):
-    """mlp(concat([nf_i, nf_j, pair_ij])) with the first Linear split by
-    input rows: the two node parts run as [B,N,dm] products before the
-    broadcast, and the [B,N,N,2dm+c] concat is never built."""
-    w1, b1 = mlp[0].weight, mlp[0].bias
+def _factored_pair_mlp(mlp: nn.Sequential, nf, pair, dm: int, dtype: torch.dtype):
+    """mlp(concat([nf_i, nf_j, pair_ij])) in `dtype` with the first Linear
+    split by input rows: the two node parts run as [B,N,dm] products before
+    the broadcast, and the [B,N,N,2dm+c] concat is never built."""
+    w1, b1 = mlp[0].weight.to(dtype), mlp[0].bias.to(dtype)
     x = ((nf @ w1[:, :dm].T)[:, :, None, :] + (nf @ w1[:, dm:2 * dm].T)[:, None, :, :]
          + pair @ w1[:, 2 * dm:].T + b1)
-    return mlp[2](F.silu(x))
+    return dense(F.silu(x), mlp[2], dtype)
 
 
 class CoordNorm(nn.Module):
@@ -128,7 +148,7 @@ class CoordNorm(nn.Module):
         return out * node_mask[:, :, None, None]
 
 
-class EdgeMessages(nn.Module):
+class EdgeMessages(_Mixed):
     """Pairwise messages from node pairs and per-set coordinate dot products
     (reference: semla.py:103-166)."""
 
@@ -144,18 +164,19 @@ class EdgeMessages(nn.Module):
         self.message_mlp = _mlp(2 * d_message + n_coord_sets + (d_edge or 0), d_ff, d_out)
 
     def forward(self, coords, node_feats, node_mask, edge_feats=None):
-        node_feats = self.node_norm(node_feats)
+        dt = self.compute_dtype
+        node_feats = layer_norm(node_feats, self.node_norm, dt)
         coords = torch.clamp(self.coord_norm(coords, node_mask), -COORD_CLAMP, COORD_CLAMP)
         # per-set coordinate gram matrices in [B,N,M,S] order
-        pair = [torch.einsum("bnds,bmds->bnms", coords, coords)]
+        pair = [torch.einsum("bnds,bmds->bnms", coords, coords).to(dt)]
         if edge_feats is not None:
-            pair.append(self.edge_norm(edge_feats))
+            pair.append(layer_norm(edge_feats, self.edge_norm, dt))
         pair = torch.cat(pair, dim=-1) if len(pair) > 1 else pair[0]
-        return _factored_pair_mlp(self.message_mlp, self.node_proj(node_feats), pair,
-                                  self.d_message)
+        return _factored_pair_mlp(self.message_mlp, dense(node_feats, self.node_proj, dt),
+                                  pair, self.d_message, dt)
 
 
-class NodeAttention(nn.Module):
+class NodeAttention(_Mixed):
     """Message-as-attention-logits node update with GNN-VPA weighting
     (reference: semla.py:169-225)."""
 
@@ -168,15 +189,15 @@ class NodeAttention(nn.Module):
 
     def forward(self, node_feats, messages, adj_matrix):
         b, n, d = node_feats.shape
-        h = self.n_attn_heads
-        logits = messages + _attn_mask_from_adj(adj_matrix)[..., None]
+        h, dt = self.n_attn_heads, self.compute_dtype
+        logits = messages.float() + _attn_mask_from_adj(adj_matrix)[..., None]
         attn = torch.softmax(logits, dim=2)                               # over j
-        feats = self.in_proj(self.feat_norm(node_feats)).reshape(b, n, h, d // h)
-        out = torch.einsum("bijh,bjhd->bihd", attn, feats)
+        feats = dense(layer_norm(node_feats, self.feat_norm, dt), self.in_proj, dt)
+        out = torch.einsum("bijh,bjhd->bihd", attn.to(dt), feats.reshape(b, n, h, d // h))
         # variance-preserving aggregation (GNN-VPA)
         weights = torch.sqrt(torch.sum(attn ** 2, dim=2))                 # [B,N,H]
-        out = (out * weights[..., None]).reshape(b, n, d)
-        return self.out_proj(out)
+        out = (out * weights[..., None].to(dt)).reshape(b, n, d)
+        return dense(out, self.out_proj, dt)
 
 
 def _coord_attention_updates(proj, attn, eps):
@@ -214,8 +235,9 @@ class CoordAttention(nn.Module):
         self.attn_proj = nn.Linear(p, n_coord_sets, bias=False)
 
     def forward(self, coord_sets, messages, adj_matrix, node_mask):
+        # the coordinate-valued path stays f32 in mixed precision
         proj = self.coord_proj(self.coord_norm(coord_sets, node_mask))  # [B,N,3,P]
-        logits = messages + _attn_mask_from_adj(adj_matrix)[..., None]
+        logits = messages.float() + _attn_mask_from_adj(adj_matrix)[..., None]
         attn = torch.softmax(logits, dim=2)                               # [B,i,j,P]
         updates = _coord_attention_updates(proj, attn, self.eps)
         weights = torch.sqrt(torch.sum(attn ** 2, dim=2))                 # [B,i,P]
@@ -236,7 +258,7 @@ class _EquivariantMLP(nn.Module):
         self.attn_proj = nn.Linear(p, n_coord_sets, bias=False)
 
 
-class NodeFeedForward(nn.Module):
+class NodeFeedForward(_Mixed):
     """Invariant (lengths MLP) and equivariant (gated projected sets)
     feed-forward (reference: semla.py:281-372)."""
 
@@ -250,12 +272,15 @@ class NodeFeedForward(nn.Module):
         self.equivariant_mlp = _EquivariantMLP(d_model, n_coord_sets, p)
 
     def forward(self, coord_sets, node_feats, node_mask):
-        node_feats = self.node_norm(node_feats)
+        dt = self.compute_dtype
+        node_feats = layer_norm(node_feats, self.node_norm, dt)
         coord_sets = self.coord_norm(coord_sets, node_mask)
         lengths = safe_norm(coord_sets, dim=2)                            # [B,N,S]
-        out_node = self.invariant_mlp.node_ff(torch.cat([node_feats, lengths], dim=-1))
+        out_node = _run_mlp(self.invariant_mlp.node_ff,
+                            torch.cat([node_feats, lengths.to(dt)], dim=-1), dt)
         eq = self.equivariant_mlp
-        gates = eq.node_proj(node_feats)
+        # the gates may be low precision; the coordinate-valued half stays f32
+        gates = _run_mlp(eq.node_proj, node_feats, dt).float()
         proj = eq.coord_proj(coord_sets)                                  # [B,N,3,P]
         # the outer product of the gates with the projected sets, summed
         # over the projected axis, is rank 1: gates * proj.sum(q)
@@ -263,7 +288,7 @@ class NodeFeedForward(nn.Module):
         return eq.attn_proj(attn), out_node
 
 
-class BondRefine(nn.Module):
+class BondRefine(_Mixed):
     """Final bond-only message-passing refinement (reference:
     semla.py:375-430)."""
 
@@ -279,12 +304,14 @@ class BondRefine(nn.Module):
     def forward(self, coords, node_feats, node_mask, edge_feats):
         coords = torch.clamp(self.coord_norm(coords[..., None], node_mask)[..., 0],
                              -COORD_CLAMP, COORD_CLAMP)
+        dt = self.compute_dtype
         diffs = coords[:, :, None, :] - coords[:, None, :, :]
         dists = torch.sum(diffs ** 2, dim=-1, keepdim=True)
         dots = torch.einsum("bnd,bmd->bnm", coords, coords)[..., None]
-        nf = self.node_proj(self.node_norm(node_feats))
-        pair = torch.cat([dists, dots, self.edge_norm(edge_feats)], dim=-1)
-        return _factored_pair_mlp(self.message_mlp, nf, pair, self.d_message)
+        nf = dense(layer_norm(node_feats, self.node_norm, dt), self.node_proj, dt)
+        pair = torch.cat([dists.to(dt), dots.to(dt),
+                          layer_norm(edge_feats, self.edge_norm, dt)], dim=-1)
+        return _factored_pair_mlp(self.message_mlp, nf, pair, self.d_message, dt)
 
 
 def _norm_no_affine(x):
@@ -347,7 +374,7 @@ class RepConditioner(nn.Module):
         return x * node_mask1d[..., None]
 
 
-class EquiMessagePassingLayer(nn.Module):
+class EquiMessagePassingLayer(_Mixed):
     """Core Semla layer (reference: semla.py:433-576)."""
 
     def __init__(self, d_model: int, d_message: int, n_coord_sets: int,
@@ -371,7 +398,9 @@ class EquiMessagePassingLayer(nn.Module):
 
     def forward(self, coords, node_feats, adj_matrix, node_mask, edge_feats=None, rep=None):
         if rep is not None and self.rep_cond is not None:
-            node_feats = self.rep_cond(node_feats, rep, node_mask)
+            # the conditioning block stays f32 in mixed precision
+            node_feats = self.rep_cond(node_feats.float(), rep.float(),
+                                       node_mask).to(self.compute_dtype)
         c_up, n_up = self.node_ff(coords, node_feats, node_mask)
         coords = coords + c_up
         node_feats = node_feats + n_up
@@ -388,7 +417,7 @@ class EquiMessagePassingLayer(nn.Module):
         return coords, node_feats, edge_out
 
 
-class EquiInvDynamics(nn.Module):
+class EquiInvDynamics(_Mixed):
     """Stack of Semla layers with edge in/out layers, the self-conditioning
     coordinate channel, the rep's time embedding and the alignment
     projectors (reference: semla.py:579-819). With `coord_skip` the
@@ -435,8 +464,9 @@ class EquiInvDynamics(nn.Module):
     def forward(self, coords, inv_feats, adj_matrix, atom_mask, edge_feats=None,
                 cond_coords=None, rep=None, times=None):
         coords_in = coords
+        dt = self.compute_dtype
         if rep is not None and times is not None:
-            rep = rep + self.time_embedder(times, torch.float32)
+            rep = rep + self.time_embedder(times, dt)
         # one (or the self-conditioning pair of) coordinate channel(s) -> S sets
         stacked = (torch.stack([coords, cond_coords], dim=-1) if cond_coords is not None
                    else coords[..., None])
@@ -449,7 +479,7 @@ class EquiInvDynamics(nn.Module):
                 edge_feats=edge_feats if i == 0 else None, rep=rep)
             if i in self.align_layers:
                 proj = self.projectors[self.align_layers.index(i)]
-                zs.append(proj(torch.sum(inv_feats, dim=1)))               # sum-pooled
+                zs.append(proj(torch.sum(inv_feats.float(), dim=1)))       # sum-pooled
 
         coords, inv_feats = self.final_ff_block(coords, inv_feats, atom_mask)
         out_coords = self.coord_head(self.coord_norm(coords, atom_mask))[..., 0]  # [B,N,3]
@@ -457,13 +487,13 @@ class EquiInvDynamics(nn.Module):
             out_coords = out_coords + coords_in
         if self.refine_layer is not None:
             edge_out = self.refine_layer(out_coords, inv_feats, atom_mask, edge_out)
-        inv_feats = self.feat_norm(inv_feats)
+        inv_feats = layer_norm(inv_feats, self.feat_norm, dt)
         if self.bond_norm is not None:
-            edge_out = self.bond_norm(edge_out)
+            edge_out = layer_norm(edge_out, self.bond_norm, dt)
         return out_coords, inv_feats, edge_out, zs
 
 
-class SemlaGenerator(nn.Module):
+class SemlaGenerator(_Mixed):
     """The molecular generator (reference: semla.py:822-995): size
     embedding, feature and edge projections, the dynamics, the type / charge
     heads and symmetric edge logits; zero-CoM coordinates.
@@ -471,7 +501,9 @@ class SemlaGenerator(nn.Module):
     forward(coords [B,N,3], inv_feats [B,N,V], edge_feats [B,N,N,E] (iff
     d_edge), cond_coords / cond_atomics / cond_bonds (the self-conditioning
     inputs, iff self_cond), atom_mask [B,N], rep [B,d_rep], times [B]) ->
-    (coords, type_logits, bond_logits or None, charge_logits, zs)."""
+    (coords, type_logits, bond_logits or None, charge_logits, zs), the
+    coordinates and logits f32. compute_dtype bfloat16 is reed_tpu's mixed
+    precision (the module docstring)."""
 
     def __init__(self, d_model: int, vocab_size: int, n_atom_feats: int,
                  d_edge: Optional[int] = None, n_edge_types: Optional[int] = None,
@@ -481,7 +513,8 @@ class SemlaGenerator(nn.Module):
                  n_attn_heads: Optional[int] = None, d_message_hidden: Optional[int] = None,
                  coord_norm: str = "length", d_rep: Optional[int] = None,
                  cond_type: str = "none", align_depth: Sequence[int] = (4,),
-                 d_projector: Optional[int] = None, coord_skip: bool = False):
+                 d_projector: Optional[int] = None, coord_skip: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.self_cond = self_cond
         self.size_emb = nn.Embedding(max_atoms + 1, size_emb)
@@ -501,6 +534,9 @@ class SemlaGenerator(nn.Module):
             d_projector=d_projector, coord_skip=coord_skip)
         self.atom_classifier_head = _mlp(d_model, d_model, vocab_size)
         self.charge_classifier_head = _mlp(d_model, d_model, n_charge_types)
+        for m in self.modules():
+            if isinstance(m, _Mixed):
+                m.compute_dtype = compute_dtype
 
     @torch.no_grad()
     def initialize_weights(self, generator: Optional[torch.Generator] = None):
@@ -528,23 +564,26 @@ class SemlaGenerator(nn.Module):
         b, n, _ = coords.shape
         if atom_mask is None:
             atom_mask = torch.ones((b, n), dtype=coords.dtype, device=coords.device)
+        dt = self.compute_dtype
         adj_matrix = adj_from_node_mask(atom_mask)
         n_atoms = torch.sum(atom_mask, dim=-1).long()
-        size_emb = self.size_emb(n_atoms)[:, None, :].expand(b, n, -1)
-        feats = [inv_feats, size_emb] + ([cond_atomics] if cond_atomics is not None else [])
-        atom_feats = self.feat_proj(torch.cat(feats, dim=-1))
+        size_emb = F.embedding(n_atoms, self.size_emb.weight.to(dt))[:, None, :].expand(b, n, -1)
+        feats = [inv_feats.to(dt), size_emb] + (
+            [cond_atomics.to(dt)] if cond_atomics is not None else [])
+        atom_feats = _run_mlp(self.feat_proj, torch.cat(feats, dim=-1), dt)
         e = None
         if edge_feats is not None:
             e = edge_feats if cond_bonds is None else torch.cat([edge_feats, cond_bonds], -1)
-            e = self.edge_in_proj(e)
+            e = _run_mlp(self.edge_in_proj, e, dt)
 
         pred_coords, pred_feats, pred_edges, zs = self.dynamics(
             coords, atom_feats, adj_matrix, atom_mask, edge_feats=e,
             cond_coords=cond_coords, rep=rep, times=times)
-        pred_coords = zero_com(pred_coords, atom_mask)
-        type_logits = self.atom_classifier_head(pred_feats)
-        charge_logits = self.charge_classifier_head(pred_feats)
+        pred_coords = zero_com(pred_coords.float(), atom_mask)
+        type_logits = _run_mlp(self.atom_classifier_head, pred_feats, dt).float()
+        charge_logits = _run_mlp(self.charge_classifier_head, pred_feats, dt).float()
         bond_logits = None
         if pred_edges is not None:
-            bond_logits = self.edge_out_proj(pred_edges + pred_edges.transpose(1, 2))
+            bond_logits = _run_mlp(self.edge_out_proj, pred_edges + pred_edges.transpose(1, 2),
+                                   dt).float()
         return pred_coords, type_logits, bond_logits, charge_logits, zs

@@ -30,6 +30,18 @@ def linear(x, layer: nn.Linear):
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def dense(x, layer: nn.Linear, dtype: torch.dtype):
+    """flax's Dense(dtype=...): the input, weight and bias in `dtype`."""
+    return linear(x.to(dtype), layer)
+
+
+def layer_norm(x, norm: nn.LayerNorm, dtype: torch.dtype):
+    """flax's LayerNorm(dtype=...): f32 statistics and affine, the output in
+    `dtype`."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(dtype)
+
+
 class ProjectorMLP(nn.Sequential):
     """3-layer SiLU MLP projecting backbone activations to an encoder's
     representation space (keys 0, 2, 4 as in the reference)."""

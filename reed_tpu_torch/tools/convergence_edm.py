@@ -24,9 +24,12 @@ One seed is no verdict.
   python -m reed_tpu_torch.tools.convergence_edm --tiny --device cpu
 
 The seeds run as concurrent processes on the one card, as the Semla gate's
-do. Writes CONVERGENCE_EDM_TORCH.json (or --out): each seed's run, the
-medians and the verdict; `--merge a.json b.json` combines the runs of
-separate invocations (seeds split over calls) into one verdict.
+do. `--score-every N` scores the EMA every N steps, as the JAX tool's
+does, and keeps the curve; `--save-params p.pt` saves each seed's final
+parameters and EMA (p_seed{k}.pt). Writes CONVERGENCE_EDM_TORCH.json (or
+--out): each seed's run, the medians and the verdict; `--merge a.json
+b.json` combines the runs of separate invocations (seeds split over
+calls) into one verdict.
 """
 
 from __future__ import annotations
@@ -136,8 +139,15 @@ def score(trainer: MoleculeEDMTrainer, model, data: GateData, seed: int,
     return MoleculeMetrics().evaluate([(x[b, :n], types[b, :n]) for b, n in enumerate(sizes)])
 
 
+def params_path(path: str, seed: int) -> str:
+    """--save-params' file for `seed`: the seed before the extension."""
+    root, ext = os.path.splitext(path)
+    return f"{root}_seed{seed}{ext or '.pt'}"
+
+
 def run_seed(args, seed: int, device: torch.device) -> dict:
-    """Train one seed and score it at step 0 and at the end."""
+    """Train one seed and score it at step 0, every --score-every steps (the
+    EMA) and at the end."""
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cfg = gate_config(seed, args.batch_size, args.hidden, args.layers, args.steps,
                       args.timesteps)
@@ -149,7 +159,7 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
     sample_secs = time.perf_counter() - t0
     print(f"[seed {seed}] step-0: {step0} ({sample_secs:.1f} s)", flush=True)
 
-    losses = []
+    losses, curve = [], []
     t0 = time.perf_counter()
     for step, batch in enumerate(gate_batches(data, args.steps, device, args.workers)):
         state, metrics = trainer.train_step(state, batch)
@@ -157,6 +167,10 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
             loss = float(metrics["denoising_loss"])
             losses.append({"step": step, "nll": loss})
             print(f"[seed {seed}] step {step}: nll={loss:.4f}", flush=True)
+        if args.score_every and step and step % args.score_every == 0:
+            mid = score(trainer, trainer.ema_model(state), data, 1, args.n_eval)
+            curve.append({"step": step, **mid})
+            print(f"[seed {seed}] step {step} ema: {mid}", flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_secs = time.perf_counter() - t0
@@ -164,10 +178,20 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
     final_ema = score(trainer, trainer.ema_model(state), data, 1, args.n_eval)
     final = score(trainer, state.model, data, 1, args.n_eval)
     print(f"[seed {seed}] final: params={final} ema={final_ema}", flush=True)
-    return {"seed": seed, "step0": step0, "final": final, "final_ema": final_ema,
-            "train_seconds": round(train_secs, 1),
-            "ms_per_step": round(1e3 * train_secs / max(args.steps, 1), 3),
-            "sample_seconds_step0": round(sample_secs, 1), "loss_curve": losses}
+    if args.save_params:
+        path = params_path(args.save_params, seed)
+        torch.save({"params": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    "ema": {k: v.cpu() for k, v in state.ema.items()},
+                    "config": {"seed": seed, "steps": args.steps, "hidden": args.hidden,
+                               "layers": args.layers, "timesteps": args.timesteps}}, path)
+        print(f"[seed {seed}] params saved: {path}", flush=True)
+    run = {"seed": seed, "step0": step0, "final": final, "final_ema": final_ema,
+           "train_seconds": round(train_secs, 1),
+           "ms_per_step": round(1e3 * train_secs / max(args.steps, 1), 3),
+           "sample_seconds_step0": round(sample_secs, 1), "loss_curve": losses}
+    if args.score_every:
+        run["ema_curve"] = curve + [{"step": args.steps, **final_ema}]
+    return run
 
 
 def _run_concurrently(args, argv):
@@ -231,6 +255,12 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=6)
     ap.add_argument("--timesteps", type=int, default=1000)
     ap.add_argument("--n-eval", type=int, default=256)
+    ap.add_argument("--score-every", type=int, default=0,
+                    help="score the EMA on --n-eval samples every N steps and keep the "
+                         "curve (0: off)")
+    ap.add_argument("--save-params", default="",
+                    help="torch.save each seed's final params and EMA here, the seed "
+                         "before the extension")
     ap.add_argument("--workers", type=int, default=None,
                     help="DataLoader worker processes building host batches (0: inline; "
                          "default 1 where the host has two cores for each concurrent "
@@ -270,7 +300,8 @@ def main(argv=None):
                    "grad_clip": 1.0, "timesteps": args.timesteps, "dtype": "float32",
                    "tf32": False, "family": "chains", "rep_condition": True,
                    "d_rep": D_REP, "rep_dropout_prob": 0.0, "ema_decay": 0.995,
-                   "n_classes": len(chain_templates()), "n_eval": args.n_eval},
+                   "n_classes": len(chain_templates()), "n_eval": args.n_eval,
+                   "score_every": args.score_every},
         "runs": runs,
         "command": " ".join(["python -m reed_tpu_torch.tools.convergence_edm", *argv]),
     }

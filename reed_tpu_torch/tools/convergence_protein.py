@@ -21,6 +21,14 @@ a run turns on ~1e-6 perturbations in either path.
 Writes CONVERGENCE_PROTEIN_TORCH.json (or --out): each seed's run, the
 median and the verdict. `--seeds` and `--fused-messages off` (the unfused
 chain instead of the CUDA kernels) repeat it for other comparisons.
+
+`--dtype bfloat16` is the bf16 gate: the configuration of the bf16 TPU
+record (CONVERGENCE_PROTEIN_BF16.json: 1,500 steps, the rest as above),
+bf16 compute over f32 master weights, so every message chain runs K2a and
+K2b's bf16 engines on the card; the same rule, written to
+CONVERGENCE_PROTEIN_BF16_TORCH.json.
+
+  python -m reed_tpu_torch.tools.convergence_protein --dtype bfloat16
 """
 
 from __future__ import annotations
@@ -46,17 +54,19 @@ DIMS = dict(single_dim=8, pair_dim=4, structure_dim=8)
 # (the outcome turns on ~1e-6 perturbations), so the bar is held by the
 # median over five seeds
 STEPS = 2000
+BF16_STEPS = 1500   # the bf16 TPU record's run length
 SEEDS = (0, 1, 2, 3, 4)
 BAR = 0.95
 
 
 def gate_config(hidden: int = 128, length: int = 48, batch_size: int = 16,
                 lr: float = 1e-3, dropout: float = 0.0, sampler_steps: int = 200,
-                seed: int = 0, fused_messages: str = "auto") -> ProteinTrainConfig:
+                seed: int = 0, fused_messages: str = "auto",
+                compute_dtype: str = "float32") -> ProteinTrainConfig:
     """The convergence run's configuration, as tools/convergence_protein.py
     builds it."""
     return ProteinTrainConfig(
-        seed=seed, fused_messages=fused_messages,
+        seed=seed, fused_messages=fused_messages, compute_dtype=compute_dtype,
         hidden_dim=hidden, k_neighbors=min(30, length), dropout=dropout,
         load_repr=False, repr_weight=0.0, **DIMS, batch_size=batch_size,
         max_len=length,
@@ -89,7 +99,7 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
     """Train one seed and score its recovery at step 0 and at the end."""
     trainer = ProteinTrainer(gate_config(args.hidden, args.length, args.batch_size,
                                          args.lr, args.dropout, args.sampler_steps,
-                                         seed, args.fused_messages),
+                                         seed, args.fused_messages, args.dtype),
                              device=device)
     state = trainer.init_state()
 
@@ -136,7 +146,8 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--steps", type=int, default=None,
+                    help=f"default {STEPS}, or {BF16_STEPS} with --dtype bfloat16")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--length", type=int, default=48)
@@ -146,11 +157,22 @@ def main(argv=None):
     ap.add_argument("--eval-batches", type=int, default=4)
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--fused-messages", default="auto", choices=["auto", "on", "off"])
-    ap.add_argument("--out", default="CONVERGENCE_PROTEIN_TORCH.json")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="compute dtype (bfloat16: f32 master weights cast at use)")
+    ap.add_argument("--out", default=None,
+                    help="default CONVERGENCE_PROTEIN_TORCH.json, or "
+                         "CONVERGENCE_PROTEIN_BF16_TORCH.json with --dtype bfloat16")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
     ap.add_argument("--tiny", action="store_true", help="smoke-test scale, first seed only")
     args = ap.parse_args(argv)
+    bf16 = args.dtype == "bfloat16"
+    default_steps = BF16_STEPS if bf16 else STEPS
+    if args.steps is None:
+        args.steps = default_steps
+    if args.out is None:
+        args.out = ("CONVERGENCE_PROTEIN_BF16_TORCH.json" if bf16
+                    else "CONVERGENCE_PROTEIN_TORCH.json")
     if args.tiny:
         args.steps = min(args.steps, 400)
         args.batch_size, args.length, args.hidden = 8, 16, 64
@@ -175,14 +197,15 @@ def main(argv=None):
         "platform": device.type,
         "device": device_name(device),
         "config": {"batch_size": args.batch_size, "length": args.length,
-                   "hidden": args.hidden, "lr": args.lr, "dtype": "float32",
+                   "hidden": args.hidden, "lr": args.lr, "dtype": args.dtype,
                    "dropout": args.dropout, "sampler_steps": args.sampler_steps,
                    "fused_messages": args.fused_messages},
         "runs": runs,
         "command": "python -m reed_tpu_torch.tools.convergence_protein"
                    + (" --tiny" if args.tiny else "")
                    + (f" --device {args.device}" if args.device != "cuda" else "")
-                   + (f" --steps {args.steps}" if args.steps != STEPS else "")
+                   + (f" --dtype {args.dtype}" if bf16 else "")
+                   + (f" --steps {args.steps}" if args.steps != default_steps else "")
                    + (f" --dropout {args.dropout}" if args.dropout else "")
                    + (f" --lr {args.lr}" if args.lr != 1e-3 else "")
                    + (" --seeds " + " ".join(map(str, args.seeds))

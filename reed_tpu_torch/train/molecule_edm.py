@@ -13,7 +13,9 @@ rotation quaternions, the dequantisation noise) come from the trainer's
 device generator, seeded cfg.seed + 1, or are handed in. Sampling runs the
 ancestral EDM loop or the EFM ODE decode from any weights, with
 classifier-free guidance where cfg_scale is given and an optional learned
-noise schedule (GammaNetwork). The port trains on one device, in f32.
+noise schedule (GammaNetwork). The port trains on one device, in f32 or,
+with compute_dtype bfloat16, in bf16 over f32 parameters as reed_tpu's
+`dtype` computes (models/egnn.py).
 """
 
 from __future__ import annotations
@@ -68,10 +70,9 @@ class MoleculeEDMConfig:
 
 def check_config(cfg: MoleculeEDMConfig):
     """Raise on what the port does not run."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported: the port runs the EDM "
-            "molecule model in f32")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{cfg.compute_dtype!r}")
     if cfg.probabilistic_model not in ("diffusion", "fm"):
         raise ValueError(f"probabilistic_model must be diffusion or fm, got "
                          f"{cfg.probabilistic_model!r}")
@@ -90,7 +91,8 @@ def build_dynamics(cfg: MoleculeEDMConfig, device=None,
             n_layers=cfg.n_layers, inv_sublayers=cfg.inv_sublayers,
             attention=cfg.attention, tanh=cfg.tanh, coords_range=cfg.coords_range,
             normalization_factor=cfg.normalization_factor, aggregation=cfg.aggregation,
-            rep_nf=cfg.rep_nf, rep_dropout_prob=cfg.rep_dropout_prob)
+            rep_nf=cfg.rep_nf, rep_dropout_prob=cfg.rep_dropout_prob,
+            compute_dtype=getattr(torch, cfg.compute_dtype))
         return model.initialize_weights(generator)
 
 

@@ -14,7 +14,9 @@ the reference's collate) and moved with `batch_to_device`. The
 self-conditioning coin is drawn on the host from the trainer's CPU
 generator (reed_tpu draws it inside its jit), so the step never waits for
 the device. Generation is the Euler integrator in a Python loop on the
-device. The port trains on one device, in f32.
+device. The port trains on one device, in f32 or, with compute_dtype
+bfloat16, in reed_tpu's mixed precision (bf16 features and messages, f32
+coordinates, f32 parameters and optimizer).
 """
 
 from __future__ import annotations
@@ -96,17 +98,16 @@ def check_config(cfg: SemlaTrainConfig):
             "(ROADMAP.md Queue 1); the port runs arch='semla'")
     if cfg.arch != "semla":
         raise ValueError(f"arch must be semla, egnn or eqgat, got {cfg.arch!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported: the port runs "
-            "SemlaFlow in f32 (mixed precision, bf16 features with f32 "
-            "coordinates, is ROADMAP.md Queue 1)")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{cfg.compute_dtype!r}")
 
 
 def build_model(cfg: SemlaTrainConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> SemlaGenerator:
-    """The configured SemlaGenerator on `device`, in f32, initialised from
-    `generator` as reed_tpu initialises it."""
+    """The configured SemlaGenerator on `device` (f32 parameters, computing
+    in cfg.compute_dtype: bfloat16 is reed_tpu's mixed precision),
+    initialised from `generator` as reed_tpu initialises it."""
     check_config(cfg)
     with torch.device(device) if device is not None else torch.device("cpu"):
         model = SemlaGenerator(
@@ -118,7 +119,7 @@ def build_model(cfg: SemlaTrainConfig, device=None,
             n_layers=cfg.n_layers, n_attn_heads=cfg.n_attn_heads,
             d_message_hidden=cfg.d_message_hidden, d_rep=cfg.d_rep,
             cond_type=cfg.cond_type, align_depth=tuple(cfg.align_depth),
-            coord_skip=cfg.coord_skip)
+            coord_skip=cfg.coord_skip, compute_dtype=getattr(torch, cfg.compute_dtype))
         return model.initialize_weights(generator)
 
 

@@ -7,16 +7,20 @@ runs the model with dropout, and takes the smoothed CE plus the triple
 alignment loss, weighted by the curriculum; Adam with a global-norm clip
 and the EMA follow (core/trainer.py). On the card every message chain runs
 forward through the CUDA kernel K2a and backward through K2b
-(ops/fused_message.py). The port trains on one device, in f32, and draws
-every random number (corruption, dropout, coordinate and target noise) from
-a torch.Generator; reed_tpu's `rng_impl` (threefry or rbg) picks a JAX
-PRNG on the TPU and is not read here.
+(ops/fused_message.py). The port trains on one device, in f32 or, with
+compute_dtype bfloat16, in bf16 over f32 master weights (each weight cast
+where it is used, outside the kernels' autograd.Function, so K2a and K2b
+run their bf16 engines and the casts carry the gradients back to f32),
+and draws every random number (corruption, dropout, coordinate and target
+noise) from a torch.Generator; reed_tpu's `rng_impl` (threefry or rbg)
+picks a JAX PRNG on the TPU and is not read here.
 """
 
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass, field
+import functools
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
 import torch
@@ -196,9 +200,12 @@ def make_loss_fn(cfg: ProteinTrainConfig):
     `repr_noise` (three tensors) the target noise, so that a test can hand
     over reed_tpu's draws."""
     detach_repr = cfg.repr_weight <= 0.0
+    dtype = getattr(torch, cfg.compute_dtype)
 
     def loss_fn(model, batch, step, generator=None, noisy=None, repr_noise=None):
         del step
+        if model.dtype != dtype:
+            model = functools.partial(model.cast_forward, dtype)
         mask_for_loss = batch["mask"] * batch["chain_M"]
         if noisy is None:
             corrupted = corrupt_batch(batch, cfg.interpolant, generator)
@@ -241,11 +248,9 @@ class ProteinTrainer:
     cfg.seed + 1."""
 
     def __init__(self, cfg: ProteinTrainConfig, device=None):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} training is not ported: the "
-                "port trains in f32 (bf16 training needs f32 master weights cast "
-                "at use, as flax does)")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                             f"{cfg.compute_dtype!r}")
         cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -260,8 +265,10 @@ class ProteinTrainer:
         self._ema_model = None
 
     def init_state(self) -> TrainState:
-        model = build_model(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
+        # f32 master weights whatever the compute dtype (make_loss_fn casts them)
+        model = build_model(replace(self.cfg, compute_dtype="float32"), device=self.device,
+                            generator=torch.Generator(device=self.device).manual_seed(
+                                self.cfg.seed))
         return TrainState(step=0, model=model,
                           ema=ema_init(model, self.cfg.curriculum.ema_dtype),
                           opt=make_optimizer(self.cfg.optim, list(model.parameters())))
@@ -283,13 +290,17 @@ class ProteinTrainer:
     def sample(self, state: TrainState, batch, generator: Optional[torch.Generator],
                ema: bool = False, cls: Optional[int] = None, w: Optional[float] = None):
         """Euler unmasking with the state's parameters, or with its EMA
-        (loaded into a copy of the model kept for this)."""
+        (loaded into a copy of the model kept for this), in the compute
+        dtype."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
         model = state.model
         if ema:
             if self._ema_model is None:
-                self._ema_model = copy.deepcopy(state.model)
+                self._ema_model = copy.deepcopy(state.model).to_compute_dtype(dtype)
             model = self._ema_model
             with torch.no_grad():
                 for name, p in model.named_parameters():
                     p.copy_(state.ema[name])
+        elif model.dtype != dtype:
+            model = copy.deepcopy(model).to_compute_dtype(dtype)
         return sample(model, batch, generator, self.cfg.interpolant, cls=cls, w=w)

@@ -4,8 +4,10 @@ batches with --ckpt-dir (save, then resume) for EDM and fm, on a
 fabricated QM9 EDM npz with reps.npy, and from a reference checkpoint;
 eval-molecule from the run's EMA (with .xyz files), from a reference
 checkpoint with a learned schedule, and with --data-dir reps, sizes and a
-test split; --rdm-ref-ckpt and bf16 refused; the EDM gate's defaults
-against the TPU record, a tiny gate run and the merge of split runs."""
+test split; bf16 training, and a missing RDM checkpoint or an unknown
+dtype refused; the EDM gate's defaults against the TPU record, a tiny
+gate run (with its EMA curve and saved parameters) and the merge of split
+runs."""
 
 import dataclasses
 import json
@@ -120,14 +122,18 @@ def test_ref_ckpt_and_data_dir_eval(tmp_path, capsys):
               "3", "--n-replicates", "1", "--batch-size", "2", *TINY])
     text = capsys.readouterr().out
     assert "(learned gamma)" in text and "GtSampler over 20 dataset reps" in text
-    assert "MOSES / MiDi" in text and "item 14" in text
+    assert "MOSES / MiDi" in text and "Queue 1 item 4" in text
 
 
-def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["eval-molecule", "--rdm-ref-ckpt", "rdm.pt", *TINY])
-    with pytest.raises(NotImplementedError, match="f32"):
-        cli.main(["train-molecule-edm", "--steps", "1", "--set", "compute_dtype=bfloat16",
+def test_refusals(tmp_path):
+    # the RDM samplers are ported: a missing RDM checkpoint is what fails now
+    with pytest.raises(FileNotFoundError):
+        cli.main(["eval-molecule", "--rdm-ref-ckpt", str(tmp_path / "rdm.pt"), *TINY])
+    state = cli.main(["train-molecule-edm", "--steps", "1", "--batch-size", "2", "--set",
+                      "compute_dtype=bfloat16", *TINY])
+    assert state.step == 1
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cli.main(["train-molecule-edm", "--steps", "1", "--set", "compute_dtype=float16",
                   *TINY])
 
 
@@ -149,6 +155,25 @@ def test_gate_defaults_are_the_tpu_record():
     assert cfg.rep_dropout_prob == 0.0 and cfg.rep_nf == 64
     batch = data.batch(3)
     assert batch["rep"].dtype == np.float32 and batch["positions"].shape == (128, 20, 3)
+
+
+def test_gate_scores_every_and_saves_params(tmp_path):
+    from reed_tpu_torch.tools import convergence_edm as gate
+
+    result = gate.main(["--device", "cpu", "--steps", "5", "--timesteps", "3",
+                        "--batch-size", "4", "--hidden", "16", "--layers", "1",
+                        "--n-eval", "4", "--workers", "0", "--seeds", "3",
+                        "--score-every", "2", "--save-params", str(tmp_path / "p.pt"),
+                        "--out", str(tmp_path / "g.json")])
+    (run,) = result["runs"]
+    assert [c["step"] for c in run["ema_curve"]] == [2, 4, 5]
+    assert run["ema_curve"][-1]["validity"] == run["final_ema"]["validity"]
+    assert result["config"]["score_every"] == 2
+    saved = torch.load(tmp_path / "p_seed3.pt", weights_only=True)
+    assert set(saved) == {"params", "ema", "config"} and saved["config"]["seed"] == 3
+    model = build_dynamics(dataclasses.replace(gate.gate_config(3, 4, 16, 1, 5, 3)))
+    model.load_state_dict(saved["params"])
+    assert set(saved["ema"]) == set(saved["params"])
 
 
 def test_gate_runs_tiny_and_merges(tmp_path):

@@ -1,13 +1,17 @@
 """reed_tpu_torch's EGNNDynamics against reed_tpu's on the CPU: a tiny
 model (hidden 32, 2 blocks of 2 GCLs, batch 3 x 9 atoms with padded rows)
-whose every weight, coord_mlp.4 (the gain-1e-3 coordinate head) and
-fake_latent included, is drawn from a seeded normal on the port's side and
+whose every weight, the coordinate heads (coord_mlp.4) and fake_latent
+included, is drawn from a seeded normal on the port's side and
 carried to reed_tpu by reed_tpu's own converter. Outputs agree to 1e-5 of
 their max with the rep on and off, attention and tanh on and off, sum and
 mean aggregation, a per-node context, a learned fake latent in training
 (with the dropout mask handed over) and forward_with_cfg; then E(3)
 equivariance, the factored first layer against the concat, and the
-initialisation's scales."""
+initialisation's scales; the coordinate heads' distribution against
+reed_tpu's at the EDM gate's width (hidden 256), each from its own seed:
+bound and variance agree within sampling error, which the reference
+torch EDM's gain-1e-3 draw does not; and which products run in bf16 under
+compute_dtype bfloat16."""
 
 import jax
 import jax.numpy as jnp
@@ -139,7 +143,7 @@ def test_factored_pair_linear_matches_concat():
 
 def test_initialisation_scales():
     """lecun-normal linears with zero biases, the coordinate heads uniform
-    within xavier's bound at gain 1e-3, fake_latent N(0, 0.02), unit norms;
+    within reed_tpu's variance_scaling bound, fake_latent N(0, 0.02), unit norms;
     the same generator seed gives the same weights."""
     def build(seed):
         return egnn.EGNNDynamics(**dict(EDM_TINY, hidden_nf=64)).initialize_weights(
@@ -148,10 +152,113 @@ def test_initialisation_scales():
     model = build(0)
     sd = model.state_dict()
     head = sd["egnn.e_block_0.gcl_equiv.coord_mlp.4.weight"]
-    assert head.abs().max() <= 1e-3 * np.sqrt(6.0 / (64 + 1)) and head.abs().max() > 0
+    assert head.abs().max() <= np.sqrt(6e-6 / ((64 + 1) / 2)) and head.abs().max() > 0
     w = sd["egnn.e_block_0.gcl_0.edge_mlp.2.weight"]
     assert abs(w.std().item() - 64 ** -0.5) < 0.1 * 64 ** -0.5
     assert (sd["egnn.e_block_0.gcl_0.edge_mlp.2.bias"] == 0).all()
     assert abs(sd["fake_latent"].std().item() - 0.02) < 0.01
     assert (sd["egnn.attns.0.0.norm3.weight"] == 1).all()
     assert all(torch.equal(a, b) for a, b in zip(sd.values(), build(0).state_dict().values()))
+
+
+def _head_matches(w: np.ndarray, limit: float) -> bool:
+    """Whether the draws w look like Uniform(-limit, limit): none beyond it,
+    the largest within 10 % of it, and the variance limit^2 / 3 within 10 %
+    (about 4 standard errors at 1,536 draws; the mean within 4)."""
+    w = np.asarray(w, np.float64).ravel()
+    var = limit ** 2 / 3
+    return bool(np.abs(w).max() <= limit * (1 + 1e-6) and np.abs(w).max() > 0.9 * limit
+                and abs(w.var() / var - 1) < 0.1
+                and abs(w.mean()) < 4 * np.sqrt(var / w.size))
+
+
+def test_coordinate_head_init_matches_reed_tpu():
+    """reed_tpu's EquivariantUpdate draws coord_out from variance_scaling(
+    1e-3 ** 2 * 2, fan_avg, uniform): bound sqrt(3 * 2e-6 / fan_avg). The
+    port's six heads at the gate's width and six reed_tpu inits (each from
+    its own seed) both match that uniform; the gain-1e-3 draw does not."""
+    from reed_tpu.models.egnn import EquivariantUpdate
+
+    hidden = 256
+    limit = np.sqrt(3 * 2e-6 / ((hidden + 1) / 2))
+    model = egnn.EGNNDynamics(in_node_nf=6, hidden_nf=hidden, n_layers=6, inv_sublayers=1,
+                              rep_nf=None).initialize_weights(torch.Generator().manual_seed(3))
+    ours = np.concatenate([model.state_dict()[f"egnn.e_block_{i}.gcl_equiv.coord_mlp.4.weight"]
+                           .numpy().ravel() for i in range(6)])
+    h = jnp.zeros((1, 2, hidden))
+    x = jnp.zeros((1, 2, 3))
+    pair = jnp.zeros((1, 2, 2, 2))
+    mask, emask = jnp.ones((1, 2, 1)), jnp.ones((1, 2, 2, 1))
+    ref = np.concatenate([
+        np.asarray(EquivariantUpdate(hidden).init(jax.random.PRNGKey(k), h, x, pair[..., :1]
+                                                  .repeat(3, -1), pair, mask, emask)
+                   ["params"]["coord_out"]["kernel"]).ravel() for k in range(6)])
+    assert ours.size == ref.size == 6 * hidden
+    assert _head_matches(ref, limit), "reed_tpu's draw"
+    assert _head_matches(ours, limit), "the port's draw"
+    old = 1e-3 * np.sqrt(6.0 / (hidden + 1))
+    gain_1e3 = torch.empty(6 * hidden).uniform_(-old, old, generator=torch.Generator()
+                                                .manual_seed(3)).numpy()
+    assert not _head_matches(gain_1e3, limit)
+
+
+def test_bf16_compute_dtypes():
+    """compute_dtype bfloat16 as flax's Dense(dtype=bf16) in reed_tpu: every
+    product of the EGNN takes bf16-rounded weights, the edge and node MLPs,
+    the coordinate heads and the rep attention compute in bf16 (only the
+    factored first layer's node halves meet f32 features in f32), while the
+    masked features, the coordinates, the output and the parameters'
+    gradients stay f32; compute_dtype float32 runs no product in bf16."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class Products(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is F.linear:
+                x, w = args[0], args[1]
+                self.calls.append((x.dtype, w.dtype,
+                                   bool(torch.equal(w, w.to(torch.bfloat16).to(w.dtype)))))
+            return func(*args, **kwargs)
+
+    inputs = _torch(edm_inputs())
+    for dtype in (torch.bfloat16, torch.float32):
+        model = egnn.EGNNDynamics(**EDM_TINY, compute_dtype=dtype).eval()
+        _, _, ref = edm_pair()
+        model.load_state_dict(ref.state_dict())
+        seen = {}
+
+        def record(name):
+            def hook(module, args, out):
+                seen.setdefault(name, set()).update(
+                    t.dtype for t in (out if isinstance(out, tuple) else (out,)))
+            return hook
+
+        for m in model.modules():
+            if isinstance(m, (egnn.GCL, egnn.EquivariantUpdate)):
+                m.register_forward_hook(record(type(m).__name__))
+        with Products() as products:
+            out = model(**inputs)
+        out.abs().sum().backward()
+        bf16 = [c for c in products.calls if c[0] == torch.bfloat16]
+        assert out.dtype == torch.float32 and seen == {"GCL": {torch.float32},
+                                                       "EquivariantUpdate": {torch.float32}}
+        # (fake_latent and the one-key attention's q, k and norm2 get none)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        assert len(grads) > 50 and all(g.dtype == torch.float32 for g in grads)
+        if dtype == torch.bfloat16:
+            # per GCL: the edge half of edge_mlp.0, edge_mlp.2, att_mlp,
+            # node_mlp.0 and .2; per coordinate update: coord_mlp.0's edge
+            # half, .2 and .4; embedding, embedding_out and 4 in each rep block
+            n_bf16 = (EDM_TINY["n_layers"] * (EDM_TINY["inv_sublayers"] * 5 + 3 + 4) + 2)
+            assert len(bf16) == n_bf16 and all(w == torch.bfloat16 for _, w, _ in bf16)
+            assert all(rounded for _, _, rounded in products.calls)
+            # and the two node halves of each factored first layer, in f32
+            assert len(products.calls) == n_bf16 + 2 * EDM_TINY["n_layers"] * (
+                EDM_TINY["inv_sublayers"] + 1)
+        else:
+            assert not bf16 and not all(rounded for _, _, rounded in products.calls)

@@ -59,7 +59,13 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.models.semla, reed_tpu_torch.train.molecule_semla, "
             "reed_tpu_torch.diffusion.molecule_fm, reed_tpu_torch.data.molecule, "
             "reed_tpu_torch.eval.molecule_metrics, reed_tpu_torch.encoders.semla_convert, "
-            "reed_tpu_torch.tools.convergence_semla; "
+            "reed_tpu_torch.tools.convergence_semla, reed_tpu_torch.models.egnn, "
+            "reed_tpu_torch.diffusion.edm, reed_tpu_torch.diffusion.efm, "
+            "reed_tpu_torch.train.molecule_edm, reed_tpu_torch.encoders.edm_convert, "
+            "reed_tpu_torch.eval.two_stage, reed_tpu_torch.tools.convergence_edm, "
+            "reed_tpu_torch.models.rdm_mlp, reed_tpu_torch.diffusion.rdm, "
+            "reed_tpu_torch.eval.rep_samplers, reed_tpu_torch.train.rdm, "
+            "reed_tpu_torch.encoders.rdm_convert, reed_tpu_torch.tools.convergence_rdm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")

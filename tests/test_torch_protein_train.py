@@ -7,6 +7,8 @@ kernels in interpret mode (K2b included in its gradient); the port runs the
 plain chain with autograd. Then the training half of the model (dropout,
 detach_repr, learnable_node) and a short run whose loss falls."""
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,9 +53,8 @@ def _batch(pad=0, seed=1):
 def _jax_step(batch, **cfg_kw):
     """reed_tpu: (params, grads, metrics, params and EMA after one step,
     the step's (S_t, t)), all numpy."""
-    cfg = JaxConfig(**TINY, mesh=JaxMesh(data=1),
-                    curriculum=JaxCurriculum(proj_coeff=0.2, diffusion_warmup_steps=0),
-                    **cfg_kw)
+    cfg = JaxConfig(**{**TINY, **cfg_kw}, mesh=JaxMesh(data=1),
+                    curriculum=JaxCurriculum(proj_coeff=0.2, diffusion_warmup_steps=0))
     trainer = JaxTrainer(cfg)
     params = fmif_random_params(trainer.model, batch, std=0.1, seed=0)["params"]
     jparams = jax.tree.map(jnp.asarray, params)
@@ -77,8 +78,8 @@ def _jax_step(batch, **cfg_kw):
 
 
 def _port_trainer(params, **cfg_kw):
-    cfg = ProteinTrainConfig(**TINY, curriculum=CurriculumConfig(
-        proj_coeff=0.2, diffusion_warmup_steps=0), **cfg_kw)
+    cfg = ProteinTrainConfig(**{**TINY, **cfg_kw}, curriculum=CurriculumConfig(
+        proj_coeff=0.2, diffusion_warmup_steps=0))
     trainer = ProteinTrainer(cfg, device="cpu")
     state = trainer.init_state()
     state.model.load_state_dict(state_dict_from_flax(params))
@@ -218,9 +219,61 @@ def test_projector_only_curriculum_trains_at_unit_weight():
                           device="cpu").curriculum.proj_coeff == 0.3
 
 
+def test_bf16_train_step_matches_jax():
+    """bf16 compute over f32 master weights, the unfused chain on both
+    sides. Each framework rounds to bf16 at its own points (XLA keeps f32
+    inside fusions where PyTorch rounds each op), so each gradient is held
+    to reed_tpu's bf16 gradient's distance from the f32 gradient (the
+    port's f32 step on the same draws) plus 1e-3 of its size, in the L2
+    norm of the tensor: the port within 3x that of reed_tpu's (1.0-2.0x
+    seen) and within 2x that of the f32 gradient (0.6-1.6x seen); metrics
+    to 2e-2; over the whole gradient the port's sits at least 0.3x reed_tpu's
+    bf16 distance from the f32 gradient, so that a port computing in f32
+    fails. The gradients and the state stay f32, and the step moves every
+    weight."""
+    batch = _batch()
+    params, jgrads, jmetrics, _, _, noisy = _jax_step(
+        batch, compute_dtype="bfloat16", fused_messages="off")
+    cfg, trainer, state = _port_trainer(params, compute_dtype="bfloat16",
+                                        fused_messages="off")
+    tbatch = {k: torch.tensor(v) for k, v in batch.items()}
+    noisy = tuple(torch.tensor(x) for x in noisy)
+    metrics = make_loss_fn(cfg)(state.model, tbatch, 0, noisy=noisy)
+    total, _ = combine_losses(metrics, 0, trainer.curriculum)
+    names, leaves = zip(*state.model.named_parameters())
+    assert all(p.dtype == torch.float32 for p in leaves)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    f32 = make_loss_fn(replace(cfg, compute_dtype="float32"))(state.model, tbatch, 0,
+                                                              noisy=noisy)
+    grads32 = torch.autograd.grad(combine_losses(f32, 0, trainer.curriculum)[0], leaves,
+                                  allow_unused=True)
+    want = state_dict_from_flax(jgrads)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    grads32 = [torch.zeros_like(p) if g is None else g for g, p in zip(grads32, leaves)]
+    for name, g, g32 in zip(names, grads, grads32):
+        assert g.dtype == torch.float32, name
+        ref_err = (want[name] - g32).norm().item() + 1e-3 * want[name].norm().item()
+        assert (g - want[name]).norm().item() <= 3 * ref_err, name
+        assert (g - g32).norm().item() <= 2 * ref_err, name
+    # and it is a bf16 gradient: an f32 step in its place sits 0 from g32
+    g, w, g32 = (torch.cat([t.flatten() for t in ts])
+                 for ts in (grads, [want[n] for n in names], grads32))
+    assert (g - g32).norm() >= 0.3 * (w - g32).norm()
+    for k in ("denoising_loss", "nll", "accuracy", "proj_loss"):
+        np.testing.assert_allclose(float(metrics[k]), jmetrics[k], rtol=2e-2, atol=2e-2,
+                                   err_msg=k)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state, _ = trainer.train_step(state, tbatch, noisy=noisy)
+    moved = [n for n, p in state.model.named_parameters()
+             if p.dtype == torch.float32 and not torch.equal(p, before[n])]
+    assert len(moved) == len(before)
+
+
 def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ProteinTrainer(ProteinTrainConfig(compute_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ProteinTrainer(ProteinTrainConfig(compute_dtype="float16"), device="cpu")
+    assert ProteinTrainer(ProteinTrainConfig(compute_dtype="bfloat16"),
+                          device="cpu").cfg.compute_dtype == "bfloat16"
     with pytest.raises(NotImplementedError, match="one device"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(data=2)), device="cpu")
 
@@ -281,6 +334,32 @@ def test_convergence_tool_runs_tiny(tmp_path):
     assert run["seed"] == 0 and 0.0 <= run["final"] <= 1.0 and len(run["loss_curve"]) == 2
     assert result["median_final"] == run["final"]
     assert result["bar"] == 0.95 and result["pass"] == (run["final"] >= 0.95)
+
+
+def test_convergence_tool_bf16_is_the_bf16_record(tmp_path):
+    """--dtype bfloat16 runs the bf16 TPU record's configuration (1,500
+    steps, batch 16 x 48, hidden 128, lr 1e-3, 200 sampler steps) in bf16
+    over f32 master weights, under the same rule."""
+    import json
+    import os
+
+    from reed_tpu_torch.tools import convergence_protein
+
+    with open(os.path.join(os.path.dirname(__file__), "..",
+                           "CONVERGENCE_PROTEIN_BF16.json")) as f:
+        record = json.load(f)
+    rec = record["config"]
+    assert convergence_protein.BF16_STEPS == record["steps"] and rec["dtype"] == "bfloat16"
+    cfg = convergence_protein.gate_config(compute_dtype="bfloat16")
+    assert (cfg.batch_size, cfg.max_len, cfg.hidden_dim, cfg.optim.lr,
+            cfg.interpolant.num_timesteps) == (rec["batch_size"], rec["length"],
+                                               rec["hidden"], rec["lr"], rec["sampler_steps"])
+    result = convergence_protein.main(["--tiny", "--device", "cpu", "--dtype", "bfloat16",
+                                       "--steps", "3", "--sampler-steps", "3",
+                                       "--eval-batches", "1", "--out",
+                                       str(tmp_path / "b.json")])
+    assert result["config"]["dtype"] == "bfloat16" and result["bar"] == 0.95
+    assert "--dtype bfloat16" in result["command"]
 
 
 def test_cli_train_protein_from_data_dir(tmp_path, capsys):

@@ -121,3 +121,53 @@ def test_all_padding_row_stays_finite():
     for t in out[:4]:
         assert torch.isfinite(t).all()
     assert (out[0][1] == 0).all()
+
+
+@pytest.mark.parametrize("cond_type", ["none", "adaLN"])
+def test_mixed_precision_keeps_coordinates_f32(cond_type):
+    """compute_dtype bfloat16: the feature and message path is bf16 and
+    every coordinate-valued tensor f32 (CoordAttention's update,
+    NodeFeedForward's coordinate half, the coordinate head), as are the
+    rep conditioning, the projectors, the returned coordinates and logits,
+    the parameters and their gradients; f32 compute leaves it all f32."""
+    kw = dict(SEMLA_TINY, cond_type=cond_type)
+    inputs = {k: torch.from_numpy(v) for k, v in semla_inputs(kw).items()}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = semla.SemlaGenerator(**kw, compute_dtype=dtype).initialize_weights(
+            torch.Generator().manual_seed(0))
+        seen = {}
+
+        def hook(name):
+            def record(module, args, out):
+                seen.setdefault(name, set()).update(
+                    t.dtype for t in (out if isinstance(out, tuple) else (out,))
+                    if isinstance(t, torch.Tensor))
+            return record
+
+        for name, cls in (("coord_attn", semla.CoordAttention),
+                          ("messages", semla.EdgeMessages),
+                          ("node_attn", semla.NodeAttention),
+                          ("rep_cond", semla.RepConditioner)):
+            for m in model.modules():
+                if isinstance(m, cls):
+                    m.register_forward_hook(hook(name))
+        def ff_hook(module, args, out):
+            seen.setdefault("ff_coords", set()).add(out[0].dtype)
+            seen.setdefault("ff_nodes", set()).add(out[1].dtype)
+
+        for m in model.modules():
+            if isinstance(m, semla.NodeFeedForward):
+                m.register_forward_hook(ff_hook)
+        model.dynamics.coord_head.register_forward_hook(hook("coord_head"))
+        coords, types, bonds, charges, zs = model(**inputs)
+        low = {dtype}
+        assert seen["coord_attn"] == seen["ff_coords"] == seen["coord_head"] == {torch.float32}
+        assert seen["messages"] == seen["node_attn"] == seen["ff_nodes"] == low
+        if cond_type != "none":
+            assert seen["rep_cond"] == {torch.float32}
+        assert all(t.dtype == torch.float32 for t in (coords, types, bonds, charges, *zs))
+        loss = coords.square().sum() + types.sum() + sum(z.sum() for z in zs)
+        loss.backward()
+        assert all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype ==
+                                                 torch.float32) for p in model.parameters())
+        assert torch.isfinite(coords).all() and torch.isfinite(types).all()

@@ -4,7 +4,8 @@ reed_tpu resolves; train-molecule-semla on synthetic batches with
 --ckpt-dir (save, then resume), on a fabricated .rsmol dataset with
 reps.npy, and from a reference checkpoint; eval-semla from the run's EMA
 with --out files and from --ref-ckpt; the refused architectures and
-dtypes."""
+dtypes, and training in mixed precision; the gates' configurations
+(f32 chains and the bf16 templates record) and tiny runs."""
 
 import dataclasses
 import json
@@ -122,6 +123,15 @@ def test_ref_ckpt_warm_start_and_eval(tmp_path, capsys):
 
 @pytest.mark.parametrize("override", ["compute_dtype=bfloat16", "arch=egnn", "arch=eqgat"])
 def test_refused_configurations(override):
+    if override == "compute_dtype=bfloat16":
+        # mixed precision is ported: training runs in it, and a dtype the
+        # port does not compute in is refused
+        state = cli.main(["train-molecule-semla", "--set", override, "--steps", "1", *TINY])
+        assert state.step == 1
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            cli.main(["train-molecule-semla", "--set", "compute_dtype=float16", "--steps",
+                      "1", *TINY])
+        return
     for cmd in ("train-molecule-semla", "eval-semla"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main([cmd, "--set", override, "--steps" if cmd[0] == "t" else "--num-steps",
@@ -164,3 +174,36 @@ def test_gate_runs_tiny(tmp_path):
     assert run["seed"] == 0 and len(run["loss_curve"]) == 2
     assert result["median_final_ema"]["validity"] == run["final_ema"]["validity"]
     assert result["pass"] == (run["final_ema"]["validity"] >= 0.95)
+
+
+def test_bf16_gate_is_the_bf16_record(tmp_path):
+    """--templates is the configuration of CONVERGENCE_SEMLA_BF16.json (the
+    JAX tool of commit c76e714: the templates family, no reps, constant lr,
+    no coordinate or categorical noise, type loss weight 1, 3,000 steps),
+    and --dtype bfloat16 runs it in mixed precision under the f32 gate's
+    rule."""
+    from reed_tpu_torch.data.synthetic import MOLECULE_TEMPLATES
+    from reed_tpu_torch.tools import convergence_semla as gate
+
+    with open(os.path.join(os.path.dirname(RECIPE), "..", "CONVERGENCE_SEMLA_BF16.json")) as f:
+        record = json.load(f)
+    rec = record["config"]
+    cfg = gate.gate_config(templates=True, dtype="bfloat16")
+    assert (cfg.batch_size, cfg.d_model, cfg.n_layers, cfg.n_coord_sets, cfg.optim.lr,
+            cfg.integrator.steps, cfg.compute_dtype) == (
+        rec["batch_size"], rec["d_model"], rec["layers"], rec["coord_sets"], rec["lr"],
+        rec["integrator_steps"], rec["dtype"])
+    assert gate.TEMPLATE_STEPS == record["steps"]
+    assert (cfg.d_rep, cfg.rep_alignment, cfg.optim.schedule, cfg.optim.grad_clip,
+            cfg.interpolant.coord_noise_std, cfg.integrator.cat_noise_level,
+            cfg.type_loss_weight, cfg.curriculum.ema_decay) == (
+        None, False, "constant", 1.0, 0.0, 0.0, 1.0, 0.995)
+    data = gate.GateData(templates=True)
+    assert data.family is MOLECULE_TEMPLATES and data.coord_std == 1.0
+    assert "rep" not in data.batch(3)
+    out = tmp_path / "b.json"
+    result = gate.main(["--tiny", "--templates", "--dtype", "bfloat16", "--device", "cpu",
+                        "--steps", "4", "--integrator-steps", "3", "--n-eval", "8",
+                        "--workers", "0", "--out", str(out)])
+    assert result["config"]["dtype"] == "bfloat16" and result["config"]["family"] == "templates"
+    assert "bonds from distances" in result["metric"] and result["bar"] == 0.95
