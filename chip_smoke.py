@@ -128,7 +128,22 @@ no result):
      from a checkpoint written in the reference LatentDiffusion layout, as
      subprocesses. K1 launches 0 times on these paths, K2a and K2b only on
      the protein one.
-  12. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  12. MultiFlow SE(3) codesign (slice 12, `multiflow_phases`):
+     MultiflowTrainConfig's full width (c_s 256, c_z 128, 6 blocks, IPA 8
+     heads with 8 query/key and 12 value points, 2 sequence-transformer
+     layers a block) at tools/bench_domains.py's 8 x 128 residues: one
+     FlowModel forward on the card against the CPU on 2 rows (f32 with TF32
+     off, each output to 1e-4 of its max, f64 beside it; the init moved by
+     N(0, 0.02), backbone updates N(0, 0.002)); the main path,
+     `MultiflowTrainer.train_step`, 20 timed steps in f32 and in bf16 (ms a
+     step by wall and by CUDA events, residues/s, peak memory) with a
+     profile by kernel family; a 200-step learning check on the MultiFlow
+     gate's helices in f32 and in bf16 (mean denoising loss of steps
+     180-199 below 2.0); `train-multiflow --steps 3` and `eval-multiflow`
+     (4 x 64 residues, 10 steps, PDB files parsed back) as subprocesses;
+     the MultiFlow step's resume with its control. No TPU kernel is on
+     these paths: K1, K2a and K2b must launch 0 times.
+  13. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training; K2a and K2b in f32
      on the protein paths and in bf16 on the bf16 protein training), the
@@ -171,8 +186,11 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.tools import (convergence_edm, convergence_image, convergence_semla,
-                                  seeded_weights)
+from reed_tpu_torch.diffusion import se3 as mf_se3
+from reed_tpu_torch.eval import protein_metrics as eval_protein_metrics
+from reed_tpu_torch.models import ipa as ipa_model
+from reed_tpu_torch.tools import (convergence_edm, convergence_image, convergence_multiflow,
+                                  convergence_semla, seeded_weights)
 from reed_tpu_torch.tools.convergence_protein import gate_config, rule_batch
 from reed_tpu_torch.tools.cuda_timing import cuda_ms, host_us, timed_in_turns
 from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
@@ -181,6 +199,7 @@ from reed_tpu_torch.train.protein import (ProteinTrainConfig, ProteinTrainer,
 from reed_tpu_torch.train import image as image_train
 from reed_tpu_torch.train import molecule_edm as edm_train
 from reed_tpu_torch.train import molecule_semla as semla_train
+from reed_tpu_torch.train import multiflow as mf_train
 from reed_tpu_torch.train import rdm as rdm_train
 from reed_tpu_torch.models import semla as semla_model
 
@@ -2692,6 +2711,236 @@ def precision_rdm_phases(smi, semla_f32, edm_f32):
     return launches
 
 
+# -- slice 12: MultiFlow SE(3) codesign (train-multiflow, eval-multiflow) ----
+
+# MultiflowTrainConfig's full width (c_s 256, c_z 128, 6 blocks; IPA 8 heads
+# x 16, 8 query/key and 12 value points; 2 sequence-transformer layers of 4
+# heads) at tools/bench_domains.py's shape, 8 chains of 128 residues
+MULTIFLOW = dict(batch=8, length=128, warmup_steps=2, timed_steps=20, profiled_steps=4,
+                 cpu_rows=2)
+MULTIFLOW_FWD_RTOL = 1e-4    # card vs CPU, f32 with TF32 off, each output
+# the checked weights: the init with every parameter moved by N(0, 0.02), so
+# that the zero-initialised layers (IPA linear_out, post_tfmr, the
+# transitions' linear_3) reach the output, and the backbone updates drawn
+# N(0, 0.002), so that six composed rigid updates stay well-conditioned
+MULTIFLOW_MOVE = 0.02
+MULTIFLOW_BB_STD = 0.002
+MULTIFLOW_LEARN_STEPS = 200
+MULTIFLOW_LEARN_LOSS_MAX = 2.0
+MULTIFLOW_EVAL = dict(num_samples=4, length=64, num_steps=10)  # eval-multiflow, cut from 100
+
+
+def seeded_flow_model(cfg, seed=9):
+    """MultiflowTrainConfig's FlowModel on the card with the checked
+    weights (MULTIFLOW_MOVE, MULTIFLOW_BB_STD)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = mf_train.build_model(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "bb_update" in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * MULTIFLOW_BB_STD)
+            else:
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda") * MULTIFLOW_MOVE)
+    return model
+
+
+def multiflow_noisy_batch(trainer, seed):
+    """A corrupted synthetic batch (the trainer's schema, the batch-OT prior)
+    with zero self-conditioning, as the train step feeds the model."""
+    batch = trainer.synthetic_batch(np.random.default_rng(seed))
+    noisy = mf_se3.corrupt_batch(trainer.cfg.interpolant, batch,
+                                 generator=torch.Generator(device="cuda").manual_seed(seed))
+    noisy["trans_sc"] = torch.zeros_like(noisy["trans_t"])
+    noisy["aatypes_sc"] = F.one_hot(noisy["aatypes_t"], 21).float()
+    return noisy
+
+
+def multiflow_forward_phase(smi):
+    """One full-width FlowModel forward of 8 x 128 residues on the card
+    against a CPU copy (and f64 beside it) on the first 2 rows, f32 with TF32
+    off: each output to 1e-4 of its max."""
+    cfg = mf_train.MultiflowTrainConfig(batch_size=MULTIFLOW["batch"],
+                                        max_len=MULTIFLOW["length"])
+    trainer = mf_train.MultiflowTrainer(cfg, device="cuda")
+    model = seeded_flow_model(cfg).eval()
+    noisy = multiflow_noisy_batch(trainer, 3)
+    rows = MULTIFLOW["cpu_rows"]
+    with torch.no_grad():
+        out = model(noisy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(noisy)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = copy.deepcopy(model).cpu()
+        sub = {k: v[:rows].cpu() for k, v in noisy.items()}
+        t0 = time.perf_counter()
+        ref = cpu(sub)
+        cpu_s = time.perf_counter() - t0
+        cpu64 = ipa_model.FlowModel(
+            c_s=cfg.c_s, c_z=cfg.c_z, num_blocks=cfg.num_blocks, ipa_c_hidden=cfg.ipa_c_hidden,
+            ipa_no_heads=cfg.ipa_no_heads, ipa_no_qk_points=cfg.ipa_no_qk_points,
+            ipa_no_v_points=cfg.ipa_no_v_points, seq_tfmr_num_layers=cfg.seq_tfmr_num_layers,
+            compute_dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        cpu64.double()
+        ref64 = cpu64({k: v.double() if v.is_floating_point() else v for k, v in sub.items()})
+    errs = {k: rel_err(out[k][:rows], ref[k]) for k in ref}
+    errs64 = {k: rel_err(ref[k], ref64[k]) for k in ref}
+    fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())  # noqa: E731
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[multiflow] full-width FlowModel (c_s {cfg.c_s}, c_z {cfg.c_z}, {cfg.num_blocks} "
+        f"blocks, {n_params / 1e6:.2f} M parameters; init moved by N(0, {MULTIFLOW_MOVE}), "
+        f"backbone updates N(0, {MULTIFLOW_BB_STD})), f32 TF32 off, batch "
+        f"{cfg.batch_size} x {cfg.max_len}: card {card_ms:.1f} ms a forward; card vs CPU on "
+        f"{rows} rows max abs err / max |out| {fmt(errs)} (rtol {MULTIFLOW_FWD_RTOL}); CPU f32 "
+        f"vs f64 {fmt(errs64)}; CPU {cpu_s:.1f} s ({smi})")
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError("FlowModel: non-finite output on the card")
+    if not all(v <= MULTIFLOW_FWD_RTOL for v in errs.values()):
+        raise AssertionError(f"FlowModel card vs CPU: {errs}")
+
+
+def multiflow_train_phase(smi, dtype):
+    """The main path: MultiflowTrainer.train_step at full width, 8 x 128
+    residues, in `dtype`; ms a step (wall and device), residues/s, peak
+    memory, launches, idle share and a profile by kernel family. K1, K2a
+    and K2b must launch 0 times in the timed steps."""
+    cfg = mf_train.MultiflowTrainConfig(batch_size=MULTIFLOW["batch"],
+                                        max_len=MULTIFLOW["length"], compute_dtype=dtype)
+    trainer = mf_train.MultiflowTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    t0 = time.perf_counter()
+    batch = trainer.synthetic_batch(np.random.default_rng(1))
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    n, steps = cfg.batch_size * cfg.max_len, MULTIFLOW["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MULTIFLOW["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernel_launches = (fa.launches, fm.launches, fm.backward_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, event_ms = 1e3 * seconds / steps, start.elapsed_time(end) / steps
+    log(f"[multiflow] MultiflowTrainer.train_step, full width, {dtype}, batch "
+        f"{cfg.batch_size} x {cfg.max_len} (batch-OT prior, host {host_ms:.1f} ms a batch): "
+        f"{steps} steps {wall_ms:.3f} ms per step (wall, after a sync), {event_ms:.3f} ms "
+        f"(CUDA events), {n * steps / seconds:.1f} residues/s; peak memory {peak_gb:.2f} GB; "
+        f"K1/K2a/K2b launches {kernel_launches}; last loss {metrics['loss'].item():.6g}, "
+        f"grad_norm {metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite MultiFlow train metrics {metrics}")
+    if any(kernel_launches):
+        raise AssertionError(f"a TPU-kernel port ran on the MultiFlow path: {kernel_launches}")
+    k = MULTIFLOW["profiled_steps"]
+
+    def k_steps():
+        nonlocal state
+        for _ in range(k):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile(f"{k} MultiFlow train steps ({dtype})", k_steps, smi, top=12)
+    busy = prof["busy_ms"] / k
+    log(f"[multiflow] {dtype} per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall ({wall_ms:.3f} ms), "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled one")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+
+def multiflow_learning_phase(smi, dtype):
+    """200 steps of the MultiFlow gate (seed 0, its helices and
+    configuration) in `dtype`: the mean denoising loss of steps 180-199 must
+    fall below 2.0."""
+    gcfg = convergence_multiflow.gate_config(seed=0, dtype=dtype)
+    trainer = mf_train.MultiflowTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(MULTIFLOW_LEARN_STEPS):
+        batch = convergence_multiflow.gate_batch(step, gcfg.batch_size, gcfg.max_len, "cuda")
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    seconds = time.perf_counter() - t0
+    late = sum(losses[-20:]) / 20
+    log(f"[multiflow] learning check, gate config ({dtype}, c_s {gcfg.c_s}, c_z {gcfg.c_z}, "
+        f"{gcfg.num_blocks} blocks, batch {gcfg.batch_size} x {gcfg.max_len} helices): "
+        f"denoising loss step 0 {losses[0]:.4f}, step 100 {losses[100]:.4f}, mean of steps "
+        f"{MULTIFLOW_LEARN_STEPS - 20}-{MULTIFLOW_LEARN_STEPS - 1} {late:.4f} (must be < "
+        f"{MULTIFLOW_LEARN_LOSS_MAX}; JAX on a TPU: 8.11 at step 0, 1.11 at step 200); "
+        f"{1e3 * seconds / MULTIFLOW_LEARN_STEPS:.3f} ms per step, host batches inline ({smi})")
+    if not late < MULTIFLOW_LEARN_LOSS_MAX:
+        raise AssertionError(f"the MultiFlow loss did not fall ({dtype}): {losses[0]} -> {late}")
+
+
+def multiflow_cli_phase(tmp, smi):
+    """train-multiflow --synthetic --steps 3 with a checkpoint and
+    eval-multiflow from its EMA (4 samples x 64 residues, 10 steps, PDB
+    files parsed back) as subprocesses at full width; then the MultiFlow
+    step's resume (bitwise, or within 10x a repeated run) with its control."""
+    run, out = f"{tmp}/multiflow", f"{tmp}/multiflow_pdb"
+    text = run_cli(["train-multiflow", "--synthetic", "--steps", "3", "--log-every", "1",
+                    "--ckpt-dir", run, "--ckpt-every", "3"], "train-multiflow --steps 3")
+    rate = [line for line in text.splitlines() if "steps after the first" in line]
+    log(f"[multiflow] {rate[-1] if rate else text.splitlines()[-1]}")
+    if "3.pt" not in os.listdir(run):
+        raise AssertionError(f"train-multiflow wrote {os.listdir(run)}")
+    ev = MULTIFLOW_EVAL
+    text = run_cli(["eval-multiflow", "--ckpt-dir", run, "--num-samples",
+                    str(ev["num_samples"]), "--length", str(ev["length"]), "--num-steps",
+                    str(ev["num_steps"]), "--out", out], "eval-multiflow")
+    summary = json.loads(text[text.rindex("\n{\n") + 1:])
+    speed = next(line for line in text.splitlines() if "ms per sampler step" in line)
+    backbones = [eval_protein_metrics.parse_pdb_backbone(r["pdb"]) for r in summary["samples"]]
+    log(f"[multiflow] eval-multiflow (EMA of step 3, {ev['num_samples']} x {ev['length']} "
+        f"residues, {ev['num_steps']} steps): {speed}; {len(backbones)} PDB files read back "
+        f"{[b.shape for b in backbones]}; mean {summary['mean']} (3 training steps) ({smi})")
+    if ("loaded EMA weights of step 3" not in text or len(backbones) != ev["num_samples"]
+            or any(b.shape != (ev["length"], 4, 3) or not np.isfinite(b).all()
+                   for b in backbones)):
+        raise AssertionError(f"eval-multiflow:\n{text[-2000:]}")
+    cfg = mf_train.MultiflowTrainConfig()
+    make = lambda: mf_train.MultiflowTrainer(cfg, device="cuda")  # noqa: E731
+    probe = make()
+    batches = [probe.synthetic_batch(np.random.default_rng(90 + i)) for i in range(4)]
+    del probe
+    # the control's restore leaves the training draws (t, IGSO3 noise, masks)
+    # at their start
+    resume_check("MultiFlow", make, batches, tmp, control=True)
+
+
+def multiflow_phases(smi):
+    """Slice 12's phases. K1, K2a and K2b must launch 0 times on them."""
+    t0 = time.perf_counter()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    multiflow_forward_phase(smi)
+    for dtype in ("float32", "bfloat16"):
+        multiflow_train_phase(smi, dtype)
+    for dtype in ("float32", "bfloat16"):
+        multiflow_learning_phase(smi, dtype)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        multiflow_cli_phase(tmp, smi)
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    log(f"[multiflow] slice 12 phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b "
+        f"launches on the MultiFlow paths {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the MultiFlow paths: {counts}")
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -2720,6 +2969,7 @@ def main():
     semla_f32 = molecule_phases(smi)
     edm_f32 = edm_phases(smi)
     bf16_launches = precision_rdm_phases(smi, semla_f32, edm_f32)
+    multiflow_phases(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),

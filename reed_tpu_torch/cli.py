@@ -25,6 +25,11 @@
       [--rdm-ref-ckpt rdm.ckpt] [--out mols/]
   python -m reed_tpu_torch.cli train-rdm --steps 100 --synthetic [--data-dir reps/] \\
       [--ckpt-dir out/rdm --ckpt-every 1000]
+  python -m reed_tpu_torch.cli train-multiflow --steps 100 --synthetic [--data-dir pdbs/] \\
+      [--ref-ckpt last.ckpt] [--ckpt-dir out/mf --ckpt-every 1000] \\
+      [--set compute_dtype=bfloat16]
+  python -m reed_tpu_torch.cli eval-multiflow --num-samples 4 --length 64 \\
+      --num-steps 100 [--ckpt-dir out/mf | --ref-ckpt last.ckpt] [--out pdbs_out/]
 
 Runs on CUDA unless `--device cpu` is given. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
@@ -49,8 +54,12 @@ batch 64, Adam lr 1e-4, f32. train-rdm uses its RDM default
 (RDMTrainConfig): SimpleMLP over 256-d reps, width 1536 x 18 blocks,
 atom-count classes up to 256, x0-parameterised DDPM over T = 1000, AdamW
 lr 1e-4 with weight decay 0.005 and a cosine decay, batch 128, f32.
-`--set compute_dtype=bfloat16` trains the protein, SemlaFlow and EDM
-models in bf16 with f32 master weights.
+train-multiflow and eval-multiflow use its MultiFlow default
+(MultiflowTrainConfig): the IPA trunk at c_s 256, c_z 128, 6 blocks (IPA 8
+heads, 8 query/key and 12 value points), a 2-layer sequence transformer a
+block, batch 4 x max_len 128, the batch-OT translation prior, Adam lr
+1e-4, f32. `--set compute_dtype=bfloat16` trains the protein, SemlaFlow,
+EDM and MultiFlow models in bf16 with f32 master weights.
 """
 
 from __future__ import annotations
@@ -951,6 +960,127 @@ def train_rdm(args):
     return state
 
 
+def _multiflow_ref_ckpt(model, path, cfg):
+    """Load a reference torch MultiFlow / Lightning checkpoint into `model`;
+    its widths must be the configuration's (set them with --set)."""
+    from reed_tpu_torch.encoders.multiflow_convert import load_reference_checkpoint
+
+    sd, widths = load_reference_checkpoint(path)
+    wrong = {k: (v, getattr(cfg, k)) for k, v in widths.items() if getattr(cfg, k) != v}
+    if wrong:
+        raise ValueError(f"{path}: widths (checkpoint, config) {wrong}; set them with --set")
+    model.load_state_dict(sd)
+
+
+def train_multiflow(args):
+    """Train MultiFlow SE(3) codesign on synthetic batches (reed_tpu's
+    synthetic_batch schema, numpy seed i for batch i) or on the .pdb/.cif
+    chains under --data-dir (shuffled epochs cropped or padded to
+    max_len), with the batch-OT prior coupled on the host where the
+    interpolant asks for it, logging `[step N] {...}` every --log-every
+    steps, then the rate of the steps after the first in residues/s."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.train.multiflow import (MultiflowTrainConfig, MultiflowTrainer,
+                                                batch_to_device)
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(MultiflowTrainConfig, args,
+                       {"batch_size": args.batch_size, "seed": args.seed,
+                        "optim": {"lr": args.lr} if args.lr is not None else None})
+    trainer = MultiflowTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if args.ref_ckpt:
+        _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        print(f"warm-started from reference checkpoint {args.ref_ckpt}")
+
+    if args.synthetic or not args.data_dir:
+        def batches():
+            i = 0
+            while True:
+                yield trainer.synthetic_batch(np.random.default_rng(i))
+                i += 1
+    else:
+        from reed_tpu_torch.data.protein import load_multiflow_entries, multiflow_epoch_batches
+
+        entries = load_multiflow_entries(args.data_dir)
+        if not entries:
+            raise FileNotFoundError(f"no .pdb/.cif chains found in {args.data_dir}")
+        print(f"loaded {len(entries)} chains from {args.data_dir}")
+
+        def batches():
+            epoch = 0
+            while True:
+                rng = np.random.default_rng(cfg.seed + epoch)
+                for batch in multiflow_epoch_batches(
+                        args.data_dir, cfg.batch_size, rng, max_len=cfg.max_len,
+                        entries=entries, trans_batch_ot=cfg.interpolant.trans_batch_ot,
+                        trans_scale=cfg.interpolant.trans_scale):
+                    yield batch_to_device(batch, device)
+                epoch += 1
+
+    return _run_loop(trainer, state, batches(), args,
+                     lambda b: int(b["res_mask"].sum().item()), cfg,
+                     f"train-multiflow {cfg.compute_dtype} ({device})", "residues")
+
+
+def eval_multiflow(args):
+    """Sample --num-samples backbones and sequences of --length residues
+    from the latest checkpoint's EMA under --ckpt-dir (or a reference
+    checkpoint, or the seeded initial weights) by --num-steps Euler steps,
+    write them as PDB files under --out and report the backbone geometry
+    (reference: multiflow/experiments/inference_se3_flows.py; folding
+    designability needs an external folding tool, eval.protein_metrics.
+    FoldingModel). Prints ms per sampler step, then reed_tpu's JSON."""
+    from reed_tpu_torch.eval.protein_metrics import (backbone_geometry_report,
+                                                     write_pdb_backbone)
+    from reed_tpu_torch.ops.residue_constants import RESTYPES, to_atom37
+    from reed_tpu_torch.train.multiflow import (MultiflowTrainConfig, MultiflowTrainer,
+                                                build_model)
+
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(MultiflowTrainConfig, args, {"seed": args.seed})
+    trainer = MultiflowTrainer(cfg, device=device)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
+    if args.ref_ckpt:
+        _multiflow_ref_ckpt(model, args.ref_ckpt, cfg)
+        print(f"loaded reference torch checkpoint {args.ref_ckpt}")
+    elif args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
+    model.eval()
+
+    steps = args.num_steps or cfg.interpolant.num_timesteps
+    # one untimed 2-step sample first: the first calls set up the device's
+    # libraries, which is not sampling time
+    trainer.sample(model, 1, args.length, num_timesteps=2,
+                   generator=torch.Generator(device=device).manual_seed(cfg.seed))
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = trainer.sample(model, args.num_samples, args.length, num_timesteps=steps,
+                         generator=torch.Generator(device=device).manual_seed(cfg.seed))
+    atom37 = to_atom37(out["trans"], out["rotmats"]).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    aatypes = out["aatypes"].cpu().numpy()
+    print(f"{1e3 * seconds / steps:.3f} ms per sampler step ({args.num_samples} x "
+          f"{args.length} residues, {steps} model calls, after a 2-step warm-up, {device})")
+
+    reports = []
+    out_dir = args.out or "out/multiflow_samples"
+    for i in range(args.num_samples):
+        rep = backbone_geometry_report(atom37[i])
+        rep["pdb"] = write_pdb_backbone(os.path.join(out_dir, f"sample_{i}.pdb"), atom37[i],
+                                        aatypes=aatypes[i])
+        rep["sequence"] = "".join(RESTYPES[int(t)] if 0 <= int(t) < 20 else "X"
+                                  for t in aatypes[i])
+        reports.append(rep)
+    mean = {k: float(np.mean([r[k] for r in reports]))
+            for k in ("ca_ca_dist_mean", "radius_of_gyration", "ca_clash_fraction")}
+    result = {"mean": mean, "samples": reports}
+    print(json.dumps(result, indent=2))
+    return result
+
+
 def _add_config(p, what):
     p.add_argument("--config", default=None,
                    help=f"JSON {what} tree (full or partial), e.g. a file of recipes/")
@@ -1173,6 +1303,31 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
     p.set_defaults(fn=eval_molecule)
+
+    p = sub.add_parser("train-multiflow")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: the config's 4")
+    p.add_argument("--data-dir", default=None,
+                   help="a directory of .pdb/.cif chains; trains on them")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="warm-start from a reference torch MultiFlow / Lightning checkpoint "
+                        "(widths via --set)")
+    _add_training(p)
+    _add_config(p, "MultiflowTrainConfig")
+    p.set_defaults(fn=train_multiflow)
+
+    p = sub.add_parser("eval-multiflow")
+    p.add_argument("--num-samples", type=int, default=4)
+    p.add_argument("--length", type=int, default=64)
+    p.add_argument("--num-steps", type=int, default=100)
+    p.add_argument("--out", default=None, help="PDB output directory")
+    p.add_argument("--ref-ckpt", default=None,
+                   help="reference torch MultiFlow / Lightning checkpoint (widths via --set)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this run's latest checkpoint")
+    p.add_argument("--seed", type=int, default=None)
+    _add_config(p, "MultiflowTrainConfig")
+    p.set_defaults(fn=eval_multiflow)
 
     args = parser.parse_args(argv)
     return args.fn(args)

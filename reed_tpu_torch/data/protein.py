@@ -1,10 +1,14 @@
-"""Protein (fmif) data pipeline: PDB cluster splits, chain loading with AF3
-embeddings, and fixed-bucket token-budget batching.
+"""Protein data pipelines. Counterpart of reed_tpu/data/protein.py (numpy;
+the reference's per-chain .pt files are read with torch.load).
 
-Counterpart of the inverse-folding half of reed_tpu/data/protein.py
-(numpy; the reference's per-chain .pt files are read with torch.load).
-Lengths snap to a fixed bucket ladder, as in reed_tpu, so batches come in
-a few fixed shapes. The MultiFlow half is not ported yet.
+The inverse-folding (fmif) half: PDB cluster splits, chain loading with
+AF3 embeddings, and fixed-bucket token-budget batching; lengths snap to a
+fixed bucket ladder, as in reed_tpu, so batches come in a few fixed
+shapes. The MultiFlow half: .pdb/.cif chains -> backbone rigids, aatypes
+in AF2 order, and shuffled epochs of MultiflowTrainer batches, cropped or
+padded to max_len, with the batch-OT translation prior coupled here on
+the host where asked (reference: multiflow/data/pdb_dataloader.py,
+datasets.py).
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import csv
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -271,3 +275,145 @@ def synthetic_entries(rng: np.random.Generator, n: int = 16,
                 (length, repr_dims["structure"])).astype(np.float32)
         out.append(entry)
     return out
+
+
+# -- MultiFlow SE(3) codesign data (reference: multiflow/data/pdb_dataloader.py,
+#    datasets.py) -------------------------------------------------------------
+
+# AF2 canonical residue-type order (reference:
+# protein/multiflow/data/residue_constants.py restypes)
+AF2_RESTYPES = "ARNDCQEGHILKMFPSTWYV"
+AF2_RESTYPE_ORDER = {c: i for i, c in enumerate(AF2_RESTYPES)}
+AA3TO1 = {
+    "ALA": "A", "ARG": "R", "ASN": "N", "ASP": "D", "CYS": "C",
+    "GLN": "Q", "GLU": "E", "GLY": "G", "HIS": "H", "ILE": "I",
+    "LEU": "L", "LYS": "K", "MET": "M", "PHE": "F", "PRO": "P",
+    "SER": "S", "THR": "T", "TRP": "W", "TYR": "Y", "VAL": "V",
+}
+
+
+def rigids_from_backbone(bb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Backbone atoms [L, >=3, 3] (N, CA, C order) -> residue frames.
+
+    Gram-Schmidt construction of the AF2 backbone rigid group
+    (reference: multiflow/data/all_atom.py / openfold rigids_from_3_points):
+    e1 along CA->C, e2 the orthogonalized CA->N direction, origin at CA.
+    Returns (rotmats [L,3,3], trans [L,3])."""
+    n, ca, c = bb[:, 0], bb[:, 1], bb[:, 2]
+    v1 = c - ca
+    v2 = n - ca
+    e1 = v1 / (np.linalg.norm(v1, axis=-1, keepdims=True) + 1e-8)
+    u2 = v2 - (e1 * v2).sum(-1, keepdims=True) * e1
+    e2 = u2 / (np.linalg.norm(u2, axis=-1, keepdims=True) + 1e-8)
+    e3 = np.cross(e1, e2)
+    rotmats = np.stack([e1, e2, e3], axis=-1)  # columns = frame axes
+    return rotmats.astype(np.float32), ca.astype(np.float32)
+
+
+def parse_backbone_any(path: str) -> Tuple[np.ndarray, str]:
+    """PDB or mmCIF file -> (backbone [L,4,3] N/CA/C/O, sequence str)."""
+    if path.endswith((".cif", ".cif.gz")):
+        from reed_tpu_torch.eval.protein_metrics import parse_mmcif_backbone
+
+        return parse_mmcif_backbone(path)
+    atoms = {"N": 0, "CA": 1, "C": 2, "O": 3}
+    residues: Dict[int, np.ndarray] = {}
+    resnames: Dict[int, str] = {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("ATOM"):
+                continue
+            name = line[12:16].strip()
+            if name not in atoms:
+                continue
+            resi = int(line[22:26])
+            residues.setdefault(resi, np.full((4, 3), np.nan))[atoms[name]] \
+                = [float(line[30:38]), float(line[38:46]), float(line[46:54])]
+            resnames[resi] = line[17:20].strip()
+    keys = sorted(residues)
+    coords = (np.stack([residues[k] for k in keys]) if keys
+              else np.zeros((0, 4, 3)))
+    seq = "".join(AA3TO1.get(resnames[k], "X") for k in keys)
+    return coords, seq
+
+
+def load_multiflow_entries(data_dir: str,
+                           max_entries: Optional[int] = None) -> List[Dict]:
+    """Scan a directory of .pdb/.cif files into multiflow records:
+    {trans [L,3], rotmats [L,3,3], aatypes [L], name}. Residues with any
+    missing N/CA/C atom are dropped; translations are zero-centered
+    (reference: multiflow/data/datasets.py PdbDataset._process_csv_row)."""
+    entries = []
+    fnames = sorted(
+        f for f in os.listdir(data_dir)
+        if f.endswith((".pdb", ".cif")))
+    for fname in fnames:
+        bb, seq = parse_backbone_any(os.path.join(data_dir, fname))
+        if len(bb) == 0:
+            continue
+        ok = ~np.isnan(bb[:, :3]).any(axis=(1, 2))
+        bb, seq = bb[ok], "".join(s for s, m in zip(seq, ok) if m)
+        if len(bb) < 4:
+            continue
+        rotmats, trans = rigids_from_backbone(bb)
+        trans = trans - trans.mean(0, keepdims=True)
+        aatypes = np.array([AF2_RESTYPE_ORDER.get(s, 0) for s in seq],
+                           np.int32)
+        entries.append({"trans": trans, "rotmats": rotmats,
+                        "aatypes": aatypes, "name": fname})
+        if max_entries is not None and len(entries) >= max_entries:
+            break
+    return entries
+
+
+def multiflow_epoch_batches(data_dir: str, batch_size: int,
+                            rng: np.random.Generator, max_len: int = 128,
+                            entries: Optional[List[Dict]] = None,
+                            trans_batch_ot: bool = False,
+                            trans_scale: float = 10.0,
+                            ) -> Iterator[Dict[str, np.ndarray]]:
+    """One shuffled epoch of MultiflowTrainer-schema batches. Chains longer
+    than max_len are randomly cropped (contiguous window); shorter ones are
+    zero-padded with res_mask (reference: pdb_dataloader.py length batching).
+    With trans_batch_ot the coupled translation prior is computed here in
+    the input pipeline (reference couples on-device per batch,
+    multiflow/data/interpolant.py:88-107)."""
+    if entries is None:
+        entries = load_multiflow_entries(data_dir)
+    if not entries:
+        raise FileNotFoundError(f"no .pdb/.cif chains found in {data_dir}")
+    order = rng.permutation(len(entries))
+    for i in range(0, len(order), batch_size):
+        idx = order[i:i + batch_size]
+        if len(idx) < batch_size:  # pad-repeat to keep shapes static
+            idx = np.concatenate([idx, order[:batch_size - len(idx)]])
+        n = max_len
+        trans = np.zeros((batch_size, n, 3), np.float32)
+        rotmats = np.tile(np.eye(3, dtype=np.float32),
+                          (batch_size, n, 1, 1))
+        aatypes = np.zeros((batch_size, n), np.int32)
+        res_mask = np.zeros((batch_size, n), np.float32)
+        res_idx = np.tile(np.arange(n, dtype=np.int32), (batch_size, 1))
+        for j, e_i in enumerate(idx):
+            e = entries[e_i]
+            l = len(e["aatypes"])
+            if l > n:
+                start = int(rng.integers(0, l - n + 1))
+                sl = slice(start, start + n)
+                l = n
+            else:
+                sl = slice(0, l)
+            t = e["trans"][sl]
+            trans[j, :l] = t - t.mean(0, keepdims=True)
+            rotmats[j, :l] = e["rotmats"][sl]
+            aatypes[j, :l] = e["aatypes"][sl]
+            res_mask[j, :l] = 1.0
+        batch = {"trans_1": trans, "rotmats_1": rotmats,
+                 "aatypes_1": aatypes, "res_mask": res_mask,
+                 "res_idx": res_idx}
+        if trans_batch_ot:
+            from reed_tpu_torch.diffusion.se3 import batch_ot_trans_prior
+
+            batch["trans_0"] = batch_ot_trans_prior(rng, trans, res_mask,
+                                                    trans_scale)
+        yield batch

@@ -1,8 +1,8 @@
 """Synthetic data with a learnable rule, for convergence runs. The port's
 copy of reed_tpu/data/synthetic.py (numpy): the molecule families (rigid
 QM9 templates and the 1,089 decorated heavy-atom chains, each a rigid body
-under a random rotation), the protein rule batch and the RDM's
-class-conditional Gaussian reps. For one numpy seed
+under a random rotation), the protein rule batch, the MultiFlow ideal-helix
+codesign batch and the RDM's class-conditional Gaussian reps. For one numpy seed
 every function returns the same arrays as reed_tpu's."""
 
 from __future__ import annotations
@@ -296,6 +296,76 @@ def protein_rule_batch(rng: np.random.Generator, batch_size: int,
         "repr_single": np.zeros((batch_size, length, single_dim), np.float32),
         "repr_pair": np.zeros((batch_size, length, length, pair_dim), np.float32),
         "repr_structure": np.zeros((batch_size, length, structure_dim), np.float32),
+    }
+
+
+# --------------------------------------------------------------------------
+# Ideal-helix codesign rule (multiflow SE(3))
+# --------------------------------------------------------------------------
+
+HELIX_RADIUS = 2.3      # A: canonical alpha-helix Ca ring radius
+HELIX_RISE = 1.5        # A per residue
+HELIX_TURN = np.deg2rad(100.0)
+# consecutive Ca-Ca distance of the trace below:
+HELIX_CA_CA = float(np.sqrt((2 * HELIX_RADIUS
+                             * np.sin(HELIX_TURN / 2)) ** 2 + HELIX_RISE ** 2))
+
+
+def helix_ca_trace(length: int) -> np.ndarray:
+    """Canonical alpha-helix Ca trace [L,3], zero-CoM; consecutive Ca-Ca
+    distance HELIX_CA_CA ~= 3.85 A (the protein-backbone virtual bond)."""
+    i = np.arange(length, dtype=np.float32)
+    ca = np.stack([HELIX_RADIUS * np.cos(HELIX_TURN * i),
+                   HELIX_RADIUS * np.sin(HELIX_TURN * i),
+                   HELIX_RISE * i], axis=-1)
+    return (ca - ca.mean(axis=0, keepdims=True)).astype(np.float32)
+
+
+def frames_from_ca(ca: np.ndarray) -> np.ndarray:
+    """Gram-Schmidt backbone frames [L,3,3] from a Ca trace [L,3]: column 0
+    points along the chain, column 1 is the orthogonalized backward
+    direction, column 2 their cross product (det +1). Rotating the trace by
+    R rotates every frame by the same R, so the rule is SO(3)-equivariant —
+    a flow model scored on rotation loss can learn it exactly."""
+    nxt = np.roll(ca, -1, axis=0)
+    prv = np.roll(ca, 1, axis=0)
+    e1 = nxt - ca
+    e1 = e1 / np.linalg.norm(e1, axis=-1, keepdims=True)
+    v2 = prv - ca
+    v2 = v2 - (v2 * e1).sum(-1, keepdims=True) * e1
+    e2 = v2 / np.maximum(np.linalg.norm(v2, axis=-1, keepdims=True), 1e-8)
+    e3 = np.cross(e1, e2)
+    fr = np.stack([e1, e2, e3], axis=-1).astype(np.float32)
+    # chain ends have no valid (prv, nxt) pair — copy the adjacent interior
+    # frame (still a deterministic, equivariant function of the trace)
+    fr[0] = fr[1]
+    fr[-1] = fr[-2]
+    return fr
+
+
+def helix_codesign_batch(rng: np.random.Generator, batch_size: int,
+                         length: int) -> Dict[str, np.ndarray]:
+    """Randomly-rotated ideal helices with the deterministic residue rule
+    aatype[i] = i mod 20 — the learnable target for the multiflow SE(3)
+    codesign convergence run. A trained model must (a) place consecutive
+    Ca's HELIX_CA_CA apart and recover the helix shape to low Kabsch RMSD,
+    (b) read the sequence rule out of res_idx (recovery -> 1; untrained
+    ~1/20). Same keys as train/multiflow.MultiflowTrainer.synthetic_batch
+    (reference: multiflow/data/interpolant.py corrupt_batch inputs)."""
+    ca0 = helix_ca_trace(length)
+    fr0 = frames_from_ca(ca0)
+    rots = _random_rotations(rng, batch_size)
+    trans = np.einsum("bij,lj->bli", rots, ca0).astype(np.float32)
+    rotmats = np.einsum("bij,ljk->blik", rots, fr0).astype(np.float32)
+    aat = np.broadcast_to(np.arange(length) % 20, (batch_size, length))
+    return {
+        "trans_1": trans,
+        "rotmats_1": rotmats,
+        "aatypes_1": aat.astype(np.int64).copy(),
+        "res_mask": np.ones((batch_size, length), np.float32),
+        "res_idx": np.broadcast_to(
+            np.arange(length, dtype=np.int32)[None],
+            (batch_size, length)).copy(),
     }
 
 

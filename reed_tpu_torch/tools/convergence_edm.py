@@ -236,9 +236,11 @@ def merge(paths, out: str) -> dict:
     runs = sorted((r for p in parts for r in p["runs"]), key=lambda r: r["seed"])
     if len({r["seed"] for r in runs}) != len(runs) or len({p["steps"] for p in parts}) != 1:
         raise ValueError("the files repeat a seed or differ in steps")
+    def each(key):   # a file that is itself a merge holds lists
+        return [v for p in parts for v in (p[key] if isinstance(p[key], list) else [p[key]])]
+
     result = dict(parts[0], **verdict(runs, parts[0]["steps"]), runs=runs,
-                  wall_seconds=[p["wall_seconds"] for p in parts],
-                  command=[p["command"] for p in parts])
+                  wall_seconds=each("wall_seconds"), command=each("command"))
     with open(out, "w") as f:
         json.dump(result, f, indent=2)
     print(json.dumps({k: v for k, v in result.items() if k != "runs"}))

@@ -65,7 +65,11 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.eval.two_stage, reed_tpu_torch.tools.convergence_edm, "
             "reed_tpu_torch.models.rdm_mlp, reed_tpu_torch.diffusion.rdm, "
             "reed_tpu_torch.eval.rep_samplers, reed_tpu_torch.train.rdm, "
-            "reed_tpu_torch.encoders.rdm_convert, reed_tpu_torch.tools.convergence_rdm; "
+            "reed_tpu_torch.encoders.rdm_convert, reed_tpu_torch.tools.convergence_rdm, "
+            "reed_tpu_torch.ops.so3, reed_tpu_torch.ops.residue_constants, "
+            "reed_tpu_torch.diffusion.se3, reed_tpu_torch.models.ipa, "
+            "reed_tpu_torch.encoders.multiflow_convert, reed_tpu_torch.train.multiflow, "
+            "reed_tpu_torch.tools.convergence_multiflow; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")
