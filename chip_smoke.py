@@ -143,7 +143,28 @@ no result):
      (4 x 64 residues, 10 steps, PDB files parsed back) as subprocesses;
      the MultiFlow step's resume with its control. No TPU kernel is on
      these paths: K1, K2a and K2b must launch 0 times.
-  13. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  13. property guidance and the molecule eval stack (slice 13,
+     `property_phases`): PropertyTrainConfig's full-width classifier
+     (hidden 128 x 7, batch 96 x 29 atoms, biases moved by N(0, 0.02)): one
+     forward on the card against the CPU on 4 rows (1e-4 of the max, f32
+     with TF32 off, f64 beside it); the main path,
+     `PropertyTrainer.train_step`, 20 timed steps (ms a step by wall and by
+     CUDA events, molecules/s, peak memory) and a profile by kernel family;
+     a 200-step learning check on synthetic batches at five weight seeds
+     (median rule, bound from reed_tpu's CPU run of the same steps); ChemNet's activations (2 LSTMs of 512, MAX_LEN
+     350, batch 128) and the SNN product (13,083 x 1,000 fingerprints), each
+     on the card against the CPU, timed; `train-property --steps 3` (the
+     EGNN and --linear-probe) and `train-molecule-edm --set
+     context_node_nf=1 --steps 3` as subprocesses on a fabricated QM9
+     directory, then in this process `eval-conditional` with the trained
+     classifier (64 molecules, 50 steps): with --out from a conditioned
+     checkpoint of phase 10's well-conditioned seeded weights (.xyz files
+     and property_values.log read back, finite coordinates and MAE), and
+     with --sweep from the trained EDM run (whose init-scale samples are
+     NaN, as reed_tpu's); and `eval-molecule` with the directory's test
+     split (moses and midi present). No TPU kernel is on these paths: K1, K2a and K2b must launch
+     0 times.
+  14. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training; K2a and K2b in f32
      on the protein paths and in bf16 on the bf16 protein training), the
@@ -201,7 +222,9 @@ from reed_tpu_torch.train import molecule_edm as edm_train
 from reed_tpu_torch.train import molecule_semla as semla_train
 from reed_tpu_torch.train import multiflow as mf_train
 from reed_tpu_torch.train import rdm as rdm_train
+from reed_tpu_torch.train import property as property_train
 from reed_tpu_torch.models import semla as semla_model
+from reed_tpu_torch.eval import chemnet, molsets, visualize
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input
 # type. f32: the least time the card can take for f32-accurate products is
@@ -2941,6 +2964,394 @@ def multiflow_phases(smi):
         raise AssertionError(f"a TPU-kernel port ran on the MultiFlow paths: {counts}")
 
 
+# -- slice 13: property guidance and the molecule eval stack (train-property,
+# eval-conditional, eval-molecule's MOSES / MiDi block) ----------------------
+
+# PropertyTrainConfig's default: hidden 128 x 7 layers, batch 96 x 29 atoms
+PROPERTY = dict(warmup_steps=2, timed_steps=20, profiled_steps=4, cpu_rows=4)
+PROPERTY_FWD_RTOL = 1e-4     # card vs CPU, f32 with TF32 off
+PROPERTY_BIAS_STD = 0.02     # the biases moved off their zero init, so they take part
+# the learning check: fresh synthetic batches, hidden 32 x 3 layers, batch 32,
+# Adam lr 1e-3 on a cosine over the 200 steps, at the weight seeds 0-4 (one
+# seed is no verdict: the sum-pooled head's first loss ranges over 3-300
+# with the init). Rule: the median over the seeds of the mean L1 loss of
+# steps 180-199 below 0.3, twice reed_tpu's worst seed on the CPU (0.0877,
+# 0.1470, 0.0767, 0.0646, 0.0932 at seeds 0-4: tests/test_torch_property.py::
+# test_learning_bound_is_twice_reed_tpus_worst_seed, marked slow)
+PROPERTY_LEARN = dict(hidden_nf=32, n_layers=3, batch_size=32, steps=200, lr=1e-3,
+                      seeds=(0, 1, 2, 3, 4))
+PROPERTY_LEARN_LOSS_MAX = 0.3
+# eval-conditional at MoleculeEDMConfig's width with context_node_nf 1: 64
+# molecules a replicate, 50 steps (cut from T = 1000, as phase 10 cuts)
+COND_EVAL = dict(n_samples=64, num_steps=50)
+MOLECULE_EVAL = dict(batch=16, num_steps=50)   # eval-molecule with a test split
+# a fabricated QM9 directory: the train split (EDM npz with an alpha column),
+# reps.npy and sizes.npy beside it, and a test split in the .rsmol layout
+PROPERTY_DATA = dict(train=480, test=200, rep_nf=256)
+# the SNN product at QM9's test-split size (13,083 reference molecules) against
+# 1,000 generated ones, 1,024-bit fingerprints at a Morgan-like 5 % density;
+# ChemNet as FCD runs it: 2 stacked LSTMs of 512 over the 36-token one-hot at
+# MAX_LEN 350, a 512-d penultimate dense layer, batch 128
+SNN = dict(ref=13_083, gen=1_000, bits=1024, density=0.05)
+SNN_ATOL = 1e-6
+CHEMNET = dict(batch=128, hidden=512, layers=2, cpu_rows=4)
+CHEMNET_RTOL = 1e-4
+
+
+def property_learn_config(seed=0):
+    """The learning check's PropertyTrainConfig at weight seed `seed`
+    (PROPERTY_LEARN)."""
+    c = PROPERTY_LEARN
+    return property_train.PropertyTrainConfig(
+        hidden_nf=c["hidden_nf"], n_layers=c["n_layers"], batch_size=c["batch_size"],
+        seed=seed, optim=OptimConfig(lr=c["lr"], weight_decay=1e-16, schedule="cosine",
+                                     warmup_steps=0, total_steps=c["steps"]))
+
+
+def random_molecules(rng, n, n_min=9, n_max=29):
+    """n QM9-like (positions, types) pairs: branched random walks of 1.45 A
+    steps, types drawn from H, C, N, O, F."""
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(n_min, n_max + 1))
+        pos = np.zeros((k, 3))
+        for i in range(1, k):
+            step = rng.standard_normal(3)
+            pos[i] = pos[int(rng.integers(max(0, i - 3), i))] + 1.45 * step / np.linalg.norm(step)
+        out.append((pos.astype(np.float32), rng.choice([0, 1, 1, 1, 2, 3, 4], size=k)))
+    return out
+
+
+def write_property_data(root, seed=0):
+    """PROPERTY_DATA's fabricated QM9 directory under `root`."""
+    from reed_tpu_torch.data.molecule import save_dataset
+
+    rng = np.random.default_rng(seed)
+    n = PROPERTY_DATA["train"]
+    train = random_molecules(rng, n)
+    positions = np.zeros((n, 29, 3), np.float32)
+    charges = np.zeros((n, 29), np.int64)
+    for i, (pos, types) in enumerate(train):
+        positions[i, :len(pos)] = pos - pos.mean(0)
+        charges[i, :len(pos)] = np.array([1, 6, 7, 8, 9])[types]
+    num_atoms = np.array([len(p) for p, _ in train])
+    alpha = (3.0 * num_atoms + rng.standard_normal(n)).astype(np.float32)
+    np.savez(os.path.join(root, "train.npz"), positions=positions, charges=charges,
+             num_atoms=num_atoms, alpha=alpha)
+    np.save(os.path.join(root, "reps.npy"),
+            rng.standard_normal((n, PROPERTY_DATA["rep_nf"])).astype(np.float32))
+    np.save(os.path.join(root, "sizes.npy"), num_atoms)
+    test = molsets.geometric_mols_from_samples(
+        random_molecules(rng, PROPERTY_DATA["test"]), ["H", "C", "N", "O", "F"])
+    save_dataset(os.path.join(root, "test.rsmol.npz"), test)
+    return alpha
+
+
+def property_forward_phase(smi):
+    """One full-width PropertyClassifier forward (hidden 128 x 7, batch 96 x
+    29 atoms) on the card against a CPU copy (and f64 beside it) on its
+    first rows: to 1e-4 of the max."""
+    cfg = property_train.PropertyTrainConfig()
+    trainer = property_train.PropertyTrainer(cfg, device="cuda")
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(7))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = property_train.build_model(cfg, device="cuda", generator=gen).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda") * PROPERTY_BIAS_STD)
+    args = [batch[k] for k in ("one_hot", "positions", "node_mask", "edge_mask")]
+    rows = PROPERTY["cpu_rows"]
+    with torch.no_grad():
+        out = model(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(*args)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = copy.deepcopy(model).cpu()
+        ref = cpu(*[a[:rows].cpu() for a in args])
+        ref64 = copy.deepcopy(cpu).double()(*[a[:rows].cpu().double() for a in args])
+    err, err64 = rel_err(out[:rows], ref), rel_err(ref, ref64)
+    log(f"[property] full-width PropertyClassifier (hidden {cfg.hidden_nf} x {cfg.n_layers} "
+        f"layers, attention; biases N(0, {PROPERTY_BIAS_STD})), f32 TF32 off, batch "
+        f"{cfg.batch_size} x {cfg.max_nodes} atoms: card {card_ms:.2f} ms a forward; card vs "
+        f"CPU on {rows} rows max abs err / max |out| {err:.3g} (rtol {PROPERTY_FWD_RTOL}), CPU "
+        f"f32 vs f64 {err64:.3g}, max |out| {ref64.abs().max().item():.4g} ({smi})")
+    if not (torch.isfinite(out).all() and err <= PROPERTY_FWD_RTOL):
+        raise AssertionError(f"PropertyClassifier card vs CPU: {err}")
+
+
+def property_train_phase(smi):
+    """The main path: PropertyTrainer.train_step at full width, batch 96 x 29
+    atoms; ms a step (wall and device), molecules/s, launches, idle share,
+    peak memory and a profile by kernel family."""
+    cfg = property_train.PropertyTrainConfig()
+    trainer = property_train.PropertyTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+    n, steps = cfg.batch_size, PROPERTY["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PROPERTY["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernel_launches = (fa.launches, fm.launches, fm.backward_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms, event_ms = 1e3 * seconds / steps, start.elapsed_time(end) / steps
+    log(f"[property] PropertyTrainer.train_step, full width (hidden {cfg.hidden_nf} x "
+        f"{cfg.n_layers}), f32, batch {n} x {cfg.max_nodes} atoms: {steps} steps "
+        f"{wall_ms:.3f} ms per step (wall, after a sync), {event_ms:.3f} ms (CUDA events), "
+        f"{n * steps / seconds:.1f} molecules/s; peak memory {peak_gb:.2f} GB; K1/K2a/K2b "
+        f"launches {kernel_launches}; last loss {metrics['loss'].item():.6g}, grad_norm "
+        f"{metrics['grad_norm'].item():.4g} ({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite property train metrics {metrics}")
+    if any(kernel_launches):
+        raise AssertionError(f"a TPU-kernel port ran on the property path: {kernel_launches}")
+    k = PROPERTY["profiled_steps"]
+
+    def k_steps():
+        nonlocal state
+        for _ in range(k):
+            state, _ = trainer.train_step(state, batch)
+
+    prof = profile(f"{k} property train steps", k_steps, smi, top=10)
+    busy = prof["busy_ms"] / k
+    log(f"[property] per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall ({wall_ms:.3f} ms), "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled one")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+
+def property_learning_phase(smi):
+    """PROPERTY_LEARN's 200 steps on fresh synthetic batches (batch i from
+    seed i) at each weight seed: the median over the seeds of the mean L1
+    loss of steps 180-199 must fall below PROPERTY_LEARN_LOSS_MAX."""
+    lates, firsts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for seed in PROPERTY_LEARN["seeds"]:
+        trainer = property_train.PropertyTrainer(property_learn_config(seed), device="cuda")
+        state = trainer.init_state()
+        losses = []
+        for i in range(PROPERTY_LEARN["steps"]):
+            batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(i))
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(metrics["loss"])
+        losses = [x.item() for x in losses]
+        firsts.append(losses[0])
+        lates.append(sum(losses[-20:]) / 20)
+    seconds = time.perf_counter() - t0
+    median = float(np.median(lates))
+    cfg = property_learn_config()
+    log(f"[property] learning check (hidden {cfg.hidden_nf} x {cfg.n_layers}, batch "
+        f"{cfg.batch_size}, cosine lr {cfg.optim.lr}, {PROPERTY_LEARN['steps']} steps) at "
+        f"seeds {list(PROPERTY_LEARN['seeds'])}: L1 loss step 0 "
+        f"{', '.join(f'{x:.4g}' for x in firsts)}; mean of steps 180-199 "
+        f"{', '.join(f'{x:.4f}' for x in lates)}, median {median:.4f} (must be < "
+        f"{PROPERTY_LEARN_LOSS_MAX}; reed_tpu on the CPU: median 0.0877, worst 0.1470); "
+        f"{1e3 * seconds / (len(lates) * PROPERTY_LEARN['steps']):.3f} ms per step ({smi})")
+    if not median < PROPERTY_LEARN_LOSS_MAX:
+        raise AssertionError(f"the property loss did not fall: {firsts} -> {lates}")
+
+
+def chemnet_params(gen):
+    """CHEMNET's weights in nn.LSTM's layout and init (uniform on
+    +-1/sqrt(hidden)), and the dense layer, from `gen` (CPU)."""
+    h, bound = CHEMNET["hidden"], CHEMNET["hidden"] ** -0.5
+    draw = lambda *shape: (torch.rand(shape, generator=gen) * 2 - 1) * bound  # noqa: E731
+    sd = {}
+    for k in range(CHEMNET["layers"]):
+        d_in = chemnet.VOCAB_SIZE if k == 0 else h
+        sd.update({f"lstm.weight_ih_l{k}": draw(4 * h, d_in),
+                   f"lstm.weight_hh_l{k}": draw(4 * h, h),
+                   f"lstm.bias_ih_l{k}": draw(4 * h), f"lstm.bias_hh_l{k}": draw(4 * h)})
+    sd["dense.weight"], sd["dense.bias"] = draw(h, h), draw(h)
+    return chemnet.convert_torch_chemnet(sd)
+
+
+def chemnet_snn_phase(smi):
+    """ChemNet's activations of a batch of 128 SMILES at MAX_LEN 350 and the
+    SNN Tanimoto product (13,083 x 1,000 fingerprints), each on the card
+    against the CPU, timed."""
+    rng = np.random.default_rng(3)
+    alphabet = ["C", "C", "C", "c", "N", "O", "(", ")", "=", "1", "2", "F", "Cl", "[nH]"]
+    smiles = ["".join(rng.choice(alphabet, size=int(rng.integers(10, 60))))
+              for _ in range(CHEMNET["batch"])]
+    params = chemnet_params(torch.Generator().manual_seed(11))
+    cuda_params = {"lstm": [{k: v.cuda() for k, v in layer.items()}
+                            for layer in params["lstm"]],
+                   "dense": {k: v.cuda() for k, v in params["dense"].items()}}
+    one_hot = torch.from_numpy(chemnet.one_hot_smiles(smiles))
+    oh = one_hot.cuda()
+    acts = chemnet.chemnet_activations(cuda_params, oh)
+    rows = CHEMNET["cpu_rows"]
+    t0 = time.perf_counter()
+    ref = chemnet.chemnet_activations(params, one_hot[:rows])
+    cpu_s = time.perf_counter() - t0
+    err = rel_err(acts[:rows], ref)
+    ms = cuda_ms(lambda: chemnet.chemnet_activations(cuda_params, oh), iters=3, warmup=1,
+                 queued=False)
+    log(f"[property] ChemNet activations ({CHEMNET['layers']} LSTM layers of "
+        f"{CHEMNET['hidden']}, one-hot {chemnet.VOCAB_SIZE} x {chemnet.MAX_LEN}, dense "
+        f"{CHEMNET['hidden']}), f32 TF32 off, batch {CHEMNET['batch']}: {ms:.2f} ms a batch "
+        f"on the card (CUDA events over 3 calls), CPU {1e3 * cpu_s:.0f} ms for {rows} rows; "
+        f"card vs CPU max abs err / max |out| {err:.3g} (rtol {CHEMNET_RTOL}) ({smi})")
+    if not (acts.shape == (CHEMNET["batch"], CHEMNET["hidden"]) and torch.isfinite(acts).all()
+            and err <= CHEMNET_RTOL):
+        raise AssertionError(f"ChemNet card vs CPU: {err}, {tuple(acts.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ref_fp = (torch.rand((SNN["ref"], SNN["bits"]), generator=gen, device="cuda")
+              < SNN["density"]).float()
+    gen_fp = (torch.rand((SNN["gen"], SNN["bits"]), generator=gen, device="cuda")
+              < SNN["density"]).float()
+    card = molsets.average_agg_tanimoto(ref_fp, gen_fp, device="cuda")
+    ref_cpu, gen_cpu = ref_fp.cpu(), gen_fp.cpu()
+    t0 = time.perf_counter()
+    cpu = molsets.average_agg_tanimoto(ref_cpu, gen_cpu, device="cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    snn_ms = cuda_ms(lambda: molsets.average_agg_tanimoto(ref_fp, gen_fp, device="cuda"),
+                     iters=10, warmup=2, queued=False)
+    log(f"[property] SNN product {SNN['ref']} x {SNN['gen']} fingerprints of {SNN['bits']} "
+        f"bits (density {SNN['density']}): {snn_ms:.3f} ms a call on the card (CUDA events "
+        f"over 10 calls, the result read back), CPU {cpu_ms:.1f} ms; SNN card {card:.8f}, "
+        f"CPU {cpu:.8f} (atol {SNN_ATOL}) ({smi})")
+    if not abs(card - cpu) <= SNN_ATOL:
+        raise AssertionError(f"SNN card {card} vs CPU {cpu}")
+    del ref_fp, gen_fp
+    torch.cuda.empty_cache()
+
+
+def conditioned_edm_checkpoint(run):
+    """A checkpoint (step 0) of MoleculeEDMConfig's model with
+    context_node_nf 1 and phase 10's well-conditioned seeded weights
+    (seeded_edm), as its EMA: at the init's scale the nine sum-aggregated
+    blocks blow the sampled features up to inf within a few of the 50 steps,
+    in reed_tpu's sampler as in the port's, so an untrained run's samples
+    are NaN."""
+    cfg = edm_train.MoleculeEDMConfig(context_node_nf=1)
+    trainer = edm_train.MoleculeEDMTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    state.model.load_state_dict(seeded_edm(cfg).state_dict())
+    state.ema = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    CheckpointManager(run).save(state, trainer.generator)
+
+
+def read_xyz(path):
+    """(comment, positions [N,3]) of an .xyz file."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    n = int(lines[0])
+    return lines[1], np.array([[float(v) for v in line.split()[1:4]]
+                               for line in lines[2:2 + n]])
+
+
+def property_cli_phase(tmp, smi):
+    """train-property (the EGNN regressor and --linear-probe) and
+    train-molecule-edm --set context_node_nf=1, 3 steps each with a
+    checkpoint, as subprocesses on a fabricated QM9 directory; then in this
+    process eval-conditional with the trained classifier (64 molecules, 50
+    steps): with --out from a conditioned checkpoint whose samples stay
+    finite (.xyz files and property_values.log read back, a finite MAE), and
+    with --sweep from the trained EDM run; then eval-molecule with the
+    directory's test split (moses and midi in its result)."""
+    data = os.path.join(tmp, "qm9")
+    os.makedirs(data)
+    alpha = write_property_data(data)
+    clf, probe, gen, seeded = (os.path.join(tmp, name) for name in
+                               ("clf", "probe", "edm_cond", "edm_cond_seeded"))
+    for args, run in ((["train-property", "--data-dir", data], clf),
+                      (["train-property", "--linear-probe", "--data-dir", data], probe),
+                      (["train-molecule-edm", "--synthetic", "--set", "context_node_nf=1"],
+                       gen)):
+        label = " ".join(a for a in args if a != data)
+        text = run_cli([*args, "--steps", "3", "--log-every", "1", "--ckpt-dir", run,
+                        "--ckpt-every", "3"], f"{label} --steps 3")
+        rate = [line for line in text.splitlines() if "steps after the first" in line]
+        log(f"[property] {rate[-1] if rate else text.splitlines()[-1]}")
+        if "3.pt" not in os.listdir(run):
+            raise AssertionError(f"{label} wrote {os.listdir(run)}")
+    conditioned_edm_checkpoint(seeded)
+    ce = COND_EVAL
+    common = ["eval-conditional", "--classifier-ckpt", clf, "--data-dir", data,
+              "--n-samples", str(ce["n_samples"]), "--n-replicates", "1",
+              "--num-steps", str(ce["num_steps"])]
+    out_dir = os.path.join(tmp, "cond_mols")
+    result, text = cli_quiet(common + ["--ckpt-dir", seeded, "--out", out_dir])
+    speed = next(line for line in text.splitlines() if "molecules/s" in line)
+    xyz = sorted(f for f in os.listdir(out_dir) if f.endswith(".xyz"))
+    with open(os.path.join(out_dir, "property_values.log")) as f:
+        targets = [float(v) for v in f.read().split()]
+    mols = [read_xyz(os.path.join(out_dir, name)) for name in xyz]
+    pngs = sum(f.endswith(".png") for f in os.listdir(out_dir))
+    renders = "matplotlib present" if visualize.have_matplotlib() else "skipped: no matplotlib"
+    log(f"[property] eval-conditional (the conditioned seeded EDM, classifier EMA of step 3, "
+        f"{ce['n_samples']} molecules, T {ce['num_steps']}): {speed}; mae {result['mae']:.6g} "
+        f"(untrained), mad_of_targets {result['mad_of_targets']:.4f}; {len(xyz)} .xyz, "
+        f"{pngs} .png ({renders}), max |x| {max(np.abs(x).max() for _, x in mols):.4g} ({smi})")
+    if ("loaded EMA weights of step 0" not in text
+            or f"loaded EMA weights of step 3 from {clf}" not in text
+            or len(xyz) != ce["n_samples"] or len(targets) != ce["n_samples"]
+            or [c for c, _ in mols] != [f"alpha={t:.4f}" for t in targets]
+            or not all(np.isfinite(x).all() for _, x in mols)
+            or not np.isfinite(result["mae"])):
+        raise AssertionError(f"eval-conditional:\n{text[-2000:]}")
+    result, text = cli_quiet(common + ["--ckpt-dir", gen, "--sweep"])
+    rows = result["sweep"]
+    swept = [r["target"] for r in rows]
+    blown = "" if np.isfinite(result["mae"]) else (
+        ": the init's samples blow up at this width, in reed_tpu's sampler as in the port's")
+    log(f"[property] eval-conditional --sweep (the EMA of the 3-step run): targets "
+        f"{swept[0]:.3f} .. {swept[-1]:.3f} in {len(rows)} steps, mae {result['mae']:.6g}"
+        f"{blown}")
+    if (f"loaded EMA weights of step 3 from {gen}" not in text
+            or len(rows) != ce["n_samples"] or swept != sorted(swept)
+            or abs(swept[0] - float(alpha.min())) > 1e-4
+            or abs(swept[-1] - float(alpha.max())) > 1e-4):
+        raise AssertionError(f"eval-conditional --sweep: {swept[:3]} .. {swept[-3:]}")
+    me = MOLECULE_EVAL
+    result, text = cli_quiet(["eval-molecule", "--data-dir", data, "--batch-size",
+                              str(me["batch"]), "--num-steps", str(me["num_steps"]),
+                              "--n-replicates", "1"])
+    speed = next(line for line in text.splitlines() if "molecules/s" in line)
+    log(f"[property] eval-molecule with a {PROPERTY_DATA['test']}-molecule test split "
+        f"(seeded init weights, {me['batch']} molecules, T {me['num_steps']}): {speed}; "
+        f"moses {result.get('moses')}; midi {result.get('midi')} ({smi})")
+    if not ({"moses", "midi"} <= set(result) and "SNN/Test" in result["moses"]
+            and "AtomTypesTV" in result["midi"]):
+        raise AssertionError(f"eval-molecule without moses/midi: {sorted(result)}")
+
+
+def property_phases(smi):
+    """Slice 13's phases. K1, K2a and K2b must launch 0 times on them."""
+    t0 = time.perf_counter()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    property_forward_phase(smi)
+    property_train_phase(smi)
+    property_learning_phase(smi)
+    chemnet_snn_phase(smi)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        property_cli_phase(tmp, smi)
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    log(f"[property] slice 13 phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b "
+        f"launches on the property and eval paths {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the property and eval paths: {counts}")
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -2970,6 +3381,7 @@ def main():
     edm_f32 = edm_phases(smi)
     bf16_launches = precision_rdm_phases(smi, semla_f32, edm_f32)
     multiflow_phases(smi)
+    property_phases(smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),

@@ -30,6 +30,11 @@
       [--set compute_dtype=bfloat16]
   python -m reed_tpu_torch.cli eval-multiflow --num-samples 4 --length 64 \\
       --num-steps 100 [--ckpt-dir out/mf | --ref-ckpt last.ckpt] [--out pdbs_out/]
+  python -m reed_tpu_torch.cli train-property --property alpha --steps 100 --synthetic \\
+      [--data-dir qm9/] [--linear-probe] [--ckpt-dir out/clf --ckpt-every 1000]
+  python -m reed_tpu_torch.cli eval-conditional --property alpha --n-samples 64 \\
+      --num-steps 50 --ckpt-dir out/edm_cond --classifier-ckpt out/clf [--data-dir qm9/] \\
+      [--sweep] [--out mols/]
 
 Runs on CUDA unless `--device cpu` is given. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
@@ -59,7 +64,13 @@ train-multiflow and eval-multiflow use its MultiFlow default
 heads, 8 query/key and 12 value points), a 2-layer sequence transformer a
 block, batch 4 x max_len 128, the batch-OT translation prior, Adam lr
 1e-4, f32. `--set compute_dtype=bfloat16` trains the protein, SemlaFlow,
-EDM and MultiFlow models in bf16 with f32 master weights.
+EDM and MultiFlow models in bf16 with f32 master weights. train-property
+uses its PropertyTrainConfig: the EGNN regressor at hidden 128 x 7
+layers with edge attention, batch 96 x 29 atoms, Adam lr 1e-3 with a
+cosine decay, the L1 loss on the mad-normalised property, f32 (or with
+--linear-probe a Linear(rep_dim, 1) on reps.npy). eval-conditional samples
+MoleculeEDMConfig's model with context_node_nf 1 and T = --num-steps and
+scores it with the classifier's EMA.
 """
 
 from __future__ import annotations
@@ -412,12 +423,9 @@ def train_image(args):
     from reed_tpu_torch.train.image import ImageTrainConfig, ImageTrainer
 
     device = resolve_device(args.device)
-    # the mesh flags as reed_tpu reads them; the trainer refuses more than one device
-    mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp),
-                              ("tensor", args.tp), ("seq", args.sp)) if v is not None}
     cfg = _resolve_cfg(ImageTrainConfig, args,
                        {"model": args.model, "batch_size": args.batch_size,
-                        "seed": args.seed, "mesh": mesh or None,
+                        "seed": args.seed, "mesh": _mesh_flags(args),
                         "optim": {"lr": args.lr} if args.lr is not None else None},
                        defaults={"exact_gelu": True} if args.ref_ckpt else None)
     trainer = ImageTrainer(cfg, device=device)
@@ -809,16 +817,17 @@ def eval_molecule(args):
     ancestral sampler (T = --num-steps; CFG where edm.cfg_scale is set) or
     the EFM decode generates --batch-size molecules a replicate from the
     EMA of --ckpt-dir's latest checkpoint or a reference checkpoint, scored
-    by MoleculeMetrics with the mean and std over --n-replicates. Prints
-    molecules/s and ms per sampler step, then reed_tpu's JSON; --out writes
-    one more replicate as .xyz files."""
+    by MoleculeMetrics with the mean and std over --n-replicates; with a
+    test split under --data-dir, one more replicate against it by the MOSES
+    metrics and the MiDi distances. Prints molecules/s and ms per sampler
+    step, then reed_tpu's JSON; --out writes one more replicate as .xyz
+    files and 3D PNG renders (the PNGs need matplotlib)."""
     from reed_tpu_torch.data.molecule import QM9_ATOM_DECODER
     from reed_tpu_torch.eval.molecule_metrics import (GEOM_ATOM_DECODER, DistributionNodes,
                                                       MoleculeMetrics)
     from reed_tpu_torch.eval.rep_samplers import GtSampler
     from reed_tpu_torch.eval.two_stage import (TwoStageSampler, evaluate_replicates,
                                                molecules_from_samples)
-    from reed_tpu_torch.eval.visualize import save_xyz_file
     from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
                                                    build_dynamics)
 
@@ -894,20 +903,287 @@ def eval_molecule(args):
           f"a batch, {cfg.probabilistic_model}, {device})")
 
     if args.out:
+        # one replicate as xyz + 3D PNG renders (reference:
+        # eval_src/{eval_visualize_samples,process_uncondition_random}.py)
         decoder = QM9_ATOM_DECODER if cfg.num_atom_types <= 5 else GEOM_ATOM_DECODER
-        os.makedirs(args.out, exist_ok=True)
-        for i, (pos, types) in enumerate(sample_replicate(0)[:100]):
-            save_xyz_file(os.path.join(args.out, f"mol_{i:03d}.xyz"), pos, types,
-                          atom_decoder=decoder)
-        print(f"sample dumps (.xyz) -> {args.out}; the 3D PNG renders are not ported "
-              "(ROADMAP.md Queue 1 item 4)")
+        _write_molecules(args.out, sample_replicate(0)[:100], decoder)
     if args.data_dir:
+        # the MOSES block and the MiDi distances against the held-out test
+        # split (reference: eval_src/evaluation/molsets.py get_all_metrics)
+        from reed_tpu_torch.data.molecule import load_dataset
+        from reed_tpu_torch.eval.midi_metrics import midi_sampling_metrics
+        from reed_tpu_torch.eval.molsets import geometric_mols_from_samples, moses_metrics
+
         try:
-            _find_split(args.data_dir, "test")
-            print("a test split is present: the MOSES / MiDi distribution metrics are not "
-                  "ported yet (ROADMAP.md Queue 1 item 4); not computed")
+            test_mols = load_dataset(_find_split(args.data_dir, "test"))
         except FileNotFoundError:
-            pass
+            test_mols = None
+        if test_mols:
+            gen_mols = geometric_mols_from_samples(sample_replicate(args.n_replicates),
+                                                   QM9_ATOM_DECODER)
+            out["moses"] = moses_metrics(gen_mols, test_mols, vocab_tokens=QM9_ATOM_DECODER,
+                                         device=device)
+            # the test split must use the sampler's atom-type index space
+            out["midi"] = midi_sampling_metrics(gen_mols, test_mols,
+                                                num_atom_types=len(QM9_ATOM_DECODER))
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def _write_molecules(out_dir: str, molecules, decoder, comments=None):
+    """Each (positions, types) of `molecules` as mol_{i:03d}.xyz (with
+    comments[i] on its comment line), and as mol_{i:03d}.png where matplotlib
+    is installed; without it one line says that the PNGs were skipped."""
+    from reed_tpu_torch.eval.visualize import (have_matplotlib, plot_molecule_3d,
+                                               save_xyz_file)
+
+    os.makedirs(out_dir, exist_ok=True)
+    pngs = have_matplotlib()
+    for i, (pos, types) in enumerate(molecules):
+        comment = comments[i] if comments else ""
+        save_xyz_file(os.path.join(out_dir, f"mol_{i:03d}.xyz"), pos, types,
+                      atom_decoder=decoder, comment=comment)
+        if pngs:
+            plot_molecule_3d(os.path.join(out_dir, f"mol_{i:03d}.png"), pos, types,
+                             atom_decoder=decoder, title=comment)
+    kinds = ".xyz and .png" if pngs else ".xyz"
+    print(f"sample dumps ({len(molecules)} {kinds}) -> {out_dir}")
+    if not pngs:
+        print("3D PNG renders skipped: matplotlib is not installed")
+
+
+def _mesh_flags(args):
+    """--dp/--fsdp/--tp/--sp as reed_tpu reads them into MeshConfig; the
+    port's trainers refuse more than one device."""
+    mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp),
+                              ("tensor", args.tp), ("seq", args.sp)) if v is not None}
+    return mesh or None
+
+
+def train_property(args):
+    """Train the EGNN property regressor (reference:
+    qm9/property_prediction/main_qm9_prop.py) on synthetic batches or on the
+    QM9 EDM npz train split under --data-dir with its --property column
+    (mean and mad from that column), or with --linear-probe a linear head on
+    the frozen-encoder reps.npy beside it (reference:
+    main_qm9_prop_pretrainedEnc_linear.py); logging `[step N] {...}` every
+    --log-every steps, then the rate of the steps after the first."""
+    from reed_tpu_torch.train.property import (LinearProbeConfig, LinearProbeTrainer,
+                                               PropertyTrainConfig, PropertyTrainer,
+                                               batch_to_device, compute_mean_mad,
+                                               property_epoch_batches)
+
+    device = resolve_device(args.device)
+    flags = {"batch_size": args.batch_size, "seed": args.seed, "mesh": _mesh_flags(args),
+             "optim": {"lr": args.lr} if args.lr is not None else None}
+    defaults = {"property": args.property}
+    data = None
+    if args.data_dir and not args.synthetic:
+        from reed_tpu_torch.data.molecule import load_qm9_edm_npz
+
+        data = load_qm9_edm_npz(_find_split(args.data_dir, "train"))
+        if args.property not in data:
+            raise SystemExit(f"property '{args.property}' not in npz keys {sorted(data)}")
+        mean, mad = compute_mean_mad(data[args.property])
+        defaults.update(mean=mean, mad=mad)
+        print(f"property {args.property}: mean={mean:.4f} mad={mad:.4f}")
+
+    def check_one_batch(cfg):
+        n = len(data["positions"])
+        if n < cfg.batch_size:
+            raise SystemExit(f"{n} molecules under {args.data_dir}, fewer than one batch "
+                             f"of {cfg.batch_size}")
+
+    def synthetic(trainer, seed):
+        i = 0
+        while True:
+            yield trainer.synthetic_batch(torch.Generator(device=device).manual_seed(seed + i))
+            i += 1
+
+    if args.linear_probe:
+        reps = None
+        if data is not None:
+            reps = np.load(os.path.join(args.data_dir, "reps.npy")).astype(np.float32)
+            labels = np.asarray(data[args.property], np.float32)
+            if len(reps) != len(labels):
+                raise ValueError(f"reps.npy holds {len(reps)} reps for {len(labels)} "
+                                 "molecules")
+            defaults["rep_dim"] = reps.shape[1]
+        cfg = _resolve_cfg(LinearProbeConfig, args, flags, defaults)
+        if reps is not None:
+            check_one_batch(cfg)
+        trainer = LinearProbeTrainer(cfg, device=device)
+
+        def probe_batches():
+            epoch = 0
+            while True:
+                order = np.random.default_rng(cfg.seed + epoch).permutation(len(reps))
+                for i in range(0, len(order) - cfg.batch_size + 1, cfg.batch_size):
+                    idx = order[i:i + cfg.batch_size]
+                    yield batch_to_device({"rep": reps[idx], "label": labels[idx]}, device)
+                epoch += 1
+
+        batches = synthetic(trainer, cfg.seed) if reps is None else probe_batches()
+        return _run_loop(trainer, trainer.init_state(), batches, args,
+                         lambda b: int(b["label"].shape[0]), cfg,
+                         f"train-property linear probe {cfg.property} ({device})", "reps")
+
+    cfg = _resolve_cfg(PropertyTrainConfig, args, flags, defaults)
+    if data is not None:
+        check_one_batch(cfg)
+    trainer = PropertyTrainer(cfg, device=device)
+
+    def data_batches():
+        epoch = 0
+        while True:
+            rng = np.random.default_rng(cfg.seed + epoch)
+            for batch in property_epoch_batches(data, cfg.property, cfg.batch_size, rng,
+                                                max_nodes=cfg.max_nodes,
+                                                num_atom_types=cfg.num_atom_types):
+                yield batch_to_device(batch, device)
+            epoch += 1
+
+    batches = synthetic(trainer, cfg.seed) if data is None else data_batches()
+    return _run_loop(trainer, trainer.init_state(), batches, args,
+                     lambda b: int(b["label"].shape[0]), cfg,
+                     f"train-property {cfg.property} ({device})", "molecules")
+
+
+def eval_conditional(args):
+    """Conditional-generation MAE (reference:
+    molecule/eval_src/eval_conditional_qm9.py): property-conditioned
+    molecules from the EDM model (context_node_nf 1, T = --num-steps; the
+    EMA of --ckpt-dir's latest checkpoint), their sizes and targets drawn
+    from the train split under --data-dir (random stand-ins without it),
+    each target given as (target - mean) / mad on every node, scored by the
+    property classifier of --classifier-ckpt (rebuilt from its config.json,
+    its EMA weights). --sweep takes one size and a linspace of targets.
+    Prints molecules/s and ms per network evaluation, then reed_tpu's
+    JSON; --out writes the first replicate as .xyz (the target in the
+    comment) and 3D PNG renders, and property_values.log."""
+    from reed_tpu_torch.data.molecule import QM9_ATOM_DECODER
+    from reed_tpu_torch.eval.molecule_metrics import DistributionNodes, DistributionProperty
+    from reed_tpu_torch.models.property_classifier import conditional_generation_mae
+    from reed_tpu_torch.train import property as property_train
+    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
+                                                   build_dynamics)
+
+    device = resolve_device(args.device)
+    np_rng = np.random.default_rng(args.seed or 0)
+    gen_cfg = _resolve_cfg(MoleculeEDMConfig, args, {"seed": args.seed,
+                                                     "mesh": _mesh_flags(args)},
+                           defaults={"batch_size": args.n_samples, "context_node_nf": 1,
+                                     "edm": {"timesteps": args.num_steps}})
+    trainer = MoleculeEDMTrainer(gen_cfg, device=device)
+    model = build_dynamics(gen_cfg, device=device,
+                           generator=torch.Generator(device=device).manual_seed(gen_cfg.seed))
+    if args.ckpt_dir:
+        _load_ema(model, args.ckpt_dir)
+    model.eval()
+
+    # property and size distributions from the train split where there is one
+    if args.data_dir:
+        from reed_tpu_torch.data.molecule import load_qm9_edm_npz
+
+        data = load_qm9_edm_npz(_find_split(args.data_dir, "train"))
+        sizes_src = np.minimum(np.asarray(data["num_atoms"], np.int64), gen_cfg.max_nodes)
+        values = np.asarray(data[args.property], np.float64)
+        mean, mad = property_train.compute_mean_mad(values)
+    else:
+        sizes_src = np_rng.integers(gen_cfg.max_nodes // 2, gen_cfg.max_nodes + 1, 512)
+        values = np_rng.standard_normal(512)
+        mean, mad = 0.0, 1.0
+    node_dist = DistributionNodes({int(s): float((sizes_src == s).sum())
+                                   for s in np.unique(sizes_src)})
+    prop_dist = DistributionProperty(sizes_src, values)
+
+    clf_cfg = property_train.PropertyTrainConfig(
+        property=args.property, mean=mean, mad=mad, num_atom_types=gen_cfg.num_atom_types,
+        max_nodes=gen_cfg.max_nodes, mesh=gen_cfg.mesh)
+    if args.classifier_ckpt:
+        # the widths and the normaliser come from the training run's own
+        # config snapshot (written by train-property beside its checkpoints)
+        snap_path = os.path.join(args.classifier_ckpt, "config.json")
+        if os.path.exists(snap_path):
+            snap = configlib.load_file(snap_path)
+            snap["mesh"] = gen_cfg.mesh.__dict__
+            clf_cfg = configlib.merge(clf_cfg, snap)
+    clf = property_train.PropertyTrainer(clf_cfg, device=device)
+    clf_model = property_train.build_model(
+        clf_cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(clf_cfg.seed))
+    if args.classifier_ckpt:
+        _load_ema(clf_model, args.classifier_ckpt)
+    clf_model.eval()
+
+    n = gen_cfg.max_nodes
+    clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
+    maes, all_targets, sweep_rows = [], [], None
+    for rep_i in range(args.n_replicates):
+        if args.sweep:
+            # one size, the property's linspace over the observed range
+            # (reference: qm9/sampling.py:186 sample_sweep_conditional and
+            # eval_src/process_sweep.py's classifier readback)
+            sizes = np.full(args.n_samples, int(np.median(sizes_src)), np.int64)
+            targets = np.linspace(float(values.min()), float(values.max()), args.n_samples)
+        else:
+            sizes = node_dist.sample(np_rng, args.n_samples)
+            targets = prop_dist.sample(np_rng, sizes)         # label units
+        norm_t = (targets - mean) / mad                       # context units
+        node_mask = (np.arange(n)[None, :] < sizes[:, None]).astype(np.float32)[..., None]
+        diag = np.eye(n, dtype=np.float32)[None, :, :, None]
+        edge_mask = node_mask[:, :, None, :] * node_mask[:, None, :, :] * (1 - diag)
+        context = np.broadcast_to(norm_t[:, None, None].astype(np.float32),
+                                  (args.n_samples, n, 1)) * node_mask
+        rep = None
+        if gen_cfg.rep_nf:
+            rep = torch.from_numpy(np_rng.standard_normal(
+                (args.n_samples, gen_cfg.rep_nf)).astype(np.float32)).to(device)
+        node_mask_t = torch.from_numpy(node_mask).to(device)
+        edge_mask_t = torch.from_numpy(edge_mask).to(device)
+        synchronize(device)
+        t0 = time.perf_counter()
+        x, h_cat, _ = trainer.sample(
+            model, node_mask_t, edge_mask_t, rep=rep,
+            context=torch.from_numpy(context).to(device),
+            generator=torch.Generator(device=device).manual_seed((args.seed or 0) + rep_i))
+        synchronize(device)
+        clock["seconds"] += time.perf_counter() - t0
+        clock["molecules"] += args.n_samples
+        clock["batches"] += 1
+        preds = clf.predict(clf_model, h_cat, x, node_mask_t, edge_mask_t)
+        maes.append(conditional_generation_mae(lambda p: p, preds, targets))
+        all_targets.append(targets)
+        preds = preds.cpu().numpy()
+        if args.sweep and sweep_rows is None:
+            sweep_rows = [{"target": float(t), "pred": float(p)} for t, p in zip(targets, preds)]
+        if args.out and rep_i == 0:
+            # the molecules, their targets and renders (reference:
+            # eval_src/eval_visualize_samples.py, qm9/visualizer.py plot_data3d)
+            types = torch.argmax(h_cat, dim=-1).cpu().numpy()
+            xs, mask = x.cpu().numpy(), node_mask[..., 0].astype(bool)
+            k = min(args.n_samples, 100)
+            _write_molecules(args.out, [(xs[i][mask[i]], types[i][mask[i]]) for i in range(k)],
+                             QM9_ATOM_DECODER,
+                             comments=[f"{args.property}={targets[i]:.4f}" for i in range(k)])
+            with open(os.path.join(args.out, "property_values.log"), "w") as f:
+                f.write("\n".join(f"{t:.6f}" for t in targets))
+    steps = gen_cfg.edm.timesteps + 1
+    print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
+          f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
+          f"evaluation ({clock['batches']} batches of {args.n_samples}, {steps} evaluations "
+          f"a batch, {device})")
+    targets_all = np.concatenate(all_targets)
+    out = {"property": args.property, "mae": float(np.mean(maes)),
+           "mae_std": float(np.std(maes)), "n_samples": args.n_samples * args.n_replicates,
+           # the predict-the-mean floor, for context (the reference logs it too)
+           "mad_of_targets": float(np.abs(targets_all - targets_all.mean()).mean())}
+    if sweep_rows is not None:
+        out["sweep"] = sweep_rows
+        t = np.array([r["target"] for r in sweep_rows])
+        p = np.array([r["pred"] for r in sweep_rows])
+        if len(t) > 2 and t.std() > 0 and p.std() > 0:
+            out["sweep_pearson_r"] = float(np.corrcoef(t, p)[0, 1])
     print(json.dumps(out, indent=2))
     return out
 
@@ -1092,6 +1368,12 @@ def _add_config(p, what):
                    help="cuda (default) or cpu; no silent fallback")
 
 
+def _add_mesh(p):
+    for flag in ("--dp", "--fsdp", "--tp", "--sp"):
+        p.add_argument(flag, type=int, default=None,
+                       help="mesh axis size; the port runs on one device, so only 1")
+
+
 def _add_training(p):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=None)
@@ -1206,9 +1488,7 @@ def main(argv=None):
                    help="preview grid of 16 EMA samples every N steps")
     p.add_argument("--vae", default=None,
                    help="SD-VAE decoder npz for the previews (else latent channels)")
-    for flag in ("--dp", "--fsdp", "--tp", "--sp"):
-        p.add_argument(flag, type=int, default=None,
-                       help="mesh axis size; the port trains on one device, so only 1")
+    _add_mesh(p)
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
     p.set_defaults(fn=train_image)
@@ -1296,13 +1576,56 @@ def main(argv=None):
                         "sampler draws the reps instead of the GtSampler")
     p.add_argument("--data-dir", default=None,
                    help="reps.npy and sizes.npy for the GtSampler (random stand-in "
-                        "reps without them)")
+                        "reps without them); a test split (test.rsmol[.npz]) adds the "
+                        "MOSES metrics and the MiDi distances")
     p.add_argument("--out", default=None,
-                   help="write one replicate as .xyz files here (the 3D PNG renders "
-                        "need matplotlib and are not ported: ROADMAP.md Queue 1 item 4)")
+                   help="write one replicate as .xyz files here, and 3D PNG renders where "
+                        "matplotlib is installed")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
     p.set_defaults(fn=eval_molecule)
+
+    p = sub.add_parser("train-property")
+    p.add_argument("--property", default="alpha",
+                   help="QM9 property column: alpha|gap|homo|lumo|mu|Cv|...")
+    p.add_argument("--linear-probe", action="store_true",
+                   help="a linear head on frozen-encoder reps (reps.npy) instead of the "
+                        "EGNN regressor")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: the config's 96")
+    p.add_argument("--data-dir", default=None,
+                   help="QM9 EDM npz train split with the property column (and reps.npy "
+                        "beside it for --linear-probe); trains on it, mean and mad from it")
+    _add_mesh(p)
+    _add_training(p)
+    _add_config(p, "PropertyTrainConfig (LinearProbeConfig with --linear-probe)")
+    p.set_defaults(fn=train_property)
+
+    p = sub.add_parser("eval-conditional")
+    p.add_argument("--property", default="alpha")
+    p.add_argument("--n-samples", type=int, default=16)
+    p.add_argument("--n-replicates", type=int, default=2)
+    p.add_argument("--num-steps", type=int, default=50,
+                   help="the EDM sampler's T: the model is built with edm.timesteps set "
+                        "to it, as reed_tpu builds it, not the trained model's")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample from the EMA weights of this train-molecule-edm run's "
+                        "latest checkpoint (trained with --set context_node_nf=1)")
+    p.add_argument("--classifier-ckpt", default=None,
+                   help="train-property checkpoint dir (its config.json and EMA weights)")
+    p.add_argument("--data-dir", default=None,
+                   help="QM9 EDM npz train split with the property column: the size and "
+                        "target distributions, mean and mad")
+    p.add_argument("--sweep", action="store_true",
+                   help="fixed-size property-linspace sweep (reference "
+                        "sample_sweep_conditional + process_sweep)")
+    p.add_argument("--out", default=None,
+                   help="xyz + property_values.log output dir, and 3D PNG renders where "
+                        "matplotlib is installed (reference eval_visualize_samples.py)")
+    p.add_argument("--seed", type=int, default=None)
+    _add_mesh(p)
+    _add_config(p, "MoleculeEDMConfig")
+    p.set_defaults(fn=eval_conditional)
 
     p = sub.add_parser("train-multiflow")
     p.add_argument("--batch-size", type=int, default=None,

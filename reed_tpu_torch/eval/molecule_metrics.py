@@ -5,11 +5,10 @@ uniqueness and novelty over bonds inferred from distances, reference
 qm9/analyze.py) with check_stability and the size histogram sampler
 DistributionNodes, SemlaFlow's GraphMoleculeMetrics (the same over
 PREDICTED graphs, with charge-aware valences and fc-validity),
-PoseBusters-style geometry checks and the relaxed validity.
-RDKit-dependent paths run where rdkit imports; without it the
-table-driven fallbacks run, as in reed_tpu (`HAVE_RDKIT`). The MMFF
-energies and the property distribution (DistributionProperty) are not
-ported yet.
+PoseBusters-style geometry checks, the relaxed validity, the MMFF94
+energies (rdkit only) and the size-binned property sampler
+DistributionProperty. RDKit-dependent paths run where rdkit imports;
+without it the table-driven fallbacks run, as in reed_tpu (`HAVE_RDKIT`).
 """
 
 from __future__ import annotations
@@ -588,6 +587,29 @@ def posebusters_checks(molecules, atom_decoder=QM9_ATOM_DECODER,
     return {k: v / m for k, v in results.items()}
 
 
+def mmff_energies(smiles_or_mols, per_atom: bool = False):
+    """MMFF94 energies via RDKit (EnergyValidity / AverageEnergy analogs,
+    reference: semlaflow/util/metrics.py:216-402). Requires rdkit."""
+    if not HAVE_RDKIT:
+        raise RuntimeError("rdkit is not available in this environment")
+    from rdkit.Chem import AllChem  # pragma: no cover - not in this image
+
+    energies = []
+    for m in smiles_or_mols:
+        mol = Chem.MolFromSmiles(m) if isinstance(m, str) else m
+        if mol is None:
+            energies.append(float("nan"))
+            continue
+        try:
+            props = AllChem.MMFFGetMoleculeProperties(mol)
+            ff = AllChem.MMFFGetMoleculeForceField(mol, props)
+            e = ff.CalcEnergy()
+            energies.append(e / mol.GetNumAtoms() if per_atom else e)
+        except Exception:  # rdkit raises bare exceptions on unparametrised molecules
+            energies.append(float("nan"))
+    return energies
+
+
 class DistributionNodes:
     """Histogram sampler over molecule sizes (reference: qm9/models.py
     DistributionNodes)."""
@@ -603,3 +625,28 @@ class DistributionNodes:
     def log_prob(self, sizes: np.ndarray) -> np.ndarray:
         idx = np.clip(np.searchsorted(self.sizes, sizes), 0, len(self.sizes) - 1)
         return np.log(np.where(self.sizes[idx] == sizes, self.probs[idx], 1e-30))
+
+
+class DistributionProperty:
+    """Conditional property sampler binned by molecule size (reference:
+    qm9/models.py DistributionProperty): a target is drawn uniformly from
+    the values of the training molecules of the same size, or of the
+    nearest size present."""
+
+    def __init__(self, sizes: np.ndarray, values: np.ndarray, num_bins: int = 1000):
+        del num_bins  # the reference's histogram bins; the pools are exact
+        self.by_size: Dict[int, np.ndarray] = {}
+        sizes = np.asarray(sizes)
+        values = np.asarray(values, np.float64)
+        for s in np.unique(sizes):
+            self.by_size[int(s)] = values[sizes == s]
+
+    def sample(self, rng: np.random.Generator, sizes: np.ndarray) -> np.ndarray:
+        out = np.zeros(len(sizes))
+        for i, s in enumerate(np.asarray(sizes)):
+            pool = self.by_size.get(int(s))
+            if pool is None or len(pool) == 0:
+                nearest = min(self.by_size, key=lambda k: abs(k - int(s)))
+                pool = self.by_size[nearest]
+            out[i] = rng.choice(pool)
+        return out

@@ -1,11 +1,13 @@
 """Image grids for preview sampling and molecule files, counterpart of the
-image and molecule halves of reed_tpu/eval/visualize.py. The PNG is
-written with the standard library (zlib and struct), so no imaging package
-is needed; the .xyz and V2000 .sdf writers need no RDKit and write the
-same bytes as reed_tpu's."""
+image and molecule halves of reed_tpu/eval/visualize.py. The image grid's
+PNG is written with the standard library (zlib and struct), so no imaging
+package is needed; the .xyz and V2000 .sdf writers need no RDKit and write
+the same bytes as reed_tpu's. The 3D molecule renders (plot_molecule_3d)
+need matplotlib, imported where they are drawn (`have_matplotlib`)."""
 
 from __future__ import annotations
 
+import importlib.util
 import math
 import os
 import struct
@@ -15,6 +17,82 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 QM9_ATOM_DECODER = ["H", "C", "N", "O", "F"]
+
+# atom display colors/radii by element (reference:
+# molecule/configs/datasets_config.py colors_dic/radius_dic)
+ATOM_COLORS = {"H": "#FFFFFF99", "C": "C7", "N": "C0", "O": "C3", "F": "C1",
+               "S": "C5", "Cl": "C8", "Br": "C9", "P": "C4", "I": "C6",
+               "B": "C2", "Si": "C2", "Al": "C2", "As": "C2", "Hg": "C2",
+               "Bi": "C2"}
+ATOM_RADII = {"H": 0.46}
+
+
+def have_matplotlib() -> bool:
+    """Whether matplotlib, which plot_molecule_3d draws with, is installed."""
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def plot_molecule_3d(path: str, positions: np.ndarray, atom_types: Sequence[int],
+                     atom_decoder: Sequence[str] = QM9_ATOM_DECODER, bg: str = "black",
+                     camera_elev: float = 10.0, camera_azim: float = -60.0,
+                     alpha: float = 1.0, dpi: int = 120, title: str = ""):
+    """Render one molecule as a 3D scatter + inferred-bond PNG (reference:
+    molecule/qm9/visualizer.py plot_data3d/plot_molecule: bonds drawn where
+    get_bond_order > 0, thicker for aromatic orders, matplotlib 3D axes with
+    hidden panes). Returns the saved path; raises ImportError without
+    matplotlib."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from reed_tpu_torch.eval.molecule_metrics import get_bond_order
+
+    positions = np.asarray(positions, np.float64)
+    atom_types = np.asarray(atom_types, np.int64)
+    symbols = [atom_decoder[int(t)] for t in atom_types]
+    black, white = (0, 0, 0), (1, 1, 1)
+    hex_bg_color = "#FFFFFF" if bg == "black" else "#666666"
+
+    fig = plt.figure(figsize=(5, 5))
+    ax = fig.add_subplot(projection="3d")
+    ax.set_facecolor(black if bg == "black" else white)
+    ax.view_init(elev=camera_elev, azim=camera_azim)
+    ax.xaxis.pane.set_alpha(0)
+    ax.yaxis.pane.set_alpha(0)
+    ax.zaxis.pane.set_alpha(0)
+    ax.set_axis_off()
+
+    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
+    radii = np.array([ATOM_RADII.get(s, 0.77) for s in symbols])
+    colors = [ATOM_COLORS.get(s, "C2") for s in symbols]
+    ax.scatter(x, y, z, s=1500 * radii ** 2, alpha=0.9 * alpha, c=colors)
+
+    n = len(symbols)
+    for i in range(n):
+        for j in range(i + 1, n):
+            dist = float(np.linalg.norm(positions[i] - positions[j]))
+            order = get_bond_order(symbols[i], symbols[j], dist, check_exists=True)
+            if order > 0:
+                ax.plot([x[i], x[j]], [y[i], y[j]], [z[i], z[j]],
+                        linewidth=4 * (1.5 if order >= 4 else 1.0), c=hex_bg_color,
+                        alpha=alpha)
+
+    # equal aspect (matplotlib 3D has no set_aspect('equal'))
+    span = positions.max(0) - positions.min(0)
+    center = (positions.max(0) + positions.min(0)) / 2
+    r = max(float(span.max()) / 2, 1e-3)
+    ax.set_xlim(center[0] - r, center[0] + r)
+    ax.set_ylim(center[1] - r, center[1] + r)
+    ax.set_zlim(center[2] - r, center[2] + r)
+    if title:
+        ax.set_title(title, color=hex_bg_color)
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=dpi, facecolor=black if bg == "black" else white,
+                bbox_inches="tight")
+    plt.close(fig)
+    return path
 
 
 def image_grid(images: np.ndarray, nrow: Optional[int] = None) -> np.ndarray:

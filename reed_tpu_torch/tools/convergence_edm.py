@@ -30,11 +30,19 @@ parameters and EMA (p_seed{k}.pt). Writes CONVERGENCE_EDM_TORCH.json (or
 --out): each seed's run, the medians and the verdict; `--merge a.json
 b.json` combines the runs of separate invocations (seeds split over
 calls) into one verdict.
+
+`--bf16-matmul-inputs` is a probe, not the gate: every f32 product
+(F.linear, forward and both backward products) takes its operands rounded
+to bf16 and accumulates in f32, as XLA's default precision computes an f32
+dot on a TPU. It first holds a product on the device against an explicitly
+rounded one (`check_bf16_matmul`) and writes
+CONVERGENCE_EDM_TORCH_BF16MM_PROBE.json, never the gate's record.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -45,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, OptimConfig
@@ -64,6 +73,80 @@ SEEDS = (0, 1, 2, 3, 4)
 BAR = 0.95
 D_REP = 64
 MEDIAN_KEYS = ("validity", "mol_stable", "atom_stable", "uniqueness")
+GATE_RECORD = "CONVERGENCE_EDM_TORCH.json"
+PROBE_RECORD = "CONVERGENCE_EDM_TORCH_BF16MM_PROBE.json"
+
+
+def _mm_f32(a, b):
+    """a @ b of bf16 operands, accumulated and returned in f32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _Bf16OperandLinear(torch.autograd.Function):
+    """x @ w.T with x and w rounded to bf16, f32 accumulation; the backward
+    rounds the incoming gradient too, so both of its products take bf16
+    operands, as a TPU computes the transposed dots of a dot's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        return _mm_f32(xb.reshape(-1, xb.shape[-1]), wb.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.reshape(-1, g.shape[-1]).to(torch.bfloat16)
+        gx = _mm_f32(gb, wb).reshape(xb.shape) if ctx.needs_input_grad[0] else None
+        gw = (_mm_f32(gb.t(), xb.reshape(-1, xb.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+@contextlib.contextmanager
+def bf16_matmul_inputs():
+    """Inside: every F.linear of f32 tensors (nn.Linear's and the models'
+    factored products alike) rounds its operands to bf16 and accumulates in
+    f32; the bias is added in f32. The one GEMM of the EDM path is F.linear."""
+    plain = F.linear
+
+    def linear(x, w, b=None):
+        if x.dtype != torch.float32 or w.dtype != torch.float32:
+            return plain(x, w, b)
+        y = _Bf16OperandLinear.apply(x, w)
+        return y if b is None else y + b
+
+    F.linear = linear
+    try:
+        yield
+    finally:
+        F.linear = plain
+
+
+def check_bf16_matmul(device: torch.device) -> dict:
+    """Under bf16_matmul_inputs, one product [4096, 256] x [256, 256] and its
+    input gradient on `device` against F.linear of explicitly bf16-rounded
+    operands (f32, TF32 off): the rounded product must agree to 1e-5 of its
+    max and differ from the unrounded one by more than 1e-4; raises
+    otherwise."""
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((4096, 256), generator=g, device=device, requires_grad=True)
+    w = torch.randn((256, 256), generator=g, device=device) / 16
+    dy = torch.randn((4096, 256), generator=g, device=device)
+    r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    with bf16_matmul_inputs():
+        y = F.linear(x, w)
+    (gx,) = torch.autograd.grad(y, x, dy)
+    ref = F.linear(r(x.detach()), r(w))
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    out = {"rounded": rel(y.detach(), ref), "unrounded": rel(F.linear(x.detach(), w), ref),
+           "grad_rounded": rel(gx, r(dy) @ r(w)), "grad_unrounded": rel(gx, dy @ w)}
+    if not (out["rounded"] < 1e-5 and out["grad_rounded"] < 1e-5
+            and out["unrounded"] > 1e-4 and out["grad_unrounded"] > 1e-4):
+        raise AssertionError(f"bf16 operand rounding not in effect on {device}: {out}")
+    return out
 
 
 class GateData:
@@ -149,6 +232,14 @@ def run_seed(args, seed: int, device: torch.device) -> dict:
     """Train one seed and score it at step 0, every --score-every steps (the
     EMA) and at the end."""
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if args.bf16_matmul_inputs:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    precision = bf16_matmul_inputs() if args.bf16_matmul_inputs else contextlib.nullcontext()
+    with precision:
+        return _train_and_score(args, seed, device)
+
+
+def _train_and_score(args, seed: int, device: torch.device) -> dict:
     cfg = gate_config(seed, args.batch_size, args.hidden, args.layers, args.steps,
                       args.timesteps)
     data = GateData(args.batch_size)
@@ -267,13 +358,21 @@ def main(argv=None):
                     help="DataLoader worker processes building host batches (0: inline; "
                          "default 1 where the host has two cores for each concurrent "
                          "seed, else 0)")
-    ap.add_argument("--out", default="CONVERGENCE_EDM_TORCH.json")
+    ap.add_argument("--bf16-matmul-inputs", action="store_true",
+                    help="the probe: f32 products with bf16-rounded operands, as a TPU's "
+                         f"default precision; writes {PROBE_RECORD}, never the gate's record")
+    ap.add_argument("--out", default=None, help=f"default {GATE_RECORD} ({PROBE_RECORD} "
+                                                "with --bf16-matmul-inputs)")
     ap.add_argument("--merge", nargs="+", default=None,
                     help="combine these result files into --out and exit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
     ap.add_argument("--tiny", action="store_true", help="smoke-test scale, first seed only")
     args = ap.parse_args(argv)
+    if args.out is None:
+        args.out = PROBE_RECORD if args.bf16_matmul_inputs else GATE_RECORD
+    if args.bf16_matmul_inputs and os.path.basename(args.out) == GATE_RECORD:
+        raise ValueError(f"the bf16-operand probe does not write the gate's record {GATE_RECORD}")
     if args.merge:
         return merge(args.merge, args.out)
     if args.tiny:
@@ -287,6 +386,9 @@ def main(argv=None):
     if args.workers is None:
         # a worker only helps where it gets a core of its own
         args.workers = int((os.cpu_count() or 1) >= 2 * (len(args.seeds) if concurrent else 1))
+    check = check_bf16_matmul(device) if args.bf16_matmul_inputs else None
+    if check:
+        print(f"bf16 operand rounding on {device}: {check}", flush=True)
     t0 = time.perf_counter()
     if concurrent:
         runs = _run_concurrently(args, argv + ["--workers", str(args.workers)])
@@ -303,8 +405,10 @@ def main(argv=None):
                    "tf32": False, "family": "chains", "rep_condition": True,
                    "d_rep": D_REP, "rep_dropout_prob": 0.0, "ema_decay": 0.995,
                    "n_classes": len(chain_templates()), "n_eval": args.n_eval,
-                   "score_every": args.score_every},
+                   "score_every": args.score_every,
+                   "matmul_inputs": "bfloat16" if args.bf16_matmul_inputs else "float32"},
         "runs": runs,
+        **({"bf16_matmul_check": check} if check else {}),
         "command": " ".join(["python -m reed_tpu_torch.tools.convergence_edm", *argv]),
     }
     with open(args.out, "w") as f:

@@ -4,7 +4,7 @@ batches with --ckpt-dir (save, then resume) for EDM and fm, on a
 fabricated QM9 EDM npz with reps.npy, and from a reference checkpoint;
 eval-molecule from the run's EMA (with .xyz files), from a reference
 checkpoint with a learned schedule, and with --data-dir reps, sizes and a
-test split; bf16 training, and a missing RDM checkpoint or an unknown
+test split (the MOSES metrics and the MiDi distances); bf16 training, and a missing RDM checkpoint or an unknown
 dtype refused; the EDM gate's defaults against the TPU record, a tiny
 gate run (with its EMA curve and saved parameters) and the merge of split
 runs."""
@@ -20,6 +20,7 @@ import torch
 from reed_tpu.core.config import MeshConfig as JaxMesh
 from reed_tpu.train.molecule_edm import MoleculeEDMConfig as JaxConfig
 from reed_tpu_torch import cli
+from reed_tpu_torch.data.molecule import GeometricMol, save_dataset
 from reed_tpu_torch.diffusion.edm import GammaNetwork
 from reed_tpu_torch.train.molecule_edm import MoleculeEDMConfig, build_dynamics
 
@@ -72,7 +73,9 @@ def test_train_synthetic_resume_and_eval(tmp_path, capsys, model):
     assert "loaded EMA weights of step 4" in text and "ms per network evaluation" in text
     assert _json_tail(text) == summary
     assert set(summary) == {"mean", "std", "all"} and len(summary["all"]["validity"]) == 2
-    assert sorted(os.listdir(out)) == [f"mol_{i:03d}.xyz" for i in range(3)]
+    # the .xyz files, and the 3D PNG renders (matplotlib is installed here)
+    assert sorted(os.listdir(out)) == sorted(f"mol_{i:03d}.{ext}" for i in range(3)
+                                             for ext in ("xyz", "png"))
     with open(os.path.join(out, "mol_000.xyz")) as f:
         assert 4 <= int(f.readline()) <= 9
 
@@ -117,12 +120,20 @@ def test_ref_ckpt_and_data_dir_eval(tmp_path, capsys):
     rng = np.random.default_rng(1)
     np.save(data / "reps.npy", rng.standard_normal((20, 16)).astype(np.float32))
     np.save(data / "sizes.npy", rng.integers(3, 12, size=20))
-    (data / "test.npz").write_bytes(b"")
-    cli.main(["eval-molecule", "--ref-ckpt", path, "--data-dir", str(data), "--num-steps",
-              "3", "--n-replicates", "1", "--batch-size", "2", *TINY])
+    # a test split in the .rsmol layout load_dataset reads: 3-atom C-C-O chains
+    save_dataset(str(data / "test.rsmol.npz"), [GeometricMol(
+        np.array([[0, 0, 0], [1.5, 0, 0], [2.2, 1.2, 0]], np.float32) + k,
+        np.array([1, 1, 3], np.int32), np.array([[0, 1], [1, 2]], np.int32),
+        np.ones(2, np.int32), np.zeros(3, np.int32)) for k in range(4)])
+    out = cli.main(["eval-molecule", "--ref-ckpt", path, "--data-dir", str(data),
+                    "--num-steps", "3", "--n-replicates", "1", "--batch-size", "2", *TINY])
     text = capsys.readouterr().out
     assert "(learned gamma)" in text and "GtSampler over 20 dataset reps" in text
-    assert "MOSES / MiDi" in text and "Queue 1 item 4" in text
+    assert set(_json_tail(text)) == set(out) == {"mean", "std", "all", "moses", "midi"}
+    assert set(out["moses"]) == {"SNN/Test", "Frag/Test", "Scaf/Test", "weight", "unique",
+                                 "FCD/Test"}
+    assert {"NumNodesW1", "AtomTypesTV", "EdgeTypesTV", "AnglesW1"} <= set(out["midi"])
+    assert 0.0 <= out["moses"]["SNN/Test"] <= 1.0 and out["moses"]["FCD/Test"] is None
 
 
 def test_refusals(tmp_path):

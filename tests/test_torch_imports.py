@@ -69,7 +69,11 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.ops.so3, reed_tpu_torch.ops.residue_constants, "
             "reed_tpu_torch.diffusion.se3, reed_tpu_torch.models.ipa, "
             "reed_tpu_torch.encoders.multiflow_convert, reed_tpu_torch.train.multiflow, "
-            "reed_tpu_torch.tools.convergence_multiflow; "
+            "reed_tpu_torch.tools.convergence_multiflow, reed_tpu_torch.ops.torsion, "
+            "reed_tpu_torch.models.property_classifier, reed_tpu_torch.train.property, "
+            "reed_tpu_torch.encoders.property_convert, reed_tpu_torch.eval.chemnet, "
+            "reed_tpu_torch.eval.molsets, reed_tpu_torch.eval.midi_metrics, "
+            "reed_tpu_torch.eval.orca, reed_tpu_torch.eval.graph_stats; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")
