@@ -164,11 +164,35 @@ no result):
      NaN, as reed_tpu's); and `eval-molecule` with the directory's test
      split (moses and midi present). No TPU kernel is on these paths: K1, K2a and K2b must launch
      0 times.
-  14. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+  14. reward-guided sampling, the alternative SemlaFlow generators and the
+     rep encoders (slice 14, `slice14_phases`): the default
+     ProteinMPNN-FMIF (hidden 128, 3 + 3 layers, K = 30) on seeded weights
+     at 8 x 256, f32, its decoder over an encoder state computed once and a
+     seeded linear reward of the expected logits: one guidance gradient
+     through K2a/K2b against the unfused chain (the train step's 1e-3 of the
+     max), then CG, SMC, TDS (10 steps, cut from 500) and the Gumbel sampler
+     (truncate_steps 3, a backward to the weights through K2b), each with
+     the launch counts set to 0 just before it and read just after, ms a
+     step; VanillaEgnnGenerator and EqgatGenerator at
+     recipes/molecule_semla_reed.json's widths (d_model 384, 12 layers,
+     d_edge 128, d_rep 512, self-conditioning) on the 56 x 72 batch: card
+     vs CPU on 8 rows (1e-4 of the max, f64 beside it), 10 timed
+     `SemlaTrainer.train_step`s (wall and device ms, molecules/s, peak
+     memory, launches, idle share), a 200-step learning check at d_model 64
+     on the Semla gate's chains (the loss must fall below half its start),
+     `train-molecule-semla --set arch=...` and `eval-semla` as subprocesses;
+     UniMolGlobal() and FradEncoder() at their defaults on 64 GEOM-sized
+     molecules card vs CPU (1e-4), timed, `precompute_mol_reps` as a
+     subprocess on a fabricated .rsmol and one `train-molecule-semla` step
+     reading its reps.npy; `train-protein --steps 10 --profile-dir` as a
+     subprocess, whose Chrome trace must name K2a's and K2b's kernels. K1,
+     K2a and K2b launch 0 times on the EGNN, EQGAT and encoder paths.
+  15. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training; K2a and K2b in f32
-     on the protein paths and in bf16 on the bf16 protein training), the
-     nvidia-smi line, and last the {"ok": true, "device": {...}} line.
+     on the protein paths, in bf16 on the bf16 protein training and in f32
+     on the guided samplers), the nvidia-smi line, and last the
+     {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
 """
@@ -3352,6 +3376,481 @@ def property_phases(smi):
         raise AssertionError(f"a TPU-kernel port ran on the property and eval paths: {counts}")
 
 
+# -- slice 14: reward-guided protein sampling, SemlaFlow's EGNN and EQGAT,
+# the rep encoders with precompute_mol_reps, --profile-dir -----------------
+
+# the default ProteinTrainConfig's model on seeded weights at 8 x 256, f32;
+# 10 guided steps (num_timesteps 500 cut to 11); the Gumbel sampler's relaxed
+# steps are the last truncate_steps - 1 of them (reed_tpu's rule). Sampling
+# temperature 1, as reed_tpu's reward-guided tests sample: at the default
+# 0.1 the draws of seeded weights are the argmax, and every sampler then
+# writes the plain sampler's sequences
+GUIDED = dict(batch=8, length=256, num_timesteps=11, truncate_steps=3, alpha=0.5, temp=1.0)
+# the recipe's widths (d_model 384, 12 layers, d_edge 128, d_rep 512,
+# self-conditioning) at the Semla phase's GEOM scale, 56 x 72; 10 timed steps
+ALT = dict(warmup_steps=2, timed_steps=10, profiled_steps=2, cpu_rows=8)
+ALT_FWD_RTOL = 1e-4  # card vs CPU, f32 with TF32 off
+# the checked alternative generators: N(0, 0.02) on the initialisation but
+# the coordinate heads (EGNN's phi_x_fc3 keeps reed_tpu's 1e-6-variance
+# init, EQGAT's coord_head its lecun init) and EQGAT's vector- and
+# direction-gate rows of msg_fc2 scaled by 0.1. At N(0, 0.02) everywhere
+# the EGNN's coordinates overflow to NaN within 12 layers and the EQGAT's
+# vector channels grow ~70-fold a layer, f32 landing 3e-4 from f64 (CPU);
+# so set, f32 is within 1.6e-6 (EGNN) and 3.6e-6 (EQGAT) of f64 on the CPU
+# and 1e-4 between card and CPU bounds the port, not the conditioning
+ALT_EQUI_GATE_SCALE = 0.1
+# learning check: the Semla gate's chains and reps (cross-attention in every
+# layer) at d_model 64, 3 layers, batch 32, 200 steps: the mean denoising
+# loss of steps 180-199 must be below ALT_LEARN_FALL of steps 0-4's (the
+# port on the CPU: EGNN 1.88 -> 0.449, EQGAT 3.54 -> 0.370)
+ALT_LEARN = dict(batch=32, d_model=64, layers=3, steps=200)
+ALT_LEARN_FALL = 0.5
+# UniMolGlobal() and FradEncoder() at their defaults on 64 GEOM-sized
+# molecules (36-72 atoms padded to 72: 74 UniMol tokens); card vs CPU on 8
+# rows (f32, TF32 off; f32 is within 7.3e-7 (UniMol) and 1.2e-7 (Frad) of
+# f64 on the CPU); precompute_mol_reps over 256 such molecules
+ENC = dict(batch=64, atoms=72, cpu_rows=8, molecules=256)
+ENC_RTOL = 1e-4
+
+
+def guided_phase(smi):
+    """Reward-guided sampling through K2a/K2b: the decoder of the default
+    ProteinMPNN-FMIF over an encoder state computed once (a closure of this
+    script; the guidance gradient runs through the decoder's message
+    chains), a seeded linear reward of the expected logits. One guidance
+    gradient with the kernels against the unfused chain; then CG, SMC, TDS
+    and the Gumbel sampler with a backward to the weights, each with the
+    launch counts set to 0 just before it and read just after."""
+    from reed_tpu_torch.diffusion import discrete as dd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cfg = ProteinTrainConfig()
+    model = build_model(cfg, device="cuda", generator=gen)
+    perturb_pmpnn(model, gen)
+    b, l, v = GUIDED["batch"], GUIDED["length"], cfg.interpolant.num_tokens
+    mask_id, n_dec = cfg.interpolant.mask_index, cfg.num_decoder_layers
+    batch = synthetic_protein_batch(gen, b, l)
+    args = [batch[k] for k in ("X", "S", "mask", "chain_M", "residue_idx",
+                               "chain_encoding_all")]
+    with torch.no_grad():
+        enc = model(*args, return_enc=True)
+
+    def logits_fn(s, cls):
+        return model(args[0], s, *args[2:], enc_state=enc)
+
+    w = torch.randn(v, generator=gen, device="cuda")
+
+    def reward_fn(x):
+        return (x @ w).mean(dim=-1)
+
+    def reward_of(tokens):
+        return reward_fn(F.one_hot(tokens.long(), v).float()).mean().item()
+
+    keep = torch.rand((b, l), generator=gen, device="cuda") < 0.5
+    onehot = F.one_hot(torch.where(keep, batch["S"], mask_id).long(), v).float()
+    grads, counts = {}, {}
+    for fused in (True, False):
+        model.fused = fused
+        fm.launches = fm.backward_launches = 0
+        grads[fused] = dd.reward_gradient(logits_fn, reward_fn, onehot)
+        torch.cuda.synchronize()
+        counts[fused] = (fm.launches, fm.backward_launches)
+    model.fused = True
+    g_err = rel_err(grads[True], grads[False])
+    log(f"[guided] one guidance gradient d mean R / d onehot at {b} x {l} (half the tokens "
+        f"masked), kernels vs unfused chain: max err / max |g| {g_err:.3g} (rtol "
+        f"{TRAIN_GRAD_RTOL}, the train step's bound), max |g| "
+        f"{grads[False].abs().max().item():.3g}; launches K2a/K2b {counts[True]} fused, "
+        f"{counts[False]} unfused")
+    if not (g_err <= TRAIN_GRAD_RTOL and torch.isfinite(grads[True]).all()
+            and counts[True] == (n_dec, n_dec) and counts[False] == (0, 0)):
+        raise AssertionError(f"guidance gradient: err {g_err}, launches {counts}")
+
+    interp = dataclasses.replace(cfg.interpolant, num_timesteps=GUIDED["num_timesteps"],
+                                 temp=GUIDED["temp"])
+    steps = interp.num_timesteps - 1
+    # the guidance scale that makes the largest log tilt 1 at the checked state
+    scale = 1.0 / (grads[True] - grads[True][..., mask_id:mask_id + 1]).abs().max().item()
+    soft = GUIDED["truncate_steps"] - 1
+    names, params = zip(*model.named_parameters())
+    seeded = lambda k: torch.Generator(device="cuda").manual_seed(k)  # noqa: E731
+
+    def gumbel():
+        x = dd.gumbel_softmax_sampler(logits_fn, (b, l), interp, GUIDED["truncate_steps"],
+                                      generator=seeded(1), device="cuda")
+        g = torch.autograd.grad(reward_fn(x).mean(), params, allow_unused=True)
+        return torch.argmax(x, dim=-1).to(torch.int32), g
+
+    samplers = {
+        "CG": (lambda: dd.euler_unmask_sampler_controlled_cg(
+            logits_fn, reward_fn, (b, l), interp, guidance_scale=scale, generator=seeded(1),
+            device="cuda"), (2 * n_dec * steps, n_dec * steps)),
+        "SMC": (lambda: dd.euler_unmask_sampler_controlled_smc(
+            logits_fn, reward_fn, (b, l), interp, alpha=GUIDED["alpha"], generator=seeded(1),
+            device="cuda"), (2 * n_dec * steps, 0)),
+        "TDS": (lambda: dd.euler_unmask_sampler_controlled_smc(
+            logits_fn, reward_fn, (b, l), interp, alpha=GUIDED["alpha"], guidance_scale=scale,
+            generator=seeded(1), device="cuda"), (3 * n_dec * steps, n_dec * steps)),
+        "Gumbel": (gumbel, (n_dec * steps, n_dec * soft)),
+    }
+    settings = {"CG": f"guidance scale {scale:.4g}", "SMC": f"alpha {GUIDED['alpha']}",
+                "TDS": f"guidance scale {scale:.4g}, alpha {GUIDED['alpha']}",
+                "Gumbel": f"truncate_steps {GUIDED['truncate_steps']}"}
+    valid = batch["mask"].bool()
+    with torch.no_grad():
+        _, plain = sample(model, batch, seeded(1), interp)
+    totals, ms = [0, 0], {}
+    for name, (fn, expect) in samplers.items():
+        fn()
+        torch.cuda.synchronize()
+        fm.launches = fm.backward_launches = fa.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = (fm.launches, fm.backward_launches)
+        totals = [totals[0] + counted[0], totals[1] + counted[1]]
+        ms[name] = 1e3 * seconds / steps
+        tokens = out[1] if name != "Gumbel" else out[0]
+        log(f"[guided] {name} ({settings[name]}): {steps} steps at {b} x {l}, "
+            f"{ms[name]:.3f} ms a step "
+            f"({'with the backward to the weights' if name == 'Gumbel' else 'guided'}); "
+            f"launches K2a {counted[0]}, K2b {counted[1]} (expected {expect}), K1 "
+            f"{fa.launches}; mean reward of the sequences {reward_of(tokens):.4f} (plain "
+            f"Euler {reward_of(plain):.4f}; not bounded), "
+            f"{(tokens != plain)[valid].float().mean().item():.3f} of the tokens differ from "
+            f"plain Euler's from the same generator seed ({smi})")
+        if counted != expect or fa.launches:
+            raise AssertionError(f"{name}: launches {counted}, expected {expect}")
+        if (tokens[valid] == mask_id).any():
+            raise AssertionError(f"{name}: mask tokens left at valid positions")
+        if name == "CG" and (tokens == plain)[valid].all():
+            raise AssertionError("CG: the guidance changed no draw of plain Euler's")
+        if name == "Gumbel":
+            # the message chains' weights, whose gradients K2b computes
+            dec = [g for n, g in zip(names, out[1])
+                   if re.fullmatch(r"decoder_layers\.\d+\.W[123]\.weight", n)]
+            if not (len(dec) == 3 * n_dec and all(
+                    g is not None and torch.isfinite(g).all() and g.abs().max() > 0
+                    for g in dec)):
+                raise AssertionError("Gumbel: the decoder's message weights got no gradient")
+    log(f"[guided] K2a {totals[0]} and K2b {totals[1]} launches over the four samplers")
+    return dict(k2a=totals[0], k2b=totals[1], ms=ms)
+
+
+def seeded_alt(cfg, seed=5):
+    """The alternative generator of `cfg` on seeded weights (ALT_EQUI_GATE_SCALE)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = semla_train.build_model(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not re.search(r"phi_x_fc3|coord_head", name):
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+        if cfg.arch == "eqgat":
+            for layer in model.layers:
+                layer.msg_fc2.weight[cfg.d_model:] *= ALT_EQUI_GATE_SCALE
+                layer.msg_fc2.bias[cfg.d_model:] *= ALT_EQUI_GATE_SCALE
+    return model
+
+
+def alt_forward_phase(arch, smi):
+    """The recipe-width generator on the card against its CPU copy on the
+    first rows of a GEOM-scale batch, after a first pass that gives the
+    self-conditioning inputs; the CPU in f32 against f64 beside it. The rep
+    goes in as the trainer passes it (none: the recipe's cond_type is none)."""
+    cfg = semla_full_config(arch=arch)
+    batch = semla_train.batch_to_device(
+        semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=7), "cuda")
+    state, times = batch["interpolated"], batch["times"]
+    rep = batch["rep"] if cfg.cond_type != "none" else None
+    rows = ALT["cpu_rows"]
+    model = seeded_alt(cfg).eval()
+    with torch.no_grad():
+        zero = semla_train._zero_cond(state)
+        c, tl, bl, _, _ = semla_train._apply(model, cfg, state, times, zero, rep)
+        cond = {"coords": c, "atomics": torch.softmax(tl, -1), "bonds": torch.softmax(bl, -1)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = semla_train._apply(model, cfg, state, times, cond, rep)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        refs = {}
+        for dt in (torch.float32, torch.float64):
+            cpu = copy.deepcopy(model).cpu().to(dt)
+            cpu.compute_dtype = dt
+            sub = {k: v[:rows].cpu().to(dt) for k, v in state.items()}
+            subc = {k: v[:rows].cpu().to(dt) for k, v in cond.items()}
+            refs[dt] = semla_train._apply(cpu, cfg, sub, times[:rows].cpu().to(dt), subc, None)
+    names = ["coords", "type_logits", "bond_logits", "charge_logits"]
+    names += [f"zs[{i}]" for i in range(len(out[4]))]
+    flat = lambda o: list(o[:4]) + list(o[4])  # noqa: E731
+    errs = {n: rel_err(a[:rows], b) for n, a, b in zip(names, flat(out), flat(refs[torch.float32]))}
+    errs64 = {n: rel_err(a, b) for n, a, b in zip(names, flat(refs[torch.float32]),
+                                                   flat(refs[torch.float64]))}
+    pad = state["mask"] == 0
+    fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())  # noqa: E731
+    log(f"[{arch}] full-width forward (d_model {cfg.d_model}, {cfg.n_layers} layers, d_edge "
+        f"{cfg.d_edge}, d_rep {cfg.d_rep}, self-conditioning; batch {SEMLA['batch']} x "
+        f"{SEMLA['atoms']}, {int(pad.sum())} padded) card vs CPU on {rows} rows: max abs err "
+        f"/ max |out| {fmt(errs)} (rtol {ALT_FWD_RTOL}); CPU f32 vs f64 {fmt(errs64)}; "
+        f"max |coords| {out[0].abs().max().item():.3g}; card {card_ms:.1f} ms ({smi})")
+    n_zs = (sum(d < cfg.n_layers for d in cfg.align_depth)
+            if arch == "egnn" and cfg.rep_alignment else 0)
+    if not (len(out[4]) == n_zs and all(e <= ALT_FWD_RTOL for e in errs.values())
+            and all(torch.isfinite(t).all() for t in out[:4]) and (out[0][pad] == 0).all()):
+        raise AssertionError(f"{arch} card vs CPU: {errs}")
+
+
+def alt_train_phase(arch, smi):
+    """The main path: SemlaTrainer.train_step with arch egnn / eqgat at the
+    recipe's width on the GEOM-scale batch; ms a step (wall and CUDA
+    events), molecules/s, peak memory, launches, idle share."""
+    cfg = semla_full_config(arch=arch)
+    trainer = semla_train.SemlaTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    batch = semla_train.batch_to_device(
+        semla_train.example_batch(cfg, SEMLA["batch"], SEMLA["atoms"], seed=1), "cuda")
+    n, steps = SEMLA["batch"], ALT["timed_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ALT["warmup_steps"]):
+        state, metrics = trainer.train_step(state, batch, use_sc=bool(i % 2))
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = (fa.launches, fm.launches, fm.backward_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms = 1e3 * seconds / steps
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[{arch}] SemlaTrainer.train_step, recipe width ({n_params / 1e6:.2f} M parameters), "
+        f"f32, batch {n} x {SEMLA['atoms']}: {steps} steps {wall_ms:.3f} ms per step (wall, "
+        f"after a sync), {start.elapsed_time(end) / steps:.3f} ms (CUDA events), "
+        f"{n * steps / seconds:.2f} molecules/s; peak memory {peak_gb:.2f} GB; K1/K2a/K2b "
+        f"launches {counts}; last loss {metrics['loss'].item():.6g}, proj "
+        f"{metrics['proj_loss'].item():.4g}, grad_norm {metrics['grad_norm'].item():.4g} "
+        f"({smi})")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+        raise AssertionError(f"non-finite {arch} train metrics {metrics}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the {arch} path: {counts}")
+    k = ALT["profiled_steps"]
+
+    def k_steps():
+        nonlocal state
+        for i in range(k):
+            state, _ = trainer.train_step(state, batch, use_sc=bool(i % 2))
+
+    prof = profile(f"{k} {arch} train steps (self-conditioning on 1)", k_steps, smi, top=8)
+    busy = prof["busy_ms"] / k
+    log(f"[{arch}] per step: device {busy:.3f} ms (kernel time, profiled), "
+        f"{prof['launches'] / k:.0f} launches; device idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled wall ({wall_ms:.3f} ms)")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, peak_gb=peak_gb, busy_ms=busy,
+                launches=prof["launches"] / k)
+
+
+def alt_learning_phase(arch, smi):
+    """ALT_LEARN on the Semla gate's data: the loss must fall."""
+    gcfg = dataclasses.replace(convergence_semla.gate_config(
+        seed=0, batch_size=ALT_LEARN["batch"], d_model=ALT_LEARN["d_model"],
+        layers=ALT_LEARN["layers"], steps=ALT_LEARN["steps"]), arch=arch)
+    data = convergence_semla.GateData(ALT_LEARN["batch"])
+    trainer = semla_train.SemlaTrainer(gcfg, device="cuda")
+    state = trainer.init_state()
+    losses = []
+    t0 = time.perf_counter()
+    for batch in convergence_semla.gate_batches(data, ALT_LEARN["steps"], torch.device("cuda")):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["denoising_loss"])
+    losses = [x.item() for x in losses]
+    seconds = time.perf_counter() - t0
+    first, late = sum(losses[:5]) / 5, sum(losses[-20:]) / 20
+    log(f"[{arch}] learning check (Semla gate chains, adaLN reps, d_model "
+        f"{gcfg.d_model}, {gcfg.n_layers} layers, batch {gcfg.batch_size}): denoising loss "
+        f"mean of steps 0-4 {first:.4f}, step {len(losses) // 2} "
+        f"{losses[len(losses) // 2]:.4f}, mean of steps "
+        f"{len(losses) - 20}-{len(losses) - 1} {late:.4f} (must be < {ALT_LEARN_FALL} x "
+        f"the first); {1e3 * seconds / len(losses):.3f} ms per step ({smi})")
+    if not late < ALT_LEARN_FALL * first:
+        raise AssertionError(f"the {arch} loss did not fall: {first} -> {late}")
+
+
+def alt_cli_phase(tmp, arch, smi):
+    """train-molecule-semla and eval-semla with the recipe and --set
+    arch=ARCH as subprocesses: 2 synthetic steps with a checkpoint, then 16
+    molecules from its EMA at max_atoms 256 in 10 integrator steps."""
+    run, out = f"{tmp}/{arch}_run", f"{tmp}/{arch}_mols"
+    arch_set = ["--config", RECIPE_SEMLA, "--set", f"arch={arch}"]
+    text = run_cli(["train-molecule-semla", *arch_set, "--synthetic", "--steps", "2",
+                    "--log-every", "1", "--ckpt-dir", run, "--ckpt-every", "2"],
+                   f"train-molecule-semla --set arch={arch} --steps 2")
+    rate = [line for line in text.splitlines() if "steps after the first" in line]
+    log(f"[{arch}] {rate[-1] if rate else text.splitlines()[-1]}")
+    if "2.pt" not in os.listdir(run):
+        raise AssertionError(f"train-molecule-semla arch={arch} wrote {os.listdir(run)}")
+    text = run_cli(["eval-semla", *arch_set, "--ckpt-dir", run, "--n-samples",
+                    str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1", "--num-steps",
+                    str(SEMLA_EVAL["num_steps"]), "--out", out],
+                   f"eval-semla --set arch={arch} --n-samples 16 --num-steps 10")
+    lines = text.strip().splitlines()
+    summary = json.loads(lines[-1])
+    speed = next(line for line in lines if "molecules/s" in line)
+    xyz = sorted(f for f in os.listdir(out) if f.endswith(".xyz"))
+    log(f"[{arch}] eval-semla (recipe, EMA of step 2, max_atoms 256): {speed}; {len(xyz)} "
+        f".xyz files; validity {summary['validity']} (2 training steps: ~0 expected) ({smi})")
+    if len(xyz) != SEMLA_EVAL["n_samples"] or "loaded EMA weights of step 2" not in text:
+        raise AssertionError(f"eval-semla arch={arch}: {len(xyz)} .xyz files\n{text[-2000:]}")
+
+
+def geom_molecules(rng, n, n_min=36, n_max=72):
+    """n GEOM-sized molecules (the first of n_max atoms): branched random
+    walks of 1.45 A steps, types drawn from the vocabulary's atoms."""
+    from reed_tpu_torch.data.molecule import GeometricMol
+
+    out = []
+    for i in range(n):
+        k = n_max if i == 0 else int(rng.integers(n_min, n_max + 1))
+        pos = np.zeros((k, 3))
+        for j in range(1, k):
+            step = rng.standard_normal(3)
+            pos[j] = pos[int(rng.integers(max(0, j - 3), j))] + 1.45 * step / np.linalg.norm(step)
+        out.append(GeometricMol(pos.astype(np.float32),
+                                rng.choice([2, 3, 3, 3, 4, 5, 6, 8, 9], size=k).astype(np.int32),
+                                np.zeros((0, 2), np.int32), np.zeros((0,), np.int32)))
+    return out
+
+
+def encoders_phase(tmp, smi):
+    """UniMolGlobal() and FradEncoder() at their defaults on seeded weights:
+    64 GEOM-sized molecules on the card against the CPU, timed; then
+    precompute_mol_reps as a subprocess over a fabricated .rsmol (the seeded
+    UniMol saved as a reference checkpoint), its reps against this
+    process's, and one train-molecule-semla step that reads them."""
+    from reed_tpu_torch.data.molecule import build_vocab, save_dataset
+    from reed_tpu_torch.encoders.torchmd_et import FradEncoder
+    from reed_tpu_torch.encoders.unimol import UniMolGlobal
+    from reed_tpu_torch.tools import precompute_mol_reps as prep
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    mols = geom_molecules(rng, ENC["molecules"])
+    batch, rows, n = mols[:ENC["batch"]], ENC["cpu_rows"], ENC["batch"]
+    with torch.device("cuda"):
+        encoders = {"UniMolGlobal": (UniMolGlobal().initialize_weights(gen).eval(),
+                                     prep.unimol_inputs(batch, ENC["atoms"])),
+                    "Frad": (FradEncoder().initialize_weights(gen).eval(),
+                             prep.frad_inputs(batch, ENC["atoms"], build_vocab().tokens))}
+    for name, (model, arrays) in encoders.items():
+        model.requires_grad_(False)
+        x = [torch.from_numpy(np.asarray(a)).cuda() for a in arrays]
+        with torch.no_grad():
+            out = model(*x)
+            ref = copy.deepcopy(model).cpu()(*(a[:rows].cpu() for a in x))
+        err = rel_err(out[:rows], ref)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model(*x), iters=5, warmup=1, queued=False)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[encoders] {name} ({n_params / 1e6:.2f} M parameters) at its defaults, {n} "
+            f"molecules x {x[0].shape[1]} tokens: card vs CPU on {rows} rows max abs err / "
+            f"max |rep| {err:.3g} (rtol {ENC_RTOL}), rep {tuple(out.shape)}; {ms:.3f} ms a "
+            f"batch, {1e3 * n / ms:.1f} molecules/s; peak memory {peak:.2f} GB ({smi})")
+        if not (err <= ENC_RTOL and torch.isfinite(out).all() and out.shape[0] == n):
+            raise AssertionError(f"{name} card vs CPU: {err}")
+
+    unimol = encoders["UniMolGlobal"][0]
+    data_dir = f"{tmp}/geom"
+    os.makedirs(data_dir)
+    save_dataset(f"{data_dir}/train.rsmol", mols)
+    torch.save({"model": {k: v.cpu() for k, v in unimol.state_dict().items()}},
+               f"{tmp}/unimol.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "reed_tpu_torch.tools.precompute_mol_reps",
+                           "--data", f"{data_dir}/train.rsmol.npz", "--weights",
+                           f"{tmp}/unimol.pt", "--encoder", "unimol"],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"precompute_mol_reps exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    reps = np.load(f"{data_dir}/reps.npy")
+    sizes = np.load(f"{data_dir}/sizes.npy")
+    with torch.no_grad():
+        mine = unimol(*(torch.from_numpy(np.asarray(a)).cuda()
+                        for a in prep.unimol_inputs(batch, ENC["atoms"]))).cpu()
+    err = rel_err(torch.from_numpy(reps[:n]), mine)
+    speed = next(line for line in proc.stdout.splitlines() if "molecules/s" in line)
+    log(f"[encoders] precompute_mol_reps (subprocess, {time.perf_counter() - t0:.1f} s): "
+        f"{speed}; reps.npy {reps.shape}, its first batch against this process's max abs "
+        f"err / max |rep| {err:.3g}")
+    if not (reps.shape == (ENC["molecules"], 512) and np.isfinite(reps).all() and err <= 1e-5
+            and list(sizes) == [m.seq_length for m in mols]):
+        raise AssertionError(f"precompute_mol_reps: {reps.shape}, err {err}")
+    text = run_cli(["train-molecule-semla", "--config", RECIPE_SEMLA, "--data-dir", data_dir,
+                    "--dataset", "geom", "--steps", "1", "--log-every", "1"],
+                   "train-molecule-semla --data-dir (reps.npy) --steps 1")
+    step = [line for line in text.splitlines() if line.startswith("[step 1]")]
+    log(f"[encoders] train-molecule-semla on the fabricated GEOM split with its reps.npy: "
+        f"{step[0][:160] if step else text[-300:]}")
+    if not step or f"loaded {ENC['molecules']} molecules" not in text or "no reps.npy" in text:
+        raise AssertionError(f"train-molecule-semla did not read reps.npy:\n{text[-2000:]}")
+
+
+def profile_dir_phase(tmp, smi):
+    """train-protein --steps 10 --profile-dir as a subprocess: the Chrome
+    trace of steps 2-7 exists and names K2a's and K2b's kernels."""
+    trace_dir = f"{tmp}/trace"
+    run_cli(["train-protein", "--steps", "10", "--synthetic", "--log-every", "5",
+             "--profile-dir", trace_dir], "train-protein --steps 10 --profile-dir")
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2a = sum("fused_message_fwd_kernel" in e["name"] for e in kernels)
+    k2b = sum("fused_message_bwd_kernel" in e["name"] for e in kernels)
+    traced = sum(e.get("name") == "reed::train_step" and e.get("cat") == "user_annotation"
+                 for e in events)
+    log(f"[profile-dir] {files} ({os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6:.1f}"
+        f" MB): {len(kernels)} kernel events, K2a {k2a}, K2b {k2b}, reed::train_step ranges "
+        f"{traced} ({smi})")
+    if files != ["steps_2-7.pt.trace.json"] or not (k2a and k2b):
+        raise AssertionError(f"--profile-dir: {files}, K2a {k2a}, K2b {k2b}")
+
+
+def slice14_phases(smi):
+    """Slice 14's phases. K2a and K2b run on the guided path and in the
+    traced train-protein; K1, K2a and K2b launch 0 times on the others."""
+    t0 = time.perf_counter()
+    guided = guided_phase(smi)
+    fa.launches = fm.launches = fm.backward_launches = 0
+    alt = {}
+    for arch in ("egnn", "eqgat"):
+        alt_forward_phase(arch, smi)
+        alt[arch] = alt_train_phase(arch, smi)
+        alt_learning_phase(arch, smi)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for arch in ("egnn", "eqgat"):
+            alt_cli_phase(tmp, arch, smi)
+        encoders_phase(tmp, smi)
+        counts = (fa.launches, fm.launches, fm.backward_launches)
+        profile_dir_phase(tmp, smi)
+    log(f"[slice14] phases in {time.perf_counter() - t0:.1f} s; K1/K2a/K2b launches on the "
+        f"EGNN, EQGAT and encoder paths {counts}")
+    if any(counts):
+        raise AssertionError(f"a TPU-kernel port ran on the EGNN / EQGAT / encoder paths: "
+                             f"{counts}")
+    return guided
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -3362,26 +3861,36 @@ def kernel_entry(name, replaces, row, launches, source=None):
 
 def main():
     t_start = time.perf_counter()
+
+    def timed(fn, *args):
+        """fn(*args), its seconds logged: where the script's time goes."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__} {time.perf_counter() - t0:.1f} s (script at "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        return out
+
     smi = device_phase()
-    build_phase()
-    attn_rows = kernel_phase(smi)
-    msg_rows = message_kernel_phase(smi)
-    bwd_rows = message_backward_phase(smi)
-    attn_launches, attn_f32_launches = slice_phase(smi)
-    msg_launches = protein_phase(smi)
-    bwd_launches = train_phase(smi)
-    widths_phase()
-    image_launches, gate_launches = image_train_phase(smi)
+    timed(build_phase)
+    attn_rows = timed(kernel_phase, smi)
+    msg_rows = timed(message_kernel_phase, smi)
+    bwd_rows = timed(message_backward_phase, smi)
+    attn_launches, attn_f32_launches = timed(slice_phase, smi)
+    msg_launches = timed(protein_phase, smi)
+    bwd_launches = timed(train_phase, smi)
+    timed(widths_phase)
+    image_launches, gate_launches = timed(image_train_phase, smi)
     t0 = time.perf_counter()
-    gen_vae_launches, enc_launches = eval_phases(smi)
+    gen_vae_launches, enc_launches = timed(eval_phases, smi)
     log(f"[eval] slice 8 phases in {time.perf_counter() - t0:.1f} s; K1 launches on its "
         f"paths: {gen_vae_launches} in generate-image --vae (16 calls), {enc_launches} in "
         f"train-image --enc-type ({ENC_DATA['steps']} steps)")
-    semla_f32 = molecule_phases(smi)
-    edm_f32 = edm_phases(smi)
-    bf16_launches = precision_rdm_phases(smi, semla_f32, edm_f32)
-    multiflow_phases(smi)
-    property_phases(smi)
+    semla_f32 = timed(molecule_phases, smi)
+    edm_f32 = timed(edm_phases, smi)
+    bf16_launches = timed(precision_rdm_phases, smi, semla_f32, edm_f32)
+    timed(multiflow_phases, smi)
+    timed(property_phases, smi)
+    guided = timed(slice14_phases, smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -3404,6 +3913,12 @@ def main():
                      source="fused_message"),
         kernel_entry("fused_message_bwd_bf16_train", "reed_tpu/ops/fused_message.py:152",
                      bwd_rows[(MSG_MAIN, torch.bfloat16)], bf16_launches[1],
+                     source="fused_message"),
+        kernel_entry("fused_message_guided", "reed_tpu/ops/fused_message.py:132",
+                     msg_rows[(MSG_MAIN, torch.float32)], guided["k2a"],
+                     source="fused_message"),
+        kernel_entry("fused_message_bwd_guided", "reed_tpu/ops/fused_message.py:152",
+                     bwd_rows[(MSG_MAIN, torch.float32)], guided["k2b"],
                      source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -294,6 +294,26 @@ def eval_protein(args):
     }, indent=2))
 
 
+def _start_profile(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device, profile_dir, first, last):
+    """Stop a trace after the device has finished the traced steps and write
+    it as {profile_dir}/steps_{first}-{last}.pt.trace.json."""
+    synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"steps_{first}-{last}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace -> {path}")
+
+
 def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
               sample_hook=None):
     """reed_tpu's training loop on one device: `args.steps` steps over
@@ -304,7 +324,10 @@ def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
     checkpoint (with a config snapshot beside it), calling
     `sample_hook(state, step)` every --sample-every steps; then the rate of
     the steps after the first. `samples_of(batch)` counts a batch's
-    samples, in `unit`s."""
+    samples, in `unit`s. With --profile-dir, torch.profiler traces the
+    steps reed_tpu traces (from min(2, max(0, steps - 2)) through min(7,
+    steps - 1), the device synchronised before the stop) and writes a
+    Chrome trace into that directory."""
     from reed_tpu_torch.core.checkpoint import CheckpointManager
     from reed_tpu_torch.core.logging import MetricLogger
 
@@ -319,11 +342,19 @@ def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
             ckpt.restore(state, trainer.generator)
             print(f"resumed from step {state.step}")
     t0 = samples = None
+    profile_dir, prof = getattr(args, "profile_dir", None), None
+    profile_start = min(2, max(0, args.steps - 2))
+    profile_stop = min(7, args.steps - 1)  # always stop before the loop ends
     for i in range(args.steps):
+        if profile_dir and i == profile_start:
+            prof = _start_profile(device)
         with record_function("reed::next_batch"):
             batch = next(batches)
         with record_function("reed::train_step"):
             state, metrics = trainer.train_step(state, batch)
+        if prof is not None and i >= profile_stop:
+            _stop_profile(prof, device, profile_dir, profile_start, i)
+            prof = None
         if i == 0:
             synchronize(device)
             t0, samples = time.perf_counter(), 0
@@ -1386,6 +1417,8 @@ def _add_training(p):
                         "the run resumes from its latest checkpoint")
     p.add_argument("--ckpt-every", type=int, default=0,
                    help="save a checkpoint every N steps (0: none)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of steps 3-8 (from 1) here")
 
 
 def main(argv=None):

@@ -6,8 +6,8 @@ coordinate normalisation, size-bucketed dense collation and the
 SemlaTrainer epoch iterator (prior, OT coupling and interpolation per
 batch, as the reference's collate does); and the EDM half: the QM9 EDM
 npz loader and the MoleculeEDMTrainer epoch iterator (dense collation of
-positions, one-hot types and charges with the node and edge masks).
-`build_geom_dataset` (GEOM msgpack) is not ported yet.
+positions, one-hot types and charges with the node and edge masks); and
+`build_geom_dataset`, the GEOM-Drugs msgpack to `.rsmol` builder.
 """
 
 from __future__ import annotations
@@ -316,3 +316,49 @@ def load_qm9_edm_npz(path: str) -> Dict[str, np.ndarray]:
     if "num_atoms" not in out and "positions" in out:
         out["num_atoms"] = (np.abs(out["positions"]).sum(-1) > 0).sum(-1)
     return out
+
+
+# -- dataset builders ---------------------------------------------------------
+
+def build_geom_dataset(msgpack_path: str, out_path: str,
+                       vocab: Optional[Vocabulary] = None,
+                       limit: Optional[int] = None):
+    """GEOM-Drugs msgpack -> the lowest-energy conformer of each molecule,
+    saved as a `.rsmol` dataset (reference:
+    molecule/build_geom_dataset.py:11-120). Molecules with an element
+    outside the vocabulary are skipped; returns the count written. Needs
+    the msgpack package."""
+    import msgpack
+
+    vocab = vocab or build_vocab()
+    mols: List[GeometricMol] = []
+    with open(msgpack_path, "rb") as f:
+        unpacker = msgpack.Unpacker(f)
+        for batch in unpacker:
+            for smiles, entry in batch.items():
+                confs = entry.get("conformers", [])
+                if not confs:
+                    continue
+                best = min(confs, key=lambda c: c.get("totalenergy", np.inf))
+                xyz = np.array(best["xyz"], np.float32)  # [N, 4] (Z, x, y, z)
+                symbols = [_PERIODIC.get(z, "C") for z in xyz[:, 0].astype(int)]
+                try:
+                    atomics = vocab.encode(symbols)
+                except KeyError:
+                    continue
+                mols.append(GeometricMol(
+                    coords=xyz[:, 1:], atomics=atomics,
+                    bond_indices=np.zeros((0, 2), np.int32),
+                    bond_types=np.zeros((0,), np.int32),
+                    str_id=smiles if isinstance(smiles, str) else smiles.decode()))
+                if limit is not None and len(mols) >= limit:
+                    break
+            if limit is not None and len(mols) >= limit:
+                break
+    save_dataset(out_path, mols)
+    return len(mols)
+
+
+_PERIODIC = {1: "H", 5: "B", 6: "C", 7: "N", 8: "O", 9: "F", 13: "Al",
+             14: "Si", 15: "P", 16: "S", 17: "Cl", 33: "As", 35: "Br",
+             53: "I", 80: "Hg", 83: "Bi"}

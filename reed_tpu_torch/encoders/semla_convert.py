@@ -9,7 +9,10 @@ gets a zero row (the reference's Embedding(max_atoms) cannot index
 n_atoms = max_atoms; the port's table has max_atoms + 1 rows, as
 reed_tpu's). `state_dict_from_flax` maps every leaf of reed_tpu's flax
 params, the RepConditioner's and the time embedding's included, to the
-port's names.
+port's names; it carries the trees of reed_tpu's VanillaEgnnGenerator and
+EqgatGenerator as well, whose port (models/semla_alt.py) keeps the flax
+module names (`layers_{i}` becomes `layers.{i}`, a ProjectorMLP's Dense_k
+its Sequential index, nothing else is renamed).
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ def torch_name(flax_path) -> str:
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """reed_tpu SemlaGenerator params (a nested dict of arrays, with or
-    without the 'params' collection) -> the port's state_dict, one entry per
+    """reed_tpu SemlaGenerator, VanillaEgnnGenerator or EqgatGenerator params
+    (a nested dict of arrays, with or without the 'params' collection) -> the port's state_dict, one entry per
     flax leaf; load it with strict=True to show that nothing is left over."""
     if "params" in params:
         params = params["params"]

@@ -314,14 +314,19 @@ class BondRefine(_Mixed):
         return _factored_pair_mlp(self.message_mlp, nf, pair, self.d_message, dt)
 
 
-def _norm_no_affine(x):
-    return F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
+def _norm_no_affine(x, dtype: torch.dtype = torch.float32):
+    """flax's LayerNorm(use_bias=False, use_scale=False, dtype=...): f32
+    statistics, the output in `dtype`."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=LN_EPS).to(dtype)
 
 
 class RepConditioner(nn.Module):
     """Rep conditioning block: cross_attn (context length 1) or adaLN-zero
     (reference: flowmodels/attention.py:151-291). Its norms have no scale
-    and no bias; the gated feed-forward uses tanh GELU (flax's nn.gelu)."""
+    and no bias; the gated feed-forward uses tanh GELU (flax's nn.gelu).
+    forward's `dtype` is reed_tpu's `dtype` of the block: the products and
+    the stream in it, the softmaxes in f32 (the SemlaGenerator runs it in
+    f32; the alternative generators in their compute dtype)."""
 
     def __init__(self, cond_type: str, d_model: int, d_rep: int, n_heads: int = 4):
         super().__init__()
@@ -341,36 +346,37 @@ class RepConditioner(nn.Module):
         self.ff_proj = nn.Linear(d, 2 * 4 * d)
         self.ff_out = nn.Linear(4 * d, d)
 
-    def _gated_ff(self, h):
-        a, g = torch.chunk(self.ff_proj(h), 2, dim=-1)
-        return self.ff_out(a * F.gelu(g, approximate="tanh"))
+    def _gated_ff(self, h, dtype):
+        a, g = torch.chunk(dense(h, self.ff_proj, dtype), 2, dim=-1)
+        return dense(a * F.gelu(g, approximate="tanh"), self.ff_out, dtype)
 
-    def forward(self, x, rep, node_mask1d):
+    def forward(self, x, rep, node_mask1d, dtype: torch.dtype = torch.float32):
         b, n, d = x.shape
         h, hd = self.n_heads, d // self.n_heads
         if self.cond_type == "cross_attn":
             ctx = rep[:, None, :]
-            q = self.to_q(_norm_no_affine(x)).reshape(b, n, h, hd)
-            k = self.to_k(ctx).reshape(b, 1, h, hd)
-            v = self.to_v(ctx).reshape(b, 1, h, hd)
+            q = dense(_norm_no_affine(x, dtype), self.to_q, dtype).reshape(b, n, h, hd)
+            k = dense(ctx, self.to_k, dtype).reshape(b, 1, h, hd)
+            v = dense(ctx, self.to_v, dtype).reshape(b, 1, h, hd)
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(hd)
-            out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v)
-            x = x + self.to_out(out.reshape(b, n, d))
-            x = x + self._gated_ff(_norm_no_affine(x))
+            attn = torch.softmax(logits.float(), dim=-1).to(dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+            x = x + dense(out.reshape(b, n, d), self.to_out, dtype)
+            x = x + self._gated_ff(_norm_no_affine(x, dtype), dtype)
         else:
-            mod = self.adaLN_modulation(F.silu(rep))[:, None, :]
+            mod = dense(F.silu(rep), self.adaLN_modulation, dtype)[:, None, :]
             sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
-            y = _norm_no_affine(x) * (1 + sc_a) + sh_a
+            y = _norm_no_affine(x, dtype) * (1 + sc_a) + sh_a
             q, k, v = (t.reshape(b, n, h, hd)
-                       for t in torch.chunk(self.attn_qkv(y), 3, dim=-1))
+                       for t in torch.chunk(dense(y, self.attn_qkv, dtype), 3, dim=-1))
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(hd)
             # mask padded keys: their logits would otherwise draw e^0 weight
             pad = torch.where(node_mask1d > 0, 0.0, -1e9)[:, None, None, :]
-            attn = torch.softmax(logits + pad, dim=-1)
+            attn = torch.softmax(logits.float() + pad, dim=-1).to(dtype)
             o = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-            x = x + g_a * self.attn_out(o.reshape(b, n, d))
-            y = _norm_no_affine(x) * (1 + sc_m) + sh_m
-            x = x + g_m * self._gated_ff(y)
+            x = x + g_a * dense(o.reshape(b, n, d), self.attn_out, dtype)
+            y = _norm_no_affine(x, dtype) * (1 + sc_m) + sh_m
+            x = x + g_m * self._gated_ff(y, dtype)
         return x * node_mask1d[..., None]
 
 

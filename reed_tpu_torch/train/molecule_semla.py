@@ -16,7 +16,9 @@ generator (reed_tpu draws it inside its jit), so the step never waits for
 the device. Generation is the Euler integrator in a Python loop on the
 device. The port trains on one device, in f32 or, with compute_dtype
 bfloat16, in reed_tpu's mixed precision (bf16 features and messages, f32
-coordinates, f32 parameters and optimizer).
+coordinates, f32 parameters and optimizer). `arch` egnn and eqgat swap
+the SemlaGenerator for models/semla_alt.py's generators; EQGAT has no
+alignment projectors, so its proj_loss is 0, as reed_tpu's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device
@@ -40,6 +43,7 @@ from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
                                                   integrator_step, interpolate_batch,
                                                   sample_prior_batch)
 from reed_tpu_torch.models.semla import SemlaGenerator, adj_from_node_mask
+from reed_tpu_torch.models.semla_alt import EqgatGenerator, VanillaEgnnGenerator
 
 
 @dataclass(frozen=True)
@@ -92,11 +96,7 @@ class SemlaTrainConfig:
 
 def check_config(cfg: SemlaTrainConfig):
     """Raise on an architecture or a compute dtype the port does not run."""
-    if cfg.arch in ("egnn", "eqgat"):
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} is reed_tpu/models/semla_alt.py, not ported yet "
-            "(ROADMAP.md Queue 1); the port runs arch='semla'")
-    if cfg.arch != "semla":
+    if cfg.arch not in ("semla", "egnn", "eqgat"):
         raise ValueError(f"arch must be semla, egnn or eqgat, got {cfg.arch!r}")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
@@ -104,22 +104,31 @@ def check_config(cfg: SemlaTrainConfig):
 
 
 def build_model(cfg: SemlaTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> SemlaGenerator:
-    """The configured SemlaGenerator on `device` (f32 parameters, computing
-    in cfg.compute_dtype: bfloat16 is reed_tpu's mixed precision),
-    initialised from `generator` as reed_tpu initialises it."""
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The configured generator on `device` (f32 parameters, computing in
+    cfg.compute_dtype: bfloat16 is reed_tpu's mixed precision), initialised
+    from `generator` as reed_tpu initialises it: SemlaGenerator, or with
+    arch egnn / eqgat the generators of models/semla_alt.py, built with
+    reed_tpu's arguments (reference: semlaflow/train.py:120-160)."""
     check_config(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    common = dict(d_model=cfg.d_model, vocab_size=cfg.vocab_size, n_atom_feats=cfg.vocab_size,
+                  d_edge=cfg.d_edge, n_edge_types=cfg.n_bond_types,
+                  n_charge_types=cfg.n_charge_types, n_layers=cfg.n_layers,
+                  self_cond=cfg.self_cond, d_rep=cfg.d_rep, compute_dtype=dtype)
     with torch.device(device) if device is not None else torch.device("cpu"):
-        model = SemlaGenerator(
-            d_model=cfg.d_model, vocab_size=cfg.vocab_size, n_atom_feats=cfg.vocab_size,
-            d_edge=cfg.d_edge, n_edge_types=cfg.n_bond_types, self_cond=cfg.self_cond,
-            size_emb=cfg.size_emb, max_atoms=cfg.max_atoms,
-            n_charge_types=cfg.n_charge_types, rep_alignment=cfg.rep_alignment,
-            d_message=cfg.d_message, n_coord_sets=cfg.n_coord_sets,
-            n_layers=cfg.n_layers, n_attn_heads=cfg.n_attn_heads,
-            d_message_hidden=cfg.d_message_hidden, d_rep=cfg.d_rep,
-            cond_type=cfg.cond_type, align_depth=tuple(cfg.align_depth),
-            coord_skip=cfg.coord_skip, compute_dtype=getattr(torch, cfg.compute_dtype))
+        if cfg.arch == "egnn":
+            model = VanillaEgnnGenerator(rep_alignment=cfg.rep_alignment,
+                                         align_depth=tuple(cfg.align_depth), **common)
+        elif cfg.arch == "eqgat":
+            model = EqgatGenerator(**common)
+        else:
+            model = SemlaGenerator(
+                size_emb=cfg.size_emb, max_atoms=cfg.max_atoms,
+                rep_alignment=cfg.rep_alignment, d_message=cfg.d_message,
+                n_coord_sets=cfg.n_coord_sets, n_attn_heads=cfg.n_attn_heads,
+                d_message_hidden=cfg.d_message_hidden, cond_type=cfg.cond_type,
+                align_depth=tuple(cfg.align_depth), coord_skip=cfg.coord_skip, **common)
         return model.initialize_weights(generator)
 
 
@@ -285,7 +294,7 @@ def time_grid(steps: int, sampling_strategy: str = "linear"):
 
 
 @torch.no_grad()
-def generate(model: SemlaGenerator, cfg: SemlaTrainConfig, prior: Dict, rep=None,
+def generate(model: nn.Module, cfg: SemlaTrainConfig, prior: Dict, rep=None,
              generator: Optional[torch.Generator] = None,
              sampling_strategy: str = "linear", final_protocol: str = "last",
              zero_cond: bool = False, pred_temp: float = 1.0, draws=None) -> Dict:
@@ -381,7 +390,7 @@ class SemlaTrainer:
         return {k: torch.from_numpy(v).to(self.device) for k, v in sample_prior_batch(
             rng_np, self.cfg.interpolant.prior, mask).items()}
 
-    def ema_model(self, state: TrainState) -> SemlaGenerator:
+    def ema_model(self, state: TrainState) -> nn.Module:
         """A copy of the model (kept for reuse) holding the state's EMA."""
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(state.model)
@@ -390,7 +399,7 @@ class SemlaTrainer:
                 p.copy_(state.ema[name])
         return self._ema_model
 
-    def generate(self, model: SemlaGenerator, prior: Dict, rep=None,
+    def generate(self, model: nn.Module, prior: Dict, rep=None,
                  generator: Optional[torch.Generator] = None, **kwargs) -> Dict:
         """`generate` with this trainer's configuration."""
         return generate(model, self.cfg, prior, rep=rep, generator=generator, **kwargs)

@@ -73,7 +73,11 @@ def test_cli_import_loads_no_jax():
             "reed_tpu_torch.models.property_classifier, reed_tpu_torch.train.property, "
             "reed_tpu_torch.encoders.property_convert, reed_tpu_torch.eval.chemnet, "
             "reed_tpu_torch.eval.molsets, reed_tpu_torch.eval.midi_metrics, "
-            "reed_tpu_torch.eval.orca, reed_tpu_torch.eval.graph_stats; "
+            "reed_tpu_torch.eval.orca, reed_tpu_torch.eval.graph_stats, "
+            "reed_tpu_torch.models.semla_alt, reed_tpu_torch.encoders.unimol, "
+            "reed_tpu_torch.encoders.unimol_convert, reed_tpu_torch.encoders.torchmd_et, "
+            "reed_tpu_torch.tools.precompute_mol_reps, reed_tpu_torch.data.captioning, "
+            "reed_tpu_torch.monitor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'reed_tpu')]; "
             "assert not bad, bad")

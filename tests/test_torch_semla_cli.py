@@ -3,8 +3,9 @@ widths: recipes/molecule_semla_reed.json resolves to the configuration
 reed_tpu resolves; train-molecule-semla on synthetic batches with
 --ckpt-dir (save, then resume), on a fabricated .rsmol dataset with
 reps.npy, and from a reference checkpoint; eval-semla from the run's EMA
-with --out files and from --ref-ckpt; the refused architectures and
-dtypes, and training in mixed precision; the gates' configurations
+with --out files and from --ref-ckpt; the alternative architectures
+(egnn, eqgat) through both subcommands, the refused architecture and
+dtype, and training in mixed precision; the gates' configurations
 (f32 chains and the bf16 templates record) and tiny runs."""
 
 import dataclasses
@@ -132,10 +133,14 @@ def test_refused_configurations(override):
             cli.main(["train-molecule-semla", "--set", "compute_dtype=float16", "--steps",
                       "1", *TINY])
         return
-    for cmd in ("train-molecule-semla", "eval-semla"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([cmd, "--set", override, "--steps" if cmd[0] == "t" else "--num-steps",
-                      "1", *TINY])
+    # the alternative generators are ported: both subcommands run them, and
+    # an architecture reed_tpu does not have is refused
+    state = cli.main(["train-molecule-semla", "--set", override, "--steps", "1", *TINY])
+    assert state.step == 1
+    cli.main(["eval-semla", "--set", override, "--n-samples", "2", "--n-replicates", "1",
+              "--num-steps", "1", "--n-atoms-min", "3", "--n-atoms-max", "5", *TINY])
+    with pytest.raises(ValueError, match="semla, egnn or eqgat"):
+        cli.main(["eval-semla", "--set", "arch=gvp", "--num-steps", "1", *TINY])
 
 
 def test_gate_defaults_are_the_tpu_record():
