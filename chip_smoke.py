@@ -187,6 +187,27 @@ no result):
      reading its reps.npy; `train-protein --steps 10 --profile-dir` as a
      subprocess, whose Chrome trace must name K2a's and K2b's kernels. K1,
      K2a and K2b launch 0 times on the EGNN, EQGAT and encoder paths.
+  15. data parallelism over torch.distributed (slice 16, `dp_phases`):
+     (a) a one-process NCCL group against no group at full width, two
+     steps each: the SiT-XL/2 REED bf16 step at batch 48 (loss, every
+     gradient and every parameter bitwise equal; 28 K1 launches a step in
+     the group) and the f32 protein step at 8 x 256 (within
+     RESUME_NOISE_FACTOR x a repeated step's difference: K2b's atomics;
+     9 K2a + 9 K2b a step); (d) each step with the group against without,
+     in turns, ms by wall and by CUDA events, the gradient all-reduce
+     alone and the bytes it moves a step; (b) two ranks over gloo on the
+     one card (this script with --dp-rank, as subprocesses) against one
+     process at the same global batch: the SiT-XL/2 bf16 step at global
+     batch 16 within IMAGE_BF16_NOISE_FACTOR x the one-process bf16 step's
+     distance from its f32 step, the f32 protein step at 8 x 256 within
+     RESUME_NOISE_FACTOR x a repeated step's difference of its witness
+     (one process running each rank's rows with the global sums and
+     averaging the two gradients, as the ranks do) and within
+     TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL of the one-process step at the
+     global batch (the ranks sum in another order), sharded
+     `generate_samples` (16 images, 8 SDE steps with CFG) to GEN_RTOL; (c) the same over NCCL with one card
+     a rank, and `torchrun ... train-protein --distributed`, where the
+     machine has two cards, else a line that says why it did not run.
   15. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training; K2a and K2b in f32
@@ -220,7 +241,8 @@ from reed_tpu_torch import _build, cli
 from reed_tpu_torch.core import configlib
 from reed_tpu_torch.core.checkpoint import CheckpointManager
 from reed_tpu_torch.core.config import CurriculumConfig, OptimConfig
-from reed_tpu_torch.core.trainer import combine_losses
+from reed_tpu_torch.core.train_state import global_norm
+from reed_tpu_torch.core.trainer import capture_gradients, combine_losses, make_train_step
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig
 from reed_tpu_torch.diffusion.discrete import corrupt_batch
 from reed_tpu_torch.encoders import registry
@@ -231,6 +253,7 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
+from reed_tpu_torch.parallel.mesh import local_rows
 from reed_tpu_torch.diffusion import se3 as mf_se3
 from reed_tpu_torch.eval import protein_metrics as eval_protein_metrics
 from reed_tpu_torch.models import ipa as ipa_model
@@ -1354,17 +1377,39 @@ def rel_err(out, ref):
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
-def run_cli(args, label):
-    """`python -m reed_tpu_torch.cli ARGS` as its own process (torch's
-    default TF32 settings); returns its stdout; raises on failure."""
+# runs cli.main on each command of argv[1] (a JSON list) in turn, printing
+# each command's stdout and seconds as one marked JSON line
+CLI_SEQUENCE = """
+import contextlib, io, json, sys, time
+from reed_tpu_torch import cli
+for args in json.loads(sys.argv[1]):
+    out, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(args)
+    sys.__stdout__.write("@@cli " + json.dumps([out.getvalue(), time.perf_counter() - t0]) + "\\n")
+    sys.__stdout__.flush()
+"""
+
+
+def run_clis(commands):
+    """Each (ARGS, label) of `commands` through reed_tpu_torch.cli's main, in
+    order, in one subprocess: one interpreter, import and CUDA start-up for
+    all of them (torch's default TF32 settings, which no subcommand changes
+    for the next). Returns each command's stdout; raises on a failure."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "reed_tpu_torch.cli", *args],
+    labels = [label for _, label in commands]
+    proc = subprocess.run([sys.executable, "-c", CLI_SEQUENCE,
+                           json.dumps([list(args) for args, _ in commands])],
                           capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{label} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                           f"{proc.stderr[-3000:]}")
-    log(f"[eval] {label}: {time.perf_counter() - t0:.1f} s as a subprocess")
-    return proc.stdout
+    done = [json.loads(line[6:]) for line in proc.stdout.splitlines()
+            if line.startswith("@@cli ")]
+    if proc.returncode or len(done) != len(commands):
+        raise RuntimeError(f"{labels[len(done)]} (after {labels[:len(done)]}) exited "
+                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[eval] one subprocess for {len(commands)} commands: "
+        f"{time.perf_counter() - t0:.1f} s (" + "; ".join(
+            f"{label} {seconds:.1f} s" for label, (_, seconds) in zip(labels, done)) + ")")
+    return [text for text, _ in done]
 
 
 def cli_quiet(args):
@@ -1440,8 +1485,8 @@ def generate_subprocess_phase(tmp, vae_npz, smi):
     compute-fid, in this process."""
     pixels_path, latents_path, other = (f"{tmp}/gen_{n}.npz"
                                         for n in ("pixels", "latents", "seed1"))
-    text = run_cli(["generate-image", *GEN_SUBPROCESS, "--vae", vae_npz, "--out", pixels_path],
-                   f"generate-image {' '.join(GEN_SUBPROCESS)} --vae")
+    (text,) = run_clis([(["generate-image", *GEN_SUBPROCESS, "--vae", vae_npz, "--out",
+                          pixels_path], f"generate-image {' '.join(GEN_SUBPROCESS)} --vae")])
     _, latents_text = cli_quiet(["generate-image", *GEN_SUBPROCESS, "--out", latents_path])
     cli_quiet(["generate-image", *GEN_SUBPROCESS, "--vae", vae_npz, "--seed", "1",
                "--out", other])
@@ -1505,8 +1550,8 @@ def fid_phase(tmp, gen_a, gen_b, smi):
     stats = compute_activation_stats(images_a, make_feature_fn(model), batch_size=16)
     del model, images, x
     torch.cuda.empty_cache()
-    text = run_cli(["compute-fid", gen_a, gen_b, "--inception-npz", inc_npz,
-                    "--batch-size", "16", "--save-stats"], "compute-fid a b --save-stats")
+    (text,) = run_clis([(["compute-fid", gen_a, gen_b, "--inception-npz", inc_npz,
+                          "--batch-size", "16", "--save-stats"], "compute-fid a b --save-stats")])
     t0 = time.perf_counter()
     self_fid = frechet_distance(stats["mu"], stats["sigma"], stats["mu"], stats["sigma"])
     sqrtm_s = time.perf_counter() - t0
@@ -2060,17 +2105,19 @@ def semla_cli_phase(tmp, smi):
     3 synthetic steps with a checkpoint, then 16 molecules from its EMA at
     max_atoms 256 in 10 integrator steps, written as .xyz and .sdf."""
     run, out = f"{tmp}/semla_run", f"{tmp}/semla_mols"
-    text = run_cli(["train-molecule-semla", "--config", RECIPE_SEMLA, "--synthetic",
-                    "--steps", "3", "--log-every", "1", "--ckpt-dir", run,
-                    "--ckpt-every", "3"], "train-molecule-semla --steps 3")
+    text, eval_text = run_clis([
+        (["train-molecule-semla", "--config", RECIPE_SEMLA, "--synthetic", "--steps", "3",
+          "--log-every", "1", "--ckpt-dir", run, "--ckpt-every", "3"],
+         "train-molecule-semla --steps 3"),
+        (["eval-semla", "--config", RECIPE_SEMLA, "--ckpt-dir", run, "--n-samples",
+          str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1", "--num-steps",
+          str(SEMLA_EVAL["num_steps"]), "--out", out],
+         "eval-semla --n-samples 16 --num-steps 10")])
     rate = [line for line in text.splitlines() if "steps after the first" in line]
     log(f"[semla] {rate[-1] if rate else text.splitlines()[-1]}")
     if "3.pt" not in os.listdir(run):
         raise AssertionError(f"train-molecule-semla wrote {os.listdir(run)}")
-    text = run_cli(["eval-semla", "--config", RECIPE_SEMLA, "--ckpt-dir", run,
-                    "--n-samples", str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1",
-                    "--num-steps", str(SEMLA_EVAL["num_steps"]), "--out", out],
-                   "eval-semla --n-samples 16 --num-steps 10")
+    text = eval_text
     lines = text.strip().splitlines()
     summary = json.loads(lines[-1])
     speed = next(line for line in lines if "molecules/s" in line)
@@ -2293,22 +2340,28 @@ def edm_cli_phase(tmp, smi):
     checkpoint, all as subprocesses at MoleculeEDMConfig's full width: 3
     synthetic steps with a checkpoint, then 16 molecules in 50 EDM steps
     (10 rk4 steps for fm), the EDM ones written as .xyz."""
-    speeds = {}
-    for model, extra in (("diffusion", []),
-                         ("fm", ["--set", "probabilistic_model=fm", "--set", "efm.ode_steps=10"])):
+    speeds, commands = {}, []
+    models = (("diffusion", []),
+              ("fm", ["--set", "probabilistic_model=fm", "--set", "efm.ode_steps=10"]))
+    for model, extra in models:
         run = f"{tmp}/edm_{model}"
-        text = run_cli(["train-molecule-edm", "--synthetic", "--steps", "3", "--log-every",
-                        "1", "--ckpt-dir", run, "--ckpt-every", "3", *extra],
-                       f"train-molecule-edm {model} --steps 3")
+        commands += [(["train-molecule-edm", "--synthetic", "--steps", "3", "--log-every",
+                       "1", "--ckpt-dir", run, "--ckpt-every", "3", *extra],
+                      f"train-molecule-edm {model} --steps 3"),
+                     (["eval-molecule", "--ckpt-dir", run, "--batch-size",
+                       str(EDM_EVAL["batch"]), "--num-steps", str(EDM_EVAL["num_steps"]),
+                       "--n-replicates", "1", "--out", f"{tmp}/edm_{model}_mols", *extra],
+                      f"eval-molecule {model}")]
+    texts = iter(run_clis(commands))
+    for model, extra in models:
+        run = f"{tmp}/edm_{model}"
+        text = next(texts)
         rate = [line for line in text.splitlines() if "steps after the first" in line]
         log(f"[edm] {rate[-1] if rate else text.splitlines()[-1]}")
         if "3.pt" not in os.listdir(run):
             raise AssertionError(f"train-molecule-edm {model} wrote {os.listdir(run)}")
         out = f"{tmp}/edm_{model}_mols"
-        text = run_cli(["eval-molecule", "--ckpt-dir", run, "--batch-size",
-                        str(EDM_EVAL["batch"]), "--num-steps", str(EDM_EVAL["num_steps"]),
-                        "--n-replicates", "1", "--out", out, *extra],
-                       f"eval-molecule {model}")
+        text = next(texts)
         summary = json.loads(text[text.rindex("\n{\n") + 1:])
         speed = next(line for line in text.splitlines() if "molecules/s" in line)
         xyz = sorted(f for f in os.listdir(out) if f.endswith(".xyz"))
@@ -2714,19 +2767,20 @@ def rdm_phase(tmp, smi):
     del trainer, state, batch
     torch.cuda.empty_cache()
 
-    text = run_cli(["train-rdm", "--synthetic", "--steps", "3", "--log-every", "1"],
-                   "train-rdm --steps 3")
+    run = os.path.join(tmp, "edm_for_rdm")
+    text, _, eval_text = run_clis([
+        (["train-rdm", "--synthetic", "--steps", "3", "--log-every", "1"],
+         "train-rdm --steps 3"),
+        (["train-molecule-edm", "--synthetic", "--steps", "1", "--ckpt-dir", run,
+          "--ckpt-every", "1"], "train-molecule-edm --steps 1 (for the two-stage eval)"),
+        (["eval-molecule", "--ckpt-dir", run, "--rdm-ref-ckpt", rdm_ckpt, "--batch-size",
+          str(EDM_EVAL["batch"]), "--num-steps", str(EDM_EVAL["num_steps"]),
+          "--n-replicates", "1"], "eval-molecule --rdm-ref-ckpt")])
     rate = [line for line in text.splitlines() if "steps after the first" in line]
     log(f"[rdm] {rate[-1] if rate else text.splitlines()[-1]}")
     if f"sampled reps: (3, {cfg.channels}) finite: True" not in text:
         raise AssertionError(f"train-rdm's DDIM smoke sample:\n{text[-2000:]}")
-    run = os.path.join(tmp, "edm_for_rdm")
-    run_cli(["train-molecule-edm", "--synthetic", "--steps", "1", "--ckpt-dir", run,
-             "--ckpt-every", "1"], "train-molecule-edm --steps 1 (for the two-stage eval)")
-    text = run_cli(["eval-molecule", "--ckpt-dir", run, "--rdm-ref-ckpt", rdm_ckpt,
-                    "--batch-size", str(EDM_EVAL["batch"]), "--num-steps",
-                    str(EDM_EVAL["num_steps"]), "--n-replicates", "1"],
-                   "eval-molecule --rdm-ref-ckpt")
+    text = eval_text
     summary = json.loads(text[text.rindex("\n{\n") + 1:])
     speed = next(line for line in text.splitlines() if "molecules/s" in line)
     rep_time = next(line for line in text.splitlines() if "rep sampling of" in line)
@@ -2938,16 +2992,18 @@ def multiflow_cli_phase(tmp, smi):
     files parsed back) as subprocesses at full width; then the MultiFlow
     step's resume (bitwise, or within 10x a repeated run) with its control."""
     run, out = f"{tmp}/multiflow", f"{tmp}/multiflow_pdb"
-    text = run_cli(["train-multiflow", "--synthetic", "--steps", "3", "--log-every", "1",
-                    "--ckpt-dir", run, "--ckpt-every", "3"], "train-multiflow --steps 3")
+    ev = MULTIFLOW_EVAL
+    text, eval_text = run_clis([
+        (["train-multiflow", "--synthetic", "--steps", "3", "--log-every", "1", "--ckpt-dir",
+          run, "--ckpt-every", "3"], "train-multiflow --steps 3"),
+        (["eval-multiflow", "--ckpt-dir", run, "--num-samples", str(ev["num_samples"]),
+          "--length", str(ev["length"]), "--num-steps", str(ev["num_steps"]), "--out", out],
+         "eval-multiflow")])
     rate = [line for line in text.splitlines() if "steps after the first" in line]
     log(f"[multiflow] {rate[-1] if rate else text.splitlines()[-1]}")
     if "3.pt" not in os.listdir(run):
         raise AssertionError(f"train-multiflow wrote {os.listdir(run)}")
-    ev = MULTIFLOW_EVAL
-    text = run_cli(["eval-multiflow", "--ckpt-dir", run, "--num-samples",
-                    str(ev["num_samples"]), "--length", str(ev["length"]), "--num-steps",
-                    str(ev["num_steps"]), "--out", out], "eval-multiflow")
+    text = eval_text
     summary = json.loads(text[text.rindex("\n{\n") + 1:])
     speed = next(line for line in text.splitlines() if "ms per sampler step" in line)
     backbones = [eval_protein_metrics.parse_pdb_backbone(r["pdb"]) for r in summary["samples"]]
@@ -3295,13 +3351,14 @@ def property_cli_phase(tmp, smi):
     alpha = write_property_data(data)
     clf, probe, gen, seeded = (os.path.join(tmp, name) for name in
                                ("clf", "probe", "edm_cond", "edm_cond_seeded"))
-    for args, run in ((["train-property", "--data-dir", data], clf),
-                      (["train-property", "--linear-probe", "--data-dir", data], probe),
-                      (["train-molecule-edm", "--synthetic", "--set", "context_node_nf=1"],
-                       gen)):
-        label = " ".join(a for a in args if a != data)
-        text = run_cli([*args, "--steps", "3", "--log-every", "1", "--ckpt-dir", run,
+    runs = ((["train-property", "--data-dir", data], clf),
+            (["train-property", "--linear-probe", "--data-dir", data], probe),
+            (["train-molecule-edm", "--synthetic", "--set", "context_node_nf=1"], gen))
+    labels = [" ".join(a for a in args if a != data) for args, _ in runs]
+    texts = run_clis([([*args, "--steps", "3", "--log-every", "1", "--ckpt-dir", run,
                         "--ckpt-every", "3"], f"{label} --steps 3")
+                      for (args, run), label in zip(runs, labels)])
+    for (args, run), label, text in zip(runs, labels, texts):
         rate = [line for line in text.splitlines() if "steps after the first" in line]
         log(f"[property] {rate[-1] if rate else text.splitlines()[-1]}")
         if "3.pt" not in os.listdir(run):
@@ -3689,17 +3746,19 @@ def alt_cli_phase(tmp, arch, smi):
     molecules from its EMA at max_atoms 256 in 10 integrator steps."""
     run, out = f"{tmp}/{arch}_run", f"{tmp}/{arch}_mols"
     arch_set = ["--config", RECIPE_SEMLA, "--set", f"arch={arch}"]
-    text = run_cli(["train-molecule-semla", *arch_set, "--synthetic", "--steps", "2",
-                    "--log-every", "1", "--ckpt-dir", run, "--ckpt-every", "2"],
-                   f"train-molecule-semla --set arch={arch} --steps 2")
+    text, eval_text = run_clis([
+        (["train-molecule-semla", *arch_set, "--synthetic", "--steps", "2", "--log-every",
+          "1", "--ckpt-dir", run, "--ckpt-every", "2"],
+         f"train-molecule-semla --set arch={arch} --steps 2"),
+        (["eval-semla", *arch_set, "--ckpt-dir", run, "--n-samples",
+          str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1", "--num-steps",
+          str(SEMLA_EVAL["num_steps"]), "--out", out],
+         f"eval-semla --set arch={arch} --n-samples 16 --num-steps 10")])
     rate = [line for line in text.splitlines() if "steps after the first" in line]
     log(f"[{arch}] {rate[-1] if rate else text.splitlines()[-1]}")
     if "2.pt" not in os.listdir(run):
         raise AssertionError(f"train-molecule-semla arch={arch} wrote {os.listdir(run)}")
-    text = run_cli(["eval-semla", *arch_set, "--ckpt-dir", run, "--n-samples",
-                    str(SEMLA_EVAL["n_samples"]), "--n-replicates", "1", "--num-steps",
-                    str(SEMLA_EVAL["num_steps"]), "--out", out],
-                   f"eval-semla --set arch={arch} --n-samples 16 --num-steps 10")
+    text = eval_text
     lines = text.strip().splitlines()
     summary = json.loads(lines[-1])
     speed = next(line for line in lines if "molecules/s" in line)
@@ -3793,9 +3852,9 @@ def encoders_phase(tmp, smi):
     if not (reps.shape == (ENC["molecules"], 512) and np.isfinite(reps).all() and err <= 1e-5
             and list(sizes) == [m.seq_length for m in mols]):
         raise AssertionError(f"precompute_mol_reps: {reps.shape}, err {err}")
-    text = run_cli(["train-molecule-semla", "--config", RECIPE_SEMLA, "--data-dir", data_dir,
-                    "--dataset", "geom", "--steps", "1", "--log-every", "1"],
-                   "train-molecule-semla --data-dir (reps.npy) --steps 1")
+    (text,) = run_clis([(["train-molecule-semla", "--config", RECIPE_SEMLA, "--data-dir",
+                          data_dir, "--dataset", "geom", "--steps", "1", "--log-every", "1"],
+                         "train-molecule-semla --data-dir (reps.npy) --steps 1")])
     step = [line for line in text.splitlines() if line.startswith("[step 1]")]
     log(f"[encoders] train-molecule-semla on the fabricated GEOM split with its reps.npy: "
         f"{step[0][:160] if step else text[-300:]}")
@@ -3807,8 +3866,8 @@ def profile_dir_phase(tmp, smi):
     """train-protein --steps 10 --profile-dir as a subprocess: the Chrome
     trace of steps 2-7 exists and names K2a's and K2b's kernels."""
     trace_dir = f"{tmp}/trace"
-    run_cli(["train-protein", "--steps", "10", "--synthetic", "--log-every", "5",
-             "--profile-dir", trace_dir], "train-protein --steps 10 --profile-dir")
+    run_clis([(["train-protein", "--steps", "10", "--synthetic", "--log-every", "5",
+                "--profile-dir", trace_dir], "train-protein --steps 10 --profile-dir")])
     files = os.listdir(trace_dir)
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
@@ -3851,6 +3910,456 @@ def slice14_phases(smi):
     return guided
 
 
+# -- slice 16: data parallelism over torch.distributed -------------------------
+
+DP = dict(steps=2, timed_steps=5, world=2, image_global_batch=16, timeout=900)
+DP_GEN = dict(GEN, batch_size=16)  # one batch of 16, 8 a rank
+# the 2-rank protein step against the one-process step at the global batch
+# differs by the order of its sums alone (two partial sums of 4 rows where
+# one process sums 8): read 1.96e-5 of the largest gradient on an H100
+# (the witness, the same order in one process, reads as much); the
+# collectives themselves are held to the witness at RESUME_NOISE_FACTOR
+DP_ORDER_GRAD_RTOL = 1e-4
+DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def dp_step_record(trainer, state, batch, steps):
+    """`steps` train steps: their metrics (floats) and the gradients each
+    update saw (capture_gradients)."""
+    out = []
+    for _ in range(steps):
+        with capture_gradients() as grads:
+            state, metrics = trainer.train_step(state, batch)
+        out.append(({k: float(v) for k, v in metrics.items()}, grads[0]))
+    return state, out
+
+
+def dp_difference(a, b):
+    """(first differing quantity, max |a - b| over all of them) of two lists
+    of (metrics, gradients) steps, or None where all are bitwise equal."""
+    first, worst = None, 0.0
+    for step, ((ma, ga), (mb, gb)) in enumerate(zip(a, b)):
+        for k in mb:
+            if ma[k] != mb[k]:
+                first = first or f"step {step} metric {k}"
+                worst = max(worst, abs(ma[k] - mb[k]))
+        for i, (x, y) in enumerate(zip(ga, gb)):
+            if not torch.equal(x, y):
+                first = first or f"step {step} gradient {i}"
+                worst = max(worst, (x - y).abs().max().item())
+    return None if first is None else (first, worst)
+
+
+def dp_params_difference(a, b):
+    first, worst = None, 0.0
+    for (name, x), y in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch.equal(x, y):
+            first = first or f"param {name}"
+            worst = max(worst, (x - y).abs().max().item())
+    return None if first is None else (first, worst)
+
+
+def dp_merge(*diffs):
+    diffs = [d for d in diffs if d is not None]
+    return None if not diffs else (diffs[0][0], max(d[1] for d in diffs))
+
+
+def dp_protein_trainer():
+    return ProteinTrainer(train_config(), device="cuda")
+
+
+class DPWitness:
+    """Rank `rank` of `world` played in one process, for (b)'s witness: it
+    draws as that rank draws (parallel/draws.py), its all_sum adds what the
+    other ranks summed at the same call of the previous pass (`others`),
+    and it leaves the gradients and metrics local, for the caller to
+    average as the ranks' all-reduces do."""
+
+    def __init__(self, rank, world, others):
+        self.rank, self.world, self.others, self.sums = rank, world, others, []
+
+    def all_sum(self, x):
+        x = x.detach().clone()
+        i = len(self.sums)
+        self.sums.append(x.clone())
+        for other in self.others:
+            x = x + other[i] if i < len(other) else x
+        return x
+
+    def all_reduce_grads(self, grads):
+        return list(grads)
+
+    def mean_metrics(self, metrics):
+        return dict(metrics)
+
+
+def dp_protein_witness(batch, passes=4):
+    """What the ranks of (b) compute, in one process: the protein step on
+    each rank's rows of the global `batch`, with the global sums and counts
+    and the global batch's draws, each from a fresh state and generator;
+    the gradients and tensor metrics averaged as the all-reduces average
+    them ((g0 + g1) / 2 in f32), grad_norm taken of the average. The global
+    sums feed on each other (repr_norm's variance uses the global mean), so
+    the passes repeat until every rank's sums equal the previous pass's.
+    Returns [(metrics, gradients)], dp_step_record's form."""
+    world = DP["world"]
+    trainer = dp_protein_trainer()
+    cfg = trainer.cfg
+    sums = [[] for _ in range(world)]
+    for _ in range(passes):
+        runs, witnesses = [], []
+        for r in range(world):
+            w = DPWitness(r, world, [sums[q] for q in range(world) if q != r])
+            step = make_train_step(make_loss_fn(cfg, w), trainer.curriculum,
+                                   accum_steps=cfg.optim.accum_steps, dp=w)
+            gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+            with capture_gradients() as grads:
+                _, metrics = step(trainer.init_state(), local_rows(batch, r, world),
+                                  generator=gen, noisy=None, repr_noise=None)
+            runs.append((metrics, grads[0]))
+            witnesses.append(w.sums)
+        settled = all(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+                      for a, b in zip(witnesses, sums))
+        sums = witnesses
+        if settled:
+            break
+    else:
+        raise AssertionError(f"the witness's global sums did not settle in {passes} passes")
+    grads = [sum(gs) / world for gs in zip(*(g for _, g in runs))]
+    metrics = {k: (float(sum(m[k].float() for m, _ in runs) / world)
+                   if isinstance(v, torch.Tensor) else float(v))
+               for k, v in runs[0][0].items() if k != "grad_norm"}
+    metrics["grad_norm"] = float(global_norm(grads))
+    return [(metrics, grads)]
+
+
+def dp_image_trainer(batch, dtype="bfloat16"):
+    return image_train.ImageTrainer(bench_image_config(batch, dtype, warmup=0), device="cuda")
+
+
+def dp_group_phase(tmp, smi):
+    """(a) A one-process NCCL group against no group, at full width: the
+    SiT-XL/2 REED bf16 step at batch 48 (bitwise: the step is repeatable on
+    the card) and the f32 protein step at 8 x 256 (within RESUME_NOISE_FACTOR
+    x a repeated step's difference: K2b's atomics), two steps each, with
+    K1 and K2a/K2b counted in the group's steps. (d) The all-reduce's cost:
+    the image and protein steps with the group against without, in turns,
+    by wall and by CUDA events, the gradient all-reduce alone, and the bytes
+    it moves a step. Returns the group runs' launches."""
+    from torch import distributed as dist
+    from reed_tpu_torch.parallel.mesh import init_distributed
+
+    steps = DP["steps"]
+    ia = dp_image_trainer(IMAGE_TRAIN["batch"])
+    ibatch = ia.synthetic_batch(torch.Generator(device="cuda").manual_seed(11))
+    pa, pa2 = dp_protein_trainer(), dp_protein_trainer()
+    pbatch = pa.synthetic_batch(torch.Generator(device="cuda").manual_seed(12))
+    ia_state, ia_run = dp_step_record(ia, ia.init_state(), ibatch, steps)
+    pa_state, pa_run = dp_step_record(pa, pa.init_state(), pbatch, steps)
+    pa2_state, pa2_run = dp_step_record(pa2, pa2.init_state(), pbatch, steps)
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        init_distributed("cuda", backend="nccl", init_method=f"file://{tmp}/store_group1")
+        ib, pb = dp_image_trainer(IMAGE_TRAIN["batch"]), dp_protein_trainer()
+        if ib.dp is None or pb.dp is None or ib.dp.backend != "nccl":
+            raise AssertionError("the trainers did not join the one-process NCCL group")
+        torch.cuda.synchronize()
+        fa.launches = fm.launches = fm.backward_launches = 0
+        ib_state, ib_run = dp_step_record(ib, ib.init_state(), ibatch, steps)
+        torch.cuda.synchronize()
+        image_launches = fa.launches
+        fa.launches = fm.launches = fm.backward_launches = 0
+        pb_state, pb_run = dp_step_record(pb, pb.init_state(), pbatch, steps)
+        torch.cuda.synchronize()
+        protein_launches = (fm.launches, fm.backward_launches, fa.launches)
+
+        image_diff = dp_merge(dp_difference(ib_run, ia_run),
+                              dp_params_difference(ib_state, ia_state))
+        protein_diff = dp_merge(dp_difference(pb_run, pa_run),
+                                dp_params_difference(pb_state, pa_state))
+        protein_det = dp_merge(dp_difference(pa2_run, pa_run),
+                               dp_params_difference(pa2_state, pa_state))
+        log(f"[dp] (a) one-process NCCL group vs no group, SiT-XL/2 REED bf16 step at "
+            f"batch {IMAGE_TRAIN['batch']}, {steps} steps (loss, every gradient, every "
+            f"parameter): {describe(image_diff)}; loss {ib_run[-1][0]['loss']:.6g}; K1 "
+            f"launches {image_launches} (expected {DEPTH * steps})")
+        log(f"[dp] (a) protein f32 step at {TRAIN['batch']} x {TRAIN['length']}, {steps} "
+            f"steps: group vs no group {describe(protein_diff)}; a repeated step without "
+            f"a group {describe(protein_det)} (bound {RESUME_NOISE_FACTOR}x it); K2a/K2b "
+            f"launches {protein_launches[:2]} (expected {9 * steps} each)")
+        if image_diff is not None:
+            raise AssertionError(f"the image step in a one-process group is not bitwise "
+                                 f"the step without one: {describe(image_diff)}")
+        if not within_noise(protein_diff, protein_det):
+            raise AssertionError(f"the protein step in a one-process group differs "
+                                 f"({describe(protein_diff)}) by more than "
+                                 f"{RESUME_NOISE_FACTOR}x a repeated step "
+                                 f"({describe(protein_det)})")
+        if image_launches != DEPTH * steps or protein_launches != (9 * steps, 9 * steps, 0):
+            raise AssertionError(f"launches in the group's steps: K1 {image_launches}, "
+                                 f"K2a/K2b/K1 {protein_launches}")
+        del ia_run, ib_run, pa_run, pa2_run, pb_run, pa2_state, pa2
+        torch.cuda.empty_cache()
+
+        # (d) the all-reduce's cost, in turns: no group, group, group, no group
+        def wall_and_device(trainer, state, batch):
+            n = DP["timed_steps"]
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                state, _ = trainer.train_step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n, start.elapsed_time(end) / n
+
+        for label, (ta, sa), (tb, sb), batch, model in (
+                ("SiT-XL/2 bf16 batch 48", (ia, ia_state), (ib, ib_state), ibatch, ib_state.model),
+                ("protein f32 8 x 256", (pa, pa_state), (pb, pb_state), pbatch, pb_state.model)):
+            times = {"without": [], "with": []}
+            for key, (t, st) in (("without", (ta, sa)), ("with", (tb, sb)),
+                                 ("with", (tb, sb)), ("without", (ta, sa))):
+                times[key].append(wall_and_device(t, st, batch))
+            mean = {k: tuple(sum(x) / len(x) for x in zip(*v)) for k, v in times.items()}
+            grads = [torch.zeros_like(p) for p in model.parameters()]
+            reduce_ms = cuda_ms(lambda: tb.dp.all_reduce_grads(grads), iters=5, warmup=2,
+                                queued=False)
+            nbytes = sum(g.numel() * g.element_size() for g in grads)
+            log(f"[dp] (d) {label}: ms a step without / with the group {mean['without'][0]:.3f}"
+                f" / {mean['with'][0]:.3f} by wall, {mean['without'][1]:.3f} / "
+                f"{mean['with'][1]:.3f} by CUDA events ({DP['timed_steps']} steps, in turns "
+                f"without, with, with, without); the gradient all-reduce alone "
+                f"{reduce_ms:.3f} ms ({len(grads)} gradients, {nbytes / 1e9:.4f} GB "
+                f"all-reduced a step, f32) ({smi})")
+            del grads
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in DP_ENV:
+            os.environ.pop(key, None)
+    del ia, ib, pa, pb, ia_state, ib_state, pa_state, pb_state
+    torch.cuda.empty_cache()
+    return image_launches, protein_launches
+
+
+def dp_seeded_sit():
+    """SiT-XL/2 with N(0, 0.02) weights from seed 0 (slice_phase's), bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = create_sit("SiT-XL/2", device="cuda").eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    return model.to(torch.bfloat16)
+
+
+def dp_generate(model):
+    calls = 0
+
+    def model_fn(x, t, y):
+        nonlocal calls
+        calls += 1
+        return model(x, t, y)[0]
+
+    fa.launches = 0
+    samples = generate_samples(model_fn, FIDGenConfig(**DP_GEN), device="cuda")
+    torch.cuda.synchronize()
+    return samples, calls, fa.launches
+
+
+def dp_rank_main(out_dir, backend):
+    """One rank of phase 15's (b) and (c) (`chip_smoke.py --dp-rank DIR
+    BACKEND`, RANK / WORLD_SIZE / LOCAL_RANK set by the parent). Rank 0
+    first takes the one-process references without a group: the SiT-XL/2
+    step at batch 16 in f32 and in bf16, the protein step at 8 x 256 twice,
+    16 generated images. Then every rank joins the group and runs the same
+    global batches data-parallel; rank 0 writes the distances."""
+    from reed_tpu_torch.parallel.mesh import init_distributed
+
+    rank = int(os.environ["RANK"])
+    gb = DP["image_global_batch"]
+    result = {}
+    if rank == 0:
+        t32 = dp_image_trainer(gb, "float32")
+        ibatch = t32.synthetic_batch(torch.Generator(device="cuda").manual_seed(21))
+        state = t32.init_state()
+        names = [n for n, _ in state.model.named_parameters()]
+        _, ref32 = dp_step_record(t32, state, ibatch, 1)
+        del t32, state
+        t16 = dp_image_trainer(gb)
+        _, ref16 = dp_step_record(t16, t16.init_state(), ibatch, 1)
+        del t16
+        result["image_bf16_vs_f32"] = step_errors(ref16[0], ref32[0], names)[:2]
+        del ref16
+        torch.cuda.empty_cache()
+        pbatch = dp_protein_trainer().synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(22))
+        refs = []
+        for _ in range(2):
+            t = dp_protein_trainer()
+            refs.append(dp_step_record(t, t.init_state(), pbatch, 1)[1])
+        result["protein_repeat"] = dp_difference(refs[1], refs[0])
+        witness = dp_protein_witness(pbatch)
+        ref_samples, _, _ = dp_generate(dp_seeded_sit())
+        torch.cuda.empty_cache()
+    init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
+    t0 = time.perf_counter()
+    t16 = dp_image_trainer(gb)
+    state = t16.init_state()
+    ibatch = t16.synthetic_batch(torch.Generator(device="cuda").manual_seed(21))
+    fa.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, run16 = dp_step_record(t16, state, ibatch, 1)
+    torch.cuda.synchronize()
+    result["image_step_s"] = time.perf_counter() - t1
+    result["image_launches"] = fa.launches
+    del t16, state
+    torch.cuda.empty_cache()
+    tp = dp_protein_trainer()
+    pbatch = tp.synthetic_batch(torch.Generator(device="cuda").manual_seed(22))
+    pstate = tp.init_state()
+    pnames = [n for n, _ in pstate.model.named_parameters()]
+    fm.launches = fm.backward_launches = 0
+    _, prun = dp_step_record(tp, pstate, pbatch, 1)
+    torch.cuda.synchronize()
+    result["protein_launches"] = (fm.launches, fm.backward_launches)
+    samples, calls, launches = dp_generate(dp_seeded_sit())
+    result["generate"] = dict(calls=calls, launches=launches, shape=list(samples.shape),
+                              finite=bool(np.isfinite(samples).all()))
+    result["rank_s"] = time.perf_counter() - t0
+    if rank == 0:
+        result["image_dp_vs_f32"] = step_errors(run16[0], ref32[0], names)[:2]
+        result["image_loss"] = (run16[0][0]["loss"], ref32[0][0]["loss"])
+        result["protein_vs_witness"] = dp_difference(prun, witness)
+        result["protein_dp_errors"] = step_errors(prun[0], refs[0][0], pnames)
+        result["witness_errors"] = step_errors(witness[0], refs[0][0], pnames)
+        result["protein_repeat_errors"] = step_errors(refs[1][0], refs[0][0], pnames)
+        result["protein_loss"] = (prun[0][0]["loss"], refs[0][0][0]["loss"])
+        result["generate"]["rel"] = float(abs(samples - ref_samples).max()
+                                          / abs(ref_samples).max())
+    with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_ranks_phase(tmp, backend, cards, smi):
+    """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
+    card rank % cards, against one process at the same global batches."""
+    world = DP["world"]
+    t0 = time.perf_counter()
+    logs = [os.path.join(tmp, f"rank{r}_{backend}.log") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", tmp,
+                               backend],
+                              env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                                       LOCAL_RANK=str(r % cards)),
+                              stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:  # a rank that fails leaves the others waiting in a collective: stop them all
+        while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+            if time.perf_counter() - t0 > DP["timeout"]:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("data-parallel ranks failed:\n" + "\n".join(
+            f"--- rank {r} exit {p.returncode}\n{open(log).read()[-4000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    res = [json.load(open(os.path.join(tmp, f"rank{r}_{backend}.json"))) for r in range(world)]
+    r0 = res[0]
+    noise_metric, noise_grad = r0["image_bf16_vs_f32"]
+    dp_metric, dp_grad = r0["image_dp_vs_f32"]
+    metric_tol = IMAGE_BF16_NOISE_FACTOR * noise_metric + 1e-6
+    grad_tol = IMAGE_BF16_NOISE_FACTOR * noise_grad
+    det = r0["protein_repeat"]
+    vs_witness = r0["protein_vs_witness"]
+    p_metric, p_grad, p_worst = r0["protein_dp_errors"]
+    w_metric, w_grad, w_worst = r0["witness_errors"]
+    rep_metric, rep_grad, _ = r0["protein_repeat_errors"]
+    gen = r0["generate"]
+    where = f"{world} ranks over {backend}" + (" on one card" if cards == 1 else
+                                                f" on {cards} cards")
+    log(f"[dp] ({'b' if cards == 1 else 'c'}) {where}, {time.perf_counter() - t0:.1f} s "
+        f"incl. start-up (rank 0's references and steps {r0['rank_s']:.1f} s after joining):")
+    log(f"[dp]   SiT-XL/2 bf16 step at global batch {DP['image_global_batch']} "
+        f"({DP['image_global_batch'] // world} a rank) against the one-process f32 step: "
+        f"metrics {dp_metric:.3g}, gradients (max err / max |g|, worst parameter) "
+        f"{dp_grad:.3g}; bound {IMAGE_BF16_NOISE_FACTOR}x the one-process bf16 step's "
+        f"distance ({noise_metric:.3g}, {noise_grad:.3g}); loss {r0['image_loss'][0]:.6g} "
+        f"(f32 {r0['image_loss'][1]:.6g}); the step {r0['image_step_s']:.2f} s; K1 "
+        f"launches a rank {[r['image_launches'] for r in res]}")
+    witness_rule = within_noise(vs_witness and tuple(vs_witness), det and tuple(det))
+    log(f"[dp]   protein f32 step at {TRAIN['batch']} x {TRAIN['length']} "
+        f"({TRAIN['batch'] // world} a rank): against the witness (one process, each "
+        f"rank's rows with the global sums, the two gradients averaged) "
+        f"{describe(vs_witness)}; a repeated one-process step {describe(det)} (bound "
+        f"{RESUME_NOISE_FACTOR}x it). Against the one-process step at the global batch: "
+        f"metrics max rel err {p_metric:.3g} (rtol {TRAIN_METRIC_RTOL}), gradients max err "
+        f"/ max |g| {p_grad:.3g} at {p_worst} (rtol {DP_ORDER_GRAD_RTOL}); the witness "
+        f"{w_metric:.3g}, {w_grad:.3g} at {w_worst}; a repeated step {rep_metric:.3g}, "
+        f"{rep_grad:.3g}; global loss {r0['protein_loss'][0]:.6g} vs "
+        f"{r0['protein_loss'][1]:.6g}; K2a/K2b launches a rank "
+        f"{[r['protein_launches'] for r in res]}")
+    log(f"[dp]   sharded generate_samples, {DP_GEN['num_samples']} images, "
+        f"{DP_GEN['num_steps']} SDE steps with CFG, against one process: max abs err / "
+        f"max |ref| {gen['rel']:.3g} (rtol {GEN_RTOL[torch.bfloat16]}); {gen['calls']} model "
+        f"calls and {gen['launches']} K1 launches a rank ({smi})")
+    if not (dp_metric <= metric_tol and dp_grad <= grad_tol):
+        raise AssertionError(f"the {where} image step: {dp_metric}, {dp_grad} over "
+                             f"{metric_tol}, {grad_tol}")
+    if not witness_rule:
+        raise AssertionError(f"the {where} protein step against its one-process witness: "
+                             f"{describe(vs_witness)}, over {RESUME_NOISE_FACTOR}x a "
+                             f"repeated step ({describe(det)})")
+    if not (p_metric <= TRAIN_METRIC_RTOL and p_grad <= DP_ORDER_GRAD_RTOL):
+        raise AssertionError(f"the {where} protein step against one process: metrics "
+                             f"{p_metric}, gradients {p_grad} at {p_worst}")
+    if not (gen["finite"] and gen["rel"] <= GEN_RTOL[torch.bfloat16]
+            and gen["shape"] == [DP_GEN["num_samples"], 32, 32, 4]):
+        raise AssertionError(f"the {where} sharded generation: {gen}")
+    for r in res:
+        if (r["image_launches"] != DEPTH or r["protein_launches"] != [9, 9]
+                or r["generate"]["launches"] != DEPTH * r["generate"]["calls"]):
+            raise AssertionError(f"launches on a rank: {r}")
+
+
+def dp_torchrun_phase(tmp, smi):
+    """(c) train-protein --distributed through torchrun, one card a rank."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(DP["world"]), "-m", "reed_tpu_torch.cli",
+                           "train-protein", "--distributed", "--steps", "3", "--synthetic",
+                           "--log-every", "1"], capture_output=True, text=True,
+                          timeout=DP["timeout"])
+    if proc.returncode or proc.stdout.count("[step ") != 3:
+        raise RuntimeError(f"torchrun train-protein exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[dp] (c) torchrun --nproc_per_node {DP['world']} train-protein --distributed "
+        f"--steps 3: {time.perf_counter() - t0:.1f} s, three [step N] lines from rank 0")
+
+
+def dp_phases(smi):
+    """Phase 15 (slice 16): data parallelism over torch.distributed."""
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        launches = dp_group_phase(tmp, smi)
+        dp_ranks_phase(tmp, "gloo", 1, smi)
+        cards = torch.cuda.device_count()
+        if cards >= DP["world"]:
+            dp_ranks_phase(tmp, "nccl", cards, smi)
+            dp_torchrun_phase(tmp, smi)
+        else:
+            log(f"[dp] (c) not run: it needs {DP['world']} cards (NCCL takes one card a "
+                f"rank) and this machine has {cards}")
+    return launches
+
+
 def kernel_entry(name, replaces, row, launches, source=None):
     return dict(name=name, route="cuda",
                 source=f"reed_tpu_torch/csrc/{source or name}.cu",
@@ -3891,6 +4400,7 @@ def main():
     timed(multiflow_phases, smi)
     timed(property_phases, smi)
     guided = timed(slice14_phases, smi)
+    dp_image, dp_protein = timed(dp_phases, smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -3920,6 +4430,15 @@ def main():
         kernel_entry("fused_message_bwd_guided", "reed_tpu/ops/fused_message.py:152",
                      bwd_rows[(MSG_MAIN, torch.float32)], guided["k2b"],
                      source="fused_message"),
+        kernel_entry("flash_attention_dp", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(IMAGE_ATTN_SHAPE, torch.bfloat16)], dp_image,
+                     source="flash_attention"),
+        kernel_entry("fused_message_dp", "reed_tpu/ops/fused_message.py:132",
+                     msg_rows[(MSG_MAIN, torch.float32)], dp_protein[0],
+                     source="fused_message"),
+        kernel_entry("fused_message_bwd_dp", "reed_tpu/ops/fused_message.py:152",
+                     bwd_rows[(MSG_MAIN, torch.float32)], dp_protein[1],
+                     source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3930,4 +4449,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -36,7 +36,14 @@
       --num-steps 50 --ckpt-dir out/edm_cond --classifier-ckpt out/clf [--data-dir qm9/] \\
       [--sweep] [--out mols/]
 
-Runs on CUDA unless `--device cpu` is given. Configurations resolve as
+Runs on CUDA unless `--device cpu` is given. Every train-* subcommand and
+generate-image run data-parallel over the ranks torchrun launches with
+--distributed (NCCL with one card a rank; gloo with --device cpu): each
+rank takes its rows of the global batch (--batch-size is the global
+batch), rank 0 writes the checkpoints, config.json, metrics.jsonl and the
+`[step N]` lines. The other subcommands take --dp/--fsdp/--tp/--sp and
+--distributed as reed_tpu does and raise on more than one process or an
+axis above 1. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
 recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
 generate-image and train-image use reed_tpu's image default
@@ -87,15 +94,41 @@ from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
+from reed_tpu_torch.parallel.mesh import local_batch
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
-    """defaults <- --config file <- the explicit flags given <- --set."""
+    """defaults <- --config file <- the explicit flags given (and the mesh
+    flags) <- --set. With --distributed, joins torchrun's process group
+    first (parallel.mesh.init_distributed). A subcommand that does not run
+    data-parallel raises on more than one process or a mesh axis above 1."""
+    from reed_tpu_torch.parallel import mesh as meshlib
+
+    if args.distributed:
+        device, dp = meshlib.init_distributed(args.device)
+        print(f"distributed: process {dp.rank}/{dp.world}, 1 local / {dp.world} global "
+              f"devices ({dp.backend}, {device})")
     cfg = configlib.build(cls, defaults or {})
     if args.config:
         cfg = configlib.merge(cfg, configlib.load_file(args.config))
+    flags = dict(flags, mesh=_mesh_flags(args))
     cfg = configlib.merge(cfg, {k: v for k, v in flags.items() if v is not None})
-    return configlib.apply_overrides(cfg, args.overrides)
+    cfg = configlib.apply_overrides(cfg, args.overrides)
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if not args.data_parallel and (world > 1 or (cfg.mesh.data or 1) > 1):
+        raise NotImplementedError(
+            f"{args.cmd} runs on one process: data-parallel evaluation is ROADMAP.md "
+            "Queue 1 item 11")
+    meshlib.check_mesh(cfg.mesh, world)
+    return cfg
+
+
+def _mesh_flags(args):
+    """--dp/--fsdp/--tp/--sp as reed_tpu reads them into MeshConfig (None
+    where none is given)."""
+    mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp), ("tensor", args.tp),
+                              ("seq", args.sp)) if v is not None}
+    return mesh or None
 
 
 def _load_ema(model, ckpt_dir: str):
@@ -163,8 +196,9 @@ def generate_image(args):
     before = flash_attention.launches
     generate_samples(model_fn, gen_cfg, device=device, out_npz=args.out,
                      decode_fn=decode_fn)
-    print(f"flash_attention launches: {flash_attention.launches - before} in {calls} "
-          f"model calls ({cfg.model}, {cfg.compute_dtype}, {device})")
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        print(f"flash_attention launches: {flash_attention.launches - before} in {calls} "
+              f"model calls ({cfg.model}, {cfg.compute_dtype}, {device})")
 
 
 def compute_fid(args):
@@ -316,33 +350,41 @@ def _stop_profile(prof, device, profile_dir, first, last):
 
 def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
               sample_hook=None):
-    """reed_tpu's training loop on one device: `args.steps` steps over
-    `batches` (each fetch and step inside the profiler ranges
-    `reed::next_batch` and `reed::train_step`), logging `[step N] {...}`
-    every --log-every steps (and to {ckpt_dir}/metrics.jsonl), saving every
-    --ckpt-every steps under --ckpt-dir after resuming from its latest
-    checkpoint (with a config snapshot beside it), calling
+    """reed_tpu's training loop: `args.steps` steps over `batches` (this
+    rank's rows under a process group; each fetch and step inside the
+    profiler ranges `reed::next_batch` and `reed::train_step`), logging
+    `[step N] {...}` every --log-every steps (and to
+    {ckpt_dir}/metrics.jsonl), saving every --ckpt-every steps under
+    --ckpt-dir after resuming from its latest checkpoint (with a config
+    snapshot beside it), calling
     `sample_hook(state, step)` every --sample-every steps; then the rate of
-    the steps after the first. `samples_of(batch)` counts a batch's
-    samples, in `unit`s. With --profile-dir, torch.profiler traces the
-    steps reed_tpu traces (from min(2, max(0, steps - 2)) through min(7,
-    steps - 1), the device synchronised before the stop) and writes a
-    Chrome trace into that directory."""
+    the steps after the first. `samples_of(batch)` counts the global
+    batch's samples, in `unit`s, from this rank's rows. With --profile-dir,
+    torch.profiler traces the steps reed_tpu traces (from min(2, max(0,
+    steps - 2)) through min(7, steps - 1), the device synchronised before
+    the stop) and writes a Chrome trace into that directory. Under a
+    process group (trainer.dp) rank 0 alone prints, writes config.json,
+    metrics.jsonl, the checkpoints and the trace; every rank resumes."""
     from reed_tpu_torch.core.checkpoint import CheckpointManager
     from reed_tpu_torch.core.logging import MetricLogger
 
-    device = trainer.device
-    logger = MetricLogger(log_dir=args.ckpt_dir)
-    if args.ckpt_dir:
+    device, dp = trainer.device, trainer.dp
+    main = dp is None or dp.is_main
+    logger = MetricLogger(log_dir=args.ckpt_dir if main else None, stdout=main)
+    if args.ckpt_dir and main:
         print(f"config snapshot -> {configlib.snapshot(cfg, args.ckpt_dir)}")
+    if dp is not None:
+        dp.barrier()
     ckpt = None
     if args.ckpt_dir and args.ckpt_every:
-        ckpt = CheckpointManager(args.ckpt_dir, save_interval_steps=args.ckpt_every)
+        ckpt = CheckpointManager(args.ckpt_dir, save_interval_steps=args.ckpt_every, dp=dp)
         if ckpt.latest_step() is not None:
             ckpt.restore(state, trainer.generator)
-            print(f"resumed from step {state.step}")
+            if main:
+                print(f"resumed from step {state.step}")
     t0 = samples = None
-    profile_dir, prof = getattr(args, "profile_dir", None), None
+    profile_dir = getattr(args, "profile_dir", None) if main else None
+    prof = None
     profile_start = min(2, max(0, args.steps - 2))
     profile_stop = min(7, args.steps - 1)  # always stop before the loop ends
     for i in range(args.steps):
@@ -370,12 +412,19 @@ def _run_loop(trainer, state, batches, args, samples_of, cfg, label, unit,
         ckpt.save(state, trainer.generator)
     logger.close()
     synchronize(device)
-    if args.steps > 1:
+    if args.steps > 1 and main:
         seconds = time.perf_counter() - t0
         n = args.steps - 1
         print(f"{label}: {n} steps after the first in {seconds:.3f} s: "
               f"{n / seconds:.3f} steps/s, {samples / seconds:.2f} {unit}/s")
     return state
+
+
+def _global_rows(trainer, key):
+    """samples_of for _run_loop: the rows of batch[key] over every rank
+    (the ranks hold equal shares of the global batch)."""
+    world = 1 if trainer.dp is None else trainer.dp.world
+    return lambda batch: int(batch[key].shape[0]) * world
 
 
 def train_protein(args):
@@ -436,10 +485,11 @@ def train_protein(args):
                 for arrays in token_bucket_batches(entries, token_budget=args.token_budget,
                                                    repr_dims=repr_dims, shuffle_rng=rng,
                                                    pool=pool):
-                    yield {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+                    yield {k: torch.from_numpy(v).to(device)
+                           for k, v in local_batch(trainer.dp, arrays).items()}
                 epoch += 1
 
-    return _run_loop(trainer, state, batches(), args, lambda b: int(b["S"].shape[0]),
+    return _run_loop(trainer, state, batches(), args, _global_rows(trainer, "S"),
                      cfg, f"train-protein ({device})", "sequences")
 
 
@@ -456,7 +506,7 @@ def train_image(args):
     device = resolve_device(args.device)
     cfg = _resolve_cfg(ImageTrainConfig, args,
                        {"model": args.model, "batch_size": args.batch_size,
-                        "seed": args.seed, "mesh": _mesh_flags(args),
+                        "seed": args.seed,
                         "optim": {"lr": args.lr} if args.lr is not None else None},
                        defaults={"exact_gelu": True} if args.ref_ckpt else None)
     trainer = ImageTrainer(cfg, device=device)
@@ -495,11 +545,15 @@ def train_image(args):
         if len(ds) < cfg.batch_size:
             raise SystemExit(f"{len(ds)} samples under {args.data_dir}, fewer "
                              f"than one batch of {cfg.batch_size}")
+        # reed_tpu's per-process pipeline: each rank reads its own stride
+        # of the shuffled samples, batch_size / world of them a step
+        rank, world = (0, 1) if trainer.dp is None else (trainer.dp.rank, trainer.dp.world)
 
         def batches():
             epoch = 0
             while True:
-                for batch in epoch_batches(ds, cfg.batch_size, cfg.seed + epoch):
+                for batch in epoch_batches(ds, cfg.batch_size // world, cfg.seed + epoch,
+                                           process_index=rank, process_count=world):
                     if encoders is not None:
                         with record_function("reed::frozen_encoder"):
                             feats = encode_features(encoders, batch.pop("pixels"))
@@ -509,17 +563,18 @@ def train_image(args):
 
     sample_hook = None
     if args.sample_every:
-        sample_hook = _preview_hook(cfg, args, device)
+        sample_hook = _preview_hook(cfg, args, device, trainer.dp)
     return _run_loop(trainer, state, batches(), args, lambda b: cfg.batch_size, cfg,
                      f"train-image ({cfg.model}, batch {cfg.batch_size}, "
                      f"{cfg.compute_dtype}, {device})", "imgs", sample_hook=sample_hook)
 
 
-def _preview_hook(cfg, args, device):
+def _preview_hook(cfg, args, device, dp):
     """sample_hook(state, step): 16 samples from the EMA weights (ODE, 50
-    steps, CFG 4.0, seeded by the step), VAE-decoded where --vae is given,
-    else the first three latent channels scaled to [0, 255], saved as a
-    grid {ckpt_dir or .}/preview_{step:07d}.png."""
+    steps, CFG 4.0, seeded by the step; sharded over the ranks under a
+    process group), VAE-decoded where --vae is given, else the first three
+    latent channels scaled to [0, 255], saved by rank 0 as a grid
+    {ckpt_dir or .}/preview_{step:07d}.png."""
     from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples, make_vae_decode_fn
     from reed_tpu_torch.eval.visualize import save_image_grid
 
@@ -543,9 +598,10 @@ def _preview_hook(cfg, args, device):
             vis = out[..., :3]
             vis = (vis - vis.min()) / (vis.max() - vis.min() + 1e-8)
             out = (vis * 255).astype(np.uint8)
-        path = f"{args.ckpt_dir or '.'}/preview_{step:07d}.png"
-        save_image_grid(path, out)
-        print(f"saved sample preview -> {path}")
+        if dp is None or dp.is_main:
+            path = f"{args.ckpt_dir or '.'}/preview_{step:07d}.png"
+            save_image_grid(path, out)
+            print(f"saved sample preview -> {path}")
 
     return hook
 
@@ -615,8 +671,8 @@ def train_molecule_semla(args):
         def batches():
             i = 0
             while True:
-                yield batch_to_device(trainer.example_batch(cfg.batch_size, 32, seed=i),
-                                      device)
+                yield batch_to_device(local_batch(
+                    trainer.dp, trainer.example_batch(cfg.batch_size, 32, seed=i)), device)
                 i += 1
     else:
         from reed_tpu_torch.data.molecule import (GEOM_COORDS_STD_DEV, QM9_COORDS_STD_DEV,
@@ -639,11 +695,10 @@ def train_molecule_semla(args):
                         mols, cfg.interpolant, rng, reps=reps, batch_cost=args.batch_cost,
                         vocab_size=cfg.vocab_size, n_bond_types=cfg.n_bond_types,
                         n_charge_types=cfg.n_charge_types):
-                    yield batch_to_device(batch, device)
+                    yield batch_to_device(local_batch(trainer.dp, batch), device)
                 epoch += 1
 
-    return _run_loop(trainer, state, batches(), args,
-                     lambda b: int(b["times"].shape[0]), cfg,
+    return _run_loop(trainer, state, batches(), args, _global_rows(trainer, "times"), cfg,
                      f"train-molecule-semla ({device})", "molecules")
 
 
@@ -809,11 +864,10 @@ def train_molecule_edm(args):
                         data, cfg.batch_size, rng, reps=reps, max_nodes=cfg.max_nodes,
                         num_atom_types=cfg.num_atom_types,
                         include_charges=cfg.include_charges):
-                    yield batch_to_device(batch, device)
+                    yield batch_to_device(local_batch(trainer.dp, batch), device)
                 epoch += 1
 
-    return _run_loop(trainer, state, batches(), args,
-                     lambda b: int(b["node_mask"].shape[0]), cfg,
+    return _run_loop(trainer, state, batches(), args, _global_rows(trainer, "node_mask"), cfg,
                      f"train-molecule-edm {cfg.probabilistic_model} ({device})", "molecules")
 
 
@@ -983,14 +1037,6 @@ def _write_molecules(out_dir: str, molecules, decoder, comments=None):
         print("3D PNG renders skipped: matplotlib is not installed")
 
 
-def _mesh_flags(args):
-    """--dp/--fsdp/--tp/--sp as reed_tpu reads them into MeshConfig; the
-    port's trainers refuse more than one device."""
-    mesh = {k: v for k, v in (("data", args.dp), ("fsdp", args.fsdp),
-                              ("tensor", args.tp), ("seq", args.sp)) if v is not None}
-    return mesh or None
-
-
 def train_property(args):
     """Train the EGNN property regressor (reference:
     qm9/property_prediction/main_qm9_prop.py) on synthetic batches or on the
@@ -1005,7 +1051,7 @@ def train_property(args):
                                                property_epoch_batches)
 
     device = resolve_device(args.device)
-    flags = {"batch_size": args.batch_size, "seed": args.seed, "mesh": _mesh_flags(args),
+    flags = {"batch_size": args.batch_size, "seed": args.seed,
              "optim": {"lr": args.lr} if args.lr is not None else None}
     defaults = {"property": args.property}
     data = None
@@ -1051,12 +1097,13 @@ def train_property(args):
                 order = np.random.default_rng(cfg.seed + epoch).permutation(len(reps))
                 for i in range(0, len(order) - cfg.batch_size + 1, cfg.batch_size):
                     idx = order[i:i + cfg.batch_size]
-                    yield batch_to_device({"rep": reps[idx], "label": labels[idx]}, device)
+                    yield batch_to_device(local_batch(
+                        trainer.dp, {"rep": reps[idx], "label": labels[idx]}), device)
                 epoch += 1
 
         batches = synthetic(trainer, cfg.seed) if reps is None else probe_batches()
         return _run_loop(trainer, trainer.init_state(), batches, args,
-                         lambda b: int(b["label"].shape[0]), cfg,
+                         _global_rows(trainer, "label"), cfg,
                          f"train-property linear probe {cfg.property} ({device})", "reps")
 
     cfg = _resolve_cfg(PropertyTrainConfig, args, flags, defaults)
@@ -1071,12 +1118,12 @@ def train_property(args):
             for batch in property_epoch_batches(data, cfg.property, cfg.batch_size, rng,
                                                 max_nodes=cfg.max_nodes,
                                                 num_atom_types=cfg.num_atom_types):
-                yield batch_to_device(batch, device)
+                yield batch_to_device(local_batch(trainer.dp, batch), device)
             epoch += 1
 
     batches = synthetic(trainer, cfg.seed) if data is None else data_batches()
     return _run_loop(trainer, trainer.init_state(), batches, args,
-                     lambda b: int(b["label"].shape[0]), cfg,
+                     _global_rows(trainer, "label"), cfg,
                      f"train-property {cfg.property} ({device})", "molecules")
 
 
@@ -1101,8 +1148,7 @@ def eval_conditional(args):
 
     device = resolve_device(args.device)
     np_rng = np.random.default_rng(args.seed or 0)
-    gen_cfg = _resolve_cfg(MoleculeEDMConfig, args, {"seed": args.seed,
-                                                     "mesh": _mesh_flags(args)},
+    gen_cfg = _resolve_cfg(MoleculeEDMConfig, args, {"seed": args.seed},
                            defaults={"batch_size": args.n_samples, "context_node_nf": 1,
                                      "edm": {"timesteps": args.num_steps}})
     trainer = MoleculeEDMTrainer(gen_cfg, device=device)
@@ -1256,14 +1302,18 @@ def train_rdm(args):
                 order = np.random.default_rng(cfg.seed + epoch).permutation(len(reps))
                 for i in range(0, len(order) - cfg.batch_size + 1, cfg.batch_size):
                     idx = order[i:i + cfg.batch_size]
-                    yield batch_to_device({"rep": reps[idx], "num_atoms": sizes[idx]}, device)
+                    yield batch_to_device(local_batch(
+                        trainer.dp, {"rep": reps[idx], "num_atoms": sizes[idx]}), device)
                 epoch += 1
 
-    state = _run_loop(trainer, state, batches(), args, lambda b: int(b["rep"].shape[0]), cfg,
+    state = _run_loop(trainer, state, batches(), args, _global_rows(trainer, "rep"), cfg,
                       f"train-rdm ({device})", "reps")
-    sampler = DDIMRepSampler(trainer.diffusion(trainer.ema_model(state)), eta=1.0, step_num=10)
-    reps = sampler.sample(torch.Generator(device=device).manual_seed(0), np.array([9, 12, 15]))
-    print("sampled reps:", tuple(reps.shape), "finite:", bool(torch.isfinite(reps).all()))
+    if trainer.dp is None or trainer.dp.is_main:
+        sampler = DDIMRepSampler(trainer.diffusion(trainer.ema_model(state)), eta=1.0,
+                                 step_num=10)
+        reps = sampler.sample(torch.Generator(device=device).manual_seed(0),
+                              np.array([9, 12, 15]))
+        print("sampled reps:", tuple(reps.shape), "finite:", bool(torch.isfinite(reps).all()))
     return state
 
 
@@ -1323,11 +1373,14 @@ def train_multiflow(args):
                         args.data_dir, cfg.batch_size, rng, max_len=cfg.max_len,
                         entries=entries, trans_batch_ot=cfg.interpolant.trans_batch_ot,
                         trans_scale=cfg.interpolant.trans_scale):
-                    yield batch_to_device(batch, device)
+                    yield batch_to_device(local_batch(trainer.dp, batch), device)
                 epoch += 1
 
-    return _run_loop(trainer, state, batches(), args,
-                     lambda b: int(b["res_mask"].sum().item()), cfg,
+    def residues(batch):
+        n = batch["res_mask"].sum()
+        return int((n if trainer.dp is None else trainer.dp.all_sum(n)).item())
+
+    return _run_loop(trainer, state, batches(), args, residues, cfg,
                      f"train-multiflow {cfg.compute_dtype} ({device})", "residues")
 
 
@@ -1399,10 +1452,20 @@ def _add_config(p, what):
                    help="cuda (default) or cpu; no silent fallback")
 
 
-def _add_mesh(p):
-    for flag in ("--dp", "--fsdp", "--tp", "--sp"):
-        p.add_argument(flag, type=int, default=None,
-                       help="mesh axis size; the port runs on one device, so only 1")
+def _add_mesh(p, data_parallel: bool):
+    """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
+    over the ranks of --distributed (the others raise on more than one)."""
+    for flag, axis in (("--dp", "data: the number of ranks"),
+                       ("--fsdp", "fsdp: only 1, not ported"),
+                       ("--tp", "tensor: only 1, not ported"),
+                       ("--sp", "seq: only 1, not ported")):
+        p.add_argument(flag, type=int, default=None, help=f"mesh axis size ({axis})")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun describes (NCCL with one card a "
+                        "rank; gloo with --device cpu)" + (
+                            "; --batch-size is the global batch" if data_parallel else
+                            "; this subcommand runs on one process"))
+    p.set_defaults(data_parallel=data_parallel)
 
 
 def _add_training(p):
@@ -1447,6 +1510,7 @@ def main(argv=None):
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                    help="compute dtype (default: the config's bfloat16)")
     _add_config(p, "ImageTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=generate_image)
 
     p = sub.add_parser("compute-fid")
@@ -1483,6 +1547,7 @@ def main(argv=None):
                    help="message chains through the fused kernels (auto, the "
                         "config's default: where they take the widths, else unfused)")
     _add_config(p, "ProteinTrainConfig")
+    _add_mesh(p, data_parallel=False)
     p.set_defaults(fn=eval_protein)
 
     p = sub.add_parser("train-protein")
@@ -1497,6 +1562,7 @@ def main(argv=None):
                    help="warm start from a reference torch fmif checkpoint")
     _add_training(p)
     _add_config(p, "ProteinTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_protein)
 
     p = sub.add_parser("train-image")
@@ -1521,9 +1587,9 @@ def main(argv=None):
                    help="preview grid of 16 EMA samples every N steps")
     p.add_argument("--vae", default=None,
                    help="SD-VAE decoder npz for the previews (else latent channels)")
-    _add_mesh(p)
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_image)
 
     p = sub.add_parser("train-molecule-semla")
@@ -1543,6 +1609,7 @@ def main(argv=None):
                         "checkpoint (dims via --set)")
     _add_training(p)
     _add_config(p, "SemlaTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_molecule_semla)
 
     p = sub.add_parser("eval-semla")
@@ -1569,6 +1636,7 @@ def main(argv=None):
                    help="write replicate 0 as .xyz and predicted-bond .sdf files here")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "SemlaTrainConfig")
+    _add_mesh(p, data_parallel=False)
     p.set_defaults(fn=eval_semla)
 
     p = sub.add_parser("train-molecule-edm")
@@ -1582,6 +1650,7 @@ def main(argv=None):
                         "(generative_model[_ema].npy; widths via --set)")
     _add_training(p)
     _add_config(p, "MoleculeEDMConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_molecule_edm)
 
     p = sub.add_parser("train-rdm")
@@ -1591,6 +1660,7 @@ def main(argv=None):
                    help="reps.npy [N, channels] and sizes.npy [N]; trains on them")
     _add_training(p)
     _add_config(p, "RDMTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_rdm)
 
     p = sub.add_parser("eval-molecule")
@@ -1616,6 +1686,7 @@ def main(argv=None):
                         "matplotlib is installed")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
+    _add_mesh(p, data_parallel=False)
     p.set_defaults(fn=eval_molecule)
 
     p = sub.add_parser("train-property")
@@ -1629,9 +1700,9 @@ def main(argv=None):
     p.add_argument("--data-dir", default=None,
                    help="QM9 EDM npz train split with the property column (and reps.npy "
                         "beside it for --linear-probe); trains on it, mean and mad from it")
-    _add_mesh(p)
     _add_training(p)
     _add_config(p, "PropertyTrainConfig (LinearProbeConfig with --linear-probe)")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_property)
 
     p = sub.add_parser("eval-conditional")
@@ -1656,8 +1727,8 @@ def main(argv=None):
                    help="xyz + property_values.log output dir, and 3D PNG renders where "
                         "matplotlib is installed (reference eval_visualize_samples.py)")
     p.add_argument("--seed", type=int, default=None)
-    _add_mesh(p)
     _add_config(p, "MoleculeEDMConfig")
+    _add_mesh(p, data_parallel=False)
     p.set_defaults(fn=eval_conditional)
 
     p = sub.add_parser("train-multiflow")
@@ -1670,6 +1741,7 @@ def main(argv=None):
                         "(widths via --set)")
     _add_training(p)
     _add_config(p, "MultiflowTrainConfig")
+    _add_mesh(p, data_parallel=True)
     p.set_defaults(fn=train_multiflow)
 
     p = sub.add_parser("eval-multiflow")
@@ -1683,6 +1755,7 @@ def main(argv=None):
                    help="sample from the EMA weights of this run's latest checkpoint")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MultiflowTrainConfig")
+    _add_mesh(p, data_parallel=False)
     p.set_defaults(fn=eval_multiflow)
 
     args = parser.parse_args(argv)

@@ -9,6 +9,14 @@ torch.Generator and torch's global CPU and CUDA generators. A resumed run
 then draws the same t, eps, dropout and corruption as an uninterrupted one.
 Each file is written under a temporary name and renamed, so a run cut
 during a save leaves no half checkpoint.
+
+Whether a step is saved is decided from the steps this manager saw (the
+directory's at its start, then its own saves), not from the directory,
+which under data parallelism rank 0 may be writing while another rank
+looks. Data parallel (`dp`): every rank holds the same state and the same
+generator (parallel/mesh.py), so rank 0 alone writes the one file, then
+every rank waits at a barrier; every rank restores from it, the saving
+device's CUDA stream onto its own device.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ def _rng_state(generator: Optional[torch.Generator]) -> Dict:
     state = {"cpu": torch.get_rng_state()}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         state["cuda"] = torch.cuda.get_rng_state_all()
+        state["cuda_device"] = torch.cuda.current_device()
     if generator is not None:
         state["generator"] = generator.get_state()
     return state
@@ -36,7 +45,8 @@ def _rng_state(generator: Optional[torch.Generator]) -> Dict:
 def _set_rng_state(state: Dict, generator: Optional[torch.Generator]):
     torch.set_rng_state(state["cpu"])
     if "cuda" in state and torch.cuda.is_available():
-        torch.cuda.set_rng_state_all(state["cuda"])
+        # the saving device's stream onto this process's device
+        torch.cuda.set_rng_state(state["cuda"][state.get("cuda_device", 0)])
     if generator is not None:
         if "generator" not in state:
             raise KeyError("the checkpoint holds no trainer generator state")
@@ -58,14 +68,17 @@ class CheckpointManager:
     """save / restore / latest_step over `directory`, keeping the newest
     `max_to_keep` checkpoints; `save` writes only at steps that are a
     multiple of `save_interval_steps` and newer than the latest checkpoint
-    (orbax's should_save)."""
+    (orbax's should_save). With `dp` (a parallel.mesh.DataParallel) rank 0
+    writes and every rank restores."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, dp=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, save_interval_steps)
+        self.dp = dp
         os.makedirs(self.directory, exist_ok=True)
+        self._latest_seen = self.latest_step()
 
     def all_steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory))
@@ -79,15 +92,23 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{step}.pt")
 
     def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
-        return step % self.save_interval_steps == 0 and (latest is None or step > latest)
+        return step % self.save_interval_steps == 0 and (
+            self._latest_seen is None or step > self._latest_seen)
 
     def save(self, state: TrainState, generator: Optional[torch.Generator] = None) -> bool:
         """Write `state` (and the trainer's `generator`) at state.step;
-        returns whether it was written."""
+        returns whether it was written (by rank 0, under dp)."""
         step = int(state.step)
         if not self.should_save(step):
             return False
+        self._latest_seen = step
+        if self.dp is None or self.dp.is_main:
+            self._write(state, generator, step)
+        if self.dp is not None:
+            self.dp.barrier()
+        return True
+
+    def _write(self, state: TrainState, generator: Optional[torch.Generator], step: int):
         opt = state.opt
         payload = {
             "step": step,
@@ -102,7 +123,6 @@ class CheckpointManager:
         os.replace(tmp, self.path(step))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
-        return True
 
     def restore(self, state: TrainState, generator: Optional[torch.Generator] = None,
                 step: Optional[int] = None) -> TrainState:

@@ -40,17 +40,13 @@ class CurriculumConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Kept so that reed_tpu's configurations load. The port trains on one
-    device: a trainer raises when this asks for more."""
+    """reed_tpu's mesh axes. The port runs the data axis over
+    torch.distributed (parallel/mesh.py): `data` is None (every rank) or the
+    world size; fsdp, tensor and seq above 1 raise (parallel.mesh.check_mesh,
+    which each trainer calls). fsdp_min_size is read by no port code yet."""
 
     data: Optional[int] = None
     fsdp: int = 1
     tensor: int = 1
     seq: int = 1
     fsdp_min_size: Optional[int] = None
-
-    def check_single_device(self):
-        if any(n not in (None, 1) for n in (self.data, self.fsdp, self.tensor, self.seq)):
-            raise NotImplementedError(
-                f"the port trains on one device; mesh {self} asks for more "
-                "(multi-GPU training is not ported yet)")

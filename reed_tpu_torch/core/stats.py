@@ -1,9 +1,9 @@
 """Training statistics: accumulate scalar statistics across steps, then
-report means and standard deviations. Counterpart of reed_tpu/core/stats.py
-on one process: `report` accumulates [count, sum, sum of squares] moments,
-and `Collector.update(cross_process=True)` would sum them across
-processes, which at a world size of 1 leaves them as they are (multi-GPU
-is not ported)."""
+report means and standard deviations. Counterpart of reed_tpu/core/stats.py:
+`report` accumulates [count, sum, sum of squares] moments, and
+`Collector.update(cross_process=True)` sums them over the ranks of the
+process group (reed_tpu's process_allgather(...).sum(0)); `report0`
+reports on rank 0 only."""
 
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from reed_tpu_torch.parallel.mesh import data_parallel
 
 _counters: Dict[str, np.ndarray] = {}
 
@@ -45,15 +47,23 @@ class Collector:
         self._cumulative: Dict[str, np.ndarray] = {}
 
     def update(self, cross_process: bool = False):
-        """Capture the moments reported since the last update. The port runs
-        one process, so `cross_process` has nothing to sum."""
-        if cross_process and torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("cross-process stats: multi-GPU is not ported")
-        for name, total in list(_counters.items()):
-            self._deltas[name] = total - self._cumulative.get(name, np.zeros(3))
-            self._cumulative[name] = total.copy()
+        """Capture the moments reported since the last update; with
+        `cross_process` under a process group, summed over the ranks in one
+        all-reduce over the names any rank reported (report0's only on rank
+        0)."""
+        dp = data_parallel() if cross_process else None
+        names = sorted(_counters)
+        if dp is not None:
+            everyone = [None] * dp.world
+            torch.distributed.all_gather_object(everyone, names)
+            names = sorted(set().union(*everyone))
+        zero = np.zeros(3)
+        deltas = [_counters.get(n, zero) - self._cumulative.get(n, zero) for n in names]
+        for name in names:
+            self._cumulative[name] = _counters.get(name, zero).copy()
+        if dp is not None and names:
+            deltas = list(dp.all_sum_host(np.stack(deltas)))
+        self._deltas.update(zip(names, deltas))
 
     def names(self):
         return list(self._deltas)

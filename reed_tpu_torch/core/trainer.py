@@ -3,7 +3,8 @@ reed_tpu/core/trainer.py (make_train_step, combine_losses)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, List
 
 import torch
 from torch.profiler import record_function
@@ -12,6 +13,23 @@ from reed_tpu_torch.core.config import CurriculumConfig
 from reed_tpu_torch.core.ema import ema_update
 from reed_tpu_torch.core.schedules import diffusion_loss_decay, repa_weight_decay
 from reed_tpu_torch.core.train_state import TrainState, global_norm
+from reed_tpu_torch.parallel import draws
+
+# lists that capture_gradients is filling
+_gradient_sinks: List[list] = []
+
+
+@contextlib.contextmanager
+def capture_gradients():
+    """Collect a copy of the gradients of every train step taken inside the
+    block (after the data-parallel all-reduce, in parameter order), one list
+    a step: what the update saw, for tests and diagnostics."""
+    sink: list = []
+    _gradient_sinks.append(sink)
+    try:
+        yield sink
+    finally:
+        _gradient_sinks.remove(sink)
 
 
 def combine_losses(metrics: Dict[str, torch.Tensor], step, cur: CurriculumConfig):
@@ -28,7 +46,7 @@ def combine_losses(metrics: Dict[str, torch.Tensor], step, cur: CurriculumConfig
 
 
 def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, dp=None) -> Callable:
     """Build `train_step(state, batch, **inject) -> (state, metrics)`.
 
     loss_fn(model, batch, opt_step, **inject) -> metrics dict of scalar
@@ -41,11 +59,22 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
     Metrics add 'loss' (the combined total) and 'grad_norm' (of the
     micro-step's raw gradients). The optimizer and the EMA run inside
     profiler ranges ('reed::optimizer', 'reed::ema') that a torch.profiler
-    trace attributes their kernels to."""
+    trace attributes their kernels to.
+
+    With `dp` (a parallel.mesh.DataParallel) the step runs this rank's rows
+    of the global batch: the loss draws at the global shape and keeps its
+    rows (parallel/draws.py), the gradients are all-reduced (their mean
+    over the ranks, in flat buckets) right after autograd, on every
+    micro-step, so that grad_norm, the clip, Adam and the EMA see the
+    global batch's gradient on every rank, and the loss metrics are
+    averaged over the ranks in one small all-reduce that stays on the
+    device. torch.nn.parallel.DistributedDataParallel would see nothing
+    here: its hooks fire on .backward() into .grad, not on autograd.grad."""
 
     def train_step(state: TrainState, batch, **inject):
         opt_step = state.step // accum_steps
-        metrics = dict(loss_fn(state.model, batch, opt_step, **inject))
+        with draws.global_rows(dp):
+            metrics = dict(loss_fn(state.model, batch, opt_step, **inject))
         if "proj_loss" not in metrics:
             metrics["proj_loss"] = torch.zeros((), device=metrics["denoising_loss"].device)
         total, sched = combine_losses(metrics, opt_step, curriculum)
@@ -53,6 +82,10 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
         grads = torch.autograd.grad(total, params, allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        if dp is not None:
+            grads = dp.all_reduce_grads(grads)
+        for sink in _gradient_sinks:
+            sink.append([g.detach().clone() for g in grads])
         grad_norm = global_norm(grads)
         with record_function("reed::optimizer"):
             state.opt.step(grads)
@@ -63,7 +96,10 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
                            curriculum.ema_decay ** max(1, curriculum.ema_every))
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(sched, loss=total.detach(), grad_norm=grad_norm)
+        metrics.update(sched, loss=total.detach())
+        if dp is not None:
+            metrics = dp.mean_metrics(metrics)
+        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return train_step

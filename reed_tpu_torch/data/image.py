@@ -70,13 +70,17 @@ def sample_posterior(rng: np.random.Generator, moments: np.ndarray,
     return np.transpose(z, (0, 2, 3, 1))
 
 
-def epoch_batches(dataset: CachedLatentDataset, batch_size: int, seed: int
+def epoch_batches(dataset: CachedLatentDataset, batch_size: int, seed: int,
+                  process_index: int = 0, process_count: int = 1
                   ) -> Iterator[Dict[str, np.ndarray]]:
     """Shuffled full batches of stacked arrays, as reed_tpu's epoch_batches
-    gives one process; the raw moments are sampled to latents here on the
-    host."""
+    gives process `process_index` of `process_count`: every process draws
+    the same permutation and takes every process_count-th sample of it from
+    its index, in batches of `batch_size` (its share of the global batch);
+    the raw moments are sampled to latents here on the host."""
     rng = np.random.default_rng(seed)
     idx = rng.permutation(len(dataset))
+    idx = idx[process_index::process_count]
     for b in range(len(idx) // batch_size):
         rows = [dataset[i] for i in idx[b * batch_size:(b + 1) * batch_size]]
         stacked = {k: np.stack([r[k] for r in rows]) for k in rows[0]}

@@ -17,6 +17,7 @@ import torch
 
 from reed_tpu_torch.core.schedules import time_weight
 from reed_tpu_torch.diffusion.paths import interpolant, sample_time
+from reed_tpu_torch.parallel import draws
 
 IMAGE_ENCODERS = ("dinov2", "dinov1", "mocov3", "clip", "mae", "jepa")
 
@@ -68,7 +69,7 @@ def flow_matching_loss(cfg: FlowMatchingLossConfig, model_fn: Callable, x, zs,
     t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
     t_b = t.reshape((b,) + (1,) * (x.dim() - 1))
     if eps is None:
-        eps = torch.randn(x.shape, generator=generator, device=x.device)
+        eps = draws.randn(x.shape, generator=generator, device=x.device)
     eps = torch.as_tensor(eps, dtype=torch.float32, device=x.device)
     alpha_t, sigma_t, d_alpha_t, d_sigma_t = interpolant(t_b, cfg.path_type)
     x_t = alpha_t * x + sigma_t * eps

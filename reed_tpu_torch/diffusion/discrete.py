@@ -32,6 +32,7 @@ import torch
 
 from reed_tpu_torch.data.protein import MASK_TOKEN_INDEX, NUM_TOKENS
 from reed_tpu_torch.diffusion.samplers import _linspace_f32
+from reed_tpu_torch.parallel import draws
 
 NEG_INF = -1e6
 
@@ -50,7 +51,7 @@ def sample_t(num_batch: int, min_t: float, generator: Optional[torch.Generator] 
     """t ~ U[min_t, 1 - min_t], [num_batch] f32 (reference: fm_utils.py:40-42);
     `uniforms` [num_batch] replaces the generator's U[0, 1) draws."""
     if uniforms is None:
-        uniforms = torch.rand((num_batch,), generator=generator, device=device)
+        uniforms = draws.rand((num_batch,), generator=generator, device=device)
     return uniforms.float() * (1 - 2 * min_t) + min_t
 
 
@@ -64,7 +65,7 @@ def corrupt_tokens(tokens, t, res_mask, mask_index: int = MASK_TOKEN_INDEX,
     if t.dim() == 1:
         t = t[:, None]
     if uniforms is None:
-        uniforms = torch.rand(tokens.shape, generator=generator, device=tokens.device)
+        uniforms = draws.rand(tokens.shape, generator=generator, device=tokens.device)
     corrupted = torch.where(uniforms < (1.0 - t), mask_index, tokens)
     corrupted = torch.where(res_mask.bool(), corrupted, mask_index)
     return corrupted.to(torch.int32)

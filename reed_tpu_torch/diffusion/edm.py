@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.models.egnn import remove_mean_with_mask
+from reed_tpu_torch.parallel import draws
 
 
 # -- noise schedules (reference: en_diffusion.py:23-80, 170-205) -------------
@@ -137,8 +138,8 @@ def combined_noise(shape_x, shape_h, node_mask, generator=None):
     """[z_x | z_h]: z_x ~ N(0, I) on the zero-CoM subspace, z_h ~ N(0, I),
     both masked."""
     dev = node_mask.device
-    z_x = torch.randn(shape_x, generator=generator, device=dev) * node_mask
-    z_h = torch.randn(shape_h, generator=generator, device=dev) * node_mask
+    z_x = draws.randn(shape_x, generator=generator, device=dev) * node_mask
+    z_h = draws.randn(shape_h, generator=generator, device=dev) * node_mask
     return torch.cat([remove_mean_with_mask(z_x, node_mask), z_h], dim=-1)
 
 
@@ -299,7 +300,7 @@ class EnVariationalDiffusion:
         b, n = x.shape[:2]
         dev = x.device
         if t_int is None:
-            t_int = torch.randint(1 if t0_always else 0, cfg.timesteps + 1, (b, 1),
+            t_int = draws.randint(1 if t0_always else 0, cfg.timesteps + 1, (b, 1),
                                   generator=generator, device=dev)
         t_int = torch.as_tensor(t_int, device=dev).float()
         s = (t_int - 1) / cfg.timesteps

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from reed_tpu_torch.diffusion.edm import combined_noise, sum_except_batch
+from reed_tpu_torch.parallel import draws
 
 BETA_MIN = 0.1
 BETA_MAX = 20.0
@@ -50,8 +51,8 @@ def dequantize(h_cat, h_int, node_mask, generator=None, noise=None):
     categorical and integer features, re-masked. `noise` = (u_cat, u_int),
     uniforms on [0, 1), where given."""
     if noise is None:
-        noise = (torch.rand(h_cat.shape, generator=generator, device=h_cat.device),
-                 torch.rand(h_int.shape, generator=generator, device=h_int.device))
+        noise = (draws.rand(h_cat.shape, generator=generator, device=h_cat.device),
+                 draws.rand(h_int.shape, generator=generator, device=h_int.device))
     u_cat, u_int = noise
     return (h_cat + (u_cat - 0.5)) * node_mask, (h_int + (u_int - 0.5)) * node_mask
 
@@ -125,7 +126,7 @@ class EquivariantCNF:
         xh = torch.cat([x, h_cat_d, h_int_d], dim=-1)
         b, n = xh.shape[:2]
         if t is None:
-            t = torch.rand((b,), generator=generator, device=xh.device)
+            t = draws.rand((b,), generator=generator, device=xh.device)
         t_b = t[:, None, None]
         if eps is None:
             eps = self.sample_combined_noise(b, n, node_mask, generator)

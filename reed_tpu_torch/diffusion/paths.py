@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from reed_tpu_torch.parallel import draws
+
 
 def interpolant(t, path_type: str = "linear"):
     """Returns (alpha_t, sigma_t, d_alpha_t, d_sigma_t) as f32 tensors,
@@ -57,11 +59,11 @@ def sample_time(generator, batch: int, weighting: str = "uniform",
     device = None if generator is None else generator.device
     if weighting == "uniform":
         if draw is None:
-            draw = torch.rand((batch,), generator=generator, device=device)
+            draw = draws.rand((batch,), generator=generator, device=device)
         return torch.as_tensor(draw, dtype=torch.float32)
     if weighting == "lognormal":
         if draw is None:
-            draw = torch.randn((batch,), generator=generator, device=device)
+            draw = draws.randn((batch,), generator=generator, device=device)
         sigma = torch.exp(torch.as_tensor(draw, dtype=torch.float32))
         if path_type == "linear":
             return sigma / (1.0 + sigma)

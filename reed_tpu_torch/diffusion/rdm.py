@@ -18,6 +18,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from reed_tpu_torch.parallel import draws
+
 
 def make_ldm_linear_betas(timesteps: int, linear_start: float = 0.0015,
                           linear_end: float = 0.0195) -> np.ndarray:
@@ -49,7 +51,7 @@ def rep_normalization(rep: torch.Tensor) -> torch.Tensor:
 def _randn(shape, generator, device, given=None):
     if given is not None:
         return torch.as_tensor(given, dtype=torch.float32, device=device)
-    return torch.randn(shape, generator=generator, device=device)
+    return draws.randn(shape, generator=generator, device=device)
 
 
 class RDMDiffusion:
@@ -93,7 +95,7 @@ class RDMDiffusion:
         diffusion's own for this call."""
         b = x0.shape[0]
         if t is None:
-            t = torch.randint(0, self.cfg.timesteps, (b,), generator=generator,
+            t = draws.randint(0, self.cfg.timesteps, (b,), generator=generator,
                               device=x0.device)
         t = torch.as_tensor(t, device=x0.device).long()
         noise = _randn(x0.shape, generator, x0.device, noise)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from reed_tpu_torch.diffusion.paths import diffusion_coefficient, score_from_velocity
+from reed_tpu_torch.parallel import draws
 
 
 def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
@@ -118,7 +119,7 @@ def euler_maruyama_sampler(model_fn: Callable, latents, y,
         if noise is not None:
             eps = noise[i].to(device=x.device, dtype=torch.float32)
         else:
-            eps = torch.randn(x.shape, generator=generator, device=x.device,
+            eps = draws.randn(x.shape, generator=generator, device=x.device,
                               dtype=torch.float32)
         d_cur = drift(x, t_cur)
         sqrt_g = float(np.sqrt(diffusion_coefficient(t_cur)))

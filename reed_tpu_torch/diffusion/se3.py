@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from reed_tpu_torch.ops.so3 import geodesic_t, igso3_draws, sample_igso3
+from reed_tpu_torch.parallel import draws
 
 MASK_TOKEN_INDEX = 20
 NUM_TOKENS = 21
@@ -88,12 +89,12 @@ class CorruptDraws:
     @staticmethod
     def draw(cfg: SE3InterpolantConfig, b: int, n: int, with_trans_noise: bool = True,
              generator: Optional[torch.Generator] = None, device=None) -> "CorruptDraws":
-        t_u = torch.rand((b, 1), generator=generator, device=device)
-        trans_noise = (torch.randn((b, n, 3), generator=generator, device=device)
+        t_u = draws.rand((b, 1), generator=generator, device=device)
+        trans_noise = (draws.randn((b, n, 3), generator=generator, device=device)
                        if with_trans_noise else None)
         rot_u, rot_axis = igso3_draws((b, n), generator, device)
-        aatypes_u = torch.rand((b, n), generator=generator, device=device)
-        uniform = (torch.randint(0, 20, (b, n), generator=generator, device=device)
+        aatypes_u = draws.rand((b, n), generator=generator, device=device)
+        uniform = (draws.randint(0, 20, (b, n), generator=generator, device=device)
                    if cfg.aatypes_interpolant == "uniform" else None)
         return CorruptDraws(t_u, trans_noise, rot_u, rot_axis, aatypes_u, uniform)
 

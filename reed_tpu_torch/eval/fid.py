@@ -1,12 +1,16 @@
-"""FID generation harness on one device: sample class-conditional latents,
-decode them to pixels with the SD-VAE decoder, and write the `.npz` (key
-`arr_0`) consumed by the ADM evaluation suite.
+"""FID generation harness: sample class-conditional latents, decode them
+to pixels with the SD-VAE decoder, and write the `.npz` (key `arr_0`)
+consumed by the ADM evaluation suite.
 
 Counterpart of reed_tpu/eval/fid.py. Each batch draws its latents, labels
 and SDE noise from a torch.Generator seeded by (seed, batch index), so a
 batch's samples do not depend on the batches before it. Each batch is
 decoded on the device before it is copied to the host; without a decoder
-the npz holds latents, as reed_tpu writes without `--vae`.
+the npz holds latents, as reed_tpu writes without `--vae`. Under a process
+group each batch is sharded over the ranks (reed_tpu's mesh sharding of
+the sample batch): every rank draws the whole batch's latents, labels and
+noise and keeps its rows, samples and decodes them, and the rows are
+gathered back, so the samples equal one process's.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.diffusion.samplers import euler_maruyama_sampler, euler_sampler
+from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 
 @dataclass
@@ -58,9 +64,12 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
     """model_fn(x, t, y) -> velocity. Returns [N, 8H, 8W, 3] uint8 pixels,
     decode_fn(x / latents_scale + latents_bias) of each batch on the
     device, or without decode_fn the [N, H, W, C] latents themselves; writes
-    `out_npz` when given. Prints the rate of the batches after the first,
-    with the sampling and the decode timed apart."""
+    `out_npz` when given (by rank 0 under a process group, whose ranks each
+    sample their rows of every batch and all return every sample). Prints
+    the rate of the batches after the first, with the sampling and the
+    decode timed apart."""
     device = resolve_device(device)
+    dp = data_parallel(batch_size=cfg.batch_size)
     n_iters = math.ceil(cfg.num_samples / cfg.batch_size)
     shape = (cfg.batch_size, cfg.latent_size, cfg.latent_size,
              cfg.latent_channels)
@@ -77,20 +86,24 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
         z = torch.randn(shape, generator=gen, device=device)
         y = torch.randint(0, cfg.num_classes, (cfg.batch_size,),
                           generator=gen, device=device)
-        if cfg.mode == "sde":
-            x = euler_maruyama_sampler(model_fn, z, y, gen, **kwargs)
-        else:
-            x = euler_sampler(model_fn, z, y, heun=cfg.heun, **kwargs)
+        z, y = local_batch(dp, (z, y))
+        with draws.global_rows(dp):  # the SDE noise of the whole batch, this rank's rows
+            if cfg.mode == "sde":
+                x = euler_maruyama_sampler(model_fn, z, y, gen, **kwargs)
+            else:
+                x = euler_sampler(model_fn, z, y, heun=cfg.heun, **kwargs)
         x = x / cfg.latents_scale + cfg.latents_bias
         synchronize(device)
         t1 = time.perf_counter()
         if decode_fn is not None:
             x = decode_fn(x)
+        if dp is not None:
+            x = dp.gather_rows(x)
         outs.append(x.cpu().numpy())
         if i:
             sample_s += t1 - t0
             decode_s += time.perf_counter() - t1
-    if n_iters > 1:
+    if n_iters > 1 and (dp is None or dp.is_main):
         n = (n_iters - 1) * cfg.batch_size
         per_batch = sample_s / (n_iters - 1)
         print(f"sampler throughput: {cfg.num_steps / per_batch:.1f} "
@@ -100,7 +113,7 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
             print(f"decode: {1e3 * decode_s / n:.3f} ms per image; "
                   f"{n / (sample_s + decode_s):.2f} imgs/sec with the decode")
     samples = np.concatenate(outs, axis=0)[:cfg.num_samples]
-    if out_npz is not None:
+    if out_npz is not None and (dp is None or dp.is_main):
         os.makedirs(os.path.dirname(out_npz) or ".", exist_ok=True)
         np.savez(out_npz, arr_0=samples)
         print(f"saved {samples.shape} -> {out_npz}")

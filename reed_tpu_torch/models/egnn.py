@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.nn.layers import dense, layer_norm
+from reed_tpu_torch.parallel import draws
 
 
 def coord2diff(x, norm_constant: float = 1.0):
@@ -332,7 +333,7 @@ class EGNNDynamics(nn.Module):
             h = torch.cat([h, context * node_mask], dim=-1)
         if rep is not None and hasattr(self, "fake_latent") and train:
             if drop is None:
-                drop = torch.rand((b,), generator=generator, device=rep.device) \
+                drop = draws.rand((b,), generator=generator, device=rep.device) \
                     < self.rep_dropout_prob
             rep = torch.where(torch.as_tensor(drop, device=rep.device).reshape(b, 1),
                               self.fake_latent, rep)

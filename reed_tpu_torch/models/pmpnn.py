@@ -40,6 +40,7 @@ from torch import nn
 from reed_tpu_torch.data.protein import MASK_TOKEN_INDEX, NUM_TOKENS
 from reed_tpu_torch.ops.fused_message import fused_message_mlp
 from reed_tpu_torch.ops.graph import gather_nodes, knn_graph, rbf
+from reed_tpu_torch.parallel import draws
 
 NEG_INF = -1e6
 
@@ -71,7 +72,7 @@ class Dropout:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.rate
+        keep = draws.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
@@ -140,7 +141,7 @@ class ProteinFeatures(nn.Module):
         [B,L,K,E] and neighbour indices [B,L,K] int32."""
         x = x.float()
         if augment_eps > 0:
-            x = x + augment_eps * torch.randn(x.shape, generator=generator, device=x.device)
+            x = x + augment_eps * draws.randn(x.shape, generator=generator, device=x.device)
         b_vec = x[:, :, 1] - x[:, :, 0]
         c_vec = x[:, :, 2] - x[:, :, 1]
         a_vec = torch.linalg.cross(b_vec, c_vec, dim=-1)

@@ -22,13 +22,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.nn.layers import timestep_embedding
+from reed_tpu_torch.parallel import draws
 
 
 def _dropout(x, p: float, train: bool, generator: Optional[torch.Generator]):
     """flax's Dropout: keep each element with 1 - p and scale it by 1 / (1 - p)."""
     if not train or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draws.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

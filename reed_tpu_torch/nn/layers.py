@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.ops.attention import multi_head_attention
+from reed_tpu_torch.parallel import draws
 
 
 def linear(x, layer: nn.Linear):
@@ -113,7 +114,7 @@ class LabelEmbedder(nn.Module):
         from `generator`. Outside training nothing is dropped."""
         if train and self.dropout_prob > 0:
             if drop is None:
-                drop = torch.rand(y.shape, generator=generator,
+                drop = draws.rand(y.shape, generator=generator,
                                   device=y.device) < self.dropout_prob
             y = torch.where(torch.as_tensor(drop, device=y.device),
                             self.num_classes, y)

@@ -24,6 +24,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from reed_tpu_torch.parallel import draws
+
 
 def hat(v):
     """[..., 3] -> skew-symmetric [..., 3, 3]."""
@@ -127,8 +129,8 @@ def igso3_draws(shape: Sequence[int], generator: Optional[torch.Generator] = Non
     """The draws of sample_igso3: (u [*shape] uniform, axis [*shape, 3]
     normal)."""
     shape = tuple(shape)
-    u = torch.rand(shape, generator=generator, device=device)
-    axis = torch.randn(shape + (3,), generator=generator, device=device)
+    u = draws.rand(shape, generator=generator, device=device)
+    axis = draws.randn(shape + (3,), generator=generator, device=device)
     return u, axis
 
 

@@ -1,5 +1,6 @@
 """Image-domain trainer: SiT flow matching with REED alignment, counterpart
-of reed_tpu/train/image.py on one device.
+of reed_tpu/train/image.py, on one device or data-parallel over
+torch.distributed (parallel/mesh.py).
 
 One train step draws t, eps and the CFG label drops, runs SiT in its
 compute dtype (bf16 by default) with f32 master weights cast where they
@@ -26,6 +27,7 @@ from reed_tpu_torch.core.train_state import TrainState, make_optimizer
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig, flow_matching_loss
 from reed_tpu_torch.models.sit import SiT, create_sit
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 # reed_tpu's attn_impl names -> the port's SiT choice: the kernel K1 on
 # CUDA tensors, or plain attention
@@ -114,19 +116,22 @@ def batch_to_device(batch, device: torch.device):
 
 
 class ImageTrainer:
-    """reed_tpu's ImageTrainer on one device: `init_state()`, then
-    `train_step(state, batch, **inject) -> (state, metrics)` (in place),
-    `synthetic_batch` and `run`. Weights are initialised from a generator
-    seeded cfg.seed; the training draws come from `self.generator`, seeded
-    cfg.seed + 1."""
+    """reed_tpu's ImageTrainer: `init_state()`, then `train_step(state,
+    batch, **inject) -> (state, metrics)` (in place), `synthetic_batch` and
+    `run`. Weights are initialised from a generator seeded cfg.seed (the
+    same on every rank); the training draws come from `self.generator`,
+    seeded cfg.seed + 1. Under a process group (`self.dp`) a step takes
+    this rank's rows of the global batch of cfg.batch_size
+    (`synthetic_batch` returns them) and its metrics are the global
+    batch's."""
 
     def __init__(self, cfg: ImageTrainConfig, device=None):
-        cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._train_step = make_train_step(make_loss_fn(cfg.loss), cfg.curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
@@ -137,15 +142,17 @@ class ImageTrainer:
 
     def train_step(self, state: TrainState, batch, t=None, eps=None, drop=None):
         """One step on a batch (numpy or tensors, moved to the trainer's
-        device); t, eps and drop as in make_loss_fn."""
+        device; this rank's rows under a process group); t, eps and drop as
+        in make_loss_fn, for the same rows."""
         return self._train_step(state, batch_to_device(batch, self.device),
                                 generator=self.generator, t=t, eps=eps, drop=drop)
 
     def synthetic_batch(self, generator: Optional[torch.Generator] = None):
         """A random batch of cfg.batch_size with the training schema on the
-        trainer's device: N(0, 1) latents, uniform labels and N(0, 1)
-        encoder targets (per token for 'i', pooled for 't'), a stand-in for
-        cached VAE latents and encoder features."""
+        trainer's device (this rank's rows of it under a process group):
+        N(0, 1) latents, uniform labels and N(0, 1) encoder targets (per
+        token for 'i', pooled for 't'), a stand-in for cached VAE latents
+        and encoder features."""
         cfg = self.cfg
         bs = cfg.batch_size
         if generator is None:
@@ -158,7 +165,7 @@ class ImageTrainer:
         zs = [torch.randn((bs, num_tokens, z_dim) if z_type == "i" else (bs, z_dim),
                           generator=generator, device=self.device)
               for z_dim, z_type in zip(cfg.z_dims, cfg.z_types)]
-        return {"x": x, "y": y, "zs": zs}
+        return local_batch(self.dp, {"x": x, "y": y, "zs": zs})
 
     def run(self, state: TrainState, batches, log_every: int = 100, log_fn=print):
         """A host loop over an iterable of batches, logging the metrics as

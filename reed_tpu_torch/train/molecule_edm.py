@@ -35,6 +35,8 @@ from reed_tpu_torch.diffusion.edm import (EDMConfig, EnVariationalDiffusion, gam
                                          make_gamma_table)
 from reed_tpu_torch.diffusion.efm import EFMConfig, EquivariantCNF
 from reed_tpu_torch.models.egnn import EGNNDynamics, remove_mean_with_mask
+from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 
 @dataclass(frozen=True)
@@ -76,7 +78,6 @@ def check_config(cfg: MoleculeEDMConfig):
     if cfg.probabilistic_model not in ("diffusion", "fm"):
         raise ValueError(f"probabilistic_model must be diffusion or fm, got "
                          f"{cfg.probabilistic_model!r}")
-    cfg.mesh.check_single_device()
 
 
 def build_dynamics(cfg: MoleculeEDMConfig, device=None,
@@ -130,7 +131,7 @@ def random_rotation(x, generator: Optional[torch.Generator] = None, q=None):
     quaternions q [B,4] (drawn where not given)."""
     b = x.shape[0]
     if q is None:
-        q = torch.randn((b, 4), generator=generator, device=x.device)
+        q = draws.randn((b, 4), generator=generator, device=x.device)
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     w, i, j, k = q.unbind(-1)
     rot = torch.stack([
@@ -182,19 +183,23 @@ def batch_to_device(batch: Dict, device) -> Dict:
 
 
 class MoleculeEDMTrainer:
-    """reed_tpu's MoleculeEDMTrainer on one device: `init_state()`, then
+    """reed_tpu's MoleculeEDMTrainer: `init_state()`, then
     `train_step(state, batch, **draws) -> (state, metrics)` (in place), plus
     `synthetic_batch`, `ema_model` and `sample`. Weights are initialised from
-    a generator seeded cfg.seed; the training draws come from
-    `self.generator`, a device generator seeded cfg.seed + 1."""
+    a generator seeded cfg.seed (the same on every rank); the training
+    draws come from `self.generator`, a device generator seeded cfg.seed +
+    1. Under a process group (`self.dp`) a step takes this rank's rows of
+    the global batch (`synthetic_batch` returns them) and its metrics are
+    the global batch's."""
 
     def __init__(self, cfg: MoleculeEDMConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._train_step = make_train_step(make_loss_fn(cfg, self.device), cfg.curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
         self._ema_model = None
 
     def init_state(self) -> TrainState:
@@ -212,7 +217,8 @@ class MoleculeEDMTrainer:
         """Random molecules of max_nodes // 2 .. max_nodes atoms on the device
         (reed_tpu's synthetic_batch schema): zero-CoM Gaussian positions,
         random types, integer charges 1-8, a rep and a per-molecule
-        context where configured."""
+        context where configured; this rank's rows of it under a process
+        group."""
         cfg = self.cfg
         bs = batch_size or cfg.batch_size
         if generator is None:
@@ -235,7 +241,7 @@ class MoleculeEDMTrainer:
         if cfg.context_node_nf > 0:
             prop = torch.randn((bs, 1, cfg.context_node_nf), generator=generator, device=dev)
             batch["context"] = prop.expand(bs, n, cfg.context_node_nf) * node_mask
-        return batch
+        return local_batch(self.dp, batch)
 
     def ema_model(self, state: TrainState) -> EGNNDynamics:
         """A copy of the model (kept for reuse) holding the state's EMA."""

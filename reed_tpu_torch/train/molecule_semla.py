@@ -44,6 +44,7 @@ from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
                                                   sample_prior_batch)
 from reed_tpu_torch.models.semla import SemlaGenerator, adj_from_node_mask
 from reed_tpu_torch.models.semla_alt import EqgatGenerator, VanillaEgnnGenerator
+from reed_tpu_torch.parallel.mesh import data_parallel
 
 
 @dataclass(frozen=True)
@@ -345,18 +346,21 @@ def generate(model: nn.Module, cfg: SemlaTrainConfig, prior: Dict, rep=None,
 
 
 class SemlaTrainer:
-    """reed_tpu's SemlaTrainer on one device: `init_state()`, then
-    `train_step(state, batch) -> (state, metrics)` (in place, on a batch
-    from batch_to_device), plus `example_batch`, `sample_prior` and
-    `generate`. Weights are initialised from a generator seeded cfg.seed;
-    the self-conditioning coin comes from `self.generator`, a CPU generator
-    seeded cfg.seed + 1."""
+    """reed_tpu's SemlaTrainer: `init_state()`, then `train_step(state,
+    batch) -> (state, metrics)` (in place, on a batch from batch_to_device),
+    plus `example_batch`, `sample_prior` and `generate`. Weights are
+    initialised from a generator seeded cfg.seed (the same on every rank);
+    the self-conditioning coin, one for the whole global batch, comes from
+    `self.generator`, a CPU generator seeded cfg.seed + 1. Under a process
+    group (`self.dp`) a step takes this rank's rows of a global host batch
+    built as one process builds it (the OT coupling included;
+    parallel.mesh.local_batch) and its metrics are the global batch's."""
 
     def __init__(self, cfg: SemlaTrainConfig, device=None):
         check_config(cfg)
-        cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator().manual_seed(cfg.seed + 1)
         # REPA at repa_loss_weight with no decay; the warm-up applies to the
         # diffusion losses (fm.py:655-662,860-865)
@@ -367,7 +371,7 @@ class SemlaTrainer:
                                           cfg.curriculum.diffusion_warmup_steps),
         })
         self._train_step = make_train_step(make_loss_fn(cfg), self.curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
         self._ema_model = None
 
     def init_state(self) -> TrainState:

@@ -38,6 +38,7 @@ from reed_tpu_torch.diffusion.se3 import (NUM_TOKENS, CorruptDraws, SE3Interpola
 from reed_tpu_torch.models.ipa import FlowModel, rigid_apply
 from reed_tpu_torch.ops.residue_constants import RESTYPE_ATOM37_POSITIONS
 from reed_tpu_torch.ops.so3 import calc_rot_vf, quat_to_rotmat
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 # the idealised N, CA, C positions in the residue frame (the ALA rigid
 # group): the atoms of the reference's backbone-atom loss
@@ -85,7 +86,6 @@ def check_config(cfg: MultiflowTrainConfig):
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{cfg.compute_dtype!r}")
-    cfg.mesh.check_single_device()
 
 
 def build_model(cfg: MultiflowTrainConfig, device=None,
@@ -207,20 +207,25 @@ def synthetic_host_batch(rng: np.random.Generator, batch_size: int, length: int,
 
 
 class MultiflowTrainer:
-    """reed_tpu's MultiflowTrainer on one device: `init_state()`, then
-    `train_step(state, batch, draws=None) -> (state, metrics)` (in place),
-    plus `synthetic_batch`, `ema_model` and `sample`. Weights are
-    initialised from a generator seeded cfg.seed; the training draws come
-    from `self.generator`, a device generator seeded cfg.seed + 1."""
+    """reed_tpu's MultiflowTrainer: `init_state()`, then `train_step(state,
+    batch, draws=None) -> (state, metrics)` (in place), plus
+    `synthetic_batch`, `ema_model` and `sample`. Weights are initialised
+    from a generator seeded cfg.seed (the same on every rank); the training
+    draws come from `self.generator`, a device generator seeded cfg.seed +
+    1. Under a process group (`self.dp`) a step takes this rank's rows of a
+    global host batch built as one process builds it (the batch-OT prior
+    included; `synthetic_batch` returns them) and its metrics are the
+    global batch's."""
 
     def __init__(self, cfg: MultiflowTrainConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         curriculum = replace(cfg.curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(make_loss_fn(cfg), curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
         self._ema_model = None
 
     def init_state(self) -> TrainState:
@@ -238,12 +243,13 @@ class MultiflowTrainer:
                         length: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """A synthetic batch (synthetic_host_batch, numpy generator `rng`,
         default seed 1) on the device, with the batch-OT prior coupled on
-        the host when the interpolant asks for it."""
+        the host when the interpolant asks for it; this rank's rows of it
+        under a process group."""
         cfg = self.cfg
         host = synthetic_host_batch(rng if rng is not None else np.random.default_rng(1),
                                     batch_size or cfg.batch_size, length or cfg.max_len,
                                     cfg.interpolant.trans_batch_ot, cfg.interpolant.trans_scale)
-        return batch_to_device(host, self.device)
+        return batch_to_device(local_batch(self.dp, host), self.device)
 
     def ema_model(self, state: TrainState) -> FlowModel:
         """A copy of the model (kept for reuse) holding the state's EMA."""

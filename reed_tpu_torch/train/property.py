@@ -28,6 +28,7 @@ from reed_tpu_torch.core.ema import ema_init
 from reed_tpu_torch.core.train_state import TrainState, make_optimizer
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.models.property_classifier import PropertyClassifier
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 QM9_PROPERTIES = ("alpha", "gap", "homo", "lumo", "mu", "Cv", "G", "H",
                   "r2", "U", "U0", "zpve")
@@ -65,7 +66,6 @@ def build_model(cfg: PropertyTrainConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> PropertyClassifier:
     """The configured PropertyClassifier on `device`, initialised from
     `generator` as reed_tpu initialises it."""
-    cfg.mesh.check_single_device()
     with torch.device(device) if device is not None else torch.device("cpu"):
         model = PropertyClassifier(cfg.num_atom_types, hidden_nf=cfg.hidden_nf,
                                    n_layers=cfg.n_layers, attention=cfg.attention)
@@ -109,16 +109,18 @@ def make_probe_loss_fn(cfg: "LinearProbeConfig"):
 
 class _Trainer:
     """What both trainers share: the train step over a loss_fn, the state
-    and the EMA model."""
+    and the EMA model. Under a process group (`self.dp`) a step takes this
+    rank's rows of the global batch (`synthetic_batch` returns them) and its
+    metrics are the global batch's."""
 
     def __init__(self, cfg, loss_fn, curriculum: CurriculumConfig, device=None):
-        cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.curriculum = replace(curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(loss_fn, self.curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
 
     def _build(self, generator=None) -> nn.Module:
         raise NotImplementedError
@@ -144,7 +146,7 @@ class _Trainer:
 
 
 class PropertyTrainer(_Trainer):
-    """reed_tpu's PropertyTrainer on one device: `init_state()`, then
+    """reed_tpu's PropertyTrainer: `init_state()`, then
     `train_step(state, batch) -> (state, metrics)` (in place), plus
     `synthetic_batch`, `ema_model` and `predict`."""
 
@@ -173,8 +175,9 @@ class PropertyTrainer(_Trainer):
         one_hot = torch.nn.functional.one_hot(types, cfg.num_atom_types).float() * node_mask
         label = (one_hot.sum(dim=(1, 2)) * 0.1
                  + torch.randn((bs,), generator=generator, device=dev) * 0.01)
-        return {"one_hot": one_hot, "positions": x, "node_mask": node_mask,
-                "edge_mask": edge_mask, "label": label}
+        return local_batch(self.dp, {"one_hot": one_hot, "positions": x,
+                                     "node_mask": node_mask, "edge_mask": edge_mask,
+                                     "label": label})
 
     @torch.no_grad()
     def predict(self, model: PropertyClassifier, one_hot, positions, node_mask, edge_mask,
@@ -208,7 +211,7 @@ class LinearProbeConfig:
 
 
 class LinearProbeTrainer(_Trainer):
-    """reed_tpu's LinearProbeTrainer on one device: nn.Linear(rep_dim, 1)
+    """reed_tpu's LinearProbeTrainer: nn.Linear(rep_dim, 1)
     (flax's Dense(1) init: lecun-normal weight, zero bias)."""
 
     def __init__(self, cfg: LinearProbeConfig, device=None):
@@ -233,7 +236,7 @@ class LinearProbeTrainer(_Trainer):
         rep = torch.randn((bs, self.cfg.rep_dim), generator=generator, device=self.device)
         w = torch.randn((self.cfg.rep_dim,), generator=generator,
                         device=self.device) / np.sqrt(self.cfg.rep_dim)
-        return {"rep": rep, "label": rep @ w}
+        return local_batch(self.dp, {"rep": rep, "label": rep @ w})
 
     @torch.no_grad()
     def predict(self, model: nn.Linear, rep, denormalize: bool = True):

@@ -7,8 +7,11 @@ runs the model with dropout, and takes the smoothed CE plus the triple
 alignment loss, weighted by the curriculum; Adam with a global-norm clip
 and the EMA follow (core/trainer.py). On the card every message chain runs
 forward through the CUDA kernel K2a and backward through K2b
-(ops/fused_message.py). The port trains on one device, in f32 or, with
-compute_dtype bfloat16, in bf16 over f32 master weights (each weight cast
+(ops/fused_message.py). The port trains on one device or data-parallel
+over torch.distributed (parallel/mesh.py: each rank takes rows of the
+global batch, and the losses, normalised by counts over the batch, take
+the global counts), in f32 or, with compute_dtype bfloat16, in bf16 over
+f32 master weights (each weight cast
 where it is used, outside the kernels' autograd.Function, so K2a and K2b
 run their bf16 engines and the casts carry the gradients back to f32),
 and draws every random number (corruption, dropout, coordinate and target
@@ -32,9 +35,11 @@ from reed_tpu_torch.core.train_state import TrainState, make_optimizer
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.discrete import (MaskingInterpolantConfig,
                                                corrupt_batch, euler_unmask_sampler)
-from reed_tpu_torch.diffusion.protein_losses import loss_nll, loss_repr, loss_smoothed
+from reed_tpu_torch.diffusion.protein_losses import (global_counts, loss_nll, loss_repr,
+                                                     loss_smoothed)
 from reed_tpu_torch.models.pmpnn import ProteinMPNNFMIF, create_pmpnn
 from reed_tpu_torch.ops.fused_message import check_engine_shape
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 
 @dataclass(frozen=True)
@@ -192,9 +197,10 @@ def sample(model: ProteinMPNNFMIF, batch, generator: Optional[torch.Generator],
                                 uniforms=uniforms)
 
 
-def make_loss_fn(cfg: ProteinTrainConfig):
+def make_loss_fn(cfg: ProteinTrainConfig, dp=None):
     """loss_fn(model, batch, step, generator=None, noisy=None,
-    repr_noise=None) -> metrics, reed_tpu's protein loss. The corruption,
+    repr_noise=None) -> metrics, reed_tpu's protein loss, over the global
+    batch when `dp` (a DataParallel) runs the batch's rows. The corruption,
     dropout, coordinate noise and target noise draw from `generator`;
     `noisy` = (S_t [B,L], t [B] or [B,1]) replaces the corruption and
     `repr_noise` (three tensors) the target noise, so that a test can hand
@@ -219,49 +225,51 @@ def make_loss_fn(cfg: ProteinTrainConfig):
             batch["chain_encoding_all"], return_rep=True, train=True,
             detach_repr=detach_repr, generator=generator)
         _, ce = loss_smoothed(batch["S"], log_probs, mask_for_loss,
-                              cfg.smoothing_weight, t=t, t_schedule=cfg.t_schedule)
+                              cfg.smoothing_weight, t=t, t_schedule=cfg.t_schedule, dp=dp)
         metrics = {"denoising_loss": ce}
         if cfg.load_repr:
             l_s, l_p, l_st, l_sm, l_pm, l_stm = loss_repr(
                 batch["repr_single"], batch["repr_pair"], batch["repr_structure"],
                 zs_single, zs_pair, zs_structure, e_idx, mask_for_loss, is_masked,
                 generator=generator, repr_norm=cfg.repr_norm,
-                repr_noise=cfg.repr_noise, noise=repr_noise)
+                repr_noise=cfg.repr_noise, noise=repr_noise, dp=dp)
             c = cfg.repa_coeff
             align = (l_sm * c[0] + l_pm * c[1] + l_stm * c[2] if cfg.mask_repr_loss
                      else l_s * c[0] + l_p * c[1] + l_st * c[2])
             metrics.update(proj_loss=align, loss_single=l_s, loss_pair=l_p,
                            loss_structure=l_st)
-        _, nll_av, true_false = loss_nll(batch["S"], log_probs, mask_for_loss)
-        metrics.update(nll=nll_av, accuracy=torch.sum(true_false * mask_for_loss)
-                       / torch.sum(mask_for_loss))
+        (n_tokens,) = global_counts(dp, mask_for_loss)
+        _, nll_av, true_false = loss_nll(batch["S"], log_probs, mask_for_loss, n_tokens)
+        metrics.update(nll=nll_av, accuracy=torch.sum(true_false * mask_for_loss) / n_tokens)
         return metrics
 
     return loss_fn
 
 
 class ProteinTrainer:
-    """reed_tpu's ProteinTrainer on one device: `init_state()`, then
-    `train_step(state, batch) -> (state, metrics)` (in place), plus
-    `synthetic_batch` and `sample`. Weights are initialised from a generator
-    seeded cfg.seed; the training draws come from `self.generator`, seeded
-    cfg.seed + 1."""
+    """reed_tpu's ProteinTrainer: `init_state()`, then `train_step(state,
+    batch) -> (state, metrics)` (in place), plus `synthetic_batch` and
+    `sample`. Weights are initialised from a generator seeded cfg.seed (the
+    same on every rank); the training draws come from `self.generator`,
+    seeded cfg.seed + 1. Under a process group (`self.dp`) a step takes
+    this rank's rows of the global batch (`synthetic_batch` returns them)
+    and its metrics are the global batch's."""
 
     def __init__(self, cfg: ProteinTrainConfig, device=None):
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                              f"{cfg.compute_dtype!r}")
-        cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         # projector-only mode trains at unit weight (train_fmif.py:305)
         curriculum = CurriculumConfig(**{
             **cfg.curriculum.__dict__,
             "proj_coeff": 1.0 if cfg.repr_weight <= 0.0 else cfg.repr_weight})
         self.curriculum = curriculum
-        self._train_step = make_train_step(make_loss_fn(cfg), curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+        self._train_step = make_train_step(make_loss_fn(cfg, self.dp), curriculum,
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
         self._ema_model = None
 
     def init_state(self) -> TrainState:
@@ -274,8 +282,9 @@ class ProteinTrainer:
                           opt=make_optimizer(self.cfg.optim, list(model.parameters())))
 
     def train_step(self, state: TrainState, batch, noisy=None, repr_noise=None):
-        """One step on a batch of tensors on the trainer's device; `noisy`
-        and `repr_noise` as in make_loss_fn."""
+        """One step on a batch of tensors on the trainer's device (this
+        rank's rows under a process group); `noisy` and `repr_noise` as in
+        make_loss_fn, for the same rows."""
         return self._train_step(state, batch, generator=self.generator,
                                 noisy=noisy, repr_noise=repr_noise)
 
@@ -284,8 +293,8 @@ class ProteinTrainer:
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(1)
-        return synthetic_protein_batch(generator, batch_size or cfg.batch_size,
-                                       length or cfg.max_len, cfg)
+        return local_batch(self.dp, synthetic_protein_batch(
+            generator, batch_size or cfg.batch_size, length or cfg.max_len, cfg))
 
     def sample(self, state: TrainState, batch, generator: Optional[torch.Generator],
                ema: bool = False, cls: Optional[int] = None, w: Optional[float] = None):

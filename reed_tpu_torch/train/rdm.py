@@ -2,8 +2,8 @@
 vectors, conditioned on the atom count. Counterpart of
 reed_tpu/train/rdm.py (reference: molecule/models/engine_rdm.py
 train_one_epoch, molecule/src/self_condition_train_{qm9,drug}_RDM.py):
-AdamW with a cosine schedule, the x0-parameterised MSE, on one device in
-f32.
+AdamW with a cosine schedule, the x0-parameterised MSE, in f32, on one
+device or data-parallel over torch.distributed (parallel/mesh.py).
 
 The step's draws (t, the noise and any dropout mask) come from the
 trainer's device generator, seeded cfg.seed + 1, or are handed in; the
@@ -24,6 +24,7 @@ from reed_tpu_torch.core.train_state import TrainState, make_optimizer
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.rdm import RDMConfig, RDMDiffusion
 from reed_tpu_torch.models.rdm_mlp import SimpleMLP
+from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
 
 
 @dataclass(frozen=True)
@@ -48,7 +49,6 @@ def build_model(cfg: RDMTrainConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> SimpleMLP:
     """The configured SimpleMLP on `device`, initialised from `generator` as
     reed_tpu initialises it."""
-    cfg.mesh.check_single_device()
     with torch.device(device) if device is not None else torch.device("cpu"):
         model = SimpleMLP(in_channels=cfg.channels, time_embed_dim=cfg.time_embed_dim,
                           model_channels=cfg.model_channels,
@@ -90,18 +90,20 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 class RDMTrainer:
-    """reed_tpu's RDMTrainer on one device: `init_state()`, then
-    `train_step(state, batch, **draws) -> (state, metrics)` (in place), plus
-    `synthetic_batch` and `diffusion(model)` for sampling."""
+    """reed_tpu's RDMTrainer: `init_state()`, then `train_step(state, batch,
+    **draws) -> (state, metrics)` (in place), plus `synthetic_batch` and
+    `diffusion(model)` for sampling. Under a process group (`self.dp`) a
+    step takes this rank's rows of the global batch (`synthetic_batch`
+    returns them) and its metrics are the global batch's."""
 
     def __init__(self, cfg: RDMTrainConfig, device=None):
-        cfg.mesh.check_single_device()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         curriculum = replace(cfg.curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(make_loss_fn(cfg, self.device), curriculum,
-                                           accum_steps=cfg.optim.accum_steps)
+                                           accum_steps=cfg.optim.accum_steps, dp=self.dp)
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
@@ -116,14 +118,16 @@ class RDMTrainer:
     def synthetic_batch(self, generator: Optional[torch.Generator] = None,
                         batch_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """reed_tpu's synthetic batch on the device: N(0, 1) reps and atom
-        counts uniform in [5, max_nodes)."""
+        counts uniform in [5, max_nodes); this rank's rows of it under a
+        process group."""
         bs = batch_size or self.cfg.batch_size
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(1)
-        return {"rep": torch.randn((bs, self.cfg.channels), generator=generator,
-                                   device=self.device),
-                "num_atoms": torch.randint(5, self.cfg.max_nodes, (bs,), generator=generator,
-                                           device=self.device)}
+        return local_batch(self.dp, {
+            "rep": torch.randn((bs, self.cfg.channels), generator=generator,
+                               device=self.device),
+            "num_atoms": torch.randint(5, self.cfg.max_nodes, (bs,), generator=generator,
+                                       device=self.device)})
 
     def ema_model(self, state: TrainState) -> SimpleMLP:
         """A copy of the model holding the state's EMA, in eval mode."""

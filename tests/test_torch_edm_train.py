@@ -298,7 +298,10 @@ def test_trainer_draws_learns_and_samples():
 def test_refusals():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(compute_dtype="float16"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # data=2 needs two ranks (torchrun); the tensor axis is not ported
+    with pytest.raises(ValueError, match="torchrun"):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(mesh=me.MeshConfig(data=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        me.MoleculeEDMTrainer(me.MoleculeEDMConfig(mesh=me.MeshConfig(tensor=2)), device="cpu")
     with pytest.raises(ValueError):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(probabilistic_model="flow"), device="cpu")

@@ -328,18 +328,21 @@ def test_convergence_tool_runs_tiny(tmp_path):
 
 
 def test_unported_settings_raise(tmp_path):
-    """remat and more than one device are not ported and raise; the flags
-    ported since (--ckpt-dir, --sample-every, --enc-type, --vae, --ref-ckpt;
+    """remat, and the fsdp, tensor and seq axes, are not ported and raise;
+    data=2 without two ranks raises too; the flags ported since (--ckpt-dir,
+    --sample-every, --enc-type, --vae, --ref-ckpt;
     tests/test_torch_image_eval_cli.py) no longer do."""
     from reed_tpu_torch import cli
 
     with pytest.raises(NotImplementedError, match="remat"):
         ImageTrainer(ImageTrainConfig(**KW, remat=True), device="cpu").init_state()
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="torchrun"):
         ImageTrainer(ImageTrainConfig(**KW, mesh=MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ImageTrainer(ImageTrainConfig(**KW, attn_impl="flash"), device="cpu").init_state()
-    for flags in (["--dp", "2"], ["--sp", "2"]):
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.main(["train-image", "--steps", "1", *TINY_CLI, "--dp", "2"])
+    for flags in (["--fsdp", "2"], ["--sp", "2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["train-image", "--steps", "1", *TINY_CLI, *flags])
     assert cli.main(["train-image", "--steps", "1", "--dp", "1", *TINY_CLI]).step == 1

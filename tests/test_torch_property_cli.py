@@ -119,8 +119,12 @@ def test_train_property_cli(tmp_path, capsys):
     with pytest.raises(SystemExit, match="not in npz keys"):
         main(["train-property", "--data-dir", str(tmp_path), "--property", "gap",
               "--steps", "1"] + CLI_TINY)
-    with pytest.raises(NotImplementedError, match="one device"):
+    # --dp 2 needs two ranks (torchrun ... --distributed); --tp is not ported
+    with pytest.raises(ValueError, match="torchrun"):
         main(["train-property", "--synthetic", "--steps", "1", "--dp", "2",
+              "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["train-property", "--synthetic", "--steps", "1", "--tp", "2",
               "--device", "cpu"])
 
 

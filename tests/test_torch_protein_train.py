@@ -274,8 +274,11 @@ def test_unported_settings_raise():
         ProteinTrainer(ProteinTrainConfig(compute_dtype="float16"), device="cpu")
     assert ProteinTrainer(ProteinTrainConfig(compute_dtype="bfloat16"),
                           device="cpu").cfg.compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="one device"):
+    # data=2 needs two ranks (torchrun); the fsdp axis is not ported
+    with pytest.raises(ValueError, match="torchrun"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(data=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(fsdp=2)), device="cpu")
 
 
 def test_loss_falls_over_30_steps():

@@ -344,8 +344,11 @@ def test_refusals():
         ms.SemlaTrainer(dataclasses.replace(tcfg, arch="gvp"), device="cpu")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, compute_dtype="float16"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # data=2 needs two ranks (torchrun); the fsdp axis is not ported
+    with pytest.raises(ValueError, match="torchrun"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(data=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(fsdp=2)), device="cpu")
 
 
 def test_loss_falls_in_a_short_run():

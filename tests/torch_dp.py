@@ -1,0 +1,400 @@
+"""Data-parallel runs of reed_tpu_torch for the tests: gloo ranks spawned as
+subprocesses that meet through a FileStore (no TCP port), and the tiny
+trainer cases that tests/test_torch_data_parallel.py holds against one
+process.
+
+    python tests/torch_dp.py JOB DIR
+
+runs JOB as one rank (RANK, WORLD_SIZE and LOCAL_RANK from the environment,
+as torchrun sets them) and writes its results under DIR; `spawn` starts
+the ranks and waits for them. This module imports no JAX: the ranks import
+it as a script.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORLD = 2
+TINY_SIT = dict(depth=2, hidden_size=64, num_heads=4)
+
+
+def spawn(out_dir, job, world=WORLD, timeout=600):
+    """Run `job` as `world` gloo ranks writing under `out_dir`; returns each
+    rank's output and raises with all of it when a rank fails (a rank left
+    waiting in a collective is killed at `timeout` seconds)."""
+    env = dict(os.environ, WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(out_dir)], cwd=ROOT,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError("\n".join(f"--- rank {r} (exit {p.returncode})\n{o}"
+                                       for r, (p, o) in enumerate(zip(procs, outs))))
+    return outs
+
+
+def register_tiny_sit():
+    """The tiny SiT size 'SiT-T' in the port's size table (a rank's own)."""
+    from reed_tpu_torch.models import sit
+
+    sit._SIZES["SiT-T"] = TINY_SIT
+
+
+# --- the trainer cases: each builds a trainer (on the process group where
+# there is one) and its two steps' batches, this rank's rows of them ------
+
+
+def _protein():
+    from reed_tpu_torch.core.config import CurriculumConfig
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
+
+    cfg = ProteinTrainConfig(hidden_dim=32, num_encoder_layers=2, num_decoder_layers=2,
+                             k_neighbors=6, dropout=0.1, augment_eps=0.02, single_dim=8,
+                             pair_dim=4, structure_dim=8, batch_size=4, max_len=16,
+                             curriculum=CurriculumConfig(proj_coeff=0.2,
+                                                         diffusion_warmup_steps=0))
+    trainer = ProteinTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _image():
+    from reed_tpu_torch.core.config import CurriculumConfig, OptimConfig
+    from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig
+    from reed_tpu_torch.train.image import ImageTrainConfig, ImageTrainer
+
+    register_tiny_sit()
+    cfg = ImageTrainConfig(model="SiT-T/2", input_size=8, num_classes=10, encoder_depth=1,
+                           encoder_depth_text=2, z_dims=(8, 6), z_types=("i", "t"),
+                           projector_dim=32, class_dropout_prob=0.5,
+                           compute_dtype="float32", attn_impl="xla", batch_size=4,
+                           loss=FlowMatchingLossConfig(enc_names=("dinov2", "qwen"),
+                                                       loss_weights=(1.0, 0.5)),
+                           optim=OptimConfig(lr=1e-3, grad_clip=1.0),
+                           curriculum=CurriculumConfig(proj_coeff=0.5,
+                                                       diffusion_warmup_steps=0))
+    trainer = ImageTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _semla():
+    from reed_tpu_torch.parallel.mesh import local_batch
+    from reed_tpu_torch.train.molecule_semla import (SemlaTrainConfig, SemlaTrainer,
+                                                     batch_to_device)
+
+    cfg = SemlaTrainConfig(d_model=32, n_layers=3, n_coord_sets=4, d_message=16,
+                           d_message_hidden=16, d_edge=8, n_attn_heads=4, size_emb=8,
+                           d_rep=16, batch_size=4)
+    trainer = SemlaTrainer(cfg, device="cpu")
+    return trainer, [batch_to_device(local_batch(trainer.dp, trainer.example_batch(4, 8, seed=i)),
+                                     "cpu") for i in range(2)]
+
+
+def _edm():
+    from reed_tpu_torch.train.molecule_edm import MoleculeEDMConfig, MoleculeEDMTrainer
+
+    cfg = MoleculeEDMConfig(hidden_nf=32, n_layers=2, rep_nf=16, max_nodes=9,
+                            augment_rotation=True, batch_size=4)
+    trainer = MoleculeEDMTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _edm_fm():
+    from reed_tpu_torch.train.molecule_edm import MoleculeEDMConfig, MoleculeEDMTrainer
+
+    cfg = MoleculeEDMConfig(hidden_nf=32, n_layers=2, rep_nf=16, max_nodes=9,
+                            probabilistic_model="fm", batch_size=4)
+    trainer = MoleculeEDMTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _rdm():
+    from reed_tpu_torch.train.rdm import RDMTrainConfig, RDMTrainer
+
+    cfg = RDMTrainConfig(channels=16, model_channels=32, bottleneck_channels=32,
+                         num_res_blocks=2, time_embed_dim=16, max_nodes=16, dropout=0.1,
+                         batch_size=8)
+    trainer = RDMTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _property():
+    from reed_tpu_torch.train.property import PropertyTrainConfig, PropertyTrainer
+
+    trainer = PropertyTrainer(PropertyTrainConfig(hidden_nf=16, n_layers=2, max_nodes=8,
+                                                  batch_size=4), device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _linear_probe():
+    from reed_tpu_torch.train.property import LinearProbeConfig, LinearProbeTrainer
+
+    trainer = LinearProbeTrainer(LinearProbeConfig(rep_dim=12, batch_size=4), device="cpu")
+    return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
+                     for i in range(2)]
+
+
+def _multiflow():
+    from dataclasses import replace
+
+    from reed_tpu_torch.train.multiflow import MultiflowTrainConfig, MultiflowTrainer
+
+    base = MultiflowTrainConfig()
+    cfg = replace(base, c_s=32, c_z=16, num_blocks=2, max_len=16, batch_size=4,
+                  interpolant=replace(base.interpolant, aatypes_interpolant="uniform"))
+    trainer = MultiflowTrainer(cfg, device="cpu")
+    return trainer, [trainer.synthetic_batch(np.random.default_rng(10 + i))
+                     for i in range(2)]
+
+
+CASES = {"protein": _protein, "image": _image, "semla": _semla, "edm": _edm,
+         "edm_fm": _edm_fm, "rdm": _rdm, "property": _property,
+         "linear_probe": _linear_probe, "multiflow": _multiflow}
+
+
+def run_case(name):
+    """Two train steps of case `name`: {'metrics': [per step {name: float}],
+    'grads': [per step [tensor]], 'params': {name: tensor}, 'lr'}, the
+    gradients as the update saw them, in parameter order."""
+    from reed_tpu_torch.core.trainer import capture_gradients
+
+    trainer, batches = CASES[name]()
+    state = trainer.init_state()
+    metrics = []
+    with capture_gradients() as grads:
+        for batch in batches:
+            state, m = trainer.train_step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "grads": grads, "lr": trainer.cfg.optim.lr,
+            "params": {k: v.detach().clone() for k, v in state.model.named_parameters()}}
+
+
+# --- the protein traps against reed_tpu: the inputs come from the test ----
+
+TRAP_TINY = dict(hidden_dim=32, num_encoder_layers=2, num_decoder_layers=2, k_neighbors=6,
+                 dropout=0.0, single_dim=8, pair_dim=4, structure_dim=8, batch_size=4,
+                 max_len=16, fused_messages="off")
+
+
+def trap_trainer(params):
+    """A protein trainer of TRAP_TINY on the CPU with the weights `params` (a
+    state_dict), and its state."""
+    from reed_tpu_torch.core.config import CurriculumConfig
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.train_state import make_optimizer
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
+
+    cfg = ProteinTrainConfig(**TRAP_TINY, curriculum=CurriculumConfig(
+        proj_coeff=0.2, diffusion_warmup_steps=0))
+    trainer = ProteinTrainer(cfg, device="cpu")
+    state = trainer.init_state()
+    state.model.load_state_dict(params)
+    state.ema = ema_init(state.model)
+    state.opt = make_optimizer(cfg.optim, list(state.model.parameters()))
+    return trainer, state
+
+
+def trap_gradient(inputs):
+    """The global gradient of one protein step on this rank's rows of
+    inputs['batch'] with inputs['noisy'] injected, by parameter name."""
+    from reed_tpu_torch.core.trainer import capture_gradients
+    from reed_tpu_torch.parallel.mesh import local_batch
+
+    trainer, state = trap_trainer(inputs["params"])
+    batch = local_batch(trainer.dp, {k: torch.as_tensor(v) for k, v in inputs["batch"].items()})
+    noisy = local_batch(trainer.dp, tuple(torch.as_tensor(x) for x in inputs["noisy"]))
+    with capture_gradients() as grads:
+        trainer.train_step(state, batch, noisy=noisy)
+    names = [n for n, _ in state.model.named_parameters()]
+    return dict(zip(names, grads[0]))
+
+
+# --- the jobs a rank runs -------------------------------------------------
+
+
+def _job_mesh(out, dp):
+    """The collectives and the draws of parallel/ on this rank."""
+    from reed_tpu_torch.core import stats
+    from reed_tpu_torch.parallel import draws, mesh
+
+    rng = np.random.default_rng(10 + dp.rank)
+    grads = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((3, 4), (5,), (2, 2, 2))] + [torch.arange(6, dtype=torch.float64)]
+    mesh.BUCKET_ELEMENTS = 13  # buckets [12], [5, 8] in f32 and [6] in f64
+    for v in np.random.default_rng(dp.rank).standard_normal(3 + dp.rank):
+        stats.report("loss", v)
+    stats.report0("acc", np.array([0.5, 0.75]))
+    collector = stats.Collector()
+    collector.update(cross_process=True)
+    gen = torch.Generator().manual_seed(3)
+    with draws.global_rows(dp):
+        drawn = [draws.rand((2, 3), generator=gen), draws.randn((2,), generator=gen),
+                 draws.randint(0, 9, (2, 4), generator=gen)]
+    torch.save({"grads": grads, "reduced": dp.all_reduce_grads(grads),
+                "gathered": dp.gather_rows(torch.full((2, 3), float(dp.rank))),
+                "summed": dp.all_sum(torch.tensor([1.0, dp.rank])),
+                "stats": collector.as_dict(), "drawn": drawn,
+                "metrics": dp.mean_metrics({"a": torch.tensor(float(dp.rank)), "b": 2.0})},
+               out / f"mesh_rank{dp.rank}.pt")
+
+
+def _job_data_parallel(out, dp):
+    """Every trainer case, the protein trap gradient, a checkpoint at step 2
+    and the resume from it against 4 straight steps, train-protein through
+    the CLI, and sharded generation."""
+    from reed_tpu_torch import cli
+    from reed_tpu_torch.eval.fid import generate_samples
+
+    results = {name: run_case(name) for name in CASES}
+    results["trap"] = trap_gradient(torch.load(out / "trap_inputs.pt", weights_only=False))
+    results["resume"] = resume(out / "ckpt")
+    state = cli.main(["train-protein", "--device", "cpu", "--distributed", "--steps", "2",
+                      "--batch-size", "4", "--log-every", "1", "--ckpt-dir", str(out / "cli"),
+                      "--ckpt-every", "2", "--set", "max_len=16", "--set", "hidden_dim=32",
+                      "--set", "k_neighbors=6"])
+    results["cli"] = state_tensors(state)
+    register_tiny_sit()
+    results["cli_all"] = {}
+    for cmd, args in CLI_TINY.items():
+        out_args = ["--out", str(out / "gen_cli.npz")] if cmd == "generate-image" else [
+            "--steps", "2", "--log-every", "1"]
+        state = cli.main([cmd, "--device", "cpu", "--distributed", *args, *out_args])
+        results["cli_all"][cmd] = None if state is None else (
+            state.step, {k: v.detach().clone() for k, v in state.model.named_parameters()})
+    model = seeded_sit()
+    results["generate"] = generate_samples(lambda x, t, y: model(x, t, y)[0], gen_cfg(),
+                                           device="cpu", out_npz=str(out / "gen.npz"))
+    torch.save(results, out / f"dp_rank{dp.rank}.pt")
+
+
+# every data-parallel subcommand at a tiny width, global batches that two
+# ranks split
+CLI_TINY = {
+    "train-protein": ["--batch-size", "4", "--set", "max_len=16", "--set", "hidden_dim=32"],
+    "train-image": ["--model", "SiT-T/2", "--batch-size", "4", "--set", "encoder_depth=1",
+                    "--set", "input_size=8", "--set", "num_classes=10",
+                    "--set", "projector_dim=16"],
+    "train-molecule-semla": ["--batch-size", "4", "--set", "d_model=32", "--set", "n_layers=3",
+                             "--set", "n_coord_sets=4", "--set", "d_message=16",
+                             "--set", "d_message_hidden=16", "--set", "d_edge=8",
+                             "--set", "n_attn_heads=4"],
+    "train-molecule-edm": ["--batch-size", "4", "--set", "hidden_nf=32", "--set", "n_layers=2",
+                           "--set", "rep_nf=16", "--set", "max_nodes=9"],
+    "train-rdm": ["--batch-size", "8", "--set", "channels=16", "--set", "model_channels=32",
+                  "--set", "bottleneck_channels=32", "--set", "num_res_blocks=2",
+                  "--set", "time_embed_dim=16", "--set", "max_nodes=16"],
+    "train-property": ["--batch-size", "4", "--set", "hidden_nf=16", "--set", "n_layers=2",
+                       "--set", "max_nodes=8"],
+    "train-multiflow": ["--batch-size", "2", "--set", "c_s=32", "--set", "c_z=16",
+                        "--set", "num_blocks=2", "--set", "max_len=16"],
+    "generate-image": ["--model", "SiT-T/2", "--num-samples", "4", "--batch-size", "4",
+                       "--num-steps", "2", "--set", "input_size=8", "--set", "num_classes=10"],
+}
+
+
+def resume(ckpt_dir):
+    """The protein case (dropout and coordinate noise on): 4 straight steps,
+    and 2 steps saved at step 2 then 2 more from a fresh trainer restored
+    from the checkpoint. Returns both states and the steps this rank wrote."""
+    from reed_tpu_torch.core import checkpoint
+
+    writes = []
+    write = checkpoint.CheckpointManager._write
+
+    def counted(self, state, generator, step):
+        writes.append(step)
+        return write(self, state, generator, step)
+
+    checkpoint.CheckpointManager._write = counted
+    try:
+        trainer, batches = _protein()
+        batches += [trainer.synthetic_batch(torch.Generator().manual_seed(12 + i))
+                    for i in range(2)]
+        state = trainer.init_state()
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+        straight = state_tensors(state)
+
+        trainer, _ = _protein()
+        state = trainer.init_state()
+        mgr = checkpoint.CheckpointManager(ckpt_dir, save_interval_steps=2, dp=trainer.dp)
+        for batch in batches[:2]:
+            state, _ = trainer.train_step(state, batch)
+        mgr.save(state, trainer.generator)
+
+        trainer, _ = _protein()
+        state = trainer.init_state()
+        mgr = checkpoint.CheckpointManager(ckpt_dir, save_interval_steps=2, dp=trainer.dp)
+        mgr.restore(state, trainer.generator)
+        for batch in batches[2:]:
+            state, _ = trainer.train_step(state, batch)
+    finally:
+        checkpoint.CheckpointManager._write = write
+    return {"straight": straight, "resumed": state_tensors(state), "step": state.step,
+            "writes": writes}
+
+
+def state_tensors(state):
+    """The parameters, EMA and Adam moments of a TrainState, by name."""
+    out = {f"param/{k}": v.detach().clone() for k, v in state.model.named_parameters()}
+    out.update({f"ema/{k}": v.clone() for k, v in state.ema.items()})
+    out.update({f"mu/{i}": v.clone() for i, v in enumerate(state.opt.mu)})
+    out.update({f"nu/{i}": v.clone() for i, v in enumerate(state.opt.nu)})
+    return out
+
+
+def seeded_sit():
+    """A tiny SiT-T/2 with every weight ~ N(0, 0.05) from seed 0, so that
+    attention and the adaLN branches reach the velocity."""
+    from reed_tpu_torch.models.sit import create_sit
+
+    register_tiny_sit()
+    model = create_sit("SiT-T/2", input_size=8, in_channels=4, num_classes=10,
+                       encoder_depth=1, z_dims=(8,), projector_dim=16,
+                       attn_impl="reference").eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.05, generator=gen)
+    return model
+
+
+def gen_cfg():
+    """Two batches of 4 (6 samples) of 4 SDE steps with CFG in a window."""
+    from reed_tpu_torch.eval.fid import FIDGenConfig
+
+    return FIDGenConfig(num_samples=6, batch_size=4, num_classes=10, latent_size=8,
+                        latent_channels=4, mode="sde", num_steps=4, cfg_scale=2.0,
+                        guidance_high=0.7, seed=5)
+
+
+JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel}
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    from reed_tpu_torch.parallel.mesh import init_distributed
+
+    job, out_dir = sys.argv[1], pathlib.Path(sys.argv[2])
+    _, dp = init_distributed("cpu", init_method=f"file://{out_dir / 'store'}")
+    JOBS[job](out_dir, dp)
+    torch.distributed.destroy_process_group()
