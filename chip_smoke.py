@@ -187,7 +187,8 @@ no result):
      reading its reps.npy; `train-protein --steps 10 --profile-dir` as a
      subprocess, whose Chrome trace must name K2a's and K2b's kernels. K1,
      K2a and K2b launch 0 times on the EGNN, EQGAT and encoder paths.
-  15. data parallelism over torch.distributed (slice 16, `dp_phases`):
+  15. data parallelism and the fsdp axis over torch.distributed (slices
+     16 and 17, `dp_phases`):
      (a) a one-process NCCL group against no group at full width, two
      steps each: the SiT-XL/2 REED bf16 step at batch 48 (loss, every
      gradient and every parameter bitwise equal; 28 K1 launches a step in
@@ -205,14 +206,32 @@ no result):
      averaging the two gradients, as the ranks do) and within
      TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL of the one-process step at the
      global batch (the ranks sum in another order), sharded
-     `generate_samples` (16 images, 8 SDE steps with CFG) to GEN_RTOL; (c) the same over NCCL with one card
-     a rank, and `torchrun ... train-protein --distributed`, where the
-     machine has two cards, else a line that says why it did not run.
-  15. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
+     `generate_samples` (16 images, 8 SDE steps with CFG) to GEN_RTOL;
+     then, on the same ranks (phase 16 (b)), fsdp=2 against their data=2
+     steps: the SiT-XL/2 step (metrics but grad_norm and gradients
+     bitwise; grad_norm within FSDP_GRAD_NORM_REL; the parameters bitwise,
+     or within FSDP_CLIP_REL where the clip acts), each rank's memory
+     between steps at both sizes beside the plan's reckoning, the protein
+     step within RESUME_NOISE_FACTOR x a repeated data=2 step's
+     difference, K1 28 and K2a/K2b 9 + 9 launches a rank; (c) the same
+     over NCCL with one card a rank, and `torchrun ... train-protein
+     --distributed` without and with --fsdp 2, where the machine has two
+     cards, else a line that says why it did not run.
+  16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
+     step at batch 48 under remat=True and 'dots' against the step
+     without, from the same state and draws (bitwise where a repeated step
+     is, else within RESUME_NOISE_FACTOR x its difference), ms a step
+     (wall, CUDA events), peak memory over uncaptured steps and K1
+     launches (28 / 56 / 56) of each setting; the recipe's batch 256 for 3
+     steps under True and 'dots' (peak memory, ms a step, imgs/s beside
+     the reckoning). Its (b), fsdp=2 on two ranks, runs in phase 15's
+     ranks.
+  17. output: a {"kernels": [...]} line (K1 four times: bf16 on the bf16
      generation path and on the image train step, f32 on the f32
      generation path and on the image gate's training; K2a and K2b in f32
      on the protein paths, in bf16 on the bf16 protein training and in f32
-     on the guided samplers), the nvidia-smi line, and last the
+     on the guided samplers; each on the data-parallel and fsdp steps, K1
+     on the remat step), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
@@ -4168,13 +4187,95 @@ def dp_generate(model):
     return samples, calls, fa.launches
 
 
+def mesh_image_step(mesh, gb):
+    """One SiT-XL/2 REED bf16 step at global batch `gb` on `mesh` (None: the
+    data axis alone): its (metrics, gradients) and the parameters after it
+    on the host, the step's seconds, K1 launches, the bytes allocated
+    between steps and what the plan reckons for the parameters and state."""
+    from reed_tpu_torch.core.config import MeshConfig
+
+    trainer = image_train.ImageTrainer(
+        dataclasses.replace(bench_image_config(gb, warmup=0), mesh=mesh or MeshConfig()),
+        device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(21))
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    state, run = dp_step_record(trainer, state, batch, 1)
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, fa.launches
+    run = [(m, [g.cpu() for g in gs]) for m, gs in run]
+    params = [p.detach().cpu() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    plan, n = state.opt.plan, sum(p.numel() for p in state.model.parameters())
+    held = n if plan is None else plan.resident_elements()
+    reckoned = 4 * n + (2 + 4 + 4) * held  # params whole; bf16 mu, nu, EMA on the share
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return dict(run=run, params=params, s=seconds, launches=launches, allocated=allocated,
+                reckoned=reckoned, sharded=0 if plan is None else sum(plan.sharded))
+
+
+def mesh_protein_step(mesh):
+    """One f32 protein step at 8 x 256 on `mesh` (None: the data axis
+    alone): its (metrics, gradients), state, parameter names and K2a/K2b
+    launches."""
+    from reed_tpu_torch.core.config import MeshConfig
+
+    trainer = ProteinTrainer(dataclasses.replace(train_config(), mesh=mesh or MeshConfig()),
+                             device="cuda")
+    state = trainer.init_state()
+    batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(22))
+    fm.launches = fm.backward_launches = 0
+    state, run = dp_step_record(trainer, state, batch, 1)
+    torch.cuda.synchronize()
+    return dict(run=run, state=state, launches=(fm.launches, fm.backward_launches),
+                names=[n for n, _ in state.model.named_parameters()])
+
+
+def fsdp_rank_part(image, protein):
+    """Phase 16 (b) on a rank of phase 15's group: the SiT-XL/2 and protein
+    steps at fsdp=2 against this rank's data=2 steps `image` and `protein`
+    (mesh_image_step's and mesh_protein_step's, the same state, batch and
+    draws), and a repeated data=2 protein step; the distances."""
+    from reed_tpu_torch.core.config import MeshConfig
+
+    fsdp = MeshConfig(fsdp=DP["world"])
+    image_fsdp = mesh_image_step(fsdp, DP["image_global_batch"])
+    result = {key: {k: r[k] for k in ("s", "launches", "allocated", "reckoned", "sharded")}
+              for key, r in (("image_data", image), ("image_fsdp", image_fsdp))}
+    (md, gd), (mf, gf) = image["run"][0], image_fsdp["run"][0]
+    result["clip_acted"] = md["grad_norm"] >= 1.0
+    result["grad_norm_rel"] = abs(mf["grad_norm"] - md["grad_norm"]) / md["grad_norm"]
+    result["image_bitwise"] = dp_difference([({k: v for k, v in mf.items() if k != "grad_norm"},
+                                              gf)],
+                                            [({k: v for k, v in md.items() if k != "grad_norm"},
+                                              gd)])
+    top = max(float(p.abs().max()) for p in image["params"])
+    result["image_param_rel"] = max(float((a - b).abs().max()) for a, b in
+                                    zip(image_fsdp["params"], image["params"])) / top
+    result["image_params_bitwise"] = all(torch.equal(a, b) for a, b in
+                                         zip(image_fsdp["params"], image["params"]))
+    del image_fsdp
+    p_repeat, p_fsdp = mesh_protein_step(None), mesh_protein_step(fsdp)
+    result["protein_launches"] = p_fsdp["launches"]
+    result["protein_diff"] = dp_merge(dp_difference(p_fsdp["run"], protein["run"]),
+                                      dp_params_difference(p_fsdp["state"], protein["state"]))
+    result["protein_det"] = dp_merge(dp_difference(p_repeat["run"], protein["run"]),
+                                     dp_params_difference(p_repeat["state"], protein["state"]))
+    return result
+
+
 def dp_rank_main(out_dir, backend):
     """One rank of phase 15's (b) and (c) (`chip_smoke.py --dp-rank DIR
     BACKEND`, RANK / WORLD_SIZE / LOCAL_RANK set by the parent). Rank 0
     first takes the one-process references without a group: the SiT-XL/2
     step at batch 16 in f32 and in bf16, the protein step at 8 x 256 twice,
     16 generated images. Then every rank joins the group and runs the same
-    global batches data-parallel; rank 0 writes the distances."""
+    global batches data-parallel, then phase 16 (b), the fsdp=2 steps
+    against them; rank 0 writes the distances."""
     from reed_tpu_torch.parallel.mesh import init_distributed
 
     rank = int(os.environ["RANK"])
@@ -4191,6 +4292,7 @@ def dp_rank_main(out_dir, backend):
         _, ref16 = dp_step_record(t16, t16.init_state(), ibatch, 1)
         del t16
         result["image_bf16_vs_f32"] = step_errors(ref16[0], ref32[0], names)[:2]
+        ref32 = [(m, [g.cpu() for g in gs]) for m, gs in ref32]
         del ref16
         torch.cuda.empty_cache()
         pbatch = dp_protein_trainer().synthetic_batch(
@@ -4205,33 +4307,18 @@ def dp_rank_main(out_dir, backend):
         torch.cuda.empty_cache()
     init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
     t0 = time.perf_counter()
-    t16 = dp_image_trainer(gb)
-    state = t16.init_state()
-    ibatch = t16.synthetic_batch(torch.Generator(device="cuda").manual_seed(21))
-    fa.launches = 0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    _, run16 = dp_step_record(t16, state, ibatch, 1)
-    torch.cuda.synchronize()
-    result["image_step_s"] = time.perf_counter() - t1
-    result["image_launches"] = fa.launches
-    del t16, state
-    torch.cuda.empty_cache()
-    tp = dp_protein_trainer()
-    pbatch = tp.synthetic_batch(torch.Generator(device="cuda").manual_seed(22))
-    pstate = tp.init_state()
-    pnames = [n for n, _ in pstate.model.named_parameters()]
-    fm.launches = fm.backward_launches = 0
-    _, prun = dp_step_record(tp, pstate, pbatch, 1)
-    torch.cuda.synchronize()
-    result["protein_launches"] = (fm.launches, fm.backward_launches)
+    image = mesh_image_step(None, gb)
+    result["image_step_s"], result["image_launches"] = image["s"], image["launches"]
+    protein = mesh_protein_step(None)
+    prun, pnames = protein["run"], protein["names"]
+    result["protein_launches"] = protein["launches"]
     samples, calls, launches = dp_generate(dp_seeded_sit())
     result["generate"] = dict(calls=calls, launches=launches, shape=list(samples.shape),
                               finite=bool(np.isfinite(samples).all()))
     result["rank_s"] = time.perf_counter() - t0
     if rank == 0:
-        result["image_dp_vs_f32"] = step_errors(run16[0], ref32[0], names)[:2]
-        result["image_loss"] = (run16[0][0]["loss"], ref32[0][0]["loss"])
+        result["image_dp_vs_f32"] = step_errors(image["run"][0], ref32[0], names)[:2]
+        result["image_loss"] = (image["run"][0][0]["loss"], ref32[0][0]["loss"])
         result["protein_vs_witness"] = dp_difference(prun, witness)
         result["protein_dp_errors"] = step_errors(prun[0], refs[0][0], pnames)
         result["witness_errors"] = step_errors(witness[0], refs[0][0], pnames)
@@ -4239,6 +4326,10 @@ def dp_rank_main(out_dir, backend):
         result["protein_loss"] = (prun[0][0]["loss"], refs[0][0][0]["loss"])
         result["generate"]["rel"] = float(abs(samples - ref_samples).max()
                                           / abs(ref_samples).max())
+        del ref32
+    t0 = time.perf_counter()
+    result["fsdp"] = fsdp_rank_part(image, protein)
+    result["fsdp_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
     torch.distributed.destroy_process_group()
@@ -4246,7 +4337,9 @@ def dp_rank_main(out_dir, backend):
 
 def dp_ranks_phase(tmp, backend, cards, smi):
     """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
-    card rank % cards, against one process at the same global batches."""
+    card rank % cards, against one process at the same global batches, and
+    at fsdp=2 against data=2 (fsdp_report). Returns the fsdp steps'
+    launches on rank 0."""
     world = DP["world"]
     t0 = time.perf_counter()
     logs = [os.path.join(tmp, f"rank{r}_{backend}.log") for r in range(world)]
@@ -4285,7 +4378,8 @@ def dp_ranks_phase(tmp, backend, cards, smi):
     where = f"{world} ranks over {backend}" + (" on one card" if cards == 1 else
                                                 f" on {cards} cards")
     log(f"[dp] ({'b' if cards == 1 else 'c'}) {where}, {time.perf_counter() - t0:.1f} s "
-        f"incl. start-up (rank 0's references and steps {r0['rank_s']:.1f} s after joining):")
+        f"incl. start-up and the fsdp steps (rank 0's references and steps "
+        f"{r0['rank_s']:.1f} s after joining, its fsdp steps {r0['fsdp_s']:.1f} s):")
     log(f"[dp]   SiT-XL/2 bf16 step at global batch {DP['image_global_batch']} "
         f"({DP['image_global_batch'] // world} a rank) against the one-process f32 step: "
         f"metrics {dp_metric:.3g}, gradients (max err / max |g|, worst parameter) "
@@ -4326,38 +4420,212 @@ def dp_ranks_phase(tmp, backend, cards, smi):
         if (r["image_launches"] != DEPTH or r["protein_launches"] != [9, 9]
                 or r["generate"]["launches"] != DEPTH * r["generate"]["calls"]):
             raise AssertionError(f"launches on a rank: {r}")
+    return fsdp_report([r["fsdp"] for r in res], where, smi)
 
 
-def dp_torchrun_phase(tmp, smi):
-    """(c) train-protein --distributed through torchrun, one card a rank."""
+def fsdp_report(res, where, smi):
+    """Phase 16 (b)'s lines and checks from each rank's fsdp_rank_part.
+    Returns rank 0's K1 and (K2a, K2b) launches at fsdp=2."""
+    r0 = res[0]
+    image_ok = (r0["image_bitwise"] is None and (r0["image_params_bitwise"] or (
+        r0["clip_acted"] and r0["image_param_rel"] <= FSDP_CLIP_REL))
+        and r0["grad_norm_rel"] <= FSDP_GRAD_NORM_REL)
+    det = r0["protein_det"] and tuple(r0["protein_det"])
+    diff = r0["protein_diff"] and tuple(r0["protein_diff"])
+    params = ("bitwise equal" if r0["image_params_bitwise"]
+              else f"{r0['image_param_rel']:.3g} of the largest apart")
+    log(f"[fsdp] (b) {where}, fsdp=2 against data=2 on the same ranks "
+        f"(reduce_scatter_tensor and all_gather_into_tensor over the fsdp group)")
+    log(f"[fsdp]   SiT-XL/2 bf16 step at global batch {DP['image_global_batch']}: metrics "
+        f"but grad_norm and every gradient "
+        f"{describe(r0['image_bitwise'] and tuple(r0['image_bitwise']))}; grad_norm "
+        f"{r0['grad_norm_rel']:.3g} apart relative (bound {FSDP_GRAD_NORM_REL}); the clip "
+        f"{'acts' if r0['clip_acted'] else 'does not act'} (grad_clip 1.0); parameters "
+        f"after it {params} (bound {FSDP_CLIP_REL} where the clip acts); the step "
+        f"{r0['image_fsdp']['s']:.2f} s at fsdp=2, {r0['image_data']['s']:.2f} s at data=2; "
+        f"{r0['image_fsdp']['sharded']} sharded parameters; K1 launches a rank "
+        f"{[r['image_fsdp']['launches'] for r in res]}")
+    for r, rr in enumerate(res):
+        log(f"[fsdp]   rank {r}: memory allocated between steps "
+            f"{rr['image_data']['allocated'] / 1e9:.3f} GB at data=2, "
+            f"{rr['image_fsdp']['allocated'] / 1e9:.3f} GB at fsdp=2 (the plan reckons "
+            f"{rr['image_data']['reckoned'] / 1e9:.3f} and "
+            f"{rr['image_fsdp']['reckoned'] / 1e9:.3f} GB of parameters and state; reckoned "
+            f"from the parameter count, ~9.8 and ~6.3) ({smi})")
+    log(f"[fsdp]   protein f32 step at {TRAIN['batch']} x {TRAIN['length']}: fsdp=2 against "
+        f"data=2 {describe(diff)}; a repeated data=2 step {describe(det)} (bound "
+        f"{RESUME_NOISE_FACTOR}x it); K2a/K2b launches a rank "
+        f"{[r['protein_launches'] for r in res]}")
+    if not image_ok:
+        raise AssertionError(f"the {where} fsdp=2 image step against data=2: {r0}")
+    if not within_noise(diff, det):
+        raise AssertionError(f"the {where} fsdp=2 protein step against data=2: "
+                             f"{describe(diff)}, over {RESUME_NOISE_FACTOR}x {describe(det)}")
+    for r in res:
+        if (r["image_fsdp"]["launches"] != DEPTH or r["protein_launches"] != [9, 9]
+                or not r["image_fsdp"]["allocated"] < r["image_data"]["allocated"]):
+            raise AssertionError(f"launches or memory on a rank: {r}")
+    return r0["image_fsdp"]["launches"], tuple(r0["protein_launches"])
+
+
+def dp_torchrun_phase(tmp, smi, *args):
+    """(c) train-protein --distributed (with the CLI flags `args`) through
+    torchrun, one card a rank."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            "--nproc_per_node", str(DP["world"]), "-m", "reed_tpu_torch.cli",
-                           "train-protein", "--distributed", "--steps", "3", "--synthetic",
-                           "--log-every", "1"], capture_output=True, text=True,
+                           "train-protein", "--distributed", *args, "--steps", "3",
+                           "--synthetic", "--log-every", "1"], capture_output=True, text=True,
                           timeout=DP["timeout"])
+    label = " ".join(("train-protein --distributed",) + args)
     if proc.returncode or proc.stdout.count("[step ") != 3:
-        raise RuntimeError(f"torchrun train-protein exited {proc.returncode}:\n"
+        raise RuntimeError(f"torchrun {label} exited {proc.returncode}:\n"
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    log(f"[dp] (c) torchrun --nproc_per_node {DP['world']} train-protein --distributed "
-        f"--steps 3: {time.perf_counter() - t0:.1f} s, three [step N] lines from rank 0")
+    log(f"[dp] (c) torchrun --nproc_per_node {DP['world']} {label} --steps 3: "
+        f"{time.perf_counter() - t0:.1f} s, three [step N] lines from rank 0")
 
 
 def dp_phases(smi):
-    """Phase 15 (slice 16): data parallelism over torch.distributed."""
+    """Phase 15 (slice 16): data parallelism over torch.distributed, with
+    phase 16 (b), the fsdp axis, on the same ranks. Returns the one-process
+    group's launches and the gloo ranks' fsdp launches."""
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         launches = dp_group_phase(tmp, smi)
-        dp_ranks_phase(tmp, "gloo", 1, smi)
+        fsdp_launches = dp_ranks_phase(tmp, "gloo", 1, smi)
         cards = torch.cuda.device_count()
         if cards >= DP["world"]:
             dp_ranks_phase(tmp, "nccl", cards, smi)
             dp_torchrun_phase(tmp, smi)
+            dp_torchrun_phase(tmp, smi, "--fsdp", str(DP["world"]))
         else:
-            log(f"[dp] (c) not run: it needs {DP['world']} cards (NCCL takes one card a "
-                f"rank) and this machine has {cards}")
-    return launches
+            log(f"[dp] (c) not run: the NCCL ranks and torchrun train-protein --distributed "
+                f"(without and with --fsdp {DP['world']}) need {DP['world']} cards (NCCL "
+                f"takes one card a rank) and this machine has {cards}")
+    return launches, fsdp_launches
+
+
+# --- phase 16 (slice 17): SiT remat and the fsdp mesh axis -----------------
+
+REMAT = dict(batch=48, timed_steps=3, recipe_batch=256, recipe_steps=3)
+# the reckoning for SiT-XL/2 REED (697 M parameters from the 2.7874 GB of
+# f32 gradients phase 15 all-reduces), GB: the state (params 2.79, bf16 mu 1.39, nu
+# 2.79, EMA 2.79) and the gradients 2.79; the blocks' inputs under
+# remat=True at batch 256 ([256, 256, 1152] bf16 x 28) and the products
+# 'dots' keeps (qkv, proj, fc1, fc2: ~1.36 GB a block)
+REMAT_RECKONING = dict(state=9.8, grads=2.79, block_inputs=4.2, dots_products=38.0)
+# phase 16 (b), fsdp=2 against data=2 on the card, where the clip acts
+# (tests/test_torch_fsdp.py): grad_norm sums its squares in another order,
+# the rest follows the clip's scale
+FSDP_GRAD_NORM_REL = 1e-6
+FSDP_CLIP_REL = 1e-5
+
+
+def remat_compare_phase(smi):
+    """(a) at batch 48: one step under each remat setting (and a repeated
+    step without) from the same initial state, batch and draws, its
+    gradients captured; then timed steps of each without the capture, their
+    peak memory, and the K1 launches of the first step. Returns the K1
+    launches of the remat=True step."""
+    base = bench_image_config(REMAT["batch"])
+    batch, runs, rows = None, {}, {}
+    for key, remat in (("off", False), ("repeat", False), ("true", True), ("dots", "dots")):
+        trainer = image_train.ImageTrainer(dataclasses.replace(base, remat=remat),
+                                           device="cuda")
+        if batch is None:
+            batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(41))
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        fa.launches = 0
+        state, runs[key] = dp_step_record(trainer, state, batch, 1)
+        torch.cuda.synchronize()
+        launches = fa.launches
+        runs[key] = [(m, [g.cpu() for g in gs]) for m, gs in runs[key]]
+        if key != "repeat":
+            # the peak of the timed steps alone: the captured step holds a
+            # copy of every gradient
+            torch.cuda.reset_peak_memory_stats()
+            n = REMAT["timed_steps"]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                state, _ = trainer.train_step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            rows[key] = dict(wall=1e3 * (time.perf_counter() - t0) / n,
+                             device=start.elapsed_time(end) / n,
+                             peak=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+        del trainer, state
+        torch.cuda.empty_cache()
+    det = dp_difference(runs["repeat"], runs["off"])
+    for key in ("true", "dots"):
+        diff = dp_difference(runs[key], runs["off"])
+        log(f"[remat] (a) SiT-XL/2 REED bf16 step at batch {REMAT['batch']}, remat="
+            f"{key!r} against no remat from the same state and draws (loss, metrics, every "
+            f"gradient): {describe(diff)}; a repeated step without remat {describe(det)}")
+        if not within_noise(diff, det):
+            raise AssertionError(f"the remat={key} step differs from the step without: "
+                                 f"{describe(diff)} (a repeated step: {describe(det)})")
+    for key, row in rows.items():
+        log(f"[remat] (a) remat={key!r} at batch {REMAT['batch']}: {row['wall']:.3f} ms a step "
+            f"by wall, {row['device']:.3f} by CUDA events ({REMAT['timed_steps']} steps), "
+            f"{REMAT['batch'] * 1e3 / row['wall']:.2f} imgs/s, peak {row['peak']:.2f} GB, K1 "
+            f"launches in the first step {row['launches']} ({smi})")
+    want = {"off": DEPTH, "true": 2 * DEPTH, "dots": 2 * DEPTH}
+    if any(rows[k]["launches"] != want[k] for k in want):
+        raise AssertionError(f"K1 launches a step: { {k: r['launches'] for k, r in rows.items()} }"
+                             f", expected {want}")
+    return rows["true"]["launches"]
+
+
+def remat_recipe_phase(smi):
+    """(a) the recipe's batch 256 for REMAT['recipe_steps'] steps under remat
+    True and 'dots' (never without remat: it does not fit)."""
+    base = bench_image_config(REMAT["recipe_batch"])
+    out = {}
+    for remat in (True, "dots"):
+        trainer = image_train.ImageTrainer(dataclasses.replace(base, remat=remat),
+                                           device="cuda")
+        state = trainer.init_state()
+        batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(43))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0
+        times = []
+        for _ in range(REMAT["recipe_steps"]):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        later = sum(times[1:]) / len(times[1:])
+        out[remat] = dict(peak=peak, first=times[0], ms=later, launches=fa.launches)
+        log(f"[remat] (a) recipe batch {REMAT['recipe_batch']}, remat={remat!r}: "
+            f"{REMAT['recipe_steps']} steps, {times[0]:.1f} ms the first, {later:.1f} ms a "
+            f"step after it by wall ({REMAT['recipe_batch'] * 1e3 / later:.1f} imgs/s), peak "
+            f"{peak:.2f} GB (reckoned {REMAT_RECKONING['state']} GB of state + "
+            f"{REMAT_RECKONING['grads']} of gradients + "
+            + (f"{REMAT_RECKONING['block_inputs']} of block inputs and one block's recompute"
+               if remat is True else f"~{REMAT_RECKONING['dots_products']} of saved products")
+            + f"); K1 launches {fa.launches} (expected {2 * DEPTH * REMAT['recipe_steps']}); "
+            f"loss {metrics['loss'].item():.6g} ({smi})")
+        if fa.launches != 2 * DEPTH * REMAT["recipe_steps"]:
+            raise AssertionError(f"K1 launches at batch 256: {fa.launches}")
+        if not all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values()):
+            raise AssertionError(f"non-finite metrics at batch 256 remat={remat}: {metrics}")
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_phases(smi):
+    """Phase 16 (slice 17): SiT remat (its (b), the fsdp axis, runs in phase
+    15's ranks). Returns the K1 launches of the remat=True step."""
+    remat_launches = remat_compare_phase(smi)
+    remat_recipe_phase(smi)
+    return remat_launches
 
 
 def kernel_entry(name, replaces, row, launches, source=None):
@@ -4400,7 +4668,8 @@ def main():
     timed(multiflow_phases, smi)
     timed(property_phases, smi)
     guided = timed(slice14_phases, smi)
-    dp_image, dp_protein = timed(dp_phases, smi)
+    (dp_image, dp_protein), (fsdp_image, fsdp_protein) = timed(dp_phases, smi)
+    remat_launches = timed(remat_phases, smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
                      attn_rows[(MAIN_SHAPE, torch.bfloat16)], attn_launches),
@@ -4438,6 +4707,18 @@ def main():
                      source="fused_message"),
         kernel_entry("fused_message_bwd_dp", "reed_tpu/ops/fused_message.py:152",
                      bwd_rows[(MSG_MAIN, torch.float32)], dp_protein[1],
+                     source="fused_message"),
+        kernel_entry("flash_attention_remat", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(IMAGE_ATTN_SHAPE, torch.bfloat16)], remat_launches,
+                     source="flash_attention"),
+        kernel_entry("flash_attention_fsdp", "reed_tpu/ops/flash_attention.py:24",
+                     attn_rows[(IMAGE_ATTN_SHAPE, torch.bfloat16)], fsdp_image,
+                     source="flash_attention"),
+        kernel_entry("fused_message_fsdp", "reed_tpu/ops/fused_message.py:132",
+                     msg_rows[(MSG_MAIN, torch.float32)], fsdp_protein[0],
+                     source="fused_message"),
+        kernel_entry("fused_message_bwd_fsdp", "reed_tpu/ops/fused_message.py:152",
+                     bwd_rows[(MSG_MAIN, torch.float32)], fsdp_protein[1],
                      source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -41,9 +41,12 @@ generate-image run data-parallel over the ranks torchrun launches with
 --distributed (NCCL with one card a rank; gloo with --device cpu): each
 rank takes its rows of the global batch (--batch-size is the global
 batch), rank 0 writes the checkpoints, config.json, metrics.jsonl and the
-`[step N]` lines. The other subcommands take --dp/--fsdp/--tp/--sp and
+`[step N]` lines. With --fsdp F the train-* subcommands also shard Adam's
+moments, the accumulation buffer and the EMA over groups of F ranks
+(--dp D x --fsdp F ranks in all; generate-image splits its batch over all
+of them). The other subcommands take --dp/--fsdp/--tp/--sp and
 --distributed as reed_tpu does and raise on more than one process or an
-axis above 1. Configurations resolve as
+axis above 1 (ROADMAP.md Queue 1 item 11). Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
 recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
 generate-image and train-image use reed_tpu's image default
@@ -115,7 +118,8 @@ def _resolve_cfg(cls, args, flags, defaults=None):
     cfg = configlib.merge(cfg, {k: v for k, v in flags.items() if v is not None})
     cfg = configlib.apply_overrides(cfg, args.overrides)
     world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
-    if not args.data_parallel and (world > 1 or (cfg.mesh.data or 1) > 1):
+    if not args.data_parallel and (world > 1 or (cfg.mesh.data or 1) > 1
+                                   or (cfg.mesh.fsdp or 1) > 1):
         raise NotImplementedError(
             f"{args.cmd} runs on one process: data-parallel evaluation is ROADMAP.md "
             "Queue 1 item 11")
@@ -195,7 +199,7 @@ def generate_image(args):
                            guidance_high=args.guidance_high, seed=cfg.seed)
     before = flash_attention.launches
     generate_samples(model_fn, gen_cfg, device=device, out_npz=args.out,
-                     decode_fn=decode_fn)
+                     decode_fn=decode_fn, mesh=cfg.mesh)
     if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
         print(f"flash_attention launches: {flash_attention.launches - before} in {calls} "
               f"model calls ({cfg.model}, {cfg.compute_dtype}, {device})")
@@ -445,7 +449,7 @@ def train_protein(args):
 
         # warm start from a reference fmif checkpoint (train_fmif.py:225-237)
         state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
-        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
@@ -516,7 +520,7 @@ def train_image(args):
 
         # warm start from a reference torch checkpoint (forces exact_gelu)
         state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
-        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
@@ -575,6 +579,7 @@ def _preview_hook(cfg, args, device, dp):
     process group), VAE-decoded where --vae is given, else the first three
     latent channels scaled to [0, 255], saved by rank 0 as a grid
     {ckpt_dir or .}/preview_{step:07d}.png."""
+    from reed_tpu_torch.core.ema import ema_weights
     from reed_tpu_torch.eval.fid import FIDGenConfig, generate_samples, make_vae_decode_fn
     from reed_tpu_torch.eval.visualize import save_image_grid
 
@@ -586,14 +591,15 @@ def _preview_hook(cfg, args, device, dp):
         if ema_model is None:
             ema_model = copy.deepcopy(state.model).eval()
         with torch.no_grad():
+            ema = ema_weights(state)
             for name, p in ema_model.named_parameters():
-                p.copy_(state.ema[name])
+                p.copy_(ema[name])
         gen_cfg = FIDGenConfig(num_samples=16, batch_size=16, mode="ode", num_steps=50,
                                cfg_scale=4.0, num_classes=cfg.num_classes,
                                latent_size=cfg.input_size,
                                latent_channels=cfg.in_channels, seed=step)
         out = generate_samples(lambda x, t, y: ema_model(x, t, y)[0], gen_cfg,
-                               device=device, decode_fn=decode_fn)
+                               device=device, decode_fn=decode_fn, mesh=cfg.mesh)
         if decode_fn is None:
             vis = out[..., :3]
             vis = (vis - vis.min()) / (vis.max() - vis.min() + 1e-8)
@@ -664,7 +670,7 @@ def train_molecule_semla(args):
     state = trainer.init_state()
     if args.ref_ckpt:
         _semla_ref_ckpt(state.model, args.ref_ckpt)
-        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
@@ -840,7 +846,7 @@ def train_molecule_edm(args):
     state = trainer.init_state()
     if args.ref_ckpt:
         _edm_ref_ckpt(state.model, args.ref_ckpt, device)
-        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
@@ -1308,8 +1314,9 @@ def train_rdm(args):
 
     state = _run_loop(trainer, state, batches(), args, _global_rows(trainer, "rep"), cfg,
                       f"train-rdm ({device})", "reps")
+    ema_model = trainer.ema_model(state)  # every rank: the EMA may be gathered
     if trainer.dp is None or trainer.dp.is_main:
-        sampler = DDIMRepSampler(trainer.diffusion(trainer.ema_model(state)), eta=1.0,
+        sampler = DDIMRepSampler(trainer.diffusion(ema_model), eta=1.0,
                                  step_num=10)
         reps = sampler.sample(torch.Generator(device=device).manual_seed(0),
                               np.array([9, 12, 15]))
@@ -1348,7 +1355,7 @@ def train_multiflow(args):
     state = trainer.init_state()
     if args.ref_ckpt:
         _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg)
-        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype)
+        state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
     if args.synthetic or not args.data_dir:
@@ -1455,8 +1462,10 @@ def _add_config(p, what):
 def _add_mesh(p, data_parallel: bool):
     """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
     over the ranks of --distributed (the others raise on more than one)."""
-    for flag, axis in (("--dp", "data: the number of ranks"),
-                       ("--fsdp", "fsdp: only 1, not ported"),
+    for flag, axis in (("--dp", "data: the ranks that hold one copy of the optimizer state "
+                                "and EMA; data x fsdp ranks run"),
+                       ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA; "
+                                  "data x fsdp ranks run"),
                        ("--tp", "tensor: only 1, not ported"),
                        ("--sp", "seq: only 1, not ported")):
         p.add_argument(flag, type=int, default=None, help=f"mesh axis size ({axis})")

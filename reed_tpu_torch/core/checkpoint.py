@@ -16,7 +16,12 @@ which under data parallelism rank 0 may be writing while another rank
 looks. Data parallel (`dp`): every rank holds the same state and the same
 generator (parallel/mesh.py), so rank 0 alone writes the one file, then
 every rank waits at a barrier; every rank restores from it, the saving
-device's CUDA stream onto its own device.
+device's CUDA stream onto its own device. Under the fsdp axis (a
+ShardPlan, state.opt.plan) a rank holds chunks of the moments, the
+accumulation buffer and the EMA: every rank takes part in gathering them
+whole before rank 0 writes, and on restore every rank reads the whole
+tensors and keeps its chunks. The file is the same whatever the mesh, so
+a run resumes on another fsdp size or in one process.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from reed_tpu_torch.core.ema import ema_weights
 from reed_tpu_torch.core.train_state import TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
@@ -53,15 +59,31 @@ def _set_rng_state(state: Dict, generator: Optional[torch.Generator]):
         generator.set_state(state["generator"])
 
 
-def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor], what: str):
+def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor], what: str, plan=None):
+    """Copy the whole tensors `src` into the state list `dst` (this rank's
+    chunks where `plan` shards)."""
     if len(dst) != len(src):
         raise ValueError(f"{what}: {len(src)} tensors in the checkpoint, "
                          f"{len(dst)} in the state")
     for i, (d, s) in enumerate(zip(dst, src)):
+        if plan is not None:
+            if s.shape != plan.shapes[i]:
+                raise ValueError(f"{what}[{i}]: checkpoint {tuple(s.shape)}, parameter "
+                                 f"{plan.shapes[i]}")
+            s = plan.local(i, s.contiguous())
         if d.shape != s.shape or d.dtype != s.dtype:
             raise ValueError(f"{what}[{i}]: checkpoint {tuple(s.shape)} {s.dtype}, "
                              f"state {tuple(d.shape)} {d.dtype}")
         d.copy_(s)
+
+
+def whole_state(state: TrainState) -> Dict:
+    """The EMA, mu, nu and acc of `state` whole: as they are, or gathered
+    over the fsdp group where state.opt.plan shards (a collective)."""
+    opt, plan = state.opt, state.opt.plan
+    gather = list if plan is None else plan.gather
+    return {"ema": dict(ema_weights(state)), "mu": gather(opt.mu), "nu": gather(opt.nu),
+            "acc": None if opt.acc is None else gather(opt.acc)}
 
 
 class CheckpointManager:
@@ -97,25 +119,28 @@ class CheckpointManager:
 
     def save(self, state: TrainState, generator: Optional[torch.Generator] = None) -> bool:
         """Write `state` (and the trainer's `generator`) at state.step;
-        returns whether it was written (by rank 0, under dp)."""
+        returns whether it was written (by rank 0, under dp; every rank
+        gathers the sharded state first)."""
         step = int(state.step)
         if not self.should_save(step):
             return False
         self._latest_seen = step
+        whole = whole_state(state)
         if self.dp is None or self.dp.is_main:
-            self._write(state, generator, step)
+            self._write(state, whole, generator, step)
         if self.dp is not None:
             self.dp.barrier()
         return True
 
-    def _write(self, state: TrainState, generator: Optional[torch.Generator], step: int):
+    def _write(self, state: TrainState, whole: Dict, generator: Optional[torch.Generator],
+               step: int):
         opt = state.opt
         payload = {
             "step": step,
             "model": state.model.state_dict(),
-            "ema": dict(state.ema),
-            "opt": {"count": opt.count, "mini_step": opt.mini_step, "mu": opt.mu,
-                    "nu": opt.nu, "acc": opt.acc},
+            "ema": whole["ema"],
+            "opt": {"count": opt.count, "mini_step": opt.mini_step, "mu": whole["mu"],
+                    "nu": whole["nu"], "acc": whole["acc"]},
             "rng": _rng_state(generator),
         }
         tmp = self.path(step) + ".tmp"
@@ -127,26 +152,28 @@ class CheckpointManager:
     def restore(self, state: TrainState, generator: Optional[torch.Generator] = None,
                 step: Optional[int] = None) -> TrainState:
         """Load checkpoint `step` (default the latest) into `state` in place,
-        on its devices and in its dtypes, and set the random streams; the
-        trainer's `generator` too where given. Returns `state`."""
+        on its devices and in its dtypes (this rank's chunks of the sharded
+        state), and set the random streams; the trainer's `generator` too
+        where given. Returns `state`."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         ckpt = torch.load(self.path(step), map_location="cpu", weights_only=False)
+        opt, saved = state.opt, ckpt["opt"]
+        plan = opt.plan
         with torch.no_grad():
             state.model.load_state_dict(ckpt["model"])
-            names = list(state.ema)
-            if set(names) != set(ckpt["ema"]):
+            names = list(state.ema) if plan is None else plan.names
+            if set(names) != set(ckpt["ema"]) or set(names) != set(state.ema):
                 raise ValueError("the checkpoint's EMA names differ from the state's")
             _copy_into([state.ema[n] for n in names], [ckpt["ema"][n] for n in names],
-                       "ema")
-            opt, saved = state.opt, ckpt["opt"]
-            _copy_into(opt.mu, saved["mu"], "mu")
-            _copy_into(opt.nu, saved["nu"], "nu")
+                       "ema", plan)
+            _copy_into(opt.mu, saved["mu"], "mu", plan)
+            _copy_into(opt.nu, saved["nu"], "nu", plan)
             if (opt.acc is None) != (saved["acc"] is None):
                 raise ValueError("accum_steps differs from the checkpoint's")
             if opt.acc is not None:
-                _copy_into(opt.acc, saved["acc"], "acc")
+                _copy_into(opt.acc, saved["acc"], "acc", plan)
             opt.count, opt.mini_step = saved["count"], saved["mini_step"]
         _set_rng_state(ckpt["rng"], generator)
         state.step = ckpt["step"]

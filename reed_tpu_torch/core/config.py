@@ -40,10 +40,14 @@ class CurriculumConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """reed_tpu's mesh axes. The port runs the data axis over
-    torch.distributed (parallel/mesh.py): `data` is None (every rank) or the
-    world size; fsdp, tensor and seq above 1 raise (parallel.mesh.check_mesh,
-    which each trainer calls). fsdp_min_size is read by no port code yet."""
+    """reed_tpu's mesh axes. The port runs the data and fsdp axes over
+    torch.distributed (parallel/mesh.py): data x fsdp must be the world
+    size (`data` None takes world / fsdp); the fsdp axis shards Adam's
+    moments, the accumulation buffer and the EMA of every parameter that
+    reed_tpu's fsdp_spec shards, those of at least 2 dimensions and
+    `fsdp_min_size` elements (None: parallel.mesh.FSDP_MIN_SIZE, 65536)
+    with a dimension that fsdp divides; tensor and seq above 1 raise
+    (parallel.mesh.check_mesh, which each trainer calls)."""
 
     data: Optional[int] = None
     fsdp: int = 1

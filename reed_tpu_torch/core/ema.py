@@ -1,6 +1,8 @@
 """Exponential moving average of parameters, counterpart of
 reed_tpu/core/ema.py. The EMA is a dict of tensors keyed by parameter name,
-updated in place."""
+updated in place. Under the fsdp axis (a parallel.mesh.ShardPlan) each rank
+holds the chunks of the sharded parameters only; `ema_weights` gathers the
+whole EMA."""
 
 from __future__ import annotations
 
@@ -10,20 +12,35 @@ import torch
 from torch import nn
 
 
-def ema_init(model: nn.Module, dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+def ema_init(model: nn.Module, dtype: Optional[str] = None,
+             plan=None) -> Dict[str, torch.Tensor]:
     """A detached copy of the model's parameters, in `dtype` if given (else
-    the parameters' own, f32)."""
+    the parameters' own, f32): this rank's chunks where `plan` shards."""
     dt = getattr(torch, dtype) if dtype else None
-    return {n: p.detach().clone() if dt is None else p.detach().to(dt).clone()
-            for n, p in model.named_parameters()}
+    out = {}
+    for n, p in model.named_parameters():
+        p = p.detach() if plan is None else plan.local_named(n, p.detach())
+        out[n] = p.clone() if dt is None else p.to(dt).clone()
+    return out
 
 
 @torch.no_grad()
-def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float):
-    """ema <- ema * decay + params * (1 - decay), in the EMA's dtype."""
+def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float, plan=None):
+    """ema <- ema * decay + params * (1 - decay), in the EMA's dtype (on
+    this rank's chunks where `plan` shards: elementwise, so bitwise the
+    slice of the whole update)."""
     names = list(ema)
     params = dict(model.named_parameters())
     ev = [ema[n] for n in names]
-    pv = [params[n].detach().to(ema[n].dtype) for n in names]
+    pv = [(params[n] if plan is None else plan.local_named(n, params[n])).detach().to(
+        ema[n].dtype) for n in names]
     torch._foreach_mul_(ev, decay)
     torch._foreach_add_(ev, pv, alpha=1.0 - decay)
+
+
+def ema_weights(state) -> Dict[str, torch.Tensor]:
+    """The whole EMA of a TrainState by parameter name: state.ema itself,
+    or gathered over the fsdp group where state.opt.plan shards (a
+    collective: every rank calls it)."""
+    plan = state.opt.plan
+    return state.ema if plan is None else plan.gather_named(state.ema)

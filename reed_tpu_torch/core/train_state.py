@@ -14,17 +14,25 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from reed_tpu_torch.core.config import OptimConfig
+from reed_tpu_torch.core.ema import ema_init
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
+def global_norm(tensors: Sequence[torch.Tensor], plan=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm). With
+    `plan` (a parallel.mesh.ShardPlan) `tensors` are a rank's state list,
+    chunks where sharded, and the norm is the whole list's: the chunks'
+    squares summed over the fsdp group and the replicated leaves' added
+    once (a collective), a sum in another order than the norm of the
+    whole tensors."""
+    if plan is not None and plan.any_sharded:
+        return plan.norm(tensors)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
@@ -101,26 +109,40 @@ class Optimizer:
     update is applied on every k-th call only. Parameters are updated in
     place; the state is f32 like the parameters, except Adam's first moment
     when cfg.mu_dtype names another dtype: it is stored in that dtype and
-    updated as optax 0.2.6's scale_by_adam does (`mu_step`)."""
+    updated as optax 0.2.6's scale_by_adam does (`mu_step`).
 
-    def __init__(self, cfg: OptimConfig, params: List[torch.Tensor]):
+    With `plan` (a parallel.mesh.ShardPlan over the fsdp axis) the update
+    runs on this rank's share: `step` takes the gradients as
+    ShardPlan.reduce_grads leaves them (chunks of the sharded parameters),
+    mu, nu and acc hold chunks there, and the update writes the chunk
+    views of the parameters (`shards`); the caller all-gathers them
+    (ShardPlan.gather_params). Every operation but the clip's norm is
+    elementwise, so a chunk's update is bitwise the slice of the whole
+    update. `params` stay the whole parameters, autograd's leaves."""
+
+    def __init__(self, cfg: OptimConfig, params: List[torch.Tensor], plan=None):
         if cfg.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
         self.cfg = cfg
         self.params = list(params)
+        self.plan = plan
+        self.shards = (self.params if plan is None else
+                       [plan.local(i, p.detach()) for i, p in enumerate(self.params)])
         self.lr = lr_schedule(cfg)
         self.count = 0       # committed updates
         self.mini_step = 0   # micro-steps into the current accumulation
         mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.acc = ([torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.shards]
+        self.nu = [torch.zeros_like(p) for p in self.shards]
+        self.acc = ([torch.zeros_like(p) for p in self.shards]
                     if cfg.accum_steps > 1 else None)
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> bool:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> bool:
         """Take one micro-step's gradients; returns whether an update was
-        applied. `grads` may be modified."""
+        applied. `grads` may be modified. `norm`, where given, is
+        global_norm(grads, plan), which the clip then reuses when the
+        update takes these gradients as they are (no accumulation)."""
         cfg = self.cfg
         if self.acc is not None:
             # acc <- acc + (g - acc) / (mini_step + 1)
@@ -133,8 +155,10 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
+            norm = None
         if cfg.grad_clip is not None:
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads, self.plan)
             keep = norm < cfg.grad_clip
             one = torch.ones_like(norm)
             torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -155,14 +179,15 @@ class Optimizer:
         torch._foreach_add_(denom, cfg.eps)
         torch._foreach_div_(mu_hat, denom)
         if cfg.weight_decay > 0:
-            torch._foreach_add_(mu_hat, self.params, alpha=cfg.weight_decay)
-        torch._foreach_add_(self.params, mu_hat, alpha=-lr)
+            torch._foreach_add_(mu_hat, self.shards, alpha=cfg.weight_decay)
+        torch._foreach_add_(self.shards, mu_hat, alpha=-lr)
         return True
 
 
-def make_optimizer(cfg: OptimConfig, params: List[torch.Tensor]) -> Optimizer:
-    """The optimizer reed_tpu's make_optimizer builds, over `params`."""
-    return Optimizer(cfg, params)
+def make_optimizer(cfg: OptimConfig, params: List[torch.Tensor], plan=None) -> Optimizer:
+    """The optimizer reed_tpu's make_optimizer builds, over `params` (this
+    rank's share of them under `plan`, a ShardPlan)."""
+    return Optimizer(cfg, params, plan)
 
 
 @dataclass
@@ -174,3 +199,14 @@ class TrainState:
     model: nn.Module
     ema: Dict[str, torch.Tensor]
     opt: Optimizer
+
+
+def init_train_state(model: nn.Module, optim: OptimConfig, ema_dtype: Optional[str] = None,
+                     dp=None) -> TrainState:
+    """The state at step 0 of `model`: its EMA (in `ema_dtype`) and
+    optimizer, each over this rank's share where `dp` (a
+    parallel.mesh.DataParallel) has an fsdp axis above 1 (the plan is
+    state.opt.plan)."""
+    plan = None if dp is None else dp.shard_plan(model.named_parameters())
+    return TrainState(step=0, model=model, ema=ema_init(model, ema_dtype, plan),
+                      opt=make_optimizer(optim, list(model.parameters()), plan))

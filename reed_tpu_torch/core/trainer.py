@@ -22,8 +22,10 @@ _gradient_sinks: List[list] = []
 @contextlib.contextmanager
 def capture_gradients():
     """Collect a copy of the gradients of every train step taken inside the
-    block (after the data-parallel all-reduce, in parameter order), one list
-    a step: what the update saw, for tests and diagnostics."""
+    block (after the data-parallel reduction, in parameter order), one list
+    a step: what the update saw, for tests and diagnostics. Under the fsdp
+    axis the whole gradients are gathered from the ranks' chunks (a
+    collective: every rank of the fsdp group must capture)."""
     sink: list = []
     _gradient_sinks.append(sink)
     try:
@@ -69,7 +71,15 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
     global batch's gradient on every rank, and the loss metrics are
     averaged over the ranks in one small all-reduce that stays on the
     device. torch.nn.parallel.DistributedDataParallel would see nothing
-    here: its hooks fire on .backward() into .grad, not on autograd.grad."""
+    here: its hooks fire on .backward() into .grad, not on autograd.grad;
+    nor would FSDP's wrappers or ZeroRedundancyOptimizer.
+
+    Where the state has a ShardPlan (state.opt.plan, the fsdp axis) the
+    gradients are reduced by it instead (parallel/mesh.py: the sharded
+    parameters' chunks reduce-scattered, the rest all-reduced), grad_norm,
+    the clip, Adam and the EMA run on this rank's chunks, and an update
+    ends with the chunks all-gathered into every rank's whole parameters
+    (in the 'reed::optimizer' range)."""
 
     def train_step(state: TrainState, batch, **inject):
         opt_step = state.step // accum_steps
@@ -82,18 +92,24 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
         grads = torch.autograd.grad(total, params, allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        if dp is not None:
+        plan = state.opt.plan
+        if plan is not None:
+            grads = plan.reduce_grads(grads)
+        elif dp is not None:
             grads = dp.all_reduce_grads(grads)
-        for sink in _gradient_sinks:
-            sink.append([g.detach().clone() for g in grads])
-        grad_norm = global_norm(grads)
+        if _gradient_sinks:
+            whole = grads if plan is None else plan.gather(grads)
+            for sink in _gradient_sinks:
+                sink.append([g.detach().clone() for g in whole])
+        grad_norm = global_norm(grads, plan)
         with record_function("reed::optimizer"):
-            state.opt.step(grads)
+            if state.opt.step(grads, grad_norm) and plan is not None:
+                plan.gather_params(params)
         period = accum_steps * max(1, curriculum.ema_every)
         if period == 1 or state.step % period == period - 1:
             with record_function("reed::ema"):
                 ema_update(state.ema, state.model,
-                           curriculum.ema_decay ** max(1, curriculum.ema_every))
+                           curriculum.ema_decay ** max(1, curriculum.ema_every), plan)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(sched, loss=total.detach())

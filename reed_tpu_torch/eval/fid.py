@@ -60,16 +60,18 @@ def batch_generator(seed: int, index: int, device) -> torch.Generator:
 @torch.no_grad()
 def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
                      out_npz: Optional[str] = None,
-                     decode_fn: Optional[Callable] = None) -> np.ndarray:
+                     decode_fn: Optional[Callable] = None, mesh=None) -> np.ndarray:
     """model_fn(x, t, y) -> velocity. Returns [N, 8H, 8W, 3] uint8 pixels,
     decode_fn(x / latents_scale + latents_bias) of each batch on the
     device, or without decode_fn the [N, H, W, C] latents themselves; writes
     `out_npz` when given (by rank 0 under a process group, whose ranks each
-    sample their rows of every batch and all return every sample). Prints
-    the rate of the batches after the first, with the sampling and the
-    decode timed apart."""
+    sample their rows of every batch and all return every sample). Under a
+    `mesh` (a MeshConfig) with fsdp above 1 the batch splits over all data x
+    fsdp ranks, as reed_tpu's batch_sharding splits it; the parameters are
+    whole on every rank. Prints the rate of the batches after the first,
+    with the sampling and the decode timed apart."""
     device = resolve_device(device)
-    dp = data_parallel(batch_size=cfg.batch_size)
+    dp = data_parallel(mesh, batch_size=cfg.batch_size)
     n_iters = math.ceil(cfg.num_samples / cfg.batch_size)
     shape = (cfg.batch_size, cfg.latent_size, cfg.latent_size,
              cfg.latent_channels)

@@ -11,16 +11,32 @@ are cast where they are used, the residual stream stays in the compute
 dtype, LayerNorm statistics are f32 and the velocity is returned in f32.
 `compute_dtype=None` computes in the parameters' dtype, so a model built in
 f32 and `.to(torch.bfloat16)` runs in bf16 as before.
+
+`remat` is reed_tpu's activation checkpointing of the blocks (its nn.remat
+of SiTBlock): False keeps every activation; True saves only each block's
+input and recomputes the block in the backward
+(torch.utils.checkpoint, non-reentrant); a jax.checkpoint_policies name
+saves the products that policy keeps and recomputes the rest (a selective
+checkpoint over aten ops): 'dots' (reed_tpu's name for
+dots_with_no_batch_dims_saveable) saves the outputs of mm and addmm, the
+linear layers' products; 'dots_saveable' adds bmm and baddbmm. The
+attention kernel K1 launches outside the dispatcher, so no policy keeps
+its output: under remat it runs again in the backward. The blocks draw no
+random numbers (the label drop happens before them), so the recompute
+sees what the forward saw.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import functools
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from reed_tpu_torch.nn.layers import (
     Attention,
@@ -34,6 +50,40 @@ from reed_tpu_torch.nn.layers import (
     patchify,
     unpatchify,
 )
+
+
+# jax.checkpoint_policies names -> the aten products whose outputs a block
+# saves under remat (True: nothing; False: everything)
+_NO_BATCH_DOTS = ("mm", "addmm")
+_DOTS = _NO_BATCH_DOTS + ("bmm", "baddbmm")
+REMAT_POLICIES = {
+    "dots": _NO_BATCH_DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "nothing_saveable": (),
+    "everything_saveable": None,
+}
+
+
+def remat_saves(remat: Any) -> Optional[tuple]:
+    """The aten products a block saves under `remat` (reed_tpu's setting):
+    None for no checkpointing (False, 'everything_saveable'), () for the
+    whole block recomputed (True, 'nothing_saveable'), else the names a
+    selective policy keeps. Raises ValueError on another policy name."""
+    if isinstance(remat, str):
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat policy {remat!r} is not supported: use False, True "
+                             f"or one of {sorted(REMAT_POLICIES)}")
+        return REMAT_POLICIES[remat]
+    return () if remat else None
+
+
+def _save_products(names, ctx, op, *args, **kwargs):
+    """The selective checkpoint's policy: keep the outputs of `names`."""
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket.__name__ in names
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def layer_norm(x):
@@ -102,8 +152,10 @@ class SiT(nn.Module):
                  z_dims: Sequence[int] = (768,), z_types: Sequence[str] = ("i",),
                  projector_dim: int = 2048, attn_impl: str = "auto",
                  exact_gelu: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, remat: Any = False):
         super().__init__()
+        # what a block saves under activation checkpointing (remat_saves)
+        self.remat_saves = remat_saves(remat)
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -177,7 +229,7 @@ class SiT(nn.Module):
         depth_text = self.encoder_depth_text
         split_text = depth_text is not None and depth_text != self.encoder_depth
         for i, block in enumerate(self.blocks):
-            x = block(x, c, attn_impl=self.attn_impl)
+            x = self._block(block, x, c)
             if return_zs and (i + 1) == self.encoder_depth:
                 if not split_text:
                     zs_image = [self._project(j, x if zt == "i" else x.mean(dim=1), dtype)
@@ -195,6 +247,19 @@ class SiT(nn.Module):
                   else zs_image)
         x = self.final_layer(x, c)
         return unpatchify(x.float(), self.patch_size, self.in_channels), zs
+
+    def _block(self, block, x, c):
+        """`block` on (x, c), checkpointed as `remat` asks where autograd
+        records."""
+        saves = self.remat_saves
+        if saves is None or not torch.is_grad_enabled():
+            return block(x, c, attn_impl=self.attn_impl)
+        kwargs = {}
+        if saves:
+            kwargs["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts,
+                functools.partial(_save_products, frozenset(saves)))
+        return checkpoint(block, x, c, self.attn_impl, use_reentrant=False, **kwargs)
 
     def _project(self, idx: int, h, dtype):
         """Projector `idx` on h taken to f32 and computed in `dtype`, as

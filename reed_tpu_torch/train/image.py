@@ -1,6 +1,6 @@
 """Image-domain trainer: SiT flow matching with REED alignment, counterpart
-of reed_tpu/train/image.py, on one device or data-parallel over
-torch.distributed (parallel/mesh.py).
+of reed_tpu/train/image.py, on one device or over torch.distributed's
+data x fsdp ranks (parallel/mesh.py).
 
 One train step draws t, eps and the CFG label drops, runs SiT in its
 compute dtype (bf16 by default) with f32 master weights cast where they
@@ -8,8 +8,10 @@ are used, takes the f32 flow-matching loss plus the projector alignment
 weighted by the curriculum, and applies Adam (optionally with a bf16 first
 moment, `OptimConfig.mu_dtype`) and the f32 EMA (core/trainer.py). On the
 card each block's attention runs forward through the CUDA kernel K1 and
-backward through the plain recompute (ops/flash_attention.py). Random
-draws come from torch.Generators; reed_tpu's come from JAX keys.
+backward through the plain recompute (ops/flash_attention.py); with
+cfg.remat the blocks are checkpointed (models/sit.py) and K1 runs again in
+the backward's recompute, two launches a block a step. Random draws come
+from torch.Generators; reed_tpu's come from JAX keys.
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ import torch
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig, flow_matching_loss
 from reed_tpu_torch.models.sit import SiT, create_sit
@@ -48,7 +49,7 @@ class ImageTrainConfig:
     class_dropout_prob: float = 0.1
     compute_dtype: str = "bfloat16"
     attn_impl: str = "auto"
-    remat: Any = False  # only False is ported
+    remat: Any = False  # False | True | 'dots' | a policy name (models/sit.py)
     exact_gelu: bool = False  # erf GELU, required for torch-checkpoint parity
     batch_size: int = 256
     loss: FlowMatchingLossConfig = FlowMatchingLossConfig()
@@ -61,14 +62,9 @@ class ImageTrainConfig:
 def build_model(cfg: ImageTrainConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> SiT:
     """The configured SiT on `device` with f32 parameters initialised from
-    `generator` (reed_tpu's initialisation), computing in cfg.compute_dtype.
-    Raises NotImplementedError on a remat setting (not ported: batch 48 of
-    SiT-XL/2 fits in the H100's memory without it) and ValueError on an
-    unknown attn_impl."""
-    if cfg.remat is not False:
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported: the port trains without "
-            "activation checkpointing")
+    `generator` (reed_tpu's initialisation), computing in cfg.compute_dtype,
+    its blocks checkpointed as cfg.remat asks. Raises ValueError on an
+    unknown attn_impl or remat policy."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {sorted(ATTN_IMPLS)}, "
                          f"got {cfg.attn_impl!r}")
@@ -80,7 +76,7 @@ def build_model(cfg: ImageTrainConfig, device=None,
         z_types=tuple(cfg.z_types), projector_dim=cfg.projector_dim,
         class_dropout_prob=cfg.class_dropout_prob,
         attn_impl=ATTN_IMPLS[cfg.attn_impl], exact_gelu=cfg.exact_gelu,
-        compute_dtype=getattr(torch, cfg.compute_dtype))
+        compute_dtype=getattr(torch, cfg.compute_dtype), remat=cfg.remat)
     model.initialize_weights(generator)
     return model.eval()
 
@@ -136,9 +132,7 @@ class ImageTrainer:
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, t=None, eps=None, drop=None):
         """One step on a batch (numpy or tensors, moved to the trainer's

@@ -28,8 +28,8 @@ import torch
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.edm import (EDMConfig, EnVariationalDiffusion, gamma_lookup,
                                          make_gamma_table)
@@ -205,9 +205,7 @@ class MoleculeEDMTrainer:
     def init_state(self) -> TrainState:
         model = build_dynamics(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, **draws):
         return self._train_step(state, batch, generator=self.generator, **draws)
@@ -248,8 +246,9 @@ class MoleculeEDMTrainer:
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(state.model)
         with torch.no_grad():
+            ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():
-                p.copy_(state.ema[name])
+                p.copy_(ema[name])
         return self._ema_model
 
     @torch.no_grad()

@@ -35,8 +35,8 @@ from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
                                                   MoleculeInterpolantConfig,
@@ -377,9 +377,7 @@ class SemlaTrainer:
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, use_sc: Optional[bool] = None):
         """One step on a device batch; `use_sc` fixes the self-conditioning
@@ -399,8 +397,9 @@ class SemlaTrainer:
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(state.model)
         with torch.no_grad():
+            ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():
-                p.copy_(state.ema[name])
+                p.copy_(ema[name])
         return self._ema_model
 
     def generate(self, model: nn.Module, prior: Dict, rep=None,

@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.se3 import (NUM_TOKENS, CorruptDraws, SE3InterpolantConfig,
                                           SE3SampleDraws, batch_ot_trans_prior, corrupt_batch,
@@ -231,9 +231,7 @@ class MultiflowTrainer:
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, draws: Optional[CorruptDraws] = None):
         return self._train_step(state, batch, generator=self.generator, draws=draws)
@@ -256,8 +254,9 @@ class MultiflowTrainer:
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(state.model)
         with torch.no_grad():
+            ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():
-                p.copy_(state.ema[name])
+                p.copy_(ema[name])
         return self._ema_model
 
     @torch.no_grad()

@@ -24,8 +24,8 @@ from torch import nn
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.models.property_classifier import PropertyClassifier
 from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
@@ -127,8 +127,7 @@ class _Trainer:
 
     def init_state(self) -> TrainState:
         model = self._build(torch.Generator(device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model, ema=ema_init(model, self.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch):
         return self._train_step(state, batch)
@@ -137,8 +136,9 @@ class _Trainer:
         """A copy of the model holding the state's EMA, in eval mode."""
         model = copy.deepcopy(state.model)
         with torch.no_grad():
+            ema = ema_weights(state)
             for name, p in model.named_parameters():
-                p.copy_(state.ema[name])
+                p.copy_(ema[name])
         return model.eval()
 
     def _denormalize(self, pred, denormalize: bool):

@@ -30,8 +30,8 @@ import torch
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.discrete import (MaskingInterpolantConfig,
                                                corrupt_batch, euler_unmask_sampler)
@@ -277,9 +277,7 @@ class ProteinTrainer:
         model = build_model(replace(self.cfg, compute_dtype="float32"), device=self.device,
                             generator=torch.Generator(device=self.device).manual_seed(
                                 self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, noisy=None, repr_noise=None):
         """One step on a batch of tensors on the trainer's device (this
@@ -308,8 +306,9 @@ class ProteinTrainer:
                 self._ema_model = copy.deepcopy(state.model).to_compute_dtype(dtype)
             model = self._ema_model
             with torch.no_grad():
+                ema = ema_weights(state)
                 for name, p in model.named_parameters():
-                    p.copy_(state.ema[name])
+                    p.copy_(ema[name])
         elif model.dtype != dtype:
             model = copy.deepcopy(model).to_compute_dtype(dtype)
         return sample(model, batch, generator, self.cfg.interpolant, cls=cls, w=w)

@@ -19,8 +19,8 @@ import torch
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig, OptimConfig
-from reed_tpu_torch.core.ema import ema_init
-from reed_tpu_torch.core.train_state import TrainState, make_optimizer
+from reed_tpu_torch.core.ema import ema_weights
+from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.rdm import RDMConfig, RDMDiffusion
 from reed_tpu_torch.models.rdm_mlp import SimpleMLP
@@ -108,9 +108,7 @@ class RDMTrainer:
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
-        return TrainState(step=0, model=model,
-                          ema=ema_init(model, self.cfg.curriculum.ema_dtype),
-                          opt=make_optimizer(self.cfg.optim, list(model.parameters())))
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
 
     def train_step(self, state: TrainState, batch, **draws):
         return self._train_step(state, batch, generator=self.generator, **draws)
@@ -132,7 +130,7 @@ class RDMTrainer:
     def ema_model(self, state: TrainState) -> SimpleMLP:
         """A copy of the model holding the state's EMA, in eval mode."""
         model = build_model(self.cfg, device=self.device)
-        model.load_state_dict(state.ema)
+        model.load_state_dict(ema_weights(state))
         return model.eval()
 
     def diffusion(self, model: SimpleMLP) -> RDMDiffusion:

@@ -328,23 +328,31 @@ def test_convergence_tool_runs_tiny(tmp_path):
 
 
 def test_unported_settings_raise(tmp_path):
-    """remat, and the fsdp, tensor and seq axes, are not ported and raise;
-    data=2 without two ranks raises too; the flags ported since (--ckpt-dir,
-    --sample-every, --enc-type, --vae, --ref-ckpt;
-    tests/test_torch_image_eval_cli.py) no longer do."""
+    """The tensor and seq axes are not ported and raise; remat is ported
+    (tests/test_torch_remat.py): True and 'dots' train, an unknown policy
+    raises; --fsdp 2 and data=2 without two ranks raise naming torchrun;
+    the flags ported since (--ckpt-dir, --sample-every, --enc-type, --vae,
+    --ref-ckpt; tests/test_torch_image_eval_cli.py) no longer do."""
     from reed_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="remat"):
-        ImageTrainer(ImageTrainConfig(**KW, remat=True), device="cpu").init_state()
+    for remat in (True, "dots"):
+        trainer = ImageTrainer(ImageTrainConfig(**KW, remat=remat), device="cpu")
+        state = trainer.init_state()
+        assert state.model.remat_saves == (() if remat is True else ("mm", "addmm"))
+        state, _ = trainer.train_step(state, trainer.synthetic_batch())
+        assert state.step == 1
+    with pytest.raises(ValueError, match="remat policy"):
+        ImageTrainer(ImageTrainConfig(**KW, remat="dots_only"), device="cpu").init_state()
     with pytest.raises(ValueError, match="torchrun"):
         ImageTrainer(ImageTrainConfig(**KW, mesh=MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ImageTrainer(ImageTrainConfig(**KW, attn_impl="flash"), device="cpu").init_state()
     with pytest.raises(ValueError, match="torchrun"):
         cli.main(["train-image", "--steps", "1", *TINY_CLI, "--dp", "2"])
-    for flags in (["--fsdp", "2"], ["--sp", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(["train-image", "--steps", "1", *TINY_CLI, *flags])
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        cli.main(["train-image", "--steps", "1", *TINY_CLI, "--fsdp", "2"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli.main(["train-image", "--steps", "1", *TINY_CLI, "--sp", "2"])
     assert cli.main(["train-image", "--steps", "1", "--dp", "1", *TINY_CLI]).step == 1
     state = cli.main(["train-image", "--steps", "1", "--ckpt-dir", str(tmp_path),
                       "--ckpt-every", "1", *TINY_CLI])

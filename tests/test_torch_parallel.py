@@ -38,8 +38,22 @@ def test_axis_names_match_reed_tpu():
 
 @pytest.mark.parametrize("axis", ["fsdp", "tensor", "seq"])
 def test_unported_axes_raise_naming_roadmap(axis):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        mesh.check_mesh(MeshConfig(**{axis: 2}), 2)
+    """tensor and seq above 1 raise naming ROADMAP item 8; fsdp is ported:
+    data x fsdp must be the world size (data None takes the rest, as
+    make_mesh's data=None does), else ValueError with the torchrun line."""
+    if axis == "fsdp":
+        assert mesh.check_mesh(MeshConfig(fsdp=2), 2) == (1, 2)
+        assert mesh.check_mesh(MeshConfig(fsdp=2), 8, batch_size=8) == (4, 2)
+        assert mesh.check_mesh(MeshConfig(data=2, fsdp=2), 4) == (2, 2)
+        with pytest.raises(ValueError, match="fsdp=2 does not divide the 3 process"):
+            mesh.check_mesh(MeshConfig(fsdp=2), 3)
+        with pytest.raises(ValueError, match="data=2, but 2 process.*2 x 2 ranks.*"
+                                             "torchrun --nproc_per_node 4"):
+            mesh.check_mesh(MeshConfig(data=2, fsdp=2), 2)
+        assert "fsdp" not in mesh.NOT_PORTED
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+            mesh.check_mesh(MeshConfig(**{axis: 2}), 2)
     mesh.check_mesh(MeshConfig(**{axis: 1}), 2)
 
 
@@ -149,20 +163,23 @@ def test_cross_process_stats_equal_one_process(ranks):
                                  "train-property", "eval-conditional", "train-multiflow",
                                  "eval-multiflow"])
 def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch):
-    """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --fsdp 2 raises naming
-    ROADMAP, --distributed without torchrun's environment raises, and an
-    eval subcommand raises on --dp 2 (naming ROADMAP), a train-* one on a
-    --dp that is not the world size."""
+    """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --tp raises naming
+    ROADMAP item 8, --distributed without torchrun's environment raises, an
+    eval subcommand raises on --dp 2 or --fsdp 2 (naming ROADMAP item 11),
+    and a train-* one (or generate-image) on a --dp x --fsdp that is not
+    the world size, naming the torchrun line."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     base = [cmd, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    data_parallel = cmd.startswith("train-") or cmd == "generate-image"
+    with pytest.raises(ValueError if data_parallel else NotImplementedError,
+                       match="fsdp=2 does not divide the 1 process" if data_parallel
+                       else "ROADMAP.md Queue 1 item 11"):
         cli.main(base + ["--fsdp", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
         cli.main(base + ["--tp", "2", "--sp", "1"])
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK"):
         cli.main(base + ["--distributed"])
-    data_parallel = cmd.startswith("train-") or cmd == "generate-image"
     with pytest.raises(ValueError if data_parallel else NotImplementedError,
                        match="torchrun" if data_parallel else "ROADMAP.md Queue 1 item 11"):
         cli.main(base + ["--dp", "2"])

@@ -221,6 +221,7 @@ def test_train_step_matches_reed_tpu():
     from reed_tpu.core.config import OptimConfig as JaxOptim
     from reed_tpu.train import rdm as jtrain
     from reed_tpu_torch.core.config import OptimConfig
+    from reed_tpu_torch.core.train_state import make_optimizer
     from reed_tpu_torch.train import rdm as train
 
     kw = dict(channels=8, model_channels=32, bottleneck_channels=24, num_res_blocks=2,
@@ -235,7 +236,7 @@ def test_train_step_matches_reed_tpu():
         for p in state.model.parameters():
             p.add_(0.1 * torch.randn(p.shape, generator=g))
     state.ema = {k: v.detach().clone() for k, v in state.model.named_parameters()}
-    state.opt = train.make_optimizer(cfg.optim, list(state.model.parameters()))
+    state.opt = make_optimizer(cfg.optim, list(state.model.parameters()))
     jtrainer = jtrain.RDMTrainer(jcfg)
     jstate = jtrainer.init_state()
     params = jax.tree.map(jnp.asarray, convert_torch_rdm(state.model.state_dict()))

@@ -344,11 +344,14 @@ def test_refusals():
         ms.SemlaTrainer(dataclasses.replace(tcfg, arch="gvp"), device="cpu")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, compute_dtype="float16"), device="cpu")
-    # data=2 needs two ranks (torchrun); the fsdp axis is not ported
+    # data=2 and fsdp=2 need two ranks (torchrun; tests/test_torch_fsdp.py);
+    # the seq axis is not ported
     with pytest.raises(ValueError, match="torchrun"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(data=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(fsdp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+        ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(seq=2)), device="cpu")
 
 
 def test_loss_falls_in_a_short_run():

@@ -1,7 +1,10 @@
 """Data-parallel runs of reed_tpu_torch for the tests: gloo ranks spawned as
 subprocesses that meet through a FileStore (no TCP port), and the tiny
 trainer cases that tests/test_torch_data_parallel.py holds against one
-process.
+process, tests/test_torch_fsdp.py at fsdp=2 against data=2,
+tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process and
+tests/test_torch_remat.py under SiT remat (`settings` sets their mesh,
+config fields and optimizer).
 
     python tests/torch_dp.py JOB DIR
 
@@ -11,6 +14,7 @@ the ranks and waits for them. This module imports no JAX: the ranks import
 it as a script.
 """
 
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -57,6 +61,43 @@ def register_tiny_sit():
 # --- the trainer cases: each builds a trainer (on the process group where
 # there is one) and its two steps' batches, this rank's rows of them ------
 
+# what `configured` sets on every case's config: the mesh (None: the
+# case's own), other top-level fields, and OptimConfig fields over the
+# case's own
+SETTINGS = {"mesh": None, "fields": {}, "optim": {}}
+# the fsdp min size of the tests: the tiny models' matrices shard, their
+# biases, norms and smallest tables stay replicated
+TINY_MIN_SIZE = 256
+
+
+def fsdp_mesh(fsdp=WORLD, data=None):
+    from reed_tpu_torch.core.config import MeshConfig
+
+    return MeshConfig(data=data, fsdp=fsdp, fsdp_min_size=TINY_MIN_SIZE)
+
+
+@contextlib.contextmanager
+def settings(mesh=None, fields=None, **optim):
+    """Build the cases inside the block on `mesh` (a MeshConfig), with the
+    config fields `fields` (remat=True, ...) and the OptimConfig fields
+    `optim` (grad_clip=None, accum_steps=2, ...)."""
+    saved = dict(SETTINGS)
+    SETTINGS.update(mesh=mesh, fields=dict(fields or {}), optim=optim)
+    try:
+        yield
+    finally:
+        SETTINGS.update(saved)
+
+
+def configured(cfg):
+    """A case's config with SETTINGS applied."""
+    from dataclasses import replace
+
+    if SETTINGS["mesh"] is not None:
+        cfg = replace(cfg, mesh=SETTINGS["mesh"])
+    return replace(cfg, optim=replace(cfg.optim, **SETTINGS["optim"]), **SETTINGS["fields"])
+
+
 
 def _protein():
     from reed_tpu_torch.core.config import CurriculumConfig
@@ -67,7 +108,7 @@ def _protein():
                              pair_dim=4, structure_dim=8, batch_size=4, max_len=16,
                              curriculum=CurriculumConfig(proj_coeff=0.2,
                                                          diffusion_warmup_steps=0))
-    trainer = ProteinTrainer(cfg, device="cpu")
+    trainer = ProteinTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -87,7 +128,7 @@ def _image():
                            optim=OptimConfig(lr=1e-3, grad_clip=1.0),
                            curriculum=CurriculumConfig(proj_coeff=0.5,
                                                        diffusion_warmup_steps=0))
-    trainer = ImageTrainer(cfg, device="cpu")
+    trainer = ImageTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -100,7 +141,7 @@ def _semla():
     cfg = SemlaTrainConfig(d_model=32, n_layers=3, n_coord_sets=4, d_message=16,
                            d_message_hidden=16, d_edge=8, n_attn_heads=4, size_emb=8,
                            d_rep=16, batch_size=4)
-    trainer = SemlaTrainer(cfg, device="cpu")
+    trainer = SemlaTrainer(configured(cfg), device="cpu")
     return trainer, [batch_to_device(local_batch(trainer.dp, trainer.example_batch(4, 8, seed=i)),
                                      "cpu") for i in range(2)]
 
@@ -110,7 +151,7 @@ def _edm():
 
     cfg = MoleculeEDMConfig(hidden_nf=32, n_layers=2, rep_nf=16, max_nodes=9,
                             augment_rotation=True, batch_size=4)
-    trainer = MoleculeEDMTrainer(cfg, device="cpu")
+    trainer = MoleculeEDMTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -120,7 +161,7 @@ def _edm_fm():
 
     cfg = MoleculeEDMConfig(hidden_nf=32, n_layers=2, rep_nf=16, max_nodes=9,
                             probabilistic_model="fm", batch_size=4)
-    trainer = MoleculeEDMTrainer(cfg, device="cpu")
+    trainer = MoleculeEDMTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -131,7 +172,7 @@ def _rdm():
     cfg = RDMTrainConfig(channels=16, model_channels=32, bottleneck_channels=32,
                          num_res_blocks=2, time_embed_dim=16, max_nodes=16, dropout=0.1,
                          batch_size=8)
-    trainer = RDMTrainer(cfg, device="cpu")
+    trainer = RDMTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -139,8 +180,9 @@ def _rdm():
 def _property():
     from reed_tpu_torch.train.property import PropertyTrainConfig, PropertyTrainer
 
-    trainer = PropertyTrainer(PropertyTrainConfig(hidden_nf=16, n_layers=2, max_nodes=8,
-                                                  batch_size=4), device="cpu")
+    trainer = PropertyTrainer(configured(PropertyTrainConfig(hidden_nf=16, n_layers=2,
+                                                             max_nodes=8, batch_size=4)),
+                              device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -148,7 +190,8 @@ def _property():
 def _linear_probe():
     from reed_tpu_torch.train.property import LinearProbeConfig, LinearProbeTrainer
 
-    trainer = LinearProbeTrainer(LinearProbeConfig(rep_dim=12, batch_size=4), device="cpu")
+    trainer = LinearProbeTrainer(configured(LinearProbeConfig(rep_dim=12, batch_size=4)),
+                                 device="cpu")
     return trainer, [trainer.synthetic_batch(torch.Generator().manual_seed(10 + i))
                      for i in range(2)]
 
@@ -161,7 +204,7 @@ def _multiflow():
     base = MultiflowTrainConfig()
     cfg = replace(base, c_s=32, c_z=16, num_blocks=2, max_len=16, batch_size=4,
                   interpolant=replace(base.interpolant, aatypes_interpolant="uniform"))
-    trainer = MultiflowTrainer(cfg, device="cpu")
+    trainer = MultiflowTrainer(configured(cfg), device="cpu")
     return trainer, [trainer.synthetic_batch(np.random.default_rng(10 + i))
                      for i in range(2)]
 
@@ -173,8 +216,9 @@ CASES = {"protein": _protein, "image": _image, "semla": _semla, "edm": _edm,
 
 def run_case(name):
     """Two train steps of case `name`: {'metrics': [per step {name: float}],
-    'grads': [per step [tensor]], 'params': {name: tensor}, 'lr'}, the
-    gradients as the update saw them, in parameter order."""
+    'grads': [per step [tensor]], 'params': {name: tensor}, 'lr', 'state':
+    the whole EMA, mu, nu and acc, 'resident': {'bytes', 'expected'}}, the
+    gradients as the update saw them (whole), in parameter order."""
     from reed_tpu_torch.core.trainer import capture_gradients
 
     trainer, batches = CASES[name]()
@@ -185,7 +229,33 @@ def run_case(name):
             state, m = trainer.train_step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
     return {"metrics": metrics, "grads": grads, "lr": trainer.cfg.optim.lr,
-            "params": {k: v.detach().clone() for k, v in state.model.named_parameters()}}
+            "params": {k: v.detach().clone() for k, v in state.model.named_parameters()},
+            "state": whole_state(state), "resident": resident(state)}
+
+
+def whole_state(state):
+    """The EMA, mu, nu and acc of a TrainState, whole (gathered over the
+    fsdp group: a collective), as copies."""
+    from reed_tpu_torch.core.checkpoint import whole_state as gather
+
+    whole = gather(state)
+    return {"ema": {k: v.clone() for k, v in whole["ema"].items()},
+            **{k: None if whole[k] is None else [v.clone() for v in whole[k]]
+               for k in ("mu", "nu", "acc")}}
+
+
+def resident(state):
+    """The bytes of the EMA, mu, nu and acc this rank holds, and what the
+    ShardPlan reckons for them (its resident elements at each list's
+    dtype; every element where there is no plan)."""
+    opt, plan = state.opt, state.opt.plan
+    lists = [list(state.ema.values()), opt.mu, opt.nu] + ([opt.acc] if opt.acc else [])
+    held = sum(t.numel() * t.element_size() for ts in lists for t in ts)
+    elements = (plan.resident_elements() if plan is not None
+                else sum(p.numel() for p in opt.params))
+    return {"bytes": held, "expected": elements * sum(ts[0].element_size() for ts in lists),
+            "whole": sum(p.numel() for p in opt.params) * sum(
+                ts[0].element_size() for ts in lists)}
 
 
 # --- the protein traps against reed_tpu: the inputs come from the test ----
@@ -205,7 +275,7 @@ def trap_trainer(params):
 
     cfg = ProteinTrainConfig(**TRAP_TINY, curriculum=CurriculumConfig(
         proj_coeff=0.2, diffusion_warmup_steps=0))
-    trainer = ProteinTrainer(cfg, device="cpu")
+    trainer = ProteinTrainer(configured(cfg), device="cpu")
     state = trainer.init_state()
     state.model.load_state_dict(params)
     state.ema = ema_init(state.model)
@@ -320,9 +390,9 @@ def resume(ckpt_dir):
     writes = []
     write = checkpoint.CheckpointManager._write
 
-    def counted(self, state, generator, step):
-        writes.append(step)
-        return write(self, state, generator, step)
+    def counted(self, state, *rest):
+        writes.append(rest[-1])
+        return write(self, state, *rest)
 
     checkpoint.CheckpointManager._write = counted
     try:
@@ -354,11 +424,13 @@ def resume(ckpt_dir):
 
 
 def state_tensors(state):
-    """The parameters, EMA and Adam moments of a TrainState, by name."""
+    """The parameters, EMA and Adam moments of a TrainState, by name, whole
+    (gathered over the fsdp group: a collective)."""
+    whole = whole_state(state)
     out = {f"param/{k}": v.detach().clone() for k, v in state.model.named_parameters()}
-    out.update({f"ema/{k}": v.clone() for k, v in state.ema.items()})
-    out.update({f"mu/{i}": v.clone() for i, v in enumerate(state.opt.mu)})
-    out.update({f"nu/{i}": v.clone() for i, v in enumerate(state.opt.nu)})
+    out.update({f"ema/{k}": v for k, v in whole["ema"].items()})
+    out.update({f"mu/{i}": v for i, v in enumerate(whole["mu"])})
+    out.update({f"nu/{i}": v for i, v in enumerate(whole["nu"])})
     return out
 
 
@@ -387,7 +459,146 @@ def gen_cfg():
                         guidance_high=0.7, seed=5)
 
 
-JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel}
+# the cases whose configs clip (grad_clip 1.0: bench.py's image step and
+# the protein and SemlaFlow defaults) and the clip each runs at so that it
+# acts on the first step (the tiny image case's norms are 0.82 and 0.90)
+CLIPPED = {"image": 0.5, "protein": 1.0, "semla": 1.0}
+
+
+def _job_fsdp(out, dp):
+    """On two ranks: every case at data=2 and at fsdp=2 without the clip,
+    and the clipped cases with it; the fsdp collectives on seeded rows; the
+    resident state with accum_steps=2 and a bf16 mu; the
+    checkpoints across sizes; every train-* subcommand and generate-image
+    with --fsdp 2 through the CLI."""
+    from reed_tpu_torch import cli
+
+    results = {}
+    for name in CASES:
+        with settings(grad_clip=None):
+            results["data", name] = run_case(name)
+        with settings(fsdp_mesh(), grad_clip=None):
+            results["fsdp", name] = run_case(name)
+    for name, clip in CLIPPED.items():
+        with settings(grad_clip=clip):
+            results["data_clip", name] = run_case(name)
+        with settings(fsdp_mesh(), grad_clip=clip):
+            results["fsdp_clip", name] = run_case(name)
+    results["collectives"] = collectives()
+    with settings(fsdp_mesh(), accum_steps=2, mu_dtype="bfloat16"):
+        results["fsdp_accum", "image"] = run_case("image")
+    with settings(fsdp_mesh()):
+        results["resume"] = resume_across(out)
+    state = cli.main(["train-protein", "--device", "cpu", "--distributed", "--fsdp", "2",
+                      "--steps", "2", "--batch-size", "4", "--log-every", "1", "--ckpt-dir",
+                      str(out / "cli"), "--ckpt-every", "2", "--set", "max_len=16",
+                      "--set", "hidden_dim=32", "--set", "k_neighbors=6",
+                      "--set", f"mesh.fsdp_min_size={TINY_MIN_SIZE}"])
+    results["cli"] = state_tensors(state)
+    results["cli_sharded"] = sum(state.opt.plan.sharded)
+    register_tiny_sit()
+    results["cli_all"] = {}
+    for cmd, args in CLI_TINY.items():
+        out_args = ["--out", str(out / "gen_cli.npz")] if cmd == "generate-image" else [
+            "--steps", "2", "--log-every", "1", "--set", f"mesh.fsdp_min_size={TINY_MIN_SIZE}"]
+        state = cli.main([cmd, "--device", "cpu", "--distributed", "--fsdp", "2", *args,
+                          *out_args])
+        results["cli_all"][cmd] = None if state is None else (
+            state.step, sum(state.opt.plan.sharded),
+            {k: v.detach().clone() for k, v in state.model.named_parameters()})
+    torch.save(results, out / f"fsdp_rank{dp.rank}.pt")
+
+
+def collectives():
+    """DataParallel.reduce_scatter and all_gather over an fsdp group of
+    every rank, per dtype: this rank's seeded [F, S] buffer and [S] row
+    and what the two collectives returned."""
+    from reed_tpu_torch.parallel.mesh import DataParallel
+
+    dp = DataParallel(fsdp=torch.distributed.get_world_size())
+    gen = torch.Generator().manual_seed(dp.rank)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(dp.fsdp, 37, generator=gen).to(dtype)
+        row = torch.randn(37, generator=gen).to(dtype)
+        out[dtype] = {"buf": buf.clone(), "row": row, "mine": dp.reduce_scatter(buf),
+                      "rows": dp.all_gather(row)}
+    return out
+
+
+def resume_across(out):
+    """The protein case on this mesh: a checkpoint written here at step 2
+    (under out/ckpt_here), and the one-process checkpoint of step 2 the
+    test wrote (out/ckpt_one) restored here, its whole state read back and
+    2 more steps taken. Returns the whole state at step 2 and after the
+    resumed steps."""
+    from reed_tpu_torch.core import checkpoint
+
+    trainer, batches = _protein()
+    batches += [trainer.synthetic_batch(torch.Generator().manual_seed(12 + i))
+                for i in range(2)]
+    state = trainer.init_state()
+    mgr = checkpoint.CheckpointManager(out / "ckpt_here", save_interval_steps=2, dp=trainer.dp)
+    for batch in batches[:2]:
+        state, _ = trainer.train_step(state, batch)
+    mgr.save(state, trainer.generator)
+    saved = state_tensors(state)
+
+    trainer, _ = _protein()
+    state = trainer.init_state()
+    mgr = checkpoint.CheckpointManager(out / "ckpt_one", save_interval_steps=2, dp=trainer.dp)
+    mgr.restore(state, trainer.generator)
+    restored = state_tensors(state)
+    for batch in batches[2:]:
+        state, _ = trainer.train_step(state, batch)
+    return {"saved": saved, "restored": restored, "resumed": state_tensors(state),
+            "step": state.step, "sharded": sum(state.opt.plan.sharded)}
+
+
+def _job_fsdp_mesh(out, dp):
+    """On four ranks, data=2 x fsdp=2: the image and protein cases, and the
+    protein case with accum_steps=2 and a bf16 mu."""
+    results = {}
+    with settings(fsdp_mesh(2, 2)):
+        for name in ("image", "protein"):
+            results[name] = run_case(name)
+    with settings(fsdp_mesh(2, 2), accum_steps=2, mu_dtype="bfloat16"):
+        results["protein_accum"] = run_case("protein")
+    results["groups"] = (dp.rank, dp.world, trainer_axes())
+    torch.save(results, out / f"fsdp_mesh_rank{dp.rank}.pt")
+
+
+def trainer_axes():
+    """(data, fsdp, fsdp_index, the global ranks of its fsdp group, those of
+    its data group) of a data=2 x fsdp=2 trainer."""
+    from torch.distributed import get_process_group_ranks
+
+    with settings(fsdp_mesh(2, 2)):
+        trainer, _ = _protein()
+    d = trainer.dp
+    return (d.data, d.fsdp, d.fsdp_index, get_process_group_ranks(d.fsdp_group),
+            get_process_group_ranks(d.data_group))
+
+
+# the remat settings the tests run on ranks, and the meshes
+REMATS = (False, True, "dots")
+
+
+def _job_remat(out, dp):
+    """On two ranks: the image case (f32 and bf16) under each remat setting
+    at data=2 and at fsdp=2."""
+    results = {}
+    for mesh_name, mesh in (("data", None), ("fsdp", fsdp_mesh())):
+        for dtype in ("float32", "bfloat16"):
+            for remat in REMATS:
+                with settings(mesh, fields={"remat": remat, "compute_dtype": dtype},
+                              grad_clip=None):
+                    results[mesh_name, dtype, remat] = run_case("image")
+    torch.save(results, out / f"remat_rank{dp.rank}.pt")
+
+
+JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
+        "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat}
 
 
 if __name__ == "__main__":
