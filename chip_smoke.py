@@ -16,6 +16,12 @@ no result):
      CUDA-core rate beside it). K1 in bf16 also on SiT's strided q/k/v
      views of one [B, S, 3, H, D] tensor; each kernel's shared memory and
      blocks per SM; K2b's weight gradients bitwise equal over two launches.
+     K1 in both dtypes also with queries of one length against keys of
+     another (slice 18: (16, 128 | 256, 16, 72), (16, 64 | 256, 16, 72)
+     and a ragged (2, 100 | 256, 4, 72)) against flash_attention_reference,
+     and at phase 15's model-parallel layouts (tensor=2: (16, 256, 8, 72)
+     on qkv views; seq=2: 128 queries on qkv views against 256 gathered
+     keys and values).
   4. image slice: SiT-XL/2 at full width with seeded N(0, 0.02) weights
      (nonzero adaLN and final layer, so attention reaches the output): one
      model call through the kernel against the same call with plain
@@ -213,10 +219,18 @@ no result):
      or within FSDP_CLIP_REL where the clip acts), each rank's memory
      between steps at both sizes beside the plan's reckoning, the protein
      step within RESUME_NOISE_FACTOR x a repeated data=2 step's
-     difference, K1 28 and K2a/K2b 9 + 9 launches a rank; (c) the same
+     difference, K1 28 and K2a/K2b 9 + 9 launches a rank; then, on the
+     same ranks (slice 18, `mp_rank_part`), tensor=2 and seq=2: the
+     SiT-XL/2 bf16 step at global batch 16 (whole gradients) within
+     IMAGE_BF16_NOISE_FACTOR x the one-process bf16 step's distance from
+     its f32 step, its seconds, 28 K1 launches a rank, each rank's memory
+     between steps beside the plan's reckoning and its parameter count
+     (tensor=2 holds ~452 M of 675 M), and generate_samples (16 images, 8
+     SDE steps, CFG 4.0) against one process to GEN_RTOL; (c) the same
      over NCCL with one card a rank, and `torchrun ... train-protein
-     --distributed` without and with --fsdp 2, where the machine has two
-     cards, else a line that says why it did not run.
+     --distributed` without and with --fsdp 2 and `torchrun ...
+     train-image --distributed` with --tp 2 and with --sp 2, where the
+     machine has two cards, else a line that says why it did not run.
   16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
      step at batch 48 under remat=True and 'dots' against the step
      without, from the same state and draws (bitwise where a repeated step
@@ -231,7 +245,8 @@ no result):
      generation path and on the image gate's training; K2a and K2b in f32
      on the protein paths, in bf16 on the bf16 protein training and in f32
      on the guided samplers; each on the data-parallel and fsdp steps, K1
-     on the remat step), the nvidia-smi line, and last the
+     on the remat step and, as K1_tp and K1_sp, on the tensor=2 and seq=2
+     steps), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
@@ -243,6 +258,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -250,6 +266,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -272,7 +289,7 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.parallel.mesh import local_rows
+from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, local_rows, shard_state_dict
 from reed_tpu_torch.diffusion import se3 as mf_se3
 from reed_tpu_torch.eval import protein_metrics as eval_protein_metrics
 from reed_tpu_torch.models import ipa as ipa_model
@@ -329,6 +346,15 @@ ATTN_SHAPES = [
     (4, 1024, 16, 72),  # SiT-XL/2 at 512 px
     (2, 200, 4, 72),    # ragged S
 ]
+# K1 with queries of one length against keys of another, (B, Sq, Sk, H, D):
+# a seq=2 and a seq=4 rank of SiT-XL/2 at batch 16, and a ragged query tile
+ATTN_SQ_SHAPES = [(16, 128, 256, 16, 72), (16, 64, 256, 16, 72), (2, 100, 256, 4, 72)]
+# K1 on the model-parallel steps of phase 15 (global batch 16, SiT-XL/2):
+# tensor=2 runs 8 of the 16 heads on qkv views; seq=2 runs 128 queries (qkv
+# views) against the 256 keys and values all-gathered over the seq group
+# ([Sk, B, 2, H, D] gathered, read as [B, Sk, 2, H, D])
+TP_ATTN_SHAPE = (16, 256, 8, 72)
+SP_ATTN_SHAPE = (16, 128, 256, 16, 72)
 DEPTH = 28
 GEN = dict(num_samples=16, batch_size=8, mode="sde", num_steps=8,
            cfg_scale=4.0, guidance_low=0.0, guidance_high=0.5, seed=0)
@@ -461,10 +487,13 @@ def roofline(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", ms_67
 
 
-def attention_bound(shape, dtype):
-    b, s, h, d = shape
-    nbytes = 4 * b * s * h * d * torch.finfo(dtype).bits // 8  # q, k, v, o
-    return roofline(nbytes, 4 * b * h * s * s * d, dtype)
+def attention_bound(shape, dtype, sk=None):
+    """K1's least time on q and o of `shape` [B, Sq, H, D] and k and v of
+    [B, sk, H, D] (sk None: Sq)."""
+    b, sq, h, d = shape
+    sk = sq if sk is None else sk
+    nbytes = 2 * b * (sq + sk) * h * d * torch.finfo(dtype).bits // 8  # q, o; k, v
+    return roofline(nbytes, 4 * b * h * sq * sk * d, dtype)
 
 
 def attention_info():
@@ -482,9 +511,9 @@ def attention_info():
                 f"of shared memory per block, {blocks.value} blocks per SM")
 
 
-def attention_case(label, q, k, v, smi):
+def attention_case(label, q, k, v, smi, plain=None):
     dtype = q.dtype
-    plain = ATTN_PLAIN[dtype]
+    plain = plain or ATTN_PLAIN[dtype]
     out = fa.flash_attention_kernel(q, k, v)
     torch.cuda.synchronize()
     ref = plain(q, k, v)
@@ -494,7 +523,7 @@ def attention_case(label, q, k, v, smi):
         "ms": lambda: fa.flash_attention_kernel(q, k, v),
         "plain_ms": lambda: plain(q, k, v),
         "library_ms": lambda: F.scaled_dot_product_attention(qt, kt, vt)})
-    bound, bound_by, bound_67 = attention_bound(tuple(q.shape), dtype)
+    bound, bound_by, bound_67 = attention_bound(tuple(q.shape), dtype, k.shape[1])
     row = dict(max_abs_err=err, atol=ATTN_ATOL[dtype],
                max_abs_ref=ref.float().abs().max().item(), **times,
                faster_than_plain_and_library=times["ms"] < min(times["plain_ms"],
@@ -549,6 +578,28 @@ def kernel_phase(smi):
                             dtype=dtype).unbind(2)
         rows[(shape, dtype)] = attention_case(f"{shape} qkv[:, :, i] views", *views, smi)
     f32_layout_phase(gen)
+    # queries of one length against keys of another (SiT's seq axis)
+    for b, sq, sk, h, d in ATTN_SQ_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda", dtype=dtype)
+            k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda", dtype=dtype)
+                    for _ in range(2))
+            rows[(b, sq, sk, h, d), dtype] = attention_case(
+                f"(B {b}, Sq {sq} | Sk {sk}, H {h}, D {d})", q, k, v, smi,
+                plain=fa.flash_attention_reference)
+    # the model-parallel steps' layouts: tensor=2's heads on qkv views, seq=2's
+    # queries on qkv views against keys and values of the gathered layout
+    b, s, h, d = TP_ATTN_SHAPE
+    views = torch.randn((b, s, 3, h, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16).unbind(2)
+    rows["tp"] = attention_case(f"tensor=2 {TP_ATTN_SHAPE} qkv[:, :, i] views", *views, smi)
+    b, sq, sk, h, d = SP_ATTN_SHAPE
+    q = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)[:, :, 0]
+    kv = torch.randn((sk, b, 2, h, d), generator=gen, device="cuda",
+                     dtype=torch.bfloat16).movedim(0, 1)
+    rows["sp"] = attention_case(f"seq=2 (B {b}, Sq {sq} | Sk {sk}, H {h}, D {d}) qkv view "
+                                "against gathered k, v", q, kv[:, :, 0], kv[:, :, 1], smi)
+    q, k, v = qkv.unbind(2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     log("[kernel] flash_attention host time per call (launch cost, us): " + json.dumps({
         "flash_attention_kernel": host_us(lambda: fa.flash_attention_kernel(q, k, v)),
@@ -1398,34 +1449,87 @@ def rel_err(out, ref):
 
 # runs cli.main on each command of argv[1] (a JSON list) in turn, printing
 # each command's stdout and seconds as one marked JSON line
-CLI_SEQUENCE = """
-import contextlib, io, json, sys, time
+# runs reed_tpu_torch.cli's main on each JSON list of commands it reads
+CLI_WORKER = """
+import contextlib, gc, io, json, sys, time, traceback
+import torch
 from reed_tpu_torch import cli
-for args in json.loads(sys.argv[1]):
-    out, t0 = io.StringIO(), time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        cli.main(args)
-    sys.__stdout__.write("@@cli " + json.dumps([out.getvalue(), time.perf_counter() - t0]) + "\\n")
+for line in sys.stdin:
+    for args in json.loads(line):
+        out, t0 = io.StringIO(), time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(args)
+        except Exception:
+            sys.__stdout__.write("@@err " + json.dumps([out.getvalue(), traceback.format_exc()])
+                                 + "\\n")
+            break
+        finally:
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+        sys.__stdout__.write("@@cli " + json.dumps([out.getvalue(), time.perf_counter() - t0])
+                             + "\\n")
+        sys.__stdout__.flush()
+    sys.__stdout__.write("@@end\\n")
     sys.__stdout__.flush()
 """
+# the CLI process run_clis talks to (started at its first call)
+CLI_PROCESS = {}
+
+
+def stop_cli_process():
+    """End the CLI process, if one was started (at exit, whatever the
+    outcome)."""
+    proc = CLI_PROCESS.pop("proc", None)
+    if proc is None:
+        return
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def cli_process():
+    """The CLI process (started here if it is not running: main starts it
+    after the build, so its imports overlap the first phases)."""
+    proc = CLI_PROCESS.get("proc")
+    if proc is None or proc.poll() is not None:
+        stderr = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen([sys.executable, "-c", CLI_WORKER], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=stderr, text=True)
+        CLI_PROCESS.update(proc=proc, stderr=stderr)
+    return proc
 
 
 def run_clis(commands):
     """Each (ARGS, label) of `commands` through reed_tpu_torch.cli's main, in
-    order, in one subprocess: one interpreter, import and CUDA start-up for
-    all of them (torch's default TF32 settings, which no subcommand changes
-    for the next). Returns each command's stdout; raises on a failure."""
+    order, in the one CLI process every call shares (stopped at exit): one
+    interpreter, import and CUDA start-up for all of them (torch's default
+    TF32 settings, which no subcommand changes for the next; the CUDA cache
+    emptied after each command). Returns each command's stdout; raises on a
+    failure."""
     t0 = time.perf_counter()
     labels = [label for _, label in commands]
-    proc = subprocess.run([sys.executable, "-c", CLI_SEQUENCE,
-                           json.dumps([list(args) for args, _ in commands])],
-                          capture_output=True, text=True)
-    done = [json.loads(line[6:]) for line in proc.stdout.splitlines()
-            if line.startswith("@@cli ")]
-    if proc.returncode or len(done) != len(commands):
-        raise RuntimeError(f"{labels[len(done)]} (after {labels[:len(done)]}) exited "
-                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    log(f"[eval] one subprocess for {len(commands)} commands: "
+    proc = cli_process()
+    proc.stdin.write(json.dumps([list(args) for args, _ in commands]) + "\n")
+    proc.stdin.flush()
+    done, error = [], None
+    for line in proc.stdout:
+        if line.startswith("@@cli "):
+            done.append(json.loads(line[6:]))
+        elif line.startswith("@@err "):
+            error = json.loads(line[6:])
+        elif line.startswith("@@end"):
+            break
+    if error is not None or len(done) != len(commands):
+        err = CLI_PROCESS["stderr"]
+        err.seek(0)
+        raise RuntimeError(f"{labels[len(done)]} (after {labels[:len(done)]}) failed (CLI "
+                           f"process exit {proc.poll()}):\n{error}\n{err.read()[-3000:]}")
+    log(f"[eval] the CLI process, {len(commands)} commands: "
         f"{time.perf_counter() - t0:.1f} s (" + "; ".join(
             f"{label} {seconds:.1f} s" for label, (_, seconds) in zip(labels, done)) + ")")
     return [text for text, _ in done]
@@ -1569,11 +1673,23 @@ def fid_phase(tmp, gen_a, gen_b, smi):
     stats = compute_activation_stats(images_a, make_feature_fn(model), batch_size=16)
     del model, images, x
     torch.cuda.empty_cache()
-    (text,) = run_clis([(["compute-fid", gen_a, gen_b, "--inception-npz", inc_npz,
-                          "--batch-size", "16", "--save-stats"], "compute-fid a b --save-stats")])
-    t0 = time.perf_counter()
-    self_fid = frechet_distance(stats["mu"], stats["sigma"], stats["mu"], stats["sigma"])
-    sqrtm_s = time.perf_counter() - t0
+    self_fid = {}
+
+    def fid_self():  # on the host, beside the subprocess
+        t0 = time.perf_counter()
+        self_fid["fid"] = frechet_distance(stats["mu"], stats["sigma"], stats["mu"],
+                                           stats["sigma"])
+        self_fid["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=fid_self)
+    thread.start()
+    try:
+        (text,) = run_clis([(["compute-fid", gen_a, gen_b, "--inception-npz", inc_npz,
+                              "--batch-size", "16", "--save-stats"],
+                             "compute-fid a b --save-stats")])
+    finally:
+        thread.join()
+    self_fid, sqrtm_s = self_fid["fid"], self_fid["s"]
     fid = json.loads(text.strip().splitlines()[-1])["fid"]
     saved = np.load(gen_a.replace(".npz", "_stats.npz"))
     mu_err = rel_err(torch.from_numpy(saved["mu"]), torch.from_numpy(stats["mu"]))
@@ -1581,7 +1697,8 @@ def fid_phase(tmp, gen_a, gen_b, smi):
     log(f"[eval] compute-fid (subprocess, seeded Inception): FID(a, b) = {fid!r}; its saved "
         f"mu of a against this process's: {mu_err:.3g} of the max (rtol {F32_NET_RTOL}); "
         f"FID(a, a) = {self_fid!r}, / tr(Sigma_a) = {self_rel:.3g} (< {FID_SELF_MAX}), "
-        f"{sqrtm_s:.2f} s on the host (the sqrtm of 2048 x 2048)")
+        f"{sqrtm_s:.2f} s on the host (the sqrtm of 2048 x 2048, in a thread beside the "
+        f"subprocess)")
     if not (np.isfinite(fid) and fid > 0 and mu_err <= F32_NET_RTOL
             and self_rel < FID_SELF_MAX):
         raise AssertionError(f"compute-fid: FID(a, b) {fid}, mu {mu_err}; FID(a, a) {self_fid}")
@@ -3932,6 +4049,10 @@ def slice14_phases(smi):
 # -- slice 16: data parallelism over torch.distributed -------------------------
 
 DP = dict(steps=2, timed_steps=5, world=2, image_global_batch=16, timeout=900)
+# phase 15's model-parallel axes (slice 18), each at size DP['world']
+MP_AXES = ("tensor", "seq")
+# (c) train-image through torchrun at the model-parallel axes
+TORCHRUN_IMAGE = ("--model", "SiT-XL/2", "--batch-size", "16")
 DP_GEN = dict(GEN, batch_size=16)  # one batch of 16, 8 a rank
 # the 2-rank protein step against the one-process step at the global batch
 # differs by the order of its sums alone (two partial sums of 4 rows where
@@ -4163,17 +4284,22 @@ def dp_group_phase(tmp, smi):
     return image_launches, protein_launches
 
 
-def dp_seeded_sit():
-    """SiT-XL/2 with N(0, 0.02) weights from seed 0 (slice_phase's), bf16."""
+def dp_seeded_sit(parallel=None):
+    """SiT-XL/2 with N(0, 0.02) weights from seed 0 (slice_phase's), bf16;
+    split over the seq and tensor axes of `parallel` (a DataParallel)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = create_sit("SiT-XL/2", device="cuda").eval()
     with torch.no_grad():
         for p in model.parameters():
             p.normal_(0.0, 0.02, generator=gen)
+    if parallel is not None:
+        whole, model = model, create_sit("SiT-XL/2", device="cuda", parallel=parallel).eval()
+        model.load_state_dict(shard_state_dict(whole.state_dict(), parallel, SIT_TP_RULES))
+        del whole
     return model.to(torch.bfloat16)
 
 
-def dp_generate(model):
+def dp_generate(model, mesh=None):
     calls = 0
 
     def model_fn(x, t, y):
@@ -4182,7 +4308,7 @@ def dp_generate(model):
         return model(x, t, y)[0]
 
     fa.launches = 0
-    samples = generate_samples(model_fn, FIDGenConfig(**DP_GEN), device="cuda")
+    samples = generate_samples(model_fn, FIDGenConfig(**DP_GEN), device="cuda", mesh=mesh)
     torch.cuda.synchronize()
     return samples, calls, fa.launches
 
@@ -4206,16 +4332,19 @@ def mesh_image_step(mesh, gb):
     torch.cuda.synchronize()
     seconds, launches = time.perf_counter() - t0, fa.launches
     run = [(m, [g.cpu() for g in gs]) for m, gs in run]
-    params = [p.detach().cpu() for p in state.model.parameters()]
+    plan = state.opt.plan
+    named = {k: p.detach() for k, p in state.model.named_parameters()}
+    params = [p.cpu() for p in (named if plan is None else plan.join_state_dict(named)).values()]
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated()
-    plan, n = state.opt.plan, sum(p.numel() for p in state.model.parameters())
+    n = sum(p.numel() for p in state.model.parameters())  # this rank's (tensor shards)
     held = n if plan is None else plan.resident_elements()
-    reckoned = 4 * n + (2 + 4 + 4) * held  # params whole; bf16 mu, nu, EMA on the share
+    reckoned = 4 * n + (2 + 4 + 4) * held  # params; bf16 mu, nu, EMA on the share
     del trainer, state, batch
     torch.cuda.empty_cache()
     return dict(run=run, params=params, s=seconds, launches=launches, allocated=allocated,
-                reckoned=reckoned, sharded=0 if plan is None else sum(plan.sharded))
+                reckoned=reckoned, sharded=0 if plan is None else sum(plan.sharded),
+                params_rank=n, params_whole=sum(p.numel() for p in params))
 
 
 def mesh_protein_step(mesh):
@@ -4275,7 +4404,8 @@ def dp_rank_main(out_dir, backend):
     step at batch 16 in f32 and in bf16, the protein step at 8 x 256 twice,
     16 generated images. Then every rank joins the group and runs the same
     global batches data-parallel, then phase 16 (b), the fsdp=2 steps
-    against them; rank 0 writes the distances."""
+    against them, then the tensor=2 and seq=2 steps and generation
+    (mp_rank_part); rank 0 writes the distances."""
     from reed_tpu_torch.parallel.mesh import init_distributed
 
     rank = int(os.environ["RANK"])
@@ -4326,13 +4456,64 @@ def dp_rank_main(out_dir, backend):
         result["protein_loss"] = (prun[0][0]["loss"], refs[0][0][0]["loss"])
         result["generate"]["rel"] = float(abs(samples - ref_samples).max()
                                           / abs(ref_samples).max())
-        del ref32
     t0 = time.perf_counter()
     result["fsdp"] = fsdp_rank_part(image, protein)
     result["fsdp_s"] = time.perf_counter() - t0
+    del image, protein
+    t0 = time.perf_counter()
+    result["model_parallel"] = mp_rank_part(rank, ref32 if rank == 0 else None,
+                                            names if rank == 0 else None,
+                                            ref_samples if rank == 0 else None)
+    result["model_parallel_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
     torch.distributed.destroy_process_group()
+
+
+def params_digest(params):
+    """SHA-256 of the bytes of `params` (host tensors), in order: equal
+    digests on two ranks mean bitwise equal parameters."""
+    digest = hashlib.sha256()
+    for p in params:
+        digest.update(p.contiguous().view(-1).view(torch.uint8).numpy())
+    return digest.hexdigest()
+
+
+def mp_rank_part(rank, ref32, names, ref_samples):
+    """Phase 15's tensor=2 and seq=2 on a rank of its group: the SiT-XL/2
+    REED bf16 step at the global batch (its whole gradients against rank
+    0's one-process f32 step `ref32`, parameter `names`), its seconds, K1
+    launches and memory beside the plan's reckoning; and generate_samples
+    of the seeded SiT-XL/2 split the same way, against rank 0's one-process
+    samples `ref_samples`. Each rank's whole parameters after the step go
+    back as their SHA-256 (params_digest)."""
+    from reed_tpu_torch.core.config import MeshConfig
+    from reed_tpu_torch.parallel.mesh import data_parallel
+
+    out = {}
+    for axis in MP_AXES:
+        mesh = MeshConfig(**{axis: DP["world"]})
+        step = mesh_image_step(mesh, DP["image_global_batch"])
+        row = {k: step[k] for k in ("s", "launches", "allocated", "reckoned", "params_rank",
+                                    "params_whole")}
+        row["params_sha256"] = params_digest(step["params"])
+        if rank == 0:
+            row["vs_f32"] = step_errors(step["run"][0], ref32[0], names)[:2]
+            row["loss"] = step["run"][0][0]["loss"]
+        del step
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        samples, calls, launches = dp_generate(
+            dp_seeded_sit(data_parallel(mesh, model_parallel=True)), mesh)
+        row["generate"] = dict(s=time.perf_counter() - t0, calls=calls, launches=launches,
+                               shape=list(samples.shape),
+                               finite=bool(np.isfinite(samples).all()))
+        if rank == 0:
+            row["generate"]["rel"] = float(abs(samples - ref_samples).max()
+                                           / abs(ref_samples).max())
+        torch.cuda.empty_cache()
+        out[axis] = row
+    return out
 
 
 def dp_ranks_phase(tmp, backend, cards, smi):
@@ -4420,7 +4601,61 @@ def dp_ranks_phase(tmp, backend, cards, smi):
         if (r["image_launches"] != DEPTH or r["protein_launches"] != [9, 9]
                 or r["generate"]["launches"] != DEPTH * r["generate"]["calls"]):
             raise AssertionError(f"launches on a rank: {r}")
-    return fsdp_report([r["fsdp"] for r in res], where, smi)
+    fsdp = fsdp_report([r["fsdp"] for r in res], where, smi)
+    mp = mp_report([r["model_parallel"] for r in res], r0["model_parallel_s"], where,
+                   (metric_tol, grad_tol), smi)
+    return fsdp, mp
+
+
+def mp_report(res, seconds, where, tols, smi):
+    """Phase 15's tensor=2 and seq=2 lines and checks from each rank's
+    mp_rank_part. Returns rank 0's K1 launches of each axis's step."""
+    metric_tol, grad_tol = tols
+    log(f"[tp/sp] {where}, tensor=2 and seq=2 against one process ({seconds:.1f} s on rank "
+        f"0): SiT-XL/2 REED bf16 at global batch {DP['image_global_batch']}, each rank the "
+        "whole batch (tensor: half the heads and of the MLP; seq: half the tokens; over gloo "
+        "the collectives go through the host)")
+    for axis in MP_AXES:
+        r0 = res[0][axis]
+        metric, grad = r0["vs_f32"]
+        gen = r0["generate"]
+        log(f"[tp/sp]   {axis}=2 step against the one-process f32 step: metrics {metric:.3g}, "
+            f"gradients (max err / max |g|, worst parameter) {grad:.3g}; bound "
+            f"({metric_tol:.3g}, {grad_tol:.3g}), {IMAGE_BF16_NOISE_FACTOR}x the "
+            f"one-process bf16 step's distance; loss {r0['loss']:.6g}; the step "
+            f"{r0['s']:.2f} s ({1e3 * r0['s']:.1f} ms); K1 launches a "
+            f"rank {[r[axis]['launches'] for r in res]}; the whole parameters after it "
+            f"bitwise equal on every rank: {len({r[axis]['params_sha256'] for r in res}) == 1} "
+            f"(SHA-256 {r0['params_sha256'][:16]}...)")
+        for rank, r in enumerate(res):
+            rr = r[axis]
+            log(f"[tp/sp]   {axis}=2 rank {rank}: memory allocated between steps "
+                f"{rr['allocated'] / 1e9:.3f} GB (the plan reckons {rr['reckoned'] / 1e9:.3f} "
+                f"GB of parameters and state: {rr['params_rank'] / 1e6:.1f} M of "
+                f"{rr['params_whole'] / 1e6:.1f} M parameters on the rank) ({smi})")
+        log(f"[tp/sp]   {axis}=2 generate_samples, {DP_GEN['num_samples']} images, "
+            f"{DP_GEN['num_steps']} SDE steps with CFG {DP_GEN['cfg_scale']}, against one "
+            f"process: max abs err / max |ref| {gen['rel']:.3g} (rtol "
+            f"{GEN_RTOL[torch.bfloat16]}); {gen['calls']} model calls and {gen['launches']} K1 "
+            f"launches a rank, {gen['s']:.1f} s ({smi})")
+        if not (metric <= metric_tol and grad <= grad_tol):
+            raise AssertionError(f"the {where} {axis}=2 image step: {metric}, {grad} over "
+                                 f"{metric_tol}, {grad_tol}")
+        if len({r[axis]["params_sha256"] for r in res}) != 1:
+            raise AssertionError(f"the {where} {axis}=2 image step: the ranks' whole "
+                                 f"parameters after it differ: "
+                                 f"{[r[axis]['params_sha256'] for r in res]}")
+        if not (gen["finite"] and gen["rel"] <= GEN_RTOL[torch.bfloat16]
+                and gen["shape"] == [DP_GEN["num_samples"], 32, 32, 4]):
+            raise AssertionError(f"the {where} {axis}=2 generation: {gen}")
+        for r in res:
+            rr = r[axis]
+            if (rr["launches"] != DEPTH or rr["generate"]["launches"]
+                    != DEPTH * rr["generate"]["calls"]):
+                raise AssertionError(f"{axis}=2 launches on a rank: {rr}")
+            if axis == "tensor" and not rr["params_rank"] < rr["params_whole"]:
+                raise AssertionError(f"tensor=2 holds whole parameters: {rr}")
+    return {axis: res[0][axis]["launches"] for axis in MP_AXES}
 
 
 def fsdp_report(res, where, smi):
@@ -4468,16 +4703,16 @@ def fsdp_report(res, where, smi):
     return r0["image_fsdp"]["launches"], tuple(r0["protein_launches"])
 
 
-def dp_torchrun_phase(tmp, smi, *args):
-    """(c) train-protein --distributed (with the CLI flags `args`) through
-    torchrun, one card a rank."""
+def dp_torchrun_phase(tmp, smi, cmd, *args):
+    """(c) `cmd` --distributed (with the CLI flags `args`) through torchrun,
+    one card a rank."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            "--nproc_per_node", str(DP["world"]), "-m", "reed_tpu_torch.cli",
-                           "train-protein", "--distributed", *args, "--steps", "3",
+                           cmd, "--distributed", *args, "--steps", "3",
                            "--synthetic", "--log-every", "1"], capture_output=True, text=True,
                           timeout=DP["timeout"])
-    label = " ".join(("train-protein --distributed",) + args)
+    label = " ".join((f"{cmd} --distributed",) + args)
     if proc.returncode or proc.stdout.count("[step ") != 3:
         raise RuntimeError(f"torchrun {label} exited {proc.returncode}:\n"
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
@@ -4493,17 +4728,21 @@ def dp_phases(smi):
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         launches = dp_group_phase(tmp, smi)
-        fsdp_launches = dp_ranks_phase(tmp, "gloo", 1, smi)
+        fsdp_launches, mp_launches = dp_ranks_phase(tmp, "gloo", 1, smi)
         cards = torch.cuda.device_count()
+        world = str(DP["world"])
         if cards >= DP["world"]:
             dp_ranks_phase(tmp, "nccl", cards, smi)
-            dp_torchrun_phase(tmp, smi)
-            dp_torchrun_phase(tmp, smi, "--fsdp", str(DP["world"]))
+            dp_torchrun_phase(tmp, smi, "train-protein")
+            dp_torchrun_phase(tmp, smi, "train-protein", "--fsdp", world)
+            for flag in ("--tp", "--sp"):
+                dp_torchrun_phase(tmp, smi, "train-image", *TORCHRUN_IMAGE, flag, world)
         else:
-            log(f"[dp] (c) not run: the NCCL ranks and torchrun train-protein --distributed "
-                f"(without and with --fsdp {DP['world']}) need {DP['world']} cards (NCCL "
-                f"takes one card a rank) and this machine has {cards}")
-    return launches, fsdp_launches
+            log(f"[dp] (c) not run: the NCCL ranks, torchrun train-protein --distributed "
+                f"(without and with --fsdp {world}) and torchrun train-image --distributed "
+                f"--tp {world} and --sp {world} need {world} cards (NCCL takes one card a "
+                f"rank) and this machine has {cards}")
+    return launches, fsdp_launches, mp_launches
 
 
 # --- phase 16 (slice 17): SiT remat and the fsdp mesh axis -----------------
@@ -4649,6 +4888,7 @@ def main():
 
     smi = device_phase()
     timed(build_phase)
+    cli_process()
     attn_rows = timed(kernel_phase, smi)
     msg_rows = timed(message_kernel_phase, smi)
     bwd_rows = timed(message_backward_phase, smi)
@@ -4668,7 +4908,7 @@ def main():
     timed(multiflow_phases, smi)
     timed(property_phases, smi)
     guided = timed(slice14_phases, smi)
-    (dp_image, dp_protein), (fsdp_image, fsdp_protein) = timed(dp_phases, smi)
+    (dp_image, dp_protein), (fsdp_image, fsdp_protein), mp_image = timed(dp_phases, smi)
     remat_launches = timed(remat_phases, smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
@@ -4720,6 +4960,10 @@ def main():
         kernel_entry("fused_message_bwd_fsdp", "reed_tpu/ops/fused_message.py:152",
                      bwd_rows[(MSG_MAIN, torch.float32)], fsdp_protein[1],
                      source="fused_message"),
+        kernel_entry("K1_tp", "reed_tpu/ops/flash_attention.py:24", attn_rows["tp"],
+                     mp_image["tensor"], source="flash_attention"),
+        kernel_entry("K1_sp", "reed_tpu/ops/flash_attention.py:24", attn_rows["sp"],
+                     mp_image["seq"], source="flash_attention"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -4733,4 +4977,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[2], sys.argv[3])
     else:
-        main()
+        try:
+            main()
+        finally:
+            stop_cli_process()

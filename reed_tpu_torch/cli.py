@@ -44,9 +44,14 @@ batch), rank 0 writes the checkpoints, config.json, metrics.jsonl and the
 `[step N]` lines. With --fsdp F the train-* subcommands also shard Adam's
 moments, the accumulation buffer and the EMA over groups of F ranks
 (--dp D x --fsdp F ranks in all; generate-image splits its batch over all
-of them). The other subcommands take --dp/--fsdp/--tp/--sp and
---distributed as reed_tpu does and raise on more than one process or an
-axis above 1 (ROADMAP.md Queue 1 item 11). Configurations resolve as
+of them). train-image and generate-image also take --tp T (each group of T
+ranks splits SiT's heads and MLP, Megatron's tensor parallelism) and --sp
+S (each group of S ranks splits the tokens): --dp x --fsdp x --sp x --tp
+ranks in all, the batch split over --dp x --fsdp. The other train-*
+subcommands raise on --tp or --sp above 1 (ROADMAP.md Queue 1 item 8b).
+The eval subcommands take --dp/--fsdp/--tp/--sp and --distributed as
+reed_tpu does and raise on more than one process or an axis above 1
+(ROADMAP.md Queue 1 items 11 and 8b). Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
 recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
 generate-image and train-image use reed_tpu's image default
@@ -123,7 +128,7 @@ def _resolve_cfg(cls, args, flags, defaults=None):
         raise NotImplementedError(
             f"{args.cmd} runs on one process: data-parallel evaluation is ROADMAP.md "
             "Queue 1 item 11")
-    meshlib.check_mesh(cfg.mesh, world)
+    meshlib.check_mesh(cfg.mesh, world, model_parallel=args.model_parallel)
     return cfg
 
 
@@ -135,12 +140,15 @@ def _mesh_flags(args):
     return mesh or None
 
 
-def _load_ema(model, ckpt_dir: str):
-    """Copy the latest checkpoint's EMA weights into `model`'s parameters."""
+def _load_ema(model, ckpt_dir: str, shard=None):
+    """Copy the latest checkpoint's EMA weights into `model`'s parameters
+    (through `shard`, a function of the whole state_dict, where given)."""
     from reed_tpu_torch.core.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(ckpt_dir)
     ema = mgr.load_ema()
+    if shard is not None:
+        ema = shard(ema)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(ema[name])
@@ -155,6 +163,7 @@ def generate_image(args):
     from reed_tpu_torch.eval.fid import (FIDGenConfig, generate_samples,
                                          make_vae_decode_fn, strip_projector_params)
     from reed_tpu_torch.ops import flash_attention
+    from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, data_parallel, shard_state_dict
     from reed_tpu_torch.train.image import ImageTrainConfig, build_model
 
     device = resolve_device(args.device)
@@ -162,10 +171,13 @@ def generate_image(args):
     cfg = _resolve_cfg(ImageTrainConfig, args,
                        {"model": args.model, "seed": args.seed, "compute_dtype": args.dtype},
                        defaults={"exact_gelu": True} if args.ref_ckpt else None)
+    parallel = data_parallel(cfg.mesh, model_parallel=True)
     model = build_model(cfg, device=device,
-                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
+                        generator=torch.Generator(device=device).manual_seed(cfg.seed),
+                        parallel=parallel)
     if args.ref_ckpt:
-        sd = strip_projector_params(load_reference_checkpoint(args.ref_ckpt))
+        sd = shard_state_dict(strip_projector_params(
+            load_reference_checkpoint(args.ref_ckpt)), parallel, SIT_TP_RULES)
         missing, unexpected = model.load_state_dict(sd, strict=False)
         missing = [k for k in missing if not k.startswith("projectors.")]
         if missing or unexpected:
@@ -174,7 +186,8 @@ def generate_image(args):
                              f"unexpected {unexpected}")
         print(f"loaded reference checkpoint {args.ref_ckpt} (exact_gelu={cfg.exact_gelu})")
     elif args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
+        _load_ema(model, args.ckpt_dir,
+                  shard=lambda sd: shard_state_dict(sd, parallel, SIT_TP_RULES))
     model = model.to(getattr(torch, cfg.compute_dtype))
     calls = 0
 
@@ -517,9 +530,11 @@ def train_image(args):
     state = trainer.init_state()
     if args.ref_ckpt:
         from reed_tpu_torch.encoders.sit_convert import load_reference_checkpoint
+        from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, shard_state_dict
 
         # warm start from a reference torch checkpoint (forces exact_gelu)
-        state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
+        state.model.load_state_dict(shard_state_dict(
+            load_reference_checkpoint(args.ref_ckpt), trainer.dp, SIT_TP_RULES))
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1459,22 +1474,27 @@ def _add_config(p, what):
                    help="cuda (default) or cpu; no silent fallback")
 
 
-def _add_mesh(p, data_parallel: bool):
+def _add_mesh(p, data_parallel: bool, model_parallel: bool = False):
     """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
-    over the ranks of --distributed (the others raise on more than one)."""
+    over the ranks of --distributed (the others raise on more than one),
+    `model_parallel` one whose SiT runs the tensor and seq axes (the others
+    raise on --tp or --sp above 1)."""
+    ranks = "data x fsdp x seq x tensor" if model_parallel else "data x fsdp"
     for flag, axis in (("--dp", "data: the ranks that hold one copy of the optimizer state "
-                                "and EMA; data x fsdp ranks run"),
+                                f"and EMA; {ranks} ranks run"),
                        ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA; "
-                                  "data x fsdp ranks run"),
-                       ("--tp", "tensor: only 1, not ported"),
-                       ("--sp", "seq: only 1, not ported")):
+                                  f"{ranks} ranks run"),
+                       ("--tp", "tensor: ranks that split SiT's heads and MLP" if model_parallel
+                        else "tensor: only 1 (ROADMAP.md Queue 1 item 8b)"),
+                       ("--sp", "seq: ranks that split SiT's tokens" if model_parallel
+                        else "seq: only 1 (ROADMAP.md Queue 1 item 8b)")):
         p.add_argument(flag, type=int, default=None, help=f"mesh axis size ({axis})")
     p.add_argument("--distributed", action="store_true",
                    help="join the process group torchrun describes (NCCL with one card a "
                         "rank; gloo with --device cpu)" + (
                             "; --batch-size is the global batch" if data_parallel else
                             "; this subcommand runs on one process"))
-    p.set_defaults(data_parallel=data_parallel)
+    p.set_defaults(data_parallel=data_parallel, model_parallel=model_parallel)
 
 
 def _add_training(p):
@@ -1519,7 +1539,7 @@ def main(argv=None):
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                    help="compute dtype (default: the config's bfloat16)")
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, model_parallel=True)
     p.set_defaults(fn=generate_image)
 
     p = sub.add_parser("compute-fid")
@@ -1598,7 +1618,7 @@ def main(argv=None):
                    help="SD-VAE decoder npz for the previews (else latent channels)")
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, model_parallel=True)
     p.set_defaults(fn=train_image)
 
     p = sub.add_parser("train-molecule-semla")

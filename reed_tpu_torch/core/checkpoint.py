@@ -16,12 +16,13 @@ which under data parallelism rank 0 may be writing while another rank
 looks. Data parallel (`dp`): every rank holds the same state and the same
 generator (parallel/mesh.py), so rank 0 alone writes the one file, then
 every rank waits at a barrier; every rank restores from it, the saving
-device's CUDA stream onto its own device. Under the fsdp axis (a
-ShardPlan, state.opt.plan) a rank holds chunks of the moments, the
-accumulation buffer and the EMA: every rank takes part in gathering them
-whole before rank 0 writes, and on restore every rank reads the whole
-tensors and keeps its chunks. The file is the same whatever the mesh, so
-a run resumes on another fsdp size or in one process.
+device's CUDA stream onto its own device. Under the fsdp and tensor axes
+(a ShardPlan, state.opt.plan) a rank holds its tensor shards of the
+parameters and chunks of them of the moments, the accumulation buffer and
+the EMA: every rank takes part in gathering them whole before rank 0
+writes, and on restore every rank reads the whole tensors and keeps its
+share. The file is the same whatever the mesh, so a run resumes on another
+fsdp, tensor or seq size or in one process.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from reed_tpu_torch.core.ema import ema_weights
 from reed_tpu_torch.core.train_state import TrainState
+from reed_tpu_torch.parallel.mesh import shard_state_dict
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -61,16 +62,13 @@ def _set_rng_state(state: Dict, generator: Optional[torch.Generator]):
 
 def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor], what: str, plan=None):
     """Copy the whole tensors `src` into the state list `dst` (this rank's
-    chunks where `plan` shards)."""
+    share where `plan` shards)."""
     if len(dst) != len(src):
         raise ValueError(f"{what}: {len(src)} tensors in the checkpoint, "
                          f"{len(dst)} in the state")
     for i, (d, s) in enumerate(zip(dst, src)):
         if plan is not None:
-            if s.shape != plan.shapes[i]:
-                raise ValueError(f"{what}[{i}]: checkpoint {tuple(s.shape)}, parameter "
-                                 f"{plan.shapes[i]}")
-            s = plan.local(i, s.contiguous())
+            s = plan.share(i, s)
         if d.shape != s.shape or d.dtype != s.dtype:
             raise ValueError(f"{what}[{i}]: checkpoint {tuple(s.shape)} {s.dtype}, "
                              f"state {tuple(d.shape)} {d.dtype}")
@@ -78,12 +76,18 @@ def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor], what: str, plan
 
 
 def whole_state(state: TrainState) -> Dict:
-    """The EMA, mu, nu and acc of `state` whole: as they are, or gathered
-    over the fsdp group where state.opt.plan shards (a collective)."""
+    """The model's state_dict, EMA, mu, nu and acc of `state` whole: as they
+    are, or gathered over the fsdp and tensor groups where state.opt.plan
+    shards (a collective)."""
     opt, plan = state.opt, state.opt.plan
-    gather = list if plan is None else plan.gather
-    return {"ema": dict(ema_weights(state)), "mu": gather(opt.mu), "nu": gather(opt.nu),
-            "acc": None if opt.acc is None else gather(opt.acc)}
+    if plan is None:
+        return {"model": state.model.state_dict(), "ema": dict(state.ema),
+                "mu": list(opt.mu), "nu": list(opt.nu),
+                "acc": None if opt.acc is None else list(opt.acc)}
+    return {"model": plan.join_state_dict(state.model.state_dict()),
+            "ema": plan.whole_named(state.ema),
+            "mu": plan.whole(opt.mu), "nu": plan.whole(opt.nu),
+            "acc": None if opt.acc is None else plan.whole(opt.acc)}
 
 
 class CheckpointManager:
@@ -137,7 +141,7 @@ class CheckpointManager:
         opt = state.opt
         payload = {
             "step": step,
-            "model": state.model.state_dict(),
+            "model": whole["model"],
             "ema": whole["ema"],
             "opt": {"count": opt.count, "mini_step": opt.mini_step, "mu": whole["mu"],
                     "nu": whole["nu"], "acc": whole["acc"]},
@@ -162,7 +166,8 @@ class CheckpointManager:
         opt, saved = state.opt, ckpt["opt"]
         plan = opt.plan
         with torch.no_grad():
-            state.model.load_state_dict(ckpt["model"])
+            state.model.load_state_dict(ckpt["model"] if plan is None else shard_state_dict(
+                ckpt["model"], plan.dp, plan.tp_rules))
             names = list(state.ema) if plan is None else plan.names
             if set(names) != set(ckpt["ema"]) or set(names) != set(state.ema):
                 raise ValueError("the checkpoint's EMA names differ from the state's")

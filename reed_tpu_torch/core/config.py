@@ -40,13 +40,17 @@ class CurriculumConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """reed_tpu's mesh axes. The port runs the data and fsdp axes over
-    torch.distributed (parallel/mesh.py): data x fsdp must be the world
-    size (`data` None takes world / fsdp); the fsdp axis shards Adam's
-    moments, the accumulation buffer and the EMA of every parameter that
-    reed_tpu's fsdp_spec shards, those of at least 2 dimensions and
-    `fsdp_min_size` elements (None: parallel.mesh.FSDP_MIN_SIZE, 65536)
-    with a dimension that fsdp divides; tensor and seq above 1 raise
+    """reed_tpu's mesh axes, run over torch.distributed (parallel/mesh.py):
+    data x fsdp x seq x tensor must be the world size (`data` None takes
+    the rest), and the global batch splits over data x fsdp. The fsdp axis
+    shards Adam's moments, the accumulation buffer and the EMA of every
+    parameter that reed_tpu's fsdp_spec shards, those of at least 2
+    dimensions and `fsdp_min_size` elements (None:
+    parallel.mesh.FSDP_MIN_SIZE, 65536) with a dimension that fsdp divides
+    (not the one the tensor rule takes). The tensor axis splits SiT's heads
+    and MLP over groups of `tensor` ranks (Megatron), the seq axis its
+    tokens over groups of `seq` ranks; on the other model families tensor
+    and seq above 1 raise, naming ROADMAP.md Queue 1 item 8b
     (parallel.mesh.check_mesh, which each trainer calls)."""
 
     data: Optional[int] = None

@@ -1,8 +1,9 @@
 """Exponential moving average of parameters, counterpart of
 reed_tpu/core/ema.py. The EMA is a dict of tensors keyed by parameter name,
-updated in place. Under the fsdp axis (a parallel.mesh.ShardPlan) each rank
-holds the chunks of the sharded parameters only; `ema_weights` gathers the
-whole EMA."""
+updated in place, in the shapes of the model's parameters (a tensor rank's
+shards under the tensor axis). Under the fsdp axis (a
+parallel.mesh.ShardPlan) each rank holds the chunks of the sharded
+parameters only; `ema_weights` gathers them into the parameters' shapes."""
 
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float, pla
 
 
 def ema_weights(state) -> Dict[str, torch.Tensor]:
-    """The whole EMA of a TrainState by parameter name: state.ema itself,
-    or gathered over the fsdp group where state.opt.plan shards (a
-    collective: every rank calls it)."""
+    """The EMA of a TrainState by parameter name in the shapes of the
+    model's parameters: state.ema itself, or gathered over the fsdp group
+    where state.opt.plan shards (a collective: every rank calls it)."""
     plan = state.opt.plan
     return state.ema if plan is None else plan.gather_named(state.ema)

@@ -27,11 +27,12 @@ from reed_tpu_torch.core.ema import ema_init
 def global_norm(tensors: Sequence[torch.Tensor], plan=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm). With
     `plan` (a parallel.mesh.ShardPlan) `tensors` are a rank's state list,
-    chunks where sharded, and the norm is the whole list's: the chunks'
-    squares summed over the fsdp group and the replicated leaves' added
-    once (a collective), a sum in another order than the norm of the
-    whole tensors."""
-    if plan is not None and plan.any_sharded:
+    its tensor shards and fsdp chunks where sharded, and the norm is the
+    whole list's: the chunks' squares summed over the fsdp group, the
+    tensor shards' over the tensor group, the replicated leaves' added once
+    (a collective), a sum in another order than the norm of the whole
+    tensors."""
+    if plan is not None and (plan.any_sharded or plan.any_tensor):
         return plan.norm(tensors)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
@@ -111,8 +112,9 @@ class Optimizer:
     when cfg.mu_dtype names another dtype: it is stored in that dtype and
     updated as optax 0.2.6's scale_by_adam does (`mu_step`).
 
-    With `plan` (a parallel.mesh.ShardPlan over the fsdp axis) the update
-    runs on this rank's share: `step` takes the gradients as
+    With `plan` (a parallel.mesh.ShardPlan over the fsdp and tensor axes)
+    the update runs on this rank's share (the parameters are its tensor
+    shards): `step` takes the gradients as
     ShardPlan.reduce_grads leaves them (chunks of the sharded parameters),
     mu, nu and acc hold chunks there, and the update writes the chunk
     views of the parameters (`shards`); the caller all-gathers them
@@ -202,11 +204,12 @@ class TrainState:
 
 
 def init_train_state(model: nn.Module, optim: OptimConfig, ema_dtype: Optional[str] = None,
-                     dp=None) -> TrainState:
+                     dp=None, tp_rules=()) -> TrainState:
     """The state at step 0 of `model`: its EMA (in `ema_dtype`) and
     optimizer, each over this rank's share where `dp` (a
-    parallel.mesh.DataParallel) has an fsdp axis above 1 (the plan is
-    state.opt.plan)."""
-    plan = None if dp is None else dp.shard_plan(model.named_parameters())
+    parallel.mesh.DataParallel) has an fsdp or tensor axis above 1 (the
+    plan is state.opt.plan; `tp_rules` name the parameters that `model`
+    holds tensor shards of)."""
+    plan = None if dp is None else dp.shard_plan(model.named_parameters(), tp_rules)
     return TrainState(step=0, model=model, ema=ema_init(model, ema_dtype, plan),
                       opt=make_optimizer(optim, list(model.parameters()), plan))

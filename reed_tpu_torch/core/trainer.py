@@ -24,8 +24,8 @@ def capture_gradients():
     """Collect a copy of the gradients of every train step taken inside the
     block (after the data-parallel reduction, in parameter order), one list
     a step: what the update saw, for tests and diagnostics. Under the fsdp
-    axis the whole gradients are gathered from the ranks' chunks (a
-    collective: every rank of the fsdp group must capture)."""
+    and tensor axes the whole gradients are gathered from the ranks' chunks
+    and shards (a collective: every rank must capture)."""
     sink: list = []
     _gradient_sinks.append(sink)
     try:
@@ -64,21 +64,25 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
     trace attributes their kernels to.
 
     With `dp` (a parallel.mesh.DataParallel) the step runs this rank's rows
-    of the global batch: the loss draws at the global shape and keeps its
-    rows (parallel/draws.py), the gradients are all-reduced (their mean
-    over the ranks, in flat buckets) right after autograd, on every
+    of the global batch: the loss draws at the global shape and keeps the
+    rows of its batch index (parallel/draws.py), the gradients are
+    all-reduced (their mean over the replica group, the D x F x S ranks of
+    one tensor index, in flat buckets) right after autograd, on every
     micro-step, so that grad_norm, the clip, Adam and the EMA see the
     global batch's gradient on every rank, and the loss metrics are
-    averaged over the ranks in one small all-reduce that stays on the
-    device. torch.nn.parallel.DistributedDataParallel would see nothing
+    averaged over the batch indices in one small all-reduce that stays on
+    the device. Under seq every rank computes the whole loss and its
+    gradient is S times its share (parallel/collectives.py), so the mean
+    over the seq ranks is the loss's gradient. torch.nn.parallel.DistributedDataParallel would see nothing
     here: its hooks fire on .backward() into .grad, not on autograd.grad;
     nor would FSDP's wrappers or ZeroRedundancyOptimizer.
 
-    Where the state has a ShardPlan (state.opt.plan, the fsdp axis) the
-    gradients are reduced by it instead (parallel/mesh.py: the sharded
-    parameters' chunks reduce-scattered, the rest all-reduced), grad_norm,
-    the clip, Adam and the EMA run on this rank's chunks, and an update
-    ends with the chunks all-gathered into every rank's whole parameters
+    Where the state has a ShardPlan (state.opt.plan, the fsdp or tensor
+    axis) the gradients are reduced by it instead (parallel/mesh.py: the
+    sharded parameters' chunks reduce-scattered, the rest all-reduced),
+    grad_norm, the clip, Adam and the EMA run on this rank's chunks of its
+    tensor shards (grad_norm summing over the fsdp and tensor groups), and
+    an update ends with the chunks all-gathered into every rank's shards
     (in the 'reed::optimizer' range)."""
 
     def train_step(state: TrainState, batch, **inject):
@@ -98,7 +102,7 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
         elif dp is not None:
             grads = dp.all_reduce_grads(grads)
         if _gradient_sinks:
-            whole = grads if plan is None else plan.gather(grads)
+            whole = grads if plan is None else plan.whole(grads)
             for sink in _gradient_sinks:
                 sink.append([g.detach().clone() for g in whole])
         grad_norm = global_norm(grads, plan)

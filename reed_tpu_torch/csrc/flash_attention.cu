@@ -3,9 +3,12 @@
 //
 // Computes o = softmax(q k^T * D^-1/2) v for every (batch, head), exact
 // softmax over all keys, with f32 logits and f32 accumulation, and writes o
-// once in the input dtype. q, k, v and o are [B, S, H, D] views given by
-// their strides (last dim contiguous), so the q/k/v slices of a fused qkv
-// projection need no copy.
+// once in the input dtype. q and o are [B, Sq, H, D] and k and v [B, Sk, H,
+// D] views given by their strides (last dim contiguous), so the q/k/v
+// slices of a fused qkv projection need no copy. The query length sizes the
+// grid and the key length the key loop: Sq = Sk in self-attention, Sq = Sk /
+// S on a rank of SiT's sequence parallelism, whose queries are its own
+// tokens and whose keys are every rank's.
 //
 // bf16 (the model's dtype): both products run on the tensor cores
 // (mma.sync.m16n8k16, bf16 in, f32 accumulate). One block of 4 warps per
@@ -205,7 +208,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           int S, int H, Strides qs, Strides ks, Strides vs, Strides os,
+                           int Sq, int Sk, int H, Strides qs, Strides ks, Strides vs, Strides os,
                            float scale_log2) {
   using Shape = MmaShape<kD>;
   constexpr int kMT = Shape::kRowTiles;
@@ -226,17 +229,17 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
   const int q0 = blockIdx.y * kBlockM;
-  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+  const int n_tiles = (Sk + kBlockN - 1) / kBlockN;
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 
-  load_tile<kBlockM, kD, kPitchQK>(Qs, qb, qs.s, q0, S, tid);
+  load_tile<kBlockM, kD, kPitchQK>(Qs, qb, qs.s, q0, Sq, tid);
   cp_async_commit();
-  load_tile<kBlockN, kD, kPitchQK>(Ks, kb, ks.s, 0, S, tid);
-  load_tile<kBlockN, kD, kPitchV>(Vs, vb, vs.s, 0, S, tid);
+  load_tile<kBlockN, kD, kPitchQK>(Ks, kb, ks.s, 0, Sk, tid);
+  load_tile<kBlockN, kD, kPitchV>(Vs, vb, vs.s, 0, Sk, tid);
   cp_async_commit();
   if constexpr (Shape::kDPad != kD) {
     // the reduction pad of Q and of every K stage: columns [kD, kD + 8)
@@ -276,9 +279,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     if (j + 1 < n_tiles) {
       const int next = (j + 1) % kStages;
       load_tile<kBlockN, kD, kPitchQK>(Ks + next * kBlockN * kPitchQK, kb, ks.s,
-                                       (j + 1) * kBlockN, S, tid);
+                                       (j + 1) * kBlockN, Sk, tid);
       load_tile<kBlockN, kD, kPitchV>(Vs + next * kBlockN * kPitchV, vb, vs.s,
-                                      (j + 1) * kBlockN, S, tid);
+                                      (j + 1) * kBlockN, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();  // tile j has landed, tile j + 1 may still be in flight
     } else {
@@ -312,14 +315,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
 
     const int k0 = j * kBlockN;
-    if (k0 + kBlockN > S) {  // the ragged last tile
+    if (k0 + kBlockN > Sk) {  // the ragged last tile
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int key = k0 + 8 * t + 2 * (lane & 3);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          if (key >= S) s[mt][t][0] = s[mt][t][2] = -CUDART_INF_F;
-          if (key + 1 >= S) s[mt][t][1] = s[mt][t][3] = -CUDART_INF_F;
+          if (key >= Sk) s[mt][t][0] = s[mt][t][2] = -CUDART_INF_F;
+          if (key + 1 >= Sk) s[mt][t][1] = s[mt][t][3] = -CUDART_INF_F;
         }
       }
     }
@@ -419,26 +422,26 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int r = i / kChunks;
     const int c = i - r * kChunks;
     const int row = q0 + warp * 16 * kMT + r;
-    if (row < S)
+    if (row < Sq)
       *reinterpret_cast<uint4*>(ob + (long long)row * os.s + 8 * c) =
           *reinterpret_cast<const uint4*>(Qw + r * kPitchQK + 8 * c);
   }
 }
 
 template <int kD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Sk, int H, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                         cudaStream_t stream) {
   using Shape = MmaShape<kD>;
   constexpr size_t smem = Shape::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_bf16_mma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + Shape::kBlockM - 1) / Shape::kBlockM));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + Shape::kBlockM - 1) / Shape::kBlockM));
   attention_fwd_bf16_mma<kD><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, qs, ks, vs,
-      os, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, qs, ks,
+      vs, os, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -462,14 +465,14 @@ cudaError_t with_head_dim(int D, F&& f) {
   }
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                          int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                          int Sk, int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
                           float scale, cudaStream_t st) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !strides8(qs) ||
       !strides8(ks) || !strides8(vs) || !strides8(os))
     return cudaErrorInvalidValue;
   return with_head_dim(D, [&](auto d) {
-    return launch_bf16<decltype(d)::value>(q, k, v, o, B, S, H, qs, ks, vs, os, scale, st);
+    return launch_bf16<decltype(d)::value>(q, k, v, o, B, Sq, Sk, H, qs, ks, vs, os, scale, st);
   });
 }
 
@@ -565,7 +568,7 @@ struct F32Shape {
 template <int kDP>
 __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
     attention_fwd_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
                           int D, bool vec, Strides qs, Strides ks, Strides vs, Strides os,
                           float scale_log2) {
   using Shape = F32Shape<kDP>;
@@ -588,7 +591,7 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
   const int q0 = blockIdx.y * kBlockM;
-  const int n_tiles = (S + kF32BlockN - 1) / kF32BlockN;
+  const int n_tiles = (Sk + kF32BlockN - 1) / kF32BlockN;
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -596,15 +599,15 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
   float* ob = o + b * os.b + h * os.h;
 
   // one commit group for Q, then one per ring stage but the last
-  load_rows_f32<kBlockM, kDP, kP>(Qs, qb, qs.s, q0, S, D, vec, tid);
+  load_rows_f32<kBlockM, kDP, kP>(Qs, qb, qs.s, q0, Sq, D, vec, tid);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kF32Stages - 1; ++st) {
     if (st < n_tiles) {
       load_rows_f32<kF32BlockN, kDP, kP>(Ks + st * kF32BlockN * kP, kb, ks.s, st * kF32BlockN,
-                                         S, D, vec, tid);
+                                         Sk, D, vec, tid);
       load_rows_f32<kF32BlockN, kDP, kP>(Vs + st * kF32BlockN * kP, vb, vs.s, st * kF32BlockN,
-                                         S, D, vec, tid);
+                                         Sk, D, vec, tid);
     }
     cp_async_commit();
   }
@@ -650,9 +653,9 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
     if (ahead < n_tiles) {
       const int st = ahead % kF32Stages;  // the stage tile j - 1 used
       load_rows_f32<kF32BlockN, kDP, kP>(Ks + st * kF32BlockN * kP, kb, ks.s,
-                                         ahead * kF32BlockN, S, D, vec, tid);
+                                         ahead * kF32BlockN, Sk, D, vec, tid);
       load_rows_f32<kF32BlockN, kDP, kP>(Vs + st * kF32BlockN * kP, vb, vs.s,
-                                         ahead * kF32BlockN, S, D, vec, tid);
+                                         ahead * kF32BlockN, Sk, D, vec, tid);
     }
     cp_async_commit();                // possibly empty: the group count stays fixed
     cp_async_wait<kF32Stages - 1>();  // tile j (and Q) have landed
@@ -706,14 +709,14 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
     }
 
     const int k0 = j * kF32BlockN;
-    if (k0 + kF32BlockN > S) {  // the ragged last tile
+    if (k0 + kF32BlockN > Sk) {  // the ragged last tile
 #pragma unroll
       for (int n = 0; n < kKeySteps; ++n) {
         const int key = k0 + 8 * n + 2 * t;
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          if (key >= S) s[mt][n][0] = s[mt][n][2] = -CUDART_INF_F;
-          if (key + 1 >= S) s[mt][n][1] = s[mt][n][3] = -CUDART_INF_F;
+          if (key >= Sk) s[mt][n][0] = s[mt][n][2] = -CUDART_INF_F;
+          if (key + 1 >= Sk) s[mt][n][1] = s[mt][n][3] = -CUDART_INF_F;
         }
       }
     }
@@ -794,7 +797,7 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / l;
       const int row = q0 + warp * 16 * kMT + 16 * mt + g + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       float* orow = ob + (long long)row * os.s;
 #pragma unroll
       for (int n = 0; n < kDSteps; ++n) {
@@ -812,18 +815,18 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
 }
 
 template <int kDP>
-cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                           int H, int D, bool vec, Strides qs, Strides ks, Strides vs,
+cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                           int Sk, int H, int D, bool vec, Strides qs, Strides ks, Strides vs,
                            Strides os, float scale, cudaStream_t stream) {
   using Shape = F32Shape<kDP>;
   constexpr size_t smem = Shape::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_f32_mma<kDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + Shape::kBlockM - 1) / Shape::kBlockM));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + Shape::kBlockM - 1) / Shape::kBlockM));
   attention_fwd_f32_mma<kDP><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, D, vec, qs, ks, vs, os, scale * kLog2e);
+      static_cast<float*>(o), Sq, Sk, H, D, vec, qs, ks, vs, os, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -865,8 +868,8 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // different key rows fall in eight different bank groups.
 __global__ void __launch_bounds__(kWarps * 32)
     attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, int S, int H, int D,
-                      int ld, Strides qs, Strides ks, Strides vs, Strides os,
+                      const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
+                      int H, int D, int ld, Strides qs, Strides ks, Strides vs, Strides os,
                       float scale_log2) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -894,7 +897,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int r = idx / ld;
     const int d = idx - r * ld;
     float val = 0.f;
-    if (q0 + r < S && d < D) val = qb[(q0 + r) * qs.s + d] * scale_log2;
+    if (q0 + r < Sq && d < D) val = qb[(q0 + r) * qs.s + d] * scale_log2;
     Qs[idx] = val;
   }
 
@@ -913,13 +916,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float4* K4 = reinterpret_cast<const float4*>(Ks);
   float* Pw = Ps + warp * kRowsPerWarp * kBlockK;
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
+  for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
     __syncthreads();  // the previous tile is no longer read
     for (int idx = tid; idx < kBlockK * ld; idx += blockDim.x) {
       const int r = idx / ld;
       const int d = idx - r * ld;
       float kval = 0.f, vval = 0.f;
-      if (k0 + r < S && d < D) {
+      if (k0 + r < Sk && d < D) {
         kval = kb[(k0 + r) * ks.s + d];
         vval = vb[(k0 + r) * vs.s + d];
       }
@@ -952,7 +955,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       float tile_max = -CUDART_INF_F;
 #pragma unroll
       for (int c = 0; c < kKeysPerLane; ++c) {
-        if (k0 + lane + 32 * c >= S) s[r][c] = -CUDART_INF_F;
+        if (k0 + lane + 32 * c >= Sk) s[r][c] = -CUDART_INF_F;
         tile_max = fmaxf(tile_max, s[r][c]);
       }
       const float m_new = fmaxf(m[r], warp_max(tile_max));  // finite: a tile holds a key
@@ -1001,7 +1004,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + warp * kRowsPerWarp + r;
     const float inv = 1.f / warp_sum(l[r]);
-    if (row < S) {
+    if (row < Sq) {
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) {
         const int d = lane + 32 * i;
@@ -1021,19 +1024,19 @@ size_t f32_smem_bytes(int D) {
          ((size_t)(kBlockQ + 2 * kBlockK) * f32_pitch(D) + (size_t)kBlockQ * kBlockK);
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                        int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
                        float scale, cudaStream_t stream) {
-  if ((S + kBlockQ - 1) / kBlockQ > 65535) return cudaErrorInvalidValue;
+  if ((Sq + kBlockQ - 1) / kBlockQ > 65535) return cudaErrorInvalidValue;
   const int ld = f32_pitch(D);
   const size_t smem = f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBlockQ - 1) / kBlockQ));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBlockQ - 1) / kBlockQ));
   attention_fwd_f32<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, D, ld, qs, ks, vs, os,
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, D, ld, qs, ks, vs, os,
       scale * kLog2e);
   return cudaGetLastError();
 }
@@ -1045,13 +1048,13 @@ bool f32_vec(const void* q, const void* k, const void* v, const void* o, int D, 
          strides4(qs) && strides4(ks) && strides4(vs) && strides4(os);
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                         int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                         int Sk, int H, int D, Strides qs, Strides ks, Strides vs, Strides os,
                          float scale, cudaStream_t st) {
-  if (!kF32TensorCores) return launch_f32(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st);
+  if (!kF32TensorCores) return launch_f32(q, k, v, o, B, Sq, Sk, H, D, qs, ks, vs, os, scale, st);
   const bool vec = f32_vec(q, k, v, o, D, qs, ks, vs, os);
   return with_head_dim((D + 7) / 8 * 8, [&](auto d) {
-    return launch_f32_mma<decltype(d)::value>(q, k, v, o, B, S, H, D, vec, qs, ks, vs, os,
+    return launch_f32_mma<decltype(d)::value>(q, k, v, o, B, Sq, Sk, H, D, vec, qs, ks, vs, os,
                                               scale, st);
   });
 }
@@ -1061,19 +1064,19 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, i
 // Launches on `stream`, allocates nothing and does not synchronise. Returns
 // a cudaError_t: 0 when the launch was accepted.
 extern "C" int reed_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B, int S,
+    const void* q, const void* k, const void* v, void* o, int is_bf16, int B, int Sq, int Sk,
     int H, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || D < 1 || D > kMaxD ||
-      (long long)B * H > 0x7fffffffLL || (S + 63) / 64 > 65535)
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || D < 1 || D > kMaxD ||
+      (long long)B * H > 0x7fffffffLL || (Sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? dispatch_bf16(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st)
-              : dispatch_f32(q, k, v, o, B, S, H, D, qs, ks, vs, os, scale, st);
+      is_bf16 ? dispatch_bf16(q, k, v, o, B, Sq, Sk, H, D, qs, ks, vs, os, scale, st)
+              : dispatch_f32(q, k, v, o, B, Sq, Sk, H, D, qs, ks, vs, os, scale, st);
   return (int)err;
 }
 

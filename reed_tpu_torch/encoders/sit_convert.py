@@ -5,6 +5,9 @@ from reference PyTorch checkpoints.
 `convert_torch_sit` (reed_tpu/encoders/sit_convert.py): flax Dense kernels
 [in, out] become torch weights [out, in], and the patch-embedding kernel over
 row-major (p, p, C) patches becomes the reference conv weight [D, C, p, p].
+
+Both give whole parameters in the reference names; a tensor rank keeps its
+shards of them through parallel/mesh.shard_state_dict with SIT_TP_RULES.
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ decoded on the device before it is copied to the host; without a decoder
 the npz holds latents, as reed_tpu writes without `--vae`. Under a process
 group each batch is sharded over the ranks (reed_tpu's mesh sharding of
 the sample batch): every rank draws the whole batch's latents, labels and
-noise and keeps its rows, samples and decodes them, and the rows are
-gathered back, so the samples equal one process's.
+noise and keeps the rows of its batch index, samples and decodes them, and
+the rows are gathered back over the batch indices, so the samples equal
+one process's. The seq and tensor ranks of one batch index run one SiT
+between them (models/sit.py): each model call returns the whole velocity
+of their rows on each of them, so they take the same sampler steps.
 """
 
 from __future__ import annotations
@@ -66,12 +69,13 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
     device, or without decode_fn the [N, H, W, C] latents themselves; writes
     `out_npz` when given (by rank 0 under a process group, whose ranks each
     sample their rows of every batch and all return every sample). Under a
-    `mesh` (a MeshConfig) with fsdp above 1 the batch splits over all data x
-    fsdp ranks, as reed_tpu's batch_sharding splits it; the parameters are
-    whole on every rank. Prints the rate of the batches after the first,
+    `mesh` (a MeshConfig) the batch splits over the data x fsdp batch
+    indices, as reed_tpu's batch_sharding splits it; the parameters are
+    whole on every rank but under tensor, where model_fn's SiT holds a
+    tensor rank's shards. Prints the rate of the batches after the first,
     with the sampling and the decode timed apart."""
     device = resolve_device(device)
-    dp = data_parallel(mesh, batch_size=cfg.batch_size)
+    dp = data_parallel(mesh, batch_size=cfg.batch_size, model_parallel=True)
     n_iters = math.ceil(cfg.num_samples / cfg.batch_size)
     shape = (cfg.batch_size, cfg.latent_size, cfg.latent_size,
              cfg.latent_channels)

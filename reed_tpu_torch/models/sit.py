@@ -24,6 +24,19 @@ attention kernel K1 launches outside the dispatcher, so no policy keeps
 its output: under remat it runs again in the backward. The blocks draw no
 random numbers (the label drop happens before them), so the recompute
 sees what the forward saw.
+
+`parallel` (a parallel.mesh.DataParallel) splits the model over its seq
+and tensor axes. Under tensor T each block holds a tensor rank's shards
+(nn/layers.Attention and Mlp: H/T heads, 1/T of the MLP; the parameter
+names stay the reference's, the shapes are the shards',
+parallel/mesh.shard_state_dict); the embedders, adaLN linears,
+final layer and projectors are whole on every rank. Under seq S a rank
+patchifies the whole latent and keeps its slice of the tokens (and of the
+position embedding), its blocks attend to every rank's keys, the velocity
+and the per-token projector outputs are gathered over the seq group and
+the pooled ('t') projector takes the mean of every rank's tokens, so every
+rank returns the whole outputs. A checkpointed block runs its collectives
+again in its recompute, in one order on every rank.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from reed_tpu_torch.nn.layers import (
     patchify,
     unpatchify,
 )
+from reed_tpu_torch.parallel.collectives import gather_seq, sum_seq
 
 
 # jax.checkpoint_policies names -> the aten products whose outputs a block
@@ -103,32 +117,37 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_channels, hidden_size, patch_size,
                               stride=patch_size)
 
-    def forward(self, x):
+    def forward(self, x, tokens: Optional[slice] = None):
+        """The embedding of the patches of x ([B, H, W, C]), of the slice
+        `tokens` of them where given."""
         w = self.proj.weight.to(x.dtype)
         w = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)  # [D, p*p*C]
-        return F.linear(patchify(x, self.patch_size), w, self.proj.bias.to(x.dtype))
+        patches = patchify(x, self.patch_size)
+        if tokens is not None:
+            patches = patches[:, tokens]
+        return F.linear(patches, w, self.proj.bias.to(x.dtype))
 
 
 class SiTBlock(nn.Module):
     """adaLN-Zero transformer block."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, tensor: int = 1):
         super().__init__()
-        self.attn = Attention(hidden_size, num_heads, qkv_bias=True)
+        self.attn = Attention(hidden_size, num_heads, qkv_bias=True, tensor=tensor)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
-                       exact_gelu=exact_gelu)
+                       exact_gelu=exact_gelu, tensor=tensor)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
 
-    def forward(self, x, c, attn_impl: str = "auto"):
+    def forward(self, x, c, attn_impl: str = "auto", parallel=None):
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = linear(
              F.silu(c), self.adaLN_modulation[1]).chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
-        x = x + gate_msa[:, None, :] * self.attn(h, attn_impl=attn_impl)
+        x = x + gate_msa[:, None, :] * self.attn(h, attn_impl=attn_impl, parallel=parallel)
         h = modulate(layer_norm(x), shift_mlp, scale_mlp)
-        return x + gate_mlp[:, None, :] * self.mlp(h)
+        return x + gate_mlp[:, None, :] * self.mlp(h, parallel=parallel)
 
 
 class FinalLayer(nn.Module):
@@ -152,10 +171,23 @@ class SiT(nn.Module):
                  z_dims: Sequence[int] = (768,), z_types: Sequence[str] = ("i",),
                  projector_dim: int = 2048, attn_impl: str = "auto",
                  exact_gelu: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None, remat: Any = False):
+                 compute_dtype: Optional[torch.dtype] = None, remat: Any = False,
+                 parallel=None):
         super().__init__()
         # what a block saves under activation checkpointing (remat_saves)
         self.remat_saves = remat_saves(remat)
+        # the mesh (a parallel.mesh.DataParallel) whose seq and tensor axes
+        # split this model, or None
+        self.parallel = parallel
+        tensor = 1 if parallel is None else parallel.tensor
+        seq = 1 if parallel is None else parallel.seq
+        num_tokens = (input_size // patch_size) ** 2
+        if num_tokens % seq:
+            raise ValueError(f"seq={seq} does not divide SiT's {num_tokens} tokens")
+        # this rank's tokens under seq
+        n = num_tokens // seq
+        self.tokens = (None if seq == 1 else
+                       slice(parallel.seq_index * n, (parallel.seq_index + 1) * n))
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -178,7 +210,8 @@ class SiT(nn.Module):
             torch.as_tensor(pos, device=self.x_embedder.proj.weight.device)[None],
             persistent=False)
         self.blocks = nn.ModuleList(
-            SiTBlock(hidden_size, num_heads, mlp_ratio, exact_gelu=exact_gelu)
+            SiTBlock(hidden_size, num_heads, mlp_ratio, exact_gelu=exact_gelu,
+                     tensor=tensor)
             for _ in range(depth))
         self.projectors = nn.ModuleList(
             ProjectorMLP(hidden_size, projector_dim, z) for z in z_dims)
@@ -220,8 +253,9 @@ class SiT(nn.Module):
         if return_zs is None:
             return_zs = train
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
-        x = self.x_embedder(x.to(dtype))
-        x = x + self.pos_embed.to(dtype)
+        x = self.x_embedder(x.to(dtype), self.tokens)
+        pos = self.pos_embed if self.tokens is None else self.pos_embed[:, self.tokens]
+        x = x + pos.to(dtype)
         c = self.t_embedder(t, dtype) + self.y_embedder(
             y, dtype, train=train, drop=drop, generator=generator)
 
@@ -232,39 +266,52 @@ class SiT(nn.Module):
             x = self._block(block, x, c)
             if return_zs and (i + 1) == self.encoder_depth:
                 if not split_text:
-                    zs_image = [self._project(j, x if zt == "i" else x.mean(dim=1), dtype)
+                    zs_image = [self._project(j, x, dtype) if zt == "i"
+                                else self._project_pooled(j, x, dtype)
                                 for j, zt in enumerate(self.z_types)]
                 else:
                     zs_image = [self._project(j, x, dtype)
                                 for j, zt in enumerate(self.z_types) if zt == "i"]
             if return_zs and split_text and (i + 1) == depth_text:
-                zs_text = [self._project(j, x.mean(dim=1), dtype)
+                zs_text = [self._project_pooled(j, x, dtype)
                            for j, zt in enumerate(self.z_types) if zt == "t"]
 
         zs = None
         if return_zs:
             zs = (list(zs_image or []) + list(zs_text or []) if split_text
                   else zs_image)
-        x = self.final_layer(x, c)
-        return unpatchify(x.float(), self.patch_size, self.in_channels), zs
+        x = gather_seq(self.final_layer(x, c).float(), 1, self.parallel)
+        return unpatchify(x, self.patch_size, self.in_channels), zs
 
     def _block(self, block, x, c):
         """`block` on (x, c), checkpointed as `remat` asks where autograd
         records."""
         saves = self.remat_saves
         if saves is None or not torch.is_grad_enabled():
-            return block(x, c, attn_impl=self.attn_impl)
+            return block(x, c, attn_impl=self.attn_impl, parallel=self.parallel)
         kwargs = {}
         if saves:
             kwargs["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts,
                 functools.partial(_save_products, frozenset(saves)))
-        return checkpoint(block, x, c, self.attn_impl, use_reentrant=False, **kwargs)
+        return checkpoint(block, x, c, self.attn_impl, self.parallel, use_reentrant=False,
+                          **kwargs)
 
     def _project(self, idx: int, h, dtype):
         """Projector `idx` on h taken to f32 and computed in `dtype`, as
-        reed_tpu's _project feeds h.astype(f32) to a Dense of that dtype."""
-        return self.projectors[idx](h.float().to(dtype))
+        reed_tpu's _project feeds h.astype(f32) to a Dense of that dtype;
+        per token, so under seq on this rank's tokens, then gathered."""
+        return gather_seq(self.projectors[idx](h.float().to(dtype)), 1, self.parallel)
+
+    def _project_pooled(self, idx: int, h, dtype):
+        """Projector `idx` on the token mean of h (in `dtype`, as reed_tpu's
+        h.mean(axis=1)); under seq the mean of every rank's tokens, an f32
+        sum over the seq group."""
+        if self.tokens is None:
+            return self._project(idx, h.mean(dim=1), dtype)
+        total = sum_seq(h.float().sum(dim=1), self.parallel)
+        n = self.pos_embed.shape[1]
+        return self.projectors[idx]((total / n).to(dtype))
 
 
 # Size registry mirroring the reference's 12 configs.

@@ -22,6 +22,7 @@ from torch import nn
 
 from reed_tpu_torch.ops.attention import multi_head_attention
 from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.collectives import copy_to_tensor, gather_seq, reduce_from_tensor
 
 
 def linear(x, layer: nn.Linear):
@@ -121,38 +122,104 @@ class LabelEmbedder(nn.Module):
         return F.embedding(y, self.embedding_table.weight.to(dtype))
 
 
+class _F32Product(torch.autograd.Function):
+    """x @ w.T with the product kept in f32 (x and w in one dtype): in bf16
+    the products of bf16 values summed in f32, as a bf16 GEMM does before it
+    rounds its output (torch.mm's out_dtype on CUDA; on the CPU the f32
+    product of the upcast operands, which is exact). The backward is a bf16
+    linear layer's: the output gradient (bf16 values) in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            out = x2 @ w.t()
+        elif x.is_cuda:
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float().t()
+        return out.reshape(x.shape[:-1] + (w.shape[0],))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        g2 = g.reshape(-1, g.shape[-1])
+        return (g2 @ w).reshape(x.shape), g2.t() @ x.reshape(-1, x.shape[-1])
+
+
+def row_parallel(x, layer: nn.Linear, dp):
+    """A row-parallel product in x's dtype: this rank's partial product of
+    its input shard x with its column shard of the weight, in f32, summed
+    over the tensor group, then the whole bias added once and one rounding
+    to x's dtype."""
+    partial = _F32Product.apply(x, layer.weight.to(x.dtype))
+    out = reduce_from_tensor(partial, dp)
+    if layer.bias is not None:
+        out = out + layer.bias.to(x.dtype).float()
+    return out.to(x.dtype)
+
+
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2. GELU is the tanh approximation (flax's default,
     which reed_tpu trains with) unless `exact_gelu`, the erf form of the
-    torch reference checkpoints."""
+    torch reference checkpoints. With `tensor` T above 1 the layer holds a
+    tensor rank's shards: fc1's hidden columns (and bias) and fc2's matching
+    input columns, its whole bias added once after the reduce (Megatron)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, exact_gelu: bool = False):
+    def __init__(self, in_dim: int, hidden_dim: int, exact_gelu: bool = False,
+                 tensor: int = 1):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, in_dim)
+        if hidden_dim % tensor:
+            raise ValueError(f"tensor={tensor} does not divide the MLP's {hidden_dim} "
+                             "hidden units")
+        self.tensor = tensor
+        self.fc1 = nn.Linear(in_dim, hidden_dim // tensor)
+        self.fc2 = nn.Linear(hidden_dim // tensor, in_dim)
         self.approximate = "none" if exact_gelu else "tanh"
 
-    def forward(self, x):
-        return linear(F.gelu(linear(x, self.fc1), approximate=self.approximate),
-                      self.fc2)
+    def forward(self, x, parallel=None):
+        if self.tensor == 1:
+            return linear(F.gelu(linear(x, self.fc1), approximate=self.approximate),
+                          self.fc2)
+        h = F.gelu(linear(copy_to_tensor(x, parallel), self.fc1),
+                   approximate=self.approximate)
+        return row_parallel(h, self.fc2, parallel)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with fused qkv projection."""
+    """Multi-head self-attention with fused qkv projection. With `tensor` T
+    above 1 the layer holds a tensor rank's heads: qkv's rows (and bias) of
+    its H/T heads of q, k and v, and proj's matching input columns, proj's
+    whole bias added once after the reduce (Megatron). Under the seq axis
+    (`parallel.seq` above 1) x is the rank's token slice: its queries
+    attend to every rank's keys and values, gathered over the seq group."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, tensor: int = 1):
         super().__init__()
-        self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        if num_heads % tensor:
+            raise ValueError(f"tensor={tensor} does not divide the {num_heads} attention "
+                             "heads (qkv is split by heads)")
+        self.tensor = tensor
+        self.head_dim = dim // num_heads
+        self.num_heads = num_heads // tensor  # this rank's
+        self.qkv = nn.Linear(dim, 3 * dim // tensor, bias=qkv_bias)
+        self.proj = nn.Linear(dim // tensor, dim)
 
-    def forward(self, x, attn_impl: str = "auto"):
-        b, t, d = x.shape
-        qkv = linear(x, self.qkv).reshape(b, t, 3, self.num_heads, d // self.num_heads)
-        # strided views into qkv: the kernel takes them without a copy
-        out = multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+    def forward(self, x, attn_impl: str = "auto", parallel=None):
+        b, t, _ = x.shape
+        h = copy_to_tensor(x, parallel) if self.tensor > 1 else x
+        qkv = linear(h, self.qkv).reshape(b, t, 3, self.num_heads, self.head_dim)
+        # strided views into qkv (the keys and values gathered over seq):
+        # the kernel takes them without a copy
+        kv = gather_seq(qkv[:, :, 1:], 1, parallel)
+        out = multi_head_attention(qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1],
                                    impl=attn_impl)
-        return linear(out.reshape(b, t, d), self.proj)
+        out = out.reshape(b, t, self.num_heads * self.head_dim)
+        if self.tensor == 1:
+            return linear(out, self.proj)
+        return row_parallel(out, self.proj, parallel)
 
 
 def patchify(x, patch_size: int):

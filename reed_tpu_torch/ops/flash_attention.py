@@ -18,7 +18,10 @@ points; `sdpa_reference` is the counterpart of reed_tpu's `sdpa_xla`.
 A CUDA tensor launches the kernel or raises (`check_layout` says which
 layouts it takes); a CPU tensor runs `sdpa_reference`, as reed_tpu's SiT
 runs `sdpa_xla` on the CPU. The backward, as in the JAX `_flash_bwd_rule`,
-is not a kernel: it recomputes through `sdpa_reference`.
+is not a kernel: it recomputes through `sdpa_reference`. Queries and keys
+may differ in length (q [B, Sq, H, D] against k, v [B, Sk, H, D]): under
+SiT's sequence parallelism a rank's queries are its own tokens and its keys
+every rank's.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ _MAX_HEAD_DIM = 128
 
 
 def sdpa_reference(q, k, v, mask=None):
-    """Plain scaled dot-product attention on [B, S, H, D]; logits scaled by
-    D^-1/2, softmax in f32 and cast back (the counterpart of sdpa_xla).
+    """Plain scaled dot-product attention, q [B, Sq, H, D] against k, v
+    [B, Sk, H, D]; logits scaled by D^-1/2, softmax in f32 and cast back
+    (the counterpart of sdpa_xla).
     `mask` (bool, broadcastable to [B, H, Sq, Sk]) keeps the True keys."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -51,22 +55,23 @@ def sdpa_reference(q, k, v, mask=None):
 
 
 def flash_attention_reference(q, k, v):
-    """Plain attention on [B, S, H, D] at the kernel's (and the TPU
-    kernel's) rounding points: f32 logits scaled by D^-1/2, p = exp(l -
-    rowmax) rounded to the input dtype, p v accumulated in f32, divided by
-    the f32 row sum of the unrounded p, cast to the input dtype."""
+    """Plain attention, q [B, Sq, H, D] against k, v [B, Sk, H, D], at the
+    kernel's (and the TPU kernel's) rounding points: f32 logits scaled by
+    D^-1/2, p = exp(l - rowmax) rounded to the input dtype, p v accumulated
+    in f32, divided by the f32 row sum of the unrounded p, cast to the input
+    dtype."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
-    denom = p.sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # [B, S, H, 1]
+    denom = p.sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # [B, Sq, H, 1]
     return (o / denom).to(q.dtype)
 
 
 def bind(lib):
     """Declare the C interface of a library built from csrc/flash_attention.cu."""
     fn = lib.reed_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.reed_flash_attention_info.argtypes = [ctypes.c_int] * 2 + [
@@ -118,9 +123,10 @@ def _check(q, k, v):
             k.dtype == v.dtype == q.dtype):
         raise ValueError("flash attention kernel takes f32 or bf16 q, k, v of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or not (k.shape == v.shape == q.shape):
-        raise ValueError("flash attention kernel takes q, k, v of one shape "
-                         f"[B, S, H, D], got {tuple(q.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
+            q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError("flash attention kernel takes q [B, Sq, H, D] and k, v "
+                         f"[B, Sk, H, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     check_layout(q.shape, q.dtype, [t.stride() for t in (q, k, v)],
                  [t.data_ptr() for t in (q, k, v)])
@@ -131,13 +137,13 @@ def launch(q, k, v, lib=None):
     nothing. `lib`: a library bound by `bind` (default: the built one)."""
     _check(q, k, v)
     lib = lib or _kernel()
-    b, s, h, d = q.shape
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    b, sq, h, d = q.shape
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = lib.reed_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, s, h, d, *strides, d ** -0.5,
+            int(q.dtype == torch.bfloat16), b, sq, k.shape[1], h, d, *strides, d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("flash attention kernel launch failed: "
@@ -146,7 +152,8 @@ def launch(q, k, v, lib=None):
 
 
 def flash_attention_kernel(q, k, v):
-    """Launch the CUDA kernel on the current stream: [B, S, H, D] -> same."""
+    """Launch the CUDA kernel on the current stream: q [B, Sq, H, D] against
+    k, v [B, Sk, H, D] -> [B, Sq, H, D]."""
     global launches
     o = launch(q, k, v)
     launches += 1
@@ -172,8 +179,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, mask=None):
-    """q, k, v: [B, S, H, D] -> [B, S, H, D]. Differentiable. A masked call
-    runs the plain version (SiT attention is unmasked)."""
+    """q [B, Sq, H, D], k and v [B, Sk, H, D] -> [B, Sq, H, D].
+    Differentiable. A masked call runs the plain version (SiT attention is
+    unmasked)."""
     if mask is not None:
         return sdpa_reference(q, k, v, mask=mask)
     if q.is_cuda and not (torch.is_grad_enabled() and (

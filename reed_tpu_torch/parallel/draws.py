@@ -4,11 +4,12 @@ to the one-process step.
 reed_tpu draws t, eps, label drops, dropout masks and coordinate noise
 once for the global batch from one key. Inside `global_rows(dp)` (which
 the train step and sharded generation enter) each helper here draws at
-the global batch's shape, the local leading size times the world size,
-from the generator every rank holds in the same state, and returns this
-rank's rows [rank*b, (rank+1)*b). Rank r then sees the rows of the draws
-one process makes for the whole batch, and every rank's generator
-advances as that process's does. Outside the block, or with dp None, the
+the global batch's shape, the local leading size times the batch side's
+size (dp.world), from the generator every rank holds in the same state,
+and returns the rows [b*n, (b+1)*n) of this rank's batch index b
+(dp.rank). Each rank then sees the rows of the draws one process makes for
+the whole batch, the seq and tensor ranks of one batch index the same
+ones, and every rank's generator advances as that process's does. Outside the block, or with dp None, the
 helpers are torch.rand, torch.randn and torch.randint. Draws whose leading
 axis is not the batch (a scalar coin) call torch directly.
 """

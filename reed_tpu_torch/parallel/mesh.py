@@ -1,45 +1,60 @@
-"""The mesh axes, data parallelism and the fsdp axis over torch.distributed,
-counterpart of reed_tpu/parallel/mesh.py.
+"""The four mesh axes over torch.distributed, counterpart of
+reed_tpu/parallel/mesh.py.
 
 reed_tpu runs one jit over the global batch on a ('data', 'fsdp', 'seq',
 'tensor') mesh: its gradient is the gradient of the global batch's loss
-and its draws are the global batch's draws. The port runs the 'data' and
-'fsdp' axes: one process a rank (launched by torchrun; NCCL with one card
-a rank, or gloo), each holding the whole model as its working copy and
-rows [r*B/W, (r+1)*B/W) of the global batch of B rows over W = data * fsdp
-ranks, the layout reed_tpu's batch_sharding (over data x fsdp) gives a
-one-process mesh. A step then equals reed_tpu's:
-  * each rank's loss is written so that its mean over the ranks is the
-    global batch's loss (a mean of per-sample terms over equal local
-    batches is; a loss normalised by a count over the batch takes the
-    global count, diffusion/protein_losses.py), so the mean of the ranks'
-    gradients is the global batch's gradient;
-  * every rank draws each batch draw at the global shape from the one
-    generator all ranks share and keeps its rows (parallel/draws.py), and
-    builds host batches (OT couplings included) as one process would
-    before it keeps its rows (`local_rows`).
+and its draws are the global batch's draws. The port runs one process a
+rank (launched by torchrun; NCCL with one card a rank, or gloo), laid out
+as make_mesh reshapes the devices: rank = ((d * F + f) * S + s) * T + t
+for data, fsdp, seq and tensor indices d, f, s, t of sizes D, F, S, T.
 
-The fsdp axis shards the optimizer's state. reed_tpu's make_mesh reshapes
-the devices to (data, fsdp, seq, tensor), so rank r = d * F + f: an fsdp
-group is F consecutive ranks, a data group the D ranks that share f. A
-parameter that reed_tpu's fsdp_spec shards (`fsdp_spec`, `ShardPlan`) is
-owned in F contiguous flat chunks, chunk f by the ranks of fsdp index f:
-its gradient is reduce-scattered over the fsdp group, all-reduced over
-the data group and divided by W (`ShardPlan.reduce_grads`), and Adam's
-moments, the accumulation buffer and the EMA live on the chunk; after the
-update the chunks are all-gathered into every rank's whole parameter.
-Replicated parameters keep the data axis's bucketed all-reduce. A W-rank
-run equals the one-process run up to the order of the reductions, and a
-checkpoint stays one file with one generator state. The parameters are not
-sharded at rest (ROADMAP.md Queue 1 item 7b), and the tensor and seq axes
-are not ported: sizes above 1 raise.
+The batch side is data x fsdp: batch index b = d * F + f holds rows [b *
+B / W, (b + 1) * B / W) of the global batch of B rows over W = D * F, the
+layout reed_tpu's batch_sharding (over data x fsdp) gives a one-process
+mesh; `DataParallel.rank` and `.world` are b and W. A step then equals
+reed_tpu's:
+  * each batch index's loss is written so that its mean over the batch
+    indices is the global batch's loss (a mean of per-sample terms over
+    equal local batches is; a loss normalised by a count over the batch
+    takes the global count, diffusion/protein_losses.py), so the mean of
+    their gradients is the global batch's gradient;
+  * every rank draws each batch draw at the global shape from the one
+    generator all ranks share and keeps the rows of its batch index
+    (parallel/draws.py), and builds host batches (OT couplings included)
+    as one process would before it keeps its rows (`local_rows`). The seq
+    and tensor ranks of one batch index draw the same.
+
+The fsdp axis shards the optimizer's state. A parameter that reed_tpu's
+fsdp_spec shards (`fsdp_spec`, `ShardPlan`) is owned in F contiguous flat
+chunks, chunk f by the ranks of fsdp index f: its gradient is
+reduce-scattered over the fsdp group (the F ranks that share d, s, t),
+all-reduced over the D * S ranks that share (f, t) and divided by D * F *
+S (`ShardPlan.reduce_grads`); Adam's moments, the accumulation buffer and
+the EMA live on the chunk; after the update the chunks are all-gathered
+into every rank's whole parameter. Replicated parameters keep a bucketed
+all-reduce over the replica group (the D * F * S ranks of one tensor
+index). A run equals the one-process run up to the order of the
+reductions, and a checkpoint stays one file with one generator state.
+
+The tensor and seq axes (the image family: SiT) split the model's work.
+Under tensor each rank holds T-th shards of the SiT blocks' products
+(`SIT_TP_RULES`: Megatron's column-parallel qkv and fc1, row-parallel proj
+and fc2, qkv split by heads), and the T ranks of a tensor group (T
+consecutive ranks) run one model between them (parallel/collectives.py);
+under seq each rank runs its S-th of the tokens, attending to every rank's
+keys. Every seq and tensor rank computes the whole loss; the parameter
+gradients are averaged over the replica group. The parameters are not
+sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b), and the tensor and
+seq axes run on the image family only: elsewhere sizes above 1 raise
+(ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional, Sequence
+import re
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +69,10 @@ TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS)
 
-# the ROADMAP.md Queue 1 items of the axes not ported
-NOT_PORTED = {TENSOR_AXIS: "ROADMAP.md Queue 1 item 8 (tensor and seq)",
-              SEQ_AXIS: "ROADMAP.md Queue 1 item 8 (tensor and seq)"}
+# the ROADMAP.md Queue 1 item of the tensor and seq axes outside the image
+# family
+NOT_PORTED = {TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (tensor and seq outside SiT)",
+              SEQ_AXIS: "ROADMAP.md Queue 1 item 8b (tensor and seq outside SiT)"}
 
 # elements a gradient bucket holds at most (256 MB in f32): SiT-XL/2's
 # 675 M parameters go in 11 all-reduces
@@ -65,54 +81,136 @@ BUCKET_ELEMENTS = 1 << 26
 # reed_tpu's minimum leaf size (elements) for fsdp sharding
 FSDP_MIN_SIZE = 65536
 
+# reed_tpu's SIT_TP_RULES in the port's names: (pattern, dimension of the
+# torch weight [out, in] or bias, groups). reed_tpu shards the qkv and fc1
+# kernels' columns (P(None, 'tensor') on [in, out]: the torch weight's
+# dimension 0) and the proj and fc2 kernels' rows (dimension 1). Its rules
+# are layout hints and leave the biases replicated; here the split is real,
+# so the qkv and fc1 biases split with their columns, while the proj and fc2
+# biases stay whole and are added once after the reduce. qkv's dimension 0
+# is 3 groups (q, k, v) of heads x head dim: a rank takes its heads of each.
+SIT_TP_RULES = (
+    (r"\.attn\.qkv\.(weight|bias)$", 0, 3),
+    (r"\.attn\.proj\.weight$", 1, 1),
+    (r"\.mlp\.fc1\.(weight|bias)$", 0, 1),
+    (r"\.mlp\.fc2\.weight$", 1, 1),
+)
+
+
+def tensor_rule(name: str, rules: Sequence[tuple]) -> Optional[Tuple[int, int]]:
+    """(dimension, groups) of the first rule whose pattern `name` matches,
+    or None where the parameter is replicated over the tensor axis."""
+    for pattern, dim, groups in rules:
+        if re.search(pattern, name):
+            return dim, groups
+    return None
+
+
+def tensor_split(whole: torch.Tensor, rule: Tuple[int, int], tensor: int,
+                 index: int) -> torch.Tensor:
+    """Tensor rank `index`'s shard of `whole` under `rule` (dimension,
+    groups): dimension `dim` read as [groups, tensor, n] and slot `index`
+    taken from each group (contiguous). Raises ValueError where the
+    dimension does not split."""
+    dim, groups = rule
+    shape = tuple(whole.shape)
+    if shape[dim] % (groups * tensor):
+        raise ValueError(f"a dimension of {shape[dim]} ({groups} groups) does not split "
+                         f"over tensor={tensor}")
+    view = whole.reshape(shape[:dim] + (groups, tensor, shape[dim] // (groups * tensor))
+                         + shape[dim + 1:])
+    part = view.select(dim + 1, index)
+    return part.reshape(shape[:dim] + (-1,) + shape[dim + 1:]).contiguous()
+
+
+def tensor_join(shards: Sequence[torch.Tensor], rule: Tuple[int, int]) -> torch.Tensor:
+    """The whole tensor of the shards of every tensor rank, in rank order
+    (the inverse of tensor_split)."""
+    dim, groups = rule
+    shape = tuple(shards[0].shape)
+    parts = [t.reshape(shape[:dim] + (groups, shape[dim] // groups) + shape[dim + 1:])
+             for t in shards]
+    return torch.cat(parts, dim=dim + 1).reshape(
+        shape[:dim] + (shape[dim] * len(shards),) + shape[dim + 1:])
+
+
+def shard_state_dict(state_dict: Mapping, parallel,
+                     rules: Sequence[tuple]) -> Dict[str, torch.Tensor]:
+    """A whole state_dict as tensor rank `parallel.tensor_index` of
+    `parallel.tensor`'s (None or tensor 1: the whole one): each entry that
+    a rule of `rules` names split by tensor_split, the rest as it is. The
+    inverse is ShardPlan.join_state_dict, so checkpoints and reference
+    weights stay one file of whole parameters whatever the tensor size."""
+    if parallel is None or parallel.tensor == 1:
+        return dict(state_dict)
+    out = {}
+    for name, value in state_dict.items():
+        rule = tensor_rule(name, rules)
+        out[name] = value if rule is None else tensor_split(
+            value, rule, parallel.tensor, parallel.tensor_index)
+    return out
+
 
 def fsdp_spec(shape: Sequence[int], fsdp_size: int,
-              min_size: int = FSDP_MIN_SIZE) -> Optional[int]:
-    """The dimension of `shape` that reed_tpu's fsdp_spec (without a tensor
-    spec) shards over an fsdp axis of `fsdp_size`, or None where the leaf
-    stays replicated: a leaf is sharded when it has at least 2 dimensions
-    and `min_size` elements and some dimension (dimension 0 first, then the
-    largest) is divisible by fsdp_size and at least twice it. Whether a leaf
-    is sharded is the same for any order of its dimensions, so a torch
-    Linear weight [out, in] is sharded exactly when the flax kernel [in,
-    out] is; the dimension named is the one of the shape given. The port
-    shards flat chunks, not this dimension (ShardPlan)."""
+              min_size: int = FSDP_MIN_SIZE, taken: Optional[int] = None) -> Optional[int]:
+    """The dimension of `shape` that reed_tpu's fsdp_spec shards over an
+    fsdp axis of `fsdp_size`, or None where the leaf stays replicated: a
+    leaf is sharded when it has at least 2 dimensions and `min_size`
+    elements and some dimension (dimension 0 first, then the largest) other
+    than `taken` (the one a tensor rule took, reed_tpu's tensor_spec) is
+    divisible by fsdp_size and at least twice it. `shape` is the whole
+    leaf's. Whether a leaf is sharded is the same for any order of its
+    dimensions, so a torch Linear weight [out, in] is sharded exactly when
+    the flax kernel [in, out] is; the dimension named is the one of the
+    shape given. The port shards flat chunks, not this dimension
+    (ShardPlan)."""
     if fsdp_size <= 1 or len(shape) < 2 or math.prod(shape) < max(1, min_size):
         return None
     order = [0] + sorted(range(1, len(shape)), key=lambda i: -shape[i])
     for i in order:
-        if shape[i] % fsdp_size == 0 and shape[i] >= 2 * fsdp_size:
+        if i != taken and shape[i] % fsdp_size == 0 and shape[i] >= 2 * fsdp_size:
             return i
     return None
 
 
-def check_mesh(mesh, world: int, batch_size: Optional[int] = None):
+def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
+               model_parallel: bool = False):
     """What stands in for reed_tpu's make_mesh: `mesh` (a MeshConfig) must
-    ask for data * fsdp = `world` ranks (data None takes world / fsdp, as
-    make_mesh's data=None absorbs the rest), and `batch_size` (the global
-    batch) must split evenly over the ranks. Returns (data, fsdp). Raises
-    NotImplementedError for tensor or seq above 1 and ValueError
-    otherwise."""
-    for axis, size in ((TENSOR_AXIS, mesh.tensor), (SEQ_AXIS, mesh.seq)):
-        if size is not None and size > 1:
-            raise NotImplementedError(
-                f"mesh axis '{axis}' of size {size} is not ported: the port runs the "
-                f"'data' and 'fsdp' axes only; '{axis}' is {NOT_PORTED[axis]}")
+    ask for data * fsdp * seq * tensor = `world` ranks (data None takes the
+    rest, as make_mesh's data=None does), and `batch_size` (the global
+    batch) must split evenly over the data * fsdp batch indices. The seq
+    and tensor axes run where `model_parallel` (the image family, SiT);
+    elsewhere sizes above 1 raise NotImplementedError naming ROADMAP.md
+    Queue 1 item 8b. Returns (data, fsdp); raises ValueError otherwise."""
+    seq, tensor = mesh.seq or 1, mesh.tensor or 1
+    if not model_parallel:
+        for axis, size in ((TENSOR_AXIS, tensor), (SEQ_AXIS, seq)):
+            if size > 1:
+                raise NotImplementedError(
+                    f"mesh axis '{axis}' of size {size} is not ported for this model "
+                    f"family: the port runs 'tensor' and 'seq' on SiT (train-image, "
+                    f"generate-image) only; '{axis}' here is {NOT_PORTED[axis]}")
     fsdp = mesh.fsdp or 1
-    if fsdp < 1 or world % fsdp:
+    inner = fsdp * seq * tensor
+    axes = f"fsdp={fsdp}" + "".join(f" x {a}={n}" for a, n in ((SEQ_AXIS, seq),
+                                                              (TENSOR_AXIS, tensor)) if n > 1)
+    names = "data x fsdp" + (" x seq x tensor" if seq * tensor > 1 else "")
+    if min(fsdp, seq, tensor) < 1 or world % inner:
         raise ValueError(
-            f"mesh fsdp={fsdp} does not divide the {world} process(es) that run: launch "
-            f"data x fsdp ranks (torchrun --nproc_per_node {fsdp} -m reed_tpu_torch.cli "
+            f"mesh {axes} does not divide the {world} process(es) that run: launch "
+            f"{names} ranks (torchrun --nproc_per_node {inner} -m reed_tpu_torch.cli "
             "... --distributed)")
-    data = world // fsdp if mesh.data is None else mesh.data
-    if data * fsdp != world:
+    data = world // inner if mesh.data is None else mesh.data
+    if data * inner != world:
+        sizes = " x ".join(str(n) for n in (data, fsdp) + ((seq, tensor) if seq * tensor > 1
+                                                          else ()))
         raise ValueError(
-            f"mesh data={data}, but {world} process(es) run, and data x fsdp = {data} x "
-            f"{fsdp} ranks: launch one process a rank (torchrun --nproc_per_node "
-            f"{data * fsdp} -m reed_tpu_torch.cli ... --distributed)")
-    if batch_size is not None and batch_size % world:
+            f"mesh data={data}, but {world} process(es) run, and {names} = {sizes} "
+            f"ranks: launch one process a rank (torchrun --nproc_per_node "
+            f"{data * inner} -m reed_tpu_torch.cli ... --distributed)")
+    if batch_size is not None and batch_size % (data * fsdp):
         raise ValueError(f"a global batch of {batch_size} does not split over "
-                         f"{world} ranks")
+                         f"{data * fsdp} ranks")
     return data, fsdp
 
 
@@ -164,68 +262,142 @@ def _buckets(sizes: Sequence[int], dtypes: Sequence[torch.dtype],
     return out
 
 
-# (default group, fsdp) -> (this rank's fsdp group, its data group)
+# (default group, data, fsdp, seq, tensor) -> this rank's groups
 _subgroups: Dict = {}
 
+# the axes that vary within each group of a rank (the others are fixed)
+GROUP_AXES = {
+    "tensor": (TENSOR_AXIS,),              # one model's shards
+    "seq": (SEQ_AXIS,),                    # one model's token slices
+    "fsdp": (FSDP_AXIS,),                  # one chunking of the sharded state
+    "data": (DATA_AXIS, SEQ_AXIS),         # the ranks that share (f, t)
+    "replica": (DATA_AXIS, FSDP_AXIS, SEQ_AXIS),  # the ranks of one tensor index
+    "batch": (DATA_AXIS, FSDP_AXIS),       # one rank a batch index
+}
 
-def _fsdp_groups(world: int, fsdp: int):
-    """This rank's fsdp group (F consecutive ranks) and data group (the
-    ranks of its fsdp index), made once for the default group: every rank
-    makes every group, in one order, as new_group requires."""
-    key = (dist.group.WORLD, fsdp)
+
+def mesh_coords(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
+    """{axis: index} of `rank` on make_mesh's row-major (data, fsdp, seq,
+    tensor) layout with axis sizes `sizes`."""
+    coords = {}
+    for axis in reversed(MESH_AXES):
+        coords[axis] = rank % sizes[axis]
+        rank //= sizes[axis]
+    return coords
+
+
+def mesh_rank(coords: Dict[str, int], sizes: Dict[str, int]) -> int:
+    """The rank at `coords` (the inverse of mesh_coords)."""
+    rank = 0
+    for axis in MESH_AXES:
+        rank = rank * sizes[axis] + coords[axis]
+    return rank
+
+
+def group_ranks(kind: str, rank: int, sizes: Dict[str, int]) -> List[int]:
+    """The ranks of `rank`'s group of `kind` (GROUP_AXES), ascending."""
+    mine = mesh_coords(rank, sizes)
+    return [r for r in range(math.prod(sizes.values()))
+            if all(c == mine[a] for a, c in mesh_coords(r, sizes).items()
+                   if a not in GROUP_AXES[kind])]
+
+
+def _mesh_groups(sizes: Dict[str, int]) -> Dict[str, object]:
+    """This rank's process group of each kind of GROUP_AXES: None where it
+    is this rank alone (nothing to communicate), the default group where it
+    is every rank, else a subgroup. Made once for the default group: every
+    rank makes every subgroup, in one order, as new_group requires."""
+    key = (dist.group.WORLD,) + tuple(sizes[a] for a in MESH_AXES)
     if key not in _subgroups:
-        rank, mine = dist.get_rank(), [None, None]
-        for d in range(world // fsdp):
-            g = dist.new_group(list(range(d * fsdp, (d + 1) * fsdp)))
-            if rank // fsdp == d:
-                mine[0] = g
-        for f in range(fsdp):
-            g = dist.new_group(list(range(f, world, fsdp)))
-            if rank % fsdp == f:
-                mine[1] = g
-        _subgroups[key] = tuple(mine)
+        world, rank = math.prod(sizes.values()), dist.get_rank()
+        mine = {}
+        for kind in GROUP_AXES:
+            size = math.prod(sizes[a] for a in GROUP_AXES[kind])
+            if size == 1:
+                mine[kind] = None
+                continue
+            if size == world:
+                mine[kind] = dist.group.WORLD
+                continue
+            seen = []
+            for r in range(world):
+                ranks = group_ranks(kind, r, sizes)
+                if ranks in seen:
+                    continue
+                seen.append(ranks)
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[kind] = group
+        _subgroups[key] = mine
     return _subgroups[key]
 
 
 class DataParallel:
-    """This process's place on the data x fsdp mesh of the default process
-    group: `rank`, `world` (the batch side: rank r holds rows r of W),
-    `data` and `fsdp` (the axes' sizes), `fsdp_index` (f of r = d * F + f),
-    `is_main`, and the collectives the port's data parallelism runs.
-    Collectives on host data run on `device` (the rank's current card
-    under NCCL, the CPU under gloo)."""
+    """This process's place on the (data, fsdp, seq, tensor) mesh of the
+    default process group and the collectives the port runs over it. The
+    batch side: `rank` (the batch index b = d * F + f) and `world` (D * F),
+    so batch index b holds rows b of W; `data`, `fsdp`, `seq` and `tensor`
+    (the axes' sizes), `fsdp_index`, `seq_index`, `tensor_index`,
+    `process_rank` (the rank in the process group), `replicas` (D * F * S,
+    the ranks that hold one tensor index of the parameters) and `is_main`
+    (process rank 0). Its groups (`tensor_group`, `seq_group`,
+    `fsdp_group`, `data_group`, `replica_group`, `batch_group`; None where
+    the group is this rank alone) are GROUP_AXES'. Collectives on host data
+    run on `device` (the rank's current card under NCCL, the CPU under
+    gloo)."""
 
-    def __init__(self, fsdp: int = 1, fsdp_min_size: Optional[int] = None):
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+    def __init__(self, fsdp: int = 1, fsdp_min_size: Optional[int] = None, seq: int = 1,
+                 tensor: int = 1):
+        self.process_rank = dist.get_rank()
+        processes = dist.get_world_size()
         self.backend = dist.get_backend()
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if self.backend == "nccl" else torch.device("cpu"))
-        self.fsdp = fsdp
-        self.data = self.world // fsdp
-        self.fsdp_index = self.rank % fsdp
+        self.fsdp, self.seq, self.tensor = fsdp, seq, tensor
+        self.data = processes // (fsdp * seq * tensor)
+        self.sizes = {DATA_AXIS: self.data, FSDP_AXIS: fsdp, SEQ_AXIS: seq, TENSOR_AXIS: tensor}
+        coords = mesh_coords(self.process_rank, self.sizes)
+        self.fsdp_index, self.seq_index = coords[FSDP_AXIS], coords[SEQ_AXIS]
+        self.tensor_index = coords[TENSOR_AXIS]
+        self.rank = coords[DATA_AXIS] * fsdp + self.fsdp_index
+        self.world = self.data * fsdp
+        self.replicas = self.world * seq
         self.fsdp_min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
-        self.fsdp_group, self.data_group = (_fsdp_groups(self.world, fsdp) if fsdp > 1
-                                            else (None, None))
+        groups = _mesh_groups(self.sizes)
+        self.tensor_group, self.seq_group = groups["tensor"], groups["seq"]
+        self.fsdp_group, self.data_group = groups["fsdp"], groups["data"]
+        self.replica_group, self.batch_group = groups["replica"], groups["batch"]
+
+    def __deepcopy__(self, memo):
+        # a model that holds its mesh (SiT) is copied with the same groups
+        return self
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.process_rank == 0
 
-    def shard_plan(self, named_params) -> Optional["ShardPlan"]:
-        """The ShardPlan of `named_params` (name, tensor) on this mesh, or
-        None where the fsdp axis is 1."""
-        return ShardPlan(self, named_params) if self.fsdp > 1 else None
+    def shard_plan(self, named_params, tp_rules: Sequence[tuple] = ()) -> Optional["ShardPlan"]:
+        """The ShardPlan of `named_params` (name, tensor: this rank's tensor
+        shards under `tp_rules`) on this mesh, or None where the fsdp and
+        tensor axes are 1."""
+        if self.fsdp > 1 or self.tensor > 1:
+            return ShardPlan(self, named_params, tp_rules)
+        return None
 
     def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean over the ranks of each gradient, all-reduced in flat
-        buckets of up to BUCKET_ELEMENTS (one dtype a bucket); returns views
-        into the buckets, in the order given."""
+        """The mean over the replica group of each gradient (the global
+        batch's gradient: a seq rank's is S times its tokens' share,
+        parallel/collectives.py), all-reduced in flat buckets of up to
+        BUCKET_ELEMENTS (one dtype a bucket); returns views into the
+        buckets, in the order given (the gradients themselves where the
+        replica group is this rank alone)."""
+        if self.replica_group is None:
+            return list(grads)
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         for part in _buckets([g.numel() for g in grads], [g.dtype for g in grads]):
             flat = torch.cat([grads[i].reshape(-1) for i in part])
-            dist.all_reduce(flat)
-            flat.div_(self.world)
+            dist.all_reduce(flat, group=self.replica_group)
+            flat.div_(self.replicas)
             for i, view in zip(part, torch.split(flat, [grads[i].numel() for i in part])):
                 out[i] = view.view(grads[i].shape)
         return out
@@ -243,39 +415,53 @@ class DataParallel:
         dist.all_gather_into_tensor(out.view(-1), row, group=self.fsdp_group)
         return out
 
+    def tensor_gather(self, shard: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank of the tensor group's `shard`, by tensor index."""
+        shard = shard.contiguous()
+        out = torch.empty((self.tensor,) + tuple(shard.shape), dtype=shard.dtype,
+                          device=shard.device)
+        dist.all_gather_into_tensor(out.view(-1), shard.view(-1), group=self.tensor_group)
+        return list(out.unbind())
+
+    def _batch_sum(self, x: torch.Tensor):
+        if self.batch_group is not None:
+            dist.all_reduce(x, group=self.batch_group)
+
     def mean_metrics(self, metrics: Dict) -> Dict:
-        """The tensor entries of `metrics` (scalars) averaged over the
-        ranks in one all-reduce on their device, with no host sync; other
-        entries as they are."""
+        """The tensor entries of `metrics` (scalars) averaged over the batch
+        indices (the seq and tensor ranks of one hold the same) in one
+        all-reduce on their device, with no host sync; other entries as
+        they are."""
         keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
         if not keys:
             return dict(metrics)
         flat = torch.stack([metrics[k].float().reshape(()) for k in keys])
-        dist.all_reduce(flat)
+        self._batch_sum(flat)
         flat.div_(self.world)
         return {**metrics, **dict(zip(keys, flat.unbind()))}
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of `x` over the ranks (a new tensor, no gradient)."""
+        """The sum of `x` over the batch indices (a new tensor, no gradient)."""
         x = x.detach().clone()
-        dist.all_reduce(x)
+        self._batch_sum(x)
         return x
 
     def all_sum_host(self, x: np.ndarray) -> np.ndarray:
-        """The sum over the ranks of a host array, in f64."""
+        """The sum over the batch indices of a host array, in f64."""
         t = torch.as_tensor(np.asarray(x, np.float64), device=self.device)
-        dist.all_reduce(t)
+        self._batch_sum(t)
         return t.cpu().numpy()
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows `x` stacked in rank order: each rank writes its
-        rows into a zeroed buffer of the global shape, then one all-reduce
-        (a sum) fills it. Works under NCCL and gloo alike."""
+        """Every batch index's rows `x` stacked in batch order: each rank
+        writes its rows into a zeroed buffer of the global shape, then one
+        all-reduce (a sum) over the batch group fills it. Works under NCCL
+        and gloo alike."""
         b = x.shape[0]
         full = torch.zeros((b * self.world,) + tuple(x.shape[1:]), dtype=x.dtype,
                            device=x.device)
         full[self.rank * b:(self.rank + 1) * b] = x
-        dist.all_reduce(full)
+        self._batch_sum(full)
         return full
 
     def barrier(self):
@@ -283,33 +469,50 @@ class DataParallel:
 
 
 class ShardPlan:
-    """Which of a model's parameters the fsdp axis shards (reed_tpu's rule,
-    `fsdp_spec` with the mesh's fsdp_min_size), and the collectives over
-    them. A sharded parameter of n elements is owned in F flat chunks of
-    n / F (fsdp_spec only shards a leaf with a dimension divisible by F);
-    `local` gives this rank's chunk as a view, so an update in place of
-    the chunk updates the working copy. State lists (gradients, moments,
-    EMA) are in parameter order, chunks where `sharded`."""
+    """Which of a model's parameters the tensor and fsdp axes shard, and the
+    collectives over them. `named_params` are this rank's: the tensor shards
+    of the parameters `tp_rules` name (`tensor[i]`, its (dimension, groups),
+    None where replicated over tensor). The fsdp axis shards a parameter
+    where reed_tpu's rule (`fsdp_spec` of the whole shape with the mesh's
+    fsdp_min_size, the tensor rule's dimension taken) does (`sharded[i]`):
+    its tensor shard of n elements is owned in F flat chunks of n / F
+    (fsdp_spec only shards a leaf with another dimension divisible by F);
+    `local` gives this rank's chunk as a view, so an update in place of the
+    chunk updates the working copy. State lists (gradients, moments, EMA)
+    are in parameter order, chunks where `sharded`."""
 
-    def __init__(self, dp: DataParallel, named_params):
+    def __init__(self, dp: DataParallel, named_params, tp_rules: Sequence[tuple] = ()):
         self.dp = dp
         named = list(named_params)
+        tensor = getattr(dp, "tensor", 1)
         self.names = [n for n, _ in named]
+        self.tp_rules = tuple(tp_rules)
         self.shapes = [tuple(p.shape) for _, p in named]
-        self.sharded = [fsdp_spec(p.shape, dp.fsdp, dp.fsdp_min_size) is not None
-                        for _, p in named]
+        self.tensor = [tensor_rule(n, tp_rules) if tensor > 1 else None for n in self.names]
+        self.whole_shapes = [
+            shape if rule is None else
+            shape[:rule[0]] + (shape[rule[0]] * tensor,) + shape[rule[0] + 1:]
+            for shape, rule in zip(self.shapes, self.tensor)]
+        self.sharded = [
+            fsdp_spec(shape, dp.fsdp, dp.fsdp_min_size,
+                      taken=None if rule is None else rule[0]) is not None
+            for shape, rule in zip(self.whole_shapes, self.tensor)]
         self.index = {n: i for i, n in enumerate(self.names)}
 
     @property
     def any_sharded(self) -> bool:
         return any(self.sharded)
 
+    @property
+    def any_tensor(self) -> bool:
+        return any(r is not None for r in self.tensor)
+
     def chunk_size(self, i: int) -> int:
         return math.prod(self.shapes[i]) // self.dp.fsdp
 
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """This rank's chunk of tensor `t` of parameter `i` (a view; `t`
-        itself where the parameter is replicated)."""
+        itself where the parameter is replicated over fsdp)."""
         if not self.sharded[i]:
             return t
         n = self.chunk_size(i)
@@ -318,9 +521,23 @@ class ShardPlan:
     def local_named(self, name: str, t: torch.Tensor) -> torch.Tensor:
         return self.local(self.index[name], t)
 
+    def tensor_local(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor shard of a whole tensor of parameter `i`."""
+        if whole.shape != self.whole_shapes[i]:
+            raise ValueError(f"{self.names[i]}: {tuple(whole.shape)}, the whole parameter "
+                             f"is {self.whole_shapes[i]}")
+        if self.tensor[i] is None:
+            return whole
+        return tensor_split(whole, self.tensor[i], self.dp.tensor, self.dp.tensor_index)
+
+    def share(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole tensor of parameter `i`: the fsdp
+        chunk of its tensor shard."""
+        return self.local(i, self.tensor_local(i, whole).contiguous())
+
     def resident_elements(self) -> int:
         """Elements of one copy of the state a rank holds: the chunks of the
-        sharded parameters and the whole replicated ones."""
+        fsdp-sharded parameters and the rest of its tensor shards."""
         return sum(self.chunk_size(i) if s else math.prod(self.shapes[i])
                    for i, s in enumerate(self.sharded))
 
@@ -331,11 +548,12 @@ class ShardPlan:
         return [[idx[j] for j in part] for part in parts]
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean over every rank of each whole gradient in `grads`, as
-        this rank keeps it: the chunk of a sharded parameter (reduce-scatter
-        over the fsdp group, all-reduce over the data group, / W, in flat
-        buckets) and the whole of a replicated one (the data axis's
-        bucketed all-reduce over every rank)."""
+        """The mean over the replica group of each gradient in `grads`, as
+        this rank keeps it: the chunk of an fsdp-sharded parameter
+        (reduce-scatter over the fsdp group, all-reduce over the data group
+        of the D * S ranks that share (f, t), / D * F * S, in flat buckets)
+        and the whole of the rest (the replica group's bucketed
+        all-reduce)."""
         dp, F = self.dp, self.dp.fsdp
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         repl = [i for i, s in enumerate(self.sharded) if not s]
@@ -344,9 +562,9 @@ class ShardPlan:
         for part in self._sharded_buckets([g.dtype for g in grads]):
             buf = torch.cat([grads[i].reshape(F, -1) for i in part], dim=1)
             mine = dp.reduce_scatter(buf)
-            if dp.data > 1:
+            if dp.data_group is not None:
                 dist.all_reduce(mine, group=dp.data_group)
-            mine = mine.div(dp.world)
+            mine = mine.div(dp.replicas)
             for i, view in zip(part, torch.split(mine, [self.chunk_size(i) for i in part])):
                 out[i] = view
         return out
@@ -358,10 +576,10 @@ class ShardPlan:
             yield part, self.dp.all_gather(torch.cat([chunks[i] for i in part]))
 
     def gather(self, tensors: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
-        """The whole tensors of a state list (chunks where sharded) in the
-        parameters' shapes, gathered over the fsdp group bit for bit;
-        replicated entries as they are. A collective: every rank of the
-        group calls it."""
+        """The tensors of a state list in the parameters' shapes on this rank
+        (its tensor shards), the chunks gathered over the fsdp group bit for
+        bit; entries replicated over fsdp as they are. A collective: every
+        rank of the group calls it."""
         out = list(tensors)
         for part, full in self._gather_whole(tensors):
             off = 0
@@ -371,15 +589,35 @@ class ShardPlan:
                 off += n
         return out
 
+    def join(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The whole tensors of a list in the parameters' shapes on this rank
+        (its tensor shards), joined over the tensor group (a collective)."""
+        return [t if rule is None else tensor_join(self.dp.tensor_gather(t), rule)
+                for t, rule in zip(tensors, self.tensor)]
+
+    def whole(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The whole tensors of a state list: `gather`, then `join`."""
+        return self.join(self.gather(tensors))
+
     def gather_named(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """`gather` of a state dict keyed by parameter name (the EMA)."""
-        whole = self.gather([state[n] for n in self.names])
-        return dict(zip(self.names, whole))
+        return dict(zip(self.names, self.gather([state[n] for n in self.names])))
+
+    def whole_named(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """`whole` of a state dict keyed by parameter name (the EMA)."""
+        return dict(zip(self.names, self.whole([state[n] for n in self.names])))
+
+    def join_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The model's whole state_dict from this rank's: the parameters'
+        tensor shards joined, other entries (buffers) as they are."""
+        out = dict(state_dict)
+        out.update(zip(self.names, self.join([state_dict[n] for n in self.names])))
+        return out
 
     @torch.no_grad()
     def gather_params(self, params: Sequence[torch.Tensor]):
-        """All-gather every rank's updated chunks into the whole parameters
-        (in place)."""
+        """All-gather every rank's updated chunks into the parameters' tensor
+        shards (in place)."""
         whole = self.gather([self.local(i, p) for i, p in enumerate(params)])
         for i, p in enumerate(params):
             if self.sharded[i]:
@@ -387,15 +625,23 @@ class ShardPlan:
 
     def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole gradient from this rank's `grads`:
-        the squares of the sharded chunks summed over the fsdp group, those
-        of the replicated leaves added once."""
-        sh = [g for g, s in zip(grads, self.sharded) if s]
-        rp = [g for g, s in zip(grads, self.sharded) if not s]
-        sq = torch.stack(torch._foreach_norm(sh)).square().sum()
-        dist.all_reduce(sq, group=self.dp.fsdp_group)
-        if rp:
-            sq = sq + torch.stack(torch._foreach_norm(rp)).square().sum()
-        return sq.sqrt()
+        the squares of the fsdp chunks summed over the fsdp group, then
+        those of the tensor shards over the tensor group, those of the
+        replicated leaves added once."""
+        def sq(keep):
+            g = [g for i, g in enumerate(grads) if keep(i)]
+            return (torch.stack(torch._foreach_norm(g)).square().sum() if g
+                    else grads[0].new_zeros((), dtype=torch.float32))
+
+        chunks = torch.stack([sq(lambda i: self.sharded[i] and self.tensor[i] is None),
+                              sq(lambda i: self.sharded[i] and self.tensor[i] is not None)])
+        if self.dp.fsdp > 1:
+            dist.all_reduce(chunks, group=self.dp.fsdp_group)
+        tp = chunks[1] + sq(lambda i: not self.sharded[i] and self.tensor[i] is not None)
+        if self.dp.tensor > 1:
+            dist.all_reduce(tp, group=self.dp.tensor_group)
+        return (chunks[0] + sq(lambda i: not self.sharded[i] and self.tensor[i] is None)
+                + tp).sqrt()
 
 
 def init_distributed(device="cuda", backend: Optional[str] = None,
@@ -430,15 +676,17 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
     return device, DataParallel()
 
 
-def data_parallel(mesh=None, batch_size: Optional[int] = None) -> Optional[DataParallel]:
-    """The data-parallel context of the default process group on `mesh`'s
-    data x fsdp axes, carrying its fsdp size and min size (the rule of its
-    ShardPlan), or None when there is no group (one process, no
-    collectives), after `check_mesh` of `mesh` and the global `batch_size`
-    against its world size."""
+def data_parallel(mesh=None, batch_size: Optional[int] = None,
+                  model_parallel: bool = False) -> Optional[DataParallel]:
+    """The context of the default process group on `mesh`'s axes, carrying
+    its fsdp size and min size (the rule of its ShardPlan), or None when
+    there is no group (one process, no collectives), after `check_mesh` of
+    `mesh` and the global `batch_size` against its world size
+    (`model_parallel`: the image family, whose SiT runs the seq and tensor
+    axes)."""
     mesh = MeshConfig() if mesh is None else mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
-    _, fsdp = check_mesh(mesh, world, batch_size)
+    _, fsdp = check_mesh(mesh, world, batch_size, model_parallel)
     if not dist.is_initialized():
         return None
-    return DataParallel(fsdp, mesh.fsdp_min_size)
+    return DataParallel(fsdp, mesh.fsdp_min_size, mesh.seq or 1, mesh.tensor or 1)

@@ -1,6 +1,8 @@
 """Image-domain trainer: SiT flow matching with REED alignment, counterpart
 of reed_tpu/train/image.py, on one device or over torch.distributed's
-data x fsdp ranks (parallel/mesh.py).
+(data, fsdp, seq, tensor) mesh (parallel/mesh.py): under tensor each rank
+holds its shards of SiT's blocks (SIT_TP_RULES) and their Adam state and
+EMA, under seq its slice of the tokens.
 
 One train step draws t, eps and the CFG label drops, runs SiT in its
 compute dtype (bf16 by default) with f32 master weights cast where they
@@ -28,7 +30,8 @@ from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig, flow_matching_loss
 from reed_tpu_torch.models.sit import SiT, create_sit
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (SIT_TP_RULES, data_parallel, local_batch,
+                                         shard_state_dict)
 
 # reed_tpu's attn_impl names -> the port's SiT choice: the kernel K1 on
 # CUDA tensors, or plain attention
@@ -60,24 +63,39 @@ class ImageTrainConfig:
 
 
 def build_model(cfg: ImageTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> SiT:
+                generator: Optional[torch.Generator] = None, parallel=None) -> SiT:
     """The configured SiT on `device` with f32 parameters initialised from
     `generator` (reed_tpu's initialisation), computing in cfg.compute_dtype,
-    its blocks checkpointed as cfg.remat asks. Raises ValueError on an
-    unknown attn_impl or remat policy."""
+    its blocks checkpointed as cfg.remat asks, split over the seq and
+    tensor axes of `parallel` (a parallel.mesh.DataParallel): the whole
+    model is initialised as one process does, then a tensor rank keeps its
+    shards. Raises ValueError on an unknown attn_impl or remat policy, and
+    where the tensor size does not divide the heads or seq the tokens."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {sorted(ATTN_IMPLS)}, "
                          f"got {cfg.attn_impl!r}")
-    model = create_sit(
-        cfg.model, device=device,
-        input_size=cfg.input_size, in_channels=cfg.in_channels,
-        num_classes=cfg.num_classes, encoder_depth=cfg.encoder_depth,
-        encoder_depth_text=cfg.encoder_depth_text, z_dims=tuple(cfg.z_dims),
-        z_types=tuple(cfg.z_types), projector_dim=cfg.projector_dim,
-        class_dropout_prob=cfg.class_dropout_prob,
-        attn_impl=ATTN_IMPLS[cfg.attn_impl], exact_gelu=cfg.exact_gelu,
-        compute_dtype=getattr(torch, cfg.compute_dtype), remat=cfg.remat)
-    model.initialize_weights(generator)
+
+    def create(mesh):
+        return create_sit(
+            cfg.model, device=device,
+            input_size=cfg.input_size, in_channels=cfg.in_channels,
+            num_classes=cfg.num_classes, encoder_depth=cfg.encoder_depth,
+            encoder_depth_text=cfg.encoder_depth_text, z_dims=tuple(cfg.z_dims),
+            z_types=tuple(cfg.z_types), projector_dim=cfg.projector_dim,
+            class_dropout_prob=cfg.class_dropout_prob,
+            attn_impl=ATTN_IMPLS[cfg.attn_impl], exact_gelu=cfg.exact_gelu,
+            compute_dtype=getattr(torch, cfg.compute_dtype), remat=cfg.remat,
+            parallel=mesh)
+
+    tensor = parallel is not None and parallel.tensor > 1
+    model = create(parallel)  # raises first where the mesh does not fit
+    if tensor:
+        whole = create(None)
+        whole.initialize_weights(generator)
+        model.load_state_dict(shard_state_dict(whole.state_dict(), parallel, SIT_TP_RULES))
+        del whole
+    else:
+        model.initialize_weights(generator)
     return model.eval()
 
 
@@ -124,15 +142,16 @@ class ImageTrainer:
     def __init__(self, cfg: ImageTrainConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, model_parallel=True)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._train_step = make_train_step(make_loss_fn(cfg.loss), cfg.curriculum,
                                            accum_steps=cfg.optim.accum_steps, dp=self.dp)
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+            device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=SIT_TP_RULES)
 
     def train_step(self, state: TrainState, batch, t=None, eps=None, drop=None):
         """One step on a batch (numpy or tensors, moved to the trainer's

@@ -328,7 +328,8 @@ def test_convergence_tool_runs_tiny(tmp_path):
 
 
 def test_unported_settings_raise(tmp_path):
-    """The tensor and seq axes are not ported and raise; remat is ported
+    """The tensor and seq axes are ported (tests/test_torch_tensor_parallel.py):
+    --sp 2 on one process raises naming the torchrun line; remat is ported
     (tests/test_torch_remat.py): True and 'dots' train, an unknown policy
     raises; --fsdp 2 and data=2 without two ranks raise naming torchrun;
     the flags ported since (--ckpt-dir, --sample-every, --enc-type, --vae,
@@ -351,7 +352,8 @@ def test_unported_settings_raise(tmp_path):
         cli.main(["train-image", "--steps", "1", *TINY_CLI, "--dp", "2"])
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(["train-image", "--steps", "1", *TINY_CLI, "--fsdp", "2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="seq=2 does not divide the 1 process.*"
+                                         "torchrun --nproc_per_node 2"):
         cli.main(["train-image", "--steps", "1", *TINY_CLI, "--sp", "2"])
     assert cli.main(["train-image", "--steps", "1", "--dp", "1", *TINY_CLI]).step == 1
     state = cli.main(["train-image", "--steps", "1", "--ckpt-dir", str(tmp_path),

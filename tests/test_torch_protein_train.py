@@ -275,12 +275,12 @@ def test_unported_settings_raise():
     assert ProteinTrainer(ProteinTrainConfig(compute_dtype="bfloat16"),
                           device="cpu").cfg.compute_dtype == "bfloat16"
     # data=2 and fsdp=2 need two ranks (torchrun; tests/test_torch_fsdp.py);
-    # the tensor axis is not ported
+    # the tensor axis runs on SiT only
     with pytest.raises(ValueError, match="torchrun"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(fsdp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(tensor=2)), device="cpu")
 
 

@@ -345,12 +345,12 @@ def test_refusals():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, compute_dtype="float16"), device="cpu")
     # data=2 and fsdp=2 need two ranks (torchrun; tests/test_torch_fsdp.py);
-    # the seq axis is not ported
+    # the seq axis runs on SiT only
     with pytest.raises(ValueError, match="torchrun"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(fsdp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
         ms.SemlaTrainer(dataclasses.replace(tcfg, mesh=ms.MeshConfig(seq=2)), device="cpu")
 
 

@@ -2,9 +2,10 @@
 subprocesses that meet through a FileStore (no TCP port), and the tiny
 trainer cases that tests/test_torch_data_parallel.py holds against one
 process, tests/test_torch_fsdp.py at fsdp=2 against data=2,
-tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process and
-tests/test_torch_remat.py under SiT remat (`settings` sets their mesh,
-config fields and optimizer).
+tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process,
+tests/test_torch_remat.py under SiT remat and
+tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes
+(`settings` sets their mesh, config fields and optimizer).
 
     python tests/torch_dp.py JOB DIR
 
@@ -229,8 +230,18 @@ def run_case(name):
             state, m = trainer.train_step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
     return {"metrics": metrics, "grads": grads, "lr": trainer.cfg.optim.lr,
-            "params": {k: v.detach().clone() for k, v in state.model.named_parameters()},
-            "state": whole_state(state), "resident": resident(state)}
+            "params": whole_params(state), "state": whole_state(state),
+            "resident": resident(state)}
+
+
+def whole_params(state):
+    """The model's parameters by name, whole (joined over the tensor group
+    where the model holds tensor shards: a collective), as copies."""
+    params = {k: v.detach() for k, v in state.model.named_parameters()}
+    plan = state.opt.plan
+    if plan is not None:
+        params = plan.join_state_dict(params)
+    return {k: v.clone() for k, v in params.items()}
 
 
 def whole_state(state):
@@ -427,26 +438,35 @@ def state_tensors(state):
     """The parameters, EMA and Adam moments of a TrainState, by name, whole
     (gathered over the fsdp group: a collective)."""
     whole = whole_state(state)
-    out = {f"param/{k}": v.detach().clone() for k, v in state.model.named_parameters()}
+    out = {f"param/{k}": v for k, v in whole_params(state).items()}
     out.update({f"ema/{k}": v for k, v in whole["ema"].items()})
     out.update({f"mu/{i}": v for i, v in enumerate(whole["mu"])})
     out.update({f"nu/{i}": v for i, v in enumerate(whole["nu"])})
     return out
 
 
-def seeded_sit():
+def seeded_sit(parallel=None):
     """A tiny SiT-T/2 with every weight ~ N(0, 0.05) from seed 0, so that
-    attention and the adaLN branches reach the velocity."""
+    attention and the adaLN branches reach the velocity; split over the seq
+    and tensor axes of `parallel` (a DataParallel) where given."""
     from reed_tpu_torch.models.sit import create_sit
+    from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, shard_state_dict
 
     register_tiny_sit()
-    model = create_sit("SiT-T/2", input_size=8, in_channels=4, num_classes=10,
-                       encoder_depth=1, z_dims=(8,), projector_dim=16,
-                       attn_impl="reference").eval()
+
+    def create(mesh):
+        return create_sit("SiT-T/2", input_size=8, in_channels=4, num_classes=10,
+                          encoder_depth=1, z_dims=(8,), projector_dim=16,
+                          attn_impl="reference", parallel=mesh).eval()
+
+    model = create(None)
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in model.parameters():
             p.normal_(0.0, 0.05, generator=gen)
+    if parallel is not None:
+        whole, model = model, create(parallel)
+        model.load_state_dict(shard_state_dict(whole.state_dict(), parallel, SIT_TP_RULES))
     return model
 
 
@@ -526,33 +546,33 @@ def collectives():
     return out
 
 
-def resume_across(out):
-    """The protein case on this mesh: a checkpoint written here at step 2
-    (under out/ckpt_here), and the one-process checkpoint of step 2 the
-    test wrote (out/ckpt_one) restored here, its whole state read back and
-    2 more steps taken. Returns the whole state at step 2 and after the
-    resumed steps."""
+def resume_across(out, case="protein", here="ckpt_here", one="ckpt_one"):
+    """Case `case` on this mesh: a checkpoint written here at step 2 (under
+    out/`here`), and the one-process checkpoint of step 2 the test wrote
+    (out/`one`) restored here, its whole state read back and 2 more steps
+    taken. Returns the whole state at step 2 and after the resumed steps."""
     from reed_tpu_torch.core import checkpoint
 
-    trainer, batches = _protein()
+    trainer, batches = CASES[case]()
     batches += [trainer.synthetic_batch(torch.Generator().manual_seed(12 + i))
                 for i in range(2)]
     state = trainer.init_state()
-    mgr = checkpoint.CheckpointManager(out / "ckpt_here", save_interval_steps=2, dp=trainer.dp)
+    mgr = checkpoint.CheckpointManager(out / here, save_interval_steps=2, dp=trainer.dp)
     for batch in batches[:2]:
         state, _ = trainer.train_step(state, batch)
     mgr.save(state, trainer.generator)
     saved = state_tensors(state)
 
-    trainer, _ = _protein()
+    trainer, _ = CASES[case]()
     state = trainer.init_state()
-    mgr = checkpoint.CheckpointManager(out / "ckpt_one", save_interval_steps=2, dp=trainer.dp)
+    mgr = checkpoint.CheckpointManager(out / one, save_interval_steps=2, dp=trainer.dp)
     mgr.restore(state, trainer.generator)
     restored = state_tensors(state)
     for batch in batches[2:]:
         state, _ = trainer.train_step(state, batch)
+    plan = state.opt.plan
     return {"saved": saved, "restored": restored, "resumed": state_tensors(state),
-            "step": state.step, "sharded": sum(state.opt.plan.sharded)}
+            "step": state.step, "sharded": 0 if plan is None else sum(plan.sharded)}
 
 
 def _job_fsdp_mesh(out, dp):
@@ -597,8 +617,134 @@ def _job_remat(out, dp):
     torch.save(results, out / f"remat_rank{dp.rank}.pt")
 
 
+# --- SiT's tensor and seq axes ---------------------------------------------
+
+# the image case at 64 tokens (input 16, patch 2): four heads, 64 hidden
+TP_FIELDS = {"input_size": 16}
+# the meshes of the two-rank and four-rank jobs
+TP_MESHES = {"tensor": dict(tensor=2), "seq": dict(seq=2)}
+TP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "seq_tensor": dict(seq=2, tensor=2),
+               "fsdp_tensor": dict(fsdp=2, tensor=2)}
+# the CLI runs of the two jobs: train-image and generate-image at tiny widths
+TP_CLI = {"tensor": ["--tp", "2"], "seq": ["--sp", "2"]}
+TP_CLI_4 = {"data_tensor": ["--dp", "2", "--tp", "2"],
+            "fsdp_seq": ["--fsdp", "2", "--sp", "2"]}
+# generate-image's settings beside CLI_TINY's that load train-image's
+# checkpoint at 64 tokens
+TP_GENERATE = ["--set", "input_size=16", "--set", "encoder_depth=1",
+               "--set", "projector_dim=16"]
+
+
+def tp_mesh(**axes):
+    from reed_tpu_torch.core.config import MeshConfig
+
+    return MeshConfig(fsdp_min_size=TINY_MIN_SIZE, **axes)
+
+
+def tp_cli(flags, out, tag):
+    """train-image (2 steps, a checkpoint at step 2 under out/cli_{tag}) and
+    generate-image from its EMA with the mesh flags `flags` through the CLI,
+    at 64 tokens: the trained step and whole parameters."""
+    from reed_tpu_torch import cli
+
+    register_tiny_sit()
+    ckpt = ["--ckpt-dir", str(out / f"cli_{tag}")]
+    state = cli.main(["train-image", "--device", "cpu", "--distributed", *flags,
+                      *CLI_TINY["train-image"], "--steps", "2", "--log-every", "1",
+                      "--set", "input_size=16", *ckpt, "--ckpt-every", "2",
+                      "--set", f"mesh.fsdp_min_size={TINY_MIN_SIZE}"])
+    cli.main(["generate-image", "--device", "cpu", "--distributed", *flags,
+              *CLI_TINY["generate-image"], *TP_GENERATE, *ckpt,
+              "--out", str(out / f"gen_cli_{tag}.npz")])
+    return state.step, whole_params(state)
+
+
+def jax_parity_step(inputs, axes):
+    """One image step on this mesh from the weights, batch and draws (t, eps,
+    label drops) of reed_tpu's step in `inputs`: its metrics, the whole
+    gradients by name, and the whole parameters and EMA after it."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.train_state import make_optimizer
+    from reed_tpu_torch.core.trainer import capture_gradients
+    from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, local_batch, shard_state_dict
+
+    with settings(tp_mesh(**axes), fields=TP_FIELDS):
+        trainer, _ = _image()
+    state = trainer.init_state()
+    plan = state.opt.plan
+    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, SIT_TP_RULES))
+    state.ema = ema_init(state.model, plan=plan)
+    state.opt = make_optimizer(trainer.cfg.optim, list(state.model.parameters()), plan)
+    batch = local_batch(trainer.dp, {"x": torch.as_tensor(inputs["batch"]["x"]),
+                                     "y": torch.as_tensor(inputs["batch"]["y"]).long(),
+                                     "zs": [torch.as_tensor(z) for z in inputs["batch"]["zs"]]})
+    t, eps, drop = local_batch(trainer.dp, tuple(torch.as_tensor(a) for a in inputs["draws"]))
+    with capture_gradients() as grads:
+        state, metrics = trainer.train_step(state, batch, t=t, eps=eps, drop=drop)
+    names = [n for n, _ in state.model.named_parameters()]
+    whole = whole_state(state)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": dict(zip(names, grads[0])), "params": whole_params(state),
+            "ema": whole["ema"]}
+
+
+def _job_tensor_parallel(out, dp):
+    """On two ranks, at tensor=2 and at seq=2: the image case (64 tokens, 'i'
+    and 't' projectors at split depths), with the clip acting, under remat
+    True and 'dots'; the checkpoints across sizes; sharded generation;
+    reed_tpu's step on the same weights and draws; train-image and
+    generate-image through the CLI; and this rank's place on the mesh."""
+    from reed_tpu_torch.eval.fid import generate_samples
+    from reed_tpu_torch.parallel.mesh import data_parallel
+
+    results = {}
+    inputs = torch.load(out / "jax_inputs.pt", weights_only=False)
+    for name, axes in TP_MESHES.items():
+        mesh = tp_mesh(**axes)
+        for remat in (False, True, "dots"):
+            with settings(mesh, fields=dict(TP_FIELDS, remat=remat)):
+                results[name, remat] = run_case("image")
+        with settings(mesh, fields=TP_FIELDS, grad_clip=CLIPPED["image"]):
+            results[name, "clip"] = run_case("image")
+        with settings(mesh, fields=TP_FIELDS):
+            results[name, "resume"] = resume_across(out, "image", f"ckpt_{name}",
+                                                    "ckpt_one_image")
+        parallel = data_parallel(mesh, model_parallel=True)
+        model = seeded_sit(parallel)
+        results[name, "generate"] = generate_samples(
+            lambda x, t, y: model(x, t, y)[0], gen_cfg(), device="cpu", mesh=mesh)
+        results[name, "jax"] = jax_parity_step(inputs[name], axes)
+        results[name, "cli"] = tp_cli(TP_CLI[name], out, name)
+        results[name, "axes"] = (parallel.process_rank, parallel.rank, parallel.world,
+                                 parallel.seq_index, parallel.tensor_index)
+    torch.save(results, out / f"tp_rank{dp.process_rank}.pt")
+
+
+def _job_tensor_parallel_mesh(out, dp):
+    """On four ranks: the image case at data=2 x tensor=2, seq=2 x tensor=2
+    and fsdp=2 x tensor=2; train-image and generate-image through the CLI
+    at --dp 2 --tp 2 and --fsdp 2 --sp 2; each rank's groups."""
+    from torch.distributed import get_process_group_ranks
+
+    from reed_tpu_torch.parallel.mesh import GROUP_AXES, data_parallel
+
+    results = {}
+    for name, axes in TP_MESHES_4.items():
+        with settings(tp_mesh(**axes), fields=TP_FIELDS):
+            results[name] = run_case("image")
+        groups = {kind: getattr(data_parallel(tp_mesh(**axes), model_parallel=True),
+                                f"{kind}_group") for kind in GROUP_AXES}
+        results[name, "groups"] = {kind: None if g is None else get_process_group_ranks(g)
+                                   for kind, g in groups.items()}
+    for name, flags in TP_CLI_4.items():
+        results[name, "cli"] = tp_cli(flags, out, name)
+    torch.save(results, out / f"tp_mesh_rank{dp.process_rank}.pt")
+
+
 JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
-        "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat}
+        "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat,
+        "tensor_parallel": _job_tensor_parallel,
+        "tensor_parallel_mesh": _job_tensor_parallel_mesh}
 
 
 if __name__ == "__main__":
