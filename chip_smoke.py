@@ -21,7 +21,11 @@ no result):
      and a ragged (2, 100 | 256, 4, 72)) against flash_attention_reference,
      and at phase 15's model-parallel layouts (tensor=2: (16, 256, 8, 72)
      on qkv views; seq=2: 128 queries on qkv views against 256 gathered
-     keys and values).
+     keys and values). K2a and K2b also at H = 64 hidden units of D = 128
+     (tensor=2's share of a chain: W2 [128, 64], W3 [64, 128]),
+     the encoder's first chain and the decoder's, f32 and bf16, the
+     partial outputs in f32 as the tensor=2 step writes them, and the bf16
+     decoder case once with bf16 outputs (`message_tp_phase`).
   4. image slice: SiT-XL/2 at full width with seeded N(0, 0.02) weights
      (nonzero adaLN and final layer, so attention reaches the output): one
      model call through the kernel against the same call with plain
@@ -226,11 +230,21 @@ no result):
      its f32 step, its seconds, 28 K1 launches a rank, each rank's memory
      between steps beside the plan's reckoning and its parameter count
      (tensor=2 holds ~452 M of 675 M), and generate_samples (16 images, 8
-     SDE steps, CFG 4.0) against one process to GEN_RTOL; (c) the same
+     SDE steps, CFG 4.0) against one process to GEN_RTOL; then
+     (`mp_protein_report`) the protein step at tensor=2 at 8 x 256, each
+     message chain's hidden units split (K2a/K2b at H = 64): in f32 within
+     TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL of the one-process step (the
+     split sums run in another order), in bf16 within
+     PROTEIN_TP_BF16_FACTOR x the one-process bf16 step's distance from
+     f32, the ranks' whole
+     parameters bitwise equal (SHA-256), 9 K2a + 9 K2b launches a rank, the
+     state's bytes between steps beside the plan's reckoning (~2.43 M of
+     4.28 M parameters a rank), the step's seconds; (c) the same
      over NCCL with one card a rank, and `torchrun ... train-protein
-     --distributed` without and with --fsdp 2 and `torchrun ...
-     train-image --distributed` with --tp 2 and with --sp 2, where the
-     machine has two cards, else a line that says why it did not run.
+     --distributed` without and with --fsdp 2 and with --tp 2 and
+     `torchrun ... train-image --distributed` with --tp 2 and with --sp 2,
+     where the machine has two cards, else a line that says why it did not
+     run.
   16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
      step at batch 48 under remat=True and 'dots' against the step
      without, from the same state and draws (bitwise where a repeated step
@@ -246,7 +260,8 @@ no result):
      on the protein paths, in bf16 on the bf16 protein training and in f32
      on the guided samplers; each on the data-parallel and fsdp steps, K1
      on the remat step and, as K1_tp and K1_sp, on the tensor=2 and seq=2
-     steps), the nvidia-smi line, and last the
+     steps; K2a and K2b at H = 64, as K2a_tp and K2b_tp, on the protein
+     tensor=2 step), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
@@ -289,7 +304,7 @@ from reed_tpu_torch.eval.frechet import compute_activation_stats, frechet_distan
 from reed_tpu_torch.models.sit import create_sit
 from reed_tpu_torch.ops import flash_attention as fa
 from reed_tpu_torch.ops import fused_message as fm
-from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, local_rows, shard_state_dict
+from reed_tpu_torch.parallel.mesh import SIT_AXES, SIT_TP_RULES, local_rows, shard_state_dict
 from reed_tpu_torch.diffusion import se3 as mf_se3
 from reed_tpu_torch.eval import protein_metrics as eval_protein_metrics
 from reed_tpu_torch.models import ipa as ipa_model
@@ -376,6 +391,15 @@ MSG_CASES = [
     ((2, 16, 4, 32, 64), "post", "both"),      # narrow
 ]
 MSG_MAIN = MSG_CASES[2]
+# tensor=2's share of a chain at D = 128 (parallel/mesh.PMPNN_TP_RULES): W2's
+# columns, b2 and W3's rows of H = 64 hidden units. (case, dtype, out_f32):
+# the encoder's first chain and the decoder's with the partial outputs in
+# f32, as the tensor=2 step writes them, and the bf16 decoder case once
+# with its outputs in bf16
+MSG_TP_H = 64
+MSG_TP_CASES = [(case, dtype, True) for case in (MSG_CASES[0], MSG_MAIN)
+                for dtype in (torch.float32, torch.bfloat16)] + [
+    (MSG_MAIN, torch.bfloat16, False)]
 # ProteinMPNN-FMIF log-probs, message chains through the kernel vs the
 # unfused layer math, max abs error over valid positions. f32: summation
 # order only, through 3 + 3 layers. bf16: the unfused math rounds each
@@ -459,7 +483,8 @@ def demangle(symbol):
                               check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         return symbol
-    return name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ")  # template arguments may hold spaces
 
 
 def build_phase():
@@ -617,17 +642,21 @@ def kernel_phase(smi):
     return rows
 
 
-def message_bound(case, dtype):
-    """Least time for one fused message launch: inputs read once (with
-    int32 e_idx and f32 mask) and outputs written once over the memory
-    rate, or the three products' flops over the peak for dtype."""
+def message_bound(case, dtype, h=None, out_f32=False):
+    """Least time for one fused message launch at hidden width h (default
+    D): inputs read once (with int32 e_idx and f32 mask; W2 [D, h], W3 [h,
+    D]) and outputs written once (in f32 with out_f32) over the memory
+    rate, or the three products' 2 E (Ce D + 2 D h) flops over the peak for
+    dtype."""
     (b, l, k, d, ce), mode, outputs = case
+    h = d if h is None else h
     es = torch.finfo(dtype).bits // 8
+    os_ = 4 if out_f32 else es
     e = b * l * k
-    nbytes = (es * (2 * b * l * d + e * ce + ce * d + 2 * d * d + 2 * d) + 4 * e
+    nbytes = (es * (2 * b * l * d + e * ce + ce * d + 2 * d * h + h + d) + 4 * e
               + (4 * e if mode != "none" else 0)
-              + es * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum")))
-    return roofline(nbytes, 2 * e * (ce * d + 2 * d * d), dtype)
+              + os_ * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum")))
+    return roofline(nbytes, 2 * e * (ce * d + 2 * d * h), dtype)
 
 
 def message_inputs(case, dtype, gen):
@@ -701,18 +730,22 @@ GRAD_NAMES = ("d_pre_self", "d_e_feat", "d_nbr_src", "d_w_e", "d_w2", "d_b2",
               "d_w3", "d_b3")
 
 
-def message_backward_bound(case, dtype):
-    """Least time for one backward launch: inputs, cotangents and the eight
-    gradients moved once over the memory rate, or 2*E*(3*Ce*D + 5*D*D) flops
-    (two recomputed products and five backward ones) over the peak."""
+def message_backward_bound(case, dtype, h=None, out_f32=False):
+    """Least time for one backward launch at hidden width h (default D):
+    inputs, cotangents and the eight gradients moved once over the memory
+    rate (the partial ones, d pre_self, d e_feat, d nbr_src and dW_e, in
+    f32 with out_f32), or 2 E (3 Ce D + 5 D h) flops (two recomputed
+    products and five backward ones) over the peak."""
     (b, l, k, d, ce), mode, outputs = case
+    h = d if h is None else h
     es = torch.finfo(dtype).bits // 8
+    gs = 4 if out_f32 else es
     e = b * l * k
-    n_w = ce * d + 2 * d * d + 2 * d
+    n_w = ce * d + 2 * d * h + h + d
     inputs = es * (2 * b * l * d + e * ce + n_w) + 4 * e + (4 * e if mode != "none" else 0)
     cots = es * (b * l * d * (outputs != "msg") + e * d * (outputs != "sum"))
-    grads = es * (2 * b * l * d + e * ce + n_w)
-    return roofline(inputs + cots + grads, 2 * e * (3 * ce * d + 5 * d * d), dtype)
+    grads = gs * (2 * b * l * d + e * ce + ce * d) + es * (n_w - ce * d)
+    return roofline(inputs + cots + grads, 2 * e * (3 * ce * d + 5 * d * h), dtype)
 
 
 def message_backward_phase(smi):
@@ -756,7 +789,7 @@ def message_backward_phase(smi):
                                      f"finite {finite}, weight gradients equal over "
                                      f"two launches {same}")
     # autograd: kernel forward + kernel backward against plain autograd
-    case = MSG_CASES[2]
+    case = MSG_MAIN
     kw = message_inputs(case, torch.float32, gen)
     names = ("pre_self", "e_feat", "nbr_src", "w_e", "w2", "b2", "w3", "b3")
     leaves = {n: kw[n].clone().requires_grad_() for n in names}
@@ -776,6 +809,78 @@ def message_backward_phase(smi):
         f"launches fwd/bwd {counted}")
     if not (rel <= MSG_BWD_RTOL[torch.float32] and counted == (1, 1)):
         raise AssertionError(f"fused_message_mlp autograd: rel err {rel}, launches {counted}")
+    return rows
+
+
+def message_tp_inputs(case, dtype, gen):
+    """message_inputs with W2's first MSG_TP_H columns, b2's entries and
+    W3's rows: tensor rank 0's share of the chain."""
+    kw = message_inputs(case, dtype, gen)
+    h = MSG_TP_H
+    kw.update(w2=kw["w2"][:, :h].contiguous(), b2=kw["b2"][:h].contiguous(),
+              w3=kw["w3"][:h].contiguous())
+    return kw
+
+
+def message_tp_phase(smi):
+    """K2a and K2b at H = MSG_TP_H hidden units (tensor=2's share of a
+    chain, MSG_TP_CASES) against their plain versions at the same H: the
+    forward to MSG_ATOL, each backward gradient to MSG_BWD_RTOL of its
+    largest, the weight gradients bitwise over two launches; device times
+    in turns with the plain versions; the bounds at H."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for case, dtype, out_f32 in MSG_TP_CASES:
+        (b, l, k, d, ce), _, _ = case
+        label = (f"{case[0]} H {MSG_TP_H} {case[1]}/{case[2]} {str(dtype)[6:]}, "
+                 f"outputs in {'f32' if out_f32 else str(dtype)[6:]}")
+        kw = message_tp_inputs(case, dtype, gen)
+        out = fm.fused_message_kernel(**kw, out_f32=out_f32)
+        torch.cuda.synchronize()
+        ref = fm.fused_message_reference(**kw, out_f32=out_f32)
+        if not all(o.dtype == r.dtype for o, r in zip(out, ref) if r is not None):
+            raise AssertionError(f"fused_message {label}: output dtypes differ")
+        err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip(out, ref) if r is not None)
+        bound, bound_by, bound_67 = message_bound(case, dtype, MSG_TP_H, out_f32)
+        times = timed_in_turns({
+            "ms": lambda: fm.fused_message_kernel(**kw, out_f32=out_f32),
+            "plain_ms": lambda: fm.fused_message_reference(**kw, out_f32=out_f32)})
+        fwd = dict(max_abs_err=err, atol=MSG_ATOL[dtype], **times, bound_ms=bound,
+                   bound_by=bound_by, bound_ms_67=bound_67, library_ms=None)
+        log(f"[kernel] fused_message {label} ({smi}): " + json.dumps(fwd))
+        if not err <= MSG_ATOL[dtype]:
+            raise AssertionError(f"fused_message {label}: max abs err {err}")
+        want_sum, want_msg = kw.pop("want_sum"), kw.pop("want_msg")
+        kw["gdh"] = (torch.randn((b, l, d), generator=gen, device="cuda").to(dtype)
+                     if want_sum else None)
+        kw["gmsg"] = (torch.randn((b, l, k, d), generator=gen, device="cuda").to(dtype)
+                      if want_msg else None)
+        out = fm.fused_message_backward_kernel(**kw, out_f32=out_f32)
+        again = fm.fused_message_backward_kernel(**kw, out_f32=out_f32)
+        torch.cuda.synchronize()
+        ref = fm.fused_message_backward_reference(**kw, out_f32=out_f32)
+        rel = {n: ((a.float() - r.float()).abs().max()
+                   / r.float().abs().max().clamp_min(1e-30)).item()
+               for n, a, r in zip(GRAD_NAMES, out, ref)}
+        shapes = all(a.shape == r.shape and a.dtype == r.dtype for a, r in zip(out, ref))
+        finite = all(bool(torch.isfinite(a).all()) for a in out)
+        same = all(torch.equal(a, c) for a, c in zip(out[3:], again[3:]))
+        bound, bound_by, bound_67 = message_backward_bound(case, dtype, MSG_TP_H, out_f32)
+        times = timed_in_turns({
+            "ms": lambda: fm.fused_message_backward_kernel(**kw, out_f32=out_f32),
+            "plain_ms": lambda: fm.fused_message_backward_reference(**kw, out_f32=out_f32)})
+        bwd = dict(max_rel_err=max(rel.values()), rtol=MSG_BWD_RTOL[dtype],
+                   max_abs_err=max((a.float() - r.float()).abs().max().item()
+                                   for a, r in zip(out, ref)),
+                   rel_err=rel, weight_grads_bitwise_equal_over_two_launches=same, **times,
+                   bound_ms=bound, bound_by=bound_by, bound_ms_67=bound_67, library_ms=None)
+        log(f"[kernel] fused_message_bwd {label} ({smi}): " + json.dumps(bwd))
+        if not (shapes and finite and same and bwd["max_rel_err"] <= MSG_BWD_RTOL[dtype]):
+            raise AssertionError(f"fused_message_bwd {label}: relative errors {rel}, shapes "
+                                 f"and dtypes {shapes}, finite {finite}, weight gradients "
+                                 f"equal over two launches {same}")
+        rows[(case, dtype, out_f32)] = {"fwd": fwd, "bwd": bwd}
     return rows
 
 
@@ -4061,6 +4166,12 @@ DP_GEN = dict(GEN, batch_size=16)  # one batch of 16, 8 a rank
 # collectives themselves are held to the witness at RESUME_NOISE_FACTOR
 DP_ORDER_GRAD_RTOL = 1e-4
 DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+# the bf16 protein step at tensor=2 against the one-process f32 step, in
+# multiples of the one-process bf16 step's distance from it: the split
+# chain rounds once after its f32 sum over the ranks, as one process
+# rounds once in the kernel, so the two bf16 steps sit at one distance
+# from f32 up to which elements round the other way
+PROTEIN_TP_BF16_FACTOR = 2.0
 
 
 def dp_step_record(trainer, state, batch, steps):
@@ -4347,21 +4458,24 @@ def mesh_image_step(mesh, gb):
                 params_rank=n, params_whole=sum(p.numel() for p in params))
 
 
-def mesh_protein_step(mesh):
-    """One f32 protein step at 8 x 256 on `mesh` (None: the data axis
-    alone): its (metrics, gradients), state, parameter names and K2a/K2b
-    launches."""
+def mesh_protein_step(mesh, compute_dtype="float32"):
+    """One protein step at 8 x 256 on `mesh` (None: the data axis alone) in
+    compute_dtype: its (metrics, gradients), state, parameter names, K2a/K2b
+    launches and seconds."""
     from reed_tpu_torch.core.config import MeshConfig
 
-    trainer = ProteinTrainer(dataclasses.replace(train_config(), mesh=mesh or MeshConfig()),
-                             device="cuda")
+    trainer = ProteinTrainer(dataclasses.replace(train_config(), mesh=mesh or MeshConfig(),
+                                                 compute_dtype=compute_dtype), device="cuda")
     state = trainer.init_state()
     batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(22))
+    torch.cuda.synchronize()
     fm.launches = fm.backward_launches = 0
+    t0 = time.perf_counter()
     state, run = dp_step_record(trainer, state, batch, 1)
     torch.cuda.synchronize()
     return dict(run=run, state=state, launches=(fm.launches, fm.backward_launches),
-                names=[n for n, _ in state.model.named_parameters()])
+                names=[n for n, _ in state.model.named_parameters()],
+                s=time.perf_counter() - t0)
 
 
 def fsdp_rank_part(image, protein):
@@ -4432,6 +4546,17 @@ def dp_rank_main(out_dir, backend):
             t = dp_protein_trainer()
             refs.append(dp_step_record(t, t.init_state(), pbatch, 1)[1])
         result["protein_repeat"] = dp_difference(refs[1], refs[0])
+        # the tensor=2 steps' yardsticks (mp_rank_part): the one-process f32
+        # step, its repeat's difference and the one-process bf16 step's
+        # distance from it
+        tb = ProteinTrainer(dataclasses.replace(train_config(), compute_dtype="bfloat16"),
+                            device="cuda")
+        ref_bf16 = dp_step_record(tb, tb.init_state(), pbatch, 1)[1]
+        pnames = [n for n, _ in tb.init_state().model.named_parameters()]
+        protein_refs = dict(f32=[(m, [g.cpu() for g in gs]) for m, gs in refs[0]],
+                            det=result["protein_repeat"], names=pnames,
+                            bf16_vs_f32=step_errors(ref_bf16[0], refs[0][0], pnames)[:2])
+        del tb, ref_bf16
         witness = dp_protein_witness(pbatch)
         ref_samples, _, _ = dp_generate(dp_seeded_sit())
         torch.cuda.empty_cache()
@@ -4463,7 +4588,8 @@ def dp_rank_main(out_dir, backend):
     t0 = time.perf_counter()
     result["model_parallel"] = mp_rank_part(rank, ref32 if rank == 0 else None,
                                             names if rank == 0 else None,
-                                            ref_samples if rank == 0 else None)
+                                            ref_samples if rank == 0 else None,
+                                            protein_refs if rank == 0 else None)
     result["model_parallel_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
@@ -4479,14 +4605,52 @@ def params_digest(params):
     return digest.hexdigest()
 
 
-def mp_rank_part(rank, ref32, names, ref_samples):
+def mp_protein_step(mesh, compute_dtype):
+    """mesh_protein_step on the host: its (metrics, gradients) on the CPU,
+    seconds, K2a/K2b launches, the bytes its state holds between steps (the
+    allocation the step leaves beside what was there before) beside what
+    the plan reckons (f32 parameters of this rank's shards; mu, nu and the
+    EMA in f32 on its share), the parameters a rank holds and the whole
+    parameters' SHA-256, and the bytes the model's collectives all-reduce
+    over the tensor group in the step (collectives.tensor_bytes) beside
+    those of the replicated leaves' gradients, which the plan averages
+    there."""
+    from reed_tpu_torch.parallel import collectives
+
+    base = torch.cuda.memory_allocated()
+    collectives.tensor_bytes = 0
+    step = mesh_protein_step(mesh, compute_dtype)
+    moved = collectives.tensor_bytes
+    state, plan = step["state"], step["state"].opt.plan
+    run = [(m, [g.cpu() for g in gs]) for m, gs in step.pop("run")]
+    named = {k: p.detach() for k, p in state.model.named_parameters()}
+    params = [p.cpu() for p in (named if plan is None else plan.join_state_dict(named)).values()]
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state.model.parameters())  # this rank's (tensor shards)
+    held = n if plan is None else plan.resident_elements()
+    replicated = sum(int(np.prod(shape)) for shape, rule in zip(plan.shapes, plan.tensor)
+                     if rule is None)
+    row = dict(s=step["s"], launches=list(step["launches"]), tensor_bytes=moved,
+               replicated_grad_bytes=4 * replicated,
+               allocated=torch.cuda.memory_allocated() - base,
+               reckoned=4 * n + (4 + 4 + 4) * held, params_rank=n,
+               params_whole=sum(p.numel() for p in params),
+               params_sha256=params_digest(params))
+    del step, state
+    torch.cuda.empty_cache()
+    return run, row
+
+
+def mp_rank_part(rank, ref32, names, ref_samples, protein_refs):
     """Phase 15's tensor=2 and seq=2 on a rank of its group: the SiT-XL/2
     REED bf16 step at the global batch (its whole gradients against rank
     0's one-process f32 step `ref32`, parameter `names`), its seconds, K1
     launches and memory beside the plan's reckoning; and generate_samples
     of the seeded SiT-XL/2 split the same way, against rank 0's one-process
-    samples `ref_samples`. Each rank's whole parameters after the step go
-    back as their SHA-256 (params_digest)."""
+    samples `ref_samples`. Then the protein step at tensor=2 (each message
+    chain's hidden units split, through K2a/K2b) in f32 and bf16 against
+    rank 0's one-process steps `protein_refs`. Each rank's whole parameters
+    after a step go back as their SHA-256 (params_digest)."""
     from reed_tpu_torch.core.config import MeshConfig
     from reed_tpu_torch.parallel.mesh import data_parallel
 
@@ -4504,7 +4668,7 @@ def mp_rank_part(rank, ref32, names, ref_samples):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         samples, calls, launches = dp_generate(
-            dp_seeded_sit(data_parallel(mesh, model_parallel=True)), mesh)
+            dp_seeded_sit(data_parallel(mesh, axes=SIT_AXES)), mesh)
         row["generate"] = dict(s=time.perf_counter() - t0, calls=calls, launches=launches,
                                shape=list(samples.shape),
                                finite=bool(np.isfinite(samples).all()))
@@ -4513,6 +4677,19 @@ def mp_rank_part(rank, ref32, names, ref_samples):
                                            / abs(ref_samples).max())
         torch.cuda.empty_cache()
         out[axis] = row
+    out["protein"] = {}
+    for dtype in ("float32", "bfloat16"):
+        run, row = mp_protein_step(MeshConfig(tensor=DP["world"]), dtype)
+        if rank == 0:
+            ref = protein_refs["f32"]
+            row["vs_f32"] = step_errors(run[0], ref[0], protein_refs["names"])
+            if dtype == "float32":
+                row["vs_one"] = dp_difference(run, ref)
+                row["det"] = protein_refs["det"]
+            else:
+                row["bf16_vs_f32"] = protein_refs["bf16_vs_f32"]
+            row["loss"] = run[0][0]["loss"]
+        out["protein"][dtype] = row
     return out
 
 
@@ -4655,7 +4832,73 @@ def mp_report(res, seconds, where, tols, smi):
                 raise AssertionError(f"{axis}=2 launches on a rank: {rr}")
             if axis == "tensor" and not rr["params_rank"] < rr["params_whole"]:
                 raise AssertionError(f"tensor=2 holds whole parameters: {rr}")
-    return {axis: res[0][axis]["launches"] for axis in MP_AXES}
+    protein = mp_protein_report([r["protein"] for r in res], where, smi)
+    return dict({axis: res[0][axis]["launches"] for axis in MP_AXES}, protein=protein)
+
+
+def mp_protein_report(res, where, smi):
+    """Phase 15's protein tensor=2 lines and checks from each rank's
+    mp_rank_part: the f32 step against the one-process f32 step within
+    TRAIN_METRIC_RTOL (metrics) and DP_ORDER_GRAD_RTOL (each gradient of
+    its largest), the rule phase 15 holds data=2 to against one process
+    (a split product sums its partials in another order, so no one-process
+    witness reproduces it bit for bit; a repeated one-process step's
+    difference, K2b's atomics, is logged beside it); the bf16 step within
+    PROTEIN_TP_BF16_FACTOR x the one-process bf16 step's distance from the
+    f32 step; the ranks' whole parameters bitwise equal; 9 K2a + 9 K2b
+    launches a rank; fewer parameters a rank than the model's. Returns
+    rank 0's f32 launches."""
+    log(f"[tp] {where}, the protein step at tensor=2 against one process: the default "
+        f"ProteinTrainConfig at {TRAIN['batch']} x {TRAIN['length']}, each rank the whole "
+        f"batch and {MSG_TP_H} of each message chain's 128 hidden units (K2a/K2b at H = "
+        f"{MSG_TP_H}), half of each feed-forward, edge update and projector; over gloo the "
+        "collectives go through the host")
+    for dtype in ("float32", "bfloat16"):
+        r0 = res[0][dtype]
+        metric, grad, worst = r0["vs_f32"]
+        same = len({r[dtype]["params_sha256"] for r in res}) == 1
+        if dtype == "float32":
+            vs_one, det = r0["vs_one"] and tuple(r0["vs_one"]), r0["det"] and tuple(r0["det"])
+            rule = metric <= TRAIN_METRIC_RTOL and grad <= DP_ORDER_GRAD_RTOL
+            log(f"[tp]   f32 step against the one-process f32 step: metrics max rel err "
+                f"{metric:.3g} (rtol {TRAIN_METRIC_RTOL}), gradients max err / max |g| "
+                f"{grad:.3g} at {worst} (rtol {DP_ORDER_GRAD_RTOL}); {describe(vs_one)}; a "
+                f"repeated one-process step {describe(det)}")
+        else:
+            noise_metric, noise_grad = r0["bf16_vs_f32"]
+            tols = (PROTEIN_TP_BF16_FACTOR * noise_metric + 1e-6,
+                    PROTEIN_TP_BF16_FACTOR * noise_grad)
+            rule = metric <= tols[0] and grad <= tols[1]
+            log(f"[tp]   bf16 step against the one-process f32 step: metrics {metric:.3g}, "
+                f"gradients {grad:.3g} at {worst}; bound ({tols[0]:.3g}, {tols[1]:.3g}), "
+                f"{PROTEIN_TP_BF16_FACTOR}x the one-process bf16 step's distance "
+                f"({noise_metric:.3g}, {noise_grad:.3g})")
+        log(f"[tp]   {dtype}: the tensor group all-reduces {r0['tensor_bytes'] / 1e9:.4f} GB "
+            f"of f32 activations and activation gradients a step a rank (the chains' "
+            f"partial messages and input gradients, the feed-forwards, edge updates and "
+            f"projectors), and {r0['replicated_grad_bytes'] / 1e6:.2f} MB of the replicated "
+            f"leaves' gradients")
+        log(f"[tp]   {dtype} loss {r0['loss']:.6g}; the step {r0['s']:.2f} s "
+            f"({1e3 * r0['s']:.1f} ms, a record: gloo through the host); K2a/K2b launches a "
+            f"rank {[r[dtype]['launches'] for r in res]}; the whole parameters after it "
+            f"bitwise equal on every rank: {same} (SHA-256 {r0['params_sha256'][:16]}...)")
+        for rank, r in enumerate(res):
+            rr = r[dtype]
+            log(f"[tp]   {dtype} rank {rank}: the state holds {rr['allocated'] / 1e6:.2f} MB "
+                f"between steps (the plan reckons {rr['reckoned'] / 1e6:.2f} MB: "
+                f"{rr['params_rank'] / 1e6:.3f} M of {rr['params_whole'] / 1e6:.3f} M "
+                f"parameters on the rank, f32 with mu, nu and the EMA) ({smi})")
+        if not rule:
+            raise AssertionError(f"the {where} tensor=2 protein step in {dtype} against one "
+                                 f"process: {r0}")
+        if not same:
+            raise AssertionError(f"the {where} tensor=2 protein step in {dtype}: the ranks' "
+                                 f"whole parameters differ")
+        for r in res:
+            rr = r[dtype]
+            if rr["launches"] != [9, 9] or not rr["params_rank"] < rr["params_whole"]:
+                raise AssertionError(f"the tensor=2 protein step in {dtype} on a rank: {rr}")
+    return tuple(res[0]["float32"]["launches"])
 
 
 def fsdp_report(res, where, smi):
@@ -4735,13 +4978,14 @@ def dp_phases(smi):
             dp_ranks_phase(tmp, "nccl", cards, smi)
             dp_torchrun_phase(tmp, smi, "train-protein")
             dp_torchrun_phase(tmp, smi, "train-protein", "--fsdp", world)
+            dp_torchrun_phase(tmp, smi, "train-protein", "--tp", world)
             for flag in ("--tp", "--sp"):
                 dp_torchrun_phase(tmp, smi, "train-image", *TORCHRUN_IMAGE, flag, world)
         else:
             log(f"[dp] (c) not run: the NCCL ranks, torchrun train-protein --distributed "
-                f"(without and with --fsdp {world}) and torchrun train-image --distributed "
-                f"--tp {world} and --sp {world} need {world} cards (NCCL takes one card a "
-                f"rank) and this machine has {cards}")
+                f"(without, with --fsdp {world} and with --tp {world}) and torchrun "
+                f"train-image --distributed --tp {world} and --sp {world} need {world} cards "
+                f"(NCCL takes one card a rank) and this machine has {cards}")
     return launches, fsdp_launches, mp_launches
 
 
@@ -4892,6 +5136,7 @@ def main():
     attn_rows = timed(kernel_phase, smi)
     msg_rows = timed(message_kernel_phase, smi)
     bwd_rows = timed(message_backward_phase, smi)
+    tp_rows = timed(message_tp_phase, smi)
     attn_launches, attn_f32_launches = timed(slice_phase, smi)
     msg_launches = timed(protein_phase, smi)
     bwd_launches = timed(train_phase, smi)
@@ -4964,6 +5209,12 @@ def main():
                      mp_image["tensor"], source="flash_attention"),
         kernel_entry("K1_sp", "reed_tpu/ops/flash_attention.py:24", attn_rows["sp"],
                      mp_image["seq"], source="flash_attention"),
+        kernel_entry("K2a_tp", "reed_tpu/ops/fused_message.py:132",
+                     tp_rows[(MSG_MAIN, torch.float32, True)]["fwd"], mp_image["protein"][0],
+                     source="fused_message"),
+        kernel_entry("K2b_tp", "reed_tpu/ops/fused_message.py:152",
+                     tp_rows[(MSG_MAIN, torch.float32, True)]["bwd"], mp_image["protein"][1],
+                     source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

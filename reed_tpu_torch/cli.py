@@ -102,7 +102,7 @@ from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
-from reed_tpu_torch.parallel.mesh import local_batch
+from reed_tpu_torch.parallel.mesh import PMPNN_AXES, SIT_AXES, local_batch
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
@@ -128,7 +128,7 @@ def _resolve_cfg(cls, args, flags, defaults=None):
         raise NotImplementedError(
             f"{args.cmd} runs on one process: data-parallel evaluation is ROADMAP.md "
             "Queue 1 item 11")
-    meshlib.check_mesh(cfg.mesh, world, model_parallel=args.model_parallel)
+    meshlib.check_mesh(cfg.mesh, world, axes=args.model_axes)
     return cfg
 
 
@@ -171,7 +171,7 @@ def generate_image(args):
     cfg = _resolve_cfg(ImageTrainConfig, args,
                        {"model": args.model, "seed": args.seed, "compute_dtype": args.dtype},
                        defaults={"exact_gelu": True} if args.ref_ckpt else None)
-    parallel = data_parallel(cfg.mesh, model_parallel=True)
+    parallel = data_parallel(cfg.mesh, axes=SIT_AXES)
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(cfg.seed),
                         parallel=parallel)
@@ -459,9 +459,12 @@ def train_protein(args):
     state = trainer.init_state()
     if args.ref_ckpt:
         from reed_tpu_torch.encoders.fmif_convert import load_reference_checkpoint
+        from reed_tpu_torch.parallel.mesh import PMPNN_TP_RULES, shard_state_dict
 
-        # warm start from a reference fmif checkpoint (train_fmif.py:225-237)
-        state.model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
+        # warm start from a reference fmif checkpoint (train_fmif.py:225-237),
+        # a tensor rank's shards of it
+        state.model.load_state_dict(shard_state_dict(
+            load_reference_checkpoint(args.ref_ckpt), trainer.dp, PMPNN_TP_RULES))
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1474,27 +1477,30 @@ def _add_config(p, what):
                    help="cuda (default) or cpu; no silent fallback")
 
 
-def _add_mesh(p, data_parallel: bool, model_parallel: bool = False):
+def _add_mesh(p, data_parallel: bool, axes=(), splits: str = ""):
     """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
     over the ranks of --distributed (the others raise on more than one),
-    `model_parallel` one whose SiT runs the tensor and seq axes (the others
-    raise on --tp or --sp above 1)."""
-    ranks = "data x fsdp x seq x tensor" if model_parallel else "data x fsdp"
+    `axes` the model axes its family runs (parallel.mesh.SIT_AXES,
+    PMPNN_AXES; the others raise above 1), `splits` what its tensor ranks
+    split."""
+    from reed_tpu_torch.parallel.mesh import NOT_PORTED, SEQ_AXIS, TENSOR_AXIS
+
+    ranks = "data x fsdp" + (" x seq x tensor" if axes else "")
     for flag, axis in (("--dp", "data: the ranks that hold one copy of the optimizer state "
                                 f"and EMA; {ranks} ranks run"),
                        ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA; "
                                   f"{ranks} ranks run"),
-                       ("--tp", "tensor: ranks that split SiT's heads and MLP" if model_parallel
-                        else "tensor: only 1 (ROADMAP.md Queue 1 item 8b)"),
-                       ("--sp", "seq: ranks that split SiT's tokens" if model_parallel
-                        else "seq: only 1 (ROADMAP.md Queue 1 item 8b)")):
+                       ("--tp", f"tensor: ranks that split {splits}" if TENSOR_AXIS in axes
+                        else f"tensor: only 1 ({NOT_PORTED[TENSOR_AXIS]})"),
+                       ("--sp", "seq: ranks that split SiT's tokens" if SEQ_AXIS in axes
+                        else "seq: only 1 (the seq axis splits SiT's tokens alone)")):
         p.add_argument(flag, type=int, default=None, help=f"mesh axis size ({axis})")
     p.add_argument("--distributed", action="store_true",
                    help="join the process group torchrun describes (NCCL with one card a "
                         "rank; gloo with --device cpu)" + (
                             "; --batch-size is the global batch" if data_parallel else
                             "; this subcommand runs on one process"))
-    p.set_defaults(data_parallel=data_parallel, model_parallel=model_parallel)
+    p.set_defaults(data_parallel=data_parallel, model_axes=tuple(axes))
 
 
 def _add_training(p):
@@ -1539,7 +1545,7 @@ def main(argv=None):
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                    help="compute dtype (default: the config's bfloat16)")
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True, model_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=SIT_AXES, splits="SiT's heads and MLP")
     p.set_defaults(fn=generate_image)
 
     p = sub.add_parser("compute-fid")
@@ -1591,7 +1597,8 @@ def main(argv=None):
                    help="warm start from a reference torch fmif checkpoint")
     _add_training(p)
     _add_config(p, "ProteinTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=PMPNN_AXES,
+              splits="ProteinMPNN's message chains (W2/W3 by their hidden width) and MLPs")
     p.set_defaults(fn=train_protein)
 
     p = sub.add_parser("train-image")
@@ -1618,7 +1625,7 @@ def main(argv=None):
                    help="SD-VAE decoder npz for the previews (else latent channels)")
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True, model_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=SIT_AXES, splits="SiT's heads and MLP")
     p.set_defaults(fn=train_image)
 
     p = sub.add_parser("train-molecule-semla")

@@ -48,10 +48,11 @@ class MeshConfig:
     dimensions and `fsdp_min_size` elements (None:
     parallel.mesh.FSDP_MIN_SIZE, 65536) with a dimension that fsdp divides
     (not the one the tensor rule takes). The tensor axis splits SiT's heads
-    and MLP over groups of `tensor` ranks (Megatron), the seq axis its
-    tokens over groups of `seq` ranks; on the other model families tensor
-    and seq above 1 raise, naming ROADMAP.md Queue 1 item 8b
-    (parallel.mesh.check_mesh, which each trainer calls)."""
+    and MLP, and ProteinMPNN's message chains and MLPs, over groups of
+    `tensor` ranks (Megatron), the seq axis SiT's tokens over groups of
+    `seq` ranks; elsewhere tensor above 1 raises, naming ROADMAP.md Queue 1
+    item 8b, and seq above 1 raises (parallel.mesh.check_mesh, which each
+    trainer calls)."""
 
     data: Optional[int] = None
     fsdp: int = 1

@@ -204,12 +204,13 @@ class TrainState:
 
 
 def init_train_state(model: nn.Module, optim: OptimConfig, ema_dtype: Optional[str] = None,
-                     dp=None, tp_rules=()) -> TrainState:
+                     dp=None, tp_rules=(), sync_replicated: bool = False) -> TrainState:
     """The state at step 0 of `model`: its EMA (in `ema_dtype`) and
     optimizer, each over this rank's share where `dp` (a
     parallel.mesh.DataParallel) has an fsdp or tensor axis above 1 (the
     plan is state.opt.plan; `tp_rules` name the parameters that `model`
-    holds tensor shards of)."""
-    plan = None if dp is None else dp.shard_plan(model.named_parameters(), tp_rules)
+    holds tensor shards of; `sync_replicated` as ShardPlan's)."""
+    plan = None if dp is None else dp.shard_plan(model.named_parameters(), tp_rules,
+                                                 sync_replicated)
     return TrainState(step=0, model=model, ema=ema_init(model, ema_dtype, plan),
                       opt=make_optimizer(optim, list(model.parameters()), plan))

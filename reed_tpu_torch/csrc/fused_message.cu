@@ -8,6 +8,18 @@
 //   m2  = gelu(m1 . W2 + b2)
 //   msg = m2 . W3 + b3                                 (times mask[i,k] in mode post)
 // and dh[i] = sum_k msg[i,k] / scale and/or msg. GELU is the erf form in f32.
+// W2 is [D, H] and W3 [H, D]: the hidden width H is D in one process and D /
+// T on a rank of a tensor group of T (Megatron's split of the chain over its
+// hidden units; reed_tpu_torch/ops/fused_message.py), where each rank runs
+// the whole first product, 1/T of the second and third, and returns partial
+// dh and msg that the group sums; `out_f32` then writes those partials (and
+// the backward's partial d pre_self and d e_feat) in f32, so that a bf16
+// chain rounds once, after the sum. Both are compile-time choices of the
+// forward and tile kernels (kOutF32; kSplit: H below D, read from the
+// argument): the H = D instances with outputs in the input dtype are the
+// kernels as they were before H existed, whose tile kernel sits at its
+// 128-register cap, where one more live width spills (m2 and g2 keep rows
+// of D elements in the backward's workspace, their first H used).
 // The backward recomputes pre, m1, z2, m2 per tile, then
 //   g3 = (gdh / scale broadcast over K + gmsg)        (times mask in mode post)
 //   g2 = g3 . W3^T * gelu'(z2);  g1 = g2 . W2^T * gelu'(pre)
@@ -85,7 +97,8 @@
 //
 // The engine refuses (the C entry points return cudaErrorInvalidValue and
 // the Python wrapper raises first, naming the cause): D not a multiple of 16
-// or above 128 (one 128-column pass of output; bf16 k-steps of 16), Ce not
+// or above 128 (one 128-column pass of output; bf16 k-steps of 16), H not a
+// multiple of 16 in [16, D], Ce not
 // a multiple of 8 (16-byte copies), K above a tile's edge rows, and float
 // tensors whose base address is not 16-byte aligned.
 
@@ -94,6 +107,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -773,7 +787,7 @@ constexpr size_t kFwdSmemBytes =
     4 * ((size_t)kFwdStages * (kStageWords + kFwdRows * kAP) + kFwdRows * kFP) +
     (size_t)kFwdRows * 12;
 
-template <class P>
+template <class P, bool kOutF32, bool kSplit>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_message_fwd_kernel(const typename P::T* __restrict__ pre_self,
                              const typename P::T* __restrict__ e_feat,
@@ -783,11 +797,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                              const typename P::T* __restrict__ w2,
                              const typename P::T* __restrict__ b2,
                              const typename P::T* __restrict__ w3,
-                             const typename P::T* __restrict__ b3, typename P::T* __restrict__ dh,
-                             typename P::T* __restrict__ msg, int num_nodes, int L, int K, int D,
-                             int Ce, int nodes_per_tile, int mask_mode, float scale) {
+                             const typename P::T* __restrict__ b3,
+                             std::conditional_t<kOutF32, float, typename P::T>* __restrict__ dh,
+                             std::conditional_t<kOutF32, float, typename P::T>* __restrict__ msg,
+                             int num_nodes, int L, int K, int D, int H_arg, int Ce,
+                             int nodes_per_tile, int mask_mode, float scale) {
   using T = typename P::T;
   constexpr int kMT = kFwdRows / 16 / kWarpsM;
+  const int H = kSplit ? H_arg : D;  // the hidden width
   constexpr int tp = kTP<T>;
   extern __shared__ uint4 smem_u4[];
   uint32_t* b_ring = reinterpret_cast<uint32_t*>(smem_u4);
@@ -831,12 +848,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     store_pair<T>(act, tp, row, col, v0, v1);  // the pair this thread read
   });
 
-  // m2 = round(gelu(m1 . W2 + b2))
+  // m2 = round(gelu(m1 . W2 + b2)), H columns
   zero(acc);
-  product<P, kFwdRows, kFwdStages, false, false>(acc, act, nullptr, 0, 0, nullptr, w2, D, 0, D,
+  product<P, kFwdRows, kFwdStages, false, false>(acc, act, nullptr, 0, 0, nullptr, w2, H, 0, H,
                                                  D, b_ring, ln);
   __syncthreads();  // every read of m1 is done before m2 overwrites it
-  for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
+  for_pairs<kMT>(H, ln, [&](int mt, int nt, int h, int row, int col) {
     float v0 = 0.f, v1 = 0.f;
     if (row < rows) {
       const float2 b = load2(b2 + col);
@@ -849,7 +866,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // msg = m2 . W3 + b3 (* mask); the f32 messages stay in act for dh
   zero(acc);
   product<P, kFwdRows, kFwdStages, false, false>(acc, act, nullptr, 0, 0, nullptr, w3, D, 0, D,
-                                                 D, b_ring, ln);
+                                                 H, b_ring, ln);
   __syncthreads();  // every read of m2 is done before the messages overwrite it
   for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
     if (row >= rows) return;
@@ -890,9 +907,10 @@ static_assert(kBwdStages * kBwdRows * kAP <= kBwdSlotWords,
               "the first product's e_feat ring fits slot B");
 
 // It writes the rounded operands of the weight gradients, ops [5][E][D] of
-// T: m1, m2, g3, g2, ge; and each tile's db2 and db3 (f32 sums) into
-// bias [tiles][2 D]. The weight-gradient kernel computes the rest.
-template <class P>
+// T: m1, m2, g3, g2, ge (m2 and g2 in the first H elements of each row);
+// and each tile's db2 and db3 (f32 sums) into bias [tiles][2 D] (db2 in the
+// first H of its D). The weight-gradient kernel computes the rest.
+template <class P, bool kOutF32, bool kSplit>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_message_bwd_kernel(const typename P::T* __restrict__ pre_self,
                              const typename P::T* __restrict__ e_feat,
@@ -904,12 +922,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                              const typename P::T* __restrict__ w3,
                              const typename P::T* __restrict__ gdh,
                              const typename P::T* __restrict__ gmsg,
-                             typename P::T* __restrict__ d_pre_self,
-                             typename P::T* __restrict__ d_e_feat, float* __restrict__ d_nbr_src,
-                             typename P::T* __restrict__ ops, float* __restrict__ bias,
-                             int num_nodes, int L, int K, int D, int Ce, int nodes_per_tile,
-                             int mask_mode, float scale) {
+                             std::conditional_t<kOutF32, float, typename P::T>* __restrict__
+                                 d_pre_self,
+                             std::conditional_t<kOutF32, float, typename P::T>* __restrict__
+                                 d_e_feat,
+                             float* __restrict__ d_nbr_src, typename P::T* __restrict__ ops,
+                             float* __restrict__ bias, int num_nodes, int L, int K, int D,
+                             int H_arg, int Ce, int nodes_per_tile, int mask_mode, float scale) {
   using T = typename P::T;
+  const int H = kSplit ? H_arg : D;  // the hidden width
   constexpr int kMT = kBwdRows / 16 / kWarpsM;
   constexpr int tp = kTP<T>;
   extern __shared__ uint4 smem_u4[];
@@ -971,13 +992,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     dpre[mt][nt][2 * h + 1] = d1;
   });
 
-  // Recompute 2: z2 = m1 . W2 + b2; m2 = round(gelu(z2)) into ops; gelu'(z2)
-  // in f32 into A (m1 is done)
+  // Recompute 2: z2 = m1 . W2 + b2 (H columns); m2 = round(gelu(z2)) into
+  // ops; gelu'(z2) in f32 into A (m1 is done)
   zero(acc);
-  product<P, kBwdRows, kBwdStages, false, false>(acc, sa, nullptr, 0, 0, nullptr, w2, D, 0, D, D,
+  product<P, kBwdRows, kBwdStages, false, false>(acc, sa, nullptr, 0, 0, nullptr, w2, H, 0, H, D,
                                                  b_ring, ln);
   __syncthreads();  // every read of m1 is done
-  for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
+  for_pairs<kMT>(H, ln, [&](int mt, int nt, int h, int row, int col) {
     float d0 = 0.f, d1 = 0.f;
     if (row < rows) {
       const float2 b = load2(b2 + col);
@@ -1019,29 +1040,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   warp_colsum(acc, colsum, ln);
   store_colsum(db3, colsum, D, false);
 
-  // g2 = round(g3) . W3^T * gelu'(z2) (f32 in acc); db2 = sum g2; round(g2)
-  // into B (g3 is done) and ops
+  // g2 = round(g3) . W3^T * gelu'(z2) (H columns, f32 in acc; the columns
+  // past H stay 0); db2 = sum g2; round(g2) into B (g3 is done) and ops
   zero(acc);
-  product<P, kBwdRows, kBwdStages, true, false>(acc, sb, nullptr, 0, 0, nullptr, w3, D, 0, D, D,
+  product<P, kBwdRows, kBwdStages, true, false>(acc, sb, nullptr, 0, 0, nullptr, w3, D, 0, H, D,
                                                 b_ring, ln);
-  for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
+  for_pairs<kMT>(H, ln, [&](int mt, int nt, int h, int row, int col) {
     const float2 dz = load_pair<float>(sa, kFP, row, col);
     acc[mt][nt][2 * h] *= dz.x;
     acc[mt][nt][2 * h + 1] *= dz.y;
   });
   warp_colsum(acc, colsum, ln);
-  store_colsum(db2, colsum, D, false);  // starts with a barrier: every read of g3 is done
-  for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
+  store_colsum(db2, colsum, H, false);  // starts with a barrier: every read of g3 is done
+  for_pairs<kMT>(H, ln, [&](int mt, int nt, int h, int row, int col) {
     const float g0 = round_to<T>(acc[mt][nt][2 * h]), g1 = round_to<T>(acc[mt][nt][2 * h + 1]);
     if (row < rows) store2(op_g2 + (long long)row * D + col, g0, g1);
     store_pair<T>(sb, tp, row, col, g0, g1);
   });
 
-  // g1 = round(g2) . W2^T * gelu'(pre): g1 in f32 into A (gelu'(z2) is done)
-  // for d pre_self; ge = round(g1 (* mask in mode pre)) into B (g2 is done),
-  // ops and d nbr_src[b, e_idx] (atomic adds)
+  // g1 = round(g2) . W2^T * gelu'(pre) (a reduction over H): g1 in f32 into
+  // A (gelu'(z2) is done) for d pre_self; ge = round(g1 (* mask in mode
+  // pre)) into B (g2 is done), ops and d nbr_src[b, e_idx] (atomic adds)
   zero(acc);
-  product<P, kBwdRows, kBwdStages, true, false>(acc, sb, nullptr, 0, 0, nullptr, w2, D, 0, D, D,
+  product<P, kBwdRows, kBwdStages, true, false>(acc, sb, nullptr, 0, 0, nullptr, w2, H, 0, D, H,
                                                 b_ring, ln);
   __syncthreads();  // every read of g2 is done
   for_pairs<kMT>(D, ln, [&](int mt, int nt, int h, int row, int col) {
@@ -1083,12 +1104,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// The weight-gradient kernel: dW_e = e_feat^T ge, dW2 = m1^T g2, dW3 = m2^T
-// g3 as long TN products over all E edge rows. Block (o, s) computes output
-// block o (64 rows of one weight gradient, all D columns) over the s-th of
-// `ranges` fixed row ranges and writes it to partial[s] (layout dW_e, dW2,
-// dW3); sum_grads_kernel adds the ranges in order. Shared memory: kTnStages
-// stages of an X chunk [kTnRows][kTnCols] and a G chunk [kTnRows][D].
+// The weight-gradient kernel: dW_e = e_feat^T ge [Ce, D], dW2 = m1^T g2
+// [D, H], dW3 = m2^T g3 [H, D] as long TN products over all E edge rows.
+// Block (o, s) computes output block o (64 rows of one weight gradient, all
+// its columns) over the s-th of `ranges` fixed row ranges and writes it to
+// partial[s] (layout dW_e, dW2, dW3); sum_grads_kernel adds the ranges in
+// order. Shared memory: kTnStages stages of an X chunk [kTnRows][kTnCols]
+// and a G chunk [kTnRows][up to kMaxD].
 template <typename T>
 constexpr int kTnStageWords = kTnRows * (kXP<T> + kWP<T>);
 template <typename T>
@@ -1097,32 +1119,35 @@ constexpr size_t kTnSmemBytes = 4 * (size_t)kTnStages * kTnStageWords<T>;
 template <class P>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_message_wgrad_kernel(const typename P::T* __restrict__ e_feat,
-                               const typename P::T* __restrict__ ops, long long E, int D, int Ce,
-                               int ranges, float* __restrict__ partial) {
+                               const typename P::T* __restrict__ ops, long long E, int D, int H,
+                               int Ce, int ranges, float* __restrict__ partial) {
   using T = typename P::T;
   extern __shared__ uint4 smem_u4[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem_u4);
   const Lane ln;
   const int n_ce = (Ce + kTnCols - 1) / kTnCols;
   const int n_d = (D + kTnCols - 1) / kTnCols;
-  const int n_out = n_ce + 2 * n_d;
+  const int n_h = (H + kTnCols - 1) / kTnCols;
+  const int n_out = n_ce + n_d + n_h;
   const int o = blockIdx.x % n_out;  // neighbouring blocks read the same rows
   const int s = blockIdx.x / n_out;
   const T* X;
   const T* G;
-  int ldx, xcol0, mvalid;
-  float* out = partial + (long long)s * ((long long)Ce * D + 2 * D * D);
+  // X and G rows have ldx and D elements, of which xcols and gcols are used
+  int ldx, xcols, xcol0, gcols, mvalid;
+  float* out = partial + (long long)s * ((long long)Ce * D + 2LL * D * H);
   if (o < n_ce) {  // dW_e rows 64 o ..
-    X = e_feat, ldx = Ce, xcol0 = kTnCols * o, G = ops + 4 * E * D;
+    X = e_feat, ldx = xcols = Ce, xcol0 = kTnCols * o, G = ops + 4 * E * D, gcols = D;
     out += (long long)xcol0 * D;
   } else if (o < n_ce + n_d) {  // dW2
-    X = ops, ldx = D, xcol0 = kTnCols * (o - n_ce), G = ops + 3 * E * D;
-    out += (long long)Ce * D + (long long)xcol0 * D;
+    X = ops, ldx = xcols = D, xcol0 = kTnCols * (o - n_ce), G = ops + 3 * E * D, gcols = H;
+    out += (long long)Ce * D + (long long)xcol0 * H;
   } else {  // dW3
-    X = ops + E * D, ldx = D, xcol0 = kTnCols * (o - n_ce - n_d), G = ops + 2 * E * D;
-    out += (long long)Ce * D + (long long)D * D + (long long)xcol0 * D;
+    X = ops + E * D, ldx = D, xcols = H, xcol0 = kTnCols * (o - n_ce - n_d),
+    G = ops + 2 * E * D, gcols = D;
+    out += (long long)Ce * D + (long long)D * H + (long long)xcol0 * D;
   }
-  mvalid = min(kTnCols, ldx - xcol0);
+  mvalid = min(kTnCols, xcols - xcol0);
   const long long chunks = (E + kTnRows - 1) / kTnRows;
   const long long c0 = s * chunks / ranges, c1 = (s + 1) * chunks / ranges;
 
@@ -1136,43 +1161,46 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const long long row0 = (c0 + j) * kTnRows;
         const int valid = (int)min((long long)kTnRows, E - row0);
         copy_fixed<T, kXP<T>, kTnRows, words_of<T>(kTnCols) / 4>(xs, X + row0 * ldx, ldx, valid,
-                                                                xcol0, ldx);
-        if (D == kMaxD)
+                                                                xcol0, xcols);
+        if (gcols == kMaxD)
           copy_fixed<T, kWP<T>, kTnRows, words_of<T>(kMaxD) / 4>(gs, G + row0 * D, D, valid, 0,
                                                                  D);
         else
-          copy_block<T, kWP<T>>(gs, G + row0 * D, D, kTnRows, valid, 0, words_of<T>(D), D);
+          copy_block<T, kWP<T>>(gs, G + row0 * D, D, kTnRows, valid, 0, words_of<T>(gcols),
+                                gcols);
       },
       [&](int, int st) {
         const uint32_t* xs = ring + st * kTnStageWords<T>;
-        tn_accumulate<P, kTnRows, kXP<T>, kWP<T>>(acc, xs, 0, mvalid, xs + kTnRows * kXP<T>, D,
-                                                  ln);
+        tn_accumulate<P, kTnRows, kXP<T>, kWP<T>>(acc, xs, 0, mvalid, xs + kTnRows * kXP<T>,
+                                                  gcols, ln);
       });
-  store_tn(out, 0, mvalid, D, false, acc, ln);
+  store_tn(out, 0, mvalid, gcols, false, acc, ln);
 }
 
 // d_weights = [dW_e, dW2, db2, dW3, db3]: the weight gradients summed over
 // the row ranges in order (one thread an element), and then
 // sum_bias_kernel's bias gradients.
 __global__ void sum_grads_kernel(const float* __restrict__ partial, int ranges, int Ce, int D,
-                                 float* __restrict__ out) {
+                                 int H, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_wm = Ce * D + 2 * D * D;
-  const int end_w2 = Ce * D + D * D;
+  const int n_wm = Ce * D + 2 * D * H;
+  const int end_w2 = Ce * D + D * H;
   if (i >= n_wm) return;
   float s = 0.f;
   for (int b = 0; b < ranges; ++b) s += partial[(long long)b * n_wm + i];
-  out[i < end_w2 ? i : i + D] = s;  // dW3 comes after db2
+  out[i < end_w2 ? i : i + H] = s;  // dW3 comes after db2
 }
 
-// db2 (j < D) and db3 (j >= D) of d_weights: block j sums bias[t][j] over
-// the tiles t, each thread a fixed stride of tiles, then a fixed tree.
-__global__ void sum_bias_kernel(const float* __restrict__ bias, int tiles, int Ce, int D,
+// db2 (j < H) and db3 (j >= H) of d_weights: block j sums its entry of
+// bias[t] (db2's first H of D, then db3's D) over the tiles t, each thread a
+// fixed stride of tiles, then a fixed tree.
+__global__ void sum_bias_kernel(const float* __restrict__ bias, int tiles, int Ce, int D, int H,
                                 float* __restrict__ out) {
   __shared__ float part[kThreads / 32];
   const int j = blockIdx.x;
+  const int at = j < H ? j : D + j - H;
   float s = 0.f;
-  for (int t = threadIdx.x; t < tiles; t += kThreads) s += bias[(long long)t * 2 * D + j];
+  for (int t = threadIdx.x; t < tiles; t += kThreads) s += bias[(long long)t * 2 * D + at];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
@@ -1180,8 +1208,8 @@ __global__ void sum_bias_kernel(const float* __restrict__ bias, int tiles, int C
   if (threadIdx.x == 0) {
     float total = 0.f;
     for (int w = 0; w < kThreads / 32; ++w) total += part[w];
-    const int end_w2 = Ce * D + D * D;
-    out[j < D ? end_w2 + j : end_w2 + D + D * D + (j - D)] = total;
+    const int end_w2 = Ce * D + D * H;
+    out[j < H ? end_w2 + j : end_w2 + H + H * D + (j - H)] = total;
   }
 }
 
@@ -1194,7 +1222,8 @@ __global__ void sum_bias_kernel(const float* __restrict__ bias, int tiles, int C
 // workspace (d_weights' layout); sum_partials_kernel adds the blocks in
 // order. Four operand tiles live at once: m1 (then ge), m2 (then g1 in f32,
 // over the next slot too in bf16), g3, g2 (gelu'(z2) in f32 over it in f32,
-// in a slot of its own in bf16).
+// in a slot of its own in bf16). It takes H = D and outputs in the input
+// dtype only (launch_bwd refuses the rest).
 // ---------------------------------------------------------------------------
 
 template <class P>
@@ -1425,25 +1454,26 @@ __global__ void sum_partials_kernel(const float* __restrict__ workspace, int blo
 // Host side
 // ---------------------------------------------------------------------------
 
-template <class P>
+template <class P, bool kOutF32, bool kSplit>
 cudaError_t launch_fwd(const void* pre_self, const void* e_feat, const void* nbr_src,
                        const int* e_idx, const float* mask, const void* w_e, const void* w2,
                        const void* b2, const void* w3, const void* b3, void* dh, void* msg,
-                       int num_nodes, int L, int K, int D, int Ce, int mask_mode, float scale,
-                       cudaStream_t stream) {
+                       int num_nodes, int L, int K, int D, int H, int Ce, int mask_mode,
+                       float scale, cudaStream_t stream) {
   using T = typename P::T;
-  cudaError_t err = cudaFuncSetAttribute(fused_message_fwd_kernel<P>,
+  using O = std::conditional_t<kOutF32, float, T>;
+  cudaError_t err = cudaFuncSetAttribute(fused_message_fwd_kernel<P, kOutF32, kSplit>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kFwdSmemBytes);
   if (err != cudaSuccess) return err;
   const int nodes_per_tile = kFwdRows / K;
   const int blocks = (num_nodes + nodes_per_tile - 1) / nodes_per_tile;
-  fused_message_fwd_kernel<P><<<blocks, kThreads, kFwdSmemBytes, stream>>>(
+  fused_message_fwd_kernel<P, kOutF32, kSplit><<<blocks, kThreads, kFwdSmemBytes, stream>>>(
       static_cast<const T*>(pre_self), static_cast<const T*>(e_feat),
       static_cast<const T*>(nbr_src), e_idx, mask, static_cast<const T*>(w_e),
       static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(w3),
-      static_cast<const T*>(b3), static_cast<T*>(dh), static_cast<T*>(msg), num_nodes, L, K, D,
-      Ce, nodes_per_tile, mask_mode, scale);
+      static_cast<const T*>(b3), static_cast<O*>(dh), static_cast<O*>(msg), num_nodes, L, K, D,
+      H, Ce, nodes_per_tile, mask_mode, scale);
   return cudaGetLastError();
 }
 
@@ -1466,10 +1496,10 @@ struct BwdPlan {
 };
 
 template <class P>
-cudaError_t bwd_plan(int num_nodes, int K, int D, int Ce, BwdPlan* plan) {
+cudaError_t bwd_plan(int num_nodes, int K, int D, int H, int Ce, BwdPlan* plan) {
   using T = typename P::T;
   const long long E = (long long)num_nodes * K;
-  const long long n_wm = (long long)Ce * D + 2LL * D * D;
+  const long long n_wm = (long long)Ce * D + 2LL * D * H;
   const int nodes_per_tile = kBwdRows / K;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
@@ -1489,7 +1519,8 @@ cudaError_t bwd_plan(int num_nodes, int K, int D, int Ce, BwdPlan* plan) {
     plan->ops_bytes = plan->bias_bytes = 0;
     plan->partial_bytes = align256((size_t)plan->grid * (n_wm + 2 * D) * sizeof(float));
   } else {
-    const int n_out = (Ce + kTnCols - 1) / kTnCols + 2 * ((D + kTnCols - 1) / kTnCols);
+    const int n_out = (Ce + kTnCols - 1) / kTnCols + (D + kTnCols - 1) / kTnCols +
+                      (H + kTnCols - 1) / kTnCols;
     const long long chunks = (E + kTnRows - 1) / kTnRows;
     plan->grid = plan->tiles;
     plan->ranges = (int)std::max(1LL, std::min(chunks, (long long)(2 * sms + n_out - 1) / n_out));
@@ -1500,22 +1531,24 @@ cudaError_t bwd_plan(int num_nodes, int K, int D, int Ce, BwdPlan* plan) {
   return cudaSuccess;
 }
 
-template <class P>
+template <class P, bool kOutF32, bool kSplit>
 cudaError_t launch_bwd(const void* pre_self, const void* e_feat, const void* nbr_src,
                        const int* e_idx, const float* mask, const void* w_e, const void* w2,
                        const void* b2, const void* w3, const void* gdh, const void* gmsg,
                        void* d_pre_self, void* d_e_feat, float* d_nbr_src, float* d_weights,
                        char* workspace, long long workspace_bytes, int num_nodes, int L, int K,
-                       int D, int Ce, int mask_mode, float scale, cudaStream_t stream) {
+                       int D, int H, int Ce, int mask_mode, float scale, cudaStream_t stream) {
   using T = typename P::T;
+  using O = std::conditional_t<kOutF32, float, T>;
   BwdPlan plan;
-  cudaError_t err = bwd_plan<P>(num_nodes, K, D, Ce, &plan);
+  cudaError_t err = bwd_plan<P>(num_nodes, K, D, H, Ce, &plan);
   if (err != cudaSuccess) return err;
   if ((long long)plan.bytes() > workspace_bytes) return cudaErrorInvalidValue;
-  const int n_w = Ce * D + 2 * D * D + 2 * D;
+  const int n_w = Ce * D + 2 * D * H + H + D;
   const int nodes_per_tile = kBwdRows / K;
   float* partial = reinterpret_cast<float*>(workspace + plan.ops_bytes);
   if constexpr (kWgradInTile) {
+    if (H != D || kOutF32) return cudaErrorInvalidValue;
     fused_message_bwd_partials_kernel<P><<<plan.grid, kThreads, PartialsSmem<P>::kBytes,
                                            stream>>>(
         static_cast<const T*>(pre_self), static_cast<const T*>(e_feat),
@@ -1531,51 +1564,69 @@ cudaError_t launch_bwd(const void* pre_self, const void* e_feat, const void* nbr
   } else {
     T* ops = reinterpret_cast<T*>(workspace);
     float* bias = reinterpret_cast<float*>(workspace + plan.ops_bytes + plan.partial_bytes);
-    if ((err = cudaFuncSetAttribute(fused_message_bwd_kernel<P>,
+    if ((err = cudaFuncSetAttribute(fused_message_bwd_kernel<P, kOutF32, kSplit>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)kBwdSmemBytes)) != cudaSuccess ||
         (err = cudaFuncSetAttribute(fused_message_wgrad_kernel<P>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)kTnSmemBytes<T>)) != cudaSuccess)
       return err;
-    fused_message_bwd_kernel<P><<<plan.tiles, kThreads, kBwdSmemBytes, stream>>>(
+    fused_message_bwd_kernel<P, kOutF32, kSplit>
+        <<<plan.tiles, kThreads, kBwdSmemBytes, stream>>>(
         static_cast<const T*>(pre_self), static_cast<const T*>(e_feat),
         static_cast<const T*>(nbr_src), e_idx, mask, static_cast<const T*>(w_e),
         static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(w3),
-        static_cast<const T*>(gdh), static_cast<const T*>(gmsg), static_cast<T*>(d_pre_self),
-        static_cast<T*>(d_e_feat), d_nbr_src, ops, bias, num_nodes, L, K, D, Ce, nodes_per_tile,
-        mask_mode, scale);
+        static_cast<const T*>(gdh), static_cast<const T*>(gmsg), static_cast<O*>(d_pre_self),
+        static_cast<O*>(d_e_feat), d_nbr_src, ops, bias, num_nodes, L, K, D, H, Ce,
+        nodes_per_tile, mask_mode, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int n_out = (Ce + kTnCols - 1) / kTnCols + 2 * ((D + kTnCols - 1) / kTnCols);
+    const int n_out = (Ce + kTnCols - 1) / kTnCols + (D + kTnCols - 1) / kTnCols +
+                      (H + kTnCols - 1) / kTnCols;
     fused_message_wgrad_kernel<P><<<n_out * plan.ranges, kThreads, kTnSmemBytes<T>, stream>>>(
-        static_cast<const T*>(e_feat), ops, (long long)num_nodes * K, D, Ce, plan.ranges,
+        static_cast<const T*>(e_feat), ops, (long long)num_nodes * K, D, H, Ce, plan.ranges,
         partial);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    sum_grads_kernel<<<(n_w - 2 * D + 255) / 256, 256, 0, stream>>>(partial, plan.ranges, Ce, D,
-                                                                   d_weights);
+    sum_grads_kernel<<<(n_w - H - D + 255) / 256, 256, 0, stream>>>(partial, plan.ranges, Ce, D,
+                                                                   H, d_weights);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    sum_bias_kernel<<<2 * D, kThreads, 0, stream>>>(bias, plan.tiles, Ce, D, d_weights);
+    sum_bias_kernel<<<H + D, kThreads, 0, stream>>>(bias, plan.tiles, Ce, D, H, d_weights);
     return cudaGetLastError();
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// run(policy, out_f32, split) with each runtime choice as a compile-time
+// tag: the dtype's MMA policy, f32 outputs, H read from the argument. Three
+// instances a policy: H = D in the input dtype (the kernels as they were),
+// H below D in the input dtype, and f32 outputs at any H.
+template <class Run>
+cudaError_t dispatch(bool is_bf16, bool out_f32, bool split, Run&& run) {
+  auto by_mode = [&](auto policy) {
+    if (out_f32) return run(policy, std::true_type{}, std::true_type{});
+    return split ? run(policy, std::false_type{}, std::true_type{})
+                 : run(policy, std::false_type{}, std::false_type{});
+  };
+  return is_bf16 ? by_mode(Bf16{}) : by_mode(Tf32x3{});
+}
+
 // The sizes the engine takes (the Python wrapper checks them first and
-// names the cause): D a multiple of 16 up to 128, Ce a multiple of 8, K up
-// to `rows`, at most 2^31 - 1 nodes and edges.
-bool shapes_ok(int B, int L, int K, int D, int Ce, int rows) {
+// names the cause): D a multiple of 16 up to 128, H a multiple of 16 up to
+// D, Ce a multiple of 8, K up to `rows`, at most 2^31 - 1 nodes and edges.
+bool shapes_ok(int B, int L, int K, int D, int H, int Ce, int rows) {
   return B >= 1 && L >= 1 && K >= 1 && K <= rows && D >= 16 && D <= kMaxD && D % 16 == 0 &&
-         Ce >= 8 && Ce % 8 == 0 && (long long)B * L * K <= 0x7fffffffLL;
+         H >= 16 && H <= D && H % 16 == 0 && Ce >= 8 && Ce % 8 == 0 &&
+         (long long)B * L * K <= 0x7fffffffLL;
 }
 
 }  // namespace
 
 // All tensors contiguous, on one device: pre_self, nbr_src [B, L, D];
 // e_feat [B, L, K, Ce]; e_idx int32 and mask f32 [B, L, K] (mask may be null
-// with mask_mode 0); w_e [Ce, D], w2 and w3 [D, D], b2 and b3 [D]; outputs
-// dh [B, L, D] and msg [B, L, K, D], either may be null but not both. Float
-// tensors are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), with 16-byte aligned
+// with mask_mode 0); w_e [Ce, D], w2 [D, H], b2 [H], w3 [H, D], b3 [D];
+// outputs dh [B, L, D] and msg [B, L, K, D], either may be null but not
+// both, in the input dtype or, with out_f32, in f32. Float inputs are f32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1); float tensors have 16-byte aligned
 // base addresses. Launches on `stream`, allocates nothing and does not
 // synchronise. Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int reed_fused_message_fwd(const void* pre_self, const void* e_feat,
@@ -1583,35 +1634,36 @@ extern "C" int reed_fused_message_fwd(const void* pre_self, const void* e_feat,
                                       const void* mask, const void* w_e, const void* w2,
                                       const void* b2, const void* w3, const void* b3,
                                       void* dh, void* msg, int is_bf16, int B, int L, int K,
-                                      int D, int Ce, int mask_mode, float scale,
-                                      void* stream) {
+                                      int D, int H, int Ce, int mask_mode, int out_f32,
+                                      float scale, void* stream) {
   const void* floats[] = {pre_self, e_feat, nbr_src, w_e, w2, b2, w3, b3, dh, msg};
   for (const void* p : floats)
     if (!aligned16(p)) return (int)cudaErrorInvalidValue;
-  if (!shapes_ok(B, L, K, D, Ce, kFwdRows) || mask_mode < kMaskNone || mask_mode > kMaskPost ||
+  if (!shapes_ok(B, L, K, D, H, Ce, kFwdRows) || mask_mode < kMaskNone || mask_mode > kMaskPost ||
       (mask_mode != kMaskNone && mask == nullptr) || (dh == nullptr && msg == nullptr))
     return (int)cudaErrorInvalidValue;
   const int num_nodes = B * L;
   const int* idx = static_cast<const int*>(e_idx);
   const float* m = static_cast<const float*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_fwd<Bf16>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2, w3, b3, dh,
-                                 msg, num_nodes, L, K, D, Ce, mask_mode, scale, st)
-              : launch_fwd<Tf32x3>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2, w3, b3, dh,
-                                   msg, num_nodes, L, K, D, Ce, mask_mode, scale, st);
-  return (int)err;
+  auto run = [&](auto policy, auto out_f32_tag, auto split_tag) {
+    return launch_fwd<decltype(policy), decltype(out_f32_tag)::value,
+                      decltype(split_tag)::value>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2,
+                                                  w3, b3, dh, msg, num_nodes, L, K, D, H, Ce,
+                                                  mask_mode, scale, st);
+  };
+  return (int)dispatch(is_bf16, out_f32, H != D, run);
 }
 
 // Bytes of scratch the backward needs for these sizes: the wrapper
 // allocates them. Returns a cudaError_t.
-extern "C" int reed_fused_message_bwd_workspace(int is_bf16, int B, int L, int K, int D, int Ce,
-                                                long long* bytes) {
-  if (!shapes_ok(B, L, K, D, Ce, kBwdRows) || bytes == nullptr)
+extern "C" int reed_fused_message_bwd_workspace(int is_bf16, int B, int L, int K, int D, int H,
+                                                int Ce, long long* bytes) {
+  if (!shapes_ok(B, L, K, D, H, Ce, kBwdRows) || bytes == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdPlan plan;
-  const cudaError_t err = is_bf16 ? bwd_plan<Bf16>(B * L, K, D, Ce, &plan)
-                                  : bwd_plan<Tf32x3>(B * L, K, D, Ce, &plan);
+  const cudaError_t err = is_bf16 ? bwd_plan<Bf16>(B * L, K, D, H, Ce, &plan)
+                                  : bwd_plan<Tf32x3>(B * L, K, D, H, Ce, &plan);
   *bytes = (long long)plan.bytes();
   return (int)err;
 }
@@ -1619,11 +1671,12 @@ extern "C" int reed_fused_message_bwd_workspace(int is_bf16, int B, int L, int K
 // Inputs as reed_fused_message_fwd's, plus the cotangents gdh [B, L, D] and
 // gmsg [B, L, K, D] in the input dtype (either may be null: a zero
 // cotangent). Outputs: d_pre_self [B, L, D] and d_e_feat [B, L, K, Ce] in the
-// input dtype; d_nbr_src f32 [B, L, D], zeroed by the caller (atomic adds);
-// d_weights f32 [Ce*D + D*D + D + D*D + D] = dW_e, dW2, db2, dW3, db3 in that
-// order, the same on every run. workspace: reed_fused_message_bwd_workspace
-// bytes, 256-byte aligned, no initial value. Launches on `stream`, allocates
-// nothing and does not synchronise. Returns a cudaError_t.
+// input dtype or, with out_f32, in f32; d_nbr_src f32 [B, L, D], zeroed by
+// the caller (atomic adds); d_weights f32 [Ce*D + D*H + H + H*D + D] = dW_e,
+// dW2, db2, dW3, db3 in that order, the same on every run. workspace:
+// reed_fused_message_bwd_workspace bytes, 256-byte aligned, no initial
+// value. Launches on `stream`, allocates nothing and does not synchronise.
+// Returns a cudaError_t.
 extern "C" int reed_fused_message_bwd(const void* pre_self, const void* e_feat,
                                       const void* nbr_src, const void* e_idx, const void* mask,
                                       const void* w_e, const void* w2, const void* b2,
@@ -1631,13 +1684,13 @@ extern "C" int reed_fused_message_bwd(const void* pre_self, const void* e_feat,
                                       const void* gmsg, void* d_pre_self, void* d_e_feat,
                                       void* d_nbr_src, void* d_weights, void* workspace,
                                       long long workspace_bytes, int is_bf16, int B, int L,
-                                      int K, int D, int Ce, int mask_mode, float scale,
-                                      void* stream) {
+                                      int K, int D, int H, int Ce, int mask_mode, int out_f32,
+                                      float scale, void* stream) {
   const void* floats[] = {pre_self, e_feat, nbr_src, w_e, w2, b2, w3, gdh, gmsg,
                           d_pre_self, d_e_feat, d_nbr_src, d_weights};
   for (const void* p : floats)
     if (!aligned16(p)) return (int)cudaErrorInvalidValue;
-  if (!shapes_ok(B, L, K, D, Ce, kBwdRows) || mask_mode < kMaskNone || mask_mode > kMaskPost ||
+  if (!shapes_ok(B, L, K, D, H, Ce, kBwdRows) || mask_mode < kMaskNone || mask_mode > kMaskPost ||
       (mask_mode != kMaskNone && mask == nullptr) || d_pre_self == nullptr ||
       d_e_feat == nullptr || d_nbr_src == nullptr || d_weights == nullptr ||
       workspace == nullptr || (reinterpret_cast<uintptr_t>(workspace) & 255) != 0)
@@ -1649,14 +1702,14 @@ extern "C" int reed_fused_message_bwd(const void* pre_self, const void* e_feat,
   float* dw = static_cast<float*>(d_weights);
   char* ws = static_cast<char*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_bwd<Bf16>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2, w3, gdh, gmsg,
-                                 d_pre_self, d_e_feat, dns, dw, ws, workspace_bytes, num_nodes,
-                                 L, K, D, Ce, mask_mode, scale, st)
-              : launch_bwd<Tf32x3>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2, w3, gdh,
-                                   gmsg, d_pre_self, d_e_feat, dns, dw, ws, workspace_bytes,
-                                   num_nodes, L, K, D, Ce, mask_mode, scale, st);
-  return (int)err;
+  auto run = [&](auto policy, auto out_f32_tag, auto split_tag) {
+    return launch_bwd<decltype(policy), decltype(out_f32_tag)::value,
+                      decltype(split_tag)::value>(pre_self, e_feat, nbr_src, idx, m, w_e, w2, b2,
+                                                  w3, gdh, gmsg, d_pre_self, d_e_feat, dns, dw,
+                                                  ws, workspace_bytes, num_nodes, L, K, D, H, Ce,
+                                                  mask_mode, scale, st);
+  };
+  return (int)dispatch(is_bf16, out_f32, H != D, run);
 }
 
 // Dynamic shared memory of one block of kernel `which` (0: forward, 1: the
@@ -1675,12 +1728,14 @@ extern "C" int reed_fused_message_info(int is_bf16, int which, int* smem_bytes,
   };
   auto for_policy = [&](auto policy) {
     using P = decltype(policy);
-    if (which == 0) return query(fused_message_fwd_kernel<P>, kFwdSmemBytes, kFwdRows);
+    if (which == 0)
+      return query(fused_message_fwd_kernel<P, false, false>, kFwdSmemBytes, kFwdRows);
     if constexpr (kWgradInTile) {
       if (which == 1)
         return query(fused_message_bwd_partials_kernel<P>, PartialsSmem<P>::kBytes, kBwdRows);
     } else {
-      if (which == 1) return query(fused_message_bwd_kernel<P>, kBwdSmemBytes, kBwdRows);
+      if (which == 1)
+        return query(fused_message_bwd_kernel<P, false, false>, kBwdSmemBytes, kBwdRows);
       if (which == 2)
         return query(fused_message_wgrad_kernel<P>, kTnSmemBytes<typename P::T>, kTnRows);
     }

@@ -11,8 +11,12 @@ the global batch): these losses are normalised by counts over the batch
 targets over the whole batch, so each rank takes the global sums and
 counts, all-reduced, and scales its share so that the mean over the ranks
 of its loss, and of its gradient, is the global batch's (reed_tpu's one jit
-over the global batch). With dp None every expression is the one-process
-one, bitwise.
+over the global batch). The seq and tensor ranks of one batch index hold
+the same rows and compute the same losses; the sums run over the batch
+group (one rank a batch index), so no count is taken T times, and the
+alignment losses read the projectors' outputs after the tensor group's
+reduce (models/pmpnn.py), whole on every rank. With dp None every
+expression is the one-process one, bitwise.
 """
 
 from __future__ import annotations

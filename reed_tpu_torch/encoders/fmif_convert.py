@@ -5,6 +5,11 @@ parameters, and from reference PyTorch checkpoints.
 `convert_torch_fmif` (reed_tpu/encoders/fmif_convert.py): flax Dense kernels
 [in, out] become torch weights [out, in], LayerNorm scale/bias become
 weight/bias, and the W_s table is carried as it is.
+
+Both give whole parameters in the reference names; a tensor rank keeps its
+shards of them through parallel/mesh.shard_state_dict with PMPNN_TP_RULES,
+and ShardPlan.join_state_dict joins a rank's back, so reference weights and
+checkpoints stay whole whatever the tensor size.
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ import torch
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.diffusion.samplers import euler_maruyama_sampler, euler_sampler
 from reed_tpu_torch.parallel import draws
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import SIT_AXES, data_parallel, local_batch
 
 
 @dataclass
@@ -75,7 +75,7 @@ def generate_samples(model_fn: Callable, cfg: FIDGenConfig, device=None,
     tensor rank's shards. Prints the rate of the batches after the first,
     with the sampling and the decode timed apart."""
     device = resolve_device(device)
-    dp = data_parallel(mesh, batch_size=cfg.batch_size, model_parallel=True)
+    dp = data_parallel(mesh, batch_size=cfg.batch_size, axes=SIT_AXES)
     n_iters = math.ceil(cfg.num_samples / cfg.batch_size)
     shape = (cfg.batch_size, cfg.latent_size, cfg.latent_size,
              cfg.latent_channels)

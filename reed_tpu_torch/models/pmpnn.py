@@ -26,6 +26,19 @@ probability 1 - rate, scale by 1 / (1 - rate)), and Gaussian coordinate
 noise of std augment_eps; both draw from an explicit torch.Generator.
 `detach_repr` stops the projectors' gradients into the trunk, and
 `learnable_node=False` stops node_embeds' gradient, as stop_gradient does.
+
+`parallel` (a parallel.mesh.DataParallel) splits the model over its tensor
+axis of T ranks (parallel/mesh.PMPNN_TP_RULES; the parameter names stay the
+reference's, the shapes are a rank's shards, parallel/mesh.shard_state_dict):
+each message chain's W2 (W12) by its output columns and W3 (W13) by its
+input rows, so that a rank runs the whole first product and H = D / T of
+the hidden units (ops.fused_message_mlp's `parallel` on the fused path;
+copy_to_tensor at W2's input and a row-parallel W3 on the unfused one), and
+Megatron's column/row pair on each feed-forward, the decoder's edge update
+(W_edge.1 / W_edge.3) and the projectors (.0 / .2, in f32). Every row-
+parallel product sums its f32 partials over the tensor group and adds its
+bias once; everything else is whole and computed alike on every rank,
+dropout masks included (the ranks draw them from one generator state).
 """
 
 from __future__ import annotations
@@ -38,9 +51,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.data.protein import MASK_TOKEN_INDEX, NUM_TOKENS
+from reed_tpu_torch.nn.layers import linear, row_parallel
 from reed_tpu_torch.ops.fused_message import fused_message_mlp
 from reed_tpu_torch.ops.graph import gather_nodes, knn_graph, rbf
 from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.collectives import copy_to_tensor
 
 NEG_INF = -1e6
 
@@ -91,14 +106,34 @@ class LayerNorm(nn.LayerNorm):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
-class PositionWiseFeedForward(nn.Module):
-    def __init__(self, dim: int, num_ff: int):
-        super().__init__()
-        self.W_in = nn.Linear(dim, num_ff)
-        self.W_out = nn.Linear(num_ff, dim)
+def split_width(width: int, tensor: int, what: str) -> int:
+    """A tensor rank's share of `width` units; ValueError where tensor does
+    not divide it."""
+    if width % tensor:
+        raise ValueError(f"tensor={tensor} does not divide {what}'s {width} units")
+    return width // tensor
 
-    def forward(self, x):
-        return self.W_out(gelu(self.W_in(x)))
+
+def column_row(x, fc1: nn.Linear, fc2: nn.Linear, act, parallel):
+    """fc2(act(fc1(x))) with fc1 holding this rank's output columns and fc2
+    its input rows (Megatron's pair): x enters through copy_to_tensor, the
+    f32 partials are summed over the tensor group and fc2's bias is added
+    once (nn/layers.row_parallel)."""
+    h = act(linear(copy_to_tensor(x, parallel), fc1))
+    return row_parallel(h, fc2, parallel)
+
+
+class PositionWiseFeedForward(nn.Module):
+    def __init__(self, dim: int, num_ff: int, tensor: int = 1):
+        super().__init__()
+        self.tensor = tensor
+        self.W_in = nn.Linear(dim, split_width(num_ff, tensor, "the feed-forward"))
+        self.W_out = nn.Linear(num_ff // tensor, dim)
+
+    def forward(self, x, parallel=None):
+        if self.tensor == 1:
+            return self.W_out(gelu(self.W_in(x)))
+        return column_row(x, self.W_in, self.W_out, gelu, parallel)
 
 
 class PositionalEncodings(nn.Module):
@@ -182,76 +217,104 @@ def _factored_first_dense(w1: nn.Linear, h_v, e_slice: slice, nbr_start: int):
 
 
 def _fused_chain(w1, w2, w3, h_v, e_feat, e_idx, e_slice, nbr_start, mask,
-                 mask_mode, scale, want_sum, want_msg):
+                 mask_mode, scale, want_sum, want_msg, parallel=None):
     pre_self, w_e, nbr_src = _factored_first_dense(w1, h_v, e_slice, nbr_start)
     return fused_message_mlp(pre_self, e_feat, nbr_src, e_idx, w_e,
                              w2.weight.t(), w2.bias, w3.weight.t(), w3.bias,
                              mask=mask, mask_mode=mask_mode, scale=scale,
-                             want_sum=want_sum, want_msg=want_msg)
+                             want_sum=want_sum, want_msg=want_msg, parallel=parallel)
+
+
+def _chain_tail(w2, w3, pre, tensor, parallel):
+    """The unfused chain after the first product: W3(gelu(W2(gelu(pre)))),
+    split over the hidden units under the tensor axis (m1 enters W2's
+    column shard through copy_to_tensor, W3's row shard sums its f32
+    partials over the group and adds b3 once)."""
+    if tensor == 1:
+        return w3(gelu(w2(gelu(pre))))
+    return column_row(gelu(pre), w2, w3, gelu, parallel)
 
 
 class EncLayer(nn.Module):
-    """Node + edge message-passing encoder layer."""
+    """Node + edge message-passing encoder layer (`tensor`: the ranks its
+    message chains and feed-forward are split over)."""
 
-    def __init__(self, dim: int, scale: float = 30.0):
+    def __init__(self, dim: int, scale: float = 30.0, tensor: int = 1):
         super().__init__()
         self.scale = scale
+        self.tensor = tensor
+        hidden = split_width(dim, tensor, "a message chain")
         for name in ("W1", "W11"):
             setattr(self, name, nn.Linear(3 * dim, dim))
+        # W2 (W12) keeps its hidden units' output columns, W3 (W13) their input
+        # rows; registered in the reference's order (the initialisation's)
         for name in ("W2", "W3", "W12", "W13"):
-            setattr(self, name, nn.Linear(dim, dim))
+            setattr(self, name, nn.Linear(dim, hidden) if name in ("W2", "W12")
+                    else nn.Linear(hidden, dim))
         self.norm1, self.norm2, self.norm3 = (LayerNorm(dim) for _ in range(3))
-        self.dense = PositionWiseFeedForward(dim, 4 * dim)
+        self.dense = PositionWiseFeedForward(dim, 4 * dim, tensor)
 
-    def _message(self, w1, w2, w3, h_v, h_e, e_idx):
+    def _message(self, w1, w2, w3, h_v, h_e, e_idx, parallel):
         d = h_v.shape[-1]
         pre_self, w_e, nbr_src = _factored_first_dense(w1, h_v, slice(d, 2 * d), 2 * d)
         pre = pre_self[:, :, None, :] + h_e @ w_e + gather_nodes(nbr_src, e_idx)
-        return w3(gelu(w2(gelu(pre))))
+        return _chain_tail(w2, w3, pre, self.tensor, parallel)
 
     def forward(self, h_v, h_e, e_idx, mask_v, mask_attend, fused: bool,
-                drop: Dropout = NO_DROPOUT):
+                drop: Dropout = NO_DROPOUT, parallel=None):
         d = h_v.shape[-1]
         e_slice = slice(d, 2 * d)
         if fused:
             dh, _ = _fused_chain(self.W1, self.W2, self.W3, h_v, h_e, e_idx,
                                  e_slice, 2 * d, mask_attend, "post", self.scale,
-                                 True, False)
+                                 True, False, parallel)
         else:
-            h_message = self._message(self.W1, self.W2, self.W3, h_v, h_e, e_idx)
+            h_message = self._message(self.W1, self.W2, self.W3, h_v, h_e, e_idx, parallel)
             h_message = mask_attend[..., None] * h_message
             dh = torch.sum(h_message, dim=-2) / self.scale
         h_v = self.norm1(h_v + drop(dh))
-        h_v = self.norm2(h_v + drop(self.dense(h_v)))
+        h_v = self.norm2(h_v + drop(self.dense(h_v, parallel)))
         h_v = mask_v[..., None] * h_v
 
         if fused:
             _, h_message = _fused_chain(self.W11, self.W12, self.W13, h_v, h_e,
                                         e_idx, e_slice, 2 * d, None, "none",
-                                        self.scale, False, True)
+                                        self.scale, False, True, parallel)
         else:
-            h_message = self._message(self.W11, self.W12, self.W13, h_v, h_e, e_idx)
+            h_message = self._message(self.W11, self.W12, self.W13, h_v, h_e, e_idx,
+                                      parallel)
         return h_v, self.norm3(h_e + drop(h_message))
 
 
 class DecLayer(nn.Module):
-    """Decoder layer with REED's edge-update head."""
+    """Decoder layer with REED's edge-update head (`tensor`: the ranks its
+    message chain, feed-forward and edge update are split over)."""
 
-    def __init__(self, dim: int, scale: float = 30.0):
+    def __init__(self, dim: int, scale: float = 30.0, tensor: int = 1):
         super().__init__()
         self.scale = scale
+        self.tensor = tensor
+        hidden = split_width(dim, tensor, "a message chain")
         self.W1 = nn.Linear(4 * dim, dim)
-        self.W2 = nn.Linear(dim, dim)
-        self.W3 = nn.Linear(dim, dim)
+        self.W2 = nn.Linear(dim, hidden)
+        self.W3 = nn.Linear(hidden, dim)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
-        self.dense = PositionWiseFeedForward(dim, 4 * dim)
-        self.W_edge = nn.Sequential(LayerNorm(3 * dim), nn.Linear(3 * dim, 3 * dim),
+        self.dense = PositionWiseFeedForward(dim, 4 * dim, tensor)
+        edge_hidden = split_width(3 * dim, tensor, "the edge update")
+        self.W_edge = nn.Sequential(LayerNorm(3 * dim), nn.Linear(3 * dim, edge_hidden),
                                     nn.GELU(approximate="none"),
-                                    nn.Linear(3 * dim, 2 * dim))
+                                    nn.Linear(edge_hidden, 2 * dim))
         self.norm_edge = LayerNorm(2 * dim)
 
-    def forward(self, h_v, h_es, e_idx, mask_v, fused: bool, drop: Dropout = NO_DROPOUT):
+    def _edge_update(self, x, parallel):
+        if self.tensor == 1:
+            return self.W_edge(x)
+        norm, fc1, _, fc2 = self.W_edge
+        return column_row(norm(x), fc1, fc2, gelu, parallel)
+
+    def forward(self, h_v, h_es, e_idx, mask_v, fused: bool, drop: Dropout = NO_DROPOUT,
+                parallel=None):
         """mask_v [B,L]: each edge of node i is masked by i's own mask (not
         its neighbour's), before the self term is added."""
         d = h_v.shape[-1]
@@ -260,27 +323,29 @@ class DecLayer(nn.Module):
             mask_k = mask_v[:, :, None].expand(e_idx.shape)
             dh, h_message = _fused_chain(self.W1, self.W2, self.W3, h_v, h_es,
                                          e_idx, e_slice, 3 * d, mask_k, "pre",
-                                         self.scale, True, True)
+                                         self.scale, True, True, parallel)
         else:
             pre_self, w_e, nbr_src = _factored_first_dense(self.W1, h_v, e_slice, 3 * d)
             edge_terms = h_es @ w_e + gather_nodes(nbr_src, e_idx)
             edge_terms = mask_v[:, :, None, None] * edge_terms
-            h_message = self.W3(gelu(self.W2(gelu(pre_self[:, :, None, :] + edge_terms))))
+            h_message = _chain_tail(self.W2, self.W3, pre_self[:, :, None, :] + edge_terms,
+                                    self.tensor, parallel)
             dh = torch.sum(h_message, dim=-2) / self.scale
 
         # edge update: h_ES <- LN(h_ES + MLP([h_message, h_ES]))
-        de = self.W_edge(torch.cat([h_message, h_es], dim=-1))
+        de = self._edge_update(torch.cat([h_message, h_es], dim=-1), parallel)
         h_es_new = self.norm_edge(h_es + drop(de))
 
         h_v = self.norm1(h_v + drop(dh))
-        h_v = self.norm2(h_v + drop(self.dense(h_v)))
+        h_v = self.norm2(h_v + drop(self.dense(h_v, parallel)))
         return mask_v[..., None] * h_v, h_es_new
 
 
-def projector(in_dim: int, projector_dim: int, z_dim: int) -> nn.Sequential:
-    """2-layer SiLU projector (keys 0 and 2, as the reference's build_mlp)."""
-    return nn.Sequential(nn.Linear(in_dim, projector_dim), nn.SiLU(),
-                         nn.Linear(projector_dim, z_dim))
+def projector(in_dim: int, projector_dim: int, z_dim: int, tensor: int = 1) -> nn.Sequential:
+    """2-layer SiLU projector (keys 0 and 2, as the reference's build_mlp);
+    under the tensor axis a rank's column/row shards of its hidden units."""
+    hidden = split_width(projector_dim, tensor, "a projector")
+    return nn.Sequential(nn.Linear(in_dim, hidden), nn.SiLU(), nn.Linear(hidden, z_dim))
 
 
 class ProteinMPNNFMIF(nn.Module):
@@ -291,8 +356,13 @@ class ProteinMPNNFMIF(nn.Module):
                  align_depth: int = 1, single_dim: int = 384, pair_dim: int = 128,
                  structure_dim: int = 768, mdlm_parameterization: bool = False,
                  fused: bool = False, dropout: float = 0.1, augment_eps: float = 0.1,
-                 learnable_node: bool = True):
+                 learnable_node: bool = True, parallel=None):
         super().__init__()
+        # the mesh (a parallel.mesh.DataParallel) whose tensor axis splits the
+        # model, or None
+        self.parallel = parallel
+        tensor = 1 if parallel is None else parallel.tensor
+        self.tensor = tensor
         self.vocab = vocab
         self.use_cfg = use_cfg
         self.num_cls = num_cls
@@ -311,9 +381,9 @@ class ProteinMPNNFMIF(nn.Module):
         self.W_e = nn.Linear(edge_features, hidden_dim)
         self.W_s = nn.Embedding(vocab, hidden_dim)
         self.encoder_layers = nn.ModuleList(
-            EncLayer(hidden_dim) for _ in range(num_encoder_layers))
+            EncLayer(hidden_dim, tensor=tensor) for _ in range(num_encoder_layers))
         self.decoder_layers = nn.ModuleList(
-            DecLayer(hidden_dim) for _ in range(num_decoder_layers))
+            DecLayer(hidden_dim, tensor=tensor) for _ in range(num_decoder_layers))
         self.W_out = nn.Linear(hidden_dim, vocab)
         if use_cfg:
             self.cls_embedder = nn.Embedding(num_cls + 1, hidden_dim)
@@ -321,10 +391,10 @@ class ProteinMPNNFMIF(nn.Module):
                 nn.Linear(hidden_dim, hidden_dim) for _ in range(num_encoder_layers))
             self.cls_layers_dec = nn.ModuleList(
                 nn.Linear(hidden_dim, hidden_dim) for _ in range(num_decoder_layers))
-        self.projectors_single = projector(hidden_dim, 2 * single_dim, single_dim)
-        self.projectors_pair = projector(2 * hidden_dim, 2 * pair_dim, pair_dim)
+        self.projectors_single = projector(hidden_dim, 2 * single_dim, single_dim, tensor)
+        self.projectors_pair = projector(2 * hidden_dim, 2 * pair_dim, pair_dim, tensor)
         self.projectors_structure = projector(hidden_dim, 2 * structure_dim,
-                                              structure_dim)
+                                              structure_dim, tensor)
 
     @torch.no_grad()
     def initialize_weights(self, generator: Optional[torch.Generator] = None):
@@ -402,7 +472,7 @@ class ProteinMPNNFMIF(nn.Module):
             if cls_emb is not None:
                 h_v = h_v + self.cls_layers_enc[i](cls_emb)[:, None, :]
             h_v, h_e = layer(h_v, h_e, e_idx, mask, mask_attend, fused=self.fused,
-                             drop=drop)
+                             drop=drop, parallel=self.parallel)
         return h_v, h_e, e_idx
 
     def forward(self, x, s, mask, chain_m, residue_idx, chain_encoding_all,
@@ -440,7 +510,8 @@ class ProteinMPNNFMIF(nn.Module):
         for i, layer in enumerate(self.decoder_layers):
             if cls_emb is not None:
                 h_v = h_v + self.cls_layers_dec[i](cls_emb)[:, None, :]
-            h_v, h_es_new = layer(h_v, h_es, e_idx, mask, fused=self.fused, drop=drop)
+            h_v, h_es_new = layer(h_v, h_es, e_idx, mask, fused=self.fused, drop=drop,
+                                  parallel=self.parallel)
             if self.update_edge:
                 h_es = h_es_new
             if i == self.align_depth:
@@ -463,10 +534,17 @@ class ProteinMPNNFMIF(nn.Module):
         if detach_repr:
             zs_single_raw, zs_pair_raw, zs_structure_raw = (
                 zs_single_raw.detach(), zs_pair_raw.detach(), zs_structure_raw.detach())
-        zs_single = self.projectors_single(zs_single_raw.float())
-        zs_pair = self.projectors_pair(zs_pair_raw.float())
-        zs_structure = self.projectors_structure(zs_structure_raw.float())
+        zs_single = self._project(self.projectors_single, zs_single_raw.float())
+        zs_pair = self._project(self.projectors_pair, zs_pair_raw.float())
+        zs_structure = self._project(self.projectors_structure, zs_structure_raw.float())
         return log_probs, zs_single, zs_pair, zs_structure, e_idx
+
+    def _project(self, proj: nn.Sequential, x):
+        """A projector on f32 x: whole, or its column/row pair under the
+        tensor axis (the outputs summed over the group, whole on every rank)."""
+        if self.tensor == 1:
+            return proj(x)
+        return column_row(x, proj[0], proj[2], F.silu, self.parallel)
 
 
 def create_pmpnn(device=None, generator: Optional[torch.Generator] = None,

@@ -14,6 +14,15 @@ input gradients), `reduce_from_tensor` leaves a row-parallel one (the
 forward sums the ranks' partial products; identity backward). The sums run
 in f32, so a bf16 activation takes one rounding, as in one process.
 
+A product split inside one kernel call (ProteinMPNN's message chain,
+ops/fused_message.py) returns f32 partials of its outputs and, in its
+backward, of its input gradients; `sum_tensor_f32` sums a list of them
+over the tensor group in one flat all-reduce, inside that call's
+autograd.Function (its forward sums the partial outputs, its backward the
+partial input gradients: the adjoint pair of copy_to_tensor and
+reduce_from_tensor around the whole chain), so that a bf16 chain rounds
+once after the sum.
+
 Seq (over the seq group, whose ranks hold one model's token slices):
 `gather_seq` (all-gather along a dimension; the backward reduce-scatters)
 and `sum_seq` (all-reduce; the backward all-reduces). Every seq rank then
@@ -31,6 +40,18 @@ import torch
 import torch.distributed as dist
 
 _LOW = (torch.bfloat16, torch.float16)
+
+# Bytes all-reduced over the tensor group (copy_to_tensor's backward,
+# reduce_from_tensor's forward, sum_tensor_f32) since the count was last set
+# to 0; a run reads it to reckon what the tensor axis moves a step.
+tensor_bytes = 0
+
+
+def _tensor_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """_all_reduce_f32 over the tensor group, counted in tensor_bytes."""
+    global tensor_bytes
+    tensor_bytes += x.numel() * 4
+    return _all_reduce_f32(x, group)
 
 
 def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
@@ -66,13 +87,13 @@ class _CopyToTensor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_f32(g, ctx.group), None
+        return _tensor_sum(g, ctx.group), None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce_f32(x, group)
+        return _tensor_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -113,6 +134,24 @@ def reduce_from_tensor(x: torch.Tensor, dp) -> torch.Tensor:
     if dp is None or dp.tensor == 1:
         return x
     return _ReduceFromTensor.apply(x, dp.tensor_group)
+
+
+def sum_tensor_f32(parts, dp):
+    """The sums over the tensor group of the f32 tensors `parts` (each
+    rank's partials), in one flat all-reduce; new tensors in their shapes.
+    Not differentiable: the autograd.Function that calls it writes the
+    adjoint."""
+    if dp is None or dp.tensor == 1:
+        return [p.clone() for p in parts]
+    if any(p.dtype != torch.float32 for p in parts):
+        raise ValueError("sum_tensor_f32 takes f32 partials, got "
+                         + ", ".join(str(p.dtype) for p in parts))
+    global tensor_bytes
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    tensor_bytes += flat.numel() * 4
+    dist.all_reduce(flat, group=dp.tensor_group)
+    return [v.view(p.shape) for v, p in zip(torch.split(flat, [p.numel() for p in parts]),
+                                            parts)]
 
 
 def gather_seq(x: torch.Tensor, dim: int, dp) -> torch.Tensor:

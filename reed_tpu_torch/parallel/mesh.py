@@ -36,17 +36,19 @@ all-reduce over the replica group (the D * F * S ranks of one tensor
 index). A run equals the one-process run up to the order of the
 reductions, and a checkpoint stays one file with one generator state.
 
-The tensor and seq axes (the image family: SiT) split the model's work.
-Under tensor each rank holds T-th shards of the SiT blocks' products
-(`SIT_TP_RULES`: Megatron's column-parallel qkv and fc1, row-parallel proj
-and fc2, qkv split by heads), and the T ranks of a tensor group (T
-consecutive ranks) run one model between them (parallel/collectives.py);
-under seq each rank runs its S-th of the tokens, attending to every rank's
-keys. Every seq and tensor rank computes the whole loss; the parameter
-gradients are averaged over the replica group. The parameters are not
-sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b), and the tensor and
-seq axes run on the image family only: elsewhere sizes above 1 raise
-(ROADMAP.md Queue 1 item 8b).
+The tensor and seq axes split the model's work. Under tensor each rank
+holds T-th shards of a model's products and the T ranks of a tensor group
+(T consecutive ranks) run one model between them (parallel/collectives.py):
+SiT's blocks (`SIT_TP_RULES`: Megatron's column-parallel qkv and fc1,
+row-parallel proj and fc2, qkv split by heads) and ProteinMPNN's message
+chains, feed-forwards, edge update and projectors (`PMPNN_TP_RULES`). Under
+seq (SiT only) each rank runs its S-th of the tokens, attending to every
+rank's keys. Every seq and tensor rank computes the whole loss; the
+parameter gradients are averaged over the replica group. The parameters
+are not sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a family
+runs the model axes it names to `check_mesh` (SiT: tensor and seq,
+ProteinMPNN: tensor), elsewhere sizes above 1 raise (tensor: ROADMAP.md
+Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -69,10 +71,20 @@ TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS)
 
-# the ROADMAP.md Queue 1 item of the tensor and seq axes outside the image
-# family
-NOT_PORTED = {TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (tensor and seq outside SiT)",
-              SEQ_AXIS: "ROADMAP.md Queue 1 item 8b (tensor and seq outside SiT)"}
+# the model axes each family runs (check_mesh's `axes`): SiT splits its heads,
+# MLP and tokens; ProteinMPNN its message chains and MLPs; the other
+# families run none
+SIT_AXES = (TENSOR_AXIS, SEQ_AXIS)
+PMPNN_AXES = (TENSOR_AXIS,)
+
+# why a model axis above 1 raises outside the families that run it
+NOT_PORTED = {
+    TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (the tensor axis on Semla, EGNN, IPA and "
+                 "the RDM)",
+    SEQ_AXIS: "not run: the seq axis splits SiT's tokens alone (reed_tpu's "
+              "token_sharding touches no other model, and its seq ranks there would "
+              "only repeat each other's work; ROADMAP.md Queue 1 item 8b)",
+}
 
 # elements a gradient bucket holds at most (256 MB in f32): SiT-XL/2's
 # 675 M parameters go in 11 all-reduces
@@ -94,6 +106,43 @@ SIT_TP_RULES = (
     (r"\.attn\.proj\.weight$", 1, 1),
     (r"\.mlp\.fc1\.(weight|bias)$", 0, 1),
     (r"\.mlp\.fc2\.weight$", 1, 1),
+)
+
+# reed_tpu's PMPNN_TP_RULES in the port's names, as (pattern, dimension,
+# groups) like SIT_TP_RULES: column-parallel products split dimension 0 of
+# the torch weight [out, in] and their bias, row-parallel ones dimension 1,
+# with their bias whole and added once after the reduce (Megatron's pair).
+# Departures from reed_tpu's hints, which are layout hints under GSPMD and
+# split no work themselves:
+#  * each message chain W3(gelu(W2(gelu(W1 [h_i, e_ik, h_j])))) (the
+#    encoder's W1-W3 and W11-W13, the decoder's W1-W3): reed_tpu shards
+#    W1's columns and W3's rows around a whole W2, which needs all of W1's
+#    output, so no rank could skip any of W2's work. Here W1 (W11) is whole
+#    on every rank, W2 (W12) is split by its output columns with its bias
+#    and W3 (W13) by its input rows: each rank runs the whole first product
+#    and its H = D / T columns of the second, returns partial messages that
+#    the tensor group sums, and b3 is added once (ops/fused_message.py);
+#  * the feed-forwards (dense.W_in / dense.W_out): reed_tpu's patterns
+#    'dense/fc1/kernel' and 'dense/fc2/kernel' name leaves its model does not
+#    have (its feed-forward's are dense/Dense_0 and dense/Dense_1), so it
+#    keeps them whole; here they are the column/row pair the patterns meant;
+#  * the projectors' second products (projectors_*.2): reed_tpu's pattern
+#    'projectors_\w+/Dense_2/kernel' matches no leaf (a projector's are
+#    Dense_0 and Dense_1), so only the first product's columns carry its
+#    hint; here the second is the row-parallel half of the pair;
+#  * the biases of the column-parallel products (dense.W_in, W_edge.1,
+#    projectors_*.0) split with their columns, where reed_tpu leaves every
+#    bias replicated.
+# The rest (features, W_e, W_s, W_out, LayerNorms) is whole on every rank.
+PMPNN_TP_RULES = (
+    (r"\.dense\.W_in\.(weight|bias)$", 0, 1),
+    (r"\.dense\.W_out\.weight$", 1, 1),
+    (r"\.W(2|12)\.(weight|bias)$", 0, 1),
+    (r"\.W(3|13)\.weight$", 1, 1),
+    (r"\.W_edge\.1\.(weight|bias)$", 0, 1),
+    (r"\.W_edge\.3\.weight$", 1, 1),
+    (r"^projectors_\w+\.0\.(weight|bias)$", 0, 1),
+    (r"^projectors_\w+\.2\.weight$", 1, 1),
 )
 
 
@@ -174,22 +223,22 @@ def fsdp_spec(shape: Sequence[int], fsdp_size: int,
 
 
 def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
-               model_parallel: bool = False):
+               axes: Sequence[str] = ()):
     """What stands in for reed_tpu's make_mesh: `mesh` (a MeshConfig) must
     ask for data * fsdp * seq * tensor = `world` ranks (data None takes the
     rest, as make_mesh's data=None does), and `batch_size` (the global
-    batch) must split evenly over the data * fsdp batch indices. The seq
-    and tensor axes run where `model_parallel` (the image family, SiT);
-    elsewhere sizes above 1 raise NotImplementedError naming ROADMAP.md
-    Queue 1 item 8b. Returns (data, fsdp); raises ValueError otherwise."""
+    batch) must split evenly over the data * fsdp batch indices. `axes`
+    are the model axes the family runs (SIT_AXES, PMPNN_AXES); a tensor or
+    seq size above 1 outside them raises NotImplementedError naming why
+    (NOT_PORTED). Returns (data, fsdp); raises ValueError otherwise."""
     seq, tensor = mesh.seq or 1, mesh.tensor or 1
-    if not model_parallel:
-        for axis, size in ((TENSOR_AXIS, tensor), (SEQ_AXIS, seq)):
-            if size > 1:
-                raise NotImplementedError(
-                    f"mesh axis '{axis}' of size {size} is not ported for this model "
-                    f"family: the port runs 'tensor' and 'seq' on SiT (train-image, "
-                    f"generate-image) only; '{axis}' here is {NOT_PORTED[axis]}")
+    for axis, size in ((TENSOR_AXIS, tensor), (SEQ_AXIS, seq)):
+        if size > 1 and axis not in axes:
+            raise NotImplementedError(
+                f"mesh axis '{axis}' of size {size} does not run for this model family: "
+                "the port runs 'tensor' on SiT (train-image, generate-image) and "
+                "ProteinMPNN (train-protein), and 'seq' on SiT; "
+                f"'{axis}' here is {NOT_PORTED[axis]}")
     fsdp = mesh.fsdp or 1
     inner = fsdp * seq * tensor
     axes = f"fsdp={fsdp}" + "".join(f" x {a}={n}" for a, n in ((SEQ_AXIS, seq),
@@ -376,12 +425,13 @@ class DataParallel:
     def is_main(self) -> bool:
         return self.process_rank == 0
 
-    def shard_plan(self, named_params, tp_rules: Sequence[tuple] = ()) -> Optional["ShardPlan"]:
+    def shard_plan(self, named_params, tp_rules: Sequence[tuple] = (),
+                   sync_replicated: bool = False) -> Optional["ShardPlan"]:
         """The ShardPlan of `named_params` (name, tensor: this rank's tensor
         shards under `tp_rules`) on this mesh, or None where the fsdp and
         tensor axes are 1."""
         if self.fsdp > 1 or self.tensor > 1:
-            return ShardPlan(self, named_params, tp_rules)
+            return ShardPlan(self, named_params, tp_rules, sync_replicated)
         return None
 
     def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -479,14 +529,25 @@ class ShardPlan:
     (fsdp_spec only shards a leaf with another dimension divisible by F);
     `local` gives this rank's chunk as a view, so an update in place of the
     chunk updates the working copy. State lists (gradients, moments, EMA)
-    are in parameter order, chunks where `sharded`."""
+    are in parameter order, chunks where `sharded`.
 
-    def __init__(self, dp: DataParallel, named_params, tp_rules: Sequence[tuple] = ()):
+    `sync_replicated`: average the gradients of the leaves replicated over
+    the tensor axis over the tensor group too (reduce_grads). Every tensor
+    rank computes those gradients from the same inputs, so they agree
+    where the computation is deterministic (SiT's is: phase 15 holds its
+    ranks' parameters bitwise equal); a model whose replicated path runs
+    CUDA atomics (ProteinMPNN's neighbour gathers, whose backward is a
+    scatter_add) gets them apart in the last bits, and the average keeps
+    the ranks' copies of its replicated parameters bitwise equal."""
+
+    def __init__(self, dp: DataParallel, named_params, tp_rules: Sequence[tuple] = (),
+                 sync_replicated: bool = False):
         self.dp = dp
         named = list(named_params)
         tensor = getattr(dp, "tensor", 1)
         self.names = [n for n, _ in named]
         self.tp_rules = tuple(tp_rules)
+        self.sync_replicated = sync_replicated and tensor > 1
         self.shapes = [tuple(p.shape) for _, p in named]
         self.tensor = [tensor_rule(n, tp_rules) if tensor > 1 else None for n in self.names]
         self.whole_shapes = [
@@ -553,7 +614,8 @@ class ShardPlan:
         (reduce-scatter over the fsdp group, all-reduce over the data group
         of the D * S ranks that share (f, t), / D * F * S, in flat buckets)
         and the whole of the rest (the replica group's bucketed
-        all-reduce)."""
+        all-reduce); with sync_replicated, those of the leaves replicated
+        over the tensor axis then averaged over the tensor group."""
         dp, F = self.dp, self.dp.fsdp
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         repl = [i for i, s in enumerate(self.sharded) if not s]
@@ -567,6 +629,15 @@ class ShardPlan:
             mine = mine.div(dp.replicas)
             for i, view in zip(part, torch.split(mine, [self.chunk_size(i) for i in part])):
                 out[i] = view
+        if self.sync_replicated:
+            repl = [i for i, rule in enumerate(self.tensor) if rule is None]
+            for part in _buckets([out[i].numel() for i in repl], [out[i].dtype for i in repl]):
+                idx = [repl[j] for j in part]
+                flat = torch.cat([out[i].reshape(-1) for i in idx])
+                dist.all_reduce(flat, group=dp.tensor_group)
+                flat.div_(dp.tensor)
+                for i, view in zip(idx, torch.split(flat, [out[i].numel() for i in idx])):
+                    out[i] = view.view(out[i].shape)
         return out
 
     def _gather_whole(self, chunks: Sequence[torch.Tensor]):
@@ -677,16 +748,15 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
 
 
 def data_parallel(mesh=None, batch_size: Optional[int] = None,
-                  model_parallel: bool = False) -> Optional[DataParallel]:
+                  axes: Sequence[str] = ()) -> Optional[DataParallel]:
     """The context of the default process group on `mesh`'s axes, carrying
     its fsdp size and min size (the rule of its ShardPlan), or None when
     there is no group (one process, no collectives), after `check_mesh` of
-    `mesh` and the global `batch_size` against its world size
-    (`model_parallel`: the image family, whose SiT runs the seq and tensor
-    axes)."""
+    `mesh` and the global `batch_size` against its world size (`axes`: the
+    model axes the family runs, SIT_AXES or PMPNN_AXES)."""
     mesh = MeshConfig() if mesh is None else mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
-    _, fsdp = check_mesh(mesh, world, batch_size, model_parallel)
+    _, fsdp = check_mesh(mesh, world, batch_size, axes)
     if not dist.is_initialized():
         return None
     return DataParallel(fsdp, mesh.fsdp_min_size, mesh.seq or 1, mesh.tensor or 1)

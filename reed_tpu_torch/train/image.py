@@ -30,7 +30,7 @@ from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.continuous import FlowMatchingLossConfig, flow_matching_loss
 from reed_tpu_torch.models.sit import SiT, create_sit
-from reed_tpu_torch.parallel.mesh import (SIT_TP_RULES, data_parallel, local_batch,
+from reed_tpu_torch.parallel.mesh import (SIT_AXES, SIT_TP_RULES, data_parallel, local_batch,
                                          shard_state_dict)
 
 # reed_tpu's attn_impl names -> the port's SiT choice: the kernel K1 on
@@ -142,7 +142,7 @@ class ImageTrainer:
     def __init__(self, cfg: ImageTrainConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size, model_parallel=True)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=SIT_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._train_step = make_train_step(make_loss_fn(cfg.loss), cfg.curriculum,
                                            accum_steps=cfg.optim.accum_steps, dp=self.dp)

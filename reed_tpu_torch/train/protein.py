@@ -7,10 +7,15 @@ runs the model with dropout, and takes the smoothed CE plus the triple
 alignment loss, weighted by the curriculum; Adam with a global-norm clip
 and the EMA follow (core/trainer.py). On the card every message chain runs
 forward through the CUDA kernel K2a and backward through K2b
-(ops/fused_message.py). The port trains on one device or data-parallel
-over torch.distributed (parallel/mesh.py: each rank takes rows of the
-global batch, and the losses, normalised by counts over the batch, take
-the global counts), in f32 or, with compute_dtype bfloat16, in bf16 over
+(ops/fused_message.py). The port trains on one device or over
+torch.distributed's ranks (parallel/mesh.py): data-parallel (each rank
+takes rows of the global batch, and the losses, normalised by counts over
+the batch, take the global counts), with the optimizer state sharded over
+fsdp, and the model split over the tensor axis (PMPNN_TP_RULES: each
+message chain over its hidden units through K2a/K2b, the feed-forwards,
+edge update and projectors as Megatron's column/row pairs; every tensor
+rank of a batch index draws the same dropout masks and noise), in f32 or,
+with compute_dtype bfloat16, in bf16 over
 f32 master weights (each weight cast
 where it is used, outside the kernels' autograd.Function, so K2a and K2b
 run their bf16 engines and the casts carry the gradients back to f32),
@@ -21,6 +26,7 @@ picks a JAX PRNG on the TPU and is not read here.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from dataclasses import dataclass, field, replace
@@ -39,7 +45,8 @@ from reed_tpu_torch.diffusion.protein_losses import (global_counts, loss_nll, lo
                                                      loss_smoothed)
 from reed_tpu_torch.models.pmpnn import ProteinMPNNFMIF, create_pmpnn
 from reed_tpu_torch.ops.fused_message import check_engine_shape
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (PMPNN_AXES, PMPNN_TP_RULES, data_parallel,
+                                         local_batch, shard_state_dict)
 
 
 @dataclass(frozen=True)
@@ -91,29 +98,46 @@ def resolve_fused(cfg: ProteinTrainConfig) -> bool:
     (edge width Ce = hidden) and the decoder's (Ce = 2 x hidden), with K =
     k_neighbors, and the unfused math otherwise, so it runs any width, as
     reed_tpu's 'auto' (always unfused) does. (reed_tpu resolves 'auto' to
-    off from a TPU measurement that says nothing about this card.)"""
+    off from a TPU measurement that says nothing about this card.) Under
+    the tensor axis (cfg.mesh.tensor = T) the fused chain runs H =
+    hidden / T hidden units a rank, which must be on the kernels' grid (a
+    multiple of 16): where it is not, 'on' and 'auto' raise ValueError
+    naming the cause, and 'off' runs the unfused chain split alike."""
     mode = cfg.fused_messages
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused_messages must be auto, on or off, got {mode!r}")
+    tensor, d = cfg.mesh.tensor or 1, cfg.hidden_dim
+    if d % tensor:
+        raise ValueError(f"tensor={tensor} does not divide the message chains' {d} "
+                         "hidden units")
     if mode == "off":
         return False
     try:
-        for ce in (cfg.hidden_dim, 2 * cfg.hidden_dim):
-            check_engine_shape(cfg.k_neighbors, cfg.hidden_dim, ce)
+        for ce in (d, 2 * d):
+            check_engine_shape(cfg.k_neighbors, d, ce)
     except ValueError:
         if mode == "on":
             raise
         return False
+    if tensor > 1:
+        try:
+            check_engine_shape(cfg.k_neighbors, d, d, d // tensor)
+        except ValueError as e:
+            raise ValueError(f"tensor={tensor} leaves each message chain {d // tensor} of "
+                             f"its {d} hidden units a rank, off the fused kernels' grid: {e} "
+                             "(fused_messages=off runs the unfused chain)") from e
     return True
 
 
 def build_model(cfg: ProteinTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> ProteinMPNNFMIF:
+                generator: Optional[torch.Generator] = None, parallel=None) -> ProteinMPNNFMIF:
     """The configured model on `device`, initialised from `generator`, in
-    cfg.compute_dtype. Dropout and coordinate noise (cfg.dropout,
-    cfg.augment_eps) apply only in a call with train=True."""
-    model = create_pmpnn(
-        device=device, generator=generator,
+    cfg.compute_dtype, split over the tensor axis of `parallel` (a
+    parallel.mesh.DataParallel): the whole model is initialised as one
+    process does, then a tensor rank keeps its shards (PMPNN_TP_RULES).
+    Dropout and coordinate noise (cfg.dropout, cfg.augment_eps) apply only
+    in a call with train=True."""
+    kwargs = dict(
         fused=resolve_fused(cfg),
         dropout=cfg.dropout, augment_eps=cfg.augment_eps,
         learnable_node=cfg.learnable_node,
@@ -124,6 +148,13 @@ def build_model(cfg: ProteinTrainConfig, device=None,
         align_depth=cfg.align_depth, single_dim=cfg.single_dim,
         pair_dim=cfg.pair_dim, structure_dim=cfg.structure_dim,
         mdlm_parameterization=cfg.mdlm_parameterization)
+    model = create_pmpnn(device=device, generator=generator, **kwargs)
+    if parallel is not None and parallel.tensor > 1:
+        whole = model
+        with torch.device(device) if device is not None else contextlib.nullcontext():
+            model = ProteinMPNNFMIF(**kwargs, parallel=parallel)
+        model.load_state_dict(shard_state_dict(whole.state_dict(), parallel, PMPNN_TP_RULES))
+        del whole
     return model.to_compute_dtype(getattr(torch, cfg.compute_dtype)).eval()
 
 
@@ -261,7 +292,7 @@ class ProteinTrainer:
                              f"{cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=PMPNN_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         # projector-only mode trains at unit weight (train_fmif.py:305)
         curriculum = CurriculumConfig(**{
@@ -276,8 +307,12 @@ class ProteinTrainer:
         # f32 master weights whatever the compute dtype (make_loss_fn casts them)
         model = build_model(replace(self.cfg, compute_dtype="float32"), device=self.device,
                             generator=torch.Generator(device=self.device).manual_seed(
-                                self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+                                self.cfg.seed), parallel=self.dp)
+        # the neighbour gathers' backward (scatter_add) runs CUDA atomics on
+        # the replicated path: average those gradients over the tensor group
+        # so the tensor ranks' replicated parameters stay bitwise equal
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=PMPNN_TP_RULES, sync_replicated=True)
 
     def train_step(self, state: TrainState, batch, noisy=None, repr_noise=None):
         """One step on a batch of tensors on the trainer's device (this

@@ -40,10 +40,11 @@ def test_axis_names_match_reed_tpu():
 def test_unported_axes_raise_naming_roadmap(axis):
     """fsdp is ported on every family: data x fsdp must be the world size
     (data None takes the rest, as make_mesh's data=None does), else
-    ValueError with the torchrun line. tensor and seq run on the image
-    family (model_parallel), where data x fsdp x seq x tensor must be the
-    world size and the batch splits over data x fsdp; on the other families
-    they raise naming ROADMAP item 8b."""
+    ValueError with the torchrun line. tensor runs on SiT and ProteinMPNN
+    (SIT_AXES, PMPNN_AXES) and seq on SiT alone, where data x fsdp x seq x
+    tensor must be the world size and the batch splits over data x fsdp;
+    on the other families tensor raises naming ROADMAP item 8b, and seq
+    outside SiT raises saying that it splits SiT's tokens alone."""
     if axis == "fsdp":
         assert mesh.check_mesh(MeshConfig(fsdp=2), 2) == (1, 2)
         assert mesh.check_mesh(MeshConfig(fsdp=2), 8, batch_size=8) == (4, 2)
@@ -55,21 +56,26 @@ def test_unported_axes_raise_naming_roadmap(axis):
             mesh.check_mesh(MeshConfig(data=2, fsdp=2), 2)
         assert "fsdp" not in mesh.NOT_PORTED
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
-            mesh.check_mesh(MeshConfig(**{axis: 2}), 2)
-        assert mesh.check_mesh(MeshConfig(**{axis: 2}), 2, model_parallel=True) == (1, 1)
-        assert mesh.check_mesh(MeshConfig(fsdp=2, **{axis: 2}), 8, batch_size=4,
-                               model_parallel=True) == (2, 2)
-        with pytest.raises(ValueError, match=f"{axis}=2 does not divide the 1 process.*"
-                                             "torchrun --nproc_per_node 2"):
-            mesh.check_mesh(MeshConfig(**{axis: 2}), 1, model_parallel=True)
-        with pytest.raises(ValueError, match="data=2, but 4 process.*"
-                                             "data x fsdp x seq x tensor = 2 x 1 x .*"
-                                             "torchrun --nproc_per_node 8"):
-            mesh.check_mesh(MeshConfig(data=2, **{axis: 4}), 4, model_parallel=True)
-        with pytest.raises(ValueError, match="batch of 6 does not split over 4 ranks"):
-            mesh.check_mesh(MeshConfig(data=4, **{axis: 2}), 8, batch_size=6,
-                            model_parallel=True)
+        running = [mesh.SIT_AXES] + ([mesh.PMPNN_AXES] if axis == "tensor" else [])
+        refused = [()] + ([mesh.PMPNN_AXES] if axis == "seq" else [])
+        why = ("ROADMAP.md Queue 1 item 8b" if axis == "tensor"
+               else "the seq axis splits SiT's tokens alone.*token_sharding")
+        for axes in refused:
+            with pytest.raises(NotImplementedError, match=why):
+                mesh.check_mesh(MeshConfig(**{axis: 2}), 2, axes=axes)
+        for axes in running:
+            assert mesh.check_mesh(MeshConfig(**{axis: 2}), 2, axes=axes) == (1, 1)
+            assert mesh.check_mesh(MeshConfig(fsdp=2, **{axis: 2}), 8, batch_size=4,
+                                   axes=axes) == (2, 2)
+            with pytest.raises(ValueError, match=f"{axis}=2 does not divide the 1 process.*"
+                                                 "torchrun --nproc_per_node 2"):
+                mesh.check_mesh(MeshConfig(**{axis: 2}), 1, axes=axes)
+            with pytest.raises(ValueError, match="data=2, but 4 process.*"
+                                                 "data x fsdp x seq x tensor = 2 x 1 x .*"
+                                                 "torchrun --nproc_per_node 8"):
+                mesh.check_mesh(MeshConfig(data=2, **{axis: 4}), 4, axes=axes)
+            with pytest.raises(ValueError, match="batch of 6 does not split over 4 ranks"):
+                mesh.check_mesh(MeshConfig(data=4, **{axis: 2}), 8, batch_size=6, axes=axes)
     mesh.check_mesh(MeshConfig(**{axis: 1}), 2)
 
 
@@ -180,9 +186,11 @@ def test_cross_process_stats_equal_one_process(ranks):
                                  "eval-multiflow"])
 def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch):
     """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --tp 2 on one process
-    raises, on train-image and generate-image (whose SiT runs the tensor
-    axis) with the data x fsdp x seq x tensor world size and the torchrun
-    line, elsewhere naming ROADMAP item 8b; --distributed without
+    raises, on train-image, generate-image (whose SiT runs the tensor axis)
+    and train-protein (whose ProteinMPNN does) with the data x fsdp x seq x
+    tensor world size and the torchrun line, elsewhere naming ROADMAP item
+    8b; --sp 2 outside SiT raises saying that it splits SiT's tokens
+    alone; --distributed without
     torchrun's environment raises, an eval subcommand raises on --dp 2 or
     --fsdp 2 (naming ROADMAP item 11), and a train-* one (or
     generate-image) on a --dp x --fsdp that is not the world size, naming
@@ -195,13 +203,16 @@ def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch)
                        match="fsdp=2 does not divide the 1 process" if data_parallel
                        else "ROADMAP.md Queue 1 item 11"):
         cli.main(base + ["--fsdp", "2"])
-    if cmd in ("train-image", "generate-image"):
+    if cmd in ("train-image", "generate-image", "train-protein"):
         with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
                                              "torchrun --nproc_per_node 2"):
             cli.main(base + ["--tp", "2", "--sp", "1"])
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
             cli.main(base + ["--tp", "2", "--sp", "1"])
+    if cmd not in ("train-image", "generate-image"):
+        with pytest.raises(NotImplementedError, match="splits SiT's tokens alone"):
+            cli.main(base + ["--sp", "2"])
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK"):
         cli.main(base + ["--distributed"])
     with pytest.raises(ValueError if data_parallel else NotImplementedError,

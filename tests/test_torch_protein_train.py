@@ -274,14 +274,18 @@ def test_unported_settings_raise():
         ProteinTrainer(ProteinTrainConfig(compute_dtype="float16"), device="cpu")
     assert ProteinTrainer(ProteinTrainConfig(compute_dtype="bfloat16"),
                           device="cpu").cfg.compute_dtype == "bfloat16"
-    # data=2 and fsdp=2 need two ranks (torchrun; tests/test_torch_fsdp.py);
-    # the tensor axis runs on SiT only
+    # data=2, fsdp=2 and tensor=2 need two ranks (torchrun;
+    # tests/test_torch_fsdp.py, tests/test_torch_protein_tensor_parallel.py);
+    # the seq axis splits SiT's tokens alone
     with pytest.raises(ValueError, match="torchrun"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(data=2)), device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(fsdp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
+    with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
+                                         "torchrun --nproc_per_node 2"):
         ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(tensor=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="splits SiT's tokens alone"):
+        ProteinTrainer(ProteinTrainConfig(mesh=MeshConfig(seq=2)), device="cpu")
 
 
 def test_loss_falls_over_30_steps():

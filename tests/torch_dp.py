@@ -3,8 +3,9 @@ subprocesses that meet through a FileStore (no TCP port), and the tiny
 trainer cases that tests/test_torch_data_parallel.py holds against one
 process, tests/test_torch_fsdp.py at fsdp=2 against data=2,
 tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process,
-tests/test_torch_remat.py under SiT remat and
-tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes
+tests/test_torch_remat.py under SiT remat,
+tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes and
+tests/test_torch_protein_tensor_parallel.py on ProteinMPNN's tensor axis
 (`settings` sets their mesh, config fields and optimizer).
 
     python tests/torch_dp.py JOB DIR
@@ -215,11 +216,14 @@ CASES = {"protein": _protein, "image": _image, "semla": _semla, "edm": _edm,
          "linear_probe": _linear_probe, "multiflow": _multiflow}
 
 
-def run_case(name):
+def run_case(name, save_first=None):
     """Two train steps of case `name`: {'metrics': [per step {name: float}],
     'grads': [per step [tensor]], 'params': {name: tensor}, 'lr', 'state':
     the whole EMA, mu, nu and acc, 'resident': {'bytes', 'expected'}}, the
-    gradients as the update saw them (whole), in parameter order."""
+    gradients as the update saw them (whole), in parameter order. With
+    `save_first` (a directory) a checkpoint of the state after the first
+    step is written there (rank 0 writes; every rank gathers)."""
+    from reed_tpu_torch.core.checkpoint import CheckpointManager
     from reed_tpu_torch.core.trainer import capture_gradients
 
     trainer, batches = CASES[name]()
@@ -229,6 +233,8 @@ def run_case(name):
         for batch in batches:
             state, m = trainer.train_step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
+            if save_first is not None and state.step == 1:
+                CheckpointManager(save_first, dp=trainer.dp).save(state, trainer.generator)
     return {"metrics": metrics, "grads": grads, "lr": trainer.cfg.optim.lr,
             "params": whole_params(state), "state": whole_state(state),
             "resident": resident(state)}
@@ -695,7 +701,7 @@ def _job_tensor_parallel(out, dp):
     reed_tpu's step on the same weights and draws; train-image and
     generate-image through the CLI; and this rank's place on the mesh."""
     from reed_tpu_torch.eval.fid import generate_samples
-    from reed_tpu_torch.parallel.mesh import data_parallel
+    from reed_tpu_torch.parallel.mesh import SIT_AXES, data_parallel
 
     results = {}
     inputs = torch.load(out / "jax_inputs.pt", weights_only=False)
@@ -709,7 +715,7 @@ def _job_tensor_parallel(out, dp):
         with settings(mesh, fields=TP_FIELDS):
             results[name, "resume"] = resume_across(out, "image", f"ckpt_{name}",
                                                     "ckpt_one_image")
-        parallel = data_parallel(mesh, model_parallel=True)
+        parallel = data_parallel(mesh, axes=SIT_AXES)
         model = seeded_sit(parallel)
         results[name, "generate"] = generate_samples(
             lambda x, t, y: model(x, t, y)[0], gen_cfg(), device="cpu", mesh=mesh)
@@ -726,13 +732,13 @@ def _job_tensor_parallel_mesh(out, dp):
     at --dp 2 --tp 2 and --fsdp 2 --sp 2; each rank's groups."""
     from torch.distributed import get_process_group_ranks
 
-    from reed_tpu_torch.parallel.mesh import GROUP_AXES, data_parallel
+    from reed_tpu_torch.parallel.mesh import GROUP_AXES, SIT_AXES, data_parallel
 
     results = {}
     for name, axes in TP_MESHES_4.items():
         with settings(tp_mesh(**axes), fields=TP_FIELDS):
             results[name] = run_case("image")
-        groups = {kind: getattr(data_parallel(tp_mesh(**axes), model_parallel=True),
+        groups = {kind: getattr(data_parallel(tp_mesh(**axes), axes=SIT_AXES),
                                 f"{kind}_group") for kind in GROUP_AXES}
         results[name, "groups"] = {kind: None if g is None else get_process_group_ranks(g)
                                    for kind, g in groups.items()}
@@ -741,10 +747,112 @@ def _job_tensor_parallel_mesh(out, dp):
     torch.save(results, out / f"tp_mesh_rank{dp.process_rank}.pt")
 
 
+# --- ProteinMPNN's tensor axis ----------------------------------------------
+
+# the protein case at tensor=2: the fused chain (its plain version on the
+# CPU) and the unfused one ('off'), each without and with dropout (the case
+# has dropout 0.1 and coordinate noise 0.02)
+PTP_VARIANTS = {("fused", 0.0): {"dropout": 0.0}, ("fused", 0.1): {},
+                ("off", 0.0): {"dropout": 0.0, "fused_messages": "off"},
+                ("off", 0.1): {"fused_messages": "off"}}
+PTP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+# the reed_tpu step's configuration (TRAP_TINY with target noise on)
+PTP_JAX_FIELDS = {"repr_noise": 0.3}
+# train-protein through the CLI at tiny widths (2 + 2 layers, K 6)
+PTP_CLI = [*CLI_TINY["train-protein"], "--set", "k_neighbors=6",
+           "--set", "num_encoder_layers=2", "--set", "num_decoder_layers=2",
+           "--steps", "2", "--log-every", "1"]
+
+
+def ptp_first(key):
+    """The directory of the checkpoint a mesh run of PTP_VARIANTS key (or
+    PTP_MESHES_4 name) `key` writes after its first step."""
+    return "ptp_first_" + ("_".join(map(str, key)) if isinstance(key, tuple) else key)
+
+
+def protein_jax_parity_step(inputs, fused_messages):
+    """One TRAP_TINY protein step at tensor=2 from the weights, batch and
+    draws (S_t, t, target noise) of reed_tpu's step in `inputs`: its
+    metrics, the whole gradients by name, and the whole parameters and EMA
+    after it."""
+    from reed_tpu_torch.core.config import CurriculumConfig
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.train_state import make_optimizer
+    from reed_tpu_torch.core.trainer import capture_gradients
+    from reed_tpu_torch.parallel.mesh import PMPNN_TP_RULES, local_batch, shard_state_dict
+    from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
+
+    cfg = ProteinTrainConfig(**dict(TRAP_TINY, fused_messages=fused_messages),
+                             **PTP_JAX_FIELDS, mesh=tp_mesh(tensor=2),
+                             curriculum=CurriculumConfig(proj_coeff=0.2,
+                                                         diffusion_warmup_steps=0))
+    trainer = ProteinTrainer(cfg, device="cpu")
+    state = trainer.init_state()
+    plan = state.opt.plan
+    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, PMPNN_TP_RULES))
+    state.ema = ema_init(state.model, plan=plan)
+    state.opt = make_optimizer(cfg.optim, list(state.model.parameters()), plan)
+    batch = local_batch(trainer.dp, {k: torch.as_tensor(v) for k, v in inputs["batch"].items()})
+    noisy = local_batch(trainer.dp, tuple(torch.as_tensor(x) for x in inputs["noisy"]))
+    noise = local_batch(trainer.dp, [torch.as_tensor(x) for x in inputs["repr_noise"]])
+    with capture_gradients() as grads:
+        state, metrics = trainer.train_step(state, batch, noisy=noisy, repr_noise=noise)
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": dict(zip(names, grads[0])), "params": whole_params(state),
+            "ema": whole_state(state)["ema"]}
+
+
+def protein_cli(out, flags, tag):
+    """train-protein through the CLI (2 steps, a checkpoint at step 2 under
+    out/ptp_cli_{tag}) with the mesh flags `flags`: the trained step and
+    whole state."""
+    from reed_tpu_torch import cli
+
+    state = cli.main(["train-protein", "--device", "cpu", *flags, *PTP_CLI,
+                      "--ckpt-dir", str(out / f"ptp_cli_{tag}"), "--ckpt-every", "2"])
+    return state.step, state_tensors(state)
+
+
+def _job_protein_tensor_parallel(out, dp):
+    """On two ranks at tensor=2: the protein case fused and unfused, without
+    and with dropout; the checkpoints across tensor sizes; reed_tpu's step
+    on the same weights and draws on both paths; train-protein --tp 2
+    through the CLI; this rank's place on the mesh."""
+    results = {}
+    mesh = tp_mesh(tensor=2)
+    for key, fields in PTP_VARIANTS.items():
+        with settings(mesh, fields=fields):
+            results[key] = run_case("protein", save_first=out / ptp_first(key))
+    with settings(mesh):
+        results["resume"] = resume_across(out, "protein", "ckpt_ptp", "ckpt_one_protein")
+    inputs = torch.load(out / "jax_protein_inputs.pt", weights_only=False)
+    for path, mode in (("fused", "on"), ("off", "off")):
+        results["jax", path] = protein_jax_parity_step(inputs, mode)
+    results["cli"] = protein_cli(out, ["--distributed", "--tp", "2"], "tp")
+    with settings(mesh):
+        trainer, _ = _protein()
+    results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
+                       trainer.dp.tensor_index)
+    torch.save(results, out / f"ptp_rank{dp.process_rank}.pt")
+
+
+def _job_protein_tensor_parallel_mesh(out, dp):
+    """On four ranks: the protein case at data=2 x tensor=2 and fsdp=2 x
+    tensor=2."""
+    results = {}
+    for name, axes in PTP_MESHES_4.items():
+        with settings(tp_mesh(**axes)):
+            results[name] = run_case("protein", save_first=out / ptp_first(name))
+    torch.save(results, out / f"ptp_mesh_rank{dp.process_rank}.pt")
+
+
 JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
         "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat,
         "tensor_parallel": _job_tensor_parallel,
-        "tensor_parallel_mesh": _job_tensor_parallel_mesh}
+        "tensor_parallel_mesh": _job_tensor_parallel_mesh,
+        "protein_tensor_parallel": _job_protein_tensor_parallel,
+        "protein_tensor_parallel_mesh": _job_protein_tensor_parallel_mesh}
 
 
 if __name__ == "__main__":
