@@ -239,12 +239,25 @@ no result):
      f32, the ranks' whole
      parameters bitwise equal (SHA-256), 9 K2a + 9 K2b launches a rank, the
      state's bytes between steps beside the plan's reckoning (~2.43 M of
-     4.28 M parameters a rank), the step's seconds; (c) the same
+     4.28 M parameters a rank), the step's seconds; then (slice 20,
+     `mol_tp_rank_part`, `mol_tp_report`) SemlaFlow at the recipe's width
+     (56 x 72, the self-conditioning pass on) in f32 and mixed bf16, the
+     EDM (MoleculeEDMConfig, 64 x 29) in f32 and bf16 and the property
+     classifier (PropertyTrainConfig, 96 x 29) in f32 at tensor=2, two
+     steps each from the checked weights (seeded_semla, seeded_edm, the
+     property phase's moved biases): the first in f32 within
+     TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL (of the step's largest
+     gradient) of the one-process step, in bf16 within MOL_TP_BF16_FACTOR x
+     the one-process bf16 step's distance from f32, the ranks' whole
+     parameters bitwise equal after both, no K1/K2a/K2b launch, the bytes
+     the tensor group all-reduces a step a rank, the parameters and the
+     state's bytes a rank, each step's wall ms; (c) the same
      over NCCL with one card a rank, and `torchrun ... train-protein
-     --distributed` without and with --fsdp 2 and with --tp 2 and
+     --distributed` without and with --fsdp 2 and with --tp 2,
      `torchrun ... train-image --distributed` with --tp 2 and with --sp 2,
-     where the machine has two cards, else a line that says why it did not
-     run.
+     and `torchrun ... train-molecule-semla`, `train-molecule-edm` and
+     `train-property --distributed --tp 2`, where the machine has two
+     cards, else a line that says why it did not run.
   16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
      step at batch 48 under remat=True and 'dots' against the step
      without, from the same state and draws (bitwise where a repeated step
@@ -274,6 +287,7 @@ import copy
 import ctypes
 import dataclasses
 import hashlib
+import math
 import io
 import json
 import os
@@ -4172,6 +4186,28 @@ DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 # rounds once in the kernel, so the two bf16 steps sit at one distance
 # from f32 up to which elements round the other way
 PROTEIN_TP_BF16_FACTOR = 2.0
+# slice 20: SemlaFlow and the EGNN family at tensor=2, each at full width from
+# its checked weights (seeded_semla, seeded_edm, the property phase's moved
+# biases) in the dtypes its trainer has: one step held against one process,
+# a second timed; SemlaFlow takes its self-conditioning pass on the first.
+# f32: metrics within TRAIN_METRIC_RTOL; the whole gradient within
+# MOL_TP_F64_FACTOR x the one-process f32 step's distance (L2) from the
+# same step with the model and batch promoted to f64, and each gradient
+# within MOL_TP_GRAD_TOP of the step's largest. Phase 15's order rule (1e-4
+# of the largest gradient) assumes f32's own rounding sits below it; at
+# SemlaFlow's width it does not: on an H100 the tensor=2 step read 2.99e-4
+# of the largest gradient from one process at dynamics.coord_proj.weight
+# (the coordinate input projection, which every coordinate path feeds), and
+# on the CPU one process's own f32 gradient sits 1.7e-4 from f64 where the
+# tensor=2 one sits 2.2e-4 (tests/test_torch_semla_tensor_parallel.py). The
+# order-rule figure is logged beside. bf16: within MOL_TP_BF16_FACTOR x the
+# one-process bf16 step's distance from the f32 step (of the largest
+# gradient, as the f32 figures).
+MOL_TP = {"semla": ("float32", "bfloat16"), "edm": ("float32", "bfloat16"),
+          "property": ("float32",)}
+MOL_TP_BF16_FACTOR = 2.0
+MOL_TP_F64_FACTOR = 2.0
+MOL_TP_GRAD_TOP = 1e-3
 
 
 def dp_step_record(trainer, state, batch, steps):
@@ -4560,6 +4596,9 @@ def dp_rank_main(out_dir, backend):
         witness = dp_protein_witness(pbatch)
         ref_samples, _, _ = dp_generate(dp_seeded_sit())
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mol_refs = mol_tp_refs()
+        result["molecule_refs_s"] = time.perf_counter() - t0
     init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
     t0 = time.perf_counter()
     image = mesh_image_step(None, gb)
@@ -4591,6 +4630,9 @@ def dp_rank_main(out_dir, backend):
                                             ref_samples if rank == 0 else None,
                                             protein_refs if rank == 0 else None)
     result["model_parallel_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["molecule_tp"] = mol_tp_rank_part(rank, mol_refs if rank == 0 else None)
+    result["molecule_tp_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
     torch.distributed.destroy_process_group()
@@ -4693,6 +4735,267 @@ def mp_rank_part(rank, ref32, names, ref_samples, protein_refs):
     return out
 
 
+def mol_tp_setup(family, mesh, dtype):
+    """(trainer on `mesh` (None: one process), the whole checked weights as
+    a host state_dict, this rank's device batch, the family's tensor rules,
+    the step's injected draws) of `family` at full width in `dtype`:
+    SemlaFlow at the GEOM scale (batch 56 x 72), the EDM at MoleculeEDMConfig
+    (batch 64 x 29), the property classifier at PropertyTrainConfig (batch
+    96 x 29)."""
+    from reed_tpu_torch.core.config import MeshConfig
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, SEMLA_TP_RULES, local_batch
+
+    mesh = mesh or MeshConfig()
+    if family == "semla":
+        cfg = semla_full_config(compute_dtype=dtype)
+        trainer = semla_train.SemlaTrainer(dataclasses.replace(cfg, mesh=mesh), device="cuda")
+        whole = seeded_semla(cfg)
+        batch = semla_train.batch_to_device(local_batch(trainer.dp, semla_train.example_batch(
+            cfg, SEMLA["batch"], SEMLA["atoms"], seed=1)), "cuda")
+        rules, inject = SEMLA_TP_RULES, dict(use_sc=True)
+    elif family == "edm":
+        cfg = edm_train.MoleculeEDMConfig(compute_dtype=dtype)
+        trainer = edm_train.MoleculeEDMTrainer(dataclasses.replace(cfg, mesh=mesh),
+                                               device="cuda")
+        whole = seeded_edm(cfg)
+        batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+        rules, inject = EGNN_TP_RULES, {}
+    else:
+        cfg = property_train.PropertyTrainConfig()
+        trainer = property_train.PropertyTrainer(dataclasses.replace(cfg, mesh=mesh),
+                                                 device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        whole = property_train.build_model(cfg, device="cuda", generator=gen)
+        with torch.no_grad():
+            for name, p in whole.named_parameters():
+                if name.endswith("bias"):
+                    p.add_(torch.randn(p.shape, generator=gen, device="cuda")
+                           * PROPERTY_BIAS_STD)
+        batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+        rules, inject = EGNN_TP_RULES, {}
+    weights = {k: v.detach().cpu() for k, v in whole.state_dict().items()}
+    del whole
+    torch.cuda.empty_cache()
+    return trainer, weights, batch, rules, inject
+
+
+def mol_tp_step(family, mesh, dtype):
+    """Two train steps of `family` at full width on `mesh` (None: one
+    process) in `dtype` from its checked weights (SemlaFlow's first with
+    its self-conditioning pass): the first step's (metrics, whole
+    gradients) on the host and the parameter names, each step's seconds
+    and the second's loss, the bytes the model's collectives all-reduced
+    over the tensor group in the first step (collectives.tensor_bytes)
+    beside the replicated leaves' gradients, which the plan averages there,
+    the state's bytes after the steps beside the plan's reckoning (f32
+    parameters of this rank's shards; mu, nu and the EMA in f32), the
+    parameters a rank holds, the whole parameters' SHA-256 after the
+    steps, and K1/K2a/K2b launches (none on these paths)."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.train_state import make_optimizer
+    from reed_tpu_torch.parallel import collectives
+
+    trainer, weights, batch, rules, inject = mol_tp_setup(family, mesh, dtype)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = trainer.init_state()
+    plan = state.opt.plan
+    state.model.load_state_dict(shard_state_dict(weights, trainer.dp, rules))
+    state.ema = ema_init(state.model, plan=plan)
+    state.opt = make_optimizer(trainer.cfg.optim, list(state.model.parameters()), plan)
+    names = list(weights)
+    del weights
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    collectives.tensor_bytes = 0
+    seconds = []
+    with capture_gradients() as grads:
+        t0 = time.perf_counter()
+        state, first = trainer.train_step(state, batch, **inject)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    moved = collectives.tensor_bytes
+    run = [({k: float(v) for k, v in first.items()}, [g.cpu() for g in grads[0]])]
+    grads.clear()
+    if "use_sc" in inject:
+        inject = dict(inject, use_sc=False)
+    t0 = time.perf_counter()
+    state, second = trainer.train_step(state, batch, **inject)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    del first
+    allocated = torch.cuda.memory_allocated() - base
+    named = {k: p.detach() for k, p in state.model.named_parameters()}
+    params = [p.cpu() for p in (named if plan is None else plan.join_state_dict(named)).values()]
+    n = sum(p.numel() for p in state.model.parameters())
+    held = n if plan is None else plan.resident_elements()
+    replicated = (0 if plan is None else
+                  sum(int(np.prod(shape)) for shape, rule in zip(plan.shapes, plan.tensor)
+                      if rule is None))
+    row = dict(s=seconds, loss2=float(second["loss"]), tensor_bytes=moved,
+               replicated_grad_bytes=4 * replicated, allocated=allocated,
+               reckoned=4 * n + (4 + 4 + 4) * held, params_rank=n,
+               params_whole=sum(p.numel() for p in params), params_sha256=params_digest(params),
+               launches=[fa.launches, fm.launches, fm.backward_launches],
+               finite=bool(all(math.isfinite(v) for v in run[0][0].values())
+                           and math.isfinite(float(second["loss"]))))
+    del trainer, state, batch, named, second
+    torch.cuda.empty_cache()
+    return run, names, row
+
+
+def mol_grads64(family):
+    """The one-process gradient of `family`'s first mol_tp_step with the
+    model and the batch promoted to f64 (the LayerNorms keep their f32
+    statistics; the same draws), on the host: the yardstick of f32's own
+    rounding."""
+    def promoted(x):
+        if isinstance(x, dict):
+            return {k: promoted(v) for k, v in x.items()}
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+    trainer, weights, batch, _, inject = mol_tp_setup(family, None, "float32")
+    model = trainer.init_state().model
+    model.load_state_dict(weights)
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    loss_fn = {"semla": semla_train.make_loss_fn, "edm": edm_train.make_loss_fn,
+               "property": property_train.make_loss_fn}[family]
+    extra = dict(generator=trainer.generator) if family != "property" else {}
+    metrics = (loss_fn(trainer.cfg, "cuda") if family == "edm" else loss_fn(trainer.cfg))(
+        model, promoted(batch), 0, **extra, **inject)
+    total, _ = combine_losses(metrics, 0, getattr(trainer, "curriculum", trainer.cfg.curriculum))
+    leaves = list(model.parameters())
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    out = [(torch.zeros_like(p) if g is None else g).cpu() for g, p in zip(grads, leaves)]
+    del trainer, model, batch, metrics, total, grads, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def l2_distance(a, b):
+    """sqrt of the sum over the tensors of a and b of |a - b|^2, in f64."""
+    return math.sqrt(sum(float((x.double() - y.double()).norm()) ** 2 for x, y in zip(a, b)))
+
+
+def mol_step_errors(a, b):
+    """(worst metric error, relative above 1; worst gradient error as max
+    |a - b| over every tensor / the largest |b| of the step, and its
+    parameter index) of step a against step b."""
+    (ma, ga), (mb, gb) = a, b
+    top = max(float(y.abs().max()) for y in gb)
+    errs = [float((x - y).abs().max()) / top for x, y in zip(ga, gb)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1.0) for k in mb), errs[worst], worst
+
+
+def mol_tp_refs():
+    """Rank 0's one-process references of the slice-20 steps: each
+    family's first step in f32 and its f64 promotion ({family: (run, names,
+    grads64)}), and each bf16 step's distance from the f32 one
+    (mol_step_errors)."""
+    refs, bf16 = {}, {}
+    for family, dtypes in MOL_TP.items():
+        run32, names, _ = mol_tp_step(family, None, "float32")
+        refs[family] = (run32, names, mol_grads64(family))
+        if "bfloat16" in dtypes:
+            run16, _, _ = mol_tp_step(family, None, "bfloat16")
+            bf16[family] = mol_step_errors(run16[0], run32[0])[:2]
+    return refs, bf16
+
+
+def mol_tp_rank_part(rank, refs):
+    """The slice-20 steps at tensor=2 on a rank of phase 15's group: each
+    family of MOL_TP in each of its dtypes, against rank 0's one-process
+    f32 step `refs` (mol_tp_refs)."""
+    from reed_tpu_torch.core.config import MeshConfig
+
+    out = {}
+    for family, dtypes in MOL_TP.items():
+        for dtype in dtypes:
+            run, names, row = mol_tp_step(family, MeshConfig(tensor=DP["world"]), dtype)
+            if rank == 0:
+                ref_run, ref_names, grads64 = refs[0][family]
+                assert names == ref_names, family
+                metric, grad, worst = mol_step_errors(run[0], ref_run[0])
+                row["vs_f32"] = [metric, grad, names[worst]]
+                row["loss"] = run[0][0]["loss"]
+                if dtype == "bfloat16":
+                    row["bf16_vs_f32"] = list(refs[1][family])
+                else:
+                    row["l2_vs_f64"] = [l2_distance(run[0][1], grads64),
+                                        l2_distance(ref_run[0][1], grads64),
+                                        l2_distance(run[0][1], ref_run[0][1])]
+            out[f"{family}_{dtype}"] = row
+    return out
+
+
+def mol_tp_report(res, where, smi):
+    """The slice-20 lines and checks from each rank's mol_tp_rank_part: f32
+    within (TRAIN_METRIC_RTOL, DP_ORDER_GRAD_RTOL) of the one-process step,
+    bf16 within MOL_TP_BF16_FACTOR x the one-process bf16 step's distance
+    from it; the ranks' whole parameters bitwise equal after both steps;
+    fewer parameters a rank than the model's; no K1/K2a/K2b launch. Every
+    family's lines come before the first failure raises."""
+    log(f"[tp] {where}, SemlaFlow (recipe width, batch {SEMLA['batch']} x {SEMLA['atoms']}, "
+        "the self-conditioning pass on), the EDM (MoleculeEDMConfig, batch 64 x 29) and the "
+        "property classifier (PropertyTrainConfig, batch 96 x 29) at tensor=2 against one "
+        "process, from the checked weights: each rank the whole batch and half of each "
+        "split MLP" + ("; over gloo the collectives go through the host" if "gloo" in where
+                       else ""))
+    record = ", a record: gloo through the host" if "gloo" in where else ""
+    failures = []
+    for key in res[0]:
+        r0 = res[0][key]
+        metric, grad, worst = r0["vs_f32"]
+        same = len({r[key]["params_sha256"] for r in res}) == 1
+        if key.endswith("float32"):
+            tp64, one64, tp_one = r0["l2_vs_f64"]
+            tols = (TRAIN_METRIC_RTOL, MOL_TP_GRAD_TOP)
+            ok = metric <= tols[0] and grad <= tols[1] and tp64 <= MOL_TP_F64_FACTOR * one64
+            bound = (f"the whole gradient's L2 distance from the f64 step {tp64:.4g}, one "
+                     f"process's {one64:.4g} (bound {MOL_TP_F64_FACTOR}x), from one process "
+                     f"{tp_one:.4g}; phase 15's order rule {DP_ORDER_GRAD_RTOL} "
+                     f"{'met' if grad <= DP_ORDER_GRAD_RTOL else 'not met'}")
+        else:
+            noise_metric, noise_grad = r0["bf16_vs_f32"]
+            tols = (MOL_TP_BF16_FACTOR * noise_metric + 1e-6, MOL_TP_BF16_FACTOR * noise_grad)
+            ok = metric <= tols[0] and grad <= tols[1]
+            bound = (f"{MOL_TP_BF16_FACTOR}x the one-process bf16 step's distance "
+                     f"({noise_metric:.3g}, {noise_grad:.3g})")
+        log(f"[tp]   {key} step 1 against the one-process f32 step: metrics max rel err "
+            f"{metric:.3g}, gradients max err / the step's largest |g| {grad:.3g} at {worst}; "
+            f"bound ({tols[0]:.3g}, {tols[1]:.3g}); {bound}; loss {r0['loss']:.6g}, after "
+            f"step 2 {r0['loss2']:.6g}; the steps {1e3 * r0['s'][0]:.1f} and "
+            f"{1e3 * r0['s'][1]:.1f} ms (wall{record}); the tensor "
+            f"group all-reduces {r0['tensor_bytes'] / 1e9:.4f} GB of f32 activations and "
+            f"activation gradients a step a rank, and "
+            f"{r0['replicated_grad_bytes'] / 1e6:.2f} MB of the replicated leaves' "
+            f"gradients; the whole parameters after both steps bitwise equal on every "
+            f"rank: {same} (SHA-256 {r0['params_sha256'][:16]}...)")
+        for rank, r in enumerate(res):
+            rr = r[key]
+            log(f"[tp]   {key} rank {rank}: {rr['params_rank'] / 1e6:.3f} M of "
+                f"{rr['params_whole'] / 1e6:.3f} M parameters; the state holds "
+                f"{rr['allocated'] / 1e6:.1f} MB after the steps (the plan reckons "
+                f"{rr['reckoned'] / 1e6:.1f} MB: f32 parameters with mu, nu and the EMA); "
+                f"K1/K2a/K2b launches {rr['launches']} ({smi})")
+        if not ok:
+            failures.append(f"the {where} tensor=2 {key} step against one process: {r0}")
+        if not same:
+            failures.append(f"the {where} tensor=2 {key} steps: the ranks' whole parameters "
+                            "differ")
+        for r in res:
+            rr = r[key]
+            if (any(rr["launches"]) or not rr["finite"]
+                    or not rr["params_rank"] < rr["params_whole"]):
+                failures.append(f"the tensor=2 {key} steps on a rank: {rr}")
+    if failures:
+        raise AssertionError("\n".join(failures))
+
+
 def dp_ranks_phase(tmp, backend, cards, smi):
     """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
     card rank % cards, against one process at the same global batches, and
@@ -4781,6 +5084,9 @@ def dp_ranks_phase(tmp, backend, cards, smi):
     fsdp = fsdp_report([r["fsdp"] for r in res], where, smi)
     mp = mp_report([r["model_parallel"] for r in res], r0["model_parallel_s"], where,
                    (metric_tol, grad_tol), smi)
+    log(f"[tp] slice 20 on {where}: rank 0's one-process references "
+        f"{r0['molecule_refs_s']:.1f} s, the tensor=2 steps {r0['molecule_tp_s']:.1f} s")
+    mol_tp_report([r["molecule_tp"] for r in res], where, smi)
     return fsdp, mp
 
 
@@ -4981,11 +5287,15 @@ def dp_phases(smi):
             dp_torchrun_phase(tmp, smi, "train-protein", "--tp", world)
             for flag in ("--tp", "--sp"):
                 dp_torchrun_phase(tmp, smi, "train-image", *TORCHRUN_IMAGE, flag, world)
+            for cmd in ("train-molecule-semla", "train-molecule-edm", "train-property"):
+                dp_torchrun_phase(tmp, smi, cmd, "--tp", world)
         else:
             log(f"[dp] (c) not run: the NCCL ranks, torchrun train-protein --distributed "
-                f"(without, with --fsdp {world} and with --tp {world}) and torchrun "
-                f"train-image --distributed --tp {world} and --sp {world} need {world} cards "
-                f"(NCCL takes one card a rank) and this machine has {cards}")
+                f"(without, with --fsdp {world} and with --tp {world}), torchrun "
+                f"train-image --distributed --tp {world} and --sp {world}, and torchrun "
+                f"train-molecule-semla, train-molecule-edm and train-property --distributed "
+                f"--tp {world} need {world} cards (NCCL takes one card a rank) and this "
+                f"machine has {cards}")
     return launches, fsdp_launches, mp_launches
 
 

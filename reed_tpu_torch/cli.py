@@ -47,8 +47,13 @@ moments, the accumulation buffer and the EMA over groups of F ranks
 of them). train-image and generate-image also take --tp T (each group of T
 ranks splits SiT's heads and MLP, Megatron's tensor parallelism) and --sp
 S (each group of S ranks splits the tokens): --dp x --fsdp x --sp x --tp
-ranks in all, the batch split over --dp x --fsdp. The other train-*
-subcommands raise on --tp or --sp above 1 (ROADMAP.md Queue 1 item 8b).
+ranks in all, the batch split over --dp x --fsdp. train-protein,
+train-molecule-semla (arch semla), train-molecule-edm and train-property
+take --tp T too (ProteinMPNN's message chains and MLPs; SemlaFlow's
+message MLPs, attention heads and feed-forwards; the EGNN's MLPs). The
+other train-* subcommands (and Semla's egnn and eqgat archs and
+--linear-probe) raise on --tp above 1, and every one but train-image on
+--sp above 1 (ROADMAP.md Queue 1 item 8b).
 The eval subcommands take --dp/--fsdp/--tp/--sp and --distributed as
 reed_tpu does and raise on more than one process or an axis above 1
 (ROADMAP.md Queue 1 items 11 and 8b). Configurations resolve as
@@ -102,7 +107,8 @@ from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
-from reed_tpu_torch.parallel.mesh import PMPNN_AXES, SIT_AXES, local_batch
+from reed_tpu_torch.parallel.mesh import (EGNN_AXES, PMPNN_AXES, SEMLA_AXES, SIT_AXES,
+                                         local_batch)
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
@@ -663,11 +669,14 @@ def _load_reps(data_dir: str, d_rep, n: int, key: str = "d_rep"):
     return np.zeros((n, d_rep), np.float32)
 
 
-def _semla_ref_ckpt(model, path):
-    """Load a reference SemlaFlow checkpoint (EMA weights where present)."""
+def _semla_ref_ckpt(model, path, parallel=None):
+    """Load a reference SemlaFlow checkpoint (EMA weights where present),
+    a tensor rank's shards of it under `parallel`."""
     from reed_tpu_torch.encoders.semla_convert import load_into, load_torch_semla_checkpoint
+    from reed_tpu_torch.parallel.mesh import SEMLA_TP_RULES, shard_state_dict
 
-    load_into(model, load_torch_semla_checkpoint(path))
+    load_into(model, shard_state_dict(load_torch_semla_checkpoint(path), parallel,
+                                      SEMLA_TP_RULES))
 
 
 def train_molecule_semla(args):
@@ -687,7 +696,7 @@ def train_molecule_semla(args):
     trainer = SemlaTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _semla_ref_ckpt(state.model, args.ref_ckpt)
+        _semla_ref_ckpt(state.model, args.ref_ckpt, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -830,15 +839,16 @@ def eval_semla(args):
     return summary
 
 
-def _edm_ref_ckpt(model, path, device):
+def _edm_ref_ckpt(model, path, device, parallel=None):
     """Load a reference EDM checkpoint (generative_model[_ema].npy) into
-    `model`; returns its learned noise schedule (a GammaNetwork on
-    `device`) or None."""
+    `model` (a tensor rank's shards of it under `parallel`); returns its
+    learned noise schedule (a GammaNetwork on `device`) or None."""
     from reed_tpu_torch.diffusion.edm import GammaNetwork
     from reed_tpu_torch.encoders.edm_convert import load_into, load_torch_edm_checkpoint
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, shard_state_dict
 
     dyn, gamma_sd = load_torch_edm_checkpoint(path)
-    load_into(model, dyn)
+    load_into(model, shard_state_dict(dyn, parallel, EGNN_TP_RULES))
     if gamma_sd is None:
         return None
     gamma = GammaNetwork(hidden=gamma_sd["l2.weight"].shape[0]).to(device)
@@ -863,7 +873,7 @@ def train_molecule_edm(args):
     trainer = MoleculeEDMTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _edm_ref_ckpt(state.model, args.ref_ckpt, device)
+        _edm_ref_ckpt(state.model, args.ref_ckpt, device, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1481,8 +1491,8 @@ def _add_mesh(p, data_parallel: bool, axes=(), splits: str = ""):
     """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
     over the ranks of --distributed (the others raise on more than one),
     `axes` the model axes its family runs (parallel.mesh.SIT_AXES,
-    PMPNN_AXES; the others raise above 1), `splits` what its tensor ranks
-    split."""
+    PMPNN_AXES, SEMLA_AXES, EGNN_AXES; the others raise above 1), `splits`
+    what its tensor ranks split."""
     from reed_tpu_torch.parallel.mesh import NOT_PORTED, SEQ_AXIS, TENSOR_AXIS
 
     ranks = "data x fsdp" + (" x seq x tensor" if axes else "")
@@ -1645,7 +1655,9 @@ def main(argv=None):
                         "checkpoint (dims via --set)")
     _add_training(p)
     _add_config(p, "SemlaTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=SEMLA_AXES,
+              splits="SemlaFlow's message MLPs, attention heads and feed-forwards (arch "
+                     "semla; egnn and eqgat: only 1)")
     p.set_defaults(fn=train_molecule_semla)
 
     p = sub.add_parser("eval-semla")
@@ -1686,7 +1698,8 @@ def main(argv=None):
                         "(generative_model[_ema].npy; widths via --set)")
     _add_training(p)
     _add_config(p, "MoleculeEDMConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=EGNN_AXES,
+              splits="the EGNN's edge, node, coordinate and rep feed-forward MLPs")
     p.set_defaults(fn=train_molecule_edm)
 
     p = sub.add_parser("train-rdm")
@@ -1738,7 +1751,8 @@ def main(argv=None):
                         "beside it for --linear-probe); trains on it, mean and mad from it")
     _add_training(p)
     _add_config(p, "PropertyTrainConfig (LinearProbeConfig with --linear-probe)")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=EGNN_AXES,
+              splits="the classifier's edge and node MLPs (--linear-probe: only 1)")
     p.set_defaults(fn=train_property)
 
     p = sub.add_parser("eval-conditional")

@@ -25,6 +25,19 @@ Dense(dtype=bf16) does, its f32 weights cast where they are used, and the
 LayerNorms return bf16 from f32 statistics; the masks are f32, so (as in
 JAX) the masked node features, the messages' first layer and its sums,
 the coordinates and the outputs stay f32.
+
+Tensor parallelism (EGNNDynamics' `parallel`, a parallel.mesh
+DataParallel with tensor T above 1; parallel/mesh.EGNN_TP_RULES): each
+GCL's edge and node MLPs, each EquivariantUpdate's first two coordinate
+products and each rep block's GEGLU feed-forward are Megatron column/row
+pairs. A rank holds the first product's hidden columns (the edge and
+coordinate ones stay factored over them) and the second's matching rows;
+the inputs enter through copy_to_tensor (their partial gradients are
+summed once in the backward), the second product's f32 partials are
+summed over the tensor group before its bias and the SiLU, and
+everything after the sum (att_mlp, the aggregation, the coordinate head
+coord_mlp.4) is whole on every rank. The GEGLU's proj emits the halves
+[a, g] of 4d each: a rank holds the same columns of both halves.
 """
 
 from __future__ import annotations
@@ -36,8 +49,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reed_tpu_torch.nn.layers import dense, layer_norm
+from reed_tpu_torch.nn.layers import dense, layer_norm, row_dense, split_width, tensor_size
 from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.collectives import copy_to_tensor
 
 
 def coord2diff(x, norm_constant: float = 1.0):
@@ -81,22 +95,27 @@ class GCL(_Mixed):
     """Graph convolution (feature) layer (reference: egnn_new.py:6-68)."""
 
     def __init__(self, hidden_nf: int, edges_in_d: int, attention: bool = False,
-                 normalization_factor: float = 100.0, aggregation: str = "sum"):
+                 normalization_factor: float = 100.0, aggregation: str = "sum",
+                 parallel=None):
         super().__init__()
         self.normalization_factor = normalization_factor
         self.aggregation = aggregation
-        self.edge_mlp = nn.Sequential(nn.Linear(2 * hidden_nf + edges_in_d, hidden_nf),
-                                      nn.SiLU(), nn.Linear(hidden_nf, hidden_nf), nn.SiLU())
-        self.node_mlp = nn.Sequential(nn.Linear(2 * hidden_nf, hidden_nf), nn.SiLU(),
-                                      nn.Linear(hidden_nf, hidden_nf))
+        self.parallel = parallel
+        edge_hidden = split_width(hidden_nf, tensor_size(parallel), "the edge MLP")
+        node_hidden = split_width(hidden_nf, tensor_size(parallel), "the node MLP")
+        self.edge_mlp = nn.Sequential(nn.Linear(2 * hidden_nf + edges_in_d, edge_hidden),
+                                      nn.SiLU(), nn.Linear(edge_hidden, hidden_nf), nn.SiLU())
+        self.node_mlp = nn.Sequential(nn.Linear(2 * hidden_nf, node_hidden), nn.SiLU(),
+                                      nn.Linear(node_hidden, hidden_nf))
         self.attention = attention
         if attention:
             self.att_mlp = nn.Sequential(nn.Linear(hidden_nf, 1), nn.Sigmoid())
 
     def forward(self, h, edge_attr, node_mask, edge_mask):
-        dt = self.compute_dtype
-        m = F.silu(factored_pair_linear(self.edge_mlp[0], h, edge_attr, dt))
-        m = F.silu(dense(m, self.edge_mlp[2], dt))
+        dt, parallel = self.compute_dtype, self.parallel
+        m = F.silu(factored_pair_linear(self.edge_mlp[0], copy_to_tensor(h, parallel),
+                                        copy_to_tensor(edge_attr, parallel), dt))
+        m = F.silu(row_dense(m, self.edge_mlp[2], dt, parallel))
         if self.attention:
             m = m * torch.sigmoid(dense(m, self.att_mlp[0], dt))
         agg = torch.sum(m * edge_mask, dim=2)
@@ -104,8 +123,8 @@ class GCL(_Mixed):
             agg = agg / self.normalization_factor
         elif self.aggregation == "mean":
             agg = agg / torch.clamp(torch.sum(edge_mask, dim=2), min=1.0)
-        out = dense(torch.cat([h, agg], dim=-1), self.node_mlp[0], dt)
-        out = dense(F.silu(out), self.node_mlp[2], dt)
+        out = dense(copy_to_tensor(torch.cat([h, agg], dim=-1), parallel), self.node_mlp[0], dt)
+        out = row_dense(F.silu(out), self.node_mlp[2], dt, parallel)
         return (h + out) * node_mask
 
 
@@ -114,21 +133,24 @@ class EquivariantUpdate(_Mixed):
 
     def __init__(self, hidden_nf: int, edges_in_d: int, tanh: bool = False,
                  coords_range: float = 10.0, normalization_factor: float = 100.0,
-                 aggregation: str = "sum"):
+                 aggregation: str = "sum", parallel=None):
         super().__init__()
         self.tanh = tanh
         self.coords_range = coords_range
         self.normalization_factor = normalization_factor
         self.aggregation = aggregation
+        self.parallel = parallel
+        hidden = split_width(hidden_nf, tensor_size(parallel), "the coordinate MLP")
         self.coord_mlp = nn.Sequential(
-            nn.Linear(2 * hidden_nf + edges_in_d, hidden_nf), nn.SiLU(),
-            nn.Linear(hidden_nf, hidden_nf), nn.SiLU(),
+            nn.Linear(2 * hidden_nf + edges_in_d, hidden), nn.SiLU(),
+            nn.Linear(hidden, hidden_nf), nn.SiLU(),
             nn.Linear(hidden_nf, 1, bias=False))
 
     def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask):
-        dt = self.compute_dtype
-        m = F.silu(factored_pair_linear(self.coord_mlp[0], h, edge_attr, dt))
-        m = F.silu(dense(m, self.coord_mlp[2], dt))
+        dt, parallel = self.compute_dtype, self.parallel
+        m = F.silu(factored_pair_linear(self.coord_mlp[0], copy_to_tensor(h, parallel),
+                                        copy_to_tensor(edge_attr, parallel), dt))
+        m = F.silu(row_dense(m, self.coord_mlp[2], dt, parallel))
         scalar = dense(m, self.coord_mlp[4], dt)
         if self.tanh:
             trans = coord_diff * torch.tanh(scalar) * self.coords_range
@@ -163,13 +185,20 @@ class _GEGLU(_Mixed):
 
 
 class _FeedForward(_Mixed):
-    def __init__(self, dim: int, mult: int = 4):
+    """The GEGLU feed-forward; under the tensor axis of `parallel` a rank
+    holds `proj`'s columns c_t of both halves [a, g] and the matching rows
+    of net.2 (EGNN_TP_RULES' two groups)."""
+
+    def __init__(self, dim: int, mult: int = 4, parallel=None):
         super().__init__()
-        self.net = nn.ModuleList([_GEGLU(dim, mult * dim), nn.Identity(),
-                                  nn.Linear(mult * dim, dim)])
+        self.parallel = parallel
+        hidden = split_width(mult * dim, tensor_size(parallel), "the rep feed-forward")
+        self.net = nn.ModuleList([_GEGLU(dim, hidden), nn.Identity(),
+                                  nn.Linear(hidden, dim)])
 
     def forward(self, x):
-        return dense(self.net[0](x), self.net[2], self.compute_dtype)
+        h = self.net[0](copy_to_tensor(x, self.parallel))
+        return row_dense(h, self.net[2], self.compute_dtype, self.parallel)
 
 
 class RepCrossAttention(_Mixed):
@@ -177,12 +206,12 @@ class RepCrossAttention(_Mixed):
     feed-forward, each residual (reference: models/attention.py:151-216
     BasicTransformerBlock without self-attention; LayerNorm eps 1e-5)."""
 
-    def __init__(self, dim: int, context_dim: int):
+    def __init__(self, dim: int, context_dim: int, parallel=None):
         super().__init__()
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = _CrossAttention(dim, context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = _FeedForward(dim)
+        self.ff = _FeedForward(dim, parallel=parallel)
 
     def forward(self, h, rep, node_mask):
         dt = self.compute_dtype
@@ -197,15 +226,15 @@ class EquivariantBlock(_Mixed):
     def __init__(self, hidden_nf: int, edge_feat_nf: int = 2, n_layers: int = 2,
                  attention: bool = True, tanh: bool = False, coords_range: float = 15.0,
                  norm_constant: float = 1.0, normalization_factor: float = 100.0,
-                 aggregation: str = "sum"):
+                 aggregation: str = "sum", parallel=None):
         super().__init__()
         self.n_layers = n_layers
         self.norm_constant = norm_constant
         for i in range(n_layers):
             self.add_module(f"gcl_{i}", GCL(hidden_nf, edge_feat_nf, attention,
-                                            normalization_factor, aggregation))
+                                            normalization_factor, aggregation, parallel))
         self.gcl_equiv = EquivariantUpdate(hidden_nf, edge_feat_nf, tanh, coords_range,
-                                           normalization_factor, aggregation)
+                                           normalization_factor, aggregation, parallel)
 
     def forward(self, h, x, node_mask, edge_mask, edge_attr):
         distances, coord_diff = coord2diff(x, self.norm_constant)
@@ -221,7 +250,7 @@ class EGNN(_Mixed):
                  n_layers: int = 9, inv_sublayers: int = 2, attention: bool = True,
                  tanh: bool = True, coords_range: float = 15.0, norm_constant: float = 1.0,
                  normalization_factor: float = 100.0, aggregation: str = "sum",
-                 rep_nf: Optional[int] = None, attn_block_num: int = 1):
+                 rep_nf: Optional[int] = None, attn_block_num: int = 1, parallel=None):
         super().__init__()
         out_node_nf = out_node_nf or in_node_nf
         self.n_layers = n_layers
@@ -231,11 +260,11 @@ class EGNN(_Mixed):
         for i in range(n_layers):
             self.add_module(f"e_block_{i}", EquivariantBlock(
                 hidden_nf, 2, inv_sublayers, attention, tanh, coords_range_layer,
-                norm_constant, normalization_factor, aggregation))
+                norm_constant, normalization_factor, aggregation, parallel))
         self.attns = None
         if rep_nf is not None:
             self.attns = nn.ModuleList([
-                nn.ModuleList([RepCrossAttention(hidden_nf, rep_nf)
+                nn.ModuleList([RepCrossAttention(hidden_nf, rep_nf, parallel)
                                for _ in range(attn_block_num)])
                 for _ in range(n_layers)])
 
@@ -260,7 +289,10 @@ class EGNNDynamics(nn.Module):
     the node features, the output [velocity, h] with the velocity's centre
     of mass removed. With rep_nf and rep_dropout_prob > 0 a learned
     `fake_latent` replaces the rep of dropped rows in training, and
-    `forward_with_cfg` guides with it: cond + w * (cond - uncond)."""
+    `forward_with_cfg` guides with it: cond + w * (cond - uncond).
+    `parallel` splits the EGNN over its tensor axis (the module docstring):
+    the parameters are then a tensor rank's shards under the whole model's
+    names (parallel/mesh.shard_state_dict)."""
 
     def __init__(self, in_node_nf: int, context_node_nf: int = 0, n_dims: int = 3,
                  hidden_nf: int = 256, n_layers: int = 9, inv_sublayers: int = 2,
@@ -268,7 +300,8 @@ class EGNNDynamics(nn.Module):
                  norm_constant: float = 1.0, normalization_factor: float = 100.0,
                  aggregation: str = "sum", condition_time: bool = True,
                  rep_nf: Optional[int] = None, rep_dropout_prob: float = 0.1,
-                 attn_block_num: int = 1, compute_dtype: torch.dtype = torch.float32):
+                 attn_block_num: int = 1, compute_dtype: torch.dtype = torch.float32,
+                 parallel=None):
         super().__init__()
         self.in_node_nf = in_node_nf
         self.context_node_nf = context_node_nf
@@ -279,7 +312,7 @@ class EGNNDynamics(nn.Module):
         in_nf = in_node_nf + context_node_nf + int(condition_time)
         self.egnn = EGNN(in_nf, hidden_nf, in_nf, n_layers, inv_sublayers, attention, tanh,
                          coords_range, norm_constant, normalization_factor, aggregation,
-                         rep_nf, attn_block_num)
+                         rep_nf, attn_block_num, parallel)
         if rep_nf is not None and rep_dropout_prob > 0:
             self.fake_latent = nn.Parameter(torch.zeros(1, rep_nf))
         for m in self.modules():

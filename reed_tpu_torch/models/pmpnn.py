@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.data.protein import MASK_TOKEN_INDEX, NUM_TOKENS
-from reed_tpu_torch.nn.layers import linear, row_parallel
+from reed_tpu_torch.nn.layers import linear, row_parallel, split_width
 from reed_tpu_torch.ops.fused_message import fused_message_mlp
 from reed_tpu_torch.ops.graph import gather_nodes, knn_graph, rbf
 from reed_tpu_torch.parallel import draws
@@ -104,14 +104,6 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
-
-
-def split_width(width: int, tensor: int, what: str) -> int:
-    """A tensor rank's share of `width` units; ValueError where tensor does
-    not divide it."""
-    if width % tensor:
-        raise ValueError(f"tensor={tensor} does not divide {what}'s {width} units")
-    return width // tensor
 
 
 def column_row(x, fc1: nn.Linear, fc2: nn.Linear, act, parallel):

@@ -14,6 +14,13 @@ edge MLP's first layer acts on concat([h_i, h_j, edge_attr]) through the
 column blocks of its one weight (models/egnn.factored_pair_linear), as
 reed_tpu's DenseParams slices its kernel's rows, so the [B, N, N, 2d + 1]
 concat is never built. f32 (f64 for a reference check).
+
+Under the tensor axis (`parallel`, parallel/mesh.EGNN_TP_RULES) each
+layer's edge and node MLPs are Megatron column/row pairs, as the EDM's GCL
+(models/egnn.py): a rank holds edge_fc1's and node_fc1's hidden columns
+and edge_fc2's and node_fc2's matching rows, the second products' f32
+partials are summed over the tensor group before their biases, and the
+embedding, the attention and the decoders are whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from reed_tpu_torch.models.egnn import coord2diff, factored_pair_linear
+from reed_tpu_torch.nn.layers import row_dense, split_width, tensor_size
+from reed_tpu_torch.parallel.collectives import copy_to_tensor
 
 
 class PropertyEGNNLayer(nn.Module):
@@ -32,37 +41,45 @@ class PropertyEGNNLayer(nn.Module):
     with a sigmoid edge attention, masked sum over neighbours, and a
     residual node MLP."""
 
-    def __init__(self, hidden_nf: int, edges_in_d: int = 1, attention: bool = True):
+    def __init__(self, hidden_nf: int, edges_in_d: int = 1, attention: bool = True,
+                 parallel=None):
         super().__init__()
         self.attention = attention
-        self.edge_fc1 = nn.Linear(2 * hidden_nf + edges_in_d, hidden_nf)
-        self.edge_fc2 = nn.Linear(hidden_nf, hidden_nf)
+        self.parallel = parallel
+        edge_hidden = split_width(hidden_nf, tensor_size(parallel), "the edge MLP")
+        node_hidden = split_width(hidden_nf, tensor_size(parallel), "the node MLP")
+        self.edge_fc1 = nn.Linear(2 * hidden_nf + edges_in_d, edge_hidden)
+        self.edge_fc2 = nn.Linear(edge_hidden, hidden_nf)
         if attention:
             self.att = nn.Linear(hidden_nf, 1)
-        self.node_fc1 = nn.Linear(2 * hidden_nf, hidden_nf)
-        self.node_fc2 = nn.Linear(hidden_nf, hidden_nf)
+        self.node_fc1 = nn.Linear(2 * hidden_nf, node_hidden)
+        self.node_fc2 = nn.Linear(node_hidden, hidden_nf)
 
     def forward(self, h, edge_attr, node_mask, edge_mask):
-        m = F.silu(factored_pair_linear(self.edge_fc1, h, edge_attr))
-        m = F.silu(self.edge_fc2(m))
+        parallel, dt = self.parallel, self.edge_fc2.weight.dtype
+        m = F.silu(factored_pair_linear(self.edge_fc1, copy_to_tensor(h, parallel),
+                                        copy_to_tensor(edge_attr, parallel)))
+        m = F.silu(row_dense(m, self.edge_fc2, dt, parallel))
         if self.attention:
             m = m * torch.sigmoid(self.att(m))
         agg = torch.sum(m * edge_mask, dim=2)
-        out = self.node_fc2(F.silu(self.node_fc1(torch.cat([h, agg], dim=-1))))
+        out = F.silu(self.node_fc1(copy_to_tensor(torch.cat([h, agg], dim=-1), parallel)))
+        out = row_dense(out, self.node_fc2, dt, parallel)
         return (h + out) * node_mask
 
 
 class PropertyClassifier(nn.Module):
     """embedding -> n_layers PropertyEGNNLayers -> node decoder -> sum pool
-    -> graph decoder -> one scalar a molecule."""
+    -> graph decoder -> one scalar a molecule; `parallel` splits the
+    layers over its tensor axis (the module docstring)."""
 
     def __init__(self, in_node_nf: int, hidden_nf: int = 128, n_layers: int = 7,
-                 attention: bool = True):
+                 attention: bool = True, parallel=None):
         super().__init__()
         self.n_layers = n_layers
         self.embedding = nn.Linear(in_node_nf, hidden_nf)
         for i in range(n_layers):
-            self.add_module(f"gcl_{i}", PropertyEGNNLayer(hidden_nf, 1, attention))
+            self.add_module(f"gcl_{i}", PropertyEGNNLayer(hidden_nf, 1, attention, parallel))
         self.node_dec_fc1 = nn.Linear(hidden_nf, hidden_nf)
         self.node_dec_fc2 = nn.Linear(hidden_nf, hidden_nf)
         self.graph_dec_fc1 = nn.Linear(hidden_nf, hidden_nf)

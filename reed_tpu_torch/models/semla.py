@@ -28,6 +28,22 @@ f32 statistics and return bf16; every coordinate-valued tensor stays f32
 (CoordAttention, NodeFeedForward's coordinate half, the coordinate head),
 and so do the attention softmaxes, the rep conditioning, the alignment
 projectors and the returned logits.
+
+Tensor parallelism (SemlaGenerator's `parallel`, a parallel.mesh
+DataParallel with tensor T above 1; parallel/mesh.SEMLA_TP_RULES): a rank
+holds T-th shards of four kinds of Megatron column/row pairs and does its
+share of their work. The edge-message MLPs (each layer's and BondRefine's) keep
+their first product factored over the rank's hidden columns and return
+f32 partial messages that the tensor group sums once before the second
+product's bias is added; the node inputs and the pair inputs (grams and
+edge features) enter through copy_to_tensor, so their partial gradients
+are summed once in the backward. The node attention takes a rank's heads
+(in_proj's columns, out_proj's rows): its logits are its heads of the
+summed messages, which enter through copy_to_tensor, since the message
+MLP's second product needs every head's gradient. The invariant node
+feed-forwards (node_ff, final_ff_block) and the input feature projection
+are column/row pairs. The coordinate paths, the rep conditioning, the
+norms, the edge in/out projections and the heads are whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +55,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reed_tpu_torch.nn.layers import ProjectorMLP, TimestepEmbedder, dense, layer_norm
+from reed_tpu_torch.nn.layers import (ProjectorMLP, TimestepEmbedder, dense, layer_norm,
+                                      row_dense, split_width, tensor_size)
+from reed_tpu_torch.parallel.collectives import copy_to_tensor
 
 NEG_INF = -1e9
 # coordinate-magnitude ceiling where raw (norm "none") coordinates feed
@@ -58,8 +76,13 @@ def _mlp(d_in: int, d_hidden: int, d_out: int) -> nn.Sequential:
     return nn.Sequential(nn.Linear(d_in, d_hidden), nn.SiLU(), nn.Linear(d_hidden, d_out))
 
 
-def _run_mlp(mlp: nn.Sequential, x, dtype: torch.dtype):
-    return dense(F.silu(dense(x, mlp[0], dtype)), mlp[2], dtype)
+def _run_mlp(mlp: nn.Sequential, x, dtype: torch.dtype, parallel=None):
+    """mlp(x) in `dtype`; under the tensor axis of `parallel` mlp holds a
+    rank's column/row shards: x enters through copy_to_tensor and the f32
+    partials of the second product are summed before its bias is added
+    (nn/layers.row_dense)."""
+    h = F.silu(dense(copy_to_tensor(x.to(dtype), parallel), mlp[0], dtype))
+    return row_dense(h, mlp[2], dtype, parallel)
 
 
 class _Mixed(nn.Module):
@@ -109,14 +132,20 @@ def _attn_mask_from_adj(adj):
     return torch.where(n_connections == 0, 0.0, mask)
 
 
-def _factored_pair_mlp(mlp: nn.Sequential, nf, pair, dm: int, dtype: torch.dtype):
+def _factored_pair_mlp(mlp: nn.Sequential, nf, pair, dm: int, dtype: torch.dtype,
+                       parallel=None):
     """mlp(concat([nf_i, nf_j, pair_ij])) in `dtype` with the first Linear
     split by input rows: the two node parts run as [B,N,dm] products before
-    the broadcast, and the [B,N,N,2dm+c] concat is never built."""
+    the broadcast, and the [B,N,N,2dm+c] concat is never built. Under the
+    tensor axis of `parallel` mlp holds a rank's hidden columns and the
+    matching rows of the second product: nf and pair enter through
+    copy_to_tensor, and the rank's f32 partial messages are summed over the
+    tensor group before the second bias is added."""
+    nf, pair = copy_to_tensor(nf, parallel), copy_to_tensor(pair, parallel)
     w1, b1 = mlp[0].weight.to(dtype), mlp[0].bias.to(dtype)
     x = ((nf @ w1[:, :dm].T)[:, :, None, :] + (nf @ w1[:, dm:2 * dm].T)[:, None, :, :]
          + pair @ w1[:, 2 * dm:].T + b1)
-    return dense(F.silu(x), mlp[2], dtype)
+    return row_dense(F.silu(x), mlp[2], dtype, parallel)
 
 
 class CoordNorm(nn.Module):
@@ -153,15 +182,18 @@ class EdgeMessages(_Mixed):
     (reference: semla.py:103-166)."""
 
     def __init__(self, d_model: int, d_message: int, d_out: int, n_coord_sets: int,
-                 d_ff: Optional[int] = None, d_edge: Optional[int] = None):
+                 d_ff: Optional[int] = None, d_edge: Optional[int] = None, parallel=None):
         super().__init__()
         d_ff = d_ff or d_out
         self.d_message = d_message
+        self.parallel = parallel
         self.node_norm = _layer_norm(d_model)
         self.coord_norm = CoordNorm(n_coord_sets, norm="none")
         self.node_proj = nn.Linear(d_model, d_message)
         self.edge_norm = _layer_norm(d_edge) if d_edge is not None else None
-        self.message_mlp = _mlp(2 * d_message + n_coord_sets + (d_edge or 0), d_ff, d_out)
+        self.message_mlp = _mlp(2 * d_message + n_coord_sets + (d_edge or 0),
+                                split_width(d_ff, tensor_size(parallel), "the message MLP"),
+                                d_out)
 
     def forward(self, coords, node_feats, node_mask, edge_feats=None):
         dt = self.compute_dtype
@@ -173,31 +205,42 @@ class EdgeMessages(_Mixed):
             pair.append(layer_norm(edge_feats, self.edge_norm, dt))
         pair = torch.cat(pair, dim=-1) if len(pair) > 1 else pair[0]
         return _factored_pair_mlp(self.message_mlp, dense(node_feats, self.node_proj, dt),
-                                  pair, self.d_message, dt)
+                                  pair, self.d_message, dt, self.parallel)
 
 
 class NodeAttention(_Mixed):
     """Message-as-attention-logits node update with GNN-VPA weighting
     (reference: semla.py:169-225)."""
 
-    def __init__(self, d_model: int, n_attn_heads: int):
+    def __init__(self, d_model: int, n_attn_heads: int, parallel=None):
         super().__init__()
-        self.n_attn_heads = n_attn_heads
+        self.parallel = parallel
+        # this rank's heads: in_proj's columns and out_proj's rows of them
+        self.local_heads = split_width(n_attn_heads, tensor_size(parallel),
+                                       "the node attention heads")
+        d_local = self.local_heads * (d_model // n_attn_heads)
         self.feat_norm = _layer_norm(d_model)
-        self.in_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.in_proj = nn.Linear(d_model, d_local)
+        self.out_proj = nn.Linear(d_local, d_model)
 
     def forward(self, node_feats, messages, adj_matrix):
+        """messages: [B,N,N,H], every head's logits (the summed messages
+        under the tensor axis; a rank takes its own heads)."""
         b, n, d = node_feats.shape
-        h, dt = self.n_attn_heads, self.compute_dtype
+        h, dt, parallel = self.local_heads, self.compute_dtype, self.parallel
+        x = copy_to_tensor(layer_norm(node_feats, self.feat_norm, dt), parallel)
+        if tensor_size(parallel) > 1:
+            first = parallel.tensor_index * h
+            messages = copy_to_tensor(messages, parallel)[..., first:first + h]
         logits = messages.float() + _attn_mask_from_adj(adj_matrix)[..., None]
         attn = torch.softmax(logits, dim=2)                               # over j
-        feats = dense(layer_norm(node_feats, self.feat_norm, dt), self.in_proj, dt)
-        out = torch.einsum("bijh,bjhd->bihd", attn.to(dt), feats.reshape(b, n, h, d // h))
+        feats = dense(x, self.in_proj, dt)
+        hd = feats.shape[-1] // h
+        out = torch.einsum("bijh,bjhd->bihd", attn.to(dt), feats.reshape(b, n, h, hd))
         # variance-preserving aggregation (GNN-VPA)
         weights = torch.sqrt(torch.sum(attn ** 2, dim=2))                 # [B,N,H]
-        out = (out * weights[..., None].to(dt)).reshape(b, n, d)
-        return dense(out, self.out_proj, dt)
+        out = (out * weights[..., None].to(dt)).reshape(b, n, h * hd)
+        return row_dense(out, self.out_proj, dt, parallel)
 
 
 def _coord_attention_updates(proj, attn, eps):
@@ -263,12 +306,17 @@ class NodeFeedForward(_Mixed):
     feed-forward (reference: semla.py:281-372)."""
 
     def __init__(self, d_model: int, n_coord_sets: int, d_ff: Optional[int] = None,
-                 proj_sets: Optional[int] = None, coord_norm: str = "length"):
+                 proj_sets: Optional[int] = None, coord_norm: str = "length",
+                 parallel=None):
         super().__init__()
         p = proj_sets or n_coord_sets
+        self.parallel = parallel
         self.node_norm = _layer_norm(d_model)
         self.coord_norm = CoordNorm(n_coord_sets, norm=coord_norm)
-        self.invariant_mlp = _LengthsMLP(d_model + n_coord_sets, d_ff or 4 * d_model, d_model)
+        self.invariant_mlp = _LengthsMLP(
+            d_model + n_coord_sets,
+            split_width(d_ff or 4 * d_model, tensor_size(parallel), "the node feed-forward"),
+            d_model)
         self.equivariant_mlp = _EquivariantMLP(d_model, n_coord_sets, p)
 
     def forward(self, coord_sets, node_feats, node_mask):
@@ -277,7 +325,7 @@ class NodeFeedForward(_Mixed):
         coord_sets = self.coord_norm(coord_sets, node_mask)
         lengths = safe_norm(coord_sets, dim=2)                            # [B,N,S]
         out_node = _run_mlp(self.invariant_mlp.node_ff,
-                            torch.cat([node_feats, lengths.to(dt)], dim=-1), dt)
+                            torch.cat([node_feats, lengths.to(dt)], dim=-1), dt, self.parallel)
         eq = self.equivariant_mlp
         # the gates may be low precision; the coordinate-valued half stays f32
         gates = _run_mlp(eq.node_proj, node_feats, dt).float()
@@ -292,14 +340,18 @@ class BondRefine(_Mixed):
     """Final bond-only message-passing refinement (reference:
     semla.py:375-430)."""
 
-    def __init__(self, d_model: int, d_message: int, d_edge: int, d_ff: Optional[int] = None):
+    def __init__(self, d_model: int, d_message: int, d_edge: int, d_ff: Optional[int] = None,
+                 parallel=None):
         super().__init__()
         self.d_message = d_message
+        self.parallel = parallel
         self.coord_norm = CoordNorm(1, norm="none")
         self.node_norm = _layer_norm(d_model)
         self.node_proj = nn.Linear(d_model, d_message)
         self.edge_norm = _layer_norm(d_edge)
-        self.message_mlp = _mlp(2 * d_message + 2 + d_edge, d_ff or d_message, d_edge)
+        self.message_mlp = _mlp(2 * d_message + 2 + d_edge,
+                                split_width(d_ff or d_message, tensor_size(parallel),
+                                            "the bond refinement's message MLP"), d_edge)
 
     def forward(self, coords, node_feats, node_mask, edge_feats):
         coords = torch.clamp(self.coord_norm(coords[..., None], node_mask)[..., 0],
@@ -311,7 +363,7 @@ class BondRefine(_Mixed):
         nf = dense(layer_norm(node_feats, self.node_norm, dt), self.node_proj, dt)
         pair = torch.cat([dists.to(dt), dots.to(dt),
                           layer_norm(edge_feats, self.edge_norm, dt)], dim=-1)
-        return _factored_pair_mlp(self.message_mlp, nf, pair, self.d_message, dt)
+        return _factored_pair_mlp(self.message_mlp, nf, pair, self.d_message, dt, self.parallel)
 
 
 def _norm_no_affine(x, dtype: torch.dtype = torch.float32):
@@ -387,7 +439,7 @@ class EquiMessagePassingLayer(_Mixed):
                  n_attn_heads: Optional[int] = None, d_message_hidden: Optional[int] = None,
                  d_edge_in: Optional[int] = None, d_edge_out: Optional[int] = None,
                  coord_norm: str = "length", d_rep: Optional[int] = None,
-                 cond_type: str = "none"):
+                 cond_type: str = "none", parallel=None):
         super().__init__()
         self.n_heads = n_attn_heads or d_message
         self.n_coord_sets = n_coord_sets
@@ -396,10 +448,12 @@ class EquiMessagePassingLayer(_Mixed):
         self.rep_cond = (RepConditioner(cond_type, d_model, d_rep)
                          if cond_type != "none" and d_rep is not None else None)
         self.node_ff = NodeFeedForward(d_model, n_coord_sets, d_ff=4 * d_model,
-                                       proj_sets=d_message, coord_norm=coord_norm)
+                                       proj_sets=d_message, coord_norm=coord_norm,
+                                       parallel=parallel)
         self.message_ff = EdgeMessages(d_model, d_message, d_message_out, n_coord_sets,
-                                       d_ff=d_message_hidden, d_edge=d_edge_in)
-        self.node_attn = NodeAttention(d_model, self.n_heads)
+                                       d_ff=d_message_hidden, d_edge=d_edge_in,
+                                       parallel=parallel)
+        self.node_attn = NodeAttention(d_model, self.n_heads, parallel)
         self.coord_attn = CoordAttention(n_coord_sets, n_coord_sets, coord_norm=coord_norm)
 
     def forward(self, coords, node_feats, adj_matrix, node_mask, edge_feats=None, rep=None):
@@ -436,7 +490,8 @@ class EquiInvDynamics(_Mixed):
                  self_cond: bool = False, coord_norm: str = "length",
                  d_rep: Optional[int] = None, cond_type: str = "none",
                  rep_alignment: bool = False, align_depth: Sequence[int] = (6,),
-                 d_projector: Optional[int] = None, coord_skip: bool = False):
+                 d_projector: Optional[int] = None, coord_skip: bool = False,
+                 parallel=None):
         super().__init__()
         self.coord_skip = coord_skip
         self.time_embedder = (TimestepEmbedder(d_rep, frequency_embedding_size=512)
@@ -444,7 +499,7 @@ class EquiInvDynamics(_Mixed):
         self.coord_proj = nn.Linear(2 if self_cond else 1, n_coord_sets, bias=False)
         common = dict(d_model=d_model, d_message=d_message, n_coord_sets=n_coord_sets,
                       n_attn_heads=n_attn_heads, coord_norm=coord_norm, d_rep=d_rep,
-                      cond_type=cond_type)
+                      cond_type=cond_type, parallel=parallel)
         layers = []
         if d_edge is not None:
             layers.append(EquiMessagePassingLayer(d_edge_in=d_edge, **common))
@@ -459,10 +514,11 @@ class EquiInvDynamics(_Mixed):
                              if rep_alignment else [])
         self.projectors = nn.ModuleList(
             ProjectorMLP(d_model, d_projector or d_model, d_rep) for _ in self.align_layers)
-        self.final_ff_block = NodeFeedForward(d_model, n_coord_sets, coord_norm=coord_norm)
+        self.final_ff_block = NodeFeedForward(d_model, n_coord_sets, coord_norm=coord_norm,
+                                              parallel=parallel)
         self.coord_norm = CoordNorm(n_coord_sets, norm=coord_norm)
         self.coord_head = nn.Linear(n_coord_sets, 1, bias=False)
-        self.refine_layer = (BondRefine(d_model, d_message, d_edge)
+        self.refine_layer = (BondRefine(d_model, d_message, d_edge, parallel=parallel)
                              if bond_refine and d_edge is not None else None)
         self.feat_norm = _layer_norm(d_model)
         self.bond_norm = _layer_norm(d_edge) if d_edge is not None else None
@@ -509,7 +565,9 @@ class SemlaGenerator(_Mixed):
     inputs, iff self_cond), atom_mask [B,N], rep [B,d_rep], times [B]) ->
     (coords, type_logits, bond_logits or None, charge_logits, zs), the
     coordinates and logits f32. compute_dtype bfloat16 is reed_tpu's mixed
-    precision (the module docstring)."""
+    precision, `parallel` the tensor axis (the module docstring): the
+    parameters are then a tensor rank's shards, whose names stay the
+    whole model's (parallel/mesh.shard_state_dict)."""
 
     def __init__(self, d_model: int, vocab_size: int, n_atom_feats: int,
                  d_edge: Optional[int] = None, n_edge_types: Optional[int] = None,
@@ -520,12 +578,15 @@ class SemlaGenerator(_Mixed):
                  coord_norm: str = "length", d_rep: Optional[int] = None,
                  cond_type: str = "none", align_depth: Sequence[int] = (4,),
                  d_projector: Optional[int] = None, coord_skip: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, parallel=None):
         super().__init__()
         self.self_cond = self_cond
+        self.parallel = parallel
         self.size_emb = nn.Embedding(max_atoms + 1, size_emb)
         self.feat_proj = _mlp(n_atom_feats + size_emb + (vocab_size if self_cond else 0),
-                              d_model, d_model)
+                              split_width(d_model, tensor_size(parallel),
+                                          "the feature projection"),
+                              d_model)
         if d_edge is not None:
             self.edge_in_proj = _mlp(n_edge_types * (2 if self_cond else 1), d_edge, d_edge)
             self.edge_out_proj = _mlp(d_edge, d_edge, n_edge_types)
@@ -537,7 +598,7 @@ class SemlaGenerator(_Mixed):
             d_message_hidden=d_message_hidden, d_edge=d_edge, self_cond=self_cond,
             coord_norm=coord_norm, d_rep=d_rep, cond_type=cond_type,
             rep_alignment=rep_alignment, align_depth=align_depth,
-            d_projector=d_projector, coord_skip=coord_skip)
+            d_projector=d_projector, coord_skip=coord_skip, parallel=parallel)
         self.atom_classifier_head = _mlp(d_model, d_model, vocab_size)
         self.charge_classifier_head = _mlp(d_model, d_model, n_charge_types)
         for m in self.modules():
@@ -576,7 +637,7 @@ class SemlaGenerator(_Mixed):
         size_emb = F.embedding(n_atoms, self.size_emb.weight.to(dt))[:, None, :].expand(b, n, -1)
         feats = [inv_feats.to(dt), size_emb] + (
             [cond_atomics.to(dt)] if cond_atomics is not None else [])
-        atom_feats = _run_mlp(self.feat_proj, torch.cat(feats, dim=-1), dt)
+        atom_feats = _run_mlp(self.feat_proj, torch.cat(feats, dim=-1), dt, self.parallel)
         e = None
         if edge_feats is not None:
             e = edge_feats if cond_bonds is None else torch.cat([edge_feats, cond_bonds], -1)

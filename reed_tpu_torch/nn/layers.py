@@ -149,6 +149,29 @@ class _F32Product(torch.autograd.Function):
         return (g2 @ w).reshape(x.shape), g2.t() @ x.reshape(-1, x.shape[-1])
 
 
+def tensor_size(parallel) -> int:
+    """The tensor axis' size of `parallel` (a parallel.mesh.DataParallel;
+    1 where there is none)."""
+    return 1 if parallel is None else parallel.tensor
+
+
+def split_width(width: int, tensor: int, what: str) -> int:
+    """A tensor rank's share of `width` units; ValueError where tensor does
+    not divide them."""
+    if width % tensor:
+        raise ValueError(f"tensor={tensor} does not divide {what}'s {width} units")
+    return width // tensor
+
+
+def row_dense(x, layer: nn.Linear, dtype: torch.dtype, parallel):
+    """dense(x, layer, dtype), where under the tensor axis of `parallel`
+    `layer` holds a rank's input rows: then row_parallel, its f32 partials
+    summed over the tensor group before the bias is added once."""
+    if tensor_size(parallel) == 1:
+        return dense(x, layer, dtype)
+    return row_parallel(x.to(dtype), layer, parallel)
+
+
 def row_parallel(x, layer: nn.Linear, dp):
     """A row-parallel product in x's dtype: this rank's partial product of
     its input shard x with its column shard of the weight, in f32, summed

@@ -46,9 +46,10 @@ seq (SiT only) each rank runs its S-th of the tokens, attending to every
 rank's keys. Every seq and tensor rank computes the whole loss; the
 parameter gradients are averaged over the replica group. The parameters
 are not sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a family
-runs the model axes it names to `check_mesh` (SiT: tensor and seq,
-ProteinMPNN: tensor), elsewhere sizes above 1 raise (tensor: ROADMAP.md
-Queue 1 item 8b).
+runs the model axes it names to `check_mesh` (SiT: tensor and seq;
+ProteinMPNN, SemlaFlow's arch semla and the EGNN family: tensor, with
+`SEMLA_TP_RULES` and `EGNN_TP_RULES`), elsewhere sizes above 1 raise
+(tensor: ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -72,15 +73,24 @@ SEQ_AXIS = "seq"
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS)
 
 # the model axes each family runs (check_mesh's `axes`): SiT splits its heads,
-# MLP and tokens; ProteinMPNN its message chains and MLPs; the other
-# families run none
+# MLP and tokens; ProteinMPNN its message chains and MLPs; SemlaFlow (arch
+# semla) its message MLPs, node attention heads and feed-forwards; the EGNN
+# family (EDM / EFM and the property classifier) its message, node,
+# coordinate and rep feed-forward MLPs; the other families run none
 SIT_AXES = (TENSOR_AXIS, SEQ_AXIS)
 PMPNN_AXES = (TENSOR_AXIS,)
+SEMLA_AXES = (TENSOR_AXIS,)
+EGNN_AXES = (TENSOR_AXIS,)
+
+# the families that run each model axis (check_mesh's message)
+RUNS_TENSOR = ("SiT (train-image, generate-image), ProteinMPNN (train-protein), "
+               "SemlaFlow's arch semla (train-molecule-semla) and the EGNN family "
+               "(train-molecule-edm, train-property)")
 
 # why a model axis above 1 raises outside the families that run it
 NOT_PORTED = {
-    TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (the tensor axis on Semla, EGNN, IPA and "
-                 "the RDM)",
+    TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (the tensor axis on IPA (MultiFlow), the "
+                 "RDM, SemlaFlow's egnn and eqgat archs and the property linear probe)",
     SEQ_AXIS: "not run: the seq axis splits SiT's tokens alone (reed_tpu's "
               "token_sharding touches no other model, and its seq ranks there would "
               "only repeat each other's work; ROADMAP.md Queue 1 item 8b)",
@@ -143,6 +153,56 @@ PMPNN_TP_RULES = (
     (r"\.W_edge\.3\.weight$", 1, 1),
     (r"^projectors_\w+\.0\.(weight|bias)$", 0, 1),
     (r"^projectors_\w+\.2\.weight$", 1, 1),
+)
+
+# reed_tpu's SEMLA_TP_RULES (reed_tpu/parallel/mesh.py:199-208) in the
+# port's names (the reference torch SemlaFlow's, models/semla.py), as
+# (pattern, dimension, groups) like SIT_TP_RULES: inv_fc1/inv_fc2 are every
+# NodeFeedForward's invariant MLP (the layers' node_ff and final_ff_block),
+# message_fc1/message_fc2 the edge-message MLPs (the layers' message_ff and
+# BondRefine's, which reed_tpu's pattern matches too), node_attn/in_proj and
+# out_proj the node attention (in_proj's columns are heads x head dim, so a
+# contiguous split is a rank's heads), feat_proj_fc1/fc2 the input feature
+# projection. The column-parallel products' biases split with their
+# columns (reed_tpu's hints leave every bias replicated); the row-parallel
+# ones' stay whole and are added once after the f32 sum. Whole on every
+# rank: the coordinate paths, the RepConditioner, the norms, node_proj, the
+# edge in/out projections, the projectors and the heads.
+SEMLA_TP_RULES = (
+    (r"\.invariant_mlp\.node_ff\.0\.(weight|bias)$", 0, 1),
+    (r"\.invariant_mlp\.node_ff\.2\.weight$", 1, 1),
+    (r"\.message_mlp\.0\.(weight|bias)$", 0, 1),
+    (r"\.message_mlp\.2\.weight$", 1, 1),
+    (r"\.node_attn\.in_proj\.(weight|bias)$", 0, 1),
+    (r"\.node_attn\.out_proj\.weight$", 1, 1),
+    (r"^feat_proj\.0\.(weight|bias)$", 0, 1),
+    (r"^feat_proj\.2\.weight$", 1, 1),
+)
+
+# reed_tpu's EGNN_TP_RULES (reed_tpu/parallel/mesh.py:212-222) in the
+# port's names: the EDM's (the reference torch EGNN_dynamics_QM9's,
+# models/egnn.py) and the property classifier's (reed_tpu's flax names,
+# models/property_classifier.py). edge_fc1/edge_fc2 and node_fc1/node_fc2
+# are each GCL's edge_mlp.0/.2 and node_mlp.0/.2 (the classifier's
+# gcl_{i}.edge_fc1 ...), coord_fc1/coord_fc2 each EquivariantUpdate's
+# coord_mlp.0/.2 (the scalar head coord_mlp.4 stays whole after the sum),
+# ff_proj/ff_out the rep cross-attention's GEGLU feed-forward: ff.net.0.proj
+# emits the halves [a, g] of 4d each, so it splits in 2 groups (a rank takes
+# the same columns c_t of both halves), and ff.net.2 by rows. The biases
+# split as SEMLA_TP_RULES'. Whole on every rank: the embeddings, att_mlp,
+# the cross-attention's to_q/to_k/to_v/to_out, the norms, fake_latent and
+# the classifier's decoders.
+EGNN_TP_RULES = (
+    (r"\.edge_mlp\.0\.(weight|bias)$", 0, 1),
+    (r"\.edge_mlp\.2\.weight$", 1, 1),
+    (r"\.node_mlp\.0\.(weight|bias)$", 0, 1),
+    (r"\.node_mlp\.2\.weight$", 1, 1),
+    (r"\.coord_mlp\.0\.(weight|bias)$", 0, 1),
+    (r"\.coord_mlp\.2\.weight$", 1, 1),
+    (r"\.ff\.net\.0\.proj\.(weight|bias)$", 0, 2),
+    (r"\.ff\.net\.2\.weight$", 1, 1),
+    (r"^gcl_\d+\.(edge|node)_fc1\.(weight|bias)$", 0, 1),
+    (r"^gcl_\d+\.(edge|node)_fc2\.weight$", 1, 1),
 )
 
 
@@ -228,7 +288,8 @@ def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
     ask for data * fsdp * seq * tensor = `world` ranks (data None takes the
     rest, as make_mesh's data=None does), and `batch_size` (the global
     batch) must split evenly over the data * fsdp batch indices. `axes`
-    are the model axes the family runs (SIT_AXES, PMPNN_AXES); a tensor or
+    are the model axes the family runs (SIT_AXES, PMPNN_AXES, SEMLA_AXES,
+    EGNN_AXES); a tensor or
     seq size above 1 outside them raises NotImplementedError naming why
     (NOT_PORTED). Returns (data, fsdp); raises ValueError otherwise."""
     seq, tensor = mesh.seq or 1, mesh.tensor or 1
@@ -236,8 +297,7 @@ def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
         if size > 1 and axis not in axes:
             raise NotImplementedError(
                 f"mesh axis '{axis}' of size {size} does not run for this model family: "
-                "the port runs 'tensor' on SiT (train-image, generate-image) and "
-                "ProteinMPNN (train-protein), and 'seq' on SiT; "
+                f"the port runs 'tensor' on {RUNS_TENSOR}, and 'seq' on SiT; "
                 f"'{axis}' here is {NOT_PORTED[axis]}")
     fsdp = mesh.fsdp or 1
     inner = fsdp * seq * tensor
@@ -753,7 +813,8 @@ def data_parallel(mesh=None, batch_size: Optional[int] = None,
     its fsdp size and min size (the rule of its ShardPlan), or None when
     there is no group (one process, no collectives), after `check_mesh` of
     `mesh` and the global `batch_size` against its world size (`axes`: the
-    model axes the family runs, SIT_AXES or PMPNN_AXES)."""
+    model axes the family runs: SIT_AXES, PMPNN_AXES, SEMLA_AXES or
+    EGNN_AXES)."""
     mesh = MeshConfig() if mesh is None else mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
     _, fsdp = check_mesh(mesh, world, batch_size, axes)

@@ -13,9 +13,12 @@ rotation quaternions, the dequantisation noise) come from the trainer's
 device generator, seeded cfg.seed + 1, or are handed in. Sampling runs the
 ancestral EDM loop or the EFM ODE decode from any weights, with
 classifier-free guidance where cfg_scale is given and an optional learned
-noise schedule (GammaNetwork). The port trains on one device, in f32 or,
-with compute_dtype bfloat16, in bf16 over f32 parameters as reed_tpu's
-`dtype` computes (models/egnn.py).
+noise schedule (GammaNetwork). The port trains in f32 or, with
+compute_dtype bfloat16, in bf16 over f32 parameters as reed_tpu's `dtype`
+computes (models/egnn.py), on one device or over torch.distributed's ranks
+(data, fsdp and tensor axes; the tensor axis splits the EGNN by
+parallel/mesh.EGNN_TP_RULES, and every tensor rank of a batch index draws
+the same rows, times, noise, rotations and rep-dropout mask).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from reed_tpu_torch.diffusion.edm import (EDMConfig, EnVariationalDiffusion, gam
 from reed_tpu_torch.diffusion.efm import EFMConfig, EquivariantCNF
 from reed_tpu_torch.models.egnn import EGNNDynamics, remove_mean_with_mask
 from reed_tpu_torch.parallel import draws
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (EGNN_AXES, EGNN_TP_RULES, data_parallel,
+                                         local_batch, shard_state_dict)
 
 
 @dataclass(frozen=True)
@@ -81,20 +85,28 @@ def check_config(cfg: MoleculeEDMConfig):
 
 
 def build_dynamics(cfg: MoleculeEDMConfig, device=None,
-                   generator: Optional[torch.Generator] = None) -> EGNNDynamics:
+                   generator: Optional[torch.Generator] = None,
+                   parallel=None) -> EGNNDynamics:
     """The configured EGNNDynamics on `device`, initialised from `generator`
-    as reed_tpu initialises it."""
+    as reed_tpu initialises it, split over the tensor axis of `parallel` (a
+    parallel.mesh.DataParallel): the whole model is initialised as one
+    process does, then a tensor rank keeps its shards (EGNN_TP_RULES)."""
     check_config(cfg)
+    kwargs = dict(
+        in_node_nf=cfg.num_atom_types + int(cfg.include_charges),
+        context_node_nf=cfg.context_node_nf, hidden_nf=cfg.hidden_nf,
+        n_layers=cfg.n_layers, inv_sublayers=cfg.inv_sublayers,
+        attention=cfg.attention, tanh=cfg.tanh, coords_range=cfg.coords_range,
+        normalization_factor=cfg.normalization_factor, aggregation=cfg.aggregation,
+        rep_nf=cfg.rep_nf, rep_dropout_prob=cfg.rep_dropout_prob,
+        compute_dtype=getattr(torch, cfg.compute_dtype))
     with torch.device(device) if device is not None else torch.device("cpu"):
-        model = EGNNDynamics(
-            in_node_nf=cfg.num_atom_types + int(cfg.include_charges),
-            context_node_nf=cfg.context_node_nf, hidden_nf=cfg.hidden_nf,
-            n_layers=cfg.n_layers, inv_sublayers=cfg.inv_sublayers,
-            attention=cfg.attention, tanh=cfg.tanh, coords_range=cfg.coords_range,
-            normalization_factor=cfg.normalization_factor, aggregation=cfg.aggregation,
-            rep_nf=cfg.rep_nf, rep_dropout_prob=cfg.rep_dropout_prob,
-            compute_dtype=getattr(torch, cfg.compute_dtype))
-        return model.initialize_weights(generator)
+        model = EGNNDynamics(**kwargs).initialize_weights(generator)
+        if parallel is not None and parallel.tensor > 1:
+            whole, model = model, EGNNDynamics(**kwargs, parallel=parallel)
+            model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
+                                                   EGNN_TP_RULES))
+        return model
 
 
 def edm_config(cfg: MoleculeEDMConfig, cfg_scale: Optional[float] = None) -> EDMConfig:
@@ -190,13 +202,13 @@ class MoleculeEDMTrainer:
     draws come from `self.generator`, a device generator seeded cfg.seed +
     1. Under a process group (`self.dp`) a step takes this rank's rows of
     the global batch (`synthetic_batch` returns them) and its metrics are
-    the global batch's."""
+    the global batch's; the tensor axis splits the EGNN (build_dynamics)."""
 
     def __init__(self, cfg: MoleculeEDMConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=EGNN_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._train_step = make_train_step(make_loss_fn(cfg, self.device), cfg.curriculum,
                                            accum_steps=cfg.optim.accum_steps, dp=self.dp)
@@ -204,8 +216,11 @@ class MoleculeEDMTrainer:
 
     def init_state(self) -> TrainState:
         model = build_dynamics(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+            device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
+        # under the tensor axis the replicated leaves' gradients are averaged
+        # over the tensor group, so the ranks' copies stay bitwise equal
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=EGNN_TP_RULES, sync_replicated=True)
 
     def train_step(self, state: TrainState, batch, **draws):
         return self._train_step(state, batch, generator=self.generator, **draws)

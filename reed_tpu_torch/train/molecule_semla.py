@@ -14,11 +14,15 @@ the reference's collate) and moved with `batch_to_device`. The
 self-conditioning coin is drawn on the host from the trainer's CPU
 generator (reed_tpu draws it inside its jit), so the step never waits for
 the device. Generation is the Euler integrator in a Python loop on the
-device. The port trains on one device, in f32 or, with compute_dtype
-bfloat16, in reed_tpu's mixed precision (bf16 features and messages, f32
-coordinates, f32 parameters and optimizer). `arch` egnn and eqgat swap
-the SemlaGenerator for models/semla_alt.py's generators; EQGAT has no
-alignment projectors, so its proj_loss is 0, as reed_tpu's.
+device. The port trains in f32 or, with compute_dtype bfloat16, in
+reed_tpu's mixed precision (bf16 features and messages, f32 coordinates,
+f32 parameters and optimizer), on one device or over torch.distributed's
+ranks (data and fsdp axes; with arch semla also the tensor axis,
+parallel/mesh.SEMLA_TP_RULES: every tensor rank of a batch index takes the
+same rows, prior, OT assignment, times, noise, coin and REPA targets, and
+computes the whole loss). `arch` egnn and eqgat swap the SemlaGenerator for
+models/semla_alt.py's generators; EQGAT has no alignment projectors, so
+its proj_loss is 0, as reed_tpu's.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
                                                   sample_prior_batch)
 from reed_tpu_torch.models.semla import SemlaGenerator, adj_from_node_mask
 from reed_tpu_torch.models.semla_alt import EqgatGenerator, VanillaEgnnGenerator
-from reed_tpu_torch.parallel.mesh import data_parallel
+from reed_tpu_torch.parallel.mesh import (SEMLA_AXES, SEMLA_TP_RULES, data_parallel,
+                                         shard_state_dict)
 
 
 @dataclass(frozen=True)
@@ -105,18 +110,26 @@ def check_config(cfg: SemlaTrainConfig):
 
 
 def build_model(cfg: SemlaTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None, parallel=None) -> nn.Module:
     """The configured generator on `device` (f32 parameters, computing in
     cfg.compute_dtype: bfloat16 is reed_tpu's mixed precision), initialised
     from `generator` as reed_tpu initialises it: SemlaGenerator, or with
     arch egnn / eqgat the generators of models/semla_alt.py, built with
-    reed_tpu's arguments (reference: semlaflow/train.py:120-160)."""
+    reed_tpu's arguments (reference: semlaflow/train.py:120-160). Split over
+    the tensor axis of `parallel` (a parallel.mesh.DataParallel; arch semla
+    only): the whole model is initialised as one process does, then a
+    tensor rank keeps its shards (SEMLA_TP_RULES)."""
     check_config(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     common = dict(d_model=cfg.d_model, vocab_size=cfg.vocab_size, n_atom_feats=cfg.vocab_size,
                   d_edge=cfg.d_edge, n_edge_types=cfg.n_bond_types,
                   n_charge_types=cfg.n_charge_types, n_layers=cfg.n_layers,
                   self_cond=cfg.self_cond, d_rep=cfg.d_rep, compute_dtype=dtype)
+    semla = dict(size_emb=cfg.size_emb, max_atoms=cfg.max_atoms,
+                 rep_alignment=cfg.rep_alignment, d_message=cfg.d_message,
+                 n_coord_sets=cfg.n_coord_sets, n_attn_heads=cfg.n_attn_heads,
+                 d_message_hidden=cfg.d_message_hidden, cond_type=cfg.cond_type,
+                 align_depth=tuple(cfg.align_depth), coord_skip=cfg.coord_skip, **common)
     with torch.device(device) if device is not None else torch.device("cpu"):
         if cfg.arch == "egnn":
             model = VanillaEgnnGenerator(rep_alignment=cfg.rep_alignment,
@@ -124,13 +137,13 @@ def build_model(cfg: SemlaTrainConfig, device=None,
         elif cfg.arch == "eqgat":
             model = EqgatGenerator(**common)
         else:
-            model = SemlaGenerator(
-                size_emb=cfg.size_emb, max_atoms=cfg.max_atoms,
-                rep_alignment=cfg.rep_alignment, d_message=cfg.d_message,
-                n_coord_sets=cfg.n_coord_sets, n_attn_heads=cfg.n_attn_heads,
-                d_message_hidden=cfg.d_message_hidden, cond_type=cfg.cond_type,
-                align_depth=tuple(cfg.align_depth), coord_skip=cfg.coord_skip, **common)
-        return model.initialize_weights(generator)
+            model = SemlaGenerator(**semla)
+        model.initialize_weights(generator)
+        if parallel is not None and parallel.tensor > 1:
+            whole, model = model, SemlaGenerator(**semla, parallel=parallel)
+            model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
+                                                   SEMLA_TP_RULES))
+        return model
 
 
 def batch_to_device(batch: Dict, device) -> Dict:
@@ -354,13 +367,16 @@ class SemlaTrainer:
     `self.generator`, a CPU generator seeded cfg.seed + 1. Under a process
     group (`self.dp`) a step takes this rank's rows of a global host batch
     built as one process builds it (the OT coupling included;
-    parallel.mesh.local_batch) and its metrics are the global batch's."""
+    parallel.mesh.local_batch) and its metrics are the global batch's; the
+    tensor axis (arch semla; the other archs raise NotImplementedError
+    naming ROADMAP.md's item) splits the model (build_model)."""
 
     def __init__(self, cfg: SemlaTrainConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size,
+                                axes=SEMLA_AXES if cfg.arch == "semla" else ())
         self.generator = torch.Generator().manual_seed(cfg.seed + 1)
         # REPA at repa_loss_weight with no decay; the warm-up applies to the
         # diffusion losses (fm.py:655-662,860-865)
@@ -376,8 +392,12 @@ class SemlaTrainer:
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+            device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
+        # the replicated leaves' gradients are averaged over the tensor group,
+        # so the tensor ranks' copies stay bitwise equal whatever order the
+        # card's reductions (the size table's backward scatter) take
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=SEMLA_TP_RULES, sync_replicated=True)
 
     def train_step(self, state: TrainState, batch, use_sc: Optional[bool] = None):
         """One step on a device batch; `use_sc` fixes the self-conditioning

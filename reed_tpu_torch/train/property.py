@@ -28,7 +28,8 @@ from reed_tpu_torch.core.ema import ema_weights
 from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.models.property_classifier import PropertyClassifier
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (EGNN_AXES, EGNN_TP_RULES, data_parallel,
+                                         local_batch, shard_state_dict)
 
 QM9_PROPERTIES = ("alpha", "gap", "homo", "lumo", "mu", "Cv", "G", "H",
                   "r2", "U", "U0", "zpve")
@@ -63,13 +64,22 @@ class PropertyTrainConfig:
 
 
 def build_model(cfg: PropertyTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> PropertyClassifier:
+                generator: Optional[torch.Generator] = None,
+                parallel=None) -> PropertyClassifier:
     """The configured PropertyClassifier on `device`, initialised from
-    `generator` as reed_tpu initialises it."""
+    `generator` as reed_tpu initialises it, split over the tensor axis of
+    `parallel` (a parallel.mesh.DataParallel): the whole model is
+    initialised as one process does, then a tensor rank keeps its shards
+    (EGNN_TP_RULES)."""
+    kwargs = dict(hidden_nf=cfg.hidden_nf, n_layers=cfg.n_layers, attention=cfg.attention)
     with torch.device(device) if device is not None else torch.device("cpu"):
-        model = PropertyClassifier(cfg.num_atom_types, hidden_nf=cfg.hidden_nf,
-                                   n_layers=cfg.n_layers, attention=cfg.attention)
-        return model.initialize_weights(generator)
+        model = PropertyClassifier(cfg.num_atom_types, **kwargs).initialize_weights(generator)
+        if parallel is not None and parallel.tensor > 1:
+            whole = model
+            model = PropertyClassifier(cfg.num_atom_types, **kwargs, parallel=parallel)
+            model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
+                                                   EGNN_TP_RULES))
+        return model
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -111,12 +121,16 @@ class _Trainer:
     """What both trainers share: the train step over a loss_fn, the state
     and the EMA model. Under a process group (`self.dp`) a step takes this
     rank's rows of the global batch (`synthetic_batch` returns them) and its
-    metrics are the global batch's."""
+    metrics are the global batch's; `axes` are the model axes the model
+    splits (the classifier: EGNN_AXES; the linear probe: none, so its
+    --tp above 1 raises NotImplementedError naming ROADMAP.md's item)."""
 
-    def __init__(self, cfg, loss_fn, curriculum: CurriculumConfig, device=None):
+    tp_rules: tuple = ()
+
+    def __init__(self, cfg, loss_fn, curriculum: CurriculumConfig, device=None, axes=()):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=axes)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.curriculum = replace(curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(loss_fn, self.curriculum,
@@ -127,7 +141,10 @@ class _Trainer:
 
     def init_state(self) -> TrainState:
         model = self._build(torch.Generator(device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.curriculum.ema_dtype, self.dp)
+        # under the tensor axis the replicated leaves' gradients are averaged
+        # over the tensor group, so the ranks' copies stay bitwise equal
+        return init_train_state(model, self.cfg.optim, self.curriculum.ema_dtype, self.dp,
+                                tp_rules=self.tp_rules, sync_replicated=bool(self.tp_rules))
 
     def train_step(self, state: TrainState, batch):
         return self._train_step(state, batch)
@@ -148,13 +165,16 @@ class _Trainer:
 class PropertyTrainer(_Trainer):
     """reed_tpu's PropertyTrainer: `init_state()`, then
     `train_step(state, batch) -> (state, metrics)` (in place), plus
-    `synthetic_batch`, `ema_model` and `predict`."""
+    `synthetic_batch`, `ema_model` and `predict`; the tensor axis splits
+    the classifier's layers (build_model)."""
+
+    tp_rules = EGNN_TP_RULES
 
     def __init__(self, cfg: PropertyTrainConfig, device=None):
-        super().__init__(cfg, make_loss_fn(cfg), cfg.curriculum, device)
+        super().__init__(cfg, make_loss_fn(cfg), cfg.curriculum, device, axes=EGNN_AXES)
 
     def _build(self, generator=None) -> PropertyClassifier:
-        return build_model(self.cfg, device=self.device, generator=generator)
+        return build_model(self.cfg, device=self.device, generator=generator, parallel=self.dp)
 
     def synthetic_batch(self, generator: Optional[torch.Generator] = None,
                         batch_size: Optional[int] = None) -> Dict[str, torch.Tensor]:

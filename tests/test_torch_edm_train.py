@@ -49,8 +49,8 @@ def _configs(**kw):
             me.MoleculeEDMConfig(**kw))
 
 
-def _batch(rep_nf, seed=2):
-    inputs = edm_inputs(rep_nf=rep_nf or 0)
+def _batch(rep_nf, seed=2, batch=3):
+    inputs = edm_inputs(batch=batch, rep_nf=rep_nf or 0)
     mask = inputs["node_mask"]
     rng = np.random.default_rng(seed)
     types = rng.integers(0, 5, size=mask.shape[:2])
@@ -298,10 +298,11 @@ def test_trainer_draws_learns_and_samples():
 def test_refusals():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(compute_dtype="float16"), device="cpu")
-    # data=2 needs two ranks (torchrun); the tensor axis is not ported
+    # data=2 and tensor=2 need two ranks (torchrun)
     with pytest.raises(ValueError, match="torchrun"):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(mesh=me.MeshConfig(data=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
+                                         "torchrun --nproc_per_node 2"):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(mesh=me.MeshConfig(tensor=2)), device="cpu")
     with pytest.raises(ValueError):
         me.MoleculeEDMTrainer(me.MoleculeEDMConfig(probabilistic_model="flow"), device="cpu")

@@ -1,9 +1,10 @@
 """reed_tpu_torch/parallel against reed_tpu/parallel/mesh.py and over two
-gloo ranks on the CPU (tests/torch_dp.py, one spawn for the file): the mesh
-check that stands in for make_mesh, this rank's rows against reed_tpu's
-batch sharding, the global-batch draws, the collectives (bucketed gradient
-mean, row gather, sums, metric means), cross-process stats, and the CLI's
-mesh flags and --distributed."""
+gloo ranks on the CPU (tests/torch_dp.py, one spawn for the file's checks):
+the mesh check that stands in for make_mesh, this rank's rows against
+reed_tpu's batch sharding, the global-batch draws, the collectives
+(bucketed gradient mean, row gather, sums, metric means), cross-process
+stats, and the CLI's mesh flags and --distributed; and two spawns in one
+directory, each through a rendezvous file of its own."""
 
 import types
 
@@ -28,6 +29,19 @@ def ranks(tmp_path_factory):
     torch_dp.spawn(out, "mesh")
     return [torch.load(out / f"mesh_rank{r}.pt", weights_only=False)
             for r in range(torch_dp.WORLD)]
+
+
+def test_spawns_in_one_directory_meet_through_files_of_their_own(tmp_path):
+    """torch.distributed's file:// rendezvous removes its file when the
+    last process using the store releases it, which does not always
+    happen, and a later group meeting through a left file reads the old
+    group's keys and hangs. torch_dp.spawn gives every spawn a file of its
+    own and removes it once the ranks have exited: after two ranks that
+    leave theirs behind, four ranks meet in the same directory."""
+    torch_dp.spawn(tmp_path, "leave_store", timeout=120)
+    assert not list(tmp_path.glob("store*"))
+    torch_dp.spawn(tmp_path, "mesh", world=4, timeout=120)
+    assert all((tmp_path / f"mesh_rank{r}.pt").exists() for r in range(4))
 
 
 def test_axis_names_match_reed_tpu():
@@ -186,10 +200,12 @@ def test_cross_process_stats_equal_one_process(ranks):
                                  "eval-multiflow"])
 def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch):
     """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --tp 2 on one process
-    raises, on train-image, generate-image (whose SiT runs the tensor axis)
-    and train-protein (whose ProteinMPNN does) with the data x fsdp x seq x
-    tensor world size and the torchrun line, elsewhere naming ROADMAP item
-    8b; --sp 2 outside SiT raises saying that it splits SiT's tokens
+    raises, on train-image, generate-image (whose SiT runs the tensor axis),
+    train-protein (whose ProteinMPNN does), train-molecule-semla,
+    train-molecule-edm and train-property (SemlaFlow and the EGNN family)
+    with the data x fsdp x seq x tensor world size and the torchrun line,
+    elsewhere naming ROADMAP item 8b; --sp 2 outside SiT raises saying that
+    it splits SiT's tokens
     alone; --distributed without
     torchrun's environment raises, an eval subcommand raises on --dp 2 or
     --fsdp 2 (naming ROADMAP item 11), and a train-* one (or
@@ -203,7 +219,8 @@ def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch)
                        match="fsdp=2 does not divide the 1 process" if data_parallel
                        else "ROADMAP.md Queue 1 item 11"):
         cli.main(base + ["--fsdp", "2"])
-    if cmd in ("train-image", "generate-image", "train-protein"):
+    if cmd in ("train-image", "generate-image", "train-protein", "train-molecule-semla",
+               "train-molecule-edm", "train-property"):
         with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
                                              "torchrun --nproc_per_node 2"):
             cli.main(base + ["--tp", "2", "--sp", "1"])

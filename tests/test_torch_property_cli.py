@@ -119,11 +119,12 @@ def test_train_property_cli(tmp_path, capsys):
     with pytest.raises(SystemExit, match="not in npz keys"):
         main(["train-property", "--data-dir", str(tmp_path), "--property", "gap",
               "--steps", "1"] + CLI_TINY)
-    # --dp 2 needs two ranks (torchrun ... --distributed); --tp is not ported
+    # --dp 2 and --tp 2 need two ranks (torchrun ... --distributed)
     with pytest.raises(ValueError, match="torchrun"):
         main(["train-property", "--synthetic", "--steps", "1", "--dp", "2",
               "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
+                                         "torchrun --nproc_per_node 2"):
         main(["train-property", "--synthetic", "--steps", "1", "--tp", "2",
               "--device", "cpu"])
 

@@ -150,7 +150,7 @@ def _one_process(out):
         state, _ = trainer.train_step(state, batch)
     one["straight"] = torch_dp.state_tensors(state)
     one["lr"] = trainer.cfg.optim.lr
-    one["cli"] = torch_dp.protein_cli(out, [], "one")
+    one["cli"] = torch_dp.mesh_cli(out, "train-protein", torch_dp.PTP_CLI, [], "ptp_cli_one")
     return one
 
 
@@ -179,7 +179,7 @@ def _continued(out, key, fields):
     with torch_dp.settings(fields=fields):
         trainer, batches = torch_dp._protein()
     state = trainer.init_state()
-    checkpoint.CheckpointManager(out / torch_dp.ptp_first(key)).restore(
+    checkpoint.CheckpointManager(out / torch_dp.first_ckpt("ptp_first_", key)).restore(
         state, trainer.generator)
     assert state.step == 1
     with capture_gradients() as grads:

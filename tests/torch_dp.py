@@ -4,19 +4,22 @@ trainer cases that tests/test_torch_data_parallel.py holds against one
 process, tests/test_torch_fsdp.py at fsdp=2 against data=2,
 tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process,
 tests/test_torch_remat.py under SiT remat,
-tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes and
-tests/test_torch_protein_tensor_parallel.py on ProteinMPNN's tensor axis
-(`settings` sets their mesh, config fields and optimizer).
+tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes,
+tests/test_torch_protein_tensor_parallel.py on ProteinMPNN's tensor axis,
+tests/test_torch_semla_tensor_parallel.py on SemlaFlow's and
+tests/test_torch_egnn_tensor_parallel.py on the EGNN family's (`settings`
+sets their mesh, config fields and optimizer).
 
-    python tests/torch_dp.py JOB DIR
+    python tests/torch_dp.py JOB DIR STORE
 
 runs JOB as one rank (RANK, WORLD_SIZE and LOCAL_RANK from the environment,
-as torchrun sets them) and writes its results under DIR; `spawn` starts
-the ranks and waits for them. This module imports no JAX: the ranks import
-it as a script.
+as torchrun sets them, meeting the other ranks through the file STORE) and
+writes its results under DIR; `spawn` starts the ranks and waits for them.
+This module imports no JAX: the ranks import it as a script.
 """
 
 import contextlib
+import itertools
 import os
 import pathlib
 import subprocess
@@ -30,14 +33,30 @@ WORLD = 2
 TINY_SIT = dict(depth=2, hidden_size=64, num_heads=4)
 
 
+def rendezvous_file(out_dir, job, world):
+    """A rendezvous file for one spawn of `job`, new in `out_dir`.
+    torch.distributed's file:// rendezvous deletes its file when the last
+    process using the store releases it, which does not always happen (a
+    file was found left after a four-rank job of these tests); a later
+    group meeting through a left file reads the old group's keys and
+    hangs. So no two spawns share a file."""
+    for i in itertools.count():
+        path = pathlib.Path(out_dir) / f"store_{job}_{world}_{i}"
+        if not path.exists():
+            return path
+
+
 def spawn(out_dir, job, world=WORLD, timeout=600):
-    """Run `job` as `world` gloo ranks writing under `out_dir`; returns each
-    rank's output and raises with all of it when a rank fails (a rank left
-    waiting in a collective is killed at `timeout` seconds)."""
+    """Run `job` as `world` gloo ranks writing under `out_dir`, meeting
+    through a rendezvous file of their own (rendezvous_file, removed once
+    they have exited); returns each rank's output and raises with all of it
+    when a rank fails (a rank left waiting in a collective is killed at
+    `timeout` seconds)."""
+    store = rendezvous_file(out_dir, job, world)
     env = dict(os.environ, WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen([sys.executable, __file__, job, str(out_dir)], cwd=ROOT,
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(out_dir), str(store)],
+                              cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     outs = []
@@ -47,6 +66,8 @@ def spawn(out_dir, job, world=WORLD, timeout=600):
     finally:
         for p in procs:
             p.kill()
+            p.wait()
+        store.unlink(missing_ok=True)
     if any(p.returncode for p in procs):
         raise AssertionError("\n".join(f"--- rank {r} (exit {p.returncode})\n{o}"
                                        for r, (p, o) in enumerate(zip(procs, outs))))
@@ -216,13 +237,14 @@ CASES = {"protein": _protein, "image": _image, "semla": _semla, "edm": _edm,
          "linear_probe": _linear_probe, "multiflow": _multiflow}
 
 
-def run_case(name, save_first=None):
+def run_case(name, save_first=None, **inject):
     """Two train steps of case `name`: {'metrics': [per step {name: float}],
     'grads': [per step [tensor]], 'params': {name: tensor}, 'lr', 'state':
     the whole EMA, mu, nu and acc, 'resident': {'bytes', 'expected'}}, the
     gradients as the update saw them (whole), in parameter order. With
     `save_first` (a directory) a checkpoint of the state after the first
-    step is written there (rank 0 writes; every rank gathers)."""
+    step is written there (rank 0 writes; every rank gathers). `inject`
+    goes to each train_step (SemlaFlow's use_sc)."""
     from reed_tpu_torch.core.checkpoint import CheckpointManager
     from reed_tpu_torch.core.trainer import capture_gradients
 
@@ -231,7 +253,7 @@ def run_case(name, save_first=None):
     metrics = []
     with capture_gradients() as grads:
         for batch in batches:
-            state, m = trainer.train_step(state, batch)
+            state, m = trainer.train_step(state, batch, **inject)
             metrics.append({k: float(v) for k, v in m.items()})
             if save_first is not None and state.step == 1:
                 CheckpointManager(save_first, dp=trainer.dp).save(state, trainer.generator)
@@ -342,6 +364,13 @@ def _job_mesh(out, dp):
                 "stats": collector.as_dict(), "drawn": drawn,
                 "metrics": dp.mean_metrics({"a": torch.tensor(float(dp.rank)), "b": 2.0})},
                out / f"mesh_rank{dp.rank}.pt")
+
+
+def _job_leave_store(out, dp):
+    """One collective, then an exit that runs no destructor: the store is
+    never released and the rendezvous file stays behind."""
+    torch.distributed.all_reduce(torch.ones(3))
+    os._exit(0)
 
 
 def _job_data_parallel(out, dp):
@@ -552,6 +581,17 @@ def collectives():
     return out
 
 
+def more_batches(case, trainer):
+    """Two more batches of case `case` (this rank's rows), after its two."""
+    if case == "semla":
+        from reed_tpu_torch.parallel.mesh import local_batch
+        from reed_tpu_torch.train.molecule_semla import batch_to_device
+
+        return [batch_to_device(local_batch(trainer.dp, trainer.example_batch(4, 8, seed=12 + i)),
+                                "cpu") for i in range(2)]
+    return [trainer.synthetic_batch(torch.Generator().manual_seed(12 + i)) for i in range(2)]
+
+
 def resume_across(out, case="protein", here="ckpt_here", one="ckpt_one"):
     """Case `case` on this mesh: a checkpoint written here at step 2 (under
     out/`here`), and the one-process checkpoint of step 2 the test wrote
@@ -560,8 +600,7 @@ def resume_across(out, case="protein", here="ckpt_here", one="ckpt_one"):
     from reed_tpu_torch.core import checkpoint
 
     trainer, batches = CASES[case]()
-    batches += [trainer.synthetic_batch(torch.Generator().manual_seed(12 + i))
-                for i in range(2)]
+    batches += more_batches(case, trainer)
     state = trainer.init_state()
     mgr = checkpoint.CheckpointManager(out / here, save_interval_steps=2, dp=trainer.dp)
     for batch in batches[:2]:
@@ -665,33 +704,57 @@ def tp_cli(flags, out, tag):
     return state.step, whole_params(state)
 
 
+def parity_step(trainer, inputs, rules, steps=1, **inject):
+    """`steps` train steps of `trainer` (on the mesh) from the whole weights
+    inputs['params'] on this rank's rows of inputs['batch'] (a device batch
+    once batch_to_device has run) with `inject`: the metrics of each step,
+    the whole gradients of the first by name, and the whole parameters and
+    EMA after them."""
+    from reed_tpu_torch.core.ema import ema_init
+    from reed_tpu_torch.core.train_state import make_optimizer
+    from reed_tpu_torch.core.trainer import capture_gradients
+    from reed_tpu_torch.parallel.mesh import shard_state_dict
+
+    state = trainer.init_state()
+    plan = state.opt.plan
+    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, rules))
+    state.ema = ema_init(state.model, plan=plan)
+    state.opt = make_optimizer(trainer.cfg.optim, list(state.model.parameters()), plan)
+    metrics = []
+    with capture_gradients() as grads:
+        for _ in range(steps):
+            state, m = trainer.train_step(state, inputs["batch"], **inject)
+            metrics.append({k: float(v) for k, v in m.items()})
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"metrics": metrics, "grads": dict(zip(names, grads[0])),
+            "params": whole_params(state), "ema": whole_state(state)["ema"]}
+
+
+def mesh_cli(out, cmd, args, flags, tag):
+    """`cmd` through the CLI (a checkpoint at step 2 under out/{tag}) with
+    the mesh flags `flags`: the trained step and whole state."""
+    from reed_tpu_torch import cli
+
+    state = cli.main([cmd, "--device", "cpu", *flags, *args, "--ckpt-dir", str(out / tag),
+                      "--ckpt-every", "2"])
+    return state.step, state_tensors(state)
+
+
 def jax_parity_step(inputs, axes):
     """One image step on this mesh from the weights, batch and draws (t, eps,
     label drops) of reed_tpu's step in `inputs`: its metrics, the whole
     gradients by name, and the whole parameters and EMA after it."""
-    from reed_tpu_torch.core.ema import ema_init
-    from reed_tpu_torch.core.train_state import make_optimizer
-    from reed_tpu_torch.core.trainer import capture_gradients
-    from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, local_batch, shard_state_dict
+    from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, local_batch
 
     with settings(tp_mesh(**axes), fields=TP_FIELDS):
         trainer, _ = _image()
-    state = trainer.init_state()
-    plan = state.opt.plan
-    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, SIT_TP_RULES))
-    state.ema = ema_init(state.model, plan=plan)
-    state.opt = make_optimizer(trainer.cfg.optim, list(state.model.parameters()), plan)
     batch = local_batch(trainer.dp, {"x": torch.as_tensor(inputs["batch"]["x"]),
                                      "y": torch.as_tensor(inputs["batch"]["y"]).long(),
                                      "zs": [torch.as_tensor(z) for z in inputs["batch"]["zs"]]})
     t, eps, drop = local_batch(trainer.dp, tuple(torch.as_tensor(a) for a in inputs["draws"]))
-    with capture_gradients() as grads:
-        state, metrics = trainer.train_step(state, batch, t=t, eps=eps, drop=drop)
-    names = [n for n, _ in state.model.named_parameters()]
-    whole = whole_state(state)
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": dict(zip(names, grads[0])), "params": whole_params(state),
-            "ema": whole["ema"]}
+    out = parity_step(trainer, dict(inputs, batch=batch), SIT_TP_RULES, t=t, eps=eps,
+                      drop=drop)
+    return dict(out, metrics=out["metrics"][0])
 
 
 def _job_tensor_parallel(out, dp):
@@ -764,10 +827,10 @@ PTP_CLI = [*CLI_TINY["train-protein"], "--set", "k_neighbors=6",
            "--steps", "2", "--log-every", "1"]
 
 
-def ptp_first(key):
-    """The directory of the checkpoint a mesh run of PTP_VARIANTS key (or
-    PTP_MESHES_4 name) `key` writes after its first step."""
-    return "ptp_first_" + ("_".join(map(str, key)) if isinstance(key, tuple) else key)
+def first_ckpt(prefix, key):
+    """The directory of the checkpoint a mesh run of variant `key` (a tuple,
+    or a mesh name) writes after its first step."""
+    return prefix + ("_".join(map(str, key)) if isinstance(key, tuple) else key)
 
 
 def protein_jax_parity_step(inputs, fused_messages):
@@ -776,10 +839,7 @@ def protein_jax_parity_step(inputs, fused_messages):
     metrics, the whole gradients by name, and the whole parameters and EMA
     after it."""
     from reed_tpu_torch.core.config import CurriculumConfig
-    from reed_tpu_torch.core.ema import ema_init
-    from reed_tpu_torch.core.train_state import make_optimizer
-    from reed_tpu_torch.core.trainer import capture_gradients
-    from reed_tpu_torch.parallel.mesh import PMPNN_TP_RULES, local_batch, shard_state_dict
+    from reed_tpu_torch.parallel.mesh import PMPNN_TP_RULES, local_batch
     from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
 
     cfg = ProteinTrainConfig(**dict(TRAP_TINY, fused_messages=fused_messages),
@@ -787,31 +847,12 @@ def protein_jax_parity_step(inputs, fused_messages):
                              curriculum=CurriculumConfig(proj_coeff=0.2,
                                                          diffusion_warmup_steps=0))
     trainer = ProteinTrainer(cfg, device="cpu")
-    state = trainer.init_state()
-    plan = state.opt.plan
-    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, PMPNN_TP_RULES))
-    state.ema = ema_init(state.model, plan=plan)
-    state.opt = make_optimizer(cfg.optim, list(state.model.parameters()), plan)
     batch = local_batch(trainer.dp, {k: torch.as_tensor(v) for k, v in inputs["batch"].items()})
     noisy = local_batch(trainer.dp, tuple(torch.as_tensor(x) for x in inputs["noisy"]))
     noise = local_batch(trainer.dp, [torch.as_tensor(x) for x in inputs["repr_noise"]])
-    with capture_gradients() as grads:
-        state, metrics = trainer.train_step(state, batch, noisy=noisy, repr_noise=noise)
-    names = [n for n, _ in state.model.named_parameters()]
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": dict(zip(names, grads[0])), "params": whole_params(state),
-            "ema": whole_state(state)["ema"]}
-
-
-def protein_cli(out, flags, tag):
-    """train-protein through the CLI (2 steps, a checkpoint at step 2 under
-    out/ptp_cli_{tag}) with the mesh flags `flags`: the trained step and
-    whole state."""
-    from reed_tpu_torch import cli
-
-    state = cli.main(["train-protein", "--device", "cpu", *flags, *PTP_CLI,
-                      "--ckpt-dir", str(out / f"ptp_cli_{tag}"), "--ckpt-every", "2"])
-    return state.step, state_tensors(state)
+    out = parity_step(trainer, dict(inputs, batch=batch), PMPNN_TP_RULES, noisy=noisy,
+                      repr_noise=noise)
+    return dict(out, metrics=out["metrics"][0])
 
 
 def _job_protein_tensor_parallel(out, dp):
@@ -823,13 +864,14 @@ def _job_protein_tensor_parallel(out, dp):
     mesh = tp_mesh(tensor=2)
     for key, fields in PTP_VARIANTS.items():
         with settings(mesh, fields=fields):
-            results[key] = run_case("protein", save_first=out / ptp_first(key))
+            results[key] = run_case("protein", save_first=out / first_ckpt("ptp_first_", key))
     with settings(mesh):
         results["resume"] = resume_across(out, "protein", "ckpt_ptp", "ckpt_one_protein")
     inputs = torch.load(out / "jax_protein_inputs.pt", weights_only=False)
     for path, mode in (("fused", "on"), ("off", "off")):
         results["jax", path] = protein_jax_parity_step(inputs, mode)
-    results["cli"] = protein_cli(out, ["--distributed", "--tp", "2"], "tp")
+    results["cli"] = mesh_cli(out, "train-protein", PTP_CLI, ["--distributed", "--tp", "2"],
+                              "ptp_cli_tp")
     with settings(mesh):
         trainer, _ = _protein()
     results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
@@ -843,23 +885,234 @@ def _job_protein_tensor_parallel_mesh(out, dp):
     results = {}
     for name, axes in PTP_MESHES_4.items():
         with settings(tp_mesh(**axes)):
-            results[name] = run_case("protein", save_first=out / ptp_first(name))
+            results[name] = run_case("protein", save_first=out / first_ckpt("ptp_first_", name))
     torch.save(results, out / f"ptp_mesh_rank{dp.process_rank}.pt")
 
 
-JOBS = {"mesh": _job_mesh, "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
+# --- SemlaFlow's tensor axis -------------------------------------------------
+
+# the semla case at tensor=2 with its REPA projector (after layer 1) and
+# cross-attention rep conditioning in play: f32 and mixed bf16, the
+# self-conditioning pass taken on both steps or on neither
+STP_FIELDS = {"align_depth": (1,), "cond_type": "cross_attn"}
+STP_VARIANTS = {(dtype, sc): dict(STP_FIELDS, compute_dtype=dtype)
+                for dtype in ("float32", "bfloat16") for sc in (False, True)}
+STP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+# reed_tpu's step on MeshConfig(tensor=2): tests/test_torch_semla_train.py's
+# tiny model at batch 4 (data 4 x tensor 2 on 8 devices) with cross-attention
+# rep conditioning, the mse type loss and the masked bond loss
+STP_PARITY = dict(vocab_size=6, n_bond_types=5, n_charge_types=7, max_atoms=12, d_model=32,
+                  d_message=16, n_layers=3, n_coord_sets=4, d_message_hidden=16, d_edge=8,
+                  n_attn_heads=4, size_emb=8, d_rep=16, rep_alignment=True, align_depth=(1,),
+                  batch_size=4, cond_type="cross_attn", type_strategy="mse",
+                  bond_strategy="mask")
+STP_BOND_MASK_INDEX = 2
+# train-molecule-semla through the CLI at tiny widths (REPA after layer 1)
+STP_CLI = [*CLI_TINY["train-molecule-semla"], "--set", "align_depth=[1]", "--set", "d_rep=16",
+           "--steps", "2", "--log-every", "1"]
+
+
+def semla_parity_config(mesh=None):
+    """The port's SemlaTrainConfig of STP_PARITY (on `mesh`)."""
+    from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig
+    from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
+                                                      MoleculeInterpolantConfig,
+                                                      MoleculePriorConfig)
+    from reed_tpu_torch.train.molecule_semla import SemlaTrainConfig
+
+    return SemlaTrainConfig(
+        **STP_PARITY, mesh=mesh or MeshConfig(),
+        integrator=IntegratorConfig(cat_noise_level=1.0, bond_mask_index=STP_BOND_MASK_INDEX),
+        interpolant=MoleculeInterpolantConfig(prior=MoleculePriorConfig(vocab_size=6),
+                                              coord_noise_std=0.2),
+        curriculum=CurriculumConfig(proj_coeff=0.2, diffusion_warmup_steps=0))
+
+
+def semla_parity_step(inputs):
+    """SemlaTrainer at tensor=2 from reed_tpu's step's weights, batch and
+    self-conditioning coin (parity_step)."""
+    from reed_tpu_torch.parallel.mesh import SEMLA_TP_RULES, local_batch
+    from reed_tpu_torch.train.molecule_semla import SemlaTrainer, batch_to_device
+
+    trainer = SemlaTrainer(semla_parity_config(tp_mesh(tensor=2)), device="cpu")
+    batch = batch_to_device(local_batch(trainer.dp, inputs["batch"]), "cpu")
+    return parity_step(trainer, dict(inputs, batch=batch), SEMLA_TP_RULES,
+                       use_sc=inputs["use_sc"])
+
+
+def refusal(args):
+    """The type and message of the exception cli.main(args) raises."""
+    from reed_tpu_torch import cli
+
+    try:
+        cli.main(args)
+    except Exception as e:  # noqa: BLE001 - the test reads which one
+        return type(e).__name__, str(e)
+    return None
+
+
+def _job_semla_tensor_parallel(out, dp):
+    """On two ranks at tensor=2: the semla case in f32 and mixed bf16, with
+    and without self-conditioning; the checkpoints across tensor sizes;
+    reed_tpu's step on the same weights, batch and coin;
+    train-molecule-semla --tp 2 through the CLI, and with arch egnn and
+    eqgat (which raise); this rank's place on the mesh."""
+    results = {}
+    mesh = tp_mesh(tensor=2)
+    for (dtype, sc), fields in STP_VARIANTS.items():
+        with settings(mesh, fields=fields):
+            results[dtype, sc] = run_case("semla", save_first=out / first_ckpt(
+                "stp_first_", (dtype, sc)), use_sc=sc)
+    with settings(mesh, fields=STP_FIELDS):
+        results["resume"] = resume_across(out, "semla", "ckpt_stp", "ckpt_one_semla")
+        trainer, _ = _semla()
+    results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
+                       trainer.dp.tensor_index)
+    results["jax"] = semla_parity_step(torch.load(out / "jax_semla_inputs.pt",
+                                                  weights_only=False))
+    results["cli"] = mesh_cli(out, "train-molecule-semla", STP_CLI,
+                              ["--distributed", "--tp", "2"], "stp_cli_tp")
+    results["refused"] = {arch: refusal(["train-molecule-semla", "--device", "cpu",
+                                         "--distributed", "--tp", "2", *STP_CLI,
+                                         "--set", f"arch={arch}"])
+                          for arch in ("egnn", "eqgat")}
+    torch.save(results, out / f"stp_rank{dp.process_rank}.pt")
+
+
+def _job_semla_tensor_parallel_mesh(out, dp):
+    """On four ranks: the semla case (f32, self-conditioning on) at data=2 x
+    tensor=2 and fsdp=2 x tensor=2; train-molecule-semla --dp 2 --tp 2."""
+    results = {}
+    for name, axes in STP_MESHES_4.items():
+        with settings(tp_mesh(**axes), fields=STP_FIELDS):
+            results[name] = run_case("semla", save_first=out / first_ckpt("stp_first_", name),
+                                     use_sc=True)
+    results["cli"] = mesh_cli(out, "train-molecule-semla", STP_CLI,
+                              ["--distributed", "--dp", "2", "--tp", "2"], "stp_cli_dp_tp")
+    torch.save(results, out / f"stp_mesh_rank{dp.process_rank}.pt")
+
+
+# --- the EGNN family's tensor axis -------------------------------------------
+
+# the EDM and EFM cases (hidden 32, 2 blocks, rep 16, rotation on for EDM)
+# in f32 and bf16 and the property case (hidden 16, 2 layers) in f32
+ETP_VARIANTS = {("edm", "float32"): {}, ("edm", "bfloat16"): {"compute_dtype": "bfloat16"},
+                ("edm_fm", "float32"): {}, ("edm_fm", "bfloat16"): {"compute_dtype": "bfloat16"},
+                ("property", "float32"): {}}
+ETP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+ETP_CASES_4 = ("edm", "edm_fm", "property")
+# reed_tpu's steps on MeshConfig(tensor=2): tests/test_torch_edm_train.py's
+# tiny EDM with rotation at batch 4, and tests/test_torch_property.py's
+# tiny classifier at batch 4 with its two-step cosine schedule
+ETP_EDM_PARITY = dict(hidden_nf=32, n_layers=2, inv_sublayers=2, max_nodes=9, rep_nf=16,
+                      batch_size=4, augment_rotation=True)
+ETP_PROPERTY_PARITY = dict(hidden_nf=16, n_layers=2, max_nodes=8, num_atom_types=4,
+                           batch_size=4, mean=3.0, mad=2.0)
+ETP_PROPERTY_OPTIM = dict(lr=1e-3, weight_decay=1e-16, schedule="cosine", warmup_steps=0,
+                          total_steps=2)
+# train-molecule-edm (EDM and EFM) and train-property through the CLI
+ETP_CLI = {"edm": ("train-molecule-edm", [*CLI_TINY["train-molecule-edm"], "--steps", "2",
+                                          "--log-every", "1"]),
+           "efm": ("train-molecule-edm", [*CLI_TINY["train-molecule-edm"], "--steps", "2",
+                                          "--log-every", "1", "--set", "probabilistic_model=fm",
+                                          "--set", "efm.ode_steps=4"]),
+           "property": ("train-property", [*CLI_TINY["train-property"], "--steps", "2",
+                                           "--log-every", "1"])}
+
+
+def edm_parity_step(inputs):
+    """MoleculeEDMTrainer at tensor=2 from reed_tpu's step's weights, batch
+    and draws (parity_step)."""
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, local_batch
+    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
+                                                   batch_to_device)
+
+    trainer = MoleculeEDMTrainer(MoleculeEDMConfig(**ETP_EDM_PARITY, mesh=tp_mesh(tensor=2)),
+                                 device="cpu")
+    batch = batch_to_device(local_batch(trainer.dp, inputs["batch"]), "cpu")
+    return parity_step(trainer, dict(inputs, batch=batch), EGNN_TP_RULES,
+                       **local_batch(trainer.dp, inputs["draws"]))
+
+
+def property_parity_step(inputs):
+    """PropertyTrainer at tensor=2, two steps from reed_tpu's steps' weights
+    and batch (parity_step)."""
+    from reed_tpu_torch.core.config import OptimConfig
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, local_batch
+    from reed_tpu_torch.train.property import (PropertyTrainConfig, PropertyTrainer,
+                                               batch_to_device)
+
+    trainer = PropertyTrainer(PropertyTrainConfig(**ETP_PROPERTY_PARITY,
+                                                  optim=OptimConfig(**ETP_PROPERTY_OPTIM),
+                                                  mesh=tp_mesh(tensor=2)), device="cpu")
+    batch = batch_to_device(local_batch(trainer.dp, inputs["batch"]), "cpu")
+    return parity_step(trainer, dict(inputs, batch=batch), EGNN_TP_RULES, steps=2)
+
+
+def _job_egnn_tensor_parallel(out, dp):
+    """On two ranks at tensor=2: EDM and EFM in f32 and bf16 and the property
+    classifier in f32; the checkpoints across tensor sizes (EDM and
+    property); reed_tpu's EDM and property steps on the same weights and
+    draws; train-molecule-edm (EDM and EFM) and train-property --tp 2
+    through the CLI, and --linear-probe (which raises); this rank's place."""
+    results = {}
+    mesh = tp_mesh(tensor=2)
+    for key, fields in ETP_VARIANTS.items():
+        with settings(mesh, fields=fields):
+            results[key] = run_case(key[0], save_first=out / first_ckpt("etp_first_", key))
+    with settings(mesh):
+        for case in ("edm", "property"):
+            results["resume", case] = resume_across(out, case, f"ckpt_etp_{case}",
+                                                    f"ckpt_one_{case}")
+        trainer, _ = _edm()
+    results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
+                       trainer.dp.tensor_index)
+    inputs = torch.load(out / "jax_egnn_inputs.pt", weights_only=False)
+    results["jax", "edm"] = edm_parity_step(inputs["edm"])
+    results["jax", "property"] = property_parity_step(inputs["property"])
+    for name, (cmd, args) in ETP_CLI.items():
+        results["cli", name] = mesh_cli(out, cmd, args, ["--distributed", "--tp", "2"],
+                                        f"etp_cli_{name}_tp")
+    results["refused"] = refusal(["train-property", "--device", "cpu", "--distributed",
+                                  "--tp", "2", "--linear-probe", "--steps", "1",
+                                  "--batch-size", "4", "--set", "rep_dim=12"])
+    torch.save(results, out / f"etp_rank{dp.process_rank}.pt")
+
+
+def _job_egnn_tensor_parallel_mesh(out, dp):
+    """On four ranks: EDM, EFM and the property case (f32) at data=2 x
+    tensor=2 and fsdp=2 x tensor=2; train-molecule-edm --fsdp 2 --tp 2."""
+    results = {}
+    for name, axes in ETP_MESHES_4.items():
+        for case in ETP_CASES_4:
+            with settings(tp_mesh(**axes)):
+                results[name, case] = run_case(case, save_first=out / first_ckpt(
+                    "etp_first_", (name, case)))
+    cmd, args = ETP_CLI["edm"]
+    results["cli"] = mesh_cli(out, cmd, args, ["--distributed", "--fsdp", "2", "--tp", "2",
+                                               "--set", f"mesh.fsdp_min_size={TINY_MIN_SIZE}"],
+                              "etp_cli_fsdp_tp")
+    torch.save(results, out / f"etp_mesh_rank{dp.process_rank}.pt")
+
+
+JOBS = {"mesh": _job_mesh, "leave_store": _job_leave_store,
+        "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
         "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat,
         "tensor_parallel": _job_tensor_parallel,
         "tensor_parallel_mesh": _job_tensor_parallel_mesh,
         "protein_tensor_parallel": _job_protein_tensor_parallel,
-        "protein_tensor_parallel_mesh": _job_protein_tensor_parallel_mesh}
+        "protein_tensor_parallel_mesh": _job_protein_tensor_parallel_mesh,
+        "semla_tensor_parallel": _job_semla_tensor_parallel,
+        "semla_tensor_parallel_mesh": _job_semla_tensor_parallel_mesh,
+        "egnn_tensor_parallel": _job_egnn_tensor_parallel,
+        "egnn_tensor_parallel_mesh": _job_egnn_tensor_parallel_mesh}
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
     from reed_tpu_torch.parallel.mesh import init_distributed
 
-    job, out_dir = sys.argv[1], pathlib.Path(sys.argv[2])
-    _, dp = init_distributed("cpu", init_method=f"file://{out_dir / 'store'}")
+    job, out_dir, store = sys.argv[1], pathlib.Path(sys.argv[2]), sys.argv[3]
+    _, dp = init_distributed("cpu", init_method=f"file://{store}")
     JOBS[job](out_dir, dp)
     torch.distributed.destroy_process_group()
