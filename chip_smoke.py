@@ -239,25 +239,36 @@ no result):
      f32, the ranks' whole
      parameters bitwise equal (SHA-256), 9 K2a + 9 K2b launches a rank, the
      state's bytes between steps beside the plan's reckoning (~2.43 M of
-     4.28 M parameters a rank), the step's seconds; then (slice 20,
-     `mol_tp_rank_part`, `mol_tp_report`) SemlaFlow at the recipe's width
-     (56 x 72, the self-conditioning pass on) in f32 and mixed bf16, the
-     EDM (MoleculeEDMConfig, 64 x 29) in f32 and bf16 and the property
-     classifier (PropertyTrainConfig, 96 x 29) in f32 at tensor=2, two
-     steps each from the checked weights (seeded_semla, seeded_edm, the
-     property phase's moved biases): the first in f32 within
-     TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL (of the step's largest
-     gradient) of the one-process step, in bf16 within MOL_TP_BF16_FACTOR x
-     the one-process bf16 step's distance from f32, the ranks' whole
-     parameters bitwise equal after both, no K1/K2a/K2b launch, the bytes
-     the tensor group all-reduces a step a rank, the parameters and the
-     state's bytes a rank, each step's wall ms; (c) the same
-     over NCCL with one card a rank, and `torchrun ... train-protein
-     --distributed` without and with --fsdp 2 and with --tp 2,
-     `torchrun ... train-image --distributed` with --tp 2 and with --sp 2,
-     and `torchrun ... train-molecule-semla`, `train-molecule-edm` and
-     `train-property --distributed --tp 2`, where the machine has two
-     cards, else a line that says why it did not run.
+     4.28 M parameters a rank), the step's seconds; then (slices 20 and
+     21, `mol_tp_rank_part`, `mol_tp_report`) SemlaFlow at the recipe's
+     width (56 x 72, the self-conditioning pass on) in f32 and mixed bf16,
+     the EDM (MoleculeEDMConfig, 64 x 29) in f32 and bf16, the property
+     classifier (PropertyTrainConfig, 96 x 29) in f32, MultiFlow
+     (MultiflowTrainConfig, 8 x 128) in f32 and bf16 and the RDM
+     (RDMTrainConfig, batch 128) in f32 at tensor=2, and SemlaFlow's egnn
+     and eqgat archs (the recipe's width, MOL_TP_ALT_GLOO_BATCH x 72 on the
+     gloo ranks of one card, 56 x 72 on NCCL) and the linear probe
+     (LinearProbeConfig) whole on every tensor rank, two steps each from
+     the checked weights (seeded_semla, seeded_edm, the property phase's
+     moved biases, seeded_flow_model, seeded_rdm, seeded_alt): the first
+     in f32 within TRAIN_METRIC_RTOL / DP_ORDER_GRAD_RTOL (of the step's
+     largest gradient) of the one-process step (SemlaFlow within
+     MOL_TP_GRAD_TOP and MOL_TP_F64_FACTOR x one process's distance from
+     the step promoted to f64; MultiFlow's f64 distances logged), in bf16
+     within MOL_TP_BF16_FACTOR x the one-process bf16 step's distance from
+     f32, the ranks' whole parameters bitwise equal after both, no
+     K1/K2a/K2b launch, the bytes the tensor group all-reduces a step a
+     rank, the parameters and the state's bytes a rank, each step's wall
+     ms; (c) the same over NCCL with one card a rank, and `torchrun ...
+     train-protein --distributed` without and with --fsdp 2 and with --tp
+     2, `torchrun ... train-image --distributed` with --tp 2 and with --sp
+     2, and `torchrun ... train-molecule-semla` (arch semla and egnn),
+     `train-molecule-edm`, `train-property` (and `--linear-probe`),
+     `train-multiflow` and `train-rdm --distributed --tp 2`, where the
+     machine has two cards, else a line that says why it did not run.
+     `python3 chip_smoke.py --mol-tp FAMILY...` runs the slice-20/21
+     tensor=2 steps of the MOL_TP families named alone (over NCCL and
+     with the slice-21 torchrun smokes where the machine has two cards).
   16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
      step at batch 48 under remat=True and 'dots' against the step
      without, from the same state and draws (bitwise where a repeated step
@@ -4186,28 +4197,47 @@ DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 # rounds once in the kernel, so the two bf16 steps sit at one distance
 # from f32 up to which elements round the other way
 PROTEIN_TP_BF16_FACTOR = 2.0
-# slice 20: SemlaFlow and the EGNN family at tensor=2, each at full width from
-# its checked weights (seeded_semla, seeded_edm, the property phase's moved
-# biases) in the dtypes its trainer has: one step held against one process,
-# a second timed; SemlaFlow takes its self-conditioning pass on the first.
-# f32: metrics within TRAIN_METRIC_RTOL; the whole gradient within
-# MOL_TP_F64_FACTOR x the one-process f32 step's distance (L2) from the
-# same step with the model and batch promoted to f64, and each gradient
-# within MOL_TP_GRAD_TOP of the step's largest. Phase 15's order rule (1e-4
-# of the largest gradient) assumes f32's own rounding sits below it; at
-# SemlaFlow's width it does not: on an H100 the tensor=2 step read 2.99e-4
-# of the largest gradient from one process at dynamics.coord_proj.weight
-# (the coordinate input projection, which every coordinate path feeds), and
-# on the CPU one process's own f32 gradient sits 1.7e-4 from f64 where the
-# tensor=2 one sits 2.2e-4 (tests/test_torch_semla_tensor_parallel.py). The
+# slice 20-21: SemlaFlow, the EGNN family, MultiFlow and the RDM at tensor=2,
+# each at full width from its checked weights (seeded_semla, seeded_edm, the
+# property phase's moved biases, seeded_flow_model, seeded_rdm) in the dtypes
+# its trainer has, and the models that run whole on every tensor rank (SemlaFlow's
+# egnn and eqgat archs from seeded_alt, the property linear probe): one step
+# held against one process, a second timed; SemlaFlow and its other archs take
+# their self-conditioning pass on the first. f32: metrics within
+# TRAIN_METRIC_RTOL and each gradient within phase 15's order rule,
+# DP_ORDER_GRAD_RTOL (1e-4) of the step's largest, the one-process step's
+# distance from the same step with the model and batch promoted to f64 logged
+# for the families of MOL_TP_F64. SemlaFlow alone (MOL_TP_F64_RULE) is held to
+# the f64 rule instead: the whole gradient within MOL_TP_F64_FACTOR x the
+# one-process f32 step's distance (L2) from the f64 step, and each gradient
+# within MOL_TP_GRAD_TOP of the step's largest. The order rule assumes f32's
+# own rounding sits below it; at SemlaFlow's width it does not: on an H100 the
+# tensor=2 step read 2.99e-4 of the largest gradient from one process at
+# dynamics.coord_proj.weight (the coordinate input projection, which every
+# coordinate path feeds), and on the CPU one process's own f32 gradient sits
+# 1.7e-4 from f64 where the tensor=2 one sits 2.2e-4
+# (tests/test_torch_semla_tensor_parallel.py); the EDM read 1.51e-7 and the
+# classifier 1.41e-5 of the largest gradient (H100 80GB HBM3, 700.00 W). The
 # order-rule figure is logged beside. bf16: within MOL_TP_BF16_FACTOR x the
 # one-process bf16 step's distance from the f32 step (of the largest
 # gradient, as the f32 figures).
 MOL_TP = {"semla": ("float32", "bfloat16"), "edm": ("float32", "bfloat16"),
-          "property": ("float32",)}
+          "property": ("float32",), "multiflow": ("float32", "bfloat16"),
+          "rdm": ("float32",), "semla_egnn": ("float32",), "semla_eqgat": ("float32",),
+          "probe": ("float32",)}
 MOL_TP_BF16_FACTOR = 2.0
 MOL_TP_F64_FACTOR = 2.0
 MOL_TP_GRAD_TOP = 1e-3
+MOL_TP_F64_RULE = ("semla",)
+MOL_TP_F64 = ("semla", "multiflow")
+# the families whose model runs whole on every tensor rank, as reed_tpu's
+# rules, which name none of their leaves, leave them: each tensor rank holds
+# every parameter
+MOL_TP_WHOLE = ("semla_egnn", "semla_eqgat", "probe")
+# the egnn and eqgat archs' batch on the gloo ranks, which share one card: at
+# 56 x 72 the EGNN arch takes 46.75 GB a process (PERF.md §5, PR 14), and two
+# do not fit in 80 GB; on the NCCL ranks, one card each, SEMLA['batch']
+MOL_TP_ALT_GLOO_BATCH = 16
 
 
 def dp_step_record(trainer, state, batch, steps):
@@ -4597,7 +4627,7 @@ def dp_rank_main(out_dir, backend):
         ref_samples, _, _ = dp_generate(dp_seeded_sit())
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mol_refs = mol_tp_refs()
+        mol_refs = mol_tp_refs(backend)
         result["molecule_refs_s"] = time.perf_counter() - t0
     init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
     t0 = time.perf_counter()
@@ -4631,7 +4661,7 @@ def dp_rank_main(out_dir, backend):
                                             protein_refs if rank == 0 else None)
     result["model_parallel_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    result["molecule_tp"] = mol_tp_rank_part(rank, mol_refs if rank == 0 else None)
+    result["molecule_tp"] = mol_tp_rank_part(rank, mol_refs if rank == 0 else None, backend)
     result["molecule_tp_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
@@ -4735,54 +4765,77 @@ def mp_rank_part(rank, ref32, names, ref_samples, protein_refs):
     return out
 
 
-def mol_tp_setup(family, mesh, dtype):
+def mol_tp_setup(family, mesh, dtype, backend="gloo"):
     """(trainer on `mesh` (None: one process), the whole checked weights as
     a host state_dict, this rank's device batch, the family's tensor rules,
     the step's injected draws) of `family` at full width in `dtype`:
-    SemlaFlow at the GEOM scale (batch 56 x 72), the EDM at MoleculeEDMConfig
+    SemlaFlow at the GEOM scale (batch 56 x 72; its egnn and eqgat archs at
+    MOL_TP_ALT_GLOO_BATCH x 72 over gloo), the EDM at MoleculeEDMConfig
     (batch 64 x 29), the property classifier at PropertyTrainConfig (batch
-    96 x 29)."""
+    96 x 29) and the linear probe at LinearProbeConfig (96 reps of 256),
+    MultiFlow at MultiflowTrainConfig (batch 8 x 128), the RDM at
+    RDMTrainConfig (batch 128)."""
     from reed_tpu_torch.core.config import MeshConfig
-    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, SEMLA_TP_RULES, local_batch
+    from reed_tpu_torch.parallel.mesh import (EGNN_TP_RULES, RDM_TP_RULES, SEMLA_TP_RULES,
+                                             local_batch)
 
     mesh = mesh or MeshConfig()
-    if family == "semla":
-        cfg = semla_full_config(compute_dtype=dtype)
+    rules, inject = (), {}
+    if family in ("semla", "semla_egnn", "semla_eqgat"):
+        arch = family.split("_")[1] if "_" in family else "semla"
+        rows = (SEMLA["batch"] if arch == "semla" or backend == "nccl"
+                else MOL_TP_ALT_GLOO_BATCH)
+        cfg = semla_full_config(compute_dtype=dtype, arch=arch, batch_size=rows)
         trainer = semla_train.SemlaTrainer(dataclasses.replace(cfg, mesh=mesh), device="cuda")
-        whole = seeded_semla(cfg)
+        whole = seeded_semla(cfg) if arch == "semla" else seeded_alt(cfg)
         batch = semla_train.batch_to_device(local_batch(trainer.dp, semla_train.example_batch(
-            cfg, SEMLA["batch"], SEMLA["atoms"], seed=1)), "cuda")
-        rules, inject = SEMLA_TP_RULES, dict(use_sc=True)
+            cfg, rows, SEMLA["atoms"], seed=1)), "cuda")
+        rules, inject = (SEMLA_TP_RULES if arch == "semla" else ()), dict(use_sc=True)
     elif family == "edm":
         cfg = edm_train.MoleculeEDMConfig(compute_dtype=dtype)
         trainer = edm_train.MoleculeEDMTrainer(dataclasses.replace(cfg, mesh=mesh),
                                                device="cuda")
         whole = seeded_edm(cfg)
         batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
-        rules, inject = EGNN_TP_RULES, {}
+        rules = EGNN_TP_RULES
+    elif family == "multiflow":
+        cfg = dataclasses.replace(mf_train.MultiflowTrainConfig(), batch_size=MULTIFLOW["batch"],
+                                  max_len=MULTIFLOW["length"], compute_dtype=dtype)
+        trainer = mf_train.MultiflowTrainer(dataclasses.replace(cfg, mesh=mesh), device="cuda")
+        whole = seeded_flow_model(cfg)
+        batch = trainer.synthetic_batch(np.random.default_rng(1))
+        rules = mf_train.tp_rules(cfg)
+    elif family == "rdm":
+        cfg = rdm_train.RDMTrainConfig()
+        trainer = rdm_train.RDMTrainer(dataclasses.replace(cfg, mesh=mesh), device="cuda")
+        whole = seeded_rdm(cfg, "cuda")
+        batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
+        rules = RDM_TP_RULES
     else:
-        cfg = property_train.PropertyTrainConfig()
-        trainer = property_train.PropertyTrainer(dataclasses.replace(cfg, mesh=mesh),
-                                                 device="cuda")
+        probe = family == "probe"
+        cfg = property_train.LinearProbeConfig() if probe else property_train.PropertyTrainConfig()
+        trainer = (property_train.LinearProbeTrainer if probe else property_train.PropertyTrainer)(
+            dataclasses.replace(cfg, mesh=mesh), device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(5)
-        whole = property_train.build_model(cfg, device="cuda", generator=gen)
+        whole = (trainer._build(gen) if probe else
+                 property_train.build_model(cfg, device="cuda", generator=gen))
         with torch.no_grad():
             for name, p in whole.named_parameters():
                 if name.endswith("bias"):
                     p.add_(torch.randn(p.shape, generator=gen, device="cuda")
                            * PROPERTY_BIAS_STD)
         batch = trainer.synthetic_batch(torch.Generator(device="cuda").manual_seed(1))
-        rules, inject = EGNN_TP_RULES, {}
+        rules = () if probe else EGNN_TP_RULES
     weights = {k: v.detach().cpu() for k, v in whole.state_dict().items()}
     del whole
     torch.cuda.empty_cache()
     return trainer, weights, batch, rules, inject
 
 
-def mol_tp_step(family, mesh, dtype):
+def mol_tp_step(family, mesh, dtype, backend="gloo"):
     """Two train steps of `family` at full width on `mesh` (None: one
-    process) in `dtype` from its checked weights (SemlaFlow's first with
-    its self-conditioning pass): the first step's (metrics, whole
+    process) in `dtype` from its checked weights (mol_tp_setup; SemlaFlow's
+    first with its self-conditioning pass): the first step's (metrics, whole
     gradients) on the host and the parameter names, each step's seconds
     and the second's loss, the bytes the model's collectives all-reduced
     over the tensor group in the first step (collectives.tensor_bytes)
@@ -4795,7 +4848,7 @@ def mol_tp_step(family, mesh, dtype):
     from reed_tpu_torch.core.train_state import make_optimizer
     from reed_tpu_torch.parallel import collectives
 
-    trainer, weights, batch, rules, inject = mol_tp_setup(family, mesh, dtype)
+    trainer, weights, batch, rules, inject = mol_tp_setup(family, mesh, dtype, backend)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     state = trainer.init_state()
@@ -4844,28 +4897,46 @@ def mol_tp_step(family, mesh, dtype):
     return run, names, row
 
 
-def mol_grads64(family):
+def multiflow_train_inputs(trainer, batch):
+    """The model's input of a MultiflowTrainer step on `batch`: the batch
+    corrupted with draws from the trainer's generator, as the step's loss
+    draws them, with zero self-conditioning (train/multiflow.make_loss_fn)."""
+    noisy = mf_se3.corrupt_batch(trainer.cfg.interpolant, batch, generator=trainer.generator)
+    noisy["trans_sc"] = torch.zeros_like(noisy["trans_t"])
+    noisy["aatypes_sc"] = F.one_hot(noisy["aatypes_t"], 21).float()
+    return noisy
+
+
+def mol_grads64(family, backend="gloo"):
     """The one-process gradient of `family`'s first mol_tp_step with the
-    model and the batch promoted to f64 (the LayerNorms keep their f32
-    statistics; the same draws), on the host: the yardstick of f32's own
-    rounding."""
+    model and the batch promoted to f64 (the LayerNorms and MultiFlow's
+    sinusoidal embeddings keep their f32 arithmetic; the same draws), on
+    the host: the yardstick of f32's own rounding."""
     def promoted(x):
         if isinstance(x, dict):
             return {k: promoted(v) for k, v in x.items()}
         return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
 
-    trainer, weights, batch, _, inject = mol_tp_setup(family, None, "float32")
+    trainer, weights, batch, _, inject = mol_tp_setup(family, None, "float32", backend)
     model = trainer.init_state().model
     model.load_state_dict(weights)
     model.double()
     for m in model.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = torch.float64
-    loss_fn = {"semla": semla_train.make_loss_fn, "edm": edm_train.make_loss_fn,
-               "property": property_train.make_loss_fn}[family]
-    extra = dict(generator=trainer.generator) if family != "property" else {}
-    metrics = (loss_fn(trainer.cfg, "cuda") if family == "edm" else loss_fn(trainer.cfg))(
-        model, promoted(batch), 0, **extra, **inject)
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    if family == "multiflow":
+        # the f32 step's corrupted batch (its draws, in f32), then the model
+        # and the losses in f64
+        noisy = promoted(multiflow_train_inputs(trainer, batch))
+        metrics = mf_train.multiflow_losses(trainer.cfg, noisy, model(noisy))
+    else:
+        loss_fn = {"semla": semla_train.make_loss_fn, "edm": edm_train.make_loss_fn,
+                   "property": property_train.make_loss_fn}[family]
+        extra = dict(generator=trainer.generator) if family != "property" else {}
+        metrics = (loss_fn(trainer.cfg, "cuda") if family == "edm" else loss_fn(trainer.cfg))(
+            model, promoted(batch), 0, **extra, **inject)
     total, _ = combine_losses(metrics, 0, getattr(trainer, "curriculum", trainer.cfg.curriculum))
     leaves = list(model.parameters())
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
@@ -4891,31 +4962,34 @@ def mol_step_errors(a, b):
     return max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1.0) for k in mb), errs[worst], worst
 
 
-def mol_tp_refs():
-    """Rank 0's one-process references of the slice-20 steps: each
-    family's first step in f32 and its f64 promotion ({family: (run, names,
-    grads64)}), and each bf16 step's distance from the f32 one
-    (mol_step_errors)."""
+def mol_tp_refs(backend, families=tuple(MOL_TP)):
+    """Rank 0's one-process references of the slice-20 and slice-21 steps:
+    each family's first step in f32 and, for MOL_TP_F64, its f64 promotion
+    ({family: (run, names, grads64 or None)}), and each bf16 step's distance
+    from the f32 one (mol_step_errors)."""
     refs, bf16 = {}, {}
-    for family, dtypes in MOL_TP.items():
-        run32, names, _ = mol_tp_step(family, None, "float32")
-        refs[family] = (run32, names, mol_grads64(family))
+    for family in families:
+        dtypes = MOL_TP[family]
+        run32, names, _ = mol_tp_step(family, None, "float32", backend)
+        refs[family] = (run32, names,
+                        mol_grads64(family, backend) if family in MOL_TP_F64 else None)
         if "bfloat16" in dtypes:
-            run16, _, _ = mol_tp_step(family, None, "bfloat16")
+            run16, _, _ = mol_tp_step(family, None, "bfloat16", backend)
             bf16[family] = mol_step_errors(run16[0], run32[0])[:2]
     return refs, bf16
 
 
-def mol_tp_rank_part(rank, refs):
-    """The slice-20 steps at tensor=2 on a rank of phase 15's group: each
-    family of MOL_TP in each of its dtypes, against rank 0's one-process
-    f32 step `refs` (mol_tp_refs)."""
+def mol_tp_rank_part(rank, refs, backend, families=tuple(MOL_TP)):
+    """The slice-20 and slice-21 steps at tensor=2 on a rank of phase 15's
+    group: each of `families` (MOL_TP keys) in each of its dtypes, against
+    rank 0's one-process f32 step `refs` (mol_tp_refs)."""
     from reed_tpu_torch.core.config import MeshConfig
 
     out = {}
-    for family, dtypes in MOL_TP.items():
-        for dtype in dtypes:
-            run, names, row = mol_tp_step(family, MeshConfig(tensor=DP["world"]), dtype)
+    for family in families:
+        for dtype in MOL_TP[family]:
+            run, names, row = mol_tp_step(family, MeshConfig(tensor=DP["world"]), dtype,
+                                          backend)
             if rank == 0:
                 ref_run, ref_names, grads64 = refs[0][family]
                 assert names == ref_names, family
@@ -4924,7 +4998,7 @@ def mol_tp_rank_part(rank, refs):
                 row["loss"] = run[0][0]["loss"]
                 if dtype == "bfloat16":
                     row["bf16_vs_f32"] = list(refs[1][family])
-                else:
+                elif grads64 is not None:
                     row["l2_vs_f64"] = [l2_distance(run[0][1], grads64),
                                         l2_distance(ref_run[0][1], grads64),
                                         l2_distance(run[0][1], ref_run[0][1])]
@@ -4933,32 +5007,51 @@ def mol_tp_rank_part(rank, refs):
 
 
 def mol_tp_report(res, where, smi):
-    """The slice-20 lines and checks from each rank's mol_tp_rank_part: f32
-    within (TRAIN_METRIC_RTOL, DP_ORDER_GRAD_RTOL) of the one-process step,
-    bf16 within MOL_TP_BF16_FACTOR x the one-process bf16 step's distance
-    from it; the ranks' whole parameters bitwise equal after both steps;
-    fewer parameters a rank than the model's; no K1/K2a/K2b launch. Every
+    """The slice-20 and slice-21 lines and checks from each rank's
+    mol_tp_rank_part: f32 within (TRAIN_METRIC_RTOL, DP_ORDER_GRAD_RTOL) of
+    the one-process step (SemlaFlow, MOL_TP_F64_RULE: within
+    (TRAIN_METRIC_RTOL, MOL_TP_GRAD_TOP) and MOL_TP_F64_FACTOR x one
+    process's distance from the f64 step), bf16 within MOL_TP_BF16_FACTOR x
+    the one-process bf16 step's distance from it; the ranks' whole
+    parameters bitwise equal after both steps; fewer parameters a rank than
+    the model's (every one for MOL_TP_WHOLE); no K1/K2a/K2b launch. Every
     family's lines come before the first failure raises."""
-    log(f"[tp] {where}, SemlaFlow (recipe width, batch {SEMLA['batch']} x {SEMLA['atoms']}, "
-        "the self-conditioning pass on), the EDM (MoleculeEDMConfig, batch 64 x 29) and the "
-        "property classifier (PropertyTrainConfig, batch 96 x 29) at tensor=2 against one "
-        "process, from the checked weights: each rank the whole batch and half of each "
-        "split MLP" + ("; over gloo the collectives go through the host" if "gloo" in where
-                       else ""))
-    record = ", a record: gloo through the host" if "gloo" in where else ""
+    gloo = "gloo" in where
+    alt_rows = MOL_TP_ALT_GLOO_BATCH if gloo else SEMLA["batch"]
+    log(f"[tp] {where}, at tensor=2 against one process, from the checked weights, each "
+        f"rank the whole batch: split (half of each split product a rank): SemlaFlow "
+        f"(recipe width, batch {SEMLA['batch']} x {SEMLA['atoms']}, the self-conditioning "
+        "pass on), the EDM (MoleculeEDMConfig, batch 64 x 29), the property classifier "
+        f"(PropertyTrainConfig, batch 96 x 29), MultiFlow (MultiflowTrainConfig, batch "
+        f"{MULTIFLOW['batch']} x {MULTIFLOW['length']}: half the IPA and sequence heads) and "
+        "the RDM (RDMTrainConfig, batch 128: half of each block's 1536 mid columns); whole on "
+        f"every tensor rank: SemlaFlow's egnn and eqgat archs (recipe width, batch "
+        f"{alt_rows} x {SEMLA['atoms']}"
+        + (f"; two ranks at {SEMLA['batch']} do not fit one card" if gloo else "")
+        + ") and the property linear probe (LinearProbeConfig, 96 reps of 256)"
+        + ("; over gloo the collectives go through the host" if gloo else ""))
+    record = ", a record: gloo through the host" if gloo else ""
     failures = []
     for key in res[0]:
+        family = key.rsplit("_", 1)[0]
         r0 = res[0][key]
         metric, grad, worst = r0["vs_f32"]
         same = len({r[key]["params_sha256"] for r in res}) == 1
-        if key.endswith("float32"):
+        f64 = ""
+        if "l2_vs_f64" in r0:
             tp64, one64, tp_one = r0["l2_vs_f64"]
+            f64 = (f"; the whole gradient's L2 distance from the f64 step {tp64:.4g}, one "
+                   f"process's {one64:.4g}, from one process {tp_one:.4g}")
+        if key.endswith("float32") and family in MOL_TP_F64_RULE:
             tols = (TRAIN_METRIC_RTOL, MOL_TP_GRAD_TOP)
             ok = metric <= tols[0] and grad <= tols[1] and tp64 <= MOL_TP_F64_FACTOR * one64
-            bound = (f"the whole gradient's L2 distance from the f64 step {tp64:.4g}, one "
-                     f"process's {one64:.4g} (bound {MOL_TP_F64_FACTOR}x), from one process "
-                     f"{tp_one:.4g}; phase 15's order rule {DP_ORDER_GRAD_RTOL} "
+            bound = (f"the f64 rule ({MOL_TP_F64_FACTOR}x one process's f64 distance){f64}; "
+                     f"phase 15's order rule {DP_ORDER_GRAD_RTOL} "
                      f"{'met' if grad <= DP_ORDER_GRAD_RTOL else 'not met'}")
+        elif key.endswith("float32"):
+            tols = (TRAIN_METRIC_RTOL, DP_ORDER_GRAD_RTOL)
+            ok = metric <= tols[0] and grad <= tols[1]
+            bound = f"phase 15's order rule{f64}"
         else:
             noise_metric, noise_grad = r0["bf16_vs_f32"]
             tols = (MOL_TP_BF16_FACTOR * noise_metric + 1e-6, MOL_TP_BF16_FACTOR * noise_grad)
@@ -4967,7 +5060,7 @@ def mol_tp_report(res, where, smi):
                      f"({noise_metric:.3g}, {noise_grad:.3g})")
         log(f"[tp]   {key} step 1 against the one-process f32 step: metrics max rel err "
             f"{metric:.3g}, gradients max err / the step's largest |g| {grad:.3g} at {worst}; "
-            f"bound ({tols[0]:.3g}, {tols[1]:.3g}); {bound}; loss {r0['loss']:.6g}, after "
+            f"bound ({tols[0]:.3g}, {tols[1]:.3g}): {bound}; loss {r0['loss']:.6g}, after "
             f"step 2 {r0['loss2']:.6g}; the steps {1e3 * r0['s'][0]:.1f} and "
             f"{1e3 * r0['s'][1]:.1f} ms (wall{record}); the tensor "
             f"group all-reduces {r0['tensor_bytes'] / 1e9:.4f} GB of f32 activations and "
@@ -4989,23 +5082,72 @@ def mol_tp_report(res, where, smi):
                             "differ")
         for r in res:
             rr = r[key]
-            if (any(rr["launches"]) or not rr["finite"]
-                    or not rr["params_rank"] < rr["params_whole"]):
+            held = (rr["params_rank"] == rr["params_whole"] if family in MOL_TP_WHOLE
+                    else rr["params_rank"] < rr["params_whole"])
+            if any(rr["launches"]) or not rr["finite"] or not held:
                 failures.append(f"the tensor=2 {key} steps on a rank: {rr}")
     if failures:
         raise AssertionError("\n".join(failures))
 
 
-def dp_ranks_phase(tmp, backend, cards, smi):
-    """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
-    card rank % cards, against one process at the same global batches, and
-    at fsdp=2 against data=2 (fsdp_report). Returns the fsdp steps'
-    launches on rank 0."""
+def mol_tp_rank_main(out_dir, backend, families):
+    """One rank of the slice-20/21 tensor=2 steps alone (`chip_smoke.py
+    --mol-tp-rank DIR BACKEND FAMILY...`, RANK / WORLD_SIZE / LOCAL_RANK set
+    by the parent): rank 0 takes the one-process references, then every
+    rank joins the group and runs the steps of `families` (MOL_TP keys)."""
+    from reed_tpu_torch.parallel.mesh import init_distributed
+
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    refs = mol_tp_refs(backend, families) if rank == 0 else None
+    seconds = [time.perf_counter() - t0]
+    init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
+    t0 = time.perf_counter()
+    res = mol_tp_rank_part(rank, refs, backend, families)
+    seconds.append(time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
+        json.dump(dict(steps=res, s=seconds), f)
+    torch.distributed.destroy_process_group()
+
+
+def mol_tp_main(families):
+    """The slice-20/21 tensor=2 steps of `families` alone (`chip_smoke.py
+    --mol-tp FAMILY...`): two gloo ranks on one card, or, where the machine
+    has two cards, two NCCL ranks, one card each, and then the torchrun
+    --tp 2 smokes of the slice-21 subcommands; the [tp] lines and checks of
+    phase 15 (mol_tp_report)."""
+    smi = device_phase()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DP["world"] else "gloo"
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        res = run_ranks(tmp, backend, cards, "--mol-tp-rank", tmp, backend, *families)
+        where = f"{DP['world']} ranks over {backend}" + (
+            " on one card" if backend == "gloo" else f" on {DP['world']} cards")
+        log(f"[tp] {where}: {time.perf_counter() - t0:.1f} s; rank 0's one-process references "
+            f"{res[0]['s'][0]:.1f} s, the tensor=2 steps {res[0]['s'][1]:.1f} s")
+        mol_tp_report([r["steps"] for r in res], where, smi)
+        if backend == "nccl":
+            world = str(DP["world"])
+            for cmd, *extra in (("train-multiflow",), ("train-rdm",),
+                                ("train-molecule-semla", "--set", "arch=egnn"),
+                                ("train-property", "--linear-probe")):
+                dp_torchrun_phase(tmp, smi, cmd, "--tp", world, *extra)
+    print(smi)
+
+
+def run_ranks(tmp, backend, cards, *argv):
+    """`DP['world']` ranks of this script with the arguments `argv` over
+    `backend`, each on card rank % cards, their output in tmp; the JSON
+    each rank wrote to tmp/rank{r}_{backend}.json. Raises with every rank's
+    output where one fails (stopping the others, which would wait in a
+    collective) or at DP['timeout']."""
     world = DP["world"]
     t0 = time.perf_counter()
     logs = [os.path.join(tmp, f"rank{r}_{backend}.log") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", tmp,
-                               backend],
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
                               env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                                        LOCAL_RANK=str(r % cards)),
                               stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
@@ -5021,10 +5163,20 @@ def dp_ranks_phase(tmp, backend, cards, smi):
                 p.kill()
                 p.wait()
     if any(p.returncode for p in procs):
-        raise RuntimeError("data-parallel ranks failed:\n" + "\n".join(
+        raise RuntimeError("ranks failed:\n" + "\n".join(
             f"--- rank {r} exit {p.returncode}\n{open(log).read()[-4000:]}"
             for r, (p, log) in enumerate(zip(procs, logs))))
-    res = [json.load(open(os.path.join(tmp, f"rank{r}_{backend}.json"))) for r in range(world)]
+    return [json.load(open(os.path.join(tmp, f"rank{r}_{backend}.json"))) for r in range(world)]
+
+
+def dp_ranks_phase(tmp, backend, cards, smi):
+    """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
+    card rank % cards, against one process at the same global batches, and
+    at fsdp=2 against data=2 (fsdp_report). Returns the fsdp steps'
+    launches on rank 0."""
+    world = DP["world"]
+    t0 = time.perf_counter()
+    res = run_ranks(tmp, backend, cards, "--dp-rank", tmp, backend)
     r0 = res[0]
     noise_metric, noise_grad = r0["image_bf16_vs_f32"]
     dp_metric, dp_grad = r0["image_dp_vs_f32"]
@@ -5084,7 +5236,7 @@ def dp_ranks_phase(tmp, backend, cards, smi):
     fsdp = fsdp_report([r["fsdp"] for r in res], where, smi)
     mp = mp_report([r["model_parallel"] for r in res], r0["model_parallel_s"], where,
                    (metric_tol, grad_tol), smi)
-    log(f"[tp] slice 20 on {where}: rank 0's one-process references "
+    log(f"[tp] slices 20-21 on {where}: rank 0's one-process references "
         f"{r0['molecule_refs_s']:.1f} s, the tensor=2 steps {r0['molecule_tp_s']:.1f} s")
     mol_tp_report([r["molecule_tp"] for r in res], where, smi)
     return fsdp, mp
@@ -5287,15 +5439,20 @@ def dp_phases(smi):
             dp_torchrun_phase(tmp, smi, "train-protein", "--tp", world)
             for flag in ("--tp", "--sp"):
                 dp_torchrun_phase(tmp, smi, "train-image", *TORCHRUN_IMAGE, flag, world)
-            for cmd in ("train-molecule-semla", "train-molecule-edm", "train-property"):
+            for cmd in ("train-molecule-semla", "train-molecule-edm", "train-property",
+                        "train-multiflow", "train-rdm"):
                 dp_torchrun_phase(tmp, smi, cmd, "--tp", world)
+            dp_torchrun_phase(tmp, smi, "train-molecule-semla", "--tp", world,
+                              "--set", "arch=egnn")
+            dp_torchrun_phase(tmp, smi, "train-property", "--tp", world, "--linear-probe")
         else:
             log(f"[dp] (c) not run: the NCCL ranks, torchrun train-protein --distributed "
                 f"(without, with --fsdp {world} and with --tp {world}), torchrun "
                 f"train-image --distributed --tp {world} and --sp {world}, and torchrun "
-                f"train-molecule-semla, train-molecule-edm and train-property --distributed "
-                f"--tp {world} need {world} cards (NCCL takes one card a rank) and this "
-                f"machine has {cards}")
+                f"train-molecule-semla (arch semla and egnn), train-molecule-edm, "
+                f"train-property (and --linear-probe), train-multiflow and train-rdm "
+                f"--distributed --tp {world} need {world} cards (NCCL takes one card a rank) "
+                f"and this machine has {cards}")
     return launches, fsdp_launches, mp_launches
 
 
@@ -5537,6 +5694,10 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--mol-tp-rank"]:
+        mol_tp_rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
+    elif sys.argv[1:2] == ["--mol-tp"]:
+        mol_tp_main(sys.argv[2:])
     else:
         try:
             main()

@@ -47,16 +47,17 @@ moments, the accumulation buffer and the EMA over groups of F ranks
 of them). train-image and generate-image also take --tp T (each group of T
 ranks splits SiT's heads and MLP, Megatron's tensor parallelism) and --sp
 S (each group of S ranks splits the tokens): --dp x --fsdp x --sp x --tp
-ranks in all, the batch split over --dp x --fsdp. train-protein,
-train-molecule-semla (arch semla), train-molecule-edm and train-property
-take --tp T too (ProteinMPNN's message chains and MLPs; SemlaFlow's
-message MLPs, attention heads and feed-forwards; the EGNN's MLPs). The
-other train-* subcommands (and Semla's egnn and eqgat archs and
---linear-probe) raise on --tp above 1, and every one but train-image on
---sp above 1 (ROADMAP.md Queue 1 item 8b).
-The eval subcommands take --dp/--fsdp/--tp/--sp and --distributed as
-reed_tpu does and raise on more than one process or an axis above 1
-(ROADMAP.md Queue 1 items 11 and 8b). Configurations resolve as
+ranks in all, the batch split over --dp x --fsdp. Every other train-*
+subcommand takes --tp T too: train-protein (ProteinMPNN's message chains
+and MLPs), train-molecule-semla (arch semla: SemlaFlow's message MLPs,
+attention heads and feed-forwards; the egnn and eqgat archs run whole on
+every tensor rank), train-molecule-edm and train-property (the EGNN's
+MLPs; --linear-probe runs whole on every tensor rank), train-multiflow
+(the IPA heads and the sequence transformer) and train-rdm (the residual
+blocks' MLPs); every one but train-image raises on --sp above 1 (ROADMAP.md
+Queue 1 item 8b). The eval subcommands take --dp/--fsdp/--tp/--sp and
+--distributed as reed_tpu does and raise on more than one process or an
+axis above 1 (ROADMAP.md Queue 1 item 11). Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
 recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
 generate-image and train-image use reed_tpu's image default
@@ -107,8 +108,8 @@ from torch.profiler import record_function
 
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
-from reed_tpu_torch.parallel.mesh import (EGNN_AXES, PMPNN_AXES, SEMLA_AXES, SIT_AXES,
-                                         local_batch)
+from reed_tpu_torch.parallel.mesh import (EGNN_AXES, IPA_AXES, PMPNN_AXES, RDM_AXES,
+                                         SEMLA_AXES, SIT_AXES, local_batch)
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
@@ -1352,16 +1353,19 @@ def train_rdm(args):
     return state
 
 
-def _multiflow_ref_ckpt(model, path, cfg):
-    """Load a reference torch MultiFlow / Lightning checkpoint into `model`;
-    its widths must be the configuration's (set them with --set)."""
+def _multiflow_ref_ckpt(model, path, cfg, parallel=None):
+    """Load a reference torch MultiFlow / Lightning checkpoint into `model`
+    (a tensor rank's shards of it under `parallel`); its widths must be the
+    configuration's (set them with --set)."""
     from reed_tpu_torch.encoders.multiflow_convert import load_reference_checkpoint
+    from reed_tpu_torch.parallel.mesh import shard_state_dict
+    from reed_tpu_torch.train.multiflow import tp_rules
 
     sd, widths = load_reference_checkpoint(path)
     wrong = {k: (v, getattr(cfg, k)) for k, v in widths.items() if getattr(cfg, k) != v}
     if wrong:
         raise ValueError(f"{path}: widths (checkpoint, config) {wrong}; set them with --set")
-    model.load_state_dict(sd)
+    model.load_state_dict(shard_state_dict(sd, parallel, tp_rules(cfg)))
 
 
 def train_multiflow(args):
@@ -1382,7 +1386,7 @@ def train_multiflow(args):
     trainer = MultiflowTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg)
+        _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1491,8 +1495,9 @@ def _add_mesh(p, data_parallel: bool, axes=(), splits: str = ""):
     """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
     over the ranks of --distributed (the others raise on more than one),
     `axes` the model axes its family runs (parallel.mesh.SIT_AXES,
-    PMPNN_AXES, SEMLA_AXES, EGNN_AXES; the others raise above 1), `splits`
-    what its tensor ranks split."""
+    PMPNN_AXES, SEMLA_AXES, EGNN_AXES, IPA_AXES, RDM_AXES; the eval
+    subcommands run none and raise above 1), `splits` what its tensor ranks
+    split."""
     from reed_tpu_torch.parallel.mesh import NOT_PORTED, SEQ_AXIS, TENSOR_AXIS
 
     ranks = "data x fsdp" + (" x seq x tensor" if axes else "")
@@ -1657,7 +1662,7 @@ def main(argv=None):
     _add_config(p, "SemlaTrainConfig")
     _add_mesh(p, data_parallel=True, axes=SEMLA_AXES,
               splits="SemlaFlow's message MLPs, attention heads and feed-forwards (arch "
-                     "semla; egnn and eqgat: only 1)")
+                     "semla; the egnn and eqgat archs run whole on every tensor rank)")
     p.set_defaults(fn=train_molecule_semla)
 
     p = sub.add_parser("eval-semla")
@@ -1709,7 +1714,9 @@ def main(argv=None):
                    help="reps.npy [N, channels] and sizes.npy [N]; trains on them")
     _add_training(p)
     _add_config(p, "RDMTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=RDM_AXES,
+              splits="the RDM's residual blocks (in_fc, emb_fc, context_fc and out_fc, "
+                     "with out_norm over the split width)")
     p.set_defaults(fn=train_rdm)
 
     p = sub.add_parser("eval-molecule")
@@ -1752,7 +1759,8 @@ def main(argv=None):
     _add_training(p)
     _add_config(p, "PropertyTrainConfig (LinearProbeConfig with --linear-probe)")
     _add_mesh(p, data_parallel=True, axes=EGNN_AXES,
-              splits="the classifier's edge and node MLPs (--linear-probe: only 1)")
+              splits="the classifier's edge and node MLPs (--linear-probe runs whole on "
+                     "every tensor rank)")
     p.set_defaults(fn=train_property)
 
     p = sub.add_parser("eval-conditional")
@@ -1791,7 +1799,8 @@ def main(argv=None):
                         "(widths via --set)")
     _add_training(p)
     _add_config(p, "MultiflowTrainConfig")
-    _add_mesh(p, data_parallel=True)
+    _add_mesh(p, data_parallel=True, axes=IPA_AXES,
+              splits="the IPA heads and the sequence transformer's heads and feed-forward")
     p.set_defaults(fn=train_multiflow)
 
     p = sub.add_parser("eval-multiflow")

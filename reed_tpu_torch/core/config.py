@@ -47,12 +47,13 @@ class MeshConfig:
     parameter that reed_tpu's fsdp_spec shards, those of at least 2
     dimensions and `fsdp_min_size` elements (None:
     parallel.mesh.FSDP_MIN_SIZE, 65536) with a dimension that fsdp divides
-    (not the one the tensor rule takes). The tensor axis splits SiT's heads
-    and MLP, and ProteinMPNN's message chains and MLPs, over groups of
-    `tensor` ranks (Megatron), the seq axis SiT's tokens over groups of
-    `seq` ranks; elsewhere tensor above 1 raises, naming ROADMAP.md Queue 1
-    item 8b, and seq above 1 raises (parallel.mesh.check_mesh, which each
-    trainer calls)."""
+    (not the one the tensor rule takes). The tensor axis splits every
+    trainer's model over groups of `tensor` ranks (Megatron; SemlaFlow's
+    egnn and eqgat archs and the property linear probe run whole on every
+    tensor rank), the seq axis SiT's tokens over groups of `seq` ranks;
+    the eval subcommands raise on tensor above 1 (ROADMAP.md Queue 1 item
+    11), and seq above 1 raises outside SiT (parallel.mesh.check_mesh,
+    which each trainer calls)."""
 
     data: Optional[int] = None
     fsdp: int = 1

@@ -28,20 +28,34 @@ flax's Dense/LayerNorm/Embed(dtype=bf16) does (nn/layers.py); the masks are
 f32, so the same tensors as in JAX promote to f32. The backbone update,
 the point attention's cross term and norms, and the softmax stay f32, and
 the outputs are cast to f32.
+
+Tensor parallelism (FlowModel's `parallel`, a parallel.mesh.DataParallel
+with tensor T above 1; parallel/mesh.ipa_tp_rules): a rank holds H / T of
+each IPA's heads (its rows of linear_q, linear_kv and of each xyz block of
+the point projections, and the matching input rows of linear_out, whose
+f32 partials the tensor group sums once before the bias) and of each
+sequence-transformer layer's heads and feed-forward columns (Megatron
+pairs). The inputs of the split products enter through copy_to_tensor, so
+their partial gradients are summed: the node embedding, the rigids (the
+point projections apply them to the rank's heads alone), and the pair
+bias [B,N,N,H], down_z's pair features and head_weights, which every rank
+computes whole (linear_b, down_z and head_weights are replicated) and of
+which it uses its heads.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reed_tpu_torch.nn.layers import dense, layer_norm
+from reed_tpu_torch.nn.layers import dense, layer_norm, row_dense, split_width, tensor_size
 from reed_tpu_torch.ops.attention import sdpa
 from reed_tpu_torch.ops.so3 import quat_to_rotmat
+from reed_tpu_torch.parallel.collectives import copy_to_tensor
 
 ANG_TO_NM = 0.1
 NM_TO_ANG = 10.0
@@ -101,23 +115,27 @@ def mf_distogram(pos, min_bin: float = 1e-3, max_bin: float = 20.0, num_bins: in
 
 class InvariantPointAttention(nn.Module):
     """AF2-style IPA with the pair output through down_z (reference:
-    ipa_pytorch.py:236-477)."""
+    ipa_pytorch.py:236-477). Under the tensor axis of `parallel` it holds
+    its rank's heads (the module docstring)."""
 
     def __init__(self, c_s: int = 256, c_z: int = 128, c_hidden: int = 16, no_heads: int = 8,
-                 no_qk_points: int = 8, no_v_points: int = 12):
+                 no_qk_points: int = 8, no_v_points: int = 12, parallel=None):
         super().__init__()
         self.c_hidden, self.no_heads = c_hidden, no_heads
         self.no_qk_points, self.no_v_points = no_qk_points, no_v_points
+        self.parallel = parallel
         self.dtype = torch.float32
-        hc = c_hidden * no_heads
+        h = split_width(no_heads, tensor_size(parallel), "the IPA")
+        self.local_heads = h
+        hc = c_hidden * h
         self.linear_q = nn.Linear(c_s, hc)
         self.linear_kv = nn.Linear(c_s, 2 * hc)
-        self.linear_q_points = nn.Linear(c_s, no_heads * no_qk_points * 3)
-        self.linear_kv_points = nn.Linear(c_s, no_heads * (no_qk_points + no_v_points) * 3)
+        self.linear_q_points = nn.Linear(c_s, h * no_qk_points * 3)
+        self.linear_kv_points = nn.Linear(c_s, h * (no_qk_points + no_v_points) * 3)
         self.linear_b = nn.Linear(c_z, no_heads)
         self.down_z = nn.Linear(c_z, c_z // 4)
         self.head_weights = nn.Parameter(torch.zeros(no_heads))
-        self.linear_out = nn.Linear(no_heads * (c_z // 4 + c_hidden + no_v_points * 4), c_s)
+        self.linear_out = nn.Linear(h * (c_z // 4 + c_hidden + no_v_points * 4), c_s)
 
     @staticmethod
     def _points(x, n_points):
@@ -126,9 +144,13 @@ class InvariantPointAttention(nn.Module):
 
     def forward(self, s, z, rot, trans, mask):
         """s [B,N,c_s], z [B,N,N,c_z], rigids in nm, mask [B,N]."""
-        h, c, pq, pv = self.no_heads, self.c_hidden, self.no_qk_points, self.no_v_points
-        dt, acc = self.dtype, _acc(self.dtype)
+        h, c, pq, pv = self.local_heads, self.c_hidden, self.no_qk_points, self.no_v_points
+        dt, acc, parallel = self.dtype, _acc(self.dtype), self.parallel
         b, n, _ = s.shape
+        s = copy_to_tensor(s, parallel)
+        rot, trans = copy_to_tensor(rot, parallel), copy_to_tensor(trans, parallel)
+        heads = slice(0, h) if parallel is None else slice(parallel.tensor_index * h,
+                                                           (parallel.tensor_index + 1) * h)
         q = dense(s, self.linear_q, dt).view(b, n, h, c)
         k, v = dense(s, self.linear_kv, dt).view(b, n, h, 2 * c).split(c, dim=-1)
 
@@ -138,7 +160,7 @@ class InvariantPointAttention(nn.Module):
         kv_pts = rigid_apply(rot, trans, kv_pts.to(acc)).view(b, n, h, pq + pv, 3)
         k_pts, v_pts = kv_pts.split([pq, pv], dim=-2)
 
-        bias = dense(z, self.linear_b, dt)  # [B,N,N,H]
+        bias = copy_to_tensor(dense(z, self.linear_b, dt), parallel)[..., heads]  # [B,N,N,h]
         att = torch.einsum("bihc,bjhc->bhij", q, k) * math.sqrt(1.0 / (3 * c))
         att = att + math.sqrt(1.0 / 3) * bias.permute(0, 3, 1, 2)
 
@@ -148,7 +170,8 @@ class InvariantPointAttention(nn.Module):
         kn = torch.sum(k_pts ** 2, dim=(-1, -2)).transpose(1, 2)
         cross = torch.einsum("bihpd,bjhpd->bhij", q_pts, k_pts)
         pt_att = qn[..., :, None] + kn[..., None, :] - 2.0 * cross
-        gamma = F.softplus(self.head_weights.to(acc)) * math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
+        head_weights = copy_to_tensor(self.head_weights, parallel)[heads]
+        gamma = F.softplus(head_weights.to(acc)) * math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
         att = att + (pt_att * gamma[None, :, None, None] * (-0.5)).to(att.dtype)
 
         # the square mask, as the reference (ipa_pytorch.py:409-415)
@@ -160,10 +183,10 @@ class InvariantPointAttention(nn.Module):
         o_pt = torch.einsum("bhij,bjhpd->bihpd", att.to(acc), v_pts)
         o_pt = rigid_invert_apply(rot, trans, o_pt.reshape(b, n, h * pv, 3))
         o_pt_norm = torch.sqrt(torch.sum(o_pt ** 2, dim=-1) + 1e-8)
-        pair_z = dense(z, self.down_z, dt)
+        pair_z = copy_to_tensor(dense(z, self.down_z, dt), parallel)
         o_pair = torch.einsum("bhij,bijz->bihz", att, pair_z).reshape(b, n, -1)
         out = torch.cat([o, *o_pt.unbind(-1), o_pt_norm, o_pair], dim=-1)
-        return dense(out, self.linear_out, dt)
+        return row_dense(out, self.linear_out, dt, parallel)
 
 
 class StructureModuleTransition(nn.Module):
@@ -322,47 +345,58 @@ class EdgeFeatureNet(nn.Module):
 
 class _SelfAttention(nn.Module):
     """The parameters of torch's MultiheadAttention under its names: the
-    packed [q; k; v] input projection and out_proj."""
+    packed [q; k; v] input projection and out_proj; `local` of the d
+    channels of each of q, k and v (and of out_proj's input) where a tensor
+    rank holds its heads."""
 
-    def __init__(self, d: int):
+    def __init__(self, d: int, local: Optional[int] = None):
         super().__init__()
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
-        self.out_proj = nn.Linear(d, d)
+        local = d if local is None else local
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * local, d))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * local))
+        self.out_proj = nn.Linear(local, d)
 
 
 class SeqTransformerBlock(nn.Module):
     """One post-norm transformer layer under nn.TransformerEncoderLayer's
-    parameter names: self-attention, ReLU FFN of width d, no dropout."""
+    parameter names: self-attention, ReLU FFN of width d, no dropout. Under
+    the tensor axis of `parallel` it holds its rank's heads and FFN columns
+    (two Megatron pairs, their f32 partials summed before the biases)."""
 
-    def __init__(self, d: int, num_heads: int = 4):
+    def __init__(self, d: int, num_heads: int = 4, parallel=None):
         super().__init__()
         self.dtype = torch.float32
-        self.num_heads = num_heads
-        self.self_attn = _SelfAttention(d)
-        self.linear1 = nn.Linear(d, d)
-        self.linear2 = nn.Linear(d, d)
+        self.parallel = parallel
+        tensor = tensor_size(parallel)
+        self.num_heads = split_width(num_heads, tensor, "the sequence attention")
+        self.head_dim = d // num_heads
+        local = split_width(d, tensor, "the sequence transformer's feed-forward")
+        self.self_attn = _SelfAttention(d, self.num_heads * self.head_dim)
+        self.linear1 = nn.Linear(d, local)
+        self.linear2 = nn.Linear(local, d)
         self.norm1 = nn.LayerNorm(d)
         self.norm2 = nn.LayerNorm(d)
 
     def forward(self, x, mask):
-        dt, heads = self.dtype, self.num_heads
-        b, n, d = x.shape
+        dt, heads, parallel = self.dtype, self.num_heads, self.parallel
+        b, n, _ = x.shape
         attn = self.self_attn
-        qkv = F.linear(x.to(dt), attn.in_proj_weight.to(dt), attn.in_proj_bias.to(dt))
-        q, k, v = qkv.view(b, n, 3 * heads, d // heads).split(heads, dim=2)
-        o = sdpa(q, k, v, mask=(mask[:, None, None, :] > 0)).reshape(b, n, d)
-        x = layer_norm(x + dense(o, attn.out_proj, dt), self.norm1, dt)
-        h = dense(F.relu(dense(x, self.linear1, dt)), self.linear2, dt)
-        return layer_norm(x + h, self.norm2, dt)
+        qkv = F.linear(copy_to_tensor(x.to(dt), parallel), attn.in_proj_weight.to(dt),
+                       attn.in_proj_bias.to(dt))
+        q, k, v = qkv.view(b, n, 3 * heads, self.head_dim).split(heads, dim=2)
+        o = sdpa(q, k, v, mask=(mask[:, None, None, :] > 0)).reshape(b, n, -1)
+        x = layer_norm(x + row_dense(o, attn.out_proj, dt, parallel), self.norm1, dt)
+        h = F.relu(dense(copy_to_tensor(x, parallel), self.linear1, dt))
+        return layer_norm(x + row_dense(h, self.linear2, dt, parallel), self.norm2, dt)
 
 
 class SeqTransformer(nn.Module):
     """The layers of the reference's nn.TransformerEncoder (no final norm)."""
 
-    def __init__(self, d: int, num_heads: int, num_layers: int):
+    def __init__(self, d: int, num_heads: int, num_layers: int, parallel=None):
         super().__init__()
-        self.layers = nn.ModuleList(SeqTransformerBlock(d, num_heads) for _ in range(num_layers))
+        self.layers = nn.ModuleList(SeqTransformerBlock(d, num_heads, parallel)
+                                    for _ in range(num_layers))
 
     def forward(self, x, mask):
         for layer in self.layers:
@@ -371,13 +405,16 @@ class SeqTransformer(nn.Module):
 
 
 class FlowModel(nn.Module):
-    """The MultiFlow trunk (reference: flow_model.py:11-154)."""
+    """The MultiFlow trunk (reference: flow_model.py:11-154). `parallel`
+    splits the IPAs and sequence transformers over its tensor axis (the
+    module docstring): the parameters are then a tensor rank's shards,
+    whose names stay the whole model's (parallel/mesh.shard_state_dict)."""
 
     def __init__(self, c_s: int = 256, c_z: int = 128, num_blocks: int = 6,
                  ipa_c_hidden: int = 16, ipa_no_heads: int = 8, ipa_no_qk_points: int = 8,
                  ipa_no_v_points: int = 12, seq_tfmr_num_heads: int = 4,
                  seq_tfmr_num_layers: int = 2, aatype_pred_num_tokens: int = NUM_TOKENS,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, parallel=None):
         super().__init__()
         self.num_blocks = num_blocks
         self.compute_dtype = compute_dtype
@@ -386,10 +423,11 @@ class FlowModel(nn.Module):
         self.trunk = nn.ModuleDict()
         for b in range(num_blocks):
             self.trunk[f"ipa_{b}"] = InvariantPointAttention(
-                c_s, c_z, ipa_c_hidden, ipa_no_heads, ipa_no_qk_points, ipa_no_v_points)
+                c_s, c_z, ipa_c_hidden, ipa_no_heads, ipa_no_qk_points, ipa_no_v_points,
+                parallel)
             self.trunk[f"ipa_ln_{b}"] = nn.LayerNorm(c_s)
             self.trunk[f"seq_tfmr_{b}"] = SeqTransformer(c_s, seq_tfmr_num_heads,
-                                                         seq_tfmr_num_layers)
+                                                         seq_tfmr_num_layers, parallel)
             self.trunk[f"post_tfmr_{b}"] = nn.Linear(c_s, c_s)
             self.trunk[f"node_transition_{b}"] = StructureModuleTransition(c_s)
             self.trunk[f"bb_update_{b}"] = BackboneUpdate(c_s)

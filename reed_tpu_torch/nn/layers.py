@@ -172,6 +172,21 @@ def row_dense(x, layer: nn.Linear, dtype: torch.dtype, parallel):
     return row_parallel(x.to(dtype), layer, parallel)
 
 
+def split_layer_norm(x, weight, bias, eps: float, width: int, total):
+    """A LayerNorm over `width` columns of which x [..., w] holds a share,
+    with the scale and bias of the same columns: `total` sums a per-share
+    statistic [..., 1] over the shares (parallel.collectives.sum_over_tensor
+    over the tensor group), first the column sum for the mean, then the sum
+    of the squared deviations from it for the variance (two passes, so that
+    no E[x^2] - E[x]^2 cancellation enters). f32 statistics and affine, the
+    output in x's dtype."""
+    xf = x.float()
+    mean = total(xf.sum(-1, keepdim=True)) / width
+    d = xf - mean
+    var = total((d * d).sum(-1, keepdim=True)) / width
+    return (d * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
+
+
 def row_parallel(x, layer: nn.Linear, dp):
     """A row-parallel product in x's dtype: this rank's partial product of
     its input shard x with its column shard of the weight, in f32, summed

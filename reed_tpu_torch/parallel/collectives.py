@@ -13,6 +13,9 @@ column-parallel product (identity forward; the backward sums the ranks'
 input gradients), `reduce_from_tensor` leaves a row-parallel one (the
 forward sums the ranks' partial products; identity backward). The sums run
 in f32, so a bf16 activation takes one rounding, as in one process.
+`sum_over_tensor` sums partials whose total every rank then uses on its
+own shard (the RDM's split LayerNorm statistics): each rank's consumer
+differs, so its backward sums the ranks' gradients too.
 
 A product split inside one kernel call (ProteinMPNN's message chain,
 ops/fused_message.py) returns f32 partials of its outputs and, in its
@@ -100,6 +103,17 @@ class _ReduceFromTensor(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _tensor_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tensor_sum(g, ctx.group), None
+
+
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, size):
@@ -134,6 +148,14 @@ def reduce_from_tensor(x: torch.Tensor, dp) -> torch.Tensor:
     if dp is None or dp.tensor == 1:
         return x
     return _ReduceFromTensor.apply(x, dp.tensor_group)
+
+
+def sum_over_tensor(x: torch.Tensor, dp) -> torch.Tensor:
+    """The sum over the tensor group of the partials x, for consumers that
+    differ by rank (the backward sums the gradients over the group)."""
+    if dp is None or dp.tensor == 1:
+        return x
+    return _SumOverTensor.apply(x, dp.tensor_group)
 
 
 def sum_tensor_f32(parts, dp):

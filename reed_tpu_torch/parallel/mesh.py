@@ -40,16 +40,19 @@ The tensor and seq axes split the model's work. Under tensor each rank
 holds T-th shards of a model's products and the T ranks of a tensor group
 (T consecutive ranks) run one model between them (parallel/collectives.py):
 SiT's blocks (`SIT_TP_RULES`: Megatron's column-parallel qkv and fc1,
-row-parallel proj and fc2, qkv split by heads) and ProteinMPNN's message
-chains, feed-forwards, edge update and projectors (`PMPNN_TP_RULES`). Under
-seq (SiT only) each rank runs its S-th of the tokens, attending to every
-rank's keys. Every seq and tensor rank computes the whole loss; the
-parameter gradients are averaged over the replica group. The parameters
-are not sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a family
-runs the model axes it names to `check_mesh` (SiT: tensor and seq;
-ProteinMPNN, SemlaFlow's arch semla and the EGNN family: tensor, with
-`SEMLA_TP_RULES` and `EGNN_TP_RULES`), elsewhere sizes above 1 raise
-(tensor: ROADMAP.md Queue 1 item 8b).
+row-parallel proj and fc2, qkv split by heads), ProteinMPNN's message
+chains, feed-forwards, edge update and projectors (`PMPNN_TP_RULES`),
+SemlaFlow's (`SEMLA_TP_RULES`), the EGNN family's (`EGNN_TP_RULES`),
+MultiFlow's IPA heads and sequence transformer (`ipa_tp_rules`) and the
+RDM's residual blocks (`RDM_TP_RULES`). Semla's egnn and eqgat archs and
+the property linear probe run whole on every tensor rank, as reed_tpu's
+rules, which name none of their leaves, leave them. Under seq (SiT only)
+each rank runs its S-th of the tokens, attending to every rank's keys.
+Every seq and tensor rank computes the whole loss; the parameter
+gradients are averaged over the replica group. The parameters are not
+sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a caller names
+the model axes its family runs to `check_mesh` (every trainer: tensor;
+SiT's: seq too), and a size above 1 outside them raises (NOT_PORTED).
 """
 
 from __future__ import annotations
@@ -76,21 +79,28 @@ MESH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS)
 # MLP and tokens; ProteinMPNN its message chains and MLPs; SemlaFlow (arch
 # semla) its message MLPs, node attention heads and feed-forwards; the EGNN
 # family (EDM / EFM and the property classifier) its message, node,
-# coordinate and rep feed-forward MLPs; the other families run none
+# coordinate and rep feed-forward MLPs; MultiFlow its IPA heads and sequence
+# transformer; the RDM its residual blocks' MLPs. SemlaFlow's egnn and
+# eqgat archs (SEMLA_AXES, no rule names a leaf of theirs) and the property
+# linear probe (EGNN_AXES) run whole on every tensor rank. Evaluation and
+# sampling run none.
 SIT_AXES = (TENSOR_AXIS, SEQ_AXIS)
 PMPNN_AXES = (TENSOR_AXIS,)
 SEMLA_AXES = (TENSOR_AXIS,)
 EGNN_AXES = (TENSOR_AXIS,)
+IPA_AXES = (TENSOR_AXIS,)
+RDM_AXES = (TENSOR_AXIS,)
 
 # the families that run each model axis (check_mesh's message)
-RUNS_TENSOR = ("SiT (train-image, generate-image), ProteinMPNN (train-protein), "
-               "SemlaFlow's arch semla (train-molecule-semla) and the EGNN family "
-               "(train-molecule-edm, train-property)")
+RUNS_TENSOR = ("every trainer (train-image, train-protein, train-molecule-semla, "
+               "train-molecule-edm, train-property, train-rdm, train-multiflow) and "
+               "generate-image")
 
-# why a model axis above 1 raises outside the families that run it
+# why a model axis above 1 raises for a caller that does not run it
 NOT_PORTED = {
-    TENSOR_AXIS: "ROADMAP.md Queue 1 item 8b (the tensor axis on IPA (MultiFlow), the "
-                 "RDM, SemlaFlow's egnn and eqgat archs and the property linear probe)",
+    TENSOR_AXIS: "not run: evaluation and sampling run on one process with the whole "
+                 "model (data- and tensor-parallel evaluation is ROADMAP.md Queue 1 "
+                 "item 11)",
     SEQ_AXIS: "not run: the seq axis splits SiT's tokens alone (reed_tpu's "
               "token_sharding touches no other model, and its seq ranks there would "
               "only repeat each other's work; ROADMAP.md Queue 1 item 8b)",
@@ -206,41 +216,126 @@ EGNN_TP_RULES = (
 )
 
 
-def tensor_rule(name: str, rules: Sequence[tuple]) -> Optional[Tuple[int, int]]:
+# reed_tpu's IPA_TP_RULES (reed_tpu/parallel/mesh.py:225-237, applied at
+# reed_tpu/train/multiflow.py:181-182) in the port's names (the reference
+# torch FlowModel's, models/ipa.py), as (pattern, dimension, groups) like
+# SIT_TP_RULES, for an IPA of `no_heads` heads of `c_hidden` channels,
+# `no_v_points` value points and pair width `c_z`:
+#  * linear_q and linear_kv ([H, c] and [H, 2c] head-major) split by heads
+#    (groups 1); linear_q_points and linear_kv_points emit x, y and z as
+#    three head-major column blocks of H * P (reed_tpu interleaves them,
+#    encoders/multiflow_convert.py permutes), so they split in 3 groups: a
+#    rank takes its heads out of each of x, y and z;
+#  * linear_out is row-parallel over its input, which joins per head blocks
+#    of unequal widths: o (H c), the point outputs' x, y, z and norms (H Pv
+#    each) and o_pair (H c_z / 4); the groups are those block widths, each
+#    split over the ranks (tensor_split);
+#  * the sequence transformer's qkv, proj, fc1 and fc2 are the torch
+#    layer's self_attn.in_proj ([q; k; v], each head-major: 3 groups),
+#    self_attn.out_proj, linear1 and linear2, two Megatron pairs.
+# The column-parallel products' biases split with their columns (reed_tpu's
+# hints leave every bias replicated); the row-parallel ones' stay whole and
+# are added once after the f32 sum. Whole on every rank, as reed_tpu's rules
+# leave them: linear_b and down_z (their outputs [B,N,N,H] and [B,N,N,c_z/4]
+# are made whole and enter the split attention through copy_to_tensor, a
+# rank taking its heads of the bias), head_weights (copied the same way,
+# then sliced), the feature nets, the norms, post_tfmr, the transitions,
+# the backbone updates and the aatype head.
+def ipa_tp_rules(no_heads: int = 8, c_hidden: int = 16, no_v_points: int = 12,
+                 c_z: int = 128) -> tuple:
+    """IPA_TP_RULES for an IPA of these widths (the defaults are
+    MultiflowTrainConfig's)."""
+    h = no_heads
+    out_blocks = (h * c_hidden,) + (h * no_v_points,) * 4 + (h * (c_z // 4),)
+    return (
+        (r"\.ipa_\d+\.linear_(q|kv)\.(weight|bias)$", 0, 1),
+        (r"\.ipa_\d+\.linear_(q|kv)_points\.(weight|bias)$", 0, 3),
+        (r"\.ipa_\d+\.linear_out\.weight$", 1, out_blocks),
+        (r"\.self_attn\.in_proj_(weight|bias)$", 0, 3),
+        (r"\.self_attn\.out_proj\.weight$", 1, 1),
+        (r"\.seq_tfmr_\d+\.layers\.\d+\.linear1\.(weight|bias)$", 0, 1),
+        (r"\.seq_tfmr_\d+\.layers\.\d+\.linear2\.weight$", 1, 1),
+    )
+
+
+# at MultiflowTrainConfig's widths; a trainer takes those of its own
+# configuration (train/multiflow.tp_rules)
+IPA_TP_RULES = ipa_tp_rules()
+
+# reed_tpu's RDM_TP_RULES (reed_tpu/parallel/mesh.py:240-245, applied at
+# reed_tpu/train/rdm.py:90-91) in the port's names (the reference
+# SimpleMLP's, models/rdm_mlp.py): each residual block's in_fc
+# (in_layers.2), emb_fc (emb_layers.1) and context_fc (context_layers.1)
+# split by columns with their biases, out_fc (out_layers.3) by rows, its
+# bias whole and added once after the f32 sum. Departures: the biases
+# split with their columns, and so do the scale and bias of out_norm
+# (out_layers.0), the LayerNorm over the split mid width between the two
+# halves, which reed_tpu leaves replicated: a rank normalises its columns
+# with statistics summed over the tensor group (models/rdm_mlp.py). Whole on
+# every rank: the time and class embeddings, input_proj, in_norm and the
+# output head.
+RDM_TP_RULES = (
+    (r"^res_blocks\.\d+\.in_layers\.2\.(weight|bias)$", 0, 1),
+    (r"^res_blocks\.\d+\.emb_layers\.1\.(weight|bias)$", 0, 1),
+    (r"^res_blocks\.\d+\.context_layers\.1\.(weight|bias)$", 0, 1),
+    (r"^res_blocks\.\d+\.out_layers\.0\.(weight|bias)$", 0, 1),
+    (r"^res_blocks\.\d+\.out_layers\.3\.weight$", 1, 1),
+)
+
+
+def tensor_rule(name: str, rules: Sequence[tuple]) -> Optional[Tuple[int, object]]:
     """(dimension, groups) of the first rule whose pattern `name` matches,
-    or None where the parameter is replicated over the tensor axis."""
+    or None where the parameter is replicated over the tensor axis.
+    `groups` is a count of equal groups or a tuple of block widths."""
     for pattern, dim, groups in rules:
         if re.search(pattern, name):
             return dim, groups
     return None
 
 
-def tensor_split(whole: torch.Tensor, rule: Tuple[int, int], tensor: int,
+def _blocks(size: int, groups, tensor: int) -> Tuple[int, ...]:
+    """The widths of the blocks of a dimension of `size` under `groups` (a
+    count of equal groups or a tuple of widths), each to be split over
+    `tensor` ranks; ValueError where they do not split."""
+    if isinstance(groups, int):
+        if size % (groups * tensor):
+            raise ValueError(f"a dimension of {size} ({groups} groups) does not split "
+                             f"over tensor={tensor}")
+        return (size // groups,) * groups
+    blocks = tuple(groups)
+    if sum(blocks) != size:
+        raise ValueError(f"blocks {blocks} do not make a dimension of {size}")
+    if any(w % tensor for w in blocks):
+        raise ValueError(f"blocks {blocks} do not split over tensor={tensor}")
+    return blocks
+
+
+def tensor_split(whole: torch.Tensor, rule: Tuple[int, object], tensor: int,
                  index: int) -> torch.Tensor:
     """Tensor rank `index`'s shard of `whole` under `rule` (dimension,
-    groups): dimension `dim` read as [groups, tensor, n] and slot `index`
-    taken from each group (contiguous). Raises ValueError where the
-    dimension does not split."""
+    groups): dimension `dim` read as blocks (`groups` equal ones, or the
+    widths `groups` lists), each block split in `tensor` contiguous slices,
+    and slice `index` of every block taken, in block order. Raises
+    ValueError where the dimension does not split."""
     dim, groups = rule
-    shape = tuple(whole.shape)
-    if shape[dim] % (groups * tensor):
-        raise ValueError(f"a dimension of {shape[dim]} ({groups} groups) does not split "
-                         f"over tensor={tensor}")
-    view = whole.reshape(shape[:dim] + (groups, tensor, shape[dim] // (groups * tensor))
-                         + shape[dim + 1:])
-    part = view.select(dim + 1, index)
-    return part.reshape(shape[:dim] + (-1,) + shape[dim + 1:]).contiguous()
+    blocks = _blocks(whole.shape[dim], groups, tensor)
+    parts = [block.narrow(dim, index * (w // tensor), w // tensor)
+             for block, w in zip(whole.split(blocks, dim), blocks)]
+    return torch.cat(parts, dim).contiguous()
 
 
-def tensor_join(shards: Sequence[torch.Tensor], rule: Tuple[int, int]) -> torch.Tensor:
+def tensor_join(shards: Sequence[torch.Tensor], rule: Tuple[int, object]) -> torch.Tensor:
     """The whole tensor of the shards of every tensor rank, in rank order
     (the inverse of tensor_split)."""
     dim, groups = rule
-    shape = tuple(shards[0].shape)
-    parts = [t.reshape(shape[:dim] + (groups, shape[dim] // groups) + shape[dim + 1:])
-             for t in shards]
-    return torch.cat(parts, dim=dim + 1).reshape(
-        shape[:dim] + (shape[dim] * len(shards),) + shape[dim + 1:])
+    tensor = len(shards)
+    if isinstance(groups, int):
+        mine = (shards[0].shape[dim] // groups,) * groups
+    else:
+        mine = tuple(w // tensor for w in groups)
+    pieces = [t.split(mine, dim) for t in shards]
+    return torch.cat([piece for j in range(len(mine)) for piece in
+                      (p[j] for p in pieces)], dim)
 
 
 def shard_state_dict(state_dict: Mapping, parallel,
@@ -288,15 +383,15 @@ def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
     ask for data * fsdp * seq * tensor = `world` ranks (data None takes the
     rest, as make_mesh's data=None does), and `batch_size` (the global
     batch) must split evenly over the data * fsdp batch indices. `axes`
-    are the model axes the family runs (SIT_AXES, PMPNN_AXES, SEMLA_AXES,
-    EGNN_AXES); a tensor or
-    seq size above 1 outside them raises NotImplementedError naming why
+    are the model axes the caller runs (SIT_AXES, PMPNN_AXES, SEMLA_AXES,
+    EGNN_AXES, IPA_AXES, RDM_AXES; none for evaluation); a tensor or seq
+    size above 1 outside them raises NotImplementedError naming why
     (NOT_PORTED). Returns (data, fsdp); raises ValueError otherwise."""
     seq, tensor = mesh.seq or 1, mesh.tensor or 1
     for axis, size in ((TENSOR_AXIS, tensor), (SEQ_AXIS, seq)):
         if size > 1 and axis not in axes:
             raise NotImplementedError(
-                f"mesh axis '{axis}' of size {size} does not run for this model family: "
+                f"mesh axis '{axis}' of size {size} does not run here: "
                 f"the port runs 'tensor' on {RUNS_TENSOR}, and 'seq' on SiT; "
                 f"'{axis}' here is {NOT_PORTED[axis]}")
     fsdp = mesh.fsdp or 1
@@ -813,8 +908,8 @@ def data_parallel(mesh=None, batch_size: Optional[int] = None,
     its fsdp size and min size (the rule of its ShardPlan), or None when
     there is no group (one process, no collectives), after `check_mesh` of
     `mesh` and the global `batch_size` against its world size (`axes`: the
-    model axes the family runs: SIT_AXES, PMPNN_AXES, SEMLA_AXES or
-    EGNN_AXES)."""
+    model axes the family runs: SIT_AXES, PMPNN_AXES, SEMLA_AXES,
+    EGNN_AXES, IPA_AXES or RDM_AXES)."""
     mesh = MeshConfig() if mesh is None else mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
     _, fsdp = check_mesh(mesh, world, batch_size, axes)

@@ -139,7 +139,7 @@ def build_model(cfg: SemlaTrainConfig, device=None,
         else:
             model = SemlaGenerator(**semla)
         model.initialize_weights(generator)
-        if parallel is not None and parallel.tensor > 1:
+        if cfg.arch == "semla" and parallel is not None and parallel.tensor > 1:
             whole, model = model, SemlaGenerator(**semla, parallel=parallel)
             model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
                                                    SEMLA_TP_RULES))
@@ -368,15 +368,14 @@ class SemlaTrainer:
     group (`self.dp`) a step takes this rank's rows of a global host batch
     built as one process builds it (the OT coupling included;
     parallel.mesh.local_batch) and its metrics are the global batch's; the
-    tensor axis (arch semla; the other archs raise NotImplementedError
-    naming ROADMAP.md's item) splits the model (build_model)."""
+    tensor axis splits arch semla's model (build_model), and runs the egnn
+    and eqgat archs whole on every tensor rank."""
 
     def __init__(self, cfg: SemlaTrainConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size,
-                                axes=SEMLA_AXES if cfg.arch == "semla" else ())
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=SEMLA_AXES)
         self.generator = torch.Generator().manual_seed(cfg.seed + 1)
         # REPA at repa_loss_weight with no decay; the warm-up applies to the
         # diffusion losses (fm.py:655-662,860-865)
@@ -393,9 +392,11 @@ class SemlaTrainer:
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
             device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
-        # the replicated leaves' gradients are averaged over the tensor group,
-        # so the tensor ranks' copies stay bitwise equal whatever order the
-        # card's reductions (the size table's backward scatter) take
+        # the replicated leaves' gradients (every leaf of the egnn and eqgat
+        # archs, which SEMLA_TP_RULES do not name) are averaged over the
+        # tensor group, so the tensor ranks' copies stay bitwise equal
+        # whatever order the card's reductions (the size table's backward
+        # scatter) take
         return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
                                 tp_rules=SEMLA_TP_RULES, sync_replicated=True)
 

@@ -14,7 +14,9 @@ seeded cfg.seed + 1, or are handed in. The batch-OT translation prior is
 coupled on the host in the input pipeline (`synthetic_batch`,
 data/protein.multiflow_epoch_batches). The port trains on one device, in
 f32 or, with compute_dtype bfloat16, in bf16 over f32 parameters as
-reed_tpu's `dtype` computes (models/ipa.py).
+reed_tpu's `dtype` computes (models/ipa.py), or over the data, fsdp and
+tensor axes of torch.distributed (parallel/mesh.py; the tensor axis splits
+the IPA heads and the sequence transformer, `tp_rules`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from reed_tpu_torch.diffusion.se3 import (NUM_TOKENS, CorruptDraws, SE3Interpola
 from reed_tpu_torch.models.ipa import FlowModel, rigid_apply
 from reed_tpu_torch.ops.residue_constants import RESTYPE_ATOM37_POSITIONS
 from reed_tpu_torch.ops.so3 import calc_rot_vf, quat_to_rotmat
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (IPA_AXES, data_parallel, ipa_tp_rules, local_batch,
+                                         shard_state_dict)
 
 # the idealised N, CA, C positions in the residue frame (the ALA rigid
 # group): the atoms of the reference's backbone-atom loss
@@ -88,19 +91,35 @@ def check_config(cfg: MultiflowTrainConfig):
                          f"{cfg.compute_dtype!r}")
 
 
+def tp_rules(cfg: MultiflowTrainConfig) -> tuple:
+    """The tensor rules of the configured FlowModel (parallel/mesh.ipa_tp_rules
+    at its IPA widths)."""
+    return ipa_tp_rules(cfg.ipa_no_heads, cfg.ipa_c_hidden, cfg.ipa_no_v_points, cfg.c_z)
+
+
 def build_model(cfg: MultiflowTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> FlowModel:
+                generator: Optional[torch.Generator] = None, parallel=None) -> FlowModel:
     """The configured FlowModel on `device`, initialised from `generator` as
-    reed_tpu initialises it."""
+    reed_tpu initialises it. Split over the tensor axis of `parallel` (a
+    parallel.mesh.DataParallel): the whole model is initialised as one
+    process does, then a tensor rank keeps its shards (tp_rules)."""
     check_config(cfg)
+
+    def flow_model(mesh=None):
+        return FlowModel(c_s=cfg.c_s, c_z=cfg.c_z, num_blocks=cfg.num_blocks,
+                         seq_tfmr_num_layers=cfg.seq_tfmr_num_layers,
+                         ipa_c_hidden=cfg.ipa_c_hidden, ipa_no_heads=cfg.ipa_no_heads,
+                         ipa_no_qk_points=cfg.ipa_no_qk_points,
+                         ipa_no_v_points=cfg.ipa_no_v_points, aatype_pred_num_tokens=NUM_TOKENS,
+                         compute_dtype=getattr(torch, cfg.compute_dtype), parallel=mesh)
+
     with torch.device(device) if device is not None else torch.device("cpu"):
-        model = FlowModel(c_s=cfg.c_s, c_z=cfg.c_z, num_blocks=cfg.num_blocks,
-                          seq_tfmr_num_layers=cfg.seq_tfmr_num_layers,
-                          ipa_c_hidden=cfg.ipa_c_hidden, ipa_no_heads=cfg.ipa_no_heads,
-                          ipa_no_qk_points=cfg.ipa_no_qk_points,
-                          ipa_no_v_points=cfg.ipa_no_v_points, aatype_pred_num_tokens=NUM_TOKENS,
-                          compute_dtype=getattr(torch, cfg.compute_dtype))
-        return model.initialize_weights(generator)
+        model = flow_model().initialize_weights(generator)
+        if parallel is not None and parallel.tensor > 1:
+            whole, model = model, flow_model(parallel)
+            model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
+                                                   tp_rules(cfg)))
+        return model
 
 
 def multiflow_losses(cfg: MultiflowTrainConfig, noisy: Dict, out: Dict) -> Dict:
@@ -215,13 +234,14 @@ class MultiflowTrainer:
     1. Under a process group (`self.dp`) a step takes this rank's rows of a
     global host batch built as one process builds it (the batch-OT prior
     included; `synthetic_batch` returns them) and its metrics are the
-    global batch's."""
+    global batch's; the tensor axis splits the model (build_model), and its
+    ranks take the same rows and draws."""
 
     def __init__(self, cfg: MultiflowTrainConfig, device=None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=IPA_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         curriculum = replace(cfg.curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(make_loss_fn(cfg), curriculum,
@@ -230,8 +250,12 @@ class MultiflowTrainer:
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+            device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
+        # the replicated leaves' gradients are averaged over the tensor group,
+        # so the tensor ranks' copies stay bitwise equal whatever order the
+        # card's reductions (the embedding tables' backward) take
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=tp_rules(self.cfg), sync_replicated=True)
 
     def train_step(self, state: TrainState, batch, draws: Optional[CorruptDraws] = None):
         return self._train_step(state, batch, generator=self.generator, draws=draws)

@@ -121,16 +121,17 @@ class _Trainer:
     """What both trainers share: the train step over a loss_fn, the state
     and the EMA model. Under a process group (`self.dp`) a step takes this
     rank's rows of the global batch (`synthetic_batch` returns them) and its
-    metrics are the global batch's; `axes` are the model axes the model
-    splits (the classifier: EGNN_AXES; the linear probe: none, so its
-    --tp above 1 raises NotImplementedError naming ROADMAP.md's item)."""
+    metrics are the global batch's. Both run the tensor axis (EGNN_AXES):
+    the classifier split by `tp_rules`, the linear probe, which no rule
+    names (nothing in Linear(rep_dim, 1) to split), whole on every tensor
+    rank, as reed_tpu runs it."""
 
     tp_rules: tuple = ()
 
-    def __init__(self, cfg, loss_fn, curriculum: CurriculumConfig, device=None, axes=()):
+    def __init__(self, cfg, loss_fn, curriculum: CurriculumConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=axes)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=EGNN_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.curriculum = replace(curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(loss_fn, self.curriculum,
@@ -141,10 +142,11 @@ class _Trainer:
 
     def init_state(self) -> TrainState:
         model = self._build(torch.Generator(device=self.device).manual_seed(self.cfg.seed))
-        # under the tensor axis the replicated leaves' gradients are averaged
-        # over the tensor group, so the ranks' copies stay bitwise equal
+        # under the tensor axis the replicated leaves' gradients (every leaf
+        # of the linear probe) are averaged over the tensor group, so the
+        # ranks' copies stay bitwise equal
         return init_train_state(model, self.cfg.optim, self.curriculum.ema_dtype, self.dp,
-                                tp_rules=self.tp_rules, sync_replicated=bool(self.tp_rules))
+                                tp_rules=self.tp_rules, sync_replicated=True)
 
     def train_step(self, state: TrainState, batch):
         return self._train_step(state, batch)
@@ -171,7 +173,7 @@ class PropertyTrainer(_Trainer):
     tp_rules = EGNN_TP_RULES
 
     def __init__(self, cfg: PropertyTrainConfig, device=None):
-        super().__init__(cfg, make_loss_fn(cfg), cfg.curriculum, device, axes=EGNN_AXES)
+        super().__init__(cfg, make_loss_fn(cfg), cfg.curriculum, device)
 
     def _build(self, generator=None) -> PropertyClassifier:
         return build_model(self.cfg, device=self.device, generator=generator, parallel=self.dp)
@@ -232,7 +234,8 @@ class LinearProbeConfig:
 
 class LinearProbeTrainer(_Trainer):
     """reed_tpu's LinearProbeTrainer: nn.Linear(rep_dim, 1)
-    (flax's Dense(1) init: lecun-normal weight, zero bias)."""
+    (flax's Dense(1) init: lecun-normal weight, zero bias), whole on every
+    tensor rank."""
 
     def __init__(self, cfg: LinearProbeConfig, device=None):
         super().__init__(cfg, make_probe_loss_fn(cfg),

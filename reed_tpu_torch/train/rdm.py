@@ -3,7 +3,9 @@ vectors, conditioned on the atom count. Counterpart of
 reed_tpu/train/rdm.py (reference: molecule/models/engine_rdm.py
 train_one_epoch, molecule/src/self_condition_train_{qm9,drug}_RDM.py):
 AdamW with a cosine schedule, the x0-parameterised MSE, in f32, on one
-device or data-parallel over torch.distributed (parallel/mesh.py).
+device or over the data, fsdp and tensor axes of torch.distributed
+(parallel/mesh.py; the tensor axis splits the residual blocks,
+RDM_TP_RULES).
 
 The step's draws (t, the noise and any dropout mask) come from the
 trainer's device generator, seeded cfg.seed + 1, or are handed in; the
@@ -24,7 +26,8 @@ from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.diffusion.rdm import RDMConfig, RDMDiffusion
 from reed_tpu_torch.models.rdm_mlp import SimpleMLP
-from reed_tpu_torch.parallel.mesh import data_parallel, local_batch
+from reed_tpu_torch.parallel.mesh import (RDM_AXES, RDM_TP_RULES, data_parallel, local_batch,
+                                         shard_state_dict)
 
 
 @dataclass(frozen=True)
@@ -46,17 +49,26 @@ class RDMTrainConfig:
 
 
 def build_model(cfg: RDMTrainConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> SimpleMLP:
+                generator: Optional[torch.Generator] = None, parallel=None) -> SimpleMLP:
     """The configured SimpleMLP on `device`, initialised from `generator` as
-    reed_tpu initialises it."""
+    reed_tpu initialises it. Split over the tensor axis of `parallel` (a
+    parallel.mesh.DataParallel): the whole model is initialised as one
+    process does, then a tensor rank keeps its shards (RDM_TP_RULES)."""
+    def simple_mlp(mesh=None):
+        return SimpleMLP(in_channels=cfg.channels, time_embed_dim=cfg.time_embed_dim,
+                         model_channels=cfg.model_channels,
+                         bottleneck_channels=cfg.bottleneck_channels,
+                         out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
+                         dropout=cfg.dropout, use_context=True, num_classes=cfg.max_nodes,
+                         context_channels=cfg.channels, parallel=mesh)
+
     with torch.device(device) if device is not None else torch.device("cpu"):
-        model = SimpleMLP(in_channels=cfg.channels, time_embed_dim=cfg.time_embed_dim,
-                          model_channels=cfg.model_channels,
-                          bottleneck_channels=cfg.bottleneck_channels,
-                          out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
-                          dropout=cfg.dropout, use_context=True, num_classes=cfg.max_nodes,
-                          context_channels=cfg.channels)
-        return model.initialize_weights(generator)
+        model = simple_mlp().initialize_weights(generator)
+        if parallel is not None and parallel.tensor > 1:
+            whole, model = model, simple_mlp(parallel)
+            model.load_state_dict(shard_state_dict(whole.state_dict(), parallel,
+                                                   RDM_TP_RULES))
+        return model
 
 
 def rdm_config(cfg: RDMTrainConfig) -> RDMConfig:
@@ -94,12 +106,14 @@ class RDMTrainer:
     **draws) -> (state, metrics)` (in place), plus `synthetic_batch` and
     `diffusion(model)` for sampling. Under a process group (`self.dp`) a
     step takes this rank's rows of the global batch (`synthetic_batch`
-    returns them) and its metrics are the global batch's."""
+    returns them) and its metrics are the global batch's; the tensor axis
+    splits the model (build_model), and its ranks take the same rows and
+    draws."""
 
     def __init__(self, cfg: RDMTrainConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dp = data_parallel(cfg.mesh, cfg.batch_size)
+        self.dp = data_parallel(cfg.mesh, cfg.batch_size, axes=RDM_AXES)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         curriculum = replace(cfg.curriculum, max_steps=cfg.optim.total_steps)
         self._train_step = make_train_step(make_loss_fn(cfg, self.device), curriculum,
@@ -107,8 +121,12 @@ class RDMTrainer:
 
     def init_state(self) -> TrainState:
         model = build_model(self.cfg, device=self.device, generator=torch.Generator(
-            device=self.device).manual_seed(self.cfg.seed))
-        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp)
+            device=self.device).manual_seed(self.cfg.seed), parallel=self.dp)
+        # the replicated leaves' gradients are averaged over the tensor group,
+        # so the tensor ranks' copies stay bitwise equal whatever order the
+        # card's reductions (the class table's backward) take
+        return init_train_state(model, self.cfg.optim, self.cfg.curriculum.ema_dtype, self.dp,
+                                tp_rules=RDM_TP_RULES, sync_replicated=True)
 
     def train_step(self, state: TrainState, batch, **draws):
         return self._train_step(state, batch, generator=self.generator, **draws)
@@ -128,9 +146,12 @@ class RDMTrainer:
                                        device=self.device)})
 
     def ema_model(self, state: TrainState) -> SimpleMLP:
-        """A copy of the model holding the state's EMA, in eval mode."""
+        """A whole model holding the state's EMA, in eval mode (under the
+        fsdp or tensor axis a collective: the EMA is gathered and joined)."""
         model = build_model(self.cfg, device=self.device)
-        model.load_state_dict(ema_weights(state))
+        plan = state.opt.plan
+        model.load_state_dict(ema_weights(state) if plan is None else
+                              plan.whole_named(state.ema))
         return model.eval()
 
     def diffusion(self, model: SimpleMLP) -> RDMDiffusion:

@@ -33,8 +33,8 @@ biases; the rest is whole on every rank.
   tests/test_torch_property.py's bounds.
 - train-molecule-edm (EDM and EFM) and train-property --distributed --tp 2,
   and train-molecule-edm --fsdp 2 --tp 2, through the CLI against one
-  process; train-property --linear-probe at --tp 2 raises
-  NotImplementedError naming ROADMAP.md's item.
+  process; train-property --linear-probe at --tp 2 runs the probe whole on
+  every tensor rank and matches one process.
 - Without ranks: the leaves the port's rules split against those reed_tpu's
   EGNN_TP_RULES match (EDM and classifier); the GEGLU split over both
   halves against the whole feed-forward; the split and join of whole
@@ -85,6 +85,7 @@ PROPERTY_GRAD_RTOL = 1e-5
 # a bf16 run: within BF16_FACTOR times one process's own bf16 distance from
 # its f32 step from the same state
 BF16_FACTOR = 2.0
+LOSSES = ("denoising_loss", "loss")
 F32 = [k for k in torch_dp.ETP_VARIANTS if k[1] == "float32"]
 BF16 = [k for k in torch_dp.ETP_VARIANTS if k[1] == "bfloat16"]
 FOUR_RANK = [(name, case) for name in torch_dp.ETP_MESHES_4 for case in torch_dp.ETP_CASES_4]
@@ -181,6 +182,8 @@ def _one_process(out):
         one["lr", case] = trainer.cfg.optim.lr
     for name, (cmd, args) in torch_dp.ETP_CLI.items():
         one["cli", name] = torch_dp.mesh_cli(out, cmd, args, [], f"etp_cli_{name}_one")
+    one["cli", "probe"] = torch_dp.mesh_cli(out, "train-property", torch_dp.ETP_PROBE_CLI, [],
+                                            "etp_cli_probe_one")
     return one
 
 
@@ -200,73 +203,6 @@ def etp_run(tmp_path_factory):
     return out, two, four, one, {"edm": edm_want, "property": prop_want}
 
 
-def _continued(out, key, case, fields):
-    """One process's second step of `case` from the checkpoint the mesh run
-    `key` wrote after its first step (the whole state and the trainer's
-    generator), with `fields` (its compute dtype): its metrics, gradients
-    (parameter order) and whole parameters after it."""
-    from reed_tpu_torch.core.trainer import capture_gradients
-
-    with torch_dp.settings(fields=fields):
-        trainer, batches = torch_dp.CASES[case]()
-    state = trainer.init_state()
-    checkpoint.CheckpointManager(out / torch_dp.first_ckpt("etp_first_", key)).restore(
-        state, trainer.generator)
-    assert state.step == 1
-    with capture_gradients() as grads:
-        state, metrics = trainer.train_step(state, batches[1])
-    return {"metrics": [{k: float(v) for k, v in metrics.items()}], "grads": grads,
-            "params": torch_dp.whole_params(state)}
-
-
-def _check_step(step, got_metrics, got_grads, want_metrics, want_grads, names):
-    """One f32 step: metrics within REL of the step's largest, each gradient
-    within REL of that tensor's largest magnitude."""
-    assert set(got_metrics) == set(want_metrics)
-    top = max(abs(v) for v in want_metrics.values())
-    bad = {k: (got_metrics[k], v) for k, v in want_metrics.items()
-           if abs(got_metrics[k] - v) > REL * top}
-    assert not bad, (step, bad)
-    assert len(got_grads) == len(want_grads) == len(names)
-    for n, a, b in zip(names, got_grads, want_grads):
-        assert a.shape == b.shape, n
-        assert float((a - b).abs().max()) <= REL * float(b.abs().max()), (step, n)
-
-
-def _check_f32_run(got, one, cont, lr):
-    """Two f32 steps step by step (the first against one process's, the
-    second against one process's continued from the mesh checkpoint), then
-    the whole parameters: within REL of the largest parameter, 2 lr where
-    the step's gradient is at rounding level (below 1e-6 of its largest)."""
-    names = list(one["params"])
-    _check_step(0, got["metrics"][0], got["grads"][0], one["metrics"][0], one["grads"][0],
-                names)
-    _check_step(1, got["metrics"][1], got["grads"][1], cont["metrics"][0], cont["grads"][0],
-                names)
-    grads = cont["grads"][0]
-    top_grad = max(float(g.abs().max()) for g in grads)
-    top = max(float(w.abs().max()) for w in cont["params"].values())
-    for n, g in zip(names, grads):
-        diff = (got["params"][n] - cont["params"][n]).abs()
-        bound = torch.where(g.abs() < 1e-6 * top_grad, 2 * lr, REL * top)
-        assert bool((diff <= bound).all()), (n, float(diff.max()))
-
-
-def _flat(tensors):
-    return torch.cat([t.flatten().double() for t in tensors])
-
-
-def _check_bf16_step(step, got, want, want32):
-    """One bf16 step against one process's bf16 step (`want`) from the same
-    state: the whole gradient (L2) and each loss within BF16_FACTOR x its
-    distance from one process's f32 step (`want32`)."""
-    g, w, w32 = _flat(got["grads"][step]), _flat(want["grads"][0]), _flat(want32["grads"][0])
-    assert float((g - w).norm()) <= BF16_FACTOR * float((w - w32).norm()), step
-    gm, wm, wm32 = got["metrics"][step], want["metrics"][0], want32["metrics"][0]
-    for k in ("denoising_loss", "loss"):
-        assert abs(gm[k] - wm[k]) <= BF16_FACTOR * abs(wm[k] - wm32[k]) + 1e-6, (step, k)
-
-
 def _first(run):
     return {"metrics": [run["metrics"][0]], "grads": [run["grads"][0]]}
 
@@ -279,9 +215,10 @@ def test_f32_step_at_tensor_2_matches_one_process(etp_run, variant):
     """Two f32 steps at tensor=2 (EDM, EFM, property), on every rank,
     against one process, step by step."""
     out, two, _, one, _ = etp_run
-    cont = _continued(out, variant, variant[0], torch_dp.ETP_VARIANTS[variant])
+    cont = torch_dp.continued(out, torch_dp.first_ckpt("etp_first_", variant), variant[0],
+                              torch_dp.ETP_VARIANTS[variant])
     for r in two:
-        _check_f32_run(r[variant], one[variant], cont, one[variant]["lr"])
+        torch_dp.check_f32_run(r[variant], one[variant], cont, REL)
 
 
 @pytest.mark.parametrize("variant", BF16, ids=[c for c, _ in BF16])
@@ -291,15 +228,17 @@ def test_bf16_step_at_tensor_2_is_as_close_as_one_process(etp_run, variant):
     the same state; the parameters after them too."""
     out, two, _, one, _ = etp_run
     case = variant[0]
-    cont = _continued(out, variant, case, torch_dp.ETP_VARIANTS[variant])
-    cont32 = _continued(out, variant, case, {})
+    ckpt = torch_dp.first_ckpt("etp_first_", variant)
+    cont = torch_dp.continued(out, ckpt, case, torch_dp.ETP_VARIANTS[variant])
+    cont32 = torch_dp.continued(out, ckpt, case, {})
     names = list(one[variant]["params"])
     for r in two:
         got = r[variant]
         assert all(g.dtype == torch.float32 for g in got["grads"][0])
-        _check_bf16_step(0, got, _first(one[variant]), _first(one[case, "float32"]))
-        _check_bf16_step(1, got, cont, cont32)
-        p, w, w32 = (_flat([d[n] for n in names])
+        torch_dp.check_bf16_step(0, got, _first(one[variant]), _first(one[case, "float32"]),
+                                 BF16_FACTOR, LOSSES)
+        torch_dp.check_bf16_step(1, got, cont, cont32, BF16_FACTOR, LOSSES)
+        p, w, w32 = (torch_dp.flat([d[n] for n in names])
                      for d in (got["params"], cont["params"], cont32["params"]))
         assert float((p - w).norm()) <= BF16_FACTOR * float((w - w32).norm())
 
@@ -309,10 +248,11 @@ def test_step_on_four_ranks_matches_one_process(etp_run, mesh_name, case):
     """data=2 x tensor=2 and fsdp=2 x tensor=2 (EDM, EFM and property, f32),
     on every rank, against one process, step by step."""
     out, _, four, one, _ = etp_run
-    cont = _continued(out, (mesh_name, case), case, {})
+    cont = torch_dp.continued(out, torch_dp.first_ckpt("etp_first_", (mesh_name, case)),
+                              case, {})
     want = one[case, "float32"]
     for r in four:
-        _check_f32_run(r[mesh_name, case], want, cont, want["lr"])
+        torch_dp.check_f32_run(r[mesh_name, case], want, cont, REL)
 
 
 def test_tensor_ranks_hold_the_same_whole_parameters(etp_run):
@@ -336,16 +276,6 @@ def test_rank_layout(etp_run):
     assert [r["axes"] for r in two] == [(0, 0, 1, 0), (1, 0, 1, 1)]
 
 
-def _within(a, b, lr):
-    """State tensors a against b: the entries off by more than REL of the
-    largest of b (4 lr for a parameter, whose elements Adam's first
-    updates move by up to lr whatever their gradient's digits)."""
-    top = max(float(v.abs().max()) for v in b.values())
-    return {k: float((a[k] - w).abs().max()) for k, w in b.items()
-            if float((a[k] - w).abs().max()) > max(REL * top, 4 * lr if
-                                                    k.startswith("param/") else 0.0)}
-
-
 @pytest.mark.parametrize("case", ["edm", "property"])
 def test_checkpoint_written_at_tensor_2_resumes_in_one_process(etp_run, case):
     """The file rank 0 wrote holds the ranks' whole state (parameters
@@ -361,7 +291,7 @@ def test_checkpoint_written_at_tensor_2_resumes_in_one_process(etp_run, case):
     restored = torch_dp.state_tensors(state)
     assert set(restored) == set(saved)
     assert all(torch.equal(restored[k], saved[k]) for k in saved)
-    assert not _within(saved, one["saved", case], one["lr", case])
+    assert not torch_dp.within(saved, one["saved", case], one["lr", case], REL)
 
 
 @pytest.mark.parametrize("case", ["edm", "property"])
@@ -375,7 +305,7 @@ def test_one_process_checkpoint_resumes_at_tensor_2(etp_run, case):
         assert res["step"] == 4
         assert all(torch.equal(res["restored"][k], one["saved", case][k])
                    for k in one["saved", case])
-        assert not _within(res["resumed"], one["straight", case], one["lr", case])
+        assert not torch_dp.within(res["resumed"], one["straight", case], one["lr", case], REL)
 
 
 @pytest.mark.parametrize("name", ["edm", "efm", "property", "edm_fsdp_tp"])
@@ -396,20 +326,29 @@ def test_cli_on_the_mesh_matches_one_process(etp_run, name):
     for got_step, got in runs:
         assert got_step == step == 2
         assert set(got) == set(want)
-        assert not _within(got, want, lr)
+        assert not torch_dp.within(got, want, lr, REL)
         assert all(torch.equal(got[k], runs[0][1][k]) for k in got if k.startswith("param/"))
 
 
 def test_linear_probe_refuses_the_tensor_axis(etp_run):
     """train-property --linear-probe (a frozen encoder's Linear(rep_dim, 1):
-    nothing to split) at --tp 2 raises NotImplementedError naming ROADMAP.md's
-    item, on both ranks; so does its trainer."""
-    _, two, _, _, _ = etp_run
-    for r in two:
-        kind, msg = r["refused"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP.md Queue 1 item 8b" in msg and "linear probe" in msg
-    with pytest.raises(NotImplementedError, match="item 8b .*linear probe"):
+    nothing to split) no longer refuses the tensor axis: at --tp 2 it runs
+    whole on every tensor rank, as reed_tpu does, and each rank's whole
+    state after two steps (a checkpoint at step 2), and the files, match
+    the same command in one process, the ranks' parameters bitwise equal;
+    its trainer asked for tensor=2 in one process raises with the torchrun
+    line."""
+    out, two, _, one, _ = etp_run
+    step, want = one["cli", "probe"]
+    assert sorted(p.name for p in (out / "etp_cli_probe_tp").iterdir()) == sorted(
+        p.name for p in (out / "etp_cli_probe_one").iterdir())
+    runs = [r["probe"] for r in two]
+    for got_step, got in runs:
+        assert got_step == step == 2
+        assert set(got) == set(want)
+        assert not torch_dp.within(got, want, prop.LinearProbeConfig().optim.lr, REL)
+        assert all(torch.equal(got[k], runs[0][1][k]) for k in got if k.startswith("param/"))
+    with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*torchrun"):
         prop.LinearProbeTrainer(prop.LinearProbeConfig(rep_dim=12,
                                                        mesh=MeshConfig(tensor=2)),
                                 device="cpu")

@@ -343,8 +343,10 @@ def test_trainer_draws_learn_and_batch_schema():
 def test_refusals():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mf.MultiflowTrainer(mf.MultiflowTrainConfig(compute_dtype="float16"), device="cpu")
-    # data=2 needs two ranks (torchrun); the seq axis is not ported
+    # data=2 and tensor=2 need two ranks (torchrun); the seq axis is not ported
     with pytest.raises(ValueError, match="torchrun"):
         mf.MultiflowTrainer(mf.MultiflowTrainConfig(mesh=mf.MeshConfig(data=2)), device="cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        mf.MultiflowTrainer(mf.MultiflowTrainConfig(mesh=mf.MeshConfig(tensor=2)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mf.MultiflowTrainer(mf.MultiflowTrainConfig(mesh=mf.MeshConfig(seq=2)), device="cpu")

@@ -54,11 +54,12 @@ def test_axis_names_match_reed_tpu():
 def test_unported_axes_raise_naming_roadmap(axis):
     """fsdp is ported on every family: data x fsdp must be the world size
     (data None takes the rest, as make_mesh's data=None does), else
-    ValueError with the torchrun line. tensor runs on SiT and ProteinMPNN
-    (SIT_AXES, PMPNN_AXES) and seq on SiT alone, where data x fsdp x seq x
-    tensor must be the world size and the batch splits over data x fsdp;
-    on the other families tensor raises naming ROADMAP item 8b, and seq
-    outside SiT raises saying that it splits SiT's tokens alone."""
+    ValueError with the torchrun line. tensor runs on every trainer's family
+    (SIT_AXES, PMPNN_AXES, SEMLA_AXES, EGNN_AXES, IPA_AXES, RDM_AXES) and seq
+    on SiT alone, where data x fsdp x seq x tensor must be the world size
+    and the batch splits over data x fsdp; a caller that runs no model axis
+    (evaluation) raises on tensor naming ROADMAP item 11, and seq outside
+    SiT raises saying that it splits SiT's tokens alone."""
     if axis == "fsdp":
         assert mesh.check_mesh(MeshConfig(fsdp=2), 2) == (1, 2)
         assert mesh.check_mesh(MeshConfig(fsdp=2), 8, batch_size=8) == (4, 2)
@@ -70,9 +71,12 @@ def test_unported_axes_raise_naming_roadmap(axis):
             mesh.check_mesh(MeshConfig(data=2, fsdp=2), 2)
         assert "fsdp" not in mesh.NOT_PORTED
     else:
-        running = [mesh.SIT_AXES] + ([mesh.PMPNN_AXES] if axis == "tensor" else [])
-        refused = [()] + ([mesh.PMPNN_AXES] if axis == "seq" else [])
-        why = ("ROADMAP.md Queue 1 item 8b" if axis == "tensor"
+        families = [mesh.PMPNN_AXES, mesh.SEMLA_AXES, mesh.EGNN_AXES, mesh.IPA_AXES,
+                    mesh.RDM_AXES]
+        running = [mesh.SIT_AXES] + (families if axis == "tensor" else [])
+        refused = [()] + (families if axis == "seq" else [])
+        why = ("evaluation and sampling run on one process.*ROADMAP.md Queue 1 item 11"
+               if axis == "tensor"
                else "the seq axis splits SiT's tokens alone.*token_sharding")
         for axes in refused:
             with pytest.raises(NotImplementedError, match=why):
@@ -200,12 +204,10 @@ def test_cross_process_stats_equal_one_process(ranks):
                                  "eval-multiflow"])
 def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch):
     """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --tp 2 on one process
-    raises, on train-image, generate-image (whose SiT runs the tensor axis),
-    train-protein (whose ProteinMPNN does), train-molecule-semla,
-    train-molecule-edm and train-property (SemlaFlow and the EGNN family)
-    with the data x fsdp x seq x tensor world size and the torchrun line,
-    elsewhere naming ROADMAP item 8b; --sp 2 outside SiT raises saying that
-    it splits SiT's tokens
+    raises, on generate-image and every train-* subcommand (whose models
+    all run the tensor axis) with the data x fsdp x seq x tensor world size
+    and the torchrun line, on the eval subcommands naming ROADMAP item 11;
+    --sp 2 outside SiT raises saying that it splits SiT's tokens
     alone; --distributed without
     torchrun's environment raises, an eval subcommand raises on --dp 2 or
     --fsdp 2 (naming ROADMAP item 11), and a train-* one (or
@@ -219,13 +221,12 @@ def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch)
                        match="fsdp=2 does not divide the 1 process" if data_parallel
                        else "ROADMAP.md Queue 1 item 11"):
         cli.main(base + ["--fsdp", "2"])
-    if cmd in ("train-image", "generate-image", "train-protein", "train-molecule-semla",
-               "train-molecule-edm", "train-property"):
+    if data_parallel:
         with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
                                              "torchrun --nproc_per_node 2"):
             cli.main(base + ["--tp", "2", "--sp", "1"])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
             cli.main(base + ["--tp", "2", "--sp", "1"])
     if cmd not in ("train-image", "generate-image"):
         with pytest.raises(NotImplementedError, match="splits SiT's tokens alone"):

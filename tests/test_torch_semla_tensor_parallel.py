@@ -34,8 +34,8 @@ edge projections and the heads are whole on every rank.
   (zero-init layers included), batch and self-conditioning coin: the
   port's step at tensor=2 within tests/test_torch_semla_train.py's bounds.
 - train-molecule-semla --distributed --tp 2 and --dp 2 --tp 2 through the
-  CLI against one process; arch egnn and eqgat at --tp 2 raise
-  NotImplementedError naming ROADMAP.md's item.
+  CLI against one process; arch egnn and eqgat at --tp 2, whole on every
+  tensor rank, against one process.
 - Without ranks: the leaves the port's rules split against those reed_tpu's
   SEMLA_TP_RULES match; the split and join of whole state_dicts; sizes that
   do not divide; what a rank holds at the recipe's width.
@@ -161,6 +161,10 @@ def _one_process(out):
     one["lr"] = trainer.cfg.optim.lr
     one["cli"] = torch_dp.mesh_cli(out, "train-molecule-semla", torch_dp.STP_CLI, [],
                                    "stp_cli_one")
+    for arch in torch_dp.STP_ALT_ARCHS:
+        one["alt", arch] = torch_dp.mesh_cli(out, "train-molecule-semla",
+                                             torch_dp.stp_alt_cli(arch), [],
+                                             f"stp_cli_{arch}_one")
     return one
 
 
@@ -432,15 +436,26 @@ def test_cli_train_molecule_semla_on_the_mesh_matches_one_process(stp_run, ranks
 
 def test_other_archs_refuse_the_tensor_axis(stp_run):
     """arch egnn and eqgat (models/semla_alt.py, whose leaves no Semla rule
-    names) at --tp 2 raise NotImplementedError naming ROADMAP.md's item, on
-    both ranks; so does the trainer."""
-    _, two, _, _, _ = stp_run
-    for r in two:
-        for arch, (kind, msg) in r["refused"].items():
-            assert kind == "NotImplementedError", arch
-            assert "ROADMAP.md Queue 1 item 8b" in msg and "egnn and eqgat" in msg, arch
-    for arch in ("egnn", "eqgat"):
-        with pytest.raises(NotImplementedError, match="item 8b .*egnn and eqgat archs"):
+    names) no longer refuse the tensor axis: train-molecule-semla --tp 2
+    runs them whole on every tensor rank, as reed_tpu does, and each rank's
+    whole state after two steps (a checkpoint at step 2), and the files,
+    match the same command in one process, the ranks' parameters bitwise
+    equal; the trainer asked for tensor=2 in one process raises with the
+    torchrun line."""
+    out, two, _, one, _ = stp_run
+    for arch in torch_dp.STP_ALT_ARCHS:
+        step, want = one["alt", arch]
+        assert sorted(p.name for p in (out / f"stp_cli_{arch}_tp").iterdir()) == sorted(
+            p.name for p in (out / f"stp_cli_{arch}_one").iterdir())
+        runs = [r["alt"][arch] for r in two]
+        for got_step, got in runs:
+            assert got_step == step == 2, arch
+            assert set(got) == set(want), arch
+            assert not _within(got, want, one["lr"]), arch
+            assert all(torch.equal(got[k], runs[0][1][k]) for k in got
+                       if k.startswith("param/")), arch
+        with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
+                                             "torchrun"):
             ms.SemlaTrainer(ms.SemlaTrainConfig(arch=arch, mesh=MeshConfig(tensor=2)),
                             device="cpu")
 

@@ -6,9 +6,11 @@ tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process,
 tests/test_torch_remat.py under SiT remat,
 tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes,
 tests/test_torch_protein_tensor_parallel.py on ProteinMPNN's tensor axis,
-tests/test_torch_semla_tensor_parallel.py on SemlaFlow's and
-tests/test_torch_egnn_tensor_parallel.py on the EGNN family's (`settings`
-sets their mesh, config fields and optimizer).
+tests/test_torch_semla_tensor_parallel.py on SemlaFlow's,
+tests/test_torch_egnn_tensor_parallel.py on the EGNN family's,
+tests/test_torch_ipa_tensor_parallel.py on MultiFlow's and
+tests/test_torch_rdm_tensor_parallel.py on the RDM's (`settings` sets their
+mesh, config fields and optimizer).
 
     python tests/torch_dp.py JOB DIR STORE
 
@@ -583,6 +585,8 @@ def collectives():
 
 def more_batches(case, trainer):
     """Two more batches of case `case` (this rank's rows), after its two."""
+    if case == "multiflow":
+        return [trainer.synthetic_batch(np.random.default_rng(12 + i)) for i in range(2)]
     if case == "semla":
         from reed_tpu_torch.parallel.mesh import local_batch
         from reed_tpu_torch.train.molecule_semla import batch_to_device
@@ -912,6 +916,15 @@ STP_CLI = [*CLI_TINY["train-molecule-semla"], "--set", "align_depth=[1]", "--set
            "--steps", "2", "--log-every", "1"]
 
 
+# SemlaFlow's other archs (models/semla_alt.py), whole on every tensor rank
+STP_ALT_ARCHS = ("egnn", "eqgat")
+
+
+def stp_alt_cli(arch):
+    """train-molecule-semla's STP_CLI run with arch `arch`."""
+    return [*STP_CLI, "--set", f"arch={arch}"]
+
+
 def semla_parity_config(mesh=None):
     """The port's SemlaTrainConfig of STP_PARITY (on `mesh`)."""
     from reed_tpu_torch.core.config import CurriculumConfig, MeshConfig
@@ -940,23 +953,12 @@ def semla_parity_step(inputs):
                        use_sc=inputs["use_sc"])
 
 
-def refusal(args):
-    """The type and message of the exception cli.main(args) raises."""
-    from reed_tpu_torch import cli
-
-    try:
-        cli.main(args)
-    except Exception as e:  # noqa: BLE001 - the test reads which one
-        return type(e).__name__, str(e)
-    return None
-
-
 def _job_semla_tensor_parallel(out, dp):
     """On two ranks at tensor=2: the semla case in f32 and mixed bf16, with
     and without self-conditioning; the checkpoints across tensor sizes;
     reed_tpu's step on the same weights, batch and coin;
     train-molecule-semla --tp 2 through the CLI, and with arch egnn and
-    eqgat (which raise); this rank's place on the mesh."""
+    eqgat (whole on every tensor rank); this rank's place on the mesh."""
     results = {}
     mesh = tp_mesh(tensor=2)
     for (dtype, sc), fields in STP_VARIANTS.items():
@@ -972,10 +974,9 @@ def _job_semla_tensor_parallel(out, dp):
                                                   weights_only=False))
     results["cli"] = mesh_cli(out, "train-molecule-semla", STP_CLI,
                               ["--distributed", "--tp", "2"], "stp_cli_tp")
-    results["refused"] = {arch: refusal(["train-molecule-semla", "--device", "cpu",
-                                         "--distributed", "--tp", "2", *STP_CLI,
-                                         "--set", f"arch={arch}"])
-                          for arch in ("egnn", "eqgat")}
+    results["alt"] = {arch: mesh_cli(out, "train-molecule-semla", stp_alt_cli(arch),
+                                     ["--distributed", "--tp", "2"], f"stp_cli_{arch}_tp")
+                      for arch in STP_ALT_ARCHS}
     torch.save(results, out / f"stp_rank{dp.process_rank}.pt")
 
 
@@ -1020,6 +1021,12 @@ ETP_CLI = {"edm": ("train-molecule-edm", [*CLI_TINY["train-molecule-edm"], "--st
                                            "--log-every", "1"])}
 
 
+# train-property --linear-probe through the CLI (rep_dim 12; the probe runs
+# whole on every tensor rank)
+ETP_PROBE_CLI = ["--linear-probe", "--batch-size", "4", "--set", "rep_dim=12", "--steps", "2",
+                 "--log-every", "1"]
+
+
 def edm_parity_step(inputs):
     """MoleculeEDMTrainer at tensor=2 from reed_tpu's step's weights, batch
     and draws (parity_step)."""
@@ -1054,7 +1061,8 @@ def _job_egnn_tensor_parallel(out, dp):
     classifier in f32; the checkpoints across tensor sizes (EDM and
     property); reed_tpu's EDM and property steps on the same weights and
     draws; train-molecule-edm (EDM and EFM) and train-property --tp 2
-    through the CLI, and --linear-probe (which raises); this rank's place."""
+    through the CLI, and --linear-probe (whole on every tensor rank); this
+    rank's place."""
     results = {}
     mesh = tp_mesh(tensor=2)
     for key, fields in ETP_VARIANTS.items():
@@ -1073,9 +1081,8 @@ def _job_egnn_tensor_parallel(out, dp):
     for name, (cmd, args) in ETP_CLI.items():
         results["cli", name] = mesh_cli(out, cmd, args, ["--distributed", "--tp", "2"],
                                         f"etp_cli_{name}_tp")
-    results["refused"] = refusal(["train-property", "--device", "cpu", "--distributed",
-                                  "--tp", "2", "--linear-probe", "--steps", "1",
-                                  "--batch-size", "4", "--set", "rep_dim=12"])
+    results["probe"] = mesh_cli(out, "train-property", ETP_PROBE_CLI,
+                                ["--distributed", "--tp", "2"], "etp_cli_probe_tp")
     torch.save(results, out / f"etp_rank{dp.process_rank}.pt")
 
 
@@ -1095,6 +1102,304 @@ def _job_egnn_tensor_parallel_mesh(out, dp):
     torch.save(results, out / f"etp_mesh_rank{dp.process_rank}.pt")
 
 
+# --- MultiFlow's tensor axis ---------------------------------------------------
+
+# the multiflow case (c_s 32, c_z 16, 2 blocks, batch 4 x 16) with 4 IPA heads
+# of 8 channels, 4 query / key and 4 value points and the sequence
+# transformer's 4 heads: a tensor=2 rank holds 2 of each; f32 and bf16
+MTP_FIELDS = dict(ipa_no_heads=4, ipa_c_hidden=8, ipa_no_qk_points=4, ipa_no_v_points=4)
+MTP_VARIANTS = {dtype: dict(MTP_FIELDS, compute_dtype=dtype) for dtype in ("float32", "bfloat16")}
+MTP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+# reed_tpu's step on MeshConfig(tensor=2): tests/test_torch_multiflow_train.py's
+# tiny model with these heads at batch 4 (data 4 x tensor 2 on 8 devices)
+MTP_PARITY = dict(c_s=32, c_z=16, num_blocks=2, ipa_c_hidden=8, ipa_no_heads=4,
+                  ipa_no_qk_points=4, ipa_no_v_points=4, batch_size=4, max_len=12)
+# train-multiflow through the CLI at tiny widths
+MTP_CLI = [*CLI_TINY["train-multiflow"], *(a for k, v in MTP_FIELDS.items()
+                                            for a in ("--set", f"{k}={v}")),
+           "--steps", "2", "--log-every", "1"]
+
+
+def multiflow_model_run(inputs, dtype, parallel=None):
+    """The tiny FlowModel (MTP_PARITY's widths) in `dtype` from the whole
+    weights inputs['params'] (this rank's shards under `parallel`) on
+    inputs['batch'], whose self-conditioning inputs trans_sc and
+    aatypes_sc are set or not: its outputs and the whole gradients, by
+    name, of the sum of the outputs weighted by inputs['weights']."""
+    from reed_tpu_torch.core.config import MeshConfig
+    from reed_tpu_torch.parallel.mesh import shard_state_dict
+    from reed_tpu_torch.train.multiflow import MultiflowTrainConfig, build_model, tp_rules
+
+    fields = {k: v for k, v in MTP_PARITY.items() if k not in ("batch_size", "max_len")}
+    cfg = MultiflowTrainConfig(**fields, compute_dtype=dtype, mesh=MeshConfig())
+    model = build_model(cfg, parallel=parallel)
+    model.load_state_dict(shard_state_dict(inputs["params"], parallel, tp_rules(cfg)))
+    out = model(inputs["batch"])
+    loss = sum((out[k] * w).sum() for k, w in inputs["weights"].items())
+    names, leaves = zip(*model.named_parameters())
+    grads = list(torch.autograd.grad(loss, leaves))
+    if parallel is not None:
+        grads = parallel.shard_plan(model.named_parameters(), tp_rules(cfg)).join(grads)
+    return {"out": {k: v.detach() for k, v in out.items()}, "grads": dict(zip(names, grads))}
+
+
+def multiflow_parity_step(inputs):
+    """MultiflowTrainer at tensor=2 from reed_tpu's step's weights, batch and
+    draws (parity_step)."""
+    from reed_tpu_torch.parallel.mesh import local_batch
+    from reed_tpu_torch.train.multiflow import (MultiflowTrainConfig, MultiflowTrainer,
+                                                batch_to_device, tp_rules)
+
+    trainer = MultiflowTrainer(MultiflowTrainConfig(**MTP_PARITY, mesh=tp_mesh(tensor=2)),
+                               device="cpu")
+    batch = batch_to_device(local_batch(trainer.dp, inputs["batch"]), "cpu")
+    return parity_step(trainer, dict(inputs, batch=batch), tp_rules(trainer.cfg),
+                       draws=inputs["draws"])
+
+
+def _job_ipa_tensor_parallel(out, dp):
+    """On two ranks at tensor=2: the multiflow case in f32 and bf16; the
+    model with and without its self-conditioning inputs, in f32 and bf16;
+    the checkpoints across tensor sizes; reed_tpu's step on the same
+    weights, batch and draws; train-multiflow --tp 2 through the CLI; this
+    rank's place on the mesh."""
+    from reed_tpu_torch.parallel.mesh import IPA_AXES, data_parallel
+
+    results = {}
+    mesh = tp_mesh(tensor=2)
+    for dtype, fields in MTP_VARIANTS.items():
+        with settings(mesh, fields=fields):
+            results[dtype] = run_case("multiflow", save_first=out / first_ckpt(
+                "mtp_first_", dtype))
+    with settings(mesh, fields=MTP_VARIANTS["float32"]):
+        results["resume"] = resume_across(out, "multiflow", "ckpt_mtp", "ckpt_one_multiflow")
+        trainer, _ = CASES["multiflow"]()
+    results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
+                       trainer.dp.tensor_index)
+    inputs = torch.load(out / "jax_multiflow_inputs.pt", weights_only=False)
+    results["jax"] = multiflow_parity_step(inputs["step"])
+    parallel = data_parallel(mesh, axes=IPA_AXES)
+    for key, model_inputs in inputs["model"].items():
+        for dtype in MTP_VARIANTS:
+            results["model", key, dtype] = multiflow_model_run(model_inputs, dtype, parallel)
+    results["cli"] = mesh_cli(out, "train-multiflow", MTP_CLI, ["--distributed", "--tp", "2"],
+                              "mtp_cli_tp")
+    torch.save(results, out / f"mtp_rank{dp.process_rank}.pt")
+
+
+def _job_ipa_tensor_parallel_mesh(out, dp):
+    """On four ranks: the multiflow case (f32) at data=2 x tensor=2 and
+    fsdp=2 x tensor=2; train-multiflow --fsdp 2 --tp 2."""
+    results = {}
+    for name, axes in MTP_MESHES_4.items():
+        with settings(tp_mesh(**axes), fields=MTP_VARIANTS["float32"]):
+            results[name] = run_case("multiflow", save_first=out / first_ckpt(
+                "mtp_first_", name))
+    results["cli"] = mesh_cli(out, "train-multiflow", MTP_CLI,
+                              ["--distributed", "--fsdp", "2", "--tp", "2",
+                               "--set", f"mesh.fsdp_min_size={TINY_MIN_SIZE}"],
+                              "mtp_cli_fsdp_tp")
+    torch.save(results, out / f"mtp_mesh_rank{dp.process_rank}.pt")
+
+
+# --- the RDM's tensor axis -------------------------------------------------------
+
+# the rdm case at 64 wide x 3 blocks (channels 16), with and without dropout
+RTP_FIELDS = dict(model_channels=64, bottleneck_channels=64, num_res_blocks=3)
+RTP_VARIANTS = {p: dict(RTP_FIELDS, dropout=p) for p in (0.0, 0.1)}
+RTP_MESHES_4 = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+# reed_tpu's step on MeshConfig(tensor=2): tests/test_torch_rdm.py's train
+# step configuration at 64 wide x 3 blocks, batch 8 (data 4 x tensor 2)
+RTP_PARITY = dict(channels=8, model_channels=64, bottleneck_channels=64, num_res_blocks=3,
+                  time_embed_dim=16, max_nodes=12, batch_size=8)
+RTP_OPTIM = dict(lr=1e-3, weight_decay=0.005, schedule="cosine", total_steps=10)
+# train-rdm through the CLI at tiny widths, 64 wide
+RTP_CLI = [*CLI_TINY["train-rdm"], "--set", "model_channels=64",
+           "--set", "bottleneck_channels=64", "--set", "num_res_blocks=3",
+           "--steps", "2", "--log-every", "1"]
+
+
+def rdm_parity_step(inputs):
+    """RDMTrainer at tensor=2 from reed_tpu's step's weights, batch and
+    draws (t and the noise; parity_step)."""
+    from reed_tpu_torch.core.config import OptimConfig
+    from reed_tpu_torch.parallel.mesh import RDM_TP_RULES, local_batch
+    from reed_tpu_torch.train.rdm import RDMTrainConfig, RDMTrainer, batch_to_device
+
+    trainer = RDMTrainer(RDMTrainConfig(**RTP_PARITY, optim=OptimConfig(**RTP_OPTIM),
+                                        mesh=tp_mesh(tensor=2)), device="cpu")
+    batch = batch_to_device(local_batch(trainer.dp, inputs["batch"]), "cpu")
+    t, noise = local_batch(trainer.dp, (inputs["t"], inputs["noise"]))
+    return parity_step(trainer, dict(inputs, batch=batch), RDM_TP_RULES, t=t, noise=noise)
+
+
+def split_layer_norm_run(inputs, parallel):
+    """A LayerNorm over inputs['x']'s last dimension split over the tensor
+    axis of `parallel` (nn/layers.split_layer_norm, summed by
+    sum_over_tensor): this rank's columns of the output, and the whole
+    gradients of the input, scale and bias of the output weighted by
+    inputs['weights']."""
+    from reed_tpu_torch.nn.layers import split_layer_norm
+    from reed_tpu_torch.parallel.collectives import sum_over_tensor
+    from reed_tpu_torch.parallel.mesh import tensor_join, tensor_split
+
+    rule, t = (1, 1), parallel.tensor
+    x = inputs["x"].clone().requires_grad_(True)
+    weight, bias = (tensor_split(inputs[k], (0, 1), t, parallel.tensor_index).requires_grad_(True)
+                    for k in ("weight", "bias"))
+    xs = tensor_split(x, rule, t, parallel.tensor_index)
+    y = split_layer_norm(xs, weight, bias, inputs["eps"], x.shape[-1],
+                         lambda s: sum_over_tensor(s, parallel))
+    ws = tensor_split(inputs["weights"], rule, t, parallel.tensor_index)
+    gx, gw, gb = torch.autograd.grad((y * ws).sum(), (x, weight, bias))
+    # this rank's columns of the input gradient: the ranks' sum is the whole
+    torch.distributed.all_reduce(gx, group=parallel.tensor_group)
+    join = lambda v, r: tensor_join(parallel.tensor_gather(v), r)
+    return {"y": join(y.detach(), rule), "x": gx, "weight": join(gw, (0, 1)),
+            "bias": join(gb, (0, 1))}
+
+
+def _job_rdm_tensor_parallel(out, dp):
+    """On two ranks at tensor=2: the rdm case without and with dropout; the
+    checkpoints across tensor sizes; reed_tpu's step on the same weights,
+    batch and draws; the split LayerNorm; train-rdm --tp 2 through the CLI;
+    this rank's place on the mesh."""
+    from reed_tpu_torch.parallel.mesh import RDM_AXES, data_parallel
+
+    results = {}
+    mesh = tp_mesh(tensor=2)
+    for p, fields in RTP_VARIANTS.items():
+        with settings(mesh, fields=fields):
+            results[p] = run_case("rdm", save_first=out / first_ckpt("rtp_first_", str(p)))
+    with settings(mesh, fields=RTP_VARIANTS[0.1]):
+        results["resume"] = resume_across(out, "rdm", "ckpt_rtp", "ckpt_one_rdm")
+        trainer, _ = CASES["rdm"]()
+    results["axes"] = (trainer.dp.process_rank, trainer.dp.rank, trainer.dp.world,
+                       trainer.dp.tensor_index)
+    inputs = torch.load(out / "jax_rdm_inputs.pt", weights_only=False)
+    results["jax"] = rdm_parity_step(inputs["step"])
+    results["layer_norm"] = split_layer_norm_run(inputs["layer_norm"],
+                                                 data_parallel(mesh, axes=RDM_AXES))
+    results["cli"] = mesh_cli(out, "train-rdm", RTP_CLI, ["--distributed", "--tp", "2"],
+                              "rtp_cli_tp")
+    torch.save(results, out / f"rtp_rank{dp.process_rank}.pt")
+
+
+def _job_rdm_tensor_parallel_mesh(out, dp):
+    """On four ranks: the rdm case (dropout on) at data=2 x tensor=2 and
+    fsdp=2 x tensor=2."""
+    results = {}
+    for name, axes in RTP_MESHES_4.items():
+        with settings(tp_mesh(**axes), fields=RTP_VARIANTS[0.1]):
+            results[name] = run_case("rdm", save_first=out / first_ckpt("rtp_first_", name))
+    torch.save(results, out / f"rtp_mesh_rank{dp.process_rank}.pt")
+
+
+# --- checks of the ranks' results against one process (the tests' side) -----
+
+
+def continued(out, ckpt, case, fields):
+    """One process's second step of `case` with the config `fields` from the
+    checkpoint a mesh run wrote under out/`ckpt` after its first step (the
+    whole state and the trainer's generator): its metrics, gradients
+    (parameter order) and whole parameters after it."""
+    from reed_tpu_torch.core.checkpoint import CheckpointManager
+    from reed_tpu_torch.core.trainer import capture_gradients
+
+    with settings(fields=fields):
+        trainer, batches = CASES[case]()
+    state = trainer.init_state()
+    CheckpointManager(out / ckpt).restore(state, trainer.generator)
+    assert state.step == 1
+    with capture_gradients() as grads:
+        state, metrics = trainer.train_step(state, batches[1])
+    return {"metrics": [{k: float(v) for k, v in metrics.items()}], "grads": grads,
+            "params": whole_params(state)}
+
+
+def check_step(step, got_metrics, got_grads, want_metrics, want_grads, names, rel,
+               floor=0.0):
+    """One f32 step: metrics within `rel` of the step's largest, each
+    gradient within `rel` of that tensor's largest magnitude (floored at
+    `floor` of the step's largest gradient)."""
+    assert set(got_metrics) == set(want_metrics)
+    top = max(abs(v) for v in want_metrics.values())
+    bad = {k: (got_metrics[k], v) for k, v in want_metrics.items()
+           if abs(got_metrics[k] - v) > rel * top}
+    assert not bad, (step, bad)
+    assert len(got_grads) == len(want_grads) == len(names)
+    least = floor * max(float(b.abs().max()) for b in want_grads)
+    for n, a, b in zip(names, got_grads, want_grads):
+        assert a.shape == b.shape, n
+        err = float((a - b).abs().max())
+        assert err <= rel * max(float(b.abs().max()), least), (step, n, err,
+                                                                float(b.abs().max()))
+
+
+def check_f32_run(got, one, cont, rel, floor=0.0):
+    """Two f32 steps step by step (the first against one process's `one`,
+    the second against one process's `cont`, continued from the mesh
+    checkpoint; check_step), then the whole parameters: within `rel` of the
+    largest parameter, 2 lr where the step's gradient is at rounding level
+    (below 1e-6 of its largest)."""
+    names = list(one["params"])
+    check_step(0, got["metrics"][0], got["grads"][0], one["metrics"][0], one["grads"][0],
+               names, rel, floor)
+    check_step(1, got["metrics"][1], got["grads"][1], cont["metrics"][0], cont["grads"][0],
+               names, rel, floor)
+    grads = cont["grads"][0]
+    top_grad = max(float(g.abs().max()) for g in grads)
+    top = max(float(w.abs().max()) for w in cont["params"].values())
+    for n, g in zip(names, grads):
+        diff = (got["params"][n] - cont["params"][n]).abs()
+        bound = torch.where(g.abs() < 1e-6 * top_grad, 2 * one["lr"], rel * top)
+        assert bool((diff <= bound).all()), (n, float(diff.max()))
+
+
+def flat(tensors):
+    return torch.cat([t.flatten().double() for t in tensors])
+
+
+def check_bf16_step(step, got, want, want32, factor, losses):
+    """One bf16 step against one process's bf16 step (`want`) from the same
+    state: the whole gradient (L2) and each of `losses` within `factor` x
+    its distance from one process's f32 step (`want32`)."""
+    g, w, w32 = flat(got["grads"][step]), flat(want["grads"][0]), flat(want32["grads"][0])
+    assert float((g - w).norm()) <= factor * float((w - w32).norm()), step
+    gm, wm, wm32 = got["metrics"][step], want["metrics"][0], want32["metrics"][0]
+    for k in losses:
+        assert abs(gm[k] - wm[k]) <= factor * abs(wm[k] - wm32[k]) + 1e-6, (step, k)
+
+
+def within(a, b, lr, rel):
+    """State tensors a against b: the entries off by more than `rel` of the
+    largest of b (4 lr for a parameter, whose elements Adam's first updates
+    move by up to lr whatever their gradient's digits)."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return {k: float((a[k] - w).abs().max()) for k, w in b.items()
+            if float((a[k] - w).abs().max()) > max(rel * top, 4 * lr if
+                                                    k.startswith("param/") else 0.0)}
+
+
+def one_process_resume(out, case, fields, tag):
+    """`case` (config `fields`) in one process: the state at step 2, saved
+    under out/`tag`, and after 4 steps."""
+    from reed_tpu_torch.core.checkpoint import CheckpointManager
+
+    with settings(fields=fields):
+        trainer, batches = CASES[case]()
+    batches += more_batches(case, trainer)
+    state = trainer.init_state()
+    mgr = CheckpointManager(out / tag, save_interval_steps=2)
+    for batch in batches[:2]:
+        state, _ = trainer.train_step(state, batch)
+    mgr.save(state, trainer.generator)
+    saved = state_tensors(state)
+    for batch in batches[2:]:
+        state, _ = trainer.train_step(state, batch)
+    return {"saved": saved, "straight": state_tensors(state), "lr": trainer.cfg.optim.lr}
+
+
 JOBS = {"mesh": _job_mesh, "leave_store": _job_leave_store,
         "data_parallel": _job_data_parallel, "fsdp": _job_fsdp,
         "fsdp_mesh": _job_fsdp_mesh, "remat": _job_remat,
@@ -1105,7 +1410,11 @@ JOBS = {"mesh": _job_mesh, "leave_store": _job_leave_store,
         "semla_tensor_parallel": _job_semla_tensor_parallel,
         "semla_tensor_parallel_mesh": _job_semla_tensor_parallel_mesh,
         "egnn_tensor_parallel": _job_egnn_tensor_parallel,
-        "egnn_tensor_parallel_mesh": _job_egnn_tensor_parallel_mesh}
+        "egnn_tensor_parallel_mesh": _job_egnn_tensor_parallel_mesh,
+        "ipa_tensor_parallel": _job_ipa_tensor_parallel,
+        "ipa_tensor_parallel_mesh": _job_ipa_tensor_parallel_mesh,
+        "rdm_tensor_parallel": _job_rdm_tensor_parallel,
+        "rdm_tensor_parallel_mesh": _job_rdm_tensor_parallel_mesh}
 
 
 if __name__ == "__main__":
