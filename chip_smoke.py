@@ -259,16 +259,36 @@ no result):
      f32, the ranks' whole parameters bitwise equal after both, no
      K1/K2a/K2b launch, the bytes the tensor group all-reduces a step a
      rank, the parameters and the state's bytes a rank, each step's wall
-     ms; (c) the same over NCCL with one card a rank, and `torchrun ...
+     ms; then (slice 22, `eval_rank_part`, `eval_report`) (e) the eval
+     samplers at data=2 and tensor=2 against rank 0's one-process runs,
+     each at full width from its checked weights with every draw made at
+     the global batch: eval-protein's sample at 8 x 256, 50 steps, f32 (K2a
+     at H = 128 on each batch index's 4 rows, at H = 64 under tensor, 153
+     launches a rank either way; its tokens at TOKEN_AGREEMENT or above)
+     and at tensor=2 in bf16 once (10 steps, logged), MultiFlow (4 x 64, 10
+     steps), SemlaFlow (the recipe's width, 8 molecules at max_atoms 72, 10
+     steps logged beside its jitter witness, 1 step held), the EDM (8
+     molecules, T = 25) and eval-conditional's EDM with its property
+     classifier (8 molecules, T = 25): every data=2 run equal to its split
+     witness (one process running each rank's rows apart), continuous
+     outputs within GEN_RTOL[f32] of their largest, discrete ones at
+     TOKEN_AGREEMENT or above, no K1/K2a/K2b launch, each run's seconds;
+     (c) the same over
+     NCCL with one card a rank, and `torchrun ...
      train-protein --distributed` without and with --fsdp 2 and with --tp
      2, `torchrun ... train-image --distributed` with --tp 2 and with --sp
      2, and `torchrun ... train-molecule-semla` (arch semla and egnn),
      `train-molecule-edm`, `train-property` (and `--linear-probe`),
-     `train-multiflow` and `train-rdm --distributed --tp 2`, where the
-     machine has two cards, else a line that says why it did not run.
+     `train-multiflow` and `train-rdm --distributed --tp 2`, `torchrun ...
+     eval-protein --distributed --dp 2` and `eval-protein`, `eval-semla`,
+     `eval-molecule`, `eval-conditional` and `eval-multiflow --distributed
+     --tp 2`, where the machine has two cards, else a line that says why
+     it did not run.
      `python3 chip_smoke.py --mol-tp FAMILY...` runs the slice-20/21
      tensor=2 steps of the MOL_TP families named alone (over NCCL and
-     with the slice-21 torchrun smokes where the machine has two cards).
+     with the slice-21 torchrun smokes where the machine has two cards);
+     `python3 chip_smoke.py --eval` runs (e) alone (over NCCL and with the
+     eval subcommands through torchrun where the machine has two cards).
   16. SiT remat (slice 17, `remat_phases`): (a) bench.py's SiT-XL/2 REED
      step at batch 48 under remat=True and 'dots' against the step
      without, from the same state and draws (bitwise where a repeated step
@@ -285,7 +305,9 @@ no result):
      on the guided samplers; each on the data-parallel and fsdp steps, K1
      on the remat step and, as K1_tp and K1_sp, on the tensor=2 and seq=2
      steps; K2a and K2b at H = 64, as K2a_tp and K2b_tp, on the protein
-     tensor=2 step), the nvidia-smi line, and last the
+     tensor=2 step; K2a on eval-protein's sample at data=2, as K2a_eval_dp
+     (timed at its 4 rows a rank), and at tensor=2 (H = 64), as
+     K2a_eval_tp), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 K2b (the backward kernel) is held against its plain backward in phase 3.
@@ -416,6 +438,9 @@ MSG_CASES = [
     ((2, 16, 4, 32, 64), "post", "both"),      # narrow
 ]
 MSG_MAIN = MSG_CASES[2]
+# eval-protein's K2a on its data=2 ranks (phase 15 (e)): the decoder's chain
+# on each batch index's 4 of the 8 rows, timed beside MSG_CASES (forward)
+MSG_EVAL_DP = ((4, 256, 30, 128, 256), "pre", "both")
 # tensor=2's share of a chain at D = 128 (parallel/mesh.PMPNN_TP_RULES): W2's
 # columns, b2 and W3's rows of H = 64 hidden units. (case, dtype, out_f32):
 # the encoder's first chain and the decoder's with the partial outputs in
@@ -717,7 +742,7 @@ def message_kernel_phase(smi):
     message_info()
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for case in MSG_CASES:
+    for case in MSG_CASES + [MSG_EVAL_DP]:
         for dtype in (torch.float32, torch.bfloat16):
             kw = message_inputs(case, dtype, gen)
             out = fm.fused_message_kernel(**kw)
@@ -4585,7 +4610,9 @@ def dp_rank_main(out_dir, backend):
     16 generated images. Then every rank joins the group and runs the same
     global batches data-parallel, then phase 16 (b), the fsdp=2 steps
     against them, then the tensor=2 and seq=2 steps and generation
-    (mp_rank_part); rank 0 writes the distances."""
+    (mp_rank_part), the slice-20/21 steps (mol_tp_rank_part) and the
+    slice-22 eval samplers (eval_rank_part, against rank 0's one-process
+    eval_refs); rank 0 writes the distances."""
     from reed_tpu_torch.parallel.mesh import init_distributed
 
     rank = int(os.environ["RANK"])
@@ -4629,6 +4656,9 @@ def dp_rank_main(out_dir, backend):
         t0 = time.perf_counter()
         mol_refs = mol_tp_refs(backend)
         result["molecule_refs_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_one = eval_refs()
+        result["eval_refs_s"] = time.perf_counter() - t0
     init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
     t0 = time.perf_counter()
     image = mesh_image_step(None, gb)
@@ -4663,6 +4693,9 @@ def dp_rank_main(out_dir, backend):
     t0 = time.perf_counter()
     result["molecule_tp"] = mol_tp_rank_part(rank, mol_refs if rank == 0 else None, backend)
     result["molecule_tp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["eval"] = eval_rank_part(rank, eval_one if rank == 0 else None)
+    result["eval_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
         json.dump(result, f)
     torch.distributed.destroy_process_group()
@@ -5138,6 +5171,385 @@ def mol_tp_main(families):
     print(smi)
 
 
+# --- phase 15 (e), slice 22: data- and tensor-parallel evaluation ------------
+
+# the eval samplers on phase 15's ranks, each at its full width from its
+# checked weights, at data=2 and tensor=2 against one process: eval-protein
+# at PROTEIN's 8 x 256, 50 steps (K2a at H = 128 on each batch index's 4
+# rows under data, at H = MSG_TP_H on the 8 rows under tensor); MultiFlow
+# (MultiflowTrainConfig, 4 x 64, 10 steps), SemlaFlow (the recipe's width at
+# max_atoms 72, 8 molecules of 20-40 atoms, 10 steps), the EDM
+# (MoleculeEDMConfig, 8 molecules, T = 25) and eval-conditional (the EDM
+# with context_node_nf 1 at T = 25 and PropertyTrainConfig's classifier on
+# its 8 samples), the step counts cut from 100, 100, 1000 and 50 at most
+# (the EDM's from 50 to 25 to keep the script inside its time: over gloo a
+# tensor=2 EDM step takes ~0.26 s); eval-protein in bf16 at tensor=2 once,
+# 10 steps (logged).
+# Each run is held twice. At data=2, against the split witness (one process
+# running each batch index's rows apart, its draws at the global batch):
+# equal, output for output (EVAL_SPLIT_RTOL, agreement 1), since the ranks
+# run the same products on the same rows. Against one process at the
+# global batch, at data=2 and tensor=2: continuous outputs within
+# GEN_RTOL[f32] of their largest magnitude (a batch of other rows and the
+# split sums round in another order, carried through every step), discrete
+# ones at TOKEN_AGREEMENT or above. SemlaFlow's 10-step run (EVAL_CHAOTIC)
+# is logged beside the jitter witness instead (one process's run with every
+# weight scaled by 1 + 1e-7 N(0, 1)): at the recipe's width its categorical
+# draws turn one rounding into another trajectory (on an H100 80GB HBM3 at
+# 700.00 W the jitter witness read 0.851 of the largest coordinate and
+# 0.899 of the types and bonds equal), so no distance from one process
+# bounds a split run there; its one-step run (semla_first: the first
+# prediction, before any draw) is held in its place.
+EVAL_MESHES = {"data": dict(data=2), "tensor": dict(tensor=2)}
+EVAL_STEPS = dict(protein=PROTEIN["num_steps"], multiflow=10, semla=10, semla_first=1,
+                  edm=25, conditional=25, protein_bf16=10)
+EVAL_ROWS = dict(protein=PROTEIN["batch"], multiflow=4, semla=8, semla_first=8, edm=8,
+                 conditional=8, protein_bf16=PROTEIN["batch"])
+# the runs at each mesh (protein_bf16 at tensor=2 alone)
+EVAL_RUNS = [(family, mesh) for mesh in EVAL_MESHES for family in EVAL_ROWS
+             if family != "protein_bf16"] + [("protein_bf16", "tensor")]
+EVAL_MULTIFLOW_LENGTH = 64
+EVAL_SPLIT_RTOL = 1e-6
+EVAL_CHAOTIC = ("semla",)
+# (outputs held as continuous, outputs held as discrete) of each family
+EVAL_OUTPUTS = {"protein": ((), ("pred", "tokens")), "protein_bf16": ((), ("pred", "tokens")),
+                "multiflow": (("trans", "rotmats"), ("aatypes",)),
+                "semla": (("coords",), ("atomics", "bonds", "charges")),
+                "semla_first": (("coords",), ("atomics", "bonds", "charges")),
+                "edm": (("x",), ("h_cat",)),
+                "conditional": (("x", "preds"), ("h_cat",))}
+# the eval subcommands through torchrun where two cards exist: (subcommand,
+# its flags), each with --tp 2 (eval-protein with --dp 2 too)
+EVAL_TORCHRUN = [
+    ("eval-protein", ("--batch-size", "8", "--length", "256", "--num-steps", "10")),
+    ("eval-semla", ("--config", RECIPE_SEMLA, "--n-samples", "8", "--n-replicates", "1",
+                    "--num-steps", "5", "--set", "max_atoms=72")),
+    ("eval-molecule", ("--batch-size", "8", "--n-replicates", "1", "--num-steps", "20")),
+    ("eval-conditional", ("--n-samples", "8", "--n-replicates", "1", "--num-steps", "20")),
+    ("eval-multiflow", ("--num-samples", "4", "--length", "64", "--num-steps", "5")),
+]
+
+
+def eval_weights():
+    """The whole checked weights (host state_dicts) of each eval family at
+    full width: the protein model of protein_phase (perturb_pmpnn), and
+    seeded_flow_model, seeded_semla, seeded_edm (twice: without and with
+    the property context) and the property classifier with its biases
+    moved (mol_tp_setup's)."""
+    def host(model):
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    protein = build_model(ProteinTrainConfig(), device="cuda", generator=gen)
+    perturb_pmpnn(protein, gen)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    clf = property_train.build_model(property_train.PropertyTrainConfig(), device="cuda",
+                                     generator=gen)
+    with torch.no_grad():
+        for name, p in clf.named_parameters():
+            if name.endswith("bias"):
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda") * PROPERTY_BIAS_STD)
+    out = dict(protein=host(protein), classifier=host(clf),
+               multiflow=host(seeded_flow_model(mf_train.MultiflowTrainConfig())),
+               semla=host(seeded_semla(semla_full_config())),
+               edm=host(seeded_edm(edm_train.MoleculeEDMConfig())),
+               conditional=host(seeded_edm(edm_train.MoleculeEDMConfig(context_node_nf=1))))
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_run(family, mesh, weights, split=None, jitter=False):
+    """The eval sampler of `family` on `mesh` (a MeshConfig; None: one
+    process) from the whole `weights`: every rank builds the global batch,
+    samples its rows inside draws.global_rows and gathers them
+    (parallel.mesh.run_rows). Returns its outputs on the host, its seconds,
+    the K1 / K2a / K2b launches in it (counted just before, read just
+    after) and, for the protein, the hidden units a rank's decoder chain
+    holds. Two witnesses in one process: `split` (a count W) runs each of W
+    batch indices' rows apart (parallel.mesh.rows_apart), as W data ranks
+    do without their collectives; `jitter` scales
+    every weight by 1 + 1e-7 N(0, 1) (about one f32 rounding), which
+    measures how far the sampler's own rounding carries."""
+    from reed_tpu_torch.eval.two_stage import molecule_masks
+    from reed_tpu_torch.parallel.mesh import (EGNN_AXES, EGNN_TP_RULES, IPA_AXES, PMPNN_AXES,
+                                             PMPNN_TP_RULES, SEMLA_AXES, SEMLA_TP_RULES,
+                                             data_parallel, rows_apart, run_rows)
+
+    def loaded(model, key, rules):
+        sd = weights[key]
+        if jitter:
+            g = torch.Generator().manual_seed(11)
+            sd = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g))
+                  if v.is_floating_point() else v for k, v in sd.items()}
+        model.load_state_dict(shard_state_dict(sd, dp, rules))
+        return model.eval()
+
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    n, steps = EVAL_ROWS[family], EVAL_STEPS[family]
+    rng = np.random.default_rng(3)
+    extra = {}
+    if family in ("protein", "protein_bf16"):
+        cfg = ProteinTrainConfig(compute_dtype="bfloat16" if family == "protein_bf16"
+                                 else "float32")
+        dp = None if mesh is None else data_parallel(mesh, axes=PMPNN_AXES)
+        model = loaded(build_model(cfg, device="cuda", parallel=dp), "protein", PMPNN_TP_RULES)
+        extra["hidden"] = int(model.state_dict()["decoder_layers.0.W2.weight"].shape[0])
+        interp = dataclasses.replace(cfg.interpolant, num_timesteps=steps)
+        batch = synthetic_protein_batch(gen(1), n, PROTEIN["length"])
+
+        def fn(rows):
+            return dict(zip(("pred", "tokens"), sample(model, rows, gen(7), interp)))
+    elif family == "multiflow":
+        cfg = mf_train.MultiflowTrainConfig()
+        dp = None if mesh is None else data_parallel(mesh, axes=IPA_AXES)
+        model = loaded(mf_train.build_model(cfg, device="cuda", parallel=dp), family,
+                       mf_train.tp_rules(cfg))
+        batch = torch.ones((n, EVAL_MULTIFLOW_LENGTH), device="cuda")
+
+        def fn(res_mask):
+            return mf_train.sample(cfg, model, res_mask, num_timesteps=steps, generator=gen(5))
+    elif family in ("semla", "semla_first"):
+        cfg = semla_full_config()
+        cfg = dataclasses.replace(cfg, integrator=dataclasses.replace(cfg.integrator,
+                                                                     steps=steps))
+        dp = None if mesh is None else data_parallel(mesh, axes=SEMLA_AXES)
+        model = loaded(semla_train.build_model(cfg, device="cuda", parallel=dp), "semla",
+                       SEMLA_TP_RULES)
+        sizes = rng.integers(20, 41, n)
+        mask = (np.arange(cfg.max_atoms)[None, :] < sizes[:, None]).astype(np.float32)
+        batch = {"prior": semla_train.sample_prior(cfg, rng, mask, "cuda"),
+                 "rep": torch.from_numpy(rng.standard_normal((n, cfg.d_rep)).astype(
+                     np.float32)).cuda()}
+
+        def fn(rows):
+            out = semla_train.generate(model, cfg, rows["prior"], rep=rows["rep"],
+                                       generator=gen(6))
+            return {k: out[k] for k in ("coords", "atomics", "bonds", "charges")}
+    else:
+        conditional = family == "conditional"
+        cfg = edm_train.MoleculeEDMConfig(context_node_nf=int(conditional))
+        cfg = dataclasses.replace(cfg, edm=dataclasses.replace(cfg.edm, timesteps=steps))
+        dp = None if mesh is None else data_parallel(mesh, axes=EGNN_AXES)
+        model = loaded(edm_train.build_dynamics(cfg, device="cuda", parallel=dp), family,
+                       EGNN_TP_RULES)
+        node_mask, edge_mask = molecule_masks(rng.integers(15, cfg.max_nodes + 1, n),
+                                              cfg.max_nodes, device="cuda")
+        rep = torch.from_numpy(rng.standard_normal((n, cfg.rep_nf)).astype(np.float32)).cuda()
+        context = torch.from_numpy(rng.standard_normal((n, 1, 1)).astype(np.float32)).cuda()
+        batch = (node_mask, edge_mask, rep, context.expand(n, cfg.max_nodes, 1) * node_mask)
+        if conditional:
+            clf_cfg = property_train.PropertyTrainConfig()
+            clf = loaded(property_train.build_model(clf_cfg, device="cuda", parallel=dp),
+                         "classifier", EGNN_TP_RULES)
+
+        def fn(rows):
+            nm, em, r, ctx = rows
+            x, h_cat, _ = edm_train.sample(cfg, model, nm, em, rep=r,
+                                           context=ctx if conditional else None,
+                                           generator=gen(7))
+            out = {"x": x, "h_cat": h_cat}
+            if conditional:
+                out["preds"] = property_train.predict(clf_cfg, clf, h_cat, x, nm, em)
+            return out
+    torch.cuda.synchronize()
+    fa.launches = fm.launches = fm.backward_launches = 0
+    t0 = time.perf_counter()
+    out = rows_apart(split, n, batch, fn) if split else run_rows(dp, n, batch, fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [fa.launches, fm.launches, fm.backward_launches]
+    out = {k: v.float().cpu() if v.is_floating_point() else v.cpu() for k, v in out.items()}
+    del model
+    torch.cuda.empty_cache()
+    return dict(out=out, s=seconds, launches=launches, **extra)
+
+
+def eval_compare(family, got, want):
+    """(worst continuous output's max abs err / its max |ref|, the least
+    share of equal discrete outputs) of `got` against `want`."""
+    cont, disc = EVAL_OUTPUTS[family]
+    rel = max([0.0] + [float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                       for k in cont])
+    agree = min(float((got[k].argmax(-1) == want[k].argmax(-1)).float().mean())
+                if got[k].is_floating_point() and got[k].dim() > 1
+                and k not in ("pred", "tokens", "aatypes")
+                else float((got[k] == want[k]).float().mean()) for k in disc)
+    return rel, agree
+
+
+def eval_refs():
+    """Rank 0's one-process references, before the group: each family's
+    eval_run (the protein in f32 and bf16) without a mesh and its witnesses
+    (`split` over the data=2 indices; `jitter` for EVAL_CHAOTIC), as
+    {'one', 'split', 'jitter'} a family, and the weights (under
+    'weights')."""
+    weights = eval_weights()
+    refs = {"weights": weights}
+    for family in EVAL_ROWS:
+        if family == "protein_bf16":
+            refs[family] = dict(one=eval_run(family, None, weights))
+            continue
+        split = eval_run(family, None, weights, split=2)  # first: it loads the kernels
+        refs[family] = dict(one=eval_run(family, None, weights), split=split)
+        if family in EVAL_CHAOTIC:
+            refs[family]["jitter"] = eval_run(family, None, weights, jitter=True)
+    return refs
+
+
+def eval_rank_part(rank, refs):
+    """Phase 15 (e) on a rank of its group: each family's eval_run at
+    data=2 and at tensor=2 (the protein at tensor=2 in bf16 too), against
+    rank 0's one-process `refs`: rows of (family, mesh): seconds, launches,
+    and on rank 0 the errors (eval_compare)."""
+    from reed_tpu_torch.core.config import MeshConfig
+
+    weights = refs["weights"] if rank == 0 else eval_weights()
+    rows = {}
+    for family, mesh in EVAL_RUNS:
+        run = eval_run(family, MeshConfig(**EVAL_MESHES[mesh]), weights)
+        key = family
+        row = dict(s=run["s"], launches=run["launches"], hidden=run.get("hidden"),
+                   shapes={k: list(v.shape) for k, v in run["out"].items()},
+                   finite=all(bool(torch.isfinite(v.float()).all())
+                              for v in run["out"].values()))
+        if rank == 0:
+            ref = refs[key]
+            row["rel"], row["agree"] = eval_compare(family, run["out"], ref["one"]["out"])
+            row["one_s"], row["one_launches"] = ref["one"]["s"], ref["one"]["launches"]
+            for witness in ("split", "jitter"):
+                if witness in ref:
+                    row[witness] = eval_compare(family, ref[witness]["out"], ref["one"]["out"])
+            if mesh == "data" and "split" in ref:
+                row["vs_split"] = eval_compare(family, run["out"], ref["split"]["out"])
+        rows[f"{key}/{mesh}"] = row
+    return rows
+
+
+def eval_report(res, where, smi):
+    """Phase 15 (e)'s lines and checks from each rank's eval_rank_part.
+    Returns rank 0's K2a launches of eval-protein's sample at data=2 and
+    at tensor=2."""
+    r0 = res[0]
+    cfg = ProteinTrainConfig()
+    log(f"[eval] (e) {where}: the eval samplers at data=2 and tensor=2, each at full width "
+        f"from its checked weights: data=2 equal to its split witness (within "
+        f"{EVAL_SPLIT_RTOL}, every discrete output); against one process continuous outputs "
+        f"within GEN_RTOL {GEN_RTOL[torch.float32]} of their largest, discrete ones at "
+        f"{TOKEN_AGREEMENT} or above, but {', '.join(EVAL_CHAOTIC)} (10 steps) and the bf16 "
+        "protein, logged beside the jitter witness; seconds are a record: over gloo the "
+        "collectives go through the host")
+    failed = []
+    for key, row in r0.items():
+        family, mesh = key.split("/")
+        held = family not in ("protein_bf16",) + EVAL_CHAOTIC
+        witnesses = "; ".join(f"{w} witness {row[w][0]:.3g}, {row[w][1]:.4f}"
+                              for w in ("split", "jitter") if w in row)
+        vs_split = row.get("vs_split")
+        log(f"[eval]   {family} at {mesh}=2 ({EVAL_ROWS[family]} rows, {EVAL_STEPS[family]} "
+            f"steps): against one process continuous max rel err {row['rel']:.3g}, discrete "
+            f"agreement {row['agree']:.4f}{'' if held else ' (logged)'}"
+            + (f" ({witnesses})" if witnesses else "")
+            + (f"; against the split witness {vs_split[0]:.3g}, {vs_split[1]:.4f}"
+               if vs_split else "")
+            + f"; {row['s']:.2f} s (one process {row['one_s']:.2f} s); K1/K2a/K2b launches a "
+            f"rank {[r[key]['launches'] for r in res]} (one process {row['one_launches']})"
+            + (f"; K2a at H = {row['hidden']}" if row["hidden"] else "") + f" ({smi})")
+        for r in res:
+            rr = r[key]
+            if not rr["finite"] or rr["shapes"] != row["shapes"]:
+                failed.append(f"eval {key} on a rank: {rr}")
+            if rr["hidden"]:
+                expect = (2 * cfg.num_encoder_layers
+                          + cfg.num_decoder_layers * (EVAL_STEPS[family] - 1))
+                hidden = 128 if mesh == "data" else MSG_TP_H
+                if rr["launches"] != [0, expect, 0] or rr["hidden"] != hidden:
+                    failed.append(f"eval {key}: launches {rr['launches']} (expected "
+                                  f"{[0, expect, 0]}), H {rr['hidden']} ({hidden})")
+            elif rr["launches"] != [0, 0, 0]:
+                failed.append(f"eval {key}: a TPU kernel's port launched: {rr}")
+        if vs_split and not (vs_split[0] <= EVAL_SPLIT_RTOL and vs_split[1] == 1.0):
+            failed.append(f"eval {key} against its split witness: {row}")
+        if held and not (row["rel"] <= GEN_RTOL[torch.float32]
+                         and row["agree"] >= TOKEN_AGREEMENT):
+            failed.append(f"eval {key} against one process: {row}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return r0["protein/data"]["launches"][1], r0["protein/tensor"]["launches"][1]
+
+
+def dp_torchrun_eval(tmp, smi, cmd, *args):
+    """`cmd` --distributed through torchrun with the flags `args`, one card
+    a rank: it exits 0 and rank 0 prints the JSON."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(DP["world"]), "-m", "reed_tpu_torch.cli",
+                           cmd, "--distributed", *args], capture_output=True, text=True,
+                          timeout=DP["timeout"])
+    label = " ".join((f"{cmd} --distributed",) + args)
+    if proc.returncode or "{" not in proc.stdout:
+        raise RuntimeError(f"torchrun {label} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[eval] (c) torchrun --nproc_per_node {DP['world']} {label}: "
+        f"{time.perf_counter() - t0:.1f} s, rank 0's JSON printed ({smi})")
+
+
+def eval_torchrun_phase(tmp, smi):
+    """(c) the eval subcommands through torchrun, one card a rank:
+    eval-protein with --dp 2, then each of EVAL_TORCHRUN with --tp 2."""
+    world = str(DP["world"])
+    dp_torchrun_eval(tmp, smi, "eval-protein", *EVAL_TORCHRUN[0][1], "--dp", world)
+    for cmd, args in EVAL_TORCHRUN:
+        out = ("--out", os.path.join(tmp, "eval_multiflow")) if cmd == "eval-multiflow" else ()
+        dp_torchrun_eval(tmp, smi, cmd, *args, *out, "--tp", world)
+
+
+def eval_rank_main(out_dir, backend):
+    """One rank of phase 15 (e) alone (`chip_smoke.py --eval-rank DIR
+    BACKEND`, RANK / WORLD_SIZE / LOCAL_RANK set by the parent): rank 0
+    takes the one-process references, then every rank joins the group and
+    runs the eval samplers at data=2 and tensor=2."""
+    from reed_tpu_torch.parallel.mesh import init_distributed
+
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    refs = eval_refs() if rank == 0 else None
+    seconds = [time.perf_counter() - t0]
+    init_distributed("cuda", backend=backend, init_method=f"file://{out_dir}/store_{backend}")
+    t0 = time.perf_counter()
+    res = eval_rank_part(rank, refs)
+    seconds.append(time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{rank}_{backend}.json"), "w") as f:
+        json.dump(dict(eval=res, s=seconds), f)
+    torch.distributed.destroy_process_group()
+
+
+def eval_main():
+    """Phase 15 (e) alone (`chip_smoke.py --eval`): two gloo ranks on one
+    card, or, where the machine has two cards, two NCCL ranks, one card
+    each, and then the eval subcommands through torchrun; the [eval] lines
+    and checks (eval_report)."""
+    smi = device_phase()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DP["world"] else "gloo"
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        res = run_ranks(tmp, backend, cards, "--eval-rank", tmp, backend)
+        where = f"{DP['world']} ranks over {backend}" + (
+            " on one card" if backend == "gloo" else f" on {DP['world']} cards")
+        log(f"[eval] {where}: {time.perf_counter() - t0:.1f} s; rank 0's one-process "
+            f"references {res[0]['s'][0]:.1f} s, the data=2 and tensor=2 samplers "
+            f"{res[0]['s'][1]:.1f} s")
+        eval_report([r["eval"] for r in res], where, smi)
+        if backend == "nccl":
+            eval_torchrun_phase(tmp, smi)
+    print(smi)
+
+
 def run_ranks(tmp, backend, cards, *argv):
     """`DP['world']` ranks of this script with the arguments `argv` over
     `backend`, each on card rank % cards, their output in tmp; the JSON
@@ -5172,8 +5584,10 @@ def run_ranks(tmp, backend, cards, *argv):
 def dp_ranks_phase(tmp, backend, cards, smi):
     """(b) / (c): `DP['world']` ranks of dp_rank_main over `backend`, each on
     card rank % cards, against one process at the same global batches, and
-    at fsdp=2 against data=2 (fsdp_report). Returns the fsdp steps'
-    launches on rank 0."""
+    at fsdp=2 against data=2 (fsdp_report), the model-parallel steps
+    (mp_report, mol_tp_report) and the eval samplers (eval_report). Returns
+    rank 0's launches of the fsdp steps, the model-parallel steps and the
+    eval-protein samples."""
     world = DP["world"]
     t0 = time.perf_counter()
     res = run_ranks(tmp, backend, cards, "--dp-rank", tmp, backend)
@@ -5239,7 +5653,10 @@ def dp_ranks_phase(tmp, backend, cards, smi):
     log(f"[tp] slices 20-21 on {where}: rank 0's one-process references "
         f"{r0['molecule_refs_s']:.1f} s, the tensor=2 steps {r0['molecule_tp_s']:.1f} s")
     mol_tp_report([r["molecule_tp"] for r in res], where, smi)
-    return fsdp, mp
+    log(f"[eval] slice 22 on {where}: rank 0's one-process references "
+        f"{r0['eval_refs_s']:.1f} s, the data=2 and tensor=2 samplers {r0['eval_s']:.1f} s")
+    evals = eval_report([r["eval"] for r in res], where, smi)
+    return fsdp, mp, evals
 
 
 def mp_report(res, seconds, where, tols, smi):
@@ -5429,7 +5846,7 @@ def dp_phases(smi):
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         launches = dp_group_phase(tmp, smi)
-        fsdp_launches, mp_launches = dp_ranks_phase(tmp, "gloo", 1, smi)
+        fsdp_launches, mp_launches, eval_launches = dp_ranks_phase(tmp, "gloo", 1, smi)
         cards = torch.cuda.device_count()
         world = str(DP["world"])
         if cards >= DP["world"]:
@@ -5445,15 +5862,18 @@ def dp_phases(smi):
             dp_torchrun_phase(tmp, smi, "train-molecule-semla", "--tp", world,
                               "--set", "arch=egnn")
             dp_torchrun_phase(tmp, smi, "train-property", "--tp", world, "--linear-probe")
+            eval_torchrun_phase(tmp, smi)
         else:
             log(f"[dp] (c) not run: the NCCL ranks, torchrun train-protein --distributed "
                 f"(without, with --fsdp {world} and with --tp {world}), torchrun "
                 f"train-image --distributed --tp {world} and --sp {world}, and torchrun "
                 f"train-molecule-semla (arch semla and egnn), train-molecule-edm, "
                 f"train-property (and --linear-probe), train-multiflow and train-rdm "
-                f"--distributed --tp {world} need {world} cards (NCCL takes one card a rank) "
-                f"and this machine has {cards}")
-    return launches, fsdp_launches, mp_launches
+                f"--distributed --tp {world}, and torchrun eval-protein --distributed "
+                f"(--dp {world}, --tp {world}), eval-semla, eval-molecule, eval-conditional "
+                f"and eval-multiflow --distributed --tp {world} need {world} cards (NCCL "
+                f"takes one card a rank) and this machine has {cards}")
+    return launches, fsdp_launches, mp_launches, eval_launches
 
 
 # --- phase 16 (slice 17): SiT remat and the fsdp mesh axis -----------------
@@ -5620,7 +6040,8 @@ def main():
     timed(multiflow_phases, smi)
     timed(property_phases, smi)
     guided = timed(slice14_phases, smi)
-    (dp_image, dp_protein), (fsdp_image, fsdp_protein), mp_image = timed(dp_phases, smi)
+    ((dp_image, dp_protein), (fsdp_image, fsdp_protein), mp_image,
+     (eval_dp, eval_tp)) = timed(dp_phases, smi)
     remat_launches = timed(remat_phases, smi)
     kernels = [
         kernel_entry("flash_attention", "reed_tpu/ops/flash_attention.py:24",
@@ -5682,6 +6103,11 @@ def main():
         kernel_entry("K2b_tp", "reed_tpu/ops/fused_message.py:152",
                      tp_rows[(MSG_MAIN, torch.float32, True)]["bwd"], mp_image["protein"][1],
                      source="fused_message"),
+        kernel_entry("K2a_eval_dp", "reed_tpu/ops/fused_message.py:132",
+                     msg_rows[(MSG_EVAL_DP, torch.float32)], eval_dp, source="fused_message"),
+        kernel_entry("K2a_eval_tp", "reed_tpu/ops/fused_message.py:132",
+                     tp_rows[(MSG_MAIN, torch.float32, True)]["fwd"], eval_tp,
+                     source="fused_message"),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -5698,6 +6124,10 @@ if __name__ == "__main__":
         mol_tp_rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
     elif sys.argv[1:2] == ["--mol-tp"]:
         mol_tp_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--eval-rank"]:
+        eval_rank_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--eval"]:
+        eval_main()
     else:
         try:
             main()

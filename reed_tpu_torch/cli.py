@@ -36,28 +36,31 @@
       --num-steps 50 --ckpt-dir out/edm_cond --classifier-ckpt out/clf [--data-dir qm9/] \\
       [--sweep] [--out mols/]
 
-Runs on CUDA unless `--device cpu` is given. Every train-* subcommand and
-generate-image run data-parallel over the ranks torchrun launches with
---distributed (NCCL with one card a rank; gloo with --device cpu): each
-rank takes its rows of the global batch (--batch-size is the global
-batch), rank 0 writes the checkpoints, config.json, metrics.jsonl and the
-`[step N]` lines. With --fsdp F the train-* subcommands also shard Adam's
-moments, the accumulation buffer and the EMA over groups of F ranks
-(--dp D x --fsdp F ranks in all; generate-image splits its batch over all
-of them). train-image and generate-image also take --tp T (each group of T
-ranks splits SiT's heads and MLP, Megatron's tensor parallelism) and --sp
-S (each group of S ranks splits the tokens): --dp x --fsdp x --sp x --tp
-ranks in all, the batch split over --dp x --fsdp. Every other train-*
-subcommand takes --tp T too: train-protein (ProteinMPNN's message chains
-and MLPs), train-molecule-semla (arch semla: SemlaFlow's message MLPs,
-attention heads and feed-forwards; the egnn and eqgat archs run whole on
-every tensor rank), train-molecule-edm and train-property (the EGNN's
-MLPs; --linear-probe runs whole on every tensor rank), train-multiflow
-(the IPA heads and the sequence transformer) and train-rdm (the residual
-blocks' MLPs); every one but train-image raises on --sp above 1 (ROADMAP.md
-Queue 1 item 8b). The eval subcommands take --dp/--fsdp/--tp/--sp and
---distributed as reed_tpu does and raise on more than one process or an
-axis above 1 (ROADMAP.md Queue 1 item 11). Configurations resolve as
+Runs on CUDA unless `--device cpu` is given. Every subcommand but
+compute-fid runs over the ranks torchrun launches with --distributed (NCCL
+with one card a rank; gloo with --device cpu), laid out on reed_tpu's mesh
+(--dp D x --fsdp F x --sp S x --tp T ranks): each batch splits over the D x
+F batch indices (--batch-size, --n-samples and --num-samples are global)
+and each group of T ranks splits the model (Megatron's tensor
+parallelism): SiT's heads and MLP (train-image, generate-image),
+ProteinMPNN's message chains and MLPs (train-protein, eval-protein),
+SemlaFlow's message MLPs, attention heads and feed-forwards
+(train-molecule-semla, eval-semla, arch semla; the egnn and eqgat archs run
+whole on every tensor rank), the EGNN's MLPs (train-molecule-edm,
+train-property, eval-molecule, eval-conditional: the EDM and the
+classifier; --linear-probe runs whole on every tensor rank), the IPA heads
+and sequence transformer (train-multiflow, eval-multiflow) and the RDM's
+residual blocks (train-rdm). --sp S (each group of S ranks splits the
+tokens) runs on SiT alone; every other subcommand raises on it. The
+train-* subcommands hold the optimizer state of one data index (--fsdp
+shards Adam's moments, the accumulation buffer and the EMA over groups of
+F ranks) and need the batch to divide; rank 0 writes the checkpoints,
+config.json, metrics.jsonl and the `[step N]` lines. The eval subcommands
+draw every random number at the global batch, as generate-image does, so a
+sharded run equals one process's; their batches need not divide (the
+first batch indices take a row more, as np.array_split splits, and one
+with none joins the gathers), and rank 0 alone scores the gathered
+samples, prints and writes. Configurations resolve as
 reed_tpu's: the dataclass defaults, then `--config` (a JSON tree such as
 recipes/image_sitxl_reed.json), then the explicit flags, then `--set`.
 generate-image and train-image use reed_tpu's image default
@@ -97,6 +100,7 @@ scores it with the classifier's EMA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -109,14 +113,14 @@ from torch.profiler import record_function
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
 from reed_tpu_torch.parallel.mesh import (EGNN_AXES, IPA_AXES, PMPNN_AXES, RDM_AXES,
-                                         SEMLA_AXES, SIT_AXES, local_batch)
+                                         SEMLA_AXES, SIT_AXES, local_batch, shard_state_dict)
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
     """defaults <- --config file <- the explicit flags given (and the mesh
     flags) <- --set. With --distributed, joins torchrun's process group
-    first (parallel.mesh.init_distributed). A subcommand that does not run
-    data-parallel raises on more than one process or a mesh axis above 1."""
+    first (parallel.mesh.init_distributed); the mesh must fit the ranks
+    that run (parallel.mesh.check_mesh, with the subcommand's model axes)."""
     from reed_tpu_torch.parallel import mesh as meshlib
 
     if args.distributed:
@@ -130,11 +134,6 @@ def _resolve_cfg(cls, args, flags, defaults=None):
     cfg = configlib.merge(cfg, {k: v for k, v in flags.items() if v is not None})
     cfg = configlib.apply_overrides(cfg, args.overrides)
     world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
-    if not args.data_parallel and (world > 1 or (cfg.mesh.data or 1) > 1
-                                   or (cfg.mesh.fsdp or 1) > 1):
-        raise NotImplementedError(
-            f"{args.cmd} runs on one process: data-parallel evaluation is ROADMAP.md "
-            "Queue 1 item 11")
     meshlib.check_mesh(cfg.mesh, world, axes=args.model_axes)
     return cfg
 
@@ -263,12 +262,35 @@ def compute_fid(args):
     return fid
 
 
+@contextlib.contextmanager
+def _main_prints(dp):
+    """Under a process group every rank but process rank 0 prints nothing
+    inside the block: rank 0 alone reports, scores and writes."""
+    if dp is None or dp.is_main:
+        yield
+        return
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        yield
+
+
+def _ranks(dp) -> str:
+    """The ranks a sharded eval runs on, for its speed line."""
+    if dp is None:
+        return "1 process"
+    return (f"{dp.world * dp.seq * dp.tensor} ranks: {dp.world} batch indices x tensor "
+            f"{dp.tensor}")
+
+
 def eval_protein(args):
     """Inverse-folding eval: Euler-unmask sampling conditioned on backbones
     and sequence recovery against the native sequence, on a synthetic batch
-    or on the valid split under --data-dir."""
+    or on the valid split under --data-dir. Under --distributed each batch
+    splits over the data x fsdp batch indices (batches need not divide) and
+    the tensor ranks split the model (PMPNN_TP_RULES); rank 0 scores the
+    gathered batch."""
     from reed_tpu_torch.eval.protein_metrics import (sequence_recovery,
                                                      tokens_to_sequence)
+    from reed_tpu_torch.parallel.mesh import PMPNN_TP_RULES, data_parallel, run_rows
     from reed_tpu_torch.train.protein import (ProteinTrainConfig, build_model,
                                               sample, synthetic_protein_batch)
 
@@ -278,78 +300,83 @@ def eval_protein(args):
                         "compute_dtype": args.dtype, "fused_messages": args.fused_messages},
                        defaults={"batch_size": 4})
     cfg = configlib.merge(cfg, {"interpolant": {"num_timesteps": args.num_steps}})
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    if args.ref_ckpt:
-        from reed_tpu_torch.encoders.fmif_convert import load_reference_checkpoint
+    dp = data_parallel(cfg.mesh, axes=PMPNN_AXES)
 
-        # model flags must match the checkpoint (--set)
-        model.load_state_dict(load_reference_checkpoint(args.ref_ckpt))
-        print(f"loaded reference checkpoint {args.ref_ckpt}")
-    elif args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
+    def shard(sd):
+        return shard_state_dict(sd, dp, PMPNN_TP_RULES)
 
-    def run(batch):
-        """(pred, tokens) of one batch, with its seconds to the last token."""
-        synchronize(device)
-        t0 = time.perf_counter()
-        pred, tokens = sample(
-            model, batch, torch.Generator(device=device).manual_seed(cfg.seed + 1),
-            cfg.interpolant)
-        synchronize(device)
-        return pred.cpu().numpy(), tokens.cpu().numpy(), time.perf_counter() - t0
+    with _main_prints(dp):
+        model = build_model(cfg, device=device, parallel=dp,
+                            generator=torch.Generator(device=device).manual_seed(cfg.seed))
+        if args.ref_ckpt:
+            from reed_tpu_torch.encoders.fmif_convert import load_reference_checkpoint
 
-    def report_speed(n_seqs, n_batches, seconds):
-        steps = n_batches * (cfg.interpolant.num_timesteps - 1)
-        print(f"{n_seqs / seconds:.3f} sequences/s, {1e3 * seconds / max(steps, 1):.3f} "
-              f"ms per decoder step (encoder once per batch included; "
-              f"{n_batches} batches, {device}, {cfg.compute_dtype}, "
-              f"fused={model.fused})")
+            # model flags must match the checkpoint (--set)
+            model.load_state_dict(shard(load_reference_checkpoint(args.ref_ckpt)))
+            print(f"loaded reference checkpoint {args.ref_ckpt}")
+        elif args.ckpt_dir:
+            _load_ema(model, args.ckpt_dir, shard=shard)
 
-    if args.data_dir:
-        from reed_tpu_torch.data.protein import (PDBParams, build_training_clusters,
-                                                 sample_cluster_chains,
-                                                 token_bucket_batches)
+        def run(batch):
+            """(pred, tokens) of one global batch, with its seconds to the last
+            token (this rank's rows sampled, every row gathered)."""
+            synchronize(device)
+            t0 = time.perf_counter()
+            pred, tokens = run_rows(dp, batch["S"].shape[0], batch, lambda rows: sample(
+                model, rows, torch.Generator(device=device).manual_seed(cfg.seed + 1),
+                cfg.interpolant))
+            synchronize(device)
+            return pred.cpu().numpy(), tokens.cpu().numpy(), time.perf_counter() - t0
 
-        params = PDBParams(args.data_dir)
-        _, valid_clusters, _ = build_training_clusters(params)
-        entries = sample_cluster_chains(np.random.default_rng(cfg.seed),
-                                        valid_clusters, params,
-                                        max_length=cfg.max_len,
-                                        limit=args.max_chains)
-        if not entries:
-            raise SystemExit(f"no valid-split chains under {args.data_dir}")
-        recs, weights, sample_seq = [], [], None
-        n_seqs, n_batches, seconds = 0, 0, 0.0
-        for arrays in token_bucket_batches(entries):
-            batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-            pred, tokens, sec = run(batch)
-            n_seqs, n_batches, seconds = n_seqs + len(pred), n_batches + 1, seconds + sec
-            m = arrays["mask"] * arrays["chain_M"]
-            recs.append(sequence_recovery(pred, arrays["S"], m))
-            weights.append(m.sum())
-            if sample_seq is None:
-                sample_seq = tokens_to_sequence(tokens[0], arrays["mask"][0])
-        report_speed(n_seqs, n_batches, seconds)
-        print(json.dumps({
-            "split": "valid",
-            "num_chains": len(entries),
-            "sequence_recovery": float(np.average(recs, weights=weights)),
-            "sample_0": sample_seq[:80],
-        }, indent=2))
-        return
+        def report_speed(n_seqs, n_batches, seconds):
+            steps = n_batches * (cfg.interpolant.num_timesteps - 1)
+            print(f"{n_seqs / seconds:.3f} sequences/s, {1e3 * seconds / max(steps, 1):.3f} "
+                  f"ms per decoder step (encoder once per batch included; "
+                  f"{n_batches} batches, {device}, {cfg.compute_dtype}, "
+                  f"fused={model.fused}, {_ranks(dp)})")
 
-    batch = synthetic_protein_batch(
-        torch.Generator(device=device).manual_seed(cfg.seed), cfg.batch_size,
-        args.length)
-    pred, tokens, seconds = run(batch)
-    report_speed(len(pred), 1, seconds)
-    mask = (batch["mask"] * batch["chain_M"]).cpu().numpy()
-    print(json.dumps({
-        "split": "synthetic",
-        "sequence_recovery": sequence_recovery(pred, batch["S"].cpu().numpy(), mask),
-        "sample_0": tokens_to_sequence(tokens[0], batch["mask"][0].cpu().numpy())[:80],
-    }, indent=2))
+        if args.data_dir:
+            from reed_tpu_torch.data.protein import (PDBParams, build_training_clusters,
+                                                     sample_cluster_chains,
+                                                     token_bucket_batches)
+
+            params = PDBParams(args.data_dir)
+            _, valid_clusters, _ = build_training_clusters(params)
+            entries = sample_cluster_chains(np.random.default_rng(cfg.seed),
+                                            valid_clusters, params,
+                                            max_length=cfg.max_len,
+                                            limit=args.max_chains)
+            if not entries:
+                raise SystemExit(f"no valid-split chains under {args.data_dir}")
+            recs, weights, sample_seq = [], [], None
+            n_seqs, n_batches, seconds = 0, 0, 0.0
+            for arrays in token_bucket_batches(entries):
+                batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+                pred, tokens, sec = run(batch)
+                n_seqs, n_batches, seconds = n_seqs + len(pred), n_batches + 1, seconds + sec
+                m = arrays["mask"] * arrays["chain_M"]
+                recs.append(sequence_recovery(pred, arrays["S"], m))
+                weights.append(m.sum())
+                if sample_seq is None:
+                    sample_seq = tokens_to_sequence(tokens[0], arrays["mask"][0])
+            report_speed(n_seqs, n_batches, seconds)
+            out = {"split": "valid", "num_chains": len(entries),
+                   "sequence_recovery": float(np.average(recs, weights=weights)),
+                   "sample_0": sample_seq[:80]}
+        else:
+            batch = synthetic_protein_batch(
+                torch.Generator(device=device).manual_seed(cfg.seed), cfg.batch_size,
+                args.length)
+            pred, tokens, seconds = run(batch)
+            report_speed(len(pred), 1, seconds)
+            mask = (batch["mask"] * batch["chain_M"]).cpu().numpy()
+            out = {"split": "synthetic",
+                   "sequence_recovery": sequence_recovery(pred, batch["S"].cpu().numpy(),
+                                                          mask),
+                   "sample_0": tokens_to_sequence(tokens[0],
+                                                  batch["mask"][0].cpu().numpy())[:80]}
+        print(json.dumps(out, indent=2))
+    return out if dp is None or dp.is_main else None
 
 
 def _start_profile(device):
@@ -743,100 +770,119 @@ def eval_semla(args):
     over the predicted graphs (GraphMoleculeMetrics), mean and std over the
     replicates (reference protocol: molecule/semlaflow/evaluate.py:22-120).
     Prints molecules/s and ms per integrator step, then the JSON summary;
-    --out writes replicate 0 as .xyz and predicted-bond .sdf files."""
+    --out writes replicate 0 as .xyz and predicted-bond .sdf files. Under
+    --distributed each batch (the prior and reps drawn for the whole batch
+    on every rank) splits over the data x fsdp batch indices and the tensor
+    ranks split arch semla (SEMLA_TP_RULES; egnn and eqgat run whole on
+    every tensor rank); rank 0 scores and writes the gathered molecules."""
     from reed_tpu_torch.data.molecule import CORE_ATOMS, OTHER_ATOMS
     from reed_tpu_torch.eval.molecule_metrics import (SEMLA_IDX_CHARGES,
                                                       GraphMoleculeMetrics)
     from reed_tpu_torch.eval.visualize import save_sdf_file, save_xyz_file
-    from reed_tpu_torch.train.molecule_semla import (SemlaTrainConfig, SemlaTrainer,
-                                                     build_model)
+    from reed_tpu_torch.parallel.mesh import SEMLA_TP_RULES, data_parallel, run_rows
+    from reed_tpu_torch.train.molecule_semla import (SemlaTrainConfig, build_model, generate,
+                                                     sample_prior)
 
     device = resolve_device(args.device)
     cfg = _resolve_cfg(SemlaTrainConfig, args,
                        {"batch_size": args.batch_size, "seed": args.seed},
                        defaults={"batch_size": 16})
     cfg = configlib.merge(cfg, {"integrator": {"steps": args.num_steps}})
-    trainer = SemlaTrainer(cfg, device=device)
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    if args.ref_ckpt:
-        _semla_ref_ckpt(model, args.ref_ckpt)
-        print(f"loaded reference checkpoint {args.ref_ckpt}")
-    elif args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
-    model.eval()
+    dp = data_parallel(cfg.mesh, axes=SEMLA_AXES)
+    main = dp is None or dp.is_main
+    with _main_prints(dp):
+        model = build_model(cfg, device=device, parallel=dp,
+                            generator=torch.Generator(device=device).manual_seed(cfg.seed))
+        if args.ref_ckpt:
+            _semla_ref_ckpt(model, args.ref_ckpt, dp)
+            print(f"loaded reference checkpoint {args.ref_ckpt}")
+        elif args.ckpt_dir:
+            _load_ema(model, args.ckpt_dir,
+                      shard=lambda sd: shard_state_dict(sd, dp, SEMLA_TP_RULES))
+        model.eval()
 
-    # the default decoder is the semla vocab (PAD/MASK + 16 elements); a
-    # molecule with a PAD/MASK type scores as invalid
-    if args.atom_decoder:
-        decoder, first_real = tuple(args.atom_decoder.split(",")), 0
-    else:
-        decoder, first_real = tuple(["H", "H"] + CORE_ATOMS + OTHER_ATOMS), 2
-    metrics_eval = GraphMoleculeMetrics(atom_decoder=decoder, dataset=args.dataset)
-    charge_map = np.asarray(SEMLA_IDX_CHARGES, np.int64)
-    # scored in place of a molecule with PAD/MASK predictions: two distant
-    # unbonded H atoms (unstable, disconnected, invalid)
-    invalid_mol = (np.array([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]], np.float32),
-                   np.array([decoder.index("H")] * 2), np.zeros((2, 2), np.int64),
-                   np.zeros(2, np.int64))
-    coord_std = args.coord_std if args.coord_std is not None else 1.0
+        # the default decoder is the semla vocab (PAD/MASK + 16 elements); a
+        # molecule with a PAD/MASK type scores as invalid
+        if args.atom_decoder:
+            decoder, first_real = tuple(args.atom_decoder.split(",")), 0
+        else:
+            decoder, first_real = tuple(["H", "H"] + CORE_ATOMS + OTHER_ATOMS), 2
+        metrics_eval = GraphMoleculeMetrics(atom_decoder=decoder, dataset=args.dataset)
+        charge_map = np.asarray(SEMLA_IDX_CHARGES, np.int64)
+        # scored in place of a molecule with PAD/MASK predictions: two distant
+        # unbonded H atoms (unstable, disconnected, invalid)
+        invalid_mol = (np.array([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]], np.float32),
+                       np.array([decoder.index("H")] * 2), np.zeros((2, 2), np.int64),
+                       np.zeros(2, np.int64))
+        coord_std = args.coord_std if args.coord_std is not None else 1.0
 
-    replicates, n_mols, n_batches, seconds = [], 0, 0, 0.0
-    for rep_i in range(args.n_replicates):
-        rng_np = np.random.default_rng(1000 + rep_i)
-        mols, done = [], 0
-        while done < args.n_samples:
-            bs = min(cfg.batch_size, args.n_samples - done)
-            sizes = rng_np.integers(args.n_atoms_min, args.n_atoms_max + 1, size=bs)
-            mask = (np.arange(cfg.max_atoms)[None, :] < sizes[:, None]).astype(np.float32)
-            prior = trainer.sample_prior(rng_np, mask)
-            rep = (torch.from_numpy(rng_np.standard_normal((bs, cfg.d_rep)).astype(
-                np.float32)).to(device) if cfg.d_rep and cfg.cond_type != "none" else None)
-            synchronize(device)
-            t0 = time.perf_counter()
-            final = trainer.generate(
-                model, prior, rep=rep, sampling_strategy=args.sampling_strategy,
-                generator=torch.Generator(device=device).manual_seed(rep_i * 1000 + done))
-            out = {k: v.cpu().numpy() for k, v in final.items()}
-            seconds += time.perf_counter() - t0
-            n_mols, n_batches = n_mols + bs, n_batches + 1
-            coords = out["coords"] * coord_std
-            types = np.argmax(out["atomics"], axis=-1)
-            bonds = np.argmax(out["bonds"], axis=-1)
-            charges = charge_map[np.argmax(out["charges"], axis=-1)]
-            for b in range(bs):
-                n_b = sizes[b]
-                t_b = types[b, :n_b]
-                if (t_b < first_real).any() or (t_b >= len(decoder)).any():
-                    mols.append(invalid_mol)
-                else:
-                    mols.append((coords[b, :n_b], t_b, bonds[b, :n_b, :n_b],
-                                 charges[b, :n_b]))
-                if args.out and rep_i == 0:
-                    idx = done + b
-                    save_xyz_file(os.path.join(args.out, f"mol_{idx:04d}.xyz"),
-                                  coords[b, :n_b], types[b, :n_b], decoder)
-                    save_sdf_file(os.path.join(args.out, f"mol_{idx:04d}.sdf"),
-                                  coords[b, :n_b], types[b, :n_b], bonds[b, :n_b, :n_b],
-                                  decoder, name=f"mol_{idx}")
-            done += bs
-        replicates.append(metrics_eval.evaluate(mols))
+        def run(batch, seed):
+            """The final molecules of one global batch (this rank's rows
+            integrated)."""
+            return run_rows(dp, batch["prior"]["coords"].shape[0], batch, lambda rows: generate(
+                model, cfg, rows["prior"], rep=rows["rep"],
+                sampling_strategy=args.sampling_strategy,
+                generator=torch.Generator(device=device).manual_seed(seed)))
 
-    print(f"{n_mols / seconds:.3f} molecules/s, "
-          f"{1e3 * seconds / (n_batches * cfg.integrator.steps):.3f} ms per integrator "
-          f"step ({n_batches} batches of up to {cfg.batch_size}, padded to max_atoms "
-          f"{cfg.max_atoms}, {device})")
-    summary = {}
-    for k in replicates[0]:
-        vals = [r[k] for r in replicates]
-        if isinstance(vals[0], bool):  # the 'rdkit' semantics marker
-            summary[k] = vals[0]
-            continue
-        summary[k] = float(np.mean(vals))
-        summary[f"{k}_std"] = float(np.std(vals))
-    summary.update(n_replicates=args.n_replicates, n_samples=args.n_samples,
-                   num_steps=args.num_steps)
-    print(json.dumps(summary))
+        replicates, n_mols, n_batches, seconds = [], 0, 0, 0.0
+        for rep_i in range(args.n_replicates):
+            rng_np = np.random.default_rng(1000 + rep_i)
+            mols, done = [], 0
+            while done < args.n_samples:
+                bs = min(cfg.batch_size, args.n_samples - done)
+                sizes = rng_np.integers(args.n_atoms_min, args.n_atoms_max + 1, size=bs)
+                mask = (np.arange(cfg.max_atoms)[None, :] < sizes[:, None]).astype(np.float32)
+                prior = sample_prior(cfg, rng_np, mask, device)
+                rep = (torch.from_numpy(rng_np.standard_normal((bs, cfg.d_rep)).astype(
+                    np.float32)).to(device) if cfg.d_rep and cfg.cond_type != "none" else None)
+                synchronize(device)
+                t0 = time.perf_counter()
+                final = run({"prior": prior, "rep": rep}, rep_i * 1000 + done)
+                out = {k: v.cpu().numpy() for k, v in final.items()}
+                seconds += time.perf_counter() - t0
+                n_mols, n_batches = n_mols + bs, n_batches + 1
+                done += bs
+                if not main:
+                    continue
+                coords = out["coords"] * coord_std
+                types = np.argmax(out["atomics"], axis=-1)
+                bonds = np.argmax(out["bonds"], axis=-1)
+                charges = charge_map[np.argmax(out["charges"], axis=-1)]
+                for b in range(bs):
+                    n_b = sizes[b]
+                    t_b = types[b, :n_b]
+                    if (t_b < first_real).any() or (t_b >= len(decoder)).any():
+                        mols.append(invalid_mol)
+                    else:
+                        mols.append((coords[b, :n_b], t_b, bonds[b, :n_b, :n_b],
+                                     charges[b, :n_b]))
+                    if args.out and rep_i == 0:
+                        idx = done - bs + b
+                        save_xyz_file(os.path.join(args.out, f"mol_{idx:04d}.xyz"),
+                                      coords[b, :n_b], types[b, :n_b], decoder)
+                        save_sdf_file(os.path.join(args.out, f"mol_{idx:04d}.sdf"),
+                                      coords[b, :n_b], types[b, :n_b], bonds[b, :n_b, :n_b],
+                                      decoder, name=f"mol_{idx}")
+            if main:
+                replicates.append(metrics_eval.evaluate(mols))
+
+        print(f"{n_mols / seconds:.3f} molecules/s, "
+              f"{1e3 * seconds / (n_batches * cfg.integrator.steps):.3f} ms per integrator "
+              f"step ({n_batches} batches of up to {cfg.batch_size}, padded to max_atoms "
+              f"{cfg.max_atoms}, {device}, {_ranks(dp)})")
+        if not main:
+            return None
+        summary = {}
+        for k in replicates[0]:
+            vals = [r[k] for r in replicates]
+            if isinstance(vals[0], bool):  # the 'rdkit' semantics marker
+                summary[k] = vals[0]
+                continue
+            summary[k] = float(np.mean(vals))
+            summary[f"{k}_std"] = float(np.std(vals))
+        summary.update(n_replicates=args.n_replicates, n_samples=args.n_samples,
+                       num_steps=args.num_steps)
+        print(json.dumps(summary))
     return summary
 
 
@@ -948,105 +994,122 @@ def eval_molecule(args):
     from reed_tpu_torch.eval.rep_samplers import GtSampler
     from reed_tpu_torch.eval.two_stage import (TwoStageSampler, evaluate_replicates,
                                                molecules_from_samples)
-    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
-                                                   build_dynamics)
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, data_parallel
+    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, build_dynamics,
+                                                   sample)
 
     device = resolve_device(args.device)
     cfg = _resolve_cfg(MoleculeEDMConfig, args,
                        {"batch_size": args.batch_size, "seed": args.seed},
                        defaults={"batch_size": 16, "edm": {"timesteps": args.num_steps}})
-    trainer = MoleculeEDMTrainer(cfg, device=device)
-    model = build_dynamics(cfg, device=device,
-                           generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    gamma = None
-    if args.ref_ckpt:
-        gamma = _edm_ref_ckpt(model, args.ref_ckpt, device)
-        print(f"loaded reference torch checkpoint {args.ref_ckpt}"
-              + (" (learned gamma)" if gamma is not None else ""))
-    elif args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
-    model.eval()
+    dp = data_parallel(cfg.mesh, axes=EGNN_AXES)
+    main = dp is None or dp.is_main
+    with _main_prints(dp):
+        model = build_dynamics(cfg, device=device, parallel=dp,
+                               generator=torch.Generator(device=device).manual_seed(cfg.seed))
+        gamma = None
+        if args.ref_ckpt:
+            gamma = _edm_ref_ckpt(model, args.ref_ckpt, device, dp)
+            print(f"loaded reference torch checkpoint {args.ref_ckpt}"
+                  + (" (learned gamma)" if gamma is not None else ""))
+        elif args.ckpt_dir:
+            _load_ema(model, args.ckpt_dir,
+                      shard=lambda sd: shard_state_dict(sd, dp, EGNN_TP_RULES))
+        model.eval()
 
-    np_rng = np.random.default_rng(cfg.seed)
-    reps_path = os.path.join(args.data_dir, "reps.npy") if args.data_dir else None
-    if reps_path and os.path.exists(reps_path):
-        reps = np.load(reps_path).astype(np.float32)
-        sizes = np.load(os.path.join(args.data_dir, "sizes.npy"))
-        if reps.shape[1] != cfg.rep_nf:
-            raise ValueError(f"{reps_path}: reps of width {reps.shape[1]}, the model "
-                             f"takes rep_nf {cfg.rep_nf}")
-        print(f"GtSampler over {len(reps)} dataset reps from {args.data_dir}")
-    else:
+        np_rng = np.random.default_rng(cfg.seed)
+        reps_path = os.path.join(args.data_dir, "reps.npy") if args.data_dir else None
+        if reps_path and os.path.exists(reps_path):
+            reps = np.load(reps_path).astype(np.float32)
+            sizes = np.load(os.path.join(args.data_dir, "sizes.npy"))
+            if reps.shape[1] != cfg.rep_nf:
+                raise ValueError(f"{reps_path}: reps of width {reps.shape[1]}, the model "
+                                 f"takes rep_nf {cfg.rep_nf}")
+            print(f"GtSampler over {len(reps)} dataset reps from {args.data_dir}")
+        else:
+            if args.data_dir:
+                print(f"WARNING: no reps.npy under {args.data_dir}; using random stand-in reps")
+            reps = (np_rng.standard_normal((256, cfg.rep_nf)).astype(np.float32)
+                    if cfg.rep_nf is not None else None)
+            sizes = np_rng.integers(cfg.max_nodes // 2, cfg.max_nodes + 1, 256)
+        sizes = np.minimum(sizes.astype(np.int64), cfg.max_nodes)
+        rep_sampler = GtSampler(reps, sizes) if cfg.rep_nf is not None else None
+        if args.rdm_ref_ckpt:
+            # two-stage eval with a reference RDM as the rep sampler (reference:
+            # eval_src/eval_analyze.py DDIMSampler path), whole on every rank
+            rep_sampler = _rdm_rep_sampler(args.rdm_ref_ckpt, cfg, device)
+            print(f"DDIM rep sampler from the reference RDM {args.rdm_ref_ckpt}")
+        node_dist = DistributionNodes({int(s): float((sizes == s).sum())
+                                       for s in np.unique(sizes)})
+
+        clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
+
+        def mol_sampler(node_mask, edge_mask, rep, r):
+            """This rank's rows of the replicate's molecules, timed (the global
+            batch's molecules counted)."""
+            synchronize(device)
+            t0 = time.perf_counter()
+            out = sample(cfg, model, node_mask, edge_mask, rep=rep, cfg_scale=cfg.edm.cfg_scale,
+                         gamma=gamma, generator=torch.Generator(device=device).manual_seed(
+                             cfg.seed + r))
+            synchronize(device)
+            clock["seconds"] += time.perf_counter() - t0
+            clock["molecules"] += cfg.batch_size
+            clock["batches"] += 1
+            return out
+
+        def sample_replicate(r):
+            nodes = node_dist.sample(np_rng, cfg.batch_size)
+            sampler = TwoStageSampler(rep_sampler,
+                                      lambda nm, em, rep: mol_sampler(nm, em, rep, r), dp=dp)
+            # reed_tpu's GtSampler draws from default_rng(seed + replicate)
+            x, h_cat, _, node_mask = sampler.sample(np.random.default_rng(cfg.seed + r),
+                                                    nodes, cfg.max_nodes, device=device)
+            return molecules_from_samples(x, h_cat, node_mask)
+
+        if main:
+            out = evaluate_replicates(sample_replicate, MoleculeMetrics(),
+                                      n_replicates=args.n_replicates)
+        else:
+            for r in range(args.n_replicates):
+                sample_replicate(r)
+        steps = (cfg.efm.ode_steps * (4 if cfg.efm.ode_method == "rk4" else 1)
+                 if cfg.probabilistic_model == "fm" else cfg.edm.timesteps + 1)
+        print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
+              f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
+              f"evaluation ({clock['batches']} batches of {cfg.batch_size}, {steps} "
+              f"evaluations a batch, {cfg.probabilistic_model}, {device}, {_ranks(dp)})")
+
+        if args.out:
+            # one replicate as xyz + 3D PNG renders (reference:
+            # eval_src/{eval_visualize_samples,process_uncondition_random}.py)
+            decoder = QM9_ATOM_DECODER if cfg.num_atom_types <= 5 else GEOM_ATOM_DECODER
+            molecules = sample_replicate(0)[:100]
+            if main:
+                _write_molecules(args.out, molecules, decoder)
         if args.data_dir:
-            print(f"WARNING: no reps.npy under {args.data_dir}; using random stand-in reps")
-        reps = (np_rng.standard_normal((256, cfg.rep_nf)).astype(np.float32)
-                if cfg.rep_nf is not None else None)
-        sizes = np_rng.integers(cfg.max_nodes // 2, cfg.max_nodes + 1, 256)
-    sizes = np.minimum(sizes.astype(np.int64), cfg.max_nodes)
-    rep_sampler = GtSampler(reps, sizes) if cfg.rep_nf is not None else None
-    if args.rdm_ref_ckpt:
-        # two-stage eval with a reference RDM as the rep sampler (reference:
-        # eval_src/eval_analyze.py DDIMSampler path)
-        rep_sampler = _rdm_rep_sampler(args.rdm_ref_ckpt, cfg, device)
-        print(f"DDIM rep sampler from the reference RDM {args.rdm_ref_ckpt}")
-    node_dist = DistributionNodes({int(s): float((sizes == s).sum()) for s in np.unique(sizes)})
+            # the MOSES block and the MiDi distances against the held-out test
+            # split (reference: eval_src/evaluation/molsets.py get_all_metrics)
+            from reed_tpu_torch.data.molecule import load_dataset
+            from reed_tpu_torch.eval.midi_metrics import midi_sampling_metrics
+            from reed_tpu_torch.eval.molsets import geometric_mols_from_samples, moses_metrics
 
-    clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
-
-    def mol_sampler(node_mask, edge_mask, rep, r):
-        synchronize(device)
-        t0 = time.perf_counter()
-        out = trainer.sample(model, node_mask, edge_mask, rep=rep, cfg_scale=cfg.edm.cfg_scale,
-                             gamma=gamma, generator=torch.Generator(device=device).manual_seed(
-                                 cfg.seed + r))
-        synchronize(device)
-        clock["seconds"] += time.perf_counter() - t0
-        clock["molecules"] += node_mask.shape[0]
-        clock["batches"] += 1
-        return out
-
-    def sample_replicate(r):
-        nodes = node_dist.sample(np_rng, cfg.batch_size)
-        sampler = TwoStageSampler(rep_sampler, lambda nm, em, rep: mol_sampler(nm, em, rep, r))
-        # reed_tpu's GtSampler draws from default_rng(seed + replicate)
-        x, h_cat, _, node_mask = sampler.sample(np.random.default_rng(cfg.seed + r), nodes,
-                                                cfg.max_nodes, device=device)
-        return molecules_from_samples(x, h_cat, node_mask)
-
-    out = evaluate_replicates(sample_replicate, MoleculeMetrics(),
-                              n_replicates=args.n_replicates)
-    steps = (cfg.efm.ode_steps * (4 if cfg.efm.ode_method == "rk4" else 1)
-             if cfg.probabilistic_model == "fm" else cfg.edm.timesteps + 1)
-    print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
-          f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
-          f"evaluation ({clock['batches']} batches of {cfg.batch_size}, {steps} evaluations "
-          f"a batch, {cfg.probabilistic_model}, {device})")
-
-    if args.out:
-        # one replicate as xyz + 3D PNG renders (reference:
-        # eval_src/{eval_visualize_samples,process_uncondition_random}.py)
-        decoder = QM9_ATOM_DECODER if cfg.num_atom_types <= 5 else GEOM_ATOM_DECODER
-        _write_molecules(args.out, sample_replicate(0)[:100], decoder)
-    if args.data_dir:
-        # the MOSES block and the MiDi distances against the held-out test
-        # split (reference: eval_src/evaluation/molsets.py get_all_metrics)
-        from reed_tpu_torch.data.molecule import load_dataset
-        from reed_tpu_torch.eval.midi_metrics import midi_sampling_metrics
-        from reed_tpu_torch.eval.molsets import geometric_mols_from_samples, moses_metrics
-
-        try:
-            test_mols = load_dataset(_find_split(args.data_dir, "test"))
-        except FileNotFoundError:
-            test_mols = None
-        if test_mols:
-            gen_mols = geometric_mols_from_samples(sample_replicate(args.n_replicates),
-                                                   QM9_ATOM_DECODER)
-            out["moses"] = moses_metrics(gen_mols, test_mols, vocab_tokens=QM9_ATOM_DECODER,
-                                         device=device)
-            # the test split must use the sampler's atom-type index space
-            out["midi"] = midi_sampling_metrics(gen_mols, test_mols,
-                                                num_atom_types=len(QM9_ATOM_DECODER))
-    print(json.dumps(out, indent=2))
+            try:
+                test_mols = load_dataset(_find_split(args.data_dir, "test"))
+            except FileNotFoundError:
+                test_mols = None
+            if test_mols:
+                molecules = sample_replicate(args.n_replicates)
+                if main:
+                    gen_mols = geometric_mols_from_samples(molecules, QM9_ATOM_DECODER)
+                    out["moses"] = moses_metrics(gen_mols, test_mols,
+                                                 vocab_tokens=QM9_ATOM_DECODER, device=device)
+                    # the test split must use the sampler's atom-type index space
+                    out["midi"] = midi_sampling_metrics(gen_mols, test_mols,
+                                                        num_atom_types=len(QM9_ATOM_DECODER))
+        if not main:
+            return None
+        print(json.dumps(out, indent=2))
     return out
 
 
@@ -1173,130 +1236,153 @@ def eval_conditional(args):
     its EMA weights). --sweep takes one size and a linspace of targets.
     Prints molecules/s and ms per network evaluation, then reed_tpu's
     JSON; --out writes the first replicate as .xyz (the target in the
-    comment) and 3D PNG renders, and property_values.log."""
+    comment) and 3D PNG renders, and property_values.log. Under
+    --distributed the sizes and targets are drawn for the whole replicate
+    on every rank, each batch index samples and scores its rows, the
+    tensor ranks split the EDM and the classifier (EGNN_TP_RULES), as
+    reed_tpu builds both on its mesh; rank 0 scores the gathered
+    predictions and writes."""
     from reed_tpu_torch.data.molecule import QM9_ATOM_DECODER
     from reed_tpu_torch.eval.molecule_metrics import DistributionNodes, DistributionProperty
     from reed_tpu_torch.models.property_classifier import conditional_generation_mae
+    from reed_tpu_torch.parallel.mesh import EGNN_TP_RULES, data_parallel, run_rows
     from reed_tpu_torch.train import property as property_train
-    from reed_tpu_torch.train.molecule_edm import (MoleculeEDMConfig, MoleculeEDMTrainer,
-                                                   build_dynamics)
+    from reed_tpu_torch.train.molecule_edm import MoleculeEDMConfig, build_dynamics, sample
 
     device = resolve_device(args.device)
     np_rng = np.random.default_rng(args.seed or 0)
     gen_cfg = _resolve_cfg(MoleculeEDMConfig, args, {"seed": args.seed},
                            defaults={"batch_size": args.n_samples, "context_node_nf": 1,
                                      "edm": {"timesteps": args.num_steps}})
-    trainer = MoleculeEDMTrainer(gen_cfg, device=device)
-    model = build_dynamics(gen_cfg, device=device,
-                           generator=torch.Generator(device=device).manual_seed(gen_cfg.seed))
-    if args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
-    model.eval()
+    dp = data_parallel(gen_cfg.mesh, axes=EGNN_AXES)
+    main = dp is None or dp.is_main
 
-    # property and size distributions from the train split where there is one
-    if args.data_dir:
-        from reed_tpu_torch.data.molecule import load_qm9_edm_npz
+    def shard(sd):
+        return shard_state_dict(sd, dp, EGNN_TP_RULES)
 
-        data = load_qm9_edm_npz(_find_split(args.data_dir, "train"))
-        sizes_src = np.minimum(np.asarray(data["num_atoms"], np.int64), gen_cfg.max_nodes)
-        values = np.asarray(data[args.property], np.float64)
-        mean, mad = property_train.compute_mean_mad(values)
-    else:
-        sizes_src = np_rng.integers(gen_cfg.max_nodes // 2, gen_cfg.max_nodes + 1, 512)
-        values = np_rng.standard_normal(512)
-        mean, mad = 0.0, 1.0
-    node_dist = DistributionNodes({int(s): float((sizes_src == s).sum())
-                                   for s in np.unique(sizes_src)})
-    prop_dist = DistributionProperty(sizes_src, values)
+    with _main_prints(dp):
+        model = build_dynamics(gen_cfg, device=device, parallel=dp,
+                               generator=torch.Generator(device=device).manual_seed(gen_cfg.seed))
+        if args.ckpt_dir:
+            _load_ema(model, args.ckpt_dir, shard=shard)
+        model.eval()
 
-    clf_cfg = property_train.PropertyTrainConfig(
-        property=args.property, mean=mean, mad=mad, num_atom_types=gen_cfg.num_atom_types,
-        max_nodes=gen_cfg.max_nodes, mesh=gen_cfg.mesh)
-    if args.classifier_ckpt:
-        # the widths and the normaliser come from the training run's own
-        # config snapshot (written by train-property beside its checkpoints)
-        snap_path = os.path.join(args.classifier_ckpt, "config.json")
-        if os.path.exists(snap_path):
-            snap = configlib.load_file(snap_path)
-            snap["mesh"] = gen_cfg.mesh.__dict__
-            clf_cfg = configlib.merge(clf_cfg, snap)
-    clf = property_train.PropertyTrainer(clf_cfg, device=device)
-    clf_model = property_train.build_model(
-        clf_cfg, device=device,
-        generator=torch.Generator(device=device).manual_seed(clf_cfg.seed))
-    if args.classifier_ckpt:
-        _load_ema(clf_model, args.classifier_ckpt)
-    clf_model.eval()
+        # property and size distributions from the train split where there is one
+        if args.data_dir:
+            from reed_tpu_torch.data.molecule import load_qm9_edm_npz
 
-    n = gen_cfg.max_nodes
-    clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
-    maes, all_targets, sweep_rows = [], [], None
-    for rep_i in range(args.n_replicates):
-        if args.sweep:
-            # one size, the property's linspace over the observed range
-            # (reference: qm9/sampling.py:186 sample_sweep_conditional and
-            # eval_src/process_sweep.py's classifier readback)
-            sizes = np.full(args.n_samples, int(np.median(sizes_src)), np.int64)
-            targets = np.linspace(float(values.min()), float(values.max()), args.n_samples)
+            data = load_qm9_edm_npz(_find_split(args.data_dir, "train"))
+            sizes_src = np.minimum(np.asarray(data["num_atoms"], np.int64), gen_cfg.max_nodes)
+            values = np.asarray(data[args.property], np.float64)
+            mean, mad = property_train.compute_mean_mad(values)
         else:
-            sizes = node_dist.sample(np_rng, args.n_samples)
-            targets = prop_dist.sample(np_rng, sizes)         # label units
-        norm_t = (targets - mean) / mad                       # context units
-        node_mask = (np.arange(n)[None, :] < sizes[:, None]).astype(np.float32)[..., None]
-        diag = np.eye(n, dtype=np.float32)[None, :, :, None]
-        edge_mask = node_mask[:, :, None, :] * node_mask[:, None, :, :] * (1 - diag)
-        context = np.broadcast_to(norm_t[:, None, None].astype(np.float32),
-                                  (args.n_samples, n, 1)) * node_mask
-        rep = None
-        if gen_cfg.rep_nf:
-            rep = torch.from_numpy(np_rng.standard_normal(
-                (args.n_samples, gen_cfg.rep_nf)).astype(np.float32)).to(device)
-        node_mask_t = torch.from_numpy(node_mask).to(device)
-        edge_mask_t = torch.from_numpy(edge_mask).to(device)
-        synchronize(device)
-        t0 = time.perf_counter()
-        x, h_cat, _ = trainer.sample(
-            model, node_mask_t, edge_mask_t, rep=rep,
-            context=torch.from_numpy(context).to(device),
-            generator=torch.Generator(device=device).manual_seed((args.seed or 0) + rep_i))
-        synchronize(device)
-        clock["seconds"] += time.perf_counter() - t0
-        clock["molecules"] += args.n_samples
-        clock["batches"] += 1
-        preds = clf.predict(clf_model, h_cat, x, node_mask_t, edge_mask_t)
-        maes.append(conditional_generation_mae(lambda p: p, preds, targets))
-        all_targets.append(targets)
-        preds = preds.cpu().numpy()
-        if args.sweep and sweep_rows is None:
-            sweep_rows = [{"target": float(t), "pred": float(p)} for t, p in zip(targets, preds)]
-        if args.out and rep_i == 0:
-            # the molecules, their targets and renders (reference:
-            # eval_src/eval_visualize_samples.py, qm9/visualizer.py plot_data3d)
-            types = torch.argmax(h_cat, dim=-1).cpu().numpy()
-            xs, mask = x.cpu().numpy(), node_mask[..., 0].astype(bool)
-            k = min(args.n_samples, 100)
-            _write_molecules(args.out, [(xs[i][mask[i]], types[i][mask[i]]) for i in range(k)],
-                             QM9_ATOM_DECODER,
-                             comments=[f"{args.property}={targets[i]:.4f}" for i in range(k)])
-            with open(os.path.join(args.out, "property_values.log"), "w") as f:
-                f.write("\n".join(f"{t:.6f}" for t in targets))
-    steps = gen_cfg.edm.timesteps + 1
-    print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
-          f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
-          f"evaluation ({clock['batches']} batches of {args.n_samples}, {steps} evaluations "
-          f"a batch, {device})")
-    targets_all = np.concatenate(all_targets)
-    out = {"property": args.property, "mae": float(np.mean(maes)),
-           "mae_std": float(np.std(maes)), "n_samples": args.n_samples * args.n_replicates,
-           # the predict-the-mean floor, for context (the reference logs it too)
-           "mad_of_targets": float(np.abs(targets_all - targets_all.mean()).mean())}
-    if sweep_rows is not None:
-        out["sweep"] = sweep_rows
-        t = np.array([r["target"] for r in sweep_rows])
-        p = np.array([r["pred"] for r in sweep_rows])
-        if len(t) > 2 and t.std() > 0 and p.std() > 0:
-            out["sweep_pearson_r"] = float(np.corrcoef(t, p)[0, 1])
-    print(json.dumps(out, indent=2))
+            sizes_src = np_rng.integers(gen_cfg.max_nodes // 2, gen_cfg.max_nodes + 1, 512)
+            values = np_rng.standard_normal(512)
+            mean, mad = 0.0, 1.0
+        node_dist = DistributionNodes({int(s): float((sizes_src == s).sum())
+                                       for s in np.unique(sizes_src)})
+        prop_dist = DistributionProperty(sizes_src, values)
+
+        clf_cfg = property_train.PropertyTrainConfig(
+            property=args.property, mean=mean, mad=mad, num_atom_types=gen_cfg.num_atom_types,
+            max_nodes=gen_cfg.max_nodes, mesh=gen_cfg.mesh)
+        if args.classifier_ckpt:
+            # the widths and the normaliser come from the training run's own
+            # config snapshot (written by train-property beside its checkpoints)
+            snap_path = os.path.join(args.classifier_ckpt, "config.json")
+            if os.path.exists(snap_path):
+                snap = configlib.load_file(snap_path)
+                snap["mesh"] = gen_cfg.mesh.__dict__
+                clf_cfg = configlib.merge(clf_cfg, snap)
+        # the classifier on the eval's mesh, split as the EDM is
+        clf_model = property_train.build_model(
+            clf_cfg, device=device, parallel=dp,
+            generator=torch.Generator(device=device).manual_seed(clf_cfg.seed))
+        if args.classifier_ckpt:
+            _load_ema(clf_model, args.classifier_ckpt, shard=shard)
+        clf_model.eval()
+
+        n = gen_cfg.max_nodes
+        clock = {"seconds": 0.0, "molecules": 0, "batches": 0}
+
+        def sample_and_score(rows, seed):
+            """This rank's rows: (x, h_cat, the classifier's predictions)."""
+            node_mask, edge_mask, context, rep = rows
+            synchronize(device)
+            t0 = time.perf_counter()
+            x, h_cat, _ = sample(gen_cfg, model, node_mask, edge_mask, rep=rep, context=context,
+                                 generator=torch.Generator(device=device).manual_seed(seed))
+            synchronize(device)
+            clock["seconds"] += time.perf_counter() - t0
+            return x, h_cat, property_train.predict(clf_cfg, clf_model, h_cat, x, node_mask,
+                                                    edge_mask)
+
+        maes, all_targets, sweep_rows = [], [], None
+        for rep_i in range(args.n_replicates):
+            if args.sweep:
+                # one size, the property's linspace over the observed range
+                # (reference: qm9/sampling.py:186 sample_sweep_conditional and
+                # eval_src/process_sweep.py's classifier readback)
+                sizes = np.full(args.n_samples, int(np.median(sizes_src)), np.int64)
+                targets = np.linspace(float(values.min()), float(values.max()), args.n_samples)
+            else:
+                sizes = node_dist.sample(np_rng, args.n_samples)
+                targets = prop_dist.sample(np_rng, sizes)         # label units
+            norm_t = (targets - mean) / mad                       # context units
+            node_mask = (np.arange(n)[None, :] < sizes[:, None]).astype(np.float32)[..., None]
+            diag = np.eye(n, dtype=np.float32)[None, :, :, None]
+            edge_mask = node_mask[:, :, None, :] * node_mask[:, None, :, :] * (1 - diag)
+            context = np.broadcast_to(norm_t[:, None, None].astype(np.float32),
+                                      (args.n_samples, n, 1)) * node_mask
+            rep = None
+            if gen_cfg.rep_nf:
+                rep = torch.from_numpy(np_rng.standard_normal(
+                    (args.n_samples, gen_cfg.rep_nf)).astype(np.float32)).to(device)
+            rows = tuple(torch.from_numpy(a).to(device) for a in (node_mask, edge_mask, context))
+            x, h_cat, preds = run_rows(dp, args.n_samples, rows + (rep,),
+                                       lambda r: sample_and_score(r, (args.seed or 0) + rep_i))
+            clock["molecules"] += args.n_samples
+            clock["batches"] += 1
+            if not main:
+                continue
+            maes.append(conditional_generation_mae(lambda p: p, preds, targets))
+            all_targets.append(targets)
+            preds = preds.cpu().numpy()
+            if args.sweep and sweep_rows is None:
+                sweep_rows = [{"target": float(t), "pred": float(p)}
+                              for t, p in zip(targets, preds)]
+            if args.out and rep_i == 0:
+                # the molecules, their targets and renders (reference:
+                # eval_src/eval_visualize_samples.py, qm9/visualizer.py plot_data3d)
+                types = torch.argmax(h_cat, dim=-1).cpu().numpy()
+                xs, mask = x.cpu().numpy(), node_mask[..., 0].astype(bool)
+                k = min(args.n_samples, 100)
+                _write_molecules(args.out,
+                                 [(xs[i][mask[i]], types[i][mask[i]]) for i in range(k)],
+                                 QM9_ATOM_DECODER,
+                                 comments=[f"{args.property}={targets[i]:.4f}"
+                                           for i in range(k)])
+                with open(os.path.join(args.out, "property_values.log"), "w") as f:
+                    f.write("\n".join(f"{t:.6f}" for t in targets))
+        steps = gen_cfg.edm.timesteps + 1
+        print(f"{clock['molecules'] / clock['seconds']:.3f} molecules/s, "
+              f"{1e3 * clock['seconds'] / (clock['batches'] * steps):.3f} ms per network "
+              f"evaluation ({clock['batches']} batches of {args.n_samples}, {steps} "
+              f"evaluations a batch, {device}, {_ranks(dp)})")
+        if not main:
+            return None
+        targets_all = np.concatenate(all_targets)
+        out = {"property": args.property, "mae": float(np.mean(maes)),
+               "mae_std": float(np.std(maes)), "n_samples": args.n_samples * args.n_replicates,
+               # the predict-the-mean floor, for context (the reference logs it too)
+               "mad_of_targets": float(np.abs(targets_all - targets_all.mean()).mean())}
+        if sweep_rows is not None:
+            out["sweep"] = sweep_rows
+            t = np.array([r["target"] for r in sweep_rows])
+            p = np.array([r["pred"] for r in sweep_rows])
+            if len(t) > 2 and t.std() > 0 and p.std() > 0:
+                out["sweep_pearson_r"] = float(np.corrcoef(t, p)[0, 1])
+        print(json.dumps(out, indent=2))
     return out
 
 
@@ -1430,53 +1516,64 @@ def eval_multiflow(args):
     write them as PDB files under --out and report the backbone geometry
     (reference: multiflow/experiments/inference_se3_flows.py; folding
     designability needs an external folding tool, eval.protein_metrics.
-    FoldingModel). Prints ms per sampler step, then reed_tpu's JSON."""
+    FoldingModel). Prints ms per sampler step, then reed_tpu's JSON. Under
+    --distributed the samples split over the data x fsdp batch indices and
+    the tensor ranks split the IPA trunk (tp_rules); rank 0 writes them."""
     from reed_tpu_torch.eval.protein_metrics import (backbone_geometry_report,
                                                      write_pdb_backbone)
     from reed_tpu_torch.ops.residue_constants import RESTYPES, to_atom37
-    from reed_tpu_torch.train.multiflow import (MultiflowTrainConfig, MultiflowTrainer,
-                                                build_model)
+    from reed_tpu_torch.parallel.mesh import data_parallel, run_rows
+    from reed_tpu_torch.train.multiflow import MultiflowTrainConfig, build_model, sample, tp_rules
 
     device = resolve_device(args.device)
     cfg = _resolve_cfg(MultiflowTrainConfig, args, {"seed": args.seed})
-    trainer = MultiflowTrainer(cfg, device=device)
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    if args.ref_ckpt:
-        _multiflow_ref_ckpt(model, args.ref_ckpt, cfg)
-        print(f"loaded reference torch checkpoint {args.ref_ckpt}")
-    elif args.ckpt_dir:
-        _load_ema(model, args.ckpt_dir)
-    model.eval()
+    dp = data_parallel(cfg.mesh, axes=IPA_AXES)
+    with _main_prints(dp):
+        model = build_model(cfg, device=device, parallel=dp,
+                            generator=torch.Generator(device=device).manual_seed(cfg.seed))
+        if args.ref_ckpt:
+            _multiflow_ref_ckpt(model, args.ref_ckpt, cfg, dp)
+            print(f"loaded reference torch checkpoint {args.ref_ckpt}")
+        elif args.ckpt_dir:
+            _load_ema(model, args.ckpt_dir,
+                      shard=lambda sd: shard_state_dict(sd, dp, tp_rules(cfg)))
+        model.eval()
 
-    steps = args.num_steps or cfg.interpolant.num_timesteps
-    # one untimed 2-step sample first: the first calls set up the device's
-    # libraries, which is not sampling time
-    trainer.sample(model, 1, args.length, num_timesteps=2,
-                   generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    synchronize(device)
-    t0 = time.perf_counter()
-    out = trainer.sample(model, args.num_samples, args.length, num_timesteps=steps,
-                         generator=torch.Generator(device=device).manual_seed(cfg.seed))
-    atom37 = to_atom37(out["trans"], out["rotmats"]).cpu().numpy()
-    seconds = time.perf_counter() - t0
-    aatypes = out["aatypes"].cpu().numpy()
-    print(f"{1e3 * seconds / steps:.3f} ms per sampler step ({args.num_samples} x "
-          f"{args.length} residues, {steps} model calls, after a 2-step warm-up, {device})")
+        def run(n, steps):
+            """The global batch of n samples (this rank's rows sampled)."""
+            return run_rows(dp, n, torch.ones((n, args.length), device=device),
+                            lambda res_mask: sample(
+                                cfg, model, res_mask, num_timesteps=steps,
+                                generator=torch.Generator(device=device).manual_seed(cfg.seed)))
 
-    reports = []
-    out_dir = args.out or "out/multiflow_samples"
-    for i in range(args.num_samples):
-        rep = backbone_geometry_report(atom37[i])
-        rep["pdb"] = write_pdb_backbone(os.path.join(out_dir, f"sample_{i}.pdb"), atom37[i],
-                                        aatypes=aatypes[i])
-        rep["sequence"] = "".join(RESTYPES[int(t)] if 0 <= int(t) < 20 else "X"
-                                  for t in aatypes[i])
-        reports.append(rep)
-    mean = {k: float(np.mean([r[k] for r in reports]))
-            for k in ("ca_ca_dist_mean", "radius_of_gyration", "ca_clash_fraction")}
-    result = {"mean": mean, "samples": reports}
-    print(json.dumps(result, indent=2))
+        steps = args.num_steps or cfg.interpolant.num_timesteps
+        # one untimed 2-step sample first: the first calls set up the device's
+        # libraries, which is not sampling time
+        run(1, 2)
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = run(args.num_samples, steps)
+        atom37 = to_atom37(out["trans"], out["rotmats"]).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        aatypes = out["aatypes"].cpu().numpy()
+        print(f"{1e3 * seconds / steps:.3f} ms per sampler step ({args.num_samples} x "
+              f"{args.length} residues, {steps} model calls, after a 2-step warm-up, {device}, "
+              f"{_ranks(dp)})")
+        if dp is not None and not dp.is_main:
+            return None
+        reports = []
+        out_dir = args.out or "out/multiflow_samples"
+        for i in range(args.num_samples):
+            rep = backbone_geometry_report(atom37[i])
+            rep["pdb"] = write_pdb_backbone(os.path.join(out_dir, f"sample_{i}.pdb"),
+                                            atom37[i], aatypes=aatypes[i])
+            rep["sequence"] = "".join(RESTYPES[int(t)] if 0 <= int(t) < 20 else "X"
+                                      for t in aatypes[i])
+            reports.append(rep)
+        mean = {k: float(np.mean([r[k] for r in reports]))
+                for k in ("ca_ca_dist_mean", "radius_of_gyration", "ca_clash_fraction")}
+        result = {"mean": mean, "samples": reports}
+        print(json.dumps(result, indent=2))
     return result
 
 
@@ -1491,31 +1588,27 @@ def _add_config(p, what):
                    help="cuda (default) or cpu; no silent fallback")
 
 
-def _add_mesh(p, data_parallel: bool, axes=(), splits: str = ""):
-    """reed_tpu's mesh flags; `data_parallel` marks a subcommand that runs
-    over the ranks of --distributed (the others raise on more than one),
-    `axes` the model axes its family runs (parallel.mesh.SIT_AXES,
-    PMPNN_AXES, SEMLA_AXES, EGNN_AXES, IPA_AXES, RDM_AXES; the eval
-    subcommands run none and raise above 1), `splits` what its tensor ranks
-    split."""
-    from reed_tpu_torch.parallel.mesh import NOT_PORTED, SEQ_AXIS, TENSOR_AXIS
+def _add_mesh(p, axes, splits: str):
+    """reed_tpu's mesh flags and --distributed (every subcommand but
+    compute-fid runs over the ranks torchrun launches; --batch-size,
+    --n-samples and --num-samples are global); `axes` the model axes its
+    family runs (parallel.mesh.SIT_AXES, PMPNN_AXES, SEMLA_AXES, EGNN_AXES,
+    IPA_AXES, RDM_AXES), `splits` what its tensor ranks split."""
+    from reed_tpu_torch.parallel.mesh import SEQ_AXIS
 
-    ranks = "data x fsdp" + (" x seq x tensor" if axes else "")
+    ranks = "data x fsdp x seq x tensor"
     for flag, axis in (("--dp", "data: the ranks that hold one copy of the optimizer state "
-                                f"and EMA; {ranks} ranks run"),
-                       ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA; "
-                                  f"{ranks} ranks run"),
-                       ("--tp", f"tensor: ranks that split {splits}" if TENSOR_AXIS in axes
-                        else f"tensor: only 1 ({NOT_PORTED[TENSOR_AXIS]})"),
+                                f"and EMA, and split the batch; {ranks} ranks run"),
+                       ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA (and "
+                                  f"split the batch); {ranks} ranks run"),
+                       ("--tp", f"tensor: ranks that split {splits}"),
                        ("--sp", "seq: ranks that split SiT's tokens" if SEQ_AXIS in axes
                         else "seq: only 1 (the seq axis splits SiT's tokens alone)")):
         p.add_argument(flag, type=int, default=None, help=f"mesh axis size ({axis})")
     p.add_argument("--distributed", action="store_true",
                    help="join the process group torchrun describes (NCCL with one card a "
-                        "rank; gloo with --device cpu)" + (
-                            "; --batch-size is the global batch" if data_parallel else
-                            "; this subcommand runs on one process"))
-    p.set_defaults(data_parallel=data_parallel, model_axes=tuple(axes))
+                        "rank; gloo with --device cpu); the batch is global")
+    p.set_defaults(model_axes=tuple(axes))
 
 
 def _add_training(p):
@@ -1560,7 +1653,7 @@ def main(argv=None):
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                    help="compute dtype (default: the config's bfloat16)")
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=SIT_AXES, splits="SiT's heads and MLP")
+    _add_mesh(p, axes=SIT_AXES, splits="SiT's heads and MLP")
     p.set_defaults(fn=generate_image)
 
     p = sub.add_parser("compute-fid")
@@ -1597,7 +1690,8 @@ def main(argv=None):
                    help="message chains through the fused kernels (auto, the "
                         "config's default: where they take the widths, else unfused)")
     _add_config(p, "ProteinTrainConfig")
-    _add_mesh(p, data_parallel=False)
+    _add_mesh(p, axes=PMPNN_AXES,
+              splits="ProteinMPNN's message chains (W2/W3 by their hidden width) and MLPs")
     p.set_defaults(fn=eval_protein)
 
     p = sub.add_parser("train-protein")
@@ -1612,7 +1706,7 @@ def main(argv=None):
                    help="warm start from a reference torch fmif checkpoint")
     _add_training(p)
     _add_config(p, "ProteinTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=PMPNN_AXES,
+    _add_mesh(p, axes=PMPNN_AXES,
               splits="ProteinMPNN's message chains (W2/W3 by their hidden width) and MLPs")
     p.set_defaults(fn=train_protein)
 
@@ -1640,7 +1734,7 @@ def main(argv=None):
                    help="SD-VAE decoder npz for the previews (else latent channels)")
     _add_training(p)
     _add_config(p, "ImageTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=SIT_AXES, splits="SiT's heads and MLP")
+    _add_mesh(p, axes=SIT_AXES, splits="SiT's heads and MLP")
     p.set_defaults(fn=train_image)
 
     p = sub.add_parser("train-molecule-semla")
@@ -1660,7 +1754,7 @@ def main(argv=None):
                         "checkpoint (dims via --set)")
     _add_training(p)
     _add_config(p, "SemlaTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=SEMLA_AXES,
+    _add_mesh(p, axes=SEMLA_AXES,
               splits="SemlaFlow's message MLPs, attention heads and feed-forwards (arch "
                      "semla; the egnn and eqgat archs run whole on every tensor rank)")
     p.set_defaults(fn=train_molecule_semla)
@@ -1689,7 +1783,9 @@ def main(argv=None):
                    help="write replicate 0 as .xyz and predicted-bond .sdf files here")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "SemlaTrainConfig")
-    _add_mesh(p, data_parallel=False)
+    _add_mesh(p, axes=SEMLA_AXES,
+              splits="SemlaFlow's message MLPs, attention heads and feed-forwards (arch "
+                     "semla; the egnn and eqgat archs run whole on every tensor rank)")
     p.set_defaults(fn=eval_semla)
 
     p = sub.add_parser("train-molecule-edm")
@@ -1703,7 +1799,7 @@ def main(argv=None):
                         "(generative_model[_ema].npy; widths via --set)")
     _add_training(p)
     _add_config(p, "MoleculeEDMConfig")
-    _add_mesh(p, data_parallel=True, axes=EGNN_AXES,
+    _add_mesh(p, axes=EGNN_AXES,
               splits="the EGNN's edge, node, coordinate and rep feed-forward MLPs")
     p.set_defaults(fn=train_molecule_edm)
 
@@ -1714,7 +1810,7 @@ def main(argv=None):
                    help="reps.npy [N, channels] and sizes.npy [N]; trains on them")
     _add_training(p)
     _add_config(p, "RDMTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=RDM_AXES,
+    _add_mesh(p, axes=RDM_AXES,
               splits="the RDM's residual blocks (in_fc, emb_fc, context_fc and out_fc, "
                      "with out_norm over the split width)")
     p.set_defaults(fn=train_rdm)
@@ -1742,7 +1838,9 @@ def main(argv=None):
                         "matplotlib is installed")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
-    _add_mesh(p, data_parallel=False)
+    _add_mesh(p, axes=EGNN_AXES,
+              splits="the EGNN's edge, node, coordinate and rep feed-forward MLPs (the "
+                     "rep sampler runs whole on every rank)")
     p.set_defaults(fn=eval_molecule)
 
     p = sub.add_parser("train-property")
@@ -1758,7 +1856,7 @@ def main(argv=None):
                         "beside it for --linear-probe); trains on it, mean and mad from it")
     _add_training(p)
     _add_config(p, "PropertyTrainConfig (LinearProbeConfig with --linear-probe)")
-    _add_mesh(p, data_parallel=True, axes=EGNN_AXES,
+    _add_mesh(p, axes=EGNN_AXES,
               splits="the classifier's edge and node MLPs (--linear-probe runs whole on "
                      "every tensor rank)")
     p.set_defaults(fn=train_property)
@@ -1786,7 +1884,8 @@ def main(argv=None):
                         "matplotlib is installed (reference eval_visualize_samples.py)")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MoleculeEDMConfig")
-    _add_mesh(p, data_parallel=False)
+    _add_mesh(p, axes=EGNN_AXES,
+              splits="the EDM's and the property classifier's EGNN MLPs")
     p.set_defaults(fn=eval_conditional)
 
     p = sub.add_parser("train-multiflow")
@@ -1799,7 +1898,7 @@ def main(argv=None):
                         "(widths via --set)")
     _add_training(p)
     _add_config(p, "MultiflowTrainConfig")
-    _add_mesh(p, data_parallel=True, axes=IPA_AXES,
+    _add_mesh(p, axes=IPA_AXES,
               splits="the IPA heads and the sequence transformer's heads and feed-forward")
     p.set_defaults(fn=train_multiflow)
 
@@ -1814,7 +1913,8 @@ def main(argv=None):
                    help="sample from the EMA weights of this run's latest checkpoint")
     p.add_argument("--seed", type=int, default=None)
     _add_config(p, "MultiflowTrainConfig")
-    _add_mesh(p, data_parallel=False)
+    _add_mesh(p, axes=IPA_AXES,
+              splits="the IPA heads and the sequence transformer's heads and feed-forward")
     p.set_defaults(fn=eval_multiflow)
 
     args = parser.parse_args(argv)

@@ -95,7 +95,7 @@ def categorical_exp_race(probs, generator: Optional[torch.Generator] = None,
     1e-10 - log(u + 1e-10), u ~ U[0, 1) drawn from `generator` unless
     `uniforms` (the shape of probs) is given. Unnormalised probs are fine."""
     if uniforms is None:
-        uniforms = torch.rand(probs.shape, generator=generator, device=probs.device)
+        uniforms = draws.rand(probs.shape, generator=generator, device=probs.device)
     e = 1e-10 - torch.log(uniforms.to(probs.device, torch.float32) + 1e-10)
     return torch.argmax(probs / e, dim=-1)
 
@@ -127,9 +127,13 @@ def euler_unmask_sampler(model_logits_fn: Callable, batch_shape,
     uncond, the unconditional class being num_cls. `uniforms`
     ([num_timesteps - 1, B, L, V]) replaces the generator's draws. Returns
     (pred_tokens, final_tokens): the argmax prediction of the last step and
-    the sampled end of the trajectory, int32 [B,L]."""
+    the sampled end of the trajectory, int32 [B,L]. Inside
+    draws.global_rows the batch is this rank's rows of the global batch:
+    the uniforms are drawn, or given, at the global shape and its rows
+    kept."""
     b, l = batch_shape
     steps = cfg.num_timesteps - 1
+    uniforms = draws.keep(uniforms, axis=1)
     if uniforms is not None and tuple(uniforms.shape) != (steps, b, l, cfg.num_tokens):
         raise ValueError(f"uniforms must have shape {(steps, b, l, cfg.num_tokens)}, "
                          f"got {tuple(uniforms.shape)}")
@@ -168,11 +172,12 @@ def _check_draws(name, draws, shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(draws.shape)}")
 
 
-def _draw(draws, i, shape, generator, device):
-    """Step i's uniforms: draws[i] where given, else from `generator`."""
-    if draws is not None:
-        return draws[i].to(device)
-    return torch.rand(shape, generator=generator, device=device)
+def _draw(given, i, shape, generator, device):
+    """Step i's uniforms: this rank's rows of given[i] (global rows) where
+    given, else drawn from `generator` for the global batch."""
+    if given is not None:
+        return draws.keep(given[i]).to(device)
+    return draws.rand(shape, generator=generator, device=device)
 
 
 def reward_gradient(model_logits_fn: Callable, reward_fn: Callable, x_onehot):

@@ -28,6 +28,7 @@ from torch import nn
 
 from reed_tpu_torch.models.egnn import remove_mean_with_mask
 from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.draws import keep as keep_rows
 
 
 # -- noise schedules (reference: en_diffusion.py:23-80, 170-205) -------------
@@ -418,9 +419,15 @@ class EnVariationalDiffusion:
                generator=None, draws: Optional[SampleDraws] = None):
         """Ancestral sampling over T steps (reference: en_diffusion.py:793-830)
         -> (x, one-hot h_cat, h_int). The steps' times and coefficients are
-        computed on the device before the loop."""
+        computed on the device before the loop. Inside
+        parallel.draws.global_rows the batch is this rank's rows of the
+        global batch, and the noise is drawn (or `draws` given) at the
+        global batch."""
         cfg = self.cfg
         dev = node_mask.device
+        if draws is not None:
+            draws = SampleDraws(keep_rows(draws.init), [keep_rows(d) for d in draws.steps],
+                                keep_rows(draws.final))
         z = (draws.init if draws is not None
              else self.sample_combined_noise(n_samples, n_nodes, node_mask, generator))
         s_all = torch.arange(cfg.timesteps, device=dev, dtype=torch.float32)

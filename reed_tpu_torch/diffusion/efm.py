@@ -235,10 +235,14 @@ class EquivariantCNF:
     def sample(self, n_samples, n_nodes, node_mask, edge_mask, context=None, rep=None,
                generator=None, z=None):
         """Decode the noise `z` (drawn where not given) -> (x, one-hot h_cat,
-        h_int), the schema of EnVariationalDiffusion.sample."""
+        h_int), the schema of EnVariationalDiffusion.sample. Inside
+        draws.global_rows the batch is this rank's rows of the global batch
+        and `z`, drawn or given, the global batch's."""
         cfg = self.cfg
         if z is None:
             z = self.sample_combined_noise(n_samples, n_nodes, node_mask, generator)
+        else:
+            z = draws.keep(z)
         z = self.decode(z, node_mask, edge_mask, context, rep)
         nd, nc = cfg.n_dims, self._n_cat
         if cfg.sampling_method == "gradient":

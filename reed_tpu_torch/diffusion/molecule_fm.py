@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from reed_tpu_torch.parallel import draws
+
 SCALE_OT_FACTOR = 0.2
 
 
@@ -276,7 +278,13 @@ def _symmetrize_pair_noise(u):
 class _Draws:
     """The integrator's random numbers, in the order reed_tpu splits its
     key: from `generator`, or popped from `given` (a list of tensors in
-    the order they are asked for) where that is not None."""
+    the order they are asked for) where that is not None. Inside
+    draws.global_rows the batch is this rank's rows of the global batch:
+    the uniforms and normals are drawn, or given, at the global batch and
+    this rank's rows kept. The gamma draws of the dirichlet strategy are
+    not: torch's gamma sampler consumes the generator in a way that depends
+    on alpha, so a rank that holds some rows' alpha cannot make the draws
+    one process makes for all of them, and it raises there."""
 
     def __init__(self, generator: Optional[torch.Generator], given=None):
         self.generator = generator
@@ -284,7 +292,7 @@ class _Draws:
 
     def _next(self, make, shape, device):
         if self.given is not None:
-            out = torch.as_tensor(self.given.pop(0), device=device).float()
+            out = draws.keep(torch.as_tensor(self.given.pop(0), device=device).float())
             if tuple(out.shape) != tuple(shape):
                 raise ValueError(f"injected draw of shape {tuple(out.shape)}, "
                                  f"the step needs {tuple(shape)}")
@@ -292,14 +300,19 @@ class _Draws:
         return make()
 
     def uniform(self, shape, device):
-        return self._next(lambda: torch.rand(shape, generator=self.generator,
+        return self._next(lambda: draws.rand(shape, generator=self.generator,
                                              device=device), shape, device)
 
     def normal(self, shape, device):
-        return self._next(lambda: torch.randn(shape, generator=self.generator,
+        return self._next(lambda: draws.randn(shape, generator=self.generator,
                                               device=device), shape, device)
 
     def gamma(self, alpha):
+        if self.given is None and draws.splitting():
+            raise NotImplementedError(
+                "the dirichlet strategy does not run over several batch indices: its "
+                "gamma draws depend on every row's alpha, which a rank holding some rows "
+                "does not see (run it with --dp 1 --fsdp 1; --tp splits the model alone)")
         return self._next(lambda: torch._standard_gamma(alpha, generator=self.generator),
                           alpha.shape, alpha.device)
 

@@ -283,7 +283,9 @@ class SE3SampleDraws:
     rot_u [B,N] and rot_axis [B,N,3]; then for each of the steps - 1 Euler
     steps (stacked on a leading axis) gumbel_u [S,B,N,K] (K 20 with purity
     unmasking, else 21) and, with purity unmasking, unmask_u and remask_u
-    [S,B,N]."""
+    [S,B,N]. Inside draws.global_rows `draw` makes them at the global
+    batch and keeps this rank's rows (axis 0 of the prior's, axis 1 of the
+    steps'); `rows` takes those of draws given at the global shape."""
     trans_noise: torch.Tensor
     rot_u: torch.Tensor
     rot_axis: torch.Tensor
@@ -295,16 +297,23 @@ class SE3SampleDraws:
     def draw(cfg: SE3InterpolantConfig, b: int, n: int, steps: int,
              generator: Optional[torch.Generator] = None, device=None) -> "SE3SampleDraws":
         purity = cfg.aatypes_interpolant == "masking" and cfg.aatypes_do_purity
-        trans_noise = torch.randn((b, n, 3), generator=generator, device=device)
+        trans_noise = draws.randn((b, n, 3), generator=generator, device=device)
         rot_u, rot_axis = igso3_draws((b, n), generator, device)
         s = steps - 1
         k = NUM_TOKENS - 1 if purity else NUM_TOKENS
-        gumbel_u = torch.rand((s, b, n, k), generator=generator, device=device)
+        gumbel_u = draws.rand((s, b, n, k), axis=1, generator=generator, device=device)
         if not purity:
             return SE3SampleDraws(trans_noise, rot_u, rot_axis, gumbel_u)
-        unmask_u = torch.rand((s, b, n), generator=generator, device=device)
-        remask_u = torch.rand((s, b, n), generator=generator, device=device)
+        unmask_u = draws.rand((s, b, n), axis=1, generator=generator, device=device)
+        remask_u = draws.rand((s, b, n), axis=1, generator=generator, device=device)
         return SE3SampleDraws(trans_noise, rot_u, rot_axis, gumbel_u, unmask_u, remask_u)
+
+    def rows(self) -> "SE3SampleDraws":
+        """This rank's rows of draws given at the global batch (all of them
+        outside draws.global_rows)."""
+        return SE3SampleDraws(*(draws.keep(x, axis=0 if i < 3 else 1) for i, x in enumerate(
+            (self.trans_noise, self.rot_u, self.rot_axis, self.gumbel_u, self.unmask_u,
+             self.remask_u))))
 
 
 @torch.no_grad()
@@ -316,12 +325,14 @@ def se3_sample(cfg: SE3InterpolantConfig, model_fn: Callable, batch_shape, res_m
 
     model_fn(batch dict) -> {'pred_trans', 'pred_rotmats', 'pred_logits'}.
     Returns the final {'trans', 'rotmats', 'aatypes'}: the predictions of
-    the last call, at t = 1 (reference: interpolant.py:391-616)."""
+    the last call, at t = 1 (reference: interpolant.py:391-616). Inside
+    draws.global_rows the batch is this rank's rows of the global batch
+    and `draws`, where given, are the global batch's."""
     b, n = batch_shape
     device = res_mask.device
     steps = num_timesteps or cfg.num_timesteps
-    if draws is None:
-        draws = SE3SampleDraws.draw(cfg, b, n, steps, generator, device)
+    draws = (SE3SampleDraws.draw(cfg, b, n, steps, generator, device) if draws is None
+             else draws.rows())
     ts = time_grid(cfg.min_t, steps, device)
     trans = centered_gaussian(draws.trans_noise, res_mask) * cfg.trans_scale
     rotmats = sample_igso3(cfg.igso3_sigma, (b, n), u=draws.rot_u, axis=draws.rot_axis)

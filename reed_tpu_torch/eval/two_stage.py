@@ -13,6 +13,8 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from reed_tpu_torch.parallel.mesh import run_rows
+
 
 def molecule_masks(nodesxsample, max_nodes: int, device=None):
     """(node_mask [B,N,1], edge_mask [B,N,N,1]) f32 on `device` for
@@ -28,12 +30,17 @@ class TwoStageSampler:
     """rep_sampler.sample(np_rng, nodesxsample) -> reps [B, D];
     mol_sampler(node_mask, edge_mask, rep) -> (x, h_cat, h_int); fixed_rep,
     where given, replaces the rep sampler; with neither, rep is None (an
-    unconditional model)."""
+    unconditional model). Under `dp` (a parallel.mesh.DataParallel) the
+    masks and the rep stage are made whole on every rank, as reed_tpu runs
+    its rep sampler off the mesh; mol_sampler then runs this batch index's
+    rows of them inside draws.global_rows, and its output is gathered back
+    into the global batch on every rank (parallel.mesh.run_rows)."""
 
-    def __init__(self, rep_sampler, mol_sampler: Callable, fixed_rep=None):
+    def __init__(self, rep_sampler, mol_sampler: Callable, fixed_rep=None, dp=None):
         self.rep_sampler = rep_sampler
         self.mol_sampler = mol_sampler
         self.fixed_rep = fixed_rep
+        self.dp = dp
 
     def sample(self, np_rng: np.random.Generator, nodesxsample, max_nodes: int,
                device=None):
@@ -46,7 +53,8 @@ class TwoStageSampler:
             print(f"rep sampling of {len(nodesxsample)} took {time.perf_counter() - t0:.2f}s")
         if rep is not None:
             rep = torch.as_tensor(rep, dtype=torch.float32, device=device)
-        x, h_cat, h_int = self.mol_sampler(node_mask, edge_mask, rep)
+        x, h_cat, h_int = run_rows(self.dp, node_mask.shape[0], (node_mask, edge_mask, rep),
+                                   lambda rows: self.mol_sampler(*rows))
         return x, h_cat, h_int, node_mask
 
 

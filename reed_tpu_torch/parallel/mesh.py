@@ -51,8 +51,14 @@ each rank runs its S-th of the tokens, attending to every rank's keys.
 Every seq and tensor rank computes the whole loss; the parameter
 gradients are averaged over the replica group. The parameters are not
 sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a caller names
-the model axes its family runs to `check_mesh` (every trainer: tensor;
-SiT's: seq too), and a size above 1 outside them raises (NOT_PORTED).
+the model axes its family runs to `check_mesh` (every trainer, sampler and
+eval subcommand: tensor; SiT's: seq too), and a size above 1 outside them
+raises (NOT_PORTED).
+
+Evaluation and sampling split each global batch over the batch indices as
+np.array_split does (`DataParallel.rows`: the batches need not divide, and
+an index may hold none), draw inside draws.global_rows(dp, n), and
+`DataParallel.gather_rows(x, n)` stacks the rows back in batch order.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from __future__ import annotations
 import math
 import os
 import re
+import types
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +75,8 @@ import torch.distributed as dist
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import MeshConfig
+from reed_tpu_torch.parallel import draws
+from reed_tpu_torch.parallel.draws import split_rows
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -82,8 +91,8 @@ MESH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS)
 # coordinate and rep feed-forward MLPs; MultiFlow its IPA heads and sequence
 # transformer; the RDM its residual blocks' MLPs. SemlaFlow's egnn and
 # eqgat archs (SEMLA_AXES, no rule names a leaf of theirs) and the property
-# linear probe (EGNN_AXES) run whole on every tensor rank. Evaluation and
-# sampling run none.
+# linear probe (EGNN_AXES) run whole on every tensor rank. Each eval
+# subcommand runs its family's.
 SIT_AXES = (TENSOR_AXIS, SEQ_AXIS)
 PMPNN_AXES = (TENSOR_AXIS,)
 SEMLA_AXES = (TENSOR_AXIS,)
@@ -93,14 +102,15 @@ RDM_AXES = (TENSOR_AXIS,)
 
 # the families that run each model axis (check_mesh's message)
 RUNS_TENSOR = ("every trainer (train-image, train-protein, train-molecule-semla, "
-               "train-molecule-edm, train-property, train-rdm, train-multiflow) and "
-               "generate-image")
+               "train-molecule-edm, train-property, train-rdm, train-multiflow), "
+               "generate-image and the eval subcommands (eval-protein, eval-semla, "
+               "eval-molecule, eval-conditional, eval-multiflow)")
 
 # why a model axis above 1 raises for a caller that does not run it
 NOT_PORTED = {
-    TENSOR_AXIS: "not run: evaluation and sampling run on one process with the whole "
-                 "model (data- and tensor-parallel evaluation is ROADMAP.md Queue 1 "
-                 "item 11)",
+    TENSOR_AXIS: "not run: the caller names no model axis, so no model of its splits "
+                 "over the tensor ranks (a family names its axes: SIT_AXES, PMPNN_AXES, "
+                 "SEMLA_AXES, EGNN_AXES, IPA_AXES, RDM_AXES)",
     SEQ_AXIS: "not run: the seq axis splits SiT's tokens alone (reed_tpu's "
               "token_sharding touches no other model, and its seq ranks there would "
               "only repeat each other's work; ROADMAP.md Queue 1 item 8b)",
@@ -384,7 +394,7 @@ def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
     rest, as make_mesh's data=None does), and `batch_size` (the global
     batch) must split evenly over the data * fsdp batch indices. `axes`
     are the model axes the caller runs (SIT_AXES, PMPNN_AXES, SEMLA_AXES,
-    EGNN_AXES, IPA_AXES, RDM_AXES; none for evaluation); a tensor or seq
+    EGNN_AXES, IPA_AXES, RDM_AXES); a tensor or seq
     size above 1 outside them raises NotImplementedError naming why
     (NOT_PORTED). Returns (data, fsdp); raises ValueError otherwise."""
     seq, tensor = mesh.seq or 1, mesh.tensor or 1
@@ -418,29 +428,79 @@ def check_mesh(mesh, world: int, batch_size: Optional[int] = None,
     return data, fsdp
 
 
+def _slice_rows(x, span):
+    """The rows span(B) = (start, count) of every array and tensor in `x`
+    (nested dicts, lists and tuples; other leaves and 0-d arrays as they
+    are), B its leading size."""
+    if isinstance(x, dict):
+        return {k: _slice_rows(v, span) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_slice_rows(v, span) for v in x)
+    if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim:
+        start, count = span(x.shape[0])
+        return x[start:start + count]
+    return x
+
+
+def _join_rows(parts):
+    """Nested tensors of several row ranges, concatenated leaf by leaf."""
+    if isinstance(parts[0], dict):
+        return {k: _join_rows([p[k] for p in parts]) for k in parts[0]}
+    if isinstance(parts[0], (list, tuple)):
+        return type(parts[0])(_join_rows(list(p)) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 def local_rows(x, rank: int, world: int):
     """Rank `rank`'s rows [rank*B/W, (rank+1)*B/W) of every array and
     tensor in `x` (nested dicts, lists and tuples; other leaves and 0-d
     arrays as they are), B its leading size. Raises ValueError when the
     world size does not divide B."""
-    if isinstance(x, dict):
-        return {k: local_rows(v, rank, world) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(local_rows(v, rank, world) for v in x)
-    if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim:
-        n = x.shape[0]
+    def span(n):
         if n % world:
             raise ValueError(f"a global batch of {n} rows does not split over "
                              f"{world} ranks")
-        b = n // world
-        return x[rank * b:(rank + 1) * b]
-    return x
+        return rank * (n // world), n // world
+
+    return _slice_rows(x, span)
 
 
 def local_batch(dp, batch):
     """This rank's rows of a global batch under `dp` (a DataParallel), the
     batch itself with dp None."""
     return batch if dp is None else local_rows(batch, dp.rank, dp.world)
+
+
+def run_rows(dp, n: int, batch, fn):
+    """Sharded evaluation's pattern: fn(rows) on this batch index's rows
+    (DataParallel.take_rows) of the global `batch` of n rows (nested
+    tensors and arrays), inside draws.global_rows(dp, n) so that every draw
+    is made at the global shape, its output (nested tensors with n rows)
+    gathered back in batch order on every rank. A batch index with no rows
+    (n < W: all its tensor ranks together) skips fn and joins the gather.
+    With dp None: fn(batch)."""
+    if dp is None:
+        return fn(batch)
+    with draws.global_rows(dp, n):
+        out = fn(dp.take_rows(batch, n)) if dp.rows(n)[1] else None
+    return dp.gather_rows(out, n)
+
+
+def rows_apart(world: int, n: int, batch, fn):
+    """What `world` data ranks compute with run_rows, in one process: fn on
+    each batch index's rows of the global `batch` of n rows (an index
+    holding none skipped), inside draws.global_rows for that index, the
+    outputs joined in batch order. The witness a data-parallel run is held
+    to (the tests, chip_smoke.py): its ranks run the same products on the
+    same rows with the same draws."""
+    starts, counts = split_rows(n, world)
+    parts = []
+    for rank in range(world):
+        if counts[rank]:
+            span = (int(starts[rank]), int(counts[rank]))
+            with draws.global_rows(types.SimpleNamespace(rank=rank, world=world), n):
+                parts.append(fn(_slice_rows(batch, lambda _, span=span: span)))
+    return _join_rows(parts)
 
 
 def _buckets(sizes: Sequence[int], dtypes: Sequence[torch.dtype],
@@ -657,17 +717,83 @@ class DataParallel:
         self._batch_sum(t)
         return t.cpu().numpy()
 
-    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every batch index's rows `x` stacked in batch order: each rank
-        writes its rows into a zeroed buffer of the global shape, then one
-        all-reduce (a sum) over the batch group fills it. Works under NCCL
-        and gloo alike."""
-        b = x.shape[0]
-        full = torch.zeros((b * self.world,) + tuple(x.shape[1:]), dtype=x.dtype,
+    def rows(self, n: int) -> Tuple[int, int]:
+        """(start, count) of this batch index's rows of a global batch of n
+        rows split as np.array_split splits it (draws.split_rows): the
+        first n mod W indices take one row more, and an index takes none
+        where n < W."""
+        starts, counts = split_rows(n, self.world)
+        return int(starts[self.rank]), int(counts[self.rank])
+
+    def take_rows(self, x, n: int):
+        """This batch index's rows (`rows(n)`) of every tensor and array of
+        n rows in `x` (nested dicts, lists and tuples; other leaves and 0-d
+        arrays as they are)."""
+        return _slice_rows(x, lambda _: self.rows(n))
+
+    def gather_rows(self, x, total: Optional[int] = None):
+        """Every batch index's rows `x` stacked in batch order (nested
+        dicts, lists and tuples of tensors leaf by leaf). With `total` None
+        the indices hold equal rows; with `total` they hold rows(total),
+        and one with none passes None (the leaves' trailing shapes and
+        dtypes then come from batch index 0, which holds rows wherever
+        total > 0). Each rank writes its rows into a zeroed buffer of W x
+        the largest share, one all-reduce (a sum) over the batch group
+        fills it, and the padding is dropped: exactly the global rows,
+        under NCCL and gloo alike."""
+        if total is not None and total < self.world:
+            x = self._like_index0(x, total)
+        if isinstance(x, dict):
+            return {k: self.gather_rows(v, total) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(self.gather_rows(v, total) for v in x)
+        n = x.shape[0] * self.world if total is None else total
+        counts = split_rows(n, self.world)[1]
+        if x.shape[0] != counts[self.rank]:
+            raise ValueError(f"batch index {self.rank} holds {x.shape[0]} rows, its "
+                             f"share of {n} is {counts[self.rank]}")
+        wide = int(counts.max())
+        flat = x.view(torch.uint8) if x.dtype == torch.bool else x
+        full = torch.zeros((self.world, wide) + tuple(x.shape[1:]), dtype=flat.dtype,
                            device=x.device)
-        full[self.rank * b:(self.rank + 1) * b] = x
+        full[self.rank, :x.shape[0]] = flat
         self._batch_sum(full)
-        return full
+        out = torch.cat([full[i, :int(c)] for i, c in enumerate(counts)])
+        return out.view(torch.bool) if x.dtype == torch.bool else out
+
+    def _like_index0(self, x, total: int):
+        """`x`, or where this batch index holds no rows of `total`, empty
+        tensors in the structure, trailing shapes and dtypes of batch index
+        0's (broadcast over the batch group)."""
+        if total == 0:
+            raise ValueError("a gather of no rows at all")
+        src = group_ranks("batch", self.process_rank, self.sizes)[0]
+
+        def skeleton(v):
+            if isinstance(v, dict):
+                return {k: skeleton(w) for k, w in v.items()}
+            if isinstance(v, (list, tuple)):
+                return type(v)(skeleton(w) for w in v)
+            return (tuple(v.shape[1:]), v.dtype, v.device.type)
+
+        box = [skeleton(x) if self.process_rank == src else None]
+        dist.broadcast_object_list(box, src=src, group=self.batch_group,
+                                   device=self.device)
+        if x is not None:
+            return x
+
+        def empty(v):
+            if isinstance(v, dict):
+                return {k: empty(w) for k, w in v.items()}
+            if isinstance(v, list):
+                return [empty(w) for w in v]
+            if isinstance(v, tuple) and not (len(v) == 3 and isinstance(v[1], torch.dtype)):
+                return tuple(empty(w) for w in v)
+            device = (torch.device("cuda", torch.cuda.current_device()) if v[2] == "cuda"
+                      else torch.device(v[2]))
+            return torch.empty((0,) + v[0], dtype=v[1], device=device)
+
+        return empty(box[0])
 
     def barrier(self):
         dist.barrier()

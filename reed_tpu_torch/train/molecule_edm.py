@@ -269,16 +269,26 @@ class MoleculeEDMTrainer:
     @torch.no_grad()
     def sample(self, model: EGNNDynamics, node_mask, edge_mask, rep=None, cfg_scale=None,
                context=None, gamma=None, generator: Optional[torch.Generator] = None):
-        """(x, one-hot h_cat, h_int) for the molecules of node_mask [B,N,1]
-        from `model`, drawing from `generator`: the ancestral EDM loop (with
-        CFG at cfg_scale where given and the learned schedule `gamma` where
-        given) or, with 'fm', the ODE decode."""
-        b, n = node_mask.shape[:2]
-        if self.cfg.probabilistic_model == "fm":
-            cnf = EquivariantCNF(efm_config(self.cfg), dynamics_fn(model))
-            return cnf.sample(b, n, node_mask, edge_mask, context=context, rep=rep,
-                              generator=generator)
-        edm = build_edm(self.cfg, model, cfg_scale=cfg_scale, gamma=gamma,
-                        device=node_mask.device)
-        return edm.sample(b, n, node_mask, edge_mask, context=context, rep=rep,
+        """`sample` with this trainer's configuration."""
+        return sample(self.cfg, model, node_mask, edge_mask, rep=rep, cfg_scale=cfg_scale,
+                      context=context, gamma=gamma, generator=generator)
+
+
+@torch.no_grad()
+def sample(cfg: MoleculeEDMConfig, model: EGNNDynamics, node_mask, edge_mask, rep=None,
+           cfg_scale=None, context=None, gamma=None, generator: Optional[torch.Generator] = None):
+    """(x, one-hot h_cat, h_int) for the molecules of node_mask [B,N,1] from
+    `model` (split over its tensor ranks where it was built so), drawing
+    from `generator`: the ancestral EDM loop (with CFG at cfg_scale where
+    given and the learned schedule `gamma` where given) or, with 'fm', the
+    ODE decode. Inside parallel.draws.global_rows the masks, context and rep
+    are this rank's rows of the global batch, and every draw is made at the
+    global batch."""
+    b, n = node_mask.shape[:2]
+    if cfg.probabilistic_model == "fm":
+        cnf = EquivariantCNF(efm_config(cfg), dynamics_fn(model))
+        return cnf.sample(b, n, node_mask, edge_mask, context=context, rep=rep,
                           generator=generator)
+    edm = build_edm(cfg, model, cfg_scale=cfg_scale, gamma=gamma, device=node_mask.device)
+    return edm.sample(b, n, node_mask, edge_mask, context=context, rep=rep,
+                      generator=generator)

@@ -322,7 +322,9 @@ def generate(model: nn.Module, cfg: SemlaTrainConfig, prior: Dict, rep=None,
     integrator consumes (softmax(logits / T); the returned molecule and the
     self-conditioning input keep T = 1). The integrator draws from
     `generator`, or from `draws[i]` (a list of tensors, see integrator_step)
-    at step i."""
+    at step i. Inside draws.global_rows the prior and rep are this rank's
+    rows of the global batch, and the draws are made (or given) at the
+    global batch."""
     steps = cfg.integrator.steps
     times_arr, sizes_arr, t_final = time_grid(steps, sampling_strategy)
     b = prior["coords"].shape[0]
@@ -356,6 +358,13 @@ def generate(model: nn.Module, cfg: SemlaTrainConfig, prior: Dict, rep=None,
         raise ValueError(f"final_protocol must be last or extra, got {final_protocol!r}")
     final["mask"] = prior["mask"]
     return final
+
+
+def sample_prior(cfg: SemlaTrainConfig, rng_np: np.random.Generator, mask: np.ndarray,
+                 device=None) -> Dict:
+    """A prior batch for `mask` [B, N] (numpy draws), on `device`."""
+    return {k: torch.from_numpy(v).to(device) for k, v in sample_prior_batch(
+        rng_np, cfg.interpolant.prior, mask).items()}
 
 
 class SemlaTrainer:
@@ -410,8 +419,7 @@ class SemlaTrainer:
 
     def sample_prior(self, rng_np: np.random.Generator, mask: np.ndarray) -> Dict:
         """A prior batch for `mask` [B, N] (numpy draws), on the device."""
-        return {k: torch.from_numpy(v).to(self.device) for k, v in sample_prior_batch(
-            rng_np, self.cfg.interpolant.prior, mask).items()}
+        return sample_prior(self.cfg, rng_np, mask, self.device)
 
     def ema_model(self, state: TrainState) -> nn.Module:
         """A copy of the model (kept for reuse) holding the state's EMA."""

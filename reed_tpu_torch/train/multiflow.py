@@ -290,6 +290,18 @@ class MultiflowTrainer:
                draws: Optional[SE3SampleDraws] = None) -> Dict[str, torch.Tensor]:
         """Euler-sample batch_size backbones and sequences of `length`
         residues from `model` (se3_sample), drawing from `generator`."""
-        res_mask = torch.ones((batch_size, length), device=self.device)
-        return se3_sample(self.cfg.interpolant, model, (batch_size, length), res_mask,
-                          num_timesteps=num_timesteps, draws=draws, generator=generator)
+        return sample(self.cfg, model, torch.ones((batch_size, length), device=self.device),
+                      num_timesteps=num_timesteps, generator=generator, draws=draws)
+
+
+@torch.no_grad()
+def sample(cfg: MultiflowTrainConfig, model: FlowModel, res_mask: torch.Tensor,
+           num_timesteps: Optional[int] = None, generator: Optional[torch.Generator] = None,
+           draws: Optional[SE3SampleDraws] = None) -> Dict[str, torch.Tensor]:
+    """se3_sample of the backbones and sequences of res_mask [B, N] from
+    `model` (split over its tensor ranks where it was built so), drawing
+    from `generator` or taking `draws`. Inside draws.global_rows res_mask
+    is this rank's rows of the global batch, and the draws are made (or
+    given) at the global batch."""
+    return se3_sample(cfg.interpolant, model, tuple(res_mask.shape), res_mask,
+                      num_timesteps=num_timesteps, draws=draws, generator=generator)

@@ -208,9 +208,23 @@ class PropertyTrainer(_Trainer):
         label units (reference eval: mad * pred + mean,
         main_qm9_prop.py:92-94). Inputs may be numpy or tensors anywhere;
         they move to the trainer's device."""
-        args = [torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                for a in (one_hot, positions, node_mask, edge_mask)]
-        return self._denormalize(model(*args), denormalize)
+        return predict(self.cfg, model, one_hot, positions, node_mask, edge_mask,
+                       denormalize=denormalize, device=self.device)
+
+
+@torch.no_grad()
+def predict(cfg: PropertyTrainConfig, model: PropertyClassifier, one_hot, positions, node_mask,
+            edge_mask, denormalize: bool = True, device=None):
+    """The property prediction [B] from `model` (split over its tensor ranks
+    where it was built so); with denormalize=True in label units (mad *
+    pred + mean, reference eval main_qm9_prop.py:92-94). Inputs may be numpy
+    or tensors anywhere; they move to `device` (default: the model's)."""
+    if device is None:
+        device = next(model.parameters()).device
+    args = [torch.as_tensor(a, dtype=torch.float32).to(device)
+            for a in (one_hot, positions, node_mask, edge_mask)]
+    pred = model(*args)
+    return pred * cfg.mad + cfg.mean if denormalize else pred
 
 
 @dataclass(frozen=True)

@@ -57,9 +57,10 @@ def test_unported_axes_raise_naming_roadmap(axis):
     ValueError with the torchrun line. tensor runs on every trainer's family
     (SIT_AXES, PMPNN_AXES, SEMLA_AXES, EGNN_AXES, IPA_AXES, RDM_AXES) and seq
     on SiT alone, where data x fsdp x seq x tensor must be the world size
-    and the batch splits over data x fsdp; a caller that runs no model axis
-    (evaluation) raises on tensor naming ROADMAP item 11, and seq outside
-    SiT raises saying that it splits SiT's tokens alone."""
+    and the batch splits over data x fsdp; a caller that names no model
+    axis raises on tensor saying so (every subcommand names its family's
+    axes, the eval ones too), and seq outside SiT raises saying that it
+    splits SiT's tokens alone."""
     if axis == "fsdp":
         assert mesh.check_mesh(MeshConfig(fsdp=2), 2) == (1, 2)
         assert mesh.check_mesh(MeshConfig(fsdp=2), 8, batch_size=8) == (4, 2)
@@ -75,7 +76,7 @@ def test_unported_axes_raise_naming_roadmap(axis):
                     mesh.RDM_AXES]
         running = [mesh.SIT_AXES] + (families if axis == "tensor" else [])
         refused = [()] + (families if axis == "seq" else [])
-        why = ("evaluation and sampling run on one process.*ROADMAP.md Queue 1 item 11"
+        why = ("the caller names no model axis.*a family names its axes"
                if axis == "tensor"
                else "the seq axis splits SiT's tokens alone.*token_sharding")
         for axes in refused:
@@ -203,38 +204,25 @@ def test_cross_process_stats_equal_one_process(ranks):
                                  "train-property", "eval-conditional", "train-multiflow",
                                  "eval-multiflow"])
 def test_every_subcommand_but_compute_fid_takes_the_mesh_flags(cmd, monkeypatch):
-    """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: --tp 2 on one process
-    raises, on generate-image and every train-* subcommand (whose models
-    all run the tensor axis) with the data x fsdp x seq x tensor world size
-    and the torchrun line, on the eval subcommands naming ROADMAP item 11;
-    --sp 2 outside SiT raises saying that it splits SiT's tokens
-    alone; --distributed without
-    torchrun's environment raises, an eval subcommand raises on --dp 2 or
-    --fsdp 2 (naming ROADMAP item 11), and a train-* one (or
-    generate-image) on a --dp x --fsdp that is not the world size, naming
-    the torchrun line."""
+    """reed_tpu's --dp/--fsdp/--tp/--sp/--distributed: every subcommand (the
+    eval ones too, whose models all run the tensor axis) raises on --fsdp 2,
+    --tp 2 or --dp 2 on one process with the world size and the torchrun
+    line; --sp 2 outside SiT raises saying that it splits SiT's tokens
+    alone; --distributed without torchrun's environment raises."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     base = [cmd, "--device", "cpu"]
-    data_parallel = cmd.startswith("train-") or cmd == "generate-image"
-    with pytest.raises(ValueError if data_parallel else NotImplementedError,
-                       match="fsdp=2 does not divide the 1 process" if data_parallel
-                       else "ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(ValueError, match="fsdp=2 does not divide the 1 process"):
         cli.main(base + ["--fsdp", "2"])
-    if data_parallel:
-        with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
-                                             "torchrun --nproc_per_node 2"):
-            cli.main(base + ["--tp", "2", "--sp", "1"])
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-            cli.main(base + ["--tp", "2", "--sp", "1"])
+    with pytest.raises(ValueError, match="tensor=2 does not divide the 1 process.*"
+                                         "torchrun --nproc_per_node 2"):
+        cli.main(base + ["--tp", "2", "--sp", "1"])
     if cmd not in ("train-image", "generate-image"):
         with pytest.raises(NotImplementedError, match="splits SiT's tokens alone"):
             cli.main(base + ["--sp", "2"])
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK"):
         cli.main(base + ["--distributed"])
-    with pytest.raises(ValueError if data_parallel else NotImplementedError,
-                       match="torchrun" if data_parallel else "ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(ValueError, match="data=2, but 1 process.*torchrun"):
         cli.main(base + ["--dp", "2"])
 
 

@@ -10,7 +10,8 @@ tests/test_torch_semla_tensor_parallel.py on SemlaFlow's,
 tests/test_torch_egnn_tensor_parallel.py on the EGNN family's,
 tests/test_torch_ipa_tensor_parallel.py on MultiFlow's and
 tests/test_torch_rdm_tensor_parallel.py on the RDM's (`settings` sets their
-mesh, config fields and optimizer).
+mesh, config fields and optimizer); the sharded evaluation's jobs are
+tests/torch_eval_dp.py's.
 
     python tests/torch_dp.py JOB DIR STORE
 
@@ -1423,5 +1424,9 @@ if __name__ == "__main__":
 
     job, out_dir, store = sys.argv[1], pathlib.Path(sys.argv[2]), sys.argv[3]
     _, dp = init_distributed("cpu", init_method=f"file://{store}")
+    if job not in JOBS:  # the sharded evaluation's jobs
+        import torch_eval_dp
+
+        JOBS.update(torch_eval_dp.JOBS)
     JOBS[job](out_dir, dp)
     torch.distributed.destroy_process_group()
