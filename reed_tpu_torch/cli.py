@@ -52,10 +52,12 @@ classifier; --linear-probe runs whole on every tensor rank), the IPA heads
 and sequence transformer (train-multiflow, eval-multiflow) and the RDM's
 residual blocks (train-rdm). --sp S (each group of S ranks splits the
 tokens) runs on SiT alone; every other subcommand raises on it. The
-train-* subcommands hold the optimizer state of one data index (--fsdp
-shards Adam's moments, the accumulation buffer and the EMA over groups of
-F ranks) and need the batch to divide; rank 0 writes the checkpoints,
-config.json, metrics.jsonl and the `[step N]` lines. The eval subcommands
+train-* subcommands hold the model and its optimizer state once a data
+index (--fsdp shards the parameters at rest, Adam's moments, the
+accumulation buffer and the EMA over groups of F ranks, gathering the
+parameters where the model reads them) and need the batch to divide;
+rank 0 writes the checkpoints, config.json, metrics.jsonl and the `[step
+N]` lines. The eval subcommands
 draw every random number at the global batch, as generate-image does, so a
 sharded run equals one process's; their batches need not divide (the
 first batch indices take a row more, as np.array_split splits, and one
@@ -101,7 +103,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import json
 import os
 import time
@@ -113,7 +114,8 @@ from torch.profiler import record_function
 from reed_tpu_torch import resolve_device, synchronize
 from reed_tpu_torch.core import configlib
 from reed_tpu_torch.parallel.mesh import (EGNN_AXES, IPA_AXES, PMPNN_AXES, RDM_AXES,
-                                         SEMLA_AXES, SIT_AXES, local_batch, shard_state_dict)
+                                         SEMLA_AXES, SIT_AXES, local_batch, shard_state_dict,
+                                         whole_copy, whole_params)
 
 
 def _resolve_cfg(cls, args, flags, defaults=None):
@@ -497,8 +499,9 @@ def train_protein(args):
 
         # warm start from a reference fmif checkpoint (train_fmif.py:225-237),
         # a tensor rank's shards of it
-        state.model.load_state_dict(shard_state_dict(
-            load_reference_checkpoint(args.ref_ckpt), trainer.dp, PMPNN_TP_RULES))
+        with whole_params(state.opt.plan, write=True):
+            state.model.load_state_dict(shard_state_dict(
+                load_reference_checkpoint(args.ref_ckpt), trainer.dp, PMPNN_TP_RULES))
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -570,8 +573,9 @@ def train_image(args):
         from reed_tpu_torch.parallel.mesh import SIT_TP_RULES, shard_state_dict
 
         # warm start from a reference torch checkpoint (forces exact_gelu)
-        state.model.load_state_dict(shard_state_dict(
-            load_reference_checkpoint(args.ref_ckpt), trainer.dp, SIT_TP_RULES))
+        with whole_params(state.opt.plan, write=True):
+            state.model.load_state_dict(shard_state_dict(
+                load_reference_checkpoint(args.ref_ckpt), trainer.dp, SIT_TP_RULES))
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -641,7 +645,7 @@ def _preview_hook(cfg, args, device, dp):
     def hook(state, step):
         nonlocal ema_model
         if ema_model is None:
-            ema_model = copy.deepcopy(state.model).eval()
+            ema_model = whole_copy(state.model, state.opt.plan).eval()
         with torch.no_grad():
             ema = ema_weights(state)
             for name, p in ema_model.named_parameters():
@@ -724,7 +728,8 @@ def train_molecule_semla(args):
     trainer = SemlaTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _semla_ref_ckpt(state.model, args.ref_ckpt, trainer.dp)
+        with whole_params(state.opt.plan, write=True):
+            _semla_ref_ckpt(state.model, args.ref_ckpt, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -920,7 +925,8 @@ def train_molecule_edm(args):
     trainer = MoleculeEDMTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _edm_ref_ckpt(state.model, args.ref_ckpt, device, trainer.dp)
+        with whole_params(state.opt.plan, write=True):
+            _edm_ref_ckpt(state.model, args.ref_ckpt, device, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1472,7 +1478,8 @@ def train_multiflow(args):
     trainer = MultiflowTrainer(cfg, device=device)
     state = trainer.init_state()
     if args.ref_ckpt:
-        _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg, trainer.dp)
+        with whole_params(state.opt.plan, write=True):
+            _multiflow_ref_ckpt(state.model, args.ref_ckpt, cfg, trainer.dp)
         state.ema = ema_init(state.model, cfg.curriculum.ema_dtype, state.opt.plan)
         print(f"warm-started from reference checkpoint {args.ref_ckpt}")
 
@@ -1599,8 +1606,8 @@ def _add_mesh(p, axes, splits: str):
     ranks = "data x fsdp x seq x tensor"
     for flag, axis in (("--dp", "data: the ranks that hold one copy of the optimizer state "
                                 f"and EMA, and split the batch; {ranks} ranks run"),
-                       ("--fsdp", "fsdp: ranks that shard the optimizer state and EMA (and "
-                                  f"split the batch); {ranks} ranks run"),
+                       ("--fsdp", "fsdp: ranks that shard the parameters, optimizer state "
+                                  f"and EMA (and split the batch); {ranks} ranks run"),
                        ("--tp", f"tensor: ranks that split {splits}"),
                        ("--sp", "seq: ranks that split SiT's tokens" if SEQ_AXIS in axes
                         else "seq: only 1 (the seq axis splits SiT's tokens alone)")):

@@ -18,11 +18,12 @@ generator (parallel/mesh.py), so rank 0 alone writes the one file, then
 every rank waits at a barrier; every rank restores from it, the saving
 device's CUDA stream onto its own device. Under the fsdp and tensor axes
 (a ShardPlan, state.opt.plan) a rank holds its tensor shards of the
-parameters and chunks of them of the moments, the accumulation buffer and
-the EMA: every rank takes part in gathering them whole before rank 0
-writes, and on restore every rank reads the whole tensors and keeps its
-share. The file is the same whatever the mesh, so a run resumes on another
-fsdp, tensor or seq size or in one process.
+parameters, the moments, the accumulation buffer and the EMA, and of the
+fsdp-sharded ones its chunks alone (the parameters too, sharded at rest):
+every rank takes part in gathering them whole before rank 0 writes, and on
+restore every rank reads the whole tensors and keeps its share. The file
+is the same whatever the mesh, so a run resumes on another fsdp, tensor or
+seq size or in one process.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from typing import Dict, List, Optional
 import torch
 
 from reed_tpu_torch.core.train_state import TrainState
-from reed_tpu_torch.parallel.mesh import shard_state_dict
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -166,8 +166,8 @@ class CheckpointManager:
         opt, saved = state.opt, ckpt["opt"]
         plan = opt.plan
         with torch.no_grad():
-            state.model.load_state_dict(ckpt["model"] if plan is None else shard_state_dict(
-                ckpt["model"], plan.dp, plan.tp_rules))
+            state.model.load_state_dict(ckpt["model"] if plan is None else
+                                        plan.share_state_dict(ckpt["model"]))
             names = list(state.ema) if plan is None else plan.names
             if set(names) != set(ckpt["ema"]) or set(names) != set(state.ema):
                 raise ValueError("the checkpoint's EMA names differ from the state's")

@@ -113,14 +113,13 @@ class Optimizer:
     updated as optax 0.2.6's scale_by_adam does (`mu_step`).
 
     With `plan` (a parallel.mesh.ShardPlan over the fsdp and tensor axes)
-    the update runs on this rank's share (the parameters are its tensor
-    shards): `step` takes the gradients as
-    ShardPlan.reduce_grads leaves them (chunks of the sharded parameters),
-    mu, nu and acc hold chunks there, and the update writes the chunk
-    views of the parameters (`shards`); the caller all-gathers them
-    (ShardPlan.gather_params). Every operation but the clip's norm is
+    the update runs on this rank's share: `params` are its tensor shards,
+    and the chunks of the fsdp-sharded parameters, which the model holds
+    sharded at rest (ShardPlan.attach); `step` takes the gradients as
+    ShardPlan.reduce_grads leaves them, and mu, nu and acc are in the
+    parameters' shapes. Every operation but the clip's norm is
     elementwise, so a chunk's update is bitwise the slice of the whole
-    update. `params` stay the whole parameters, autograd's leaves."""
+    update."""
 
     def __init__(self, cfg: OptimConfig, params: List[torch.Tensor], plan=None):
         if cfg.accum_steps < 1:
@@ -128,15 +127,13 @@ class Optimizer:
         self.cfg = cfg
         self.params = list(params)
         self.plan = plan
-        self.shards = (self.params if plan is None else
-                       [plan.local(i, p.detach()) for i, p in enumerate(self.params)])
         self.lr = lr_schedule(cfg)
         self.count = 0       # committed updates
         self.mini_step = 0   # micro-steps into the current accumulation
         mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.shards]
-        self.nu = [torch.zeros_like(p) for p in self.shards]
-        self.acc = ([torch.zeros_like(p) for p in self.shards]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = ([torch.zeros_like(p) for p in self.params]
                     if cfg.accum_steps > 1 else None)
 
     @torch.no_grad()
@@ -181,8 +178,8 @@ class Optimizer:
         torch._foreach_add_(denom, cfg.eps)
         torch._foreach_div_(mu_hat, denom)
         if cfg.weight_decay > 0:
-            torch._foreach_add_(mu_hat, self.shards, alpha=cfg.weight_decay)
-        torch._foreach_add_(self.shards, mu_hat, alpha=-lr)
+            torch._foreach_add_(mu_hat, self.params, alpha=cfg.weight_decay)
+        torch._foreach_add_(self.params, mu_hat, alpha=-lr)
         return True
 
 
@@ -209,8 +206,12 @@ def init_train_state(model: nn.Module, optim: OptimConfig, ema_dtype: Optional[s
     optimizer, each over this rank's share where `dp` (a
     parallel.mesh.DataParallel) has an fsdp or tensor axis above 1 (the
     plan is state.opt.plan; `tp_rules` name the parameters that `model`
-    holds tensor shards of; `sync_replicated` as ShardPlan's)."""
+    holds tensor shards of; `sync_replicated` as ShardPlan's). Where the
+    plan shards over fsdp, `model` is sharded at rest (ShardPlan.attach)
+    before the EMA and the optimizer take its parameters."""
     plan = None if dp is None else dp.shard_plan(model.named_parameters(), tp_rules,
                                                  sync_replicated)
+    if plan is not None and plan.any_sharded:
+        plan.attach(model)
     return TrainState(step=0, model=model, ema=ema_init(model, ema_dtype, plan),
                       opt=make_optimizer(optim, list(model.parameters()), plan))

@@ -78,16 +78,21 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
     nor would FSDP's wrappers or ZeroRedundancyOptimizer.
 
     Where the state has a ShardPlan (state.opt.plan, the fsdp or tensor
-    axis) the gradients are reduced by it instead (parallel/mesh.py: the
-    sharded parameters' chunks reduce-scattered, the rest all-reduced),
-    grad_norm, the clip, Adam and the EMA run on this rank's chunks of its
+    axis) the step runs on this rank's share: the model holds its
+    fsdp-sharded parameters as chunks (parallel/mesh.py, ShardPlan.attach),
+    the rest of the model beside the units its modules gather is gathered
+    around the loss (ShardPlan.gathered), autograd.grad differentiates with
+    respect to the chunks, whose gradients the gathers' backward has
+    reduced already, and the plan reduces the rest (reduce_grads);
+    grad_norm, the clip, Adam and the EMA then run on the chunks and the
     tensor shards (grad_norm summing over the fsdp and tensor groups), and
-    an update ends with the chunks all-gathered into every rank's shards
-    (in the 'reed::optimizer' range)."""
+    nothing is gathered after the update."""
 
     def train_step(state: TrainState, batch, **inject):
         opt_step = state.step // accum_steps
-        with draws.global_rows(dp):
+        plan = state.opt.plan
+        with draws.global_rows(dp), (contextlib.nullcontext() if plan is None
+                                     else plan.gathered()):
             metrics = dict(loss_fn(state.model, batch, opt_step, **inject))
         if "proj_loss" not in metrics:
             metrics["proj_loss"] = torch.zeros((), device=metrics["denoising_loss"].device)
@@ -96,7 +101,6 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
         grads = torch.autograd.grad(total, params, allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        plan = state.opt.plan
         if plan is not None:
             grads = plan.reduce_grads(grads)
         elif dp is not None:
@@ -107,8 +111,7 @@ def make_train_step(loss_fn: Callable, curriculum: CurriculumConfig,
                 sink.append([g.detach().clone() for g in whole])
         grad_norm = global_norm(grads, plan)
         with record_function("reed::optimizer"):
-            if state.opt.step(grads, grad_norm) and plan is not None:
-                plan.gather_params(params)
+            state.opt.step(grads, grad_norm)
         period = accum_steps * max(1, curriculum.ema_every)
         if period == 1 or state.step % period == period - 1:
             with record_function("reed::ema"):

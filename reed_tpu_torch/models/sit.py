@@ -36,7 +36,9 @@ position embedding), its blocks attend to every rank's keys, the velocity
 and the per-token projector outputs are gathered over the seq group and
 the pooled ('t') projector takes the mean of every rank's tokens, so every
 rank returns the whole outputs. A checkpointed block runs its collectives
-again in its recompute, in one order on every rank.
+again in its recompute, in one order on every rank: under the fsdp axis
+(parameters sharded at rest) that includes the gather of its weights
+(`fsdp_units`).
 """
 
 from __future__ import annotations
@@ -296,6 +298,14 @@ class SiT(nn.Module):
                 functools.partial(_save_products, frozenset(saves)))
         return checkpoint(block, x, c, self.attn_impl, self.parallel, use_reentrant=False,
                           **kwargs)
+
+    def fsdp_units(self):
+        """The modules whose parameters the fsdp axis gathers together
+        (parallel/mesh.ShardPlan.units), each with the dtype it gathers them
+        in: every block, in the compute dtype (each of a block's weights is
+        cast to it once, where it is used). A block's gather runs in its
+        forward, so under remat its recompute gathers again."""
+        return [(block, self.compute_dtype) for block in self.blocks]
 
     def _project(self, idx: int, h, dtype):
         """Projector `idx` on h taken to f32 and computed in `dtype`, as

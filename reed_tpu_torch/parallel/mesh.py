@@ -24,17 +24,23 @@ reed_tpu's:
     as one process would before it keeps its rows (`local_rows`). The seq
     and tensor ranks of one batch index draw the same.
 
-The fsdp axis shards the optimizer's state. A parameter that reed_tpu's
-fsdp_spec shards (`fsdp_spec`, `ShardPlan`) is owned in F contiguous flat
-chunks, chunk f by the ranks of fsdp index f: its gradient is
-reduce-scattered over the fsdp group (the F ranks that share d, s, t),
-all-reduced over the D * S ranks that share (f, t) and divided by D * F *
-S (`ShardPlan.reduce_grads`); Adam's moments, the accumulation buffer and
-the EMA live on the chunk; after the update the chunks are all-gathered
-into every rank's whole parameter. Replicated parameters keep a bucketed
-all-reduce over the replica group (the D * F * S ranks of one tensor
-index). A run equals the one-process run up to the order of the
-reductions, and a checkpoint stays one file with one generator state.
+The fsdp axis shards the parameters at rest and the optimizer's state
+(reed_tpu's shard_params over `fsdp_spec`, ZeRO-3). A parameter that
+fsdp_spec shards (`ShardPlan`) is owned in F contiguous flat chunks, chunk
+f by the ranks of fsdp index f, and between steps a rank holds only its
+chunk: the model's parameter is that chunk, and so are Adam's moments, the
+accumulation buffer and the EMA. The model's parameters are gathered where
+its code reads them, a unit at a time (`ShardPlan.units`: SiT's blocks one
+by one, the rest of a model in one), by `_GatherChunks` inside the
+autograd graph: its forward all-gathers the unit's chunks over the fsdp
+group (the F ranks that share d, s, t), its backward reduce-scatters the
+unit's gradient over that group, all-reduces it over the D * S ranks that
+share (f, t) and divides by D * F * S, so the step's autograd.grad hands
+the chunks their reduced gradients and no gather follows the update.
+Replicated parameters keep a bucketed all-reduce over the replica group
+(the D * F * S ranks of one tensor index). A run equals the one-process
+run up to the order of the reductions, and a checkpoint stays one file
+with one generator state.
 
 The tensor and seq axes split the model's work. Under tensor each rank
 holds T-th shards of a model's products and the T ranks of a tensor group
@@ -49,8 +55,7 @@ the property linear probe run whole on every tensor rank, as reed_tpu's
 rules, which name none of their leaves, leave them. Under seq (SiT only)
 each rank runs its S-th of the tokens, attending to every rank's keys.
 Every seq and tensor rank computes the whole loss; the parameter
-gradients are averaged over the replica group. The parameters are not
-sharded at rest over fsdp (ROADMAP.md Queue 1 item 7b); a caller names
+gradients are averaged over the replica group. A caller names
 the model axes its family runs to `check_mesh` (every trainer, sampler and
 eval subcommand: tensor; SiT's: seq too), and a size above 1 outside them
 raises (NOT_PORTED).
@@ -63,15 +68,19 @@ an index may hold none), draw inside draws.global_rows(dp, n), and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 import os
 import re
 import types
+import weakref
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from reed_tpu_torch import resolve_device
 from reed_tpu_torch.core.config import MeshConfig
@@ -799,6 +808,46 @@ class DataParallel:
         dist.barrier()
 
 
+class _GatherChunks(torch.autograd.Function):
+    """A unit's parameters (ShardPlan.units) gathered whole from this rank's
+    chunks inside the autograd graph. Forward: each chunk cast to the
+    unit's gather dtype (the dtype the model computes the unit in: the cast
+    is elementwise, so the gathered cast is the cast of the gathered
+    parameter, in fewer bytes under bf16), then all-gathered over the fsdp
+    group into the whole tensors (this rank's tensor shards, contiguous).
+    Backward: the whole gradients cast to the parameters' dtype (what the
+    cast's own backward gives them), reduce-scattered over the fsdp group,
+    all-reduced over the data group and divided by the replicas
+    (ShardPlan.reduce_unit): each chunk's gradient is the replica group's
+    mean, as the step's autograd.grad hands it over."""
+
+    @staticmethod
+    def forward(ctx, plan, k, dtype, *chunks):
+        ctx.plan, ctx.k = plan, k
+        return plan.gather_unit(k, chunks, dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(ctx.plan.reduce_unit(ctx.k, grads))
+
+
+def _unit_hooks(plan: "ShardPlan", k: int, module: nn.Module):
+    """Forward hooks that gather unit `k` whole around `module`'s forward.
+    They act on `module` alone: a deep copy of the model keeps the hooks but
+    gathers nothing (whole_copy). They hold the plan, which holds the
+    model's modules weakly, so no reference cycle keeps a model alive."""
+    def enter(mod, args):
+        if plan._unit_module(k) is mod:
+            plan._enter(k)
+
+    def leave(mod, args, out):
+        if plan._unit_module(k) is mod:
+            plan._leave(k)
+
+    module.register_forward_pre_hook(enter)
+    module.register_forward_hook(leave, always_call=True)
+
+
 class ShardPlan:
     """Which of a model's parameters the tensor and fsdp axes shard, and the
     collectives over them. `named_params` are this rank's: the tensor shards
@@ -808,15 +857,22 @@ class ShardPlan:
     fsdp_min_size, the tensor rule's dimension taken) does (`sharded[i]`):
     its tensor shard of n elements is owned in F flat chunks of n / F
     (fsdp_spec only shards a leaf with another dimension divisible by F);
-    `local` gives this rank's chunk as a view, so an update in place of the
-    chunk updates the working copy. State lists (gradients, moments, EMA)
-    are in parameter order, chunks where `sharded`.
+    `local` gives this rank's chunk of a tensor in the shard's shape (as a
+    view) or of a chunk (itself). State lists (gradients, moments, EMA) are
+    in parameter order, chunks where `sharded`.
+
+    `attach` shards the model at rest: its sharded parameters become their
+    chunks, gathered a unit at a time where the model reads them (`units`,
+    `_GatherChunks`), so the sharded leaves' gradients leave autograd
+    already reduced and `reduce_grads` reduces the rest. Code that reads the
+    parameters outside the train step takes them whole through
+    `whole_params` or `whole_copy`.
 
     `sync_replicated`: average the gradients of the leaves replicated over
-    the tensor axis over the tensor group too (reduce_grads). Every tensor
-    rank computes those gradients from the same inputs, so they agree
-    where the computation is deterministic (SiT's is: phase 15 holds its
-    ranks' parameters bitwise equal); a model whose replicated path runs
+    the tensor axis over the tensor group too (reduce_grads, reduce_unit).
+    Every tensor rank computes those gradients from the same inputs, so they
+    agree where the computation is deterministic (SiT's is: phase 15 holds
+    its ranks' parameters bitwise equal); a model whose replicated path runs
     CUDA atomics (ProteinMPNN's neighbour gathers, whose backward is a
     scatter_add) gets them apart in the last bits, and the average keeps
     the ranks' copies of its replicated parameters bitwise equal."""
@@ -830,6 +886,7 @@ class ShardPlan:
         self.tp_rules = tuple(tp_rules)
         self.sync_replicated = sync_replicated and tensor > 1
         self.shapes = [tuple(p.shape) for _, p in named]
+        self.dtypes = [p.dtype for _, p in named]
         self.tensor = [tensor_rule(n, tp_rules) if tensor > 1 else None for n in self.names]
         self.whole_shapes = [
             shape if rule is None else
@@ -840,6 +897,14 @@ class ShardPlan:
                       taken=None if rule is None else rule[0]) is not None
             for shape, rule in zip(self.whole_shapes, self.tensor)]
         self.index = {n: i for i, n in enumerate(self.names)}
+        # set by attach: (module, attribute) of each parameter, the units
+        # (modules held weakly), each unit's chunks while it is gathered, the
+        # rest's unit
+        self._slots: Optional[List[Tuple[weakref.ref, str]]] = None
+        self._units: List[Tuple[List[int], Optional[torch.dtype], Optional[weakref.ref]]] = []
+        self._live: List[Optional[list]] = []
+        self._rest: Optional[int] = None
+        self._whole = False
 
     @property
     def any_sharded(self) -> bool:
@@ -853,9 +918,11 @@ class ShardPlan:
         return math.prod(self.shapes[i]) // self.dp.fsdp
 
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """This rank's chunk of tensor `t` of parameter `i` (a view; `t`
-        itself where the parameter is replicated over fsdp)."""
-        if not self.sharded[i]:
+        """This rank's chunk of tensor `t` of parameter `i`: a view of `t` in
+        the parameter's shape, `t` itself where it is the chunk already (a
+        sharded parameter has 2 dimensions or more, its chunk one) or the
+        parameter is replicated over fsdp."""
+        if not self.sharded[i] or t.dim() == 1:
             return t
         n = self.chunk_size(i)
         return t.view(-1)[self.dp.fsdp_index * n:(self.dp.fsdp_index + 1) * n]
@@ -877,11 +944,187 @@ class ShardPlan:
         chunk of its tensor shard."""
         return self.local(i, self.tensor_local(i, whole).contiguous())
 
+    def share_state_dict(self, whole: Mapping) -> Dict[str, torch.Tensor]:
+        """This rank's share of a whole state_dict of the model: each
+        parameter's share, other entries (buffers) as they are."""
+        out = dict(whole)
+        out.update((n, self.share(i, whole[n])) for i, n in enumerate(self.names))
+        return out
+
     def resident_elements(self) -> int:
-        """Elements of one copy of the state a rank holds: the chunks of the
-        fsdp-sharded parameters and the rest of its tensor shards."""
+        """Elements of one copy of the state a rank holds (the parameters,
+        the EMA, mu, nu, acc): the chunks of the fsdp-sharded parameters and
+        the rest of its tensor shards."""
         return sum(self.chunk_size(i) if s else math.prod(self.shapes[i])
                    for i, s in enumerate(self.sharded))
+
+    # --- the parameters sharded at rest -------------------------------------
+
+    def units(self, model: nn.Module
+              ) -> List[Tuple[List[int], Optional[torch.dtype], Optional[nn.Module]]]:
+        """The groups of sharded parameters gathered together, as (parameter
+        indices, gather dtype, module): one for each module that
+        `model.fsdp_units()` names with the dtype it computes in (SiT: each
+        block; None: the parameters' dtype), gathered around that module's
+        forward, then the rest of the model's in one (module None, the
+        parameters' dtype), gathered around the train step's loss
+        (`gathered`). reed_tpu has no units (XLA schedules its gathers):
+        the grouping sets what is whole at once, never the numbers."""
+        named = list(model.fsdp_units()) if hasattr(model, "fsdp_units") else []
+        prefix = {id(m): n for n, m in model.named_modules()}
+        out, taken = [], set()
+        for module, dtype in named:
+            start = prefix[id(module)] + "."
+            idx = [i for i, n in enumerate(self.names) if self.sharded[i] and n.startswith(start)]
+            taken.update(idx)
+            out.append((idx, dtype, module))
+        out.append(([i for i, s in enumerate(self.sharded) if s and i not in taken], None, None))
+        return [u for u in out if u[0]]
+
+    def attach(self, model: nn.Module) -> nn.Module:
+        """Shard `model` (whose named_parameters the plan was made of) at
+        rest: each sharded parameter becomes a parameter of this rank's
+        chunk alone (the whole tensor is freed), what the optimizer, the EMA
+        and autograd.grad see. Each of `units` is gathered where the model
+        reads it: a named module's around its forward (forward hooks, which
+        a checkpointed module's recompute runs again, so remat gathers
+        afresh instead of keeping the whole weights), the rest around the
+        train step's loss (`gathered`). Returns `model`."""
+        if [n for n, _ in model.named_parameters()] != self.names:
+            raise ValueError("the model's parameters are not the ones the plan was made of")
+        self._slots = []
+        for name in self.names:
+            module, _, leaf = name.rpartition(".")
+            self._slots.append((weakref.ref(model.get_submodule(module)), leaf))
+        with torch.no_grad():
+            for i, p in enumerate(self._params()):
+                if self.sharded[i]:
+                    self._install([i], [nn.Parameter(self.local(i, p.detach()).clone(),
+                                                     requires_grad=p.requires_grad)])
+        units = self.units(model)
+        self._units = [(idx, dtype, None if m is None else weakref.ref(m))
+                       for idx, dtype, m in units]
+        self._live = [None] * len(units)
+        for k, (idx, _, module) in enumerate(units):
+            if len({self.dtypes[i] for i in idx}) > 1:
+                raise ValueError("a unit's parameters must share one dtype")
+            if module is None:
+                self._rest = k
+            else:
+                _unit_hooks(self, k, module)
+        return model
+
+    def _unit_module(self, k: int) -> Optional[nn.Module]:
+        ref = self._units[k][2]
+        return None if ref is None else ref()
+
+    def _params(self, idx: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+        """What the model holds for parameters `idx` (default all)."""
+        idx = range(len(self.names)) if idx is None else idx
+        return [self._slots[i][0]()._parameters[self._slots[i][1]] for i in idx]
+
+    def _install(self, idx: Sequence[int], tensors: Sequence[torch.Tensor]):
+        for i, t in zip(idx, tensors):
+            module, leaf = self._slots[i]
+            module()._parameters[leaf] = t
+
+    def _enter(self, k: int):
+        """Put unit k's parameters, gathered whole by _GatherChunks, in place
+        of their chunks (nothing where they are whole already)."""
+        idx, dtype, _ = self._units[k]
+        if self._whole or self._live[k] is not None:
+            return
+        chunks = self._params(idx)
+        self._live[k] = chunks
+        self._install(idx, _GatherChunks.apply(self, k, dtype, *chunks))
+
+    def _leave(self, k: int):
+        """Put unit k's chunks back."""
+        if self._live[k] is not None:
+            self._install(self._units[k][0], self._live[k])
+            self._live[k] = None
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The rest of the attached model (the unit no module names) whole
+        inside the block: the train step's loss."""
+        if self._rest is None:
+            yield
+            return
+        self._enter(self._rest)
+        try:
+            yield
+        finally:
+            self._leave(self._rest)
+
+    def gather_unit(self, k: int, chunks: Sequence[torch.Tensor],
+                    dtype: Optional[torch.dtype]) -> Tuple[torch.Tensor, ...]:
+        """_GatherChunks' forward: unit k's whole tensors from its `chunks`,
+        cast to `dtype` (None: as they are) and all-gathered in one flat
+        buffer [F, S], each then copied out contiguous."""
+        idx = self._units[k][0]
+        full = self.dp.all_gather(torch.cat([c.reshape(-1) if dtype is None else
+                                             c.reshape(-1).to(dtype) for c in chunks]))
+        out, off = [], 0
+        for i in idx:
+            n = self.chunk_size(i)
+            out.append(full[:, off:off + n].reshape(self.shapes[i]))
+            off += n
+        return tuple(out)
+
+    def reduce_unit(self, k: int, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """_GatherChunks' backward: the chunk gradients of unit k from its
+        whole gradients `grads`, cast to the parameters' dtype, the mean
+        over the replica group (reduce-scattered over the fsdp group in one
+        flat buffer, all-reduced over the data group, divided by D * F * S;
+        with sync_replicated, those of leaves replicated over the tensor
+        axis then averaged over the tensor group)."""
+        dp, idx = self.dp, self._units[k][0]
+        dtype = self.dtypes[idx[0]]
+        mine = dp.reduce_scatter(torch.cat([g.to(dtype).reshape(dp.fsdp, -1) for g in grads],
+                                           dim=1))
+        if dp.data_group is not None:
+            dist.all_reduce(mine, group=dp.data_group)
+        out = list(torch.split(mine.div(dp.replicas), [self.chunk_size(i) for i in idx]))
+        rep = [j for j, i in enumerate(idx) if self.tensor[i] is None]
+        if self.sync_replicated and rep:
+            flat = torch.cat([out[j] for j in rep])
+            dist.all_reduce(flat, group=dp.tensor_group)
+            flat.div_(dp.tensor)
+            for j, view in zip(rep, torch.split(flat, [out[j].numel() for j in rep])):
+                out[j] = view
+        return out
+
+    @contextlib.contextmanager
+    def whole_params(self, write: bool = False):
+        """Every parameter of the attached model whole (its tensor shards)
+        inside the block, gathered without autograd: for code that reads
+        them outside the train step (sampling in training, state_dict(), a
+        warm start's load_state_dict). With `write` the chunks are then
+        taken from the whole tensors, so what the block wrote into them
+        stays. A collective (nothing where the plan is not attached)."""
+        if self._slots is None or self._whole:
+            yield
+            return
+        idx = [i for i, s in enumerate(self.sharded) if s]
+        params = self._params()
+        chunks = [params[i] for i in idx]
+        with torch.no_grad():
+            wholes = self.gather(params)
+        self._install(idx, [nn.Parameter(wholes[i], requires_grad=c.requires_grad)
+                            for i, c in zip(idx, chunks)])
+        self._whole = True
+        try:
+            yield
+            if write:
+                with torch.no_grad():
+                    for i, c, w in zip(idx, chunks, self._params(idx)):
+                        c.copy_(self.local(i, w))
+        finally:
+            self._whole = False
+            self._install(idx, chunks)
+
+    # --- the collectives of the state lists ----------------------------------
 
     def _sharded_buckets(self, dtypes) -> List[List[int]]:
         idx = [i for i, s in enumerate(self.sharded) if s]
@@ -891,27 +1134,19 @@ class ShardPlan:
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The mean over the replica group of each gradient in `grads`, as
-        this rank keeps it: the chunk of an fsdp-sharded parameter
-        (reduce-scatter over the fsdp group, all-reduce over the data group
-        of the D * S ranks that share (f, t), / D * F * S, in flat buckets)
-        and the whole of the rest (the replica group's bucketed
-        all-reduce); with sync_replicated, those of the leaves replicated
-        over the tensor axis then averaged over the tensor group."""
-        dp, F = self.dp, self.dp.fsdp
-        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        this rank keeps it: the gradients of the fsdp-sharded parameters
+        (chunks) as they are, since their units' _GatherChunks reduced them
+        in autograd, and the whole of the rest through the replica group's
+        bucketed all-reduce; with sync_replicated, those of the rest that
+        are replicated over the tensor axis then averaged over the tensor
+        group."""
+        dp = self.dp
+        out = list(grads)
         repl = [i for i, s in enumerate(self.sharded) if not s]
         for i, g in zip(repl, dp.all_reduce_grads([grads[i] for i in repl])):
             out[i] = g
-        for part in self._sharded_buckets([g.dtype for g in grads]):
-            buf = torch.cat([grads[i].reshape(F, -1) for i in part], dim=1)
-            mine = dp.reduce_scatter(buf)
-            if dp.data_group is not None:
-                dist.all_reduce(mine, group=dp.data_group)
-            mine = mine.div(dp.replicas)
-            for i, view in zip(part, torch.split(mine, [self.chunk_size(i) for i in part])):
-                out[i] = view
         if self.sync_replicated:
-            repl = [i for i, rule in enumerate(self.tensor) if rule is None]
+            repl = [i for i in repl if self.tensor[i] is None]
             for part in _buckets([out[i].numel() for i in repl], [out[i].dtype for i in repl]):
                 idx = [repl[j] for j in part]
                 flat = torch.cat([out[i].reshape(-1) for i in idx])
@@ -961,19 +1196,11 @@ class ShardPlan:
 
     def join_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The model's whole state_dict from this rank's: the parameters'
-        tensor shards joined, other entries (buffers) as they are."""
+        chunks gathered over the fsdp group and their tensor shards joined,
+        other entries (buffers) as they are."""
         out = dict(state_dict)
-        out.update(zip(self.names, self.join([state_dict[n] for n in self.names])))
+        out.update(zip(self.names, self.whole([state_dict[n] for n in self.names])))
         return out
-
-    @torch.no_grad()
-    def gather_params(self, params: Sequence[torch.Tensor]):
-        """All-gather every rank's updated chunks into the parameters' tensor
-        shards (in place)."""
-        whole = self.gather([self.local(i, p) for i, p in enumerate(params)])
-        for i, p in enumerate(params):
-            if self.sharded[i]:
-                p.copy_(whole[i])
 
     def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole gradient from this rank's `grads`:
@@ -994,6 +1221,20 @@ class ShardPlan:
             dist.all_reduce(tp, group=self.dp.tensor_group)
         return (chunks[0] + sq(lambda i: not self.sharded[i] and self.tensor[i] is None)
                 + tp).sqrt()
+
+
+def whole_params(plan: Optional[ShardPlan], write: bool = False):
+    """plan.whole_params(write): its model's parameters whole inside the
+    block; nothing to do where `plan` is None."""
+    return contextlib.nullcontext() if plan is None else plan.whole_params(write)
+
+
+def whole_copy(model: nn.Module, plan: Optional[ShardPlan] = None) -> nn.Module:
+    """A deep copy of `model` with whole parameters (its tensor shards;
+    gathered where `plan` holds them sharded at rest, a collective) that
+    gathers nothing itself: the EMA models and samplers of training."""
+    with whole_params(plan):
+        return copy.deepcopy(model)
 
 
 def init_distributed(device="cuda", backend: Optional[str] = None,

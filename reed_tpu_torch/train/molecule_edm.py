@@ -23,7 +23,6 @@ the same rows, times, noise, rotations and rep-dropout mask).
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
@@ -40,7 +39,7 @@ from reed_tpu_torch.diffusion.efm import EFMConfig, EquivariantCNF
 from reed_tpu_torch.models.egnn import EGNNDynamics, remove_mean_with_mask
 from reed_tpu_torch.parallel import draws
 from reed_tpu_torch.parallel.mesh import (EGNN_AXES, EGNN_TP_RULES, data_parallel,
-                                         local_batch, shard_state_dict)
+                                         local_batch, shard_state_dict, whole_copy)
 
 
 @dataclass(frozen=True)
@@ -259,7 +258,7 @@ class MoleculeEDMTrainer:
     def ema_model(self, state: TrainState) -> EGNNDynamics:
         """A copy of the model (kept for reuse) holding the state's EMA."""
         if self._ema_model is None:
-            self._ema_model = copy.deepcopy(state.model)
+            self._ema_model = whole_copy(state.model, state.opt.plan)
         with torch.no_grad():
             ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():

@@ -27,7 +27,6 @@ its proj_loss is 0, as reed_tpu's.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
@@ -49,7 +48,7 @@ from reed_tpu_torch.diffusion.molecule_fm import (IntegratorConfig,
 from reed_tpu_torch.models.semla import SemlaGenerator, adj_from_node_mask
 from reed_tpu_torch.models.semla_alt import EqgatGenerator, VanillaEgnnGenerator
 from reed_tpu_torch.parallel.mesh import (SEMLA_AXES, SEMLA_TP_RULES, data_parallel,
-                                         shard_state_dict)
+                                         shard_state_dict, whole_copy)
 
 
 @dataclass(frozen=True)
@@ -424,7 +423,7 @@ class SemlaTrainer:
     def ema_model(self, state: TrainState) -> nn.Module:
         """A copy of the model (kept for reuse) holding the state's EMA."""
         if self._ema_model is None:
-            self._ema_model = copy.deepcopy(state.model)
+            self._ema_model = whole_copy(state.model, state.opt.plan)
         with torch.no_grad():
             ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():

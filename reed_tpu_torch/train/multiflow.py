@@ -21,7 +21,6 @@ the IPA heads and the sequence transformer, `tp_rules`).
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
@@ -41,7 +40,7 @@ from reed_tpu_torch.models.ipa import FlowModel, rigid_apply
 from reed_tpu_torch.ops.residue_constants import RESTYPE_ATOM37_POSITIONS
 from reed_tpu_torch.ops.so3 import calc_rot_vf, quat_to_rotmat
 from reed_tpu_torch.parallel.mesh import (IPA_AXES, data_parallel, ipa_tp_rules, local_batch,
-                                         shard_state_dict)
+                                         shard_state_dict, whole_copy)
 
 # the idealised N, CA, C positions in the residue frame (the ALA rigid
 # group): the atoms of the reference's backbone-atom loss
@@ -276,7 +275,7 @@ class MultiflowTrainer:
     def ema_model(self, state: TrainState) -> FlowModel:
         """A copy of the model (kept for reuse) holding the state's EMA."""
         if self._ema_model is None:
-            self._ema_model = copy.deepcopy(state.model)
+            self._ema_model = whole_copy(state.model, state.opt.plan)
         with torch.no_grad():
             ema = ema_weights(state)
             for name, p in self._ema_model.named_parameters():

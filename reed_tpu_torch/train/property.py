@@ -14,7 +14,6 @@ the checkpoint's state, as the other trainers keep theirs.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, replace
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -29,7 +28,7 @@ from reed_tpu_torch.core.train_state import TrainState, init_train_state
 from reed_tpu_torch.core.trainer import make_train_step
 from reed_tpu_torch.models.property_classifier import PropertyClassifier
 from reed_tpu_torch.parallel.mesh import (EGNN_AXES, EGNN_TP_RULES, data_parallel,
-                                         local_batch, shard_state_dict)
+                                         local_batch, shard_state_dict, whole_copy)
 
 QM9_PROPERTIES = ("alpha", "gap", "homo", "lumo", "mu", "Cv", "G", "H",
                   "r2", "U", "U0", "zpve")
@@ -153,7 +152,7 @@ class _Trainer:
 
     def ema_model(self, state: TrainState) -> nn.Module:
         """A copy of the model holding the state's EMA, in eval mode."""
-        model = copy.deepcopy(state.model)
+        model = whole_copy(state.model, state.opt.plan)
         with torch.no_grad():
             ema = ema_weights(state)
             for name, p in model.named_parameters():

@@ -27,7 +27,6 @@ picks a JAX PRNG on the TPU and is not read here.
 from __future__ import annotations
 
 import contextlib
-import copy
 import functools
 from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
@@ -46,7 +45,8 @@ from reed_tpu_torch.diffusion.protein_losses import (global_counts, loss_nll, lo
 from reed_tpu_torch.models.pmpnn import ProteinMPNNFMIF, create_pmpnn
 from reed_tpu_torch.ops.fused_message import check_engine_shape
 from reed_tpu_torch.parallel.mesh import (PMPNN_AXES, PMPNN_TP_RULES, data_parallel,
-                                         local_batch, shard_state_dict)
+                                         local_batch, shard_state_dict, whole_copy,
+                                         whole_params)
 
 
 @dataclass(frozen=True)
@@ -335,15 +335,19 @@ class ProteinTrainer:
         (loaded into a copy of the model kept for this), in the compute
         dtype."""
         dtype = getattr(torch, self.cfg.compute_dtype)
-        model = state.model
+        model, plan = state.model, state.opt.plan
         if ema:
             if self._ema_model is None:
-                self._ema_model = copy.deepcopy(state.model).to_compute_dtype(dtype)
+                self._ema_model = whole_copy(model, plan).to_compute_dtype(dtype)
             model = self._ema_model
             with torch.no_grad():
                 ema = ema_weights(state)
                 for name, p in model.named_parameters():
                     p.copy_(ema[name])
         elif model.dtype != dtype:
-            model = copy.deepcopy(model).to_compute_dtype(dtype)
+            model = whole_copy(model, plan).to_compute_dtype(dtype)
+        else:
+            # the state's own model, its parameters whole for the sampler
+            with whole_params(plan):
+                return sample(model, batch, generator, self.cfg.interpolant, cls=cls, w=w)
         return sample(model, batch, generator, self.cfg.interpolant, cls=cls, w=w)

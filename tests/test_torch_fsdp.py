@@ -1,5 +1,6 @@
-"""reed_tpu_torch's fsdp mesh axis over two gloo ranks on the CPU
-(tests/torch_dp.py, one spawn for the file): sharded gradients, Adam state,
+"""reed_tpu_torch's fsdp mesh axis over gloo ranks on the CPU
+(tests/torch_dp.py: one spawn of two ranks, and one of four for fsdp x
+tensor): parameters sharded at rest, sharded gradients, Adam state,
 accumulation buffer and EMA.
 
 - The sharding plan shards exactly the leaves reed_tpu's fsdp_spec shards,
@@ -13,7 +14,16 @@ accumulation buffer and EMA.
   after it is within CLIP_REL of the data=2 run's largest of its kind.
 - The fsdp collectives (reduce_scatter_tensor and all_gather_into_tensor
   over the fsdp group) give the exact sum and the rows, in f32 and bf16.
-- Each rank holds the plan's share of mu, nu, the EMA and acc, exactly.
+- Each rank holds the plan's share of mu, nu, the EMA and acc, exactly,
+  and of the parameters: on every trainer each sharded parameter is its
+  chunk, in a storage of the chunk's size.
+- _GatherChunks' backward hands each chunk what reduce_grads' sharded arm
+  gave before the parameters were sharded at rest, bit for bit, in f32 and
+  with a bf16 gather; its forward is the whole parameter cast.
+- fsdp=2 under SiT remat equals data=2 under remat, as above.
+- On four ranks, fsdp=2 x tensor=2 equals data=2 x tensor=2 as above (the
+  image and protein cases), and both match reed_tpu's step on
+  MeshConfig(fsdp=2, tensor=2) within the tensor-parallel tests' bounds.
 - Checkpoints resume across fsdp sizes in both directions; every train-*
   subcommand and generate-image run with --fsdp 2 through the CLI.
 """
@@ -25,7 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_protein_tensor_parallel as protein_tp
+import test_torch_tensor_parallel as image_tp
 import torch_dp
+from reed_tpu.models import sit as jax_sit
 from reed_tpu.parallel import mesh as jax_mesh
 from reed_tpu_torch.core import checkpoint
 from reed_tpu_torch.models import sit as port_sit
@@ -395,3 +408,114 @@ def test_every_subcommand_runs_with_fsdp2(ranks, cmd, monkeypatch):
         return
     assert a[0] == b[0] == 2 and a[1] == b[1] > 0
     assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+# --- the parameters sharded at rest -----------------------------------------
+
+# the seven trainers' cases
+TRAINERS = ("image", "protein", "semla", "edm", "multiflow", "rdm", "property")
+
+
+@pytest.mark.parametrize("case", TRAINERS)
+def test_resident_parameters_are_the_plans_share(ranks, case):
+    """On each rank every sharded parameter is a storage of exactly its
+    chunk's elements, and the model's parameters hold the plan's resident
+    elements: less than the whole model."""
+    _, results, _ = ranks
+    for r in results:
+        res = r["fsdp", case]["resident"]
+        assert res["chunk_storage"], "nothing is sharded"
+        assert all(held == chunk for held, chunk in res["chunk_storage"]), res
+        assert res["params"] == res["params_expected"] < res["params_whole"], res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_backward_is_reduce_grads_old_sharded_arm(ranks, dtype):
+    """The gathered tensors are the whole parameters cast to the gather
+    dtype; the chunk gradients are f32 and bitwise the old arm's."""
+    _, results, _ = ranks
+    for r in results:
+        res = r["gather_unit"]
+        assert res["sharded"] == [True, False, True]
+        got = res[dtype]
+        assert all(g.dtype == dtype and torch.equal(g, w)
+                   for g, w in zip(got["gathered"], got["whole"]))
+        assert all(g.dtype == torch.float32 and torch.equal(g, w)
+                   for g, w in zip(got["got"], got["old"]))
+    # each rank holds its own chunk of the same sum
+    a, b = (r["gather_unit"][dtype]["got"] for r in results)
+    assert not any(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fsdp2_with_remat_is_data2_with_remat(ranks, dtype):
+    """SiT remat=True: the blocks gather again in their recompute."""
+    _, results, _ = ranks
+    for r in results:
+        fsdp, data = r["fsdp_remat", dtype], r["data_remat", dtype]
+        assert not _bitwise_differences(fsdp, data), _bitwise_differences(fsdp, data)
+        assert _norm_rel(fsdp, data) <= GRAD_NORM_REL
+        res = fsdp["resident"]
+        assert res["params"] == res["params_expected"] < res["params_whole"]
+
+
+@pytest.fixture(scope="module")
+def fsdp_tensor(tmp_path_factory):
+    """The four ranks' results, and reed_tpu's image and protein steps on
+    MeshConfig(fsdp=2, tensor=2) (the conftest's 8 CPU devices: data 2),
+    computed before the ranks start."""
+    out = tmp_path_factory.mktemp("fsdp_tensor")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jax_sit._SIZES, "SiT-T", torch_dp.TINY_SIT)
+        mp.setitem(port_sit._SIZES, "SiT-T", torch_dp.TINY_SIT)
+        image_inputs, image_want = image_tp._jax_step(torch_dp.FT_JAX_AXES)
+    protein_inputs, protein_want = protein_tp._jax_step(torch_dp.FT_JAX_AXES)
+    torch.save({"image": image_inputs, "protein": protein_inputs}, out / "ft_inputs.pt")
+    torch_dp.spawn(out, "fsdp_tensor", world=4)
+    image_want["lr"] = 1e-3  # torch_dp._image's
+    return ([torch.load(out / f"ft_rank{r}.pt", weights_only=False) for r in range(4)],
+            {"image": image_want, "protein": protein_want})
+
+
+@pytest.mark.parametrize("case", ["image", "protein"])
+def test_fsdp2_x_tensor2_is_data2_x_tensor2(fsdp_tensor, case):
+    """As fsdp=2 against data=2, on each of four ranks; each holds the chunk
+    of its tensor shard of every sharded parameter."""
+    results, _ = fsdp_tensor
+    for r in results:
+        fsdp, data = r["fsdp_tensor", case], r["data_tensor", case]
+        assert not _bitwise_differences(fsdp, data), _bitwise_differences(fsdp, data)
+        assert _norm_rel(fsdp, data) <= GRAD_NORM_REL
+        res = fsdp["resident"]
+        assert res["chunk_storage"] and all(a == b for a, b in res["chunk_storage"])
+        assert res["params"] == res["params_expected"] < res["params_whole"]
+
+
+@pytest.mark.parametrize("mesh_name", sorted(torch_dp.FT_MESHES))
+@pytest.mark.parametrize("case", ["image", "protein"])
+def test_fsdp2_x_tensor2_matches_reed_tpu(fsdp_tensor, case, mesh_name):
+    """The port's step from reed_tpu's weights, batch and draws against
+    reed_tpu's step on MeshConfig(fsdp=2, tensor=2): metrics to 1e-5, every
+    gradient to 5e-4, the parameters after the step to 2e-6 where reed_tpu's
+    gradient exceeds 1e-6 and to 2 lr elsewhere, the EMA to 1e-6
+    (tests/test_torch_tensor_parallel.py, tests/test_torch_protein_tensor_parallel.py)."""
+    results, wants = fsdp_tensor
+    want = wants[case]
+    for r in results:
+        got = r[mesh_name, f"{case}_jax"]
+        assert set(got["metrics"]) == set(want["metrics"])
+        for k, v in want["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=image_tp.METRIC_TOL,
+                                       atol=image_tp.METRIC_TOL, err_msg=k)
+        assert set(got["grads"]) == set(want["grads"])
+        for n, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), want["grads"][n].numpy(),
+                                       rtol=image_tp.GRAD_TOL, atol=image_tp.GRAD_TOL, err_msg=n)
+        for n, p in got["params"].items():
+            big = want["grads"][n].abs() > 1e-6
+            diff = (p - want["params"][n]).abs()
+            if big.any():
+                assert diff[big].max().item() <= 2e-6, n
+            assert diff.max().item() <= 2 * want["lr"], n
+            np.testing.assert_allclose(got["ema"][n].numpy(), want["ema"][n].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=n)

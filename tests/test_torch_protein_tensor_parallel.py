@@ -83,14 +83,15 @@ VARIANTS = tuple(torch_dp.PTP_VARIANTS)
 FOUR_RANK = tuple(torch_dp.PTP_MESHES_4)
 
 
-def _jax_step():
+def _jax_step(axes=None):
     """reed_tpu's protein step (TRAP_TINY with target noise 0.3, unfused) on
-    MeshConfig(tensor=2) from seeded weights: the inputs the ranks take
+    MeshConfig(tensor=2) (MeshConfig(**axes) where given) from seeded
+    weights: the inputs the ranks take
     (weights in the port's layout, the batch, the step's S_t and t and the
     target noise) and its gradients, metrics, and parameters and EMA after
     it, by port name."""
     kw = dict(torch_dp.TRAP_TINY, **torch_dp.PTP_JAX_FIELDS)
-    cfg = JaxConfig(**kw, mesh=JaxMesh(tensor=2),
+    cfg = JaxConfig(**kw, mesh=JaxMesh(**(axes or {"tensor": 2})),
                     curriculum=JaxCurriculum(proj_coeff=0.2, diffusion_warmup_steps=0))
     trainer = JaxTrainer(cfg)
     b, l = cfg.batch_size, cfg.max_len

@@ -1,7 +1,8 @@
 """Data-parallel runs of reed_tpu_torch for the tests: gloo ranks spawned as
 subprocesses that meet through a FileStore (no TCP port), and the tiny
 trainer cases that tests/test_torch_data_parallel.py holds against one
-process, tests/test_torch_fsdp.py at fsdp=2 against data=2,
+process, tests/test_torch_fsdp.py at fsdp=2 against data=2 (and
+fsdp=2 x tensor=2 against data=2 x tensor=2 and reed_tpu),
 tests/test_torch_fsdp_mesh.py at data=2 x fsdp=2 against one process,
 tests/test_torch_remat.py under SiT remat,
 tests/test_torch_tensor_parallel.py on SiT's tensor and seq axes,
@@ -23,6 +24,7 @@ This module imports no JAX: the ranks import it as a script.
 
 import contextlib
 import itertools
+import math
 import os
 import pathlib
 import subprocess
@@ -289,15 +291,23 @@ def whole_state(state):
 def resident(state):
     """The bytes of the EMA, mu, nu and acc this rank holds, and what the
     ShardPlan reckons for them (its resident elements at each list's
-    dtype; every element where there is no plan)."""
+    dtype; every element where there is no plan); the elements of the
+    model's parameters and the plan's reckoning of them, and whether each
+    fsdp-sharded parameter's storage holds its chunk and nothing more."""
     opt, plan = state.opt, state.opt.plan
     lists = [list(state.ema.values()), opt.mu, opt.nu] + ([opt.acc] if opt.acc else [])
     held = sum(t.numel() * t.element_size() for ts in lists for t in ts)
-    elements = (plan.resident_elements() if plan is not None
-                else sum(p.numel() for p in opt.params))
+    whole = sum(math.prod(s) for s in plan.shapes) if plan is not None else sum(
+        p.numel() for p in opt.params)
+    elements = plan.resident_elements() if plan is not None else whole
+    params = list(state.model.parameters())
+    chunks = ([] if plan is None else
+              [(p.untyped_storage().nbytes(), plan.chunk_size(i) * p.element_size())
+               for i, p in enumerate(params) if plan.sharded[i]])
     return {"bytes": held, "expected": elements * sum(ts[0].element_size() for ts in lists),
-            "whole": sum(p.numel() for p in opt.params) * sum(
-                ts[0].element_size() for ts in lists)}
+            "whole": whole * sum(ts[0].element_size() for ts in lists),
+            "params": sum(p.numel() for p in params), "params_expected": elements,
+            "params_whole": whole, "chunk_storage": chunks}
 
 
 # --- the protein traps against reed_tpu: the inputs come from the test ----
@@ -542,7 +552,14 @@ def _job_fsdp(out, dp):
             results["data_clip", name] = run_case(name)
         with settings(fsdp_mesh(), grad_clip=clip):
             results["fsdp_clip", name] = run_case(name)
+    for dtype in ("float32", "bfloat16"):
+        fields = {"remat": True, "compute_dtype": dtype}
+        with settings(fields=fields, grad_clip=None):
+            results["data_remat", dtype] = run_case("image")
+        with settings(fsdp_mesh(), fields=fields, grad_clip=None):
+            results["fsdp_remat", dtype] = run_case("image")
     results["collectives"] = collectives()
+    results["gather_unit"] = gather_unit_backward()
     with settings(fsdp_mesh(), accum_steps=2, mu_dtype="bfloat16"):
         results["fsdp_accum", "image"] = run_case("image")
     with settings(fsdp_mesh()):
@@ -562,8 +579,7 @@ def _job_fsdp(out, dp):
         state = cli.main([cmd, "--device", "cpu", "--distributed", "--fsdp", "2", *args,
                           *out_args])
         results["cli_all"][cmd] = None if state is None else (
-            state.step, sum(state.opt.plan.sharded),
-            {k: v.detach().clone() for k, v in state.model.named_parameters()})
+            state.step, sum(state.opt.plan.sharded), whole_params(state))
     torch.save(results, out / f"fsdp_rank{dp.rank}.pt")
 
 
@@ -581,6 +597,48 @@ def collectives():
         row = torch.randn(37, generator=gen).to(dtype)
         out[dtype] = {"buf": buf.clone(), "row": row, "mine": dp.reduce_scatter(buf),
                       "rows": dp.all_gather(row)}
+    return out
+
+
+def gather_unit_backward():
+    """_GatherChunks over an fsdp group of every rank on a unit of two
+    seeded parameters (and a replicated one beside them), per gather dtype
+    (f32, bf16): the gathered tensors and the whole parameters cast to it;
+    the chunk gradients its backward hands over for this rank's seeded
+    whole gradients (in the gather dtype), and what the sharded arm of
+    reduce_grads gave for the same gradients (cast to f32) before the
+    parameters were sharded at rest: one flat reduce-scatter over the fsdp
+    group, the data group's all-reduce, / the replicas."""
+    from torch import nn
+
+    from reed_tpu_torch.parallel.mesh import DataParallel, _GatherChunks
+
+    dp = DataParallel(fsdp=torch.distributed.get_world_size(), fsdp_min_size=16)
+    gen = torch.Generator().manual_seed(0)
+    model = nn.Module()
+    model.a = nn.Parameter(torch.randn(8, 6, generator=gen))
+    model.b = nn.Parameter(torch.randn(4, generator=gen))
+    model.c = nn.Parameter(torch.randn(10, 4, generator=gen))
+    whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+    plan = dp.shard_plan(model.named_parameters())
+    plan.attach(model)
+    (idx, _, _), = plan.units(model)
+    chunks = [p for i, p in enumerate(model.parameters()) if plan.sharded[i]]
+    gen = torch.Generator().manual_seed(100 + dp.rank)
+    out = {"sharded": plan.sharded}
+    for dtype in (torch.float32, torch.bfloat16):
+        gathered = _GatherChunks.apply(plan, 0, dtype, *chunks)
+        grads = [torch.randn(g.shape, generator=gen).to(dtype) for g in gathered]
+        got = torch.autograd.grad(gathered, chunks, grad_outputs=grads)
+        buf = torch.cat([g.float().reshape(dp.fsdp, -1) for g in grads], dim=1)
+        mine = dp.reduce_scatter(buf)
+        if dp.data_group is not None:
+            torch.distributed.all_reduce(mine, group=dp.data_group)
+        mine = mine.div(dp.replicas)
+        old = torch.split(mine, [plan.chunk_size(i) for i in idx])
+        out[dtype] = {"gathered": [g.detach() for g in gathered],
+                      "whole": [whole[plan.names[i]].to(dtype) for i in idx],
+                      "got": [g.clone() for g in got], "old": [g.clone() for g in old]}
     return out
 
 
@@ -718,11 +776,13 @@ def parity_step(trainer, inputs, rules, steps=1, **inject):
     from reed_tpu_torch.core.ema import ema_init
     from reed_tpu_torch.core.train_state import make_optimizer
     from reed_tpu_torch.core.trainer import capture_gradients
-    from reed_tpu_torch.parallel.mesh import shard_state_dict
+    from reed_tpu_torch.parallel import mesh
 
     state = trainer.init_state()
     plan = state.opt.plan
-    state.model.load_state_dict(shard_state_dict(inputs["params"], trainer.dp, rules))
+    with mesh.whole_params(plan, write=True):
+        state.model.load_state_dict(mesh.shard_state_dict(inputs["params"], trainer.dp,
+                                                          rules))
     state.ema = ema_init(state.model, plan=plan)
     state.opt = make_optimizer(trainer.cfg.optim, list(state.model.parameters()), plan)
     metrics = []
@@ -838,8 +898,9 @@ def first_ckpt(prefix, key):
     return prefix + ("_".join(map(str, key)) if isinstance(key, tuple) else key)
 
 
-def protein_jax_parity_step(inputs, fused_messages):
-    """One TRAP_TINY protein step at tensor=2 from the weights, batch and
+def protein_jax_parity_step(inputs, fused_messages, axes=None):
+    """One TRAP_TINY protein step at tensor=2 (the mesh `axes` where given:
+    MeshConfig fields) from the weights, batch and
     draws (S_t, t, target noise) of reed_tpu's step in `inputs`: its
     metrics, the whole gradients by name, and the whole parameters and EMA
     after it."""
@@ -848,7 +909,7 @@ def protein_jax_parity_step(inputs, fused_messages):
     from reed_tpu_torch.train.protein import ProteinTrainConfig, ProteinTrainer
 
     cfg = ProteinTrainConfig(**dict(TRAP_TINY, fused_messages=fused_messages),
-                             **PTP_JAX_FIELDS, mesh=tp_mesh(tensor=2),
+                             **PTP_JAX_FIELDS, mesh=tp_mesh(**(axes or {"tensor": 2})),
                              curriculum=CurriculumConfig(proj_coeff=0.2,
                                                          diffusion_warmup_steps=0))
     trainer = ProteinTrainer(cfg, device="cpu")
@@ -892,6 +953,31 @@ def _job_protein_tensor_parallel_mesh(out, dp):
         with settings(tp_mesh(**axes)):
             results[name] = run_case("protein", save_first=out / first_ckpt("ptp_first_", name))
     torch.save(results, out / f"ptp_mesh_rank{dp.process_rank}.pt")
+
+
+# --- the fsdp axis beside the tensor axis (tests/test_torch_fsdp.py) ---------
+
+# the four-rank meshes, and reed_tpu's mesh of the steps they are held to
+FT_MESHES = {"data_tensor": dict(data=2, tensor=2), "fsdp_tensor": dict(fsdp=2, tensor=2)}
+FT_JAX_AXES = dict(fsdp=2, tensor=2)
+
+
+def _job_fsdp_tensor(out, dp):
+    """On four ranks at data=2 x tensor=2 and fsdp=2 x tensor=2: the image
+    case at 64 tokens and the protein case (the fused chain: its plain
+    version on the CPU) without the clip; and the step of each from the
+    weights, batch and draws of reed_tpu's step on MeshConfig(fsdp=2,
+    tensor=2)."""
+    results = {}
+    inputs = torch.load(out / "ft_inputs.pt", weights_only=False)
+    for name, axes in FT_MESHES.items():
+        with settings(tp_mesh(**axes), fields=TP_FIELDS, grad_clip=None):
+            results[name, "image"] = run_case("image")
+        with settings(tp_mesh(**axes), grad_clip=None):
+            results[name, "protein"] = run_case("protein")
+        results[name, "image_jax"] = jax_parity_step(inputs["image"], axes)
+        results[name, "protein_jax"] = protein_jax_parity_step(inputs["protein"], "on", axes)
+    torch.save(results, out / f"ft_rank{dp.process_rank}.pt")
 
 
 # --- SemlaFlow's tensor axis -------------------------------------------------
@@ -1408,6 +1494,7 @@ JOBS = {"mesh": _job_mesh, "leave_store": _job_leave_store,
         "tensor_parallel_mesh": _job_tensor_parallel_mesh,
         "protein_tensor_parallel": _job_protein_tensor_parallel,
         "protein_tensor_parallel_mesh": _job_protein_tensor_parallel_mesh,
+        "fsdp_tensor": _job_fsdp_tensor,
         "semla_tensor_parallel": _job_semla_tensor_parallel,
         "semla_tensor_parallel_mesh": _job_semla_tensor_parallel_mesh,
         "egnn_tensor_parallel": _job_egnn_tensor_parallel,
